@@ -1,0 +1,49 @@
+"""Federated state containers of the port (``repro/core/state.py``).
+
+Flat layout only: θ, λ and z_prev are (N, D) fp32 matrices and ω a (D,)
+vector, all on the round's device.  The containers are NamedTuples of
+tensors like the JAX package's, but the port's compacted round commits
+θ/λ/z_prev **in place** (``kernels.fused_gss``), so a state passed to a
+round must not be used afterwards as if unchanged; clone it first.
+
+Stale-tolerant pipelines (``InFlight``), compressed-consensus residuals
+and host-offloaded state belong to later slices of the port.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .controller import ControllerState
+
+
+class DeferQueue(NamedTuple):
+    """Deferral queue of the compacted round (``core/compact.py``)."""
+
+    age: torch.Tensor  # (N,) int32 — rounds spent deferred; 0 = not pending
+    load: torch.Tensor  # (N,) fp32 — EMA of demand membership
+
+
+class FLState(NamedTuple):
+    theta: torch.Tensor  # (N, D) fp32 — local primal variables θ_i
+    lam: torch.Tensor  # (N, D) fp32 — dual variables λ_i
+    z_prev: torch.Tensor  # (N, D) fp32 — server copies z_i^prev = θ_i + λ_i
+    omega: torch.Tensor  # (D,) fp32 — server parameters ω
+    ctrl: ControllerState
+    rng: torch.Tensor  # (2,) int64 — threefry key words (repro_torch.prng)
+    round: torch.Tensor  # () int32
+    queue: DeferQueue
+
+
+class RoundMetrics(NamedTuple):
+    events: torch.Tensor  # (N,) bool — S_i^k
+    num_events: torch.Tensor  # () int32
+    distances: torch.Tensor  # (N,) fp32 — ‖ω − z_i^prev‖
+    delta: torch.Tensor  # (N,) fp32 — thresholds after the round
+    load: torch.Tensor  # (N,) fp32 — low-pass participation estimates
+    train_loss: torch.Tensor  # () fp32 — mean local loss of participants
+    num_deferred: torch.Tensor  # () int32 — queue length after the round
+    realized_capacity: torch.Tensor  # () int32 — rows the round could commit
+    realized_slack: torch.Tensor  # () fp32 — realized_capacity / (L̄·N)
+    committed: torch.Tensor  # (N,) bool — rows committed this round

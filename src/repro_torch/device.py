@@ -1,0 +1,24 @@
+"""Device selection for the port's entry points.
+
+Every entry point takes ``device=``.  Left at ``None`` it means the
+CUDA device, and where none is visible the call raises: the port never
+carries on silently on the CPU.  ``device="cpu"`` is an explicit request
+for the plain PyTorch path (what the CPU tests use).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def default_device() -> torch.device:
+    """The CUDA device; raises when no CUDA device is visible."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device unless device='cpu' is "
+            "passed, and torch.cuda.is_available() is False here")
+    return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` → :func:`default_device`; anything else → torch.device."""
+    return default_device() if device is None else torch.device(device)
