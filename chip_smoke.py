@@ -17,10 +17,11 @@ non-zero):
    D=159,010): compacted rounds with the fused commit, 1 warm-up and 5
    timed, asserting one trigger and one fused_gss launch per round and
    no host sync inside the rounds;
-5. form B at the same width: 3 dense rounds, asserting one trigger and
-   one admm_update launch per round;
-   after forms A and B, one round from the same state on the CPU's
-   plain path must give the same events and state (rtol 1e-4);
+5. form B at the same width: dense rounds, 1 warm-up and 3 timed,
+   asserting one trigger and one admm_update launch per round;
+   before each form's run, its second round from ``init_state`` (one
+   that commits clients) is held against the same round on the CPU's
+   plain path: the same events and state (rtol 1e-4);
 6. print the kernels line, the card line and, last, the ok line.
 
 Exits non-zero without a result where no CUDA device is visible, or
@@ -96,6 +97,15 @@ def check_kernels(dev, ops, n, d, c):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
         err = max(err, float((got - want).abs().max()))
+    # Identical rows (every never-served client's z_prev is the initial
+    # weights) must give bit-equal distances whatever their alignment,
+    # or the plan breaks priority ties unlike the reference.
+    z, w = mk(d)[None].repeat(n, 1), mk(d)
+    got = ops.trigger_sq_norms(z, w)
+    if not torch.equal(got, got[:1].expand(n)):
+        raise AssertionError("trigger_sq_norms: identical rows give "
+                             f"{int(torch.unique(got).numel())} distinct "
+                             "sums")
     z, w = mk(n, d), mk(d)
     nbytes = ops.trigger_sq_norms_hbm_bytes(n, d)
     rows["trigger_sq_norms"] = dict(
@@ -106,7 +116,7 @@ def check_kernels(dev, ops, n, d, c):
             z, w[None], compute_mode="donot_use_mm_for_euclid_dist")),
         nbytes=nbytes, nflop=3 * n * d)
     log(f"trigger_sq_norms: max_abs_err {err:.3e} (rtol 1e-5 held) "
-        f"at ({n}, {d}), (1, 130), (7, 1001)")
+        f"at ({n}, {d}), (1, 130), (7, 1001); identical rows bit-equal")
 
     # K2 admm_update, both forms, bit-exact.
     for with_z in (True, False):
@@ -183,9 +193,15 @@ def compare_with_cpu(round_fn_cpu, state_before, state_after, m_after,
                      label):
     """One round from the same state on the CPU's plain path must agree
     with the card's: events (off a 1e-5 margin around δ) and, when the
-    events agree, the state at rtol 1e-4 / atol 1e-6."""
+    events agree, the state at rtol 1e-4 / atol 1e-6.  The round must
+    commit a client, or the state check would hold whatever the solve
+    and the commit computed."""
     from repro_torch.convert import state_from_numpy, state_to_numpy
 
+    committed = int(m_after.committed.sum())
+    if committed == 0:
+        raise AssertionError(f"{label}: the checked round commits no "
+                             "client")
     before = state_to_numpy(state_before)
     ref, rm = round_fn_cpu(state_from_numpy(before, device="cpu"))
     dist = rm.distances.numpy()
@@ -201,14 +217,17 @@ def compare_with_cpu(round_fn_cpu, state_before, state_after, m_after,
         log(f"{label}: a client within the margin flipped; state not "
             "compared")
         return
+    np.testing.assert_array_equal(m_after.committed.cpu().numpy(),
+                                  rm.committed.numpy(), err_msg=label)
     got = state_to_numpy(state_after)
     want = state_to_numpy(ref)
     for f in ("theta", "lam", "z_prev", "omega"):
         np.testing.assert_allclose(getattr(got, f), getattr(want, f),
                                    rtol=1e-4, atol=1e-6, err_msg=f)
     np.testing.assert_array_equal(got.queue.age, want.queue.age)
-    log(f"{label}: one round agrees with the CPU plain path "
-        "(events equal, state rtol 1e-4)")
+    log(f"{label}: round {int(before.round) + 1} ({committed} clients "
+        "committed) agrees with the CPU plain path (events equal, state "
+        "rtol 1e-4)")
 
 
 def drive(form, n_rounds, warmup, ctx, ops, expect):
@@ -220,13 +239,26 @@ def drive(form, n_rounds, warmup, ctx, ops, expect):
     from repro_torch.models import make_loss_fn
 
     compact = form == "A"
-    cfg = paper_mnist.fl_config(
-        "fedback", 0.1, compact=compact, use_trigger_kernel=True,
-        use_admm_kernel=True, fused_gss=compact)
+    cfg = paper_mnist.fl_config("fedback", 0.1, compact=compact,
+                                fused_gss=compact)
     dev = ctx["dev"]
     state = init_state(cfg, ctx["params0"], spec=ctx["spec"], device=dev)
     round_fn = make_round_fn(cfg, make_loss_fn(), ctx["data"],
                              spec=ctx["spec"], device=dev)
+
+    def copy(s):  # the fused round updates its input in place
+        return state_from_numpy(state_to_numpy(s), device=dev)
+
+    # Reference: the second round from init_state (in the first, every
+    # client sits at distance 0 from ω) on the card and on the CPU's
+    # plain path, from copies, before the counted run.
+    before, _ = round_fn(copy(state))
+    after, m = round_fn(copy(before))
+    cpu_round = make_round_fn(cfg, make_loss_fn(), {
+        k: v.cpu() for k, v in ctx["data"].items()}, spec=ctx["spec"],
+        device="cpu")
+    compare_with_cpu(cpu_round, before, after, m, f"form {form}")
+    del before, after, m
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     # The round must never make the host wait for the card: CUDA's sync
@@ -276,14 +308,6 @@ def drive(form, n_rounds, warmup, ctx, ops, expect):
         f"(after {warmup} warm-up); events/round {events}; "
         f"num_deferred {deferred}; test loss {loss:.4f} acc {acc:.4f}; "
         f"launches {counts}")
-    # Reference: one more round from the same state on the CPU's plain
-    # path (the round may update its input in place, so keep a copy).
-    before = state_from_numpy(state_to_numpy(state), device=dev)
-    after, m = round_fn(state)
-    cpu_round = make_round_fn(cfg, make_loss_fn(), {
-        k: v.cpu() for k, v in ctx["data"].items()}, spec=ctx["spec"],
-        device="cpu")
-    compare_with_cpu(cpu_round, before, after, m, f"form {form}")
     return dict(ms_per_round=ms_round, events=events, deferred=deferred,
                 acc=acc, loss=loss), counts
 
@@ -325,7 +349,7 @@ def main() -> int:
     dev = torch.device("cuda")
     ds = make_synthetic_mnist()
     data, test = federated_arrays(ds, n_clients=100, device=dev)
-    params0 = init_mlp(SEED)
+    params0 = init_mlp(SEED, device=dev)
     spec = make_flat_spec(params0)
     n, d = data["x"].shape[0], spec.dim
     log(f"paper-MNIST: data {tuple(data['x'].shape)}, D = {d}")
@@ -340,7 +364,7 @@ def main() -> int:
     form_a, counts_a = drive("A", 5, 1, ctx, ops,
                              {"trigger_sq_norms": 1, "fused_gss": 1,
                               "admm_update": 0})
-    form_b, counts_b = drive("B", 3, 0, ctx, ops,
+    form_b, counts_b = drive("B", 3, 1, ctx, ops,
                              {"trigger_sq_norms": 1, "admm_update": 1,
                               "fused_gss": 0})
     log(json.dumps({"forms": {"A": form_a, "B": form_b}}))

@@ -1,7 +1,8 @@
 """Carry weights and round state across from the JAX package.
 
 The JAX package hands its values over as numpy arrays (``np.asarray`` /
-``jax.device_get`` of its pytrees); nothing here imports JAX.
+``jax.device_get`` of its pytrees); nothing here imports JAX.  Tensors
+go to ``device``: CUDA unless the caller passes another.
 
 * :func:`params_from_numpy` — a params pytree (nested dict of arrays)
   → the port's state dict (dotted keys, e.g. ``fc1.w``), which
@@ -19,17 +20,24 @@ import torch
 
 from repro_torch.core.controller import ControllerState
 from repro_torch.core.state import DeferQueue, FLState
+from repro_torch.device import resolve_device
 
 
-def params_from_numpy(tree, device=None, prefix: str = "") -> dict:
-    """Nested dict of arrays → {dotted key: fp32-or-native tensor}."""
+def params_from_numpy(tree, device=None) -> dict:
+    """Nested dict of arrays → {dotted key: tensor of the array's dtype}
+    on ``device``."""
+    device = resolve_device(device)
     out = {}
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
-            out.update(params_from_numpy(v, device, f"{prefix}{k}."))
-        else:
-            out[f"{prefix}{k}"] = torch.from_numpy(np.array(v)).to(device)
+
+    def walk(node, prefix):
+        for k in sorted(node):
+            v = node[k]
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            else:
+                out[f"{prefix}{k}"] = torch.from_numpy(np.array(v)).to(device)
+
+    walk(tree, "")
     return out
 
 
@@ -53,6 +61,7 @@ def _t(a, device, dtype=None):
 def state_from_numpy(s, device=None) -> FLState:
     """A JAX ``FLState`` with numpy-convertible leaves → the port's state
     on ``device``.  The flat layout is required (θ is (N, D))."""
+    device = resolve_device(device)
     if np.ndim(s.theta) != 2:
         raise ValueError("state_from_numpy takes the flat (N, D) layout")
     return FLState(

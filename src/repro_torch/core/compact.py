@@ -27,6 +27,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.device import resolve_device
+
 from .controller import demand_load_step
 from .engine import dual_ascent, prox_center
 from .state import DeferQueue
@@ -45,7 +47,9 @@ class CompactPlan(NamedTuple):
 
 
 def init_queue(n_clients: int, device=None) -> DeferQueue:
-    """Empty queue; load starts at 1 (every client fires in round 0)."""
+    """Empty queue; load starts at 1 (every client fires in round 0).
+    On ``device``: CUDA unless another is passed."""
+    device = resolve_device(device)
     return DeferQueue(
         age=torch.zeros((n_clients,), dtype=torch.int32, device=device),
         load=torch.ones((n_clients,), dtype=torch.float32, device=device))
@@ -173,11 +177,9 @@ def scatter_rows(current: torch.Tensor, rows: torch.Tensor,
 
 
 def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
-                       *, warm_start: bool,
-                       use_admm_kernel: bool = False,
-                       c_min: int | None = None, adaptive: bool = False,
-                       alpha: float = 0.9, fused: bool = False,
-                       use_fused_kernel: bool = False) -> Callable:
+                       *, warm_start: bool, c_min: int | None = None,
+                       adaptive: bool = False, alpha: float = 0.9,
+                       fused: bool = False) -> Callable:
     """Build the plan → gather → solve → commit block of one round.
 
     solver(theta0, center, x, y, idx) -> (theta, losses) over C rows;
@@ -189,8 +191,9 @@ def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
     λ⁺ and the prox center before the solve, z = θ + λ⁺ at the commit.
     With ``fused`` the post-solve commit is one fused pass
     (``kernels.fused_gss``) that updates θ/λ/z_prev **in place**;
-    otherwise new tensors are returned and the inputs are left as they
-    were.
+    otherwise λ⁺ and the center come from ``kernels.admm_update`` on the
+    gathered rows, new tensors are returned and the inputs are left as
+    they were.
     """
     from repro_torch.kernels import ops
 
@@ -222,21 +225,21 @@ def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
     def presolve(plan, theta, lam, omega):
         th_rows = gather_rows(theta, plan.idx)
         lam_rows = gather_rows(lam, plan.idx)
-        if use_admm_kernel and not fused:
-            lam_new_rows, center_rows = ops.admm_update(
-                th_rows, lam_rows, omega, with_z=False)
-        else:
+        if fused:
             # The fused commit re-derives λ⁺ itself, so the pre-solve
             # pass stays plain torch (as in the reference).
             lam_new_rows = dual_ascent(lam_rows, th_rows, omega)
             center_rows = prox_center(omega, lam_new_rows)
+        else:
+            lam_new_rows, center_rows = ops.admm_update(
+                th_rows, lam_rows, omega, with_z=False)
         return th_rows, lam_new_rows, center_rows
 
     def commit(plan, th_out_rows, lam_new_rows, omega, theta, lam, z_prev):
         if fused:
-            op = ops.fused_gss if use_fused_kernel else ops.fused_gss_ref
-            return op(plan.idx, plan.valid, th_out_rows.contiguous(), omega,
-                      theta, lam, z_prev, with_z=True)
+            return ops.fused_gss(plan.idx, plan.valid,
+                                 th_out_rows.contiguous(), omega, theta, lam,
+                                 z_prev, with_z=True)
         theta_new = scatter_rows(theta, th_out_rows, plan.idx, plan.valid)
         lam_new = scatter_rows(lam, lam_new_rows, plan.idx, plan.valid)
         z_new = scatter_rows(z_prev, th_out_rows + lam_new_rows, plan.idx,

@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import resolve_device
+
 
 class ControllerConfig(NamedTuple):
     """K: integral gain; alpha: low-pass constant; target_rate: L̄ (scalar
@@ -39,6 +41,9 @@ class ControllerState(NamedTuple):
 
 def init_controller(n_clients: int, cfg: ControllerConfig,
                     device=None) -> ControllerState:
+    """δ⁰ for every client and a zero load, on ``device`` (CUDA unless
+    another is passed)."""
+    device = resolve_device(device)
     return ControllerState(
         delta=torch.full((n_clients,), float(cfg.delta0),
                          dtype=torch.float32, device=device),

@@ -4,8 +4,8 @@ Port of ``repro/core/fedback.py`` for the flat layout, the synchronous
 engine and the ADMM family (``fedback``, and ``admm`` with full
 selection).  One round, in order:
 
-1. trigger distances ‖ω − z_i^prev‖ (K1 ``trigger_sq_norms`` with
-   ``use_trigger_kernel``);
+1. trigger distances ‖ω − z_i^prev‖ (K1 ``trigger_sq_norms`` for the
+   l2 metric);
 2. event-triggered selection and the integral controller step;
 3. the client update, in one of two forms:
 
@@ -13,16 +13,20 @@ selection).  One round, in order:
      deferral queue, the pre-solve λ⁺/center over the C planned rows,
      the SGD prox solve over C slots, and the commit — with
      ``fused_gss`` one in-place K3 pass, otherwise K2 ``admm_update``
-     on the gathered rows (``use_admm_kernel``) and three scatters;
+     on the gathered rows and three scatters;
    * **dense** (``compact=False``): K2 ``admm_update(with_z=False)``
      over all N rows, the solve over all N clients, and the
      event-gated commit;
 
 4. the consensus mean ω = (1/N) Σ z_i^prev.
 
-The round runs eagerly on the device of its state and never waits for
+The kernels are reached through :mod:`repro_torch.kernels.ops`, whose
+wrappers launch the hand-written kernel for a CUDA tensor and run the
+plain version for a CPU one; the round has no other switch between
+them.  It runs eagerly on the device of its state and never waits for
 it: no value is read back to the host and no host tensor is copied in
-(``chip_smoke.py`` runs the rounds under CUDA's sync debug mode).  Minibatch orders come from the
+(``chip_smoke.py`` runs the rounds under CUDA's sync debug mode).
+Minibatch orders come from the
 ``jax.random`` twin (:mod:`repro_torch.prng`), so a round started from
 the JAX package's state draws the same indices.  The solve's matrix
 products run in full fp32: TF32 is switched off where a round is built
@@ -48,13 +52,7 @@ from repro_torch.utils.flatstate import FlatSpec
 
 from .compact import capacity_bounds, init_queue, make_compact_block
 from .controller import ControllerConfig, init_controller
-from .engine import (
-    consensus_mean,
-    dual_ascent,
-    gated_commit,
-    participant_mean_loss,
-    prox_center,
-)
+from .engine import consensus_mean, gated_commit, participant_mean_loss
 from .selection import make_selection
 from .state import FLState, RoundMetrics
 from .trigger import trigger_distances
@@ -70,9 +68,10 @@ ADMM_FAMILY = ("fedback", "fedadmm", "admm")
 class FLConfig:
     """Hyper-parameters of the run; the JAX package's field names.
 
-    The kernel flags mean "route through the kernel op": on CUDA
-    tensors the op launches the hand-written kernel, on CPU tensors it
-    runs the plain version.  ``None`` means on for a CUDA round.
+    ``use_trigger_kernel`` and ``use_admm_kernel`` are kept for the
+    field names and not read: the round always goes through the kernel
+    ops, which pick the kernel or the plain version by the tensors'
+    device.  ``fused_gss`` picks the compact round's commit form.
     Fields of features not ported yet keep their defaults; other values
     are refused by :func:`make_round_fn`.
     """
@@ -90,9 +89,9 @@ class FLConfig:
     trigger_metric: str = "l2"
     warm_start: bool = True
     selection: str | None = None
-    use_trigger_kernel: bool | None = False
-    use_admm_kernel: bool | None = False
-    fused_gss: bool | None = False
+    use_trigger_kernel: bool = False
+    use_admm_kernel: bool = False
+    fused_gss: bool = False
     compact: bool = False
     capacity_slack: float = 1.5
     capacity: int | None = None
@@ -209,10 +208,6 @@ def _local_solve(loss_fn: Callable, spec: FlatSpec, theta0, center, x, y,
     return theta, torch.stack(losses, dim=1).mean(dim=1)
 
 
-def _resolve_kernel_flag(flag: bool | None, device: torch.device) -> bool:
-    return device.type == "cuda" if flag is None else bool(flag)
-
-
 def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
                   spec: FlatSpec, device=None) -> Callable:
     """Build ``round_fn(state) -> (state, RoundMetrics)``.
@@ -234,10 +229,7 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
     if x.shape[0] != n:
         raise ValueError(f"data has {x.shape[0]} clients, cfg.n_clients={n}")
     n_points = x.shape[1]
-    use_trigger_kernel = _resolve_kernel_flag(cfg.use_trigger_kernel, device)
-    use_admm_kernel = _resolve_kernel_flag(cfg.use_admm_kernel, device)
-    fused = cfg.compact and _resolve_kernel_flag(cfg.fused_gss, device)
-    if cfg.fused_gss and not fused:
+    if cfg.fused_gss and not cfg.compact:
         raise ValueError("fused_gss=True needs compact=True")
     select = make_selection(cfg.selection_name(), rate=cfg.participation,
                             controller=_ctrl_cfg(cfg),
@@ -256,14 +248,12 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
         c_min, cap = capacity_bounds(n, cfg.participation,
                                      cfg.capacity_slack, cfg.capacity)
         block = make_compact_block(
-            solver, epoch_fn, cap, warm_start=cfg.warm_start,
-            use_admm_kernel=use_admm_kernel, c_min=c_min,
+            solver, epoch_fn, cap, warm_start=cfg.warm_start, c_min=c_min,
             adaptive=cfg.adaptive_capacity and cfg.capacity is None,
-            alpha=_ctrl_cfg(cfg).alpha, fused=fused,
-            use_fused_kernel=fused and use_admm_kernel)
+            alpha=_ctrl_cfg(cfg).alpha, fused=cfg.fused_gss)
 
     def trigger(state):
-        if use_trigger_kernel and cfg.trigger_metric == "l2":
+        if cfg.trigger_metric == "l2":
             return torch.sqrt(ops.trigger_sq_norms_pytree(state.z_prev,
                                                           state.omega))
         return trigger_distances(state.omega, state.z_prev,
@@ -272,12 +262,8 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
     def dense_client_update(state, data_rng):
         """All-N solve; returns service proposals (θ_out, λ⁺, z)."""
         with span("fedback/presolve"):
-            if use_admm_kernel:
-                lam_new, center = ops.admm_update(state.theta, state.lam,
-                                                  state.omega, with_z=False)
-            else:
-                lam_new = dual_ascent(state.lam, state.theta, state.omega)
-                center = prox_center(state.omega, lam_new)
+            lam_new, center = ops.admm_update(state.theta, state.lam,
+                                              state.omega, with_z=False)
             theta_init = (state.omega[None].expand(n, -1) if cfg.warm_start
                           else state.theta)
         with span("fedback/minibatch_rng"):

@@ -1,9 +1,9 @@
 """Event trigger (paper Eq. 3.1): S_i^k = 1{ ‖ω^k − z_i^prev‖ ≥ δ_i }.
 
 Port of ``repro/core/trigger.py`` on the flat layout: z_prev is the
-(N, D) matrix, ω the (D,) vector.  This is the plain path; the l2
-distances of the round go through the K1 kernel when
-``use_trigger_kernel`` is on (``core/fedback.py``).
+(N, D) matrix, ω the (D,) vector.  The round takes its l2 distances
+from the K1 kernel op instead (``core/fedback.py``); this plain form
+serves the linf and cosine metrics.
 """
 from __future__ import annotations
 

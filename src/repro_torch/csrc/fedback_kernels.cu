@@ -43,41 +43,47 @@ __device__ __forceinline__ float warp_sum(float v) {
 // sequential grid over D).  Bound: N*D*4 + D*4 bytes (63.6 MB at the
 // paper-MNIST width N=100, D=159,010, about 19 us at 3.35 TB/s).
 //
-// Design: one block per client row; the block walks its row with
-// 16-byte float4 loads of z after peeling up to 3 elements so that the
-// row start need not be aligned (D is not a multiple of 4, so odd rows
-// start 8 bytes off), then the scalar tail.  w is shared by all rows
-// and read through the read-only cache.  Each thread keeps one fp32
-// partial; the block reduces them with warp shuffles and a shared-memory
-// pass, in a fixed order, so the result is deterministic.  The
-// per-element square-and-add contracts into an FMA (one rounding), so
-// the sum differs from the plain version only by summation order and
+// Design: one block per client row.  Thread t sums the row-relative
+// groups of 4 elements g = t, t + 256, ..., then the tail elements
+// 4*floor(D/4) + t, so the order of the sum depends only on the row's
+// values and never on where the row lies: identical rows give identical
+// distances, as in the reference, and ties in the compact plan's
+// priority are broken by client index on the card too.  A group is
+// read with one 16-byte float4 load where the row start is 16-byte
+// aligned, else with two 8-byte float2 loads (D = 159,010 is 2 mod 4,
+// so odd rows start 8 bytes off), else with four scalar loads; the
+// arithmetic is the same in all three.  w is shared by all rows and
+// read through the read-only cache.  Each thread keeps one fp32
+// partial; the block reduces them with warp shuffles and a
+// shared-memory pass, in a fixed order, so the result is deterministic.
+// The per-element square-and-add contracts into an FMA (one rounding),
+// so the sum differs from the plain version only by summation order and
 // that rounding.
 //
 // Known limit: one block per row gives only N blocks; at N=100 that is
 // fewer than the 132 SMs, so the pass cannot reach the card's bandwidth.
 // Splitting D across blocks with a second reduction pass is the fix.
-__global__ void __launch_bounds__(kThreads)
-trigger_sq_norms_kernel(const float* __restrict__ z,
-                        const float* __restrict__ w,
-                        float* __restrict__ out, int64_t d) {
-  const float* zr = z + static_cast<int64_t>(blockIdx.x) * d;
-  const int64_t misalign =
-      static_cast<int64_t>(reinterpret_cast<uintptr_t>(zr) & 15u) / 4;
-  int64_t head = (4 - misalign) & 3;
-  if (head > d) head = d;
-
-  float acc = 0.f;
-  for (int64_t j = threadIdx.x; j < head; j += kThreads) {
-    const float t = zr[j] - __ldg(w + j);
-    acc += t * t;
+template <int kVec>
+__device__ __forceinline__ float4 load_group(const float* zr, int64_t g) {
+  if (kVec == 4) return reinterpret_cast<const float4*>(zr)[g];
+  if (kVec == 2) {
+    const float2* p = reinterpret_cast<const float2*>(zr) + 2 * g;
+    const float2 lo = p[0], hi = p[1];
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
   }
-  const int64_t nvec = (d - head) / 4;
-  const float4* zv = reinterpret_cast<const float4*>(zr + head);
-  const float* wh = w + head;
-  for (int64_t v = threadIdx.x; v < nvec; v += kThreads) {
-    const float4 a = zv[v];
-    const float* wp = wh + 4 * v;
+  const float* p = zr + 4 * g;
+  return make_float4(p[0], p[1], p[2], p[3]);
+}
+
+template <int kVec>
+__device__ __forceinline__ float row_partial(const float* __restrict__ zr,
+                                             const float* __restrict__ w,
+                                             int64_t d) {
+  const int64_t ngroups = d / 4;
+  float acc = 0.f;
+  for (int64_t g = threadIdx.x; g < ngroups; g += kThreads) {
+    const float4 a = load_group<kVec>(zr, g);
+    const float* wp = w + 4 * g;
     const float t0 = a.x - __ldg(wp);
     const float t1 = a.y - __ldg(wp + 1);
     const float t2 = a.z - __ldg(wp + 2);
@@ -87,9 +93,26 @@ trigger_sq_norms_kernel(const float* __restrict__ z,
     acc += t2 * t2;
     acc += t3 * t3;
   }
-  for (int64_t j = head + 4 * nvec + threadIdx.x; j < d; j += kThreads) {
+  for (int64_t j = 4 * ngroups + threadIdx.x; j < d; j += kThreads) {
     const float t = zr[j] - __ldg(w + j);
     acc += t * t;
+  }
+  return acc;
+}
+
+__global__ void __launch_bounds__(kThreads)
+trigger_sq_norms_kernel(const float* __restrict__ z,
+                        const float* __restrict__ w,
+                        float* __restrict__ out, int64_t d) {
+  const float* zr = z + static_cast<int64_t>(blockIdx.x) * d;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(zr);
+  float acc;
+  if ((addr & 15u) == 0) {
+    acc = row_partial<4>(zr, w, d);
+  } else if ((addr & 7u) == 0) {
+    acc = row_partial<2>(zr, w, d);
+  } else {
+    acc = row_partial<1>(zr, w, d);
   }
 
   __shared__ float partial[kWarps];

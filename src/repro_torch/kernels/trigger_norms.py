@@ -3,9 +3,11 @@
 Replaces ``src/repro/kernels/trigger_norms.py::trigger_sq_norms`` (the
 Pallas body ``_kernel``).  The CUDA kernel
 (``csrc/fedback_kernels.cu::trigger_sq_norms_kernel``) runs one block
-per client row with float4 loads and an fp32 block reduction; see the
-source note for its bound and its known limit.  It masks the ragged
-edge of D itself instead of padding to TPU tiles.
+per client row, summing groups of 4 in an order that depends only on
+the row's values (identical rows give bit-equal sums, whatever their
+alignment), with an fp32 block reduction; see the source note for its
+bound and its known limit.  It masks the ragged edge of D itself
+instead of padding to TPU tiles.
 
 The caller takes the square root (``core/fedback.py``).
 """

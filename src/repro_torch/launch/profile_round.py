@@ -36,11 +36,10 @@ from repro_torch.utils import make_flat_spec
 def build(form: str, device):
     compact = form == "A"
     cfg = paper_mnist.fl_config("fedback", 0.1, compact=compact,
-                                use_trigger_kernel=True, use_admm_kernel=True,
                                 fused_gss=compact)
     data, _ = federated_arrays(make_synthetic_mnist(), n_clients=100,
                                device=device)
-    params0 = init_mlp(0)
+    params0 = init_mlp(0, device=device)
     spec = make_flat_spec(params0)
     state = init_state(cfg, params0, spec=spec, device=device)
     return state, make_round_fn(cfg, make_loss_fn(), data, spec=spec,

@@ -6,6 +6,7 @@ flat row holds the same numbers in both packages.  ``MLP`` is the
 ``nn.Module`` (state-dict keys ``fc1.b``, ``fc1.w``, ``fc2.b``,
 ``fc2.w``); :func:`mlp_logits` is the functional form the batched
 local solve differentiates (``torch.func``), on a nested params dict.
+Weights go to ``device``: CUDA unless the caller passes another.
 """
 from __future__ import annotations
 
@@ -13,10 +14,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.device import resolve_device
+
 
 class Dense(nn.Module):
     def __init__(self, n_in: int, n_out: int, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.w = nn.Parameter(torch.zeros(n_in, n_out, device=device))
         self.b = nn.Parameter(torch.zeros(n_out, device=device))
 
@@ -25,6 +29,7 @@ class MLP(nn.Module):
     def __init__(self, n_in: int = 784, hidden: int = 200, n_out: int = 10,
                  device=None):
         super().__init__()
+        device = resolve_device(device)
         self.fc1 = Dense(n_in, hidden, device=device)
         self.fc2 = Dense(hidden, n_out, device=device)
 
@@ -40,6 +45,7 @@ class MLP(nn.Module):
 def init_mlp(seed: int = 0, n_in: int = 784, hidden: int = 200,
              n_out: int = 10, device=None) -> dict:
     """He-normal weights from a numpy seed, zero biases (nested dict)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
 
     def dense(a, b):

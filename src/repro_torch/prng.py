@@ -28,6 +28,8 @@ import math
 
 import torch
 
+from repro_torch.device import resolve_device
+
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -55,7 +57,9 @@ def threefry2x32(k1, k2, x1, x2):
 
 
 def PRNGKey(seed: int, device=None) -> torch.Tensor:  # noqa: N802
-    """(2,) int64 key words of ``jax.random.PRNGKey(seed)``."""
+    """(2,) int64 key words of ``jax.random.PRNGKey(seed)`` on
+    ``device`` (CUDA unless another is passed)."""
+    device = resolve_device(device)
     seed = int(seed)
     if not 0 <= seed < 2 ** 63:
         raise ValueError(f"seed must be a non-negative int64, got {seed}")

@@ -197,7 +197,7 @@ def _mlp_np(seed, n_in, hidden, n_out):
 def test_flat_spec_layout_and_round_trip():
     p_np = _mlp_np(0, 32, 16, 4)
     jspec = jax_make_flat_spec(p_np)
-    tparams = nest_params(params_from_numpy(p_np))
+    tparams = nest_params(params_from_numpy(p_np, device="cpu"))
     spec = make_flat_spec(tparams)
     assert spec.dim == jspec.dim == 596
     assert spec.offsets == jspec.offsets and spec.shapes == jspec.shapes
@@ -241,8 +241,8 @@ def test_data_makers_match():
 
 
 def test_mlp_state_dict_keys():
-    sd = params_from_numpy(_mlp_np(1, 784, 200, 10))
-    model = MLP()
+    sd = params_from_numpy(_mlp_np(1, 784, 200, 10), device="cpu")
+    model = MLP(device="cpu")
     model.load_state_dict(sd)
     assert list(sd) == ["fc1.b", "fc1.w", "fc2.b", "fc2.w"]
     assert model.fc1.w.shape == (784, 200)
@@ -272,7 +272,7 @@ def test_local_solve_mlp(rho, momentum):
         return jspec.flatten(th), loss
 
     want_th, want_loss = jax.jit(jax.vmap(one))(theta0, center, x, y, idx)
-    spec = make_flat_spec(nest_params(params_from_numpy(p_np)))
+    spec = make_flat_spec(nest_params(params_from_numpy(p_np, device="cpu")))
     got_th, got_loss = _local_solve(make_loss_fn(), spec, _t(theta0),
                                     _t(center), _t(x), _t(y), _t(idx),
                                     rho=rho, lr=0.01, momentum=momentum)

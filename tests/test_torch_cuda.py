@@ -36,10 +36,24 @@ def test_trigger_kernel(dev, n, d):
     torch.cuda.synchronize()
     assert ops.trigger_sq_norms.launches == before + 1
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0)
-    # An unaligned row start (a view at an odd offset) takes the peel.
+    # Row starts off every alignment (a view at a 4-byte offset).
     zz = torch.cat([torch.zeros(1), z.reshape(-1)]).to(dev)[1:].view(n, d)
     torch.testing.assert_close(ops.trigger_sq_norms(zz, w.to(dev)).cpu(),
                                want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("d", [130, 1001, 4099])
+def test_trigger_kernel_sums_identical_rows_identically(dev, d):
+    """The sum's order follows the row's own indices, not its address:
+    identical rows at every alignment give bit-equal distances, as in
+    the reference, so ties in the compact plan break by client index."""
+    rng = np.random.default_rng(d)
+    z, w = _mk(rng, d)[None].repeat(8, 1), _mk(rng, d).to(dev)
+    got = ops.trigger_sq_norms(z.to(dev), w)
+    shifted = torch.cat([torch.zeros(1), z.reshape(-1)]).to(dev)[1:]
+    got_shifted = ops.trigger_sq_norms(shifted.view(8, d), w)
+    assert torch.equal(got, got[:1].expand(8))
+    assert torch.equal(got_shifted, got)
 
 
 @pytest.mark.parametrize("with_z", [True, False])

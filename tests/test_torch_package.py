@@ -80,6 +80,42 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert state.theta.device.type == "cpu" and state.theta.shape == (4, 3)
 
 
+BUILDERS = ("params_from_numpy", "state_from_numpy", "init_mlp", "MLP",
+            "PRNGKey", "init_controller", "init_queue")
+
+
+@pytest.mark.parametrize("entry", BUILDERS)
+def test_default_device_of_builders_raises_without_cuda(entry, monkeypatch):
+    """Weights, converted state and the state's parts are made on CUDA
+    unless the caller asks for another device; without CUDA they raise
+    rather than land on the CPU."""
+    import numpy as np
+
+    from repro_torch import convert, prng
+    from repro_torch.core import FLConfig, compact, controller, init_state
+    from repro_torch.models import MLP, init_mlp
+    from repro_torch.utils import make_flat_spec
+
+    params0 = {"theta": torch.zeros(3)}
+    state_np = convert.state_to_numpy(init_state(
+        FLConfig(n_clients=4), params0, spec=make_flat_spec(params0),
+        device="cpu"))
+    calls = {
+        "params_from_numpy": lambda: convert.params_from_numpy(
+            {"fc1": {"w": np.zeros((2, 3), np.float32)}}),
+        "state_from_numpy": lambda: convert.state_from_numpy(state_np),
+        "init_mlp": lambda: init_mlp(0, 4, 3, 2),
+        "MLP": lambda: MLP(4, 3, 2),
+        "PRNGKey": lambda: prng.PRNGKey(0),
+        "init_controller": lambda: controller.init_controller(
+            4, controller.ControllerConfig()),
+        "init_queue": lambda: compact.init_queue(4),
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
 def test_unported_features_are_refused():
     from repro_torch.core import FLConfig, init_state
     from repro_torch.utils import make_flat_spec

@@ -23,7 +23,7 @@ def _jkey(seed):
 @pytest.mark.parametrize("seed", SEEDS)
 def test_prng_key_words(seed):
     np.testing.assert_array_equal(np.asarray(_jkey(seed), np.int64),
-                                  prng.PRNGKey(seed).numpy())
+                                  prng.PRNGKey(seed, device="cpu").numpy())
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -31,7 +31,7 @@ def test_prng_key_words(seed):
 def test_split_bit_equal(seed, num):
     np.testing.assert_array_equal(
         np.asarray(jax.random.split(_jkey(seed), num), np.int64),
-        prng.split(prng.PRNGKey(seed), num).numpy())
+        prng.split(prng.PRNGKey(seed, device="cpu"), num).numpy())
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -40,7 +40,7 @@ def test_permutation_bit_equal(seed, n):
     # n = 2000 takes two shuffle rounds (⌈3·ln n / ln(2³²−1)⌉ = 2).
     np.testing.assert_array_equal(
         np.asarray(jax.random.permutation(_jkey(seed), n)),
-        prng.permutation(prng.PRNGKey(seed), n).numpy())
+        prng.permutation(prng.PRNGKey(seed, device="cpu"), n).numpy())
 
 
 def test_batched_keys_match_one_by_one():

@@ -136,8 +136,8 @@ def test_mlp_rounds_match_jax(form):
     seen = _run_synced(
         jcfg, tcfg, jax_make_loss_fn(jax_mlp_logits), make_loss_fn(),
         {"x": jnp.asarray(x), "y": jnp.asarray(y)},
-        {"x": x, "y": y}, params, nest_params(params_from_numpy(params)),
-        rounds=5)
+        {"x": x, "y": y}, params,
+        nest_params(params_from_numpy(params, device="cpu")), rounds=5)
     # The run exercised the trigger (and, compacted, the queue).
     if jcfg.algorithm == "admm":
         assert seen["events"] == 5 * N
@@ -146,6 +146,50 @@ def test_mlp_rounds_match_jax(form):
     if jcfg.compact:
         assert seen["deferred"] > 0
     assert seen["flipped_rounds"] == 0
+
+
+# The kernel ops each form of the round calls once per round.
+OPS_PER_ROUND = {
+    "A_compact_fused": dict(trigger_sq_norms_pytree=1, admm_update=0,
+                            fused_gss=1),
+    "B_dense": dict(trigger_sq_norms_pytree=1, admm_update=1, fused_gss=0),
+    "compact_unfused": dict(trigger_sq_norms_pytree=1, admm_update=1,
+                            fused_gss=0),
+}
+
+
+@pytest.mark.parametrize("form", list(OPS_PER_ROUND))
+def test_round_goes_through_the_kernel_ops(form, monkeypatch):
+    """The round reaches its kernels only through ``kernels.ops`` (which
+    launches the kernel for a CUDA tensor), whatever the config's kernel
+    flags say: here they are left at False."""
+    from repro_torch.core import init_state
+    from repro_torch.kernels import ops
+
+    calls = dict.fromkeys(OPS_PER_ROUND[form], 0)
+
+    def spy(name):
+        fn = getattr(ops, name)
+
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    for name in calls:
+        monkeypatch.setattr(ops, name, spy(name))
+    params, x, y = _mlp_problem()
+    kw = dict(FORMS[form], use_trigger_kernel=False, use_admm_kernel=False)
+    cfg = FLConfig(controller=ControllerConfig(K=1.0, alpha=0.9), **kw)
+    tparams = nest_params(params_from_numpy(params, device="cpu"))
+    spec = make_flat_spec(tparams)
+    round_fn = make_round_fn(cfg, make_loss_fn(), {"x": x, "y": y},
+                             spec=spec, device="cpu")
+    state = init_state(cfg, tparams, spec=spec, device="cpu")
+    for _ in range(2):
+        state, _ = round_fn(state)
+    assert calls == {k: 2 * v for k, v in OPS_PER_ROUND[form].items()}
+    assert all(v == 0 for v in ops.launch_counts().values())
 
 
 def test_state_round_trip():
