@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port of the FedBack round on one GPU.
+"""Drive the PyTorch/CUDA port on one GPU: the FedBack round (slice 1)
+and zamba2-2.7b serving (slice 2).
 
     python3 chip_smoke.py
 
@@ -6,13 +7,17 @@ Phases, each of which must pass (nothing is caught; any failure exits
 non-zero):
 
 1. print the card (``nvidia-smi`` name and power limit) and versions;
-2. build the hand-written CUDA kernels from ``src/repro_torch/csrc``;
+2. build the hand-written CUDA kernels from ``src/repro_torch/csrc``
+   (one nvcc per source, started together);
 3. hold each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at odd ones — bit-exact for the
-   elementwise kernels, rtol 1e-5 for the trigger's sum over D (taken
-   in another order, with each square-and-add fused) — and time the
-   kernel, its plain version and, where one PyTorch call computes the
-   same function, that call;
+   the main paths' shapes and at odd ones — bit-exact for the
+   elementwise kernels and the SSD scan (K5), rtol 1e-5 for the
+   trigger's sum over D (taken in another order, with each
+   square-and-add fused), and for flash attention (K4) atol/rtol 2e-2
+   in bf16 at the serve shape (4, 32, 2048, 80) and rtol 1e-4 (atol
+   1e-5) in fp32 there, at a ragged S = 2000 and with a window of 1024
+   (tiles skipped) — and time the kernel, its plain version and, where one
+   PyTorch call computes the same function, that call;
 4. form A at the paper-MNIST width (N=100 clients, the 784-200-10 MLP,
    D=159,010): compacted rounds with the fused commit, 1 warm-up and 5
    timed, asserting one trigger and one fused_gss launch per round and
@@ -22,13 +27,30 @@ non-zero):
    before each form's run, its second round from ``init_state`` (one
    that commits clients) is held against the same round on the CPU's
    plain path: the same events and state (rtol 1e-4);
-6. print the kernels line, the card line and, last, the ok line.
+6. zamba2-2.7b at full width cut to one group (6 mamba layers and the
+   shared block), fp32 with TF32 off: 1 request × 256 tokens, prefill
+   and 4 greedy decode steps on the card (kernels) against the CPU's
+   plain path on the same weights — logits at rtol/atol 1e-3, the
+   greedy tokens equal, 1 flash_attention and 6 ssd_scan launches in
+   the prefill and none in decode;
+7. zamba2-2.7b at full width and depth (54 layers), bf16, seeded
+   random weights: 4 requests × 2048 prompt tokens, 32 new tokens,
+   greedy, through ``repro_torch.launch.serve_lm.serve`` (warm-up off
+   the clock), asserting 9 flash_attention and 54 ssd_scan launches per
+   prefill and none in decode; then prefill(t₀..tₙ)'s last logits
+   against decode of tₙ after prefill(t₀..tₙ₋₁) on the card, within
+   8% of the largest logit (bf16 activations through 54 layers; the
+   two paths round at different places);
+8. print the serve line, the kernels line, the card line and, last, the
+   ok line.
 
 Exits non-zero without a result where no CUDA device is visible, or
 where the port's package is missing next to this script.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import math
 import warnings
@@ -46,7 +68,16 @@ SEED = 0
 # Peak HBM bandwidth by card name (NVIDIA data sheets), for bound_ms.
 PEAK_BYTES_PER_S = (("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
                     ("H100", 3.35e12), ("H200", 4.8e12))
+# Dense bf16 tensor-core peak by card name (NVIDIA data sheets).
+PEAK_BF16_FLOPS = (("H100 NVL", 835e12), ("H100 PCIe", 756e12),
+                   ("H100", 989e12), ("H200", 989e12))
+PEAK_FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
 CUDA_SRC = "src/repro_torch/csrc/fedback_kernels.cu"
+MODEL_SRC = "src/repro_torch/csrc/model_kernels.cu"
+# zamba2-2.7b serving: the main path of slice 2.
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
+SLICE_TOKENS, SLICE_DECODE = 256, 4
+CONSISTENCY_REL = 0.08  # |Δ logit| / max |logit|, bf16 through 54 layers
 
 
 def log(*a):
@@ -69,11 +100,15 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def peak_bandwidth(name: str):
-    for key, bw in PEAK_BYTES_PER_S:
+def peak_for(table, name: str):
+    for key, value in table:
         if key in name:
-            return bw
+            return value
     return None
+
+
+def peak_bandwidth(name: str):
+    return peak_for(PEAK_BYTES_PER_S, name)
 
 
 def check_kernels(dev, ops, n, d, c):
@@ -187,6 +222,214 @@ def check_kernels(dev, ops, n, d, c):
             f"library_ms {'null' if lib is None else f'{lib:.4f}'}  "
             f"bound_ms {r['bound_ms']}  bytes {r['nbytes']}")
     return rows
+
+
+def check_model_kernels(dev, ops):
+    """Phase 3, slice 2: K4 and K5 against their plain versions at the
+    serve shapes; returns rows of the kernels line."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    name = torch.cuda.get_device_name(0)
+    bw = peak_bandwidth(name)
+    rows = {}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # K4 flash_attention, the model's (B, S, H, hd) layout.
+    b, h, s, hd = SERVE_BATCH, 32, SERVE_PROMPT, 80
+    err = 0.0
+    for dtype, seq, window, tol in (
+            (torch.bfloat16, s, 0, 2e-2), (torch.float32, s, 0, 1e-4),
+            (torch.float32, 2000, 0, 1e-4), (torch.float32, s, 1024, 1e-4),
+            (torch.bfloat16, s, 1024, 2e-2)):
+        q, k, v = (randn(b, seq, h, hd, dtype=dtype) for _ in range(3))
+        got = ops.flash_attention(q, k, v, window=window, layout="bshd")
+        want = ops.flash_attention_ref(q, k, v, window=window,
+                                       layout="bshd")
+        torch.cuda.synchronize()
+        atol = tol if dtype == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=atol)
+        e = float((got.float() - want.float()).abs().max())
+        if dtype == torch.bfloat16 and window == 0:
+            err = e
+        log(f"flash_attention {str(dtype).split('.')[-1]} ({b}, {h}, "
+            f"{seq}, {hd}) window {window}: max_abs_err {e:.3e} "
+            f"(rtol {tol} held)")
+    # the Pallas kernel's (B, H, S, hd) layout and GQA 4:1, odd shape
+    q, k, v = randn(2, 8, 300, 80), randn(2, 2, 300, 80), randn(2, 2, 300,
+                                                               80)
+    torch.testing.assert_close(ops.flash_attention(q, k, v, window=100),
+                               ops.flash_attention_ref(q, k, v, window=100),
+                               rtol=1e-4, atol=1e-5)
+    log("flash_attention fp32 (2, 8, 300, 80) GQA 4:1, (B, H, S, hd) "
+        "layout, window 100: rtol 1e-4 held")
+    q, k, v = (randn(b, s, h, hd, dtype=torch.bfloat16) for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    peak = peak_for(PEAK_BF16_FLOPS, name)
+    rows["flash_attention"] = dict(
+        replaces="src/repro/kernels/flash_attention.py:112",
+        source=MODEL_SRC, max_abs_err=err,
+        ms=time_ms(lambda: ops.flash_attention(q, k, v, layout="bshd")),
+        plain_ms=time_ms(lambda: ops.flash_attention_ref(q, k, v,
+                                                         layout="bshd")),
+        library_ms=time_ms(lambda: torch.nn.functional.
+                           scaled_dot_product_attention(
+                               qt, kt, vt, is_causal=True, enable_gqa=True)),
+        nbytes=ops.flash_attention_hbm_bytes(b, h, h, s, hd, 2),
+        nflop=ops.flash_attention_flops(b, h, s, hd), peak_flops=peak)
+
+    # K5 ssd_scan: bf16 states, fp32 decays, bit-exact.
+    shape = (SERVE_BATCH, SERVE_PROMPT // 64, 80, 64, 64)
+    for dtype, shp in ((torch.bfloat16, shape), (torch.float32, shape),
+                       (torch.bfloat16, (2, 5, 3, 7, 9))):
+        st = randn(*shp, dtype=dtype)
+        dec = torch.rand(shp[:3], generator=gen, device=dev)
+        got = ops.ssd_scan(st, dec)
+        want = ops.ssd_scan_ref(st, dec)
+        for g, w in zip(got, want, strict=True):
+            if not torch.equal(g, w):
+                raise AssertionError(f"ssd_scan {dtype} {shp} is not "
+                                     "bit-exact")
+    log(f"ssd_scan: bit-exact, bf16 and fp32 states at {shape} and bf16 "
+        "at (2, 5, 3, 7, 9)")
+    st = randn(*shape, dtype=torch.bfloat16)
+    dec = torch.rand(shape[:3], generator=gen, device=dev)
+    rows["ssd_scan"] = dict(
+        replaces="src/repro/kernels/ssd_scan.py:55", source=MODEL_SRC,
+        max_abs_err=0.0, ms=time_ms(lambda: ops.ssd_scan(st, dec)),
+        plain_ms=time_ms(lambda: ops.ssd_scan_ref(st, dec)),
+        # No single PyTorch call computes an exclusive linear recurrence
+        # with a per-step decay (cumsum/cumprod do not), so there is no
+        # library yardstick.
+        library_ms=None, nbytes=ops.ssd_scan_hbm_bytes(*shape),
+        nflop=2 * math.prod(shape), peak_flops=PEAK_FP32_FLOPS)
+
+    for kname, r in rows.items():
+        t_bytes = r["nbytes"] / bw * 1e3 if bw else None
+        t_ops = r["nflop"] / r["peak_flops"] * 1e3 if r["peak_flops"] \
+            else None
+        if t_bytes is None or t_ops is None:
+            r["bound_ms"], r["bound_by"] = None, None
+        else:
+            r["bound_ms"] = max(t_bytes, t_ops)
+            r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        lib = r["library_ms"]
+        log(f"  {kname}: ms {r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}  "
+            f"library_ms {'null' if lib is None else f'{lib:.4f}'}  "
+            f"bound_ms {r['bound_ms']} ({r['bound_by']})  bytes "
+            f"{r['nbytes']}  ops {r['nflop']}")
+    return rows
+
+
+def _greedy(model, params, tokens, steps):
+    """Prefill + ``steps`` greedy decode steps → (logits per step,
+    tokens (B, steps + 1))."""
+    logits, cache = model.prefill(params, {"tokens": tokens},
+                                  tokens.shape[1] + steps)
+    out_logits, out_tok = [logits], [logits[:, -1].argmax(-1)[:, None]]
+    for _ in range(steps):
+        logits, cache = model.decode_step(params, out_tok[-1], cache)
+        out_logits.append(logits)
+        out_tok.append(logits[:, -1].argmax(-1)[:, None])
+    return out_logits, torch.cat(out_tok, 1)
+
+
+def check_slice_against_cpu(dev, ops):
+    """Phase 6: one full-width group, fp32, card (kernels) against the
+    CPU's plain path on the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_lm import make_prompts
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("zamba2-2.7b"),
+                              num_layers=6, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(SEED, device=dev)
+    params_cpu = copy.deepcopy(params).cpu()
+    tokens = make_prompts(cfg, 1, SLICE_TOKENS, SEED, dev)
+    ops.reset_launch_counts()
+    got_logits, got_tok = _greedy(model, params, tokens, SLICE_DECODE)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want_logits, want_tok = _greedy(model, params_cpu, tokens.cpu(),
+                                    SLICE_DECODE)
+    if counts["flash_attention"] != 1 or counts["ssd_scan"] != 6:
+        raise AssertionError(f"one-group prefill launched {counts}, "
+                             "expected 1 flash_attention and 6 ssd_scan")
+    np.testing.assert_array_equal(got_tok.cpu().numpy(), want_tok.numpy(),
+                                  err_msg="greedy tokens differ")
+    err = 0.0
+    for g, w in zip(got_logits, want_logits, strict=True):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-3)
+        err = max(err, float((g.cpu() - w).abs().max()))
+    log(f"slice (zamba2-2.7b width, 1 group, fp32, 1 × {SLICE_TOKENS} "
+        f"tokens + {SLICE_DECODE} decode steps): card agrees with the CPU "
+        f"plain path (logits max_abs_err {err:.3e}, rtol/atol 1e-3 held; "
+        f"tokens {got_tok.cpu().tolist()[0]} equal); launches {counts}")
+    return dict(max_abs_err=err, tokens=got_tok.cpu().tolist()[0])
+
+
+def serve_full(dev, ops, smi):
+    """Phase 7: zamba2-2.7b at full width and depth, bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_lm import make_prompts, serve
+    from repro_torch.models import build_model
+
+    cfg = get_config("zamba2-2.7b")
+    model = build_model(cfg)
+    params = model.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    report = serve(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                   new_tokens=SERVE_NEW, seed=SEED, device=dev,
+                   params=params)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    per = report["launches"]
+    ng = cfg.num_layers // cfg.attn_every
+    for phase, want in (("prefill", {"flash_attention": ng,
+                                     "ssd_scan": cfg.num_layers}),
+                        ("decode", {"flash_attention": 0, "ssd_scan": 0})):
+        for kname, n in want.items():
+            if per[phase][kname] != n:
+                raise AssertionError(f"{phase} launched {kname} "
+                                     f"{per[phase][kname]} times, expected "
+                                     f"{n}")
+    tokens = np.asarray(report.pop("tokens"))
+    if tokens.shape != (SERVE_BATCH, SERVE_NEW) or tokens.min() < 0 or \
+            tokens.max() >= cfg.vocab_size:
+        raise AssertionError(f"serve returned tokens of shape "
+                             f"{tokens.shape} in [{tokens.min()}, "
+                             f"{tokens.max()}]")
+    # prefill(t0..tn) against decode of tn after prefill(t0..tn-1)
+    prompts = make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT, SEED, dev)
+    full, _ = model.prefill(params, {"tokens": prompts}, SERVE_PROMPT)
+    _, cache = model.prefill(params, {"tokens": prompts[:, :-1]},
+                             SERVE_PROMPT)
+    dec, _ = model.decode_step(params, prompts[:, -1:], cache)
+    if full.shape != (SERVE_BATCH, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(full).all() and torch.isfinite(dec).all()):
+        raise AssertionError("prefill/decode logits are not finite "
+                             f"{(SERVE_BATCH, 1, cfg.vocab_size)}")
+    diff = (full - dec).abs().amax(dim=(1, 2))
+    scale = full.abs().amax(dim=(1, 2))
+    rel = (diff / scale).cpu().tolist()
+    if max(rel) > CONSISTENCY_REL:
+        raise AssertionError(f"prefill/decode disagree: max |Δ logit| / "
+                             f"max |logit| = {rel} > {CONSISTENCY_REL}")
+    report.update(
+        card=smi, tokens_request0=tokens[0].tolist(),
+        consistency_rel=rel,
+        argmax_equal=(full.argmax(-1) == dec.argmax(-1)).flatten().tolist(),
+        launches_total=counts)
+    log(f"serve {cfg.name}: prefill {report['prefill_ms']:.1f} ms, decode "
+        f"{report['decode_ms_per_step']:.2f} ms/step "
+        f"({report['decode_tok_per_s']:.1f} tok/s), peak "
+        f"{report['peak_memory_bytes'] / 2**30:.2f} GiB; prefill/decode "
+        f"consistency {rel} (limit {CONSISTENCY_REL}); launches {counts}")
+    return report, counts
 
 
 def compare_with_cpu(round_fn_cpu, state_before, state_after, m_after,
@@ -357,6 +600,7 @@ def main() -> int:
         raise AssertionError(f"unexpected width {(n, d)}")
 
     rows = check_kernels(dev, ops, n, d, 16)
+    rows.update(check_model_kernels(dev, ops))
 
     ctx = dict(dev=dev, data=data, test=test, params0=params0, spec=spec,
                eval_fn=make_eval_fn(make_loss_and_acc_fn(), spec=spec,
@@ -369,19 +613,26 @@ def main() -> int:
                               "fused_gss": 0})
     log(json.dumps({"forms": {"A": form_a, "B": form_b}}))
 
+    check_slice_against_cpu(dev, ops)
+    torch.cuda.empty_cache()
+    serve_report, counts_serve = serve_full(dev, ops, smi)
+    log(json.dumps({"serve": serve_report}))
+
     kernels = []
     for name, r in rows.items():
-        launches = counts_a[name] + counts_b[name]
+        launches = counts_a[name] + counts_b[name] + counts_serve[name]
         if launches == 0:
             raise AssertionError(f"{name} was never launched on the path")
         lib = r["library_ms"]
         log(f"{name}: launches {launches} (form A {counts_a[name]}, "
-            f"form B {counts_b[name]}), max_abs_err {r['max_abs_err']:.3e}, "
+            f"form B {counts_b[name]}, serve {counts_serve[name]}), "
+            f"max_abs_err {r['max_abs_err']:.3e}, "
             f"ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, library_ms "
             f"{'null' if lib is None else f'{lib:.4f}'}, bound_ms "
             f"{r['bound_ms']} ({r['bound_by']})")
         kernels.append({
-            "name": name, "route": "cuda", "source": CUDA_SRC,
+            "name": name, "route": "cuda",
+            "source": r.get("source", CUDA_SRC),
             "replaces": r["replaces"], "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

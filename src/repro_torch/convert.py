@@ -11,7 +11,11 @@ go to ``device``: CUDA unless the caller passes another.
   ``FLState`` (θ/λ/z_prev/ω, controller, deferral queue, the rng key's
   two uint32 words, the round);
 * :func:`state_to_numpy` — the other way, as the port's ``FLState``
-  with numpy leaves, for comparisons.
+  with numpy leaves, for comparisons;
+* :func:`lm_params_from_numpy` — the model zoo's hybrid parameter tree
+  (stacked (L, ...) layers) → the port's parameter module (one module
+  per layer, the shared block, JAX's (n_in, n_out) weight layout kept);
+* :func:`lm_cache_from_numpy` — a hybrid serving cache → the port's.
 """
 from __future__ import annotations
 
@@ -39,6 +43,40 @@ def params_from_numpy(tree, device=None) -> dict:
 
     walk(tree, "")
     return out
+
+
+def lm_params_from_numpy(tree, cfg, device=None):
+    """The JAX package's hybrid params (numpy leaves) → the port's
+    ``ParamTree``: the stacked leading L axis of ``layers`` is split
+    into one module per layer, ``shared`` maps to the shared block, and
+    every other leaf keeps its shape and dtype."""
+    from repro_torch.models.transformer import check_family, hybrid_params
+
+    check_family(cfg)
+    device = resolve_device(device)
+
+    def to_torch(node, index=None):
+        if isinstance(node, dict):
+            return {k: to_torch(v, index) for k, v in node.items()}
+        a = np.asarray(node)
+        return _t(a if index is None else a[index], device)
+
+    top = {k: to_torch(v) for k, v in tree.items() if k != "layers"}
+    n = np.asarray(tree["layers"]["ln"]).shape[0]
+    if n != cfg.num_layers:
+        raise ValueError(f"the tree has {n} layers, the config "
+                         f"{cfg.num_layers}")
+    return hybrid_params(top, [to_torch(tree["layers"], i)
+                               for i in range(n)])
+
+
+def lm_cache_from_numpy(cache, device=None) -> dict:
+    """A hybrid serving cache with numpy leaves → the port's cache
+    (same stacked layout; ``pos`` as a host int)."""
+    device = resolve_device(device)
+    return {"layers": {k: _t(v, device) for k, v in cache["layers"].items()},
+            "k": _t(cache["k"], device), "v": _t(cache["v"], device),
+            "pos": int(np.asarray(cache["pos"]))}
 
 
 def nest_params(state_dict: dict) -> dict:

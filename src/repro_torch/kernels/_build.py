@@ -1,14 +1,16 @@
-"""Build and load the port's CUDA kernels (``csrc/fedback_kernels.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The source is compiled with ``nvcc`` into a shared library with a plain
-C interface and loaded with ``ctypes`` — no PyTorch headers, so the
-build takes seconds.  It runs at first use, never at import: the CPU
-tests import every module on machines without ``nvcc``.  The library is
-cached under ``build/kernels/<hash>/`` at the root of the checkout,
-keyed by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one loads at once.  ``nvcc``'s
-``-Xptxas -v`` report (registers, shared memory, spills per kernel) is
-kept beside the library in ``build.log``.
+Each source (``fedback_kernels.cu``: K1–K3; ``model_kernels.cu``: K4,
+K5) is compiled by its own ``nvcc -c``, all started together, and the
+objects are linked into one shared library with a plain C interface,
+loaded with ``ctypes`` — no PyTorch headers, so the build takes
+seconds.  It runs at first use, never at import: the CPU tests import
+every module on machines without ``nvcc``.  The library is cached under
+``build/kernels/<hash>/`` at the root of the checkout, keyed by a hash
+of every source and the flags, so an edited source rebuilds and an
+unchanged tree loads at once.  ``nvcc``'s ``-Xptxas -v`` report
+(registers, shared memory, spills per kernel) is kept beside the
+library in ``build.log``.
 """
 from __future__ import annotations
 
@@ -20,11 +22,13 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fedback_kernels.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = (CSRC / "fedback_kernels.cu", CSRC / "model_kernels.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LIB_NAME = "libfedback_kernels.so"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+         "-v")
+LIB_NAME = "librepro_torch_kernels.so"
 
 _lib = None  # the loaded library, once built
 
@@ -47,9 +51,27 @@ def nvcc_path() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_ROOT / digest / LIB_NAME
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+
+
+def _nvcc_all(jobs: dict, tmp: Path) -> str:
+    """Start one nvcc per {name: argv} at once, wait for all; raise if
+    one failed; returns their reports."""
+    procs = {}
+    for name, argv in jobs.items():
+        with open(tmp / f"{name}.log", "w") as log:
+            procs[name] = subprocess.Popen(argv, stdout=log,
+                                           stderr=subprocess.STDOUT)
+    codes = {name: proc.wait() for name, proc in procs.items()}
+    reports = {name: (tmp / f"{name}.log").read_text() for name in jobs}
+    for name, rc in codes.items():
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed on {name} ({rc}):\n"
+                               f"{reports[name]}")
+    return "\n".join(f"== {name}\n{text}" for name, text in reports.items())
 
 
 def build() -> Path:
@@ -58,21 +80,25 @@ def build() -> Path:
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
-        tmp_lib = Path(tmp) / LIB_NAME
-        proc = subprocess.run(
-            [nvcc_path(), *FLAGS, "-o", str(tmp_lib), str(SOURCE)],
-            capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        (out.parent / "build.log").write_text(proc.stdout + proc.stderr)
+        tmp = Path(tmp)
+        objs = [tmp / (src.stem + ".o") for src in SOURCES]
+        log = _nvcc_all({src.name: [nvcc, *FLAGS, "-c", "-o", str(obj),
+                                    str(src)]
+                         for src, obj in zip(SOURCES, objs, strict=True)},
+                        tmp)
+        tmp_lib = tmp / LIB_NAME
+        log += "\n" + _nvcc_all({"link": [nvcc, *ARCH, "-shared", "-o",
+                                          str(tmp_lib), *map(str, objs)]},
+                                tmp)
+        (out.parent / "build.log").write_text(log)
         os.replace(tmp_lib, out)  # atomic: a reader sees all or nothing
     return out
 
 
 def build_log() -> str:
-    """nvcc's report from the build of the current source."""
+    """nvcc's report from the build of the current sources."""
     return (library_path().parent / "build.log").read_text()
 
 
@@ -86,8 +112,13 @@ def load_library() -> ctypes.CDLL:
         lib.fb_admm_update.argtypes = [p, p, p, p, p, p, i64, i64, i32, p]
         lib.fb_fused_gss.argtypes = [p, p, p, p, p, p, p, i64, i64, i64,
                                      i32, p]
+        lib.mk_flash_attention.argtypes = ([p] * 4 + [i64] * 12 + [i64] * 5
+                                           + [i32] * 3
+                                           + [ctypes.c_float, p])
+        lib.mk_ssd_scan.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, p]
         for fn in (lib.fb_trigger_sq_norms, lib.fb_admm_update,
-                   lib.fb_fused_gss):
+                   lib.fb_fused_gss, lib.mk_flash_attention,
+                   lib.mk_ssd_scan):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

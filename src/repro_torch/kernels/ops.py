@@ -12,12 +12,20 @@ from __future__ import annotations
 import torch
 
 from .admm_update import admm_update, admm_update_hbm_bytes  # noqa: F401
+from .flash_attention import (  # noqa: F401
+    flash_attention,
+    flash_attention_flops,
+    flash_attention_hbm_bytes,
+)
 from .fused_gss import fused_gss, fused_gss_hbm_bytes  # noqa: F401
 from .ref import (  # noqa: F401
     admm_update_ref,
+    flash_attention_ref,
     fused_gss_ref,
+    ssd_scan_ref,
     trigger_sq_norms_ref,
 )
+from .ssd_scan import ssd_scan, ssd_scan_hbm_bytes  # noqa: F401
 from .trigger_norms import (  # noqa: F401
     trigger_sq_norms,
     trigger_sq_norms_hbm_bytes,
@@ -25,7 +33,9 @@ from .trigger_norms import (  # noqa: F401
 
 KERNELS = {"trigger_sq_norms": trigger_sq_norms,
            "admm_update": admm_update,
-           "fused_gss": fused_gss}
+           "fused_gss": fused_gss,
+           "flash_attention": flash_attention,
+           "ssd_scan": ssd_scan}
 
 
 def launch_counts() -> dict[str, int]:

@@ -6,5 +6,7 @@ this module collects them as the port's counterpart of
 hold the kernels against).
 """
 from .admm_update import admm_update_ref  # noqa: F401
+from .flash_attention import flash_attention_ref  # noqa: F401
 from .fused_gss import fused_gss_ref  # noqa: F401
+from .ssd_scan import ssd_scan_ref  # noqa: F401
 from .trigger_norms import trigger_sq_norms_ref  # noqa: F401

@@ -1,4 +1,6 @@
-"""Models of the port (the paper's MNIST MLP)."""
+"""Models of the port: the paper's MNIST MLP, and the model zoo's
+hybrid family (Zamba2) for serving."""
+from .api import Model, build_model, param_count  # noqa: F401
 from .mlp import (  # noqa: F401
     MLP,
     cross_entropy,

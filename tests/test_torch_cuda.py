@@ -88,3 +88,61 @@ def test_kernel_refuses_wrong_dtype(dev):
     with pytest.raises(TypeError, match="float32"):
         ops.trigger_sq_norms(z, torch.zeros(3, dtype=torch.float64,
                                             device=dev))
+
+
+# K4 flash_attention: fp32 against the plain version at rtol 1e-4 (the
+# online softmax sums in another order); bf16 at 2e-2 (the plain version
+# reads the same bf16 inputs and keeps fp32 inside, as the kernel does;
+# the outputs round to bf16, 8 bits of mantissa).
+@pytest.mark.parametrize("b,h,kvh,s,hd,window", [
+    (1, 4, 4, 128, 64, 0), (2, 8, 2, 256, 64, 0), (1, 4, 1, 128, 128, 0),
+    (1, 2, 2, 100, 32, 0), (1, 2, 1, 37, 16, 0), (1, 4, 2, 200, 80, 0),
+    (1, 4, 2, 300, 80, 64), (2, 2, 1, 129, 48, 16)])
+def test_flash_attention_kernel(dev, b, h, kvh, s, hd, window):
+    rng = np.random.default_rng(s + hd)
+    q, k, v = _mk(rng, b, h, s, hd), _mk(rng, b, kvh, s, hd), \
+        _mk(rng, b, kvh, s, hd)
+    want = ops.flash_attention_ref(q, k, v, window=window)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q.to(dev), k.to(dev), v.to(dev),
+                              window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    qb, kb, vb = (t.to(dev, torch.bfloat16) for t in (q, k, v))
+    got = ops.flash_attention(qb, kb, vb, window=window)
+    want = ops.flash_attention_ref(qb, kb, vb, window=window)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_flash_attention_kernel_model_layout(dev):
+    """(B, S, H, hd) strided views, as the model's projections give."""
+    rng = np.random.default_rng(5)
+    b, s, h, kvh, hd = 2, 150, 4, 2, 80
+    qkv = _mk(rng, b, s, (h + 2 * kvh) * hd).to(dev)
+    q = qkv[..., :h * hd].view(b, s, h, hd)
+    k = qkv[..., h * hd:(h + kvh) * hd].view(b, s, kvh, hd)
+    v = qkv[..., (h + kvh) * hd:].view(b, s, kvh, hd)
+    got = ops.flash_attention(q, k, v, window=32, layout="bshd")
+    want = ops.flash_attention_ref(q, k, v, window=32, layout="bshd")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,c,h,p,n", [(1, 4, 2, 8, 16), (2, 16, 3, 64, 128),
+                                       (1, 1, 1, 8, 8), (2, 5, 3, 7, 9)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_bit_exact(dev, b, c, h, p, n, dtype):
+    rng = np.random.default_rng(c)
+    states = _mk(rng, b, c, h, p, n).to(dtype)
+    decays = torch.from_numpy(rng.uniform(0.2, 0.99, (b, c, h)).astype(
+        np.float32))
+    want_prev, want_last = ops.ssd_scan_ref(states, decays)
+    before = ops.ssd_scan.launches
+    got_prev, got_last = ops.ssd_scan(states.to(dev), decays.to(dev))
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.launches == before + 1
+    assert got_prev.dtype == dtype and got_last.dtype == torch.float32
+    assert torch.equal(got_prev.cpu(), want_prev)
+    assert torch.equal(got_last.cpu(), want_last)

@@ -31,9 +31,14 @@ def test_package_has_the_slice_modules():
               "core/engine.py", "core/compact.py", "core/fedback.py",
               "optim/sgd.py", "models/mlp.py", "data/synthetic.py",
               "data/partition.py", "data/pipeline.py",
-              "configs/paper_mnist.py"):
+              "configs/paper_mnist.py", "configs/model_config.py",
+              "configs/zamba2_2_7b.py", "kernels/flash_attention.py",
+              "kernels/ssd_scan.py", "models/layers.py", "models/ssm.py",
+              "models/attention.py", "models/transformer.py",
+              "models/api.py", "launch/serve_lm.py"):
         assert m in names, m
-    assert (PKG / "csrc" / "fedback_kernels.cu").is_file()
+    for src in ("fedback_kernels.cu", "model_kernels.cu"):
+        assert (PKG / "csrc" / src).is_file(), src
 
 
 @pytest.mark.parametrize("path", MODULES,
@@ -48,7 +53,9 @@ def test_module_imports_no_jax_and_no_repro(path):
 def test_importing_the_port_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels."
             "ops, repro_torch.convert, repro_torch.configs.paper_mnist, "
-            "repro_torch.data, repro_torch.models; "
+            "repro_torch.configs.zamba2_2_7b, repro_torch.data, "
+            "repro_torch.models, repro_torch.models.transformer, "
+            "repro_torch.launch.serve_lm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -81,7 +88,9 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 BUILDERS = ("params_from_numpy", "state_from_numpy", "init_mlp", "MLP",
-            "PRNGKey", "init_controller", "init_queue")
+            "PRNGKey", "init_controller", "init_queue",
+            "lm_params_from_numpy", "lm_cache_from_numpy", "lm_init",
+            "lm_init_cache", "serve")
 
 
 @pytest.mark.parametrize("entry", BUILDERS)
@@ -92,14 +101,31 @@ def test_default_device_of_builders_raises_without_cuda(entry, monkeypatch):
     import numpy as np
 
     from repro_torch import convert, prng
+    from repro_torch.configs import get_config
     from repro_torch.core import FLConfig, compact, controller, init_state
-    from repro_torch.models import MLP, init_mlp
+    from repro_torch.launch.serve_lm import serve
+    from repro_torch.models import MLP, build_model, init_mlp
     from repro_torch.utils import make_flat_spec
 
     params0 = {"theta": torch.zeros(3)}
     state_np = convert.state_to_numpy(init_state(
         FLConfig(n_clients=4), params0, spec=make_flat_spec(params0),
         device="cpu"))
+    lm_cfg = get_config("zamba2-2.7b").reduced()
+    lm = build_model(lm_cfg)
+    lm_params = lm.init(0, device="cpu")
+    lm_tree = {k: v.numpy() for k, v in lm_params.named_parameters()
+               if not k.startswith("layers.")}
+    lm_tree = convert.nest_params(lm_tree)
+    lm_tree["layers"] = convert.nest_params({
+        k: np.stack([lm_params.layers[i].get_parameter(k).numpy()
+                     for i in range(lm_cfg.num_layers)])
+        for k, _ in lm_params.layers[0].named_parameters()})
+    cache_np = {"layers": {"ssm": np.zeros((4, 1, 2, 2, 2), np.float32),
+                           "conv": np.zeros((4, 1, 3, 8), np.float32)},
+                "k": np.zeros((2, 1, 4, 2, 8), np.float32),
+                "v": np.zeros((2, 1, 4, 2, 8), np.float32), "pos": 4}
+    assert convert.lm_params_from_numpy(lm_tree, lm_cfg, device="cpu")
     calls = {
         "params_from_numpy": lambda: convert.params_from_numpy(
             {"fc1": {"w": np.zeros((2, 3), np.float32)}}),
@@ -110,6 +136,13 @@ def test_default_device_of_builders_raises_without_cuda(entry, monkeypatch):
         "init_controller": lambda: controller.init_controller(
             4, controller.ControllerConfig()),
         "init_queue": lambda: compact.init_queue(4),
+        "lm_params_from_numpy": lambda: convert.lm_params_from_numpy(
+            lm_tree, lm_cfg),
+        "lm_cache_from_numpy": lambda: convert.lm_cache_from_numpy(cache_np),
+        "lm_init": lambda: lm.init(0),
+        "lm_init_cache": lambda: lm.init_cache(1, 8),
+        "serve": lambda: serve(lm_cfg, batch=1, prompt_len=4, new_tokens=2,
+                               seed=0),
     }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -131,9 +164,35 @@ def test_unported_features_are_refused():
         init_state(FLConfig(n_clients=4), params0, spec=None, device="cpu")
 
 
+def test_unported_model_paths_raise():
+    """Other architectures and families, and the prefix/bidir masks,
+    refuse with NotImplementedError (ROADMAP M17)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, build_model
+
+    for arch in ("granite-3-2b", "mamba2_2_7b", "mixtral-8x7b",
+                 "paligemma-3b", "hubert-xlarge"):
+        with pytest.raises(NotImplementedError, match="M17"):
+            get_config(arch)
+    cfg = get_config("zamba2-2.7b").reduced()
+    for family in ("dense", "moe", "ssm", "vlm", "audio"):
+        with pytest.raises(NotImplementedError, match="M17"):
+            build_model(dataclasses.replace(cfg, family=family))
+    p = {k: torch.zeros(8, 8) for k in ("wq", "wk", "wv", "wo")}
+    for mode in ("prefix", "bidir"):
+        with pytest.raises(NotImplementedError, match="M17"):
+            attention.attention_forward(
+                p, torch.zeros(1, 3, 8), positions=torch.arange(3),
+                rope_theta=1e4, num_heads=2, num_kv_heads=2, head_dim=4,
+                mask_mode=mode)
+
+
 def test_kernel_build_is_lazy():
     from repro_torch.kernels import _build
-    assert _build.SOURCE.is_file()
+    assert len(_build.SOURCES) == 2
+    assert all(src.is_file() for src in _build.SOURCES)
     assert _build.library_path().parent.parent == ROOT / "build" / "kernels"
     code = ("import repro_torch.kernels._build as b, repro_torch.core; "
             "import repro_torch.kernels.ops; assert b._lib is None")
