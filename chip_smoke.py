@@ -14,10 +14,17 @@ non-zero):
    elementwise kernels and the SSD scan (K5), rtol 1e-5 for the
    trigger's sum over D (taken in another order, with each
    square-and-add fused), and for flash attention (K4) atol/rtol 2e-2
-   in bf16 at the serve shape (4, 32, 2048, 80) and rtol 1e-4 (atol
-   1e-5) in fp32 there, at a ragged S = 2000 and with a window of 1024
-   (tiles skipped) — and time the kernel, its plain version and, where one
-   PyTorch call computes the same function, that call;
+   in bf16 (the tensor-core instance) at the serve shape (4, 32, 2048,
+   80), with a window of 1024, at hd 64 and 128, with GQA 4:1 and a
+   window of 100 in the (B, H, S, hd) layout and at a ragged S = 2000,
+   and rtol 1e-4 (atol 1e-5) in fp32 (the SIMT instance) at the serve
+   shape, a ragged S = 2000, a window of 1024 and GQA 4:1 — and time
+   the kernel, its plain version and, where one PyTorch call computes
+   the same function, that call, all as device time
+   (``repro_torch.launch.time_kernels.device_ms``: calls captured in a
+   CUDA graph and replayed); print nvcc's -Xptxas -v lines for the K4
+   and K5 instances and, where cuobjdump is at hand, the count of
+   HGMMA instructions in K4's bf16 and fp32 hd = 80 instances;
 4. form A at the paper-MNIST width (N=100 clients, the 784-200-10 MLP,
    D=159,010): compacted rounds with the fused commit, 1 warm-up and 5
    timed, asserting one trigger and one fused_gss launch per round and
@@ -54,7 +61,6 @@ import dataclasses
 import json
 import math
 import warnings
-import statistics
 import subprocess
 import sys
 import time
@@ -77,27 +83,14 @@ MODEL_SRC = "src/repro_torch/csrc/model_kernels.cu"
 # zamba2-2.7b serving: the main path of slice 2.
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 SLICE_TOKENS, SLICE_DECODE = 256, 4
+# Calls per CUDA graph when a plain version is timed: each can allocate
+# gigabytes (K4's plain version holds the (B, H, S, S) scores).
+PLAIN_CALLS = 2
 CONSISTENCY_REL = 0.08  # |Δ logit| / max |logit|, bf16 through 54 layers
 
 
 def log(*a):
     print(*a, flush=True)
-
-
-def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median over ``reps`` CUDA-event timings of one call each."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def peak_for(table, name: str):
@@ -114,6 +107,7 @@ def peak_bandwidth(name: str):
 def check_kernels(dev, ops, n, d, c):
     """Phase 3: every kernel against its plain version; returns rows of
     the kernels line (launches filled in later)."""
+    from repro_torch.launch.time_kernels import device_ms
     rng = np.random.default_rng(SEED)
 
     def mk(*shape):
@@ -145,9 +139,10 @@ def check_kernels(dev, ops, n, d, c):
     nbytes = ops.trigger_sq_norms_hbm_bytes(n, d)
     rows["trigger_sq_norms"] = dict(
         replaces="src/repro/kernels/trigger_norms.py:59", max_abs_err=err,
-        ms=time_ms(lambda: ops.trigger_sq_norms(z, w)),
-        plain_ms=time_ms(lambda: ops.trigger_sq_norms_ref(z, w)),
-        library_ms=time_ms(lambda: torch.cdist(
+        ms=device_ms(lambda: ops.trigger_sq_norms(z, w)),
+        plain_ms=device_ms(lambda: ops.trigger_sq_norms_ref(z, w),
+                           calls=PLAIN_CALLS),
+        library_ms=device_ms(lambda: torch.cdist(
             z, w[None], compute_mode="donot_use_mm_for_euclid_dist")),
         nbytes=nbytes, nflop=3 * n * d)
     log(f"trigger_sq_norms: max_abs_err {err:.3e} (rtol 1e-5 held) "
@@ -166,9 +161,10 @@ def check_kernels(dev, ops, n, d, c):
     th, la, w = mk(n, d), mk(n, d), mk(d)
     rows["admm_update"] = dict(
         replaces="src/repro/kernels/admm_update.py:88", max_abs_err=0.0,
-        ms=time_ms(lambda: ops.admm_update(th, la, w, with_z=False)),
-        plain_ms=time_ms(lambda: ops.admm_update_ref(th, la, w,
-                                                     with_z=False)),
+        ms=device_ms(lambda: ops.admm_update(th, la, w, with_z=False)),
+        plain_ms=device_ms(lambda: ops.admm_update_ref(th, la, w,
+                                                       with_z=False),
+                           calls=PLAIN_CALLS),
         library_ms=None,
         nbytes=ops.admm_update_hbm_bytes(n, d, with_z=False), nflop=2 * n * d)
     log("admm_update: bit-exact, with and without z, at "
@@ -202,9 +198,11 @@ def check_kernels(dev, ops, n, d, c):
     n_valid = int(valid.sum())
     rows["fused_gss"] = dict(
         replaces="src/repro/kernels/fused_gss.py:148", max_abs_err=0.0,
-        ms=time_ms(lambda: ops.fused_gss(idx, valid, solved, w, th, la, zp)),
-        plain_ms=time_ms(lambda: ops.fused_gss_ref(idx, valid, solved, w,
-                                                   th, la, zp)),
+        ms=device_ms(lambda: ops.fused_gss(idx, valid, solved, w, th, la,
+                                           zp)),
+        plain_ms=device_ms(lambda: ops.fused_gss_ref(idx, valid, solved, w,
+                                                     th, la, zp),
+                           calls=PLAIN_CALLS),
         library_ms=None,
         nbytes=ops.fused_gss_hbm_bytes(n_valid, d) + 5 * c,
         nflop=3 * n_valid * d)
@@ -227,6 +225,7 @@ def check_kernels(dev, ops, n, d, c):
 def check_model_kernels(dev, ops):
     """Phase 3, slice 2: K4 and K5 against their plain versions at the
     serve shapes; returns rows of the kernels line."""
+    from repro_torch.launch.time_kernels import device_ms
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     name = torch.cuda.get_device_name(0)
@@ -265,16 +264,39 @@ def check_model_kernels(dev, ops):
                                rtol=1e-4, atol=1e-5)
     log("flash_attention fp32 (2, 8, 300, 80) GQA 4:1, (B, H, S, hd) "
         "layout, window 100: rtol 1e-4 held")
+    # The bf16 (tensor-core) instance at other head dims, GQA, a window
+    # and a ragged S, against the plain version at 2e-2.
+    for label, qs, kvs, window, layout in (
+            ("hd 64 causal, (B, H, S, hd)", (2, 8, 1000, 64),
+             (2, 8, 1000, 64), 0, "bhsd"),
+            ("hd 128 causal, (B, H, S, hd)", (2, 8, 1000, 128),
+             (2, 8, 1000, 128), 0, "bhsd"),
+            ("GQA 4:1 window 100, (B, H, S, hd)", (2, 8, 300, 80),
+             (2, 2, 300, 80), 100, "bhsd"),
+            ("ragged S = 2000 causal, (B, S, H, hd)", (b, 2000, h, hd),
+             (b, 2000, h, hd), 0, "bshd")):
+        q = randn(*qs, dtype=torch.bfloat16)
+        k, v = (randn(*kvs, dtype=torch.bfloat16) for _ in range(2))
+        got = ops.flash_attention(q, k, v, window=window, layout=layout)
+        want = ops.flash_attention_ref(q, k, v, window=window,
+                                       layout=layout)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+        e = float((got.float() - want.float()).abs().max())
+        log(f"flash_attention bf16 {qs} {label}: max_abs_err {e:.3e} "
+            "(rtol/atol 2e-2 held)")
     q, k, v = (randn(b, s, h, hd, dtype=torch.bfloat16) for _ in range(3))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     peak = peak_for(PEAK_BF16_FLOPS, name)
     rows["flash_attention"] = dict(
         replaces="src/repro/kernels/flash_attention.py:112",
         source=MODEL_SRC, max_abs_err=err,
-        ms=time_ms(lambda: ops.flash_attention(q, k, v, layout="bshd")),
-        plain_ms=time_ms(lambda: ops.flash_attention_ref(q, k, v,
-                                                         layout="bshd")),
-        library_ms=time_ms(lambda: torch.nn.functional.
+        ms=device_ms(lambda: ops.flash_attention(q, k, v, layout="bshd")),
+        plain_ms=device_ms(lambda: ops.flash_attention_ref(q, k, v,
+                                                           layout="bshd"),
+                           calls=PLAIN_CALLS),
+        library_ms=device_ms(lambda: torch.nn.functional.
                            scaled_dot_product_attention(
                                qt, kt, vt, is_causal=True, enable_gqa=True)),
         nbytes=ops.flash_attention_hbm_bytes(b, h, h, s, hd, 2),
@@ -298,8 +320,9 @@ def check_model_kernels(dev, ops):
     dec = torch.rand(shape[:3], generator=gen, device=dev)
     rows["ssd_scan"] = dict(
         replaces="src/repro/kernels/ssd_scan.py:55", source=MODEL_SRC,
-        max_abs_err=0.0, ms=time_ms(lambda: ops.ssd_scan(st, dec)),
-        plain_ms=time_ms(lambda: ops.ssd_scan_ref(st, dec)),
+        max_abs_err=0.0, ms=device_ms(lambda: ops.ssd_scan(st, dec)),
+        plain_ms=device_ms(lambda: ops.ssd_scan_ref(st, dec),
+                           calls=PLAIN_CALLS),
         # No single PyTorch call computes an exclusive linear recurrence
         # with a per-step decay (cumsum/cumprod do not), so there is no
         # library yardstick.
@@ -316,11 +339,54 @@ def check_model_kernels(dev, ops):
             r["bound_ms"] = max(t_bytes, t_ops)
             r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         lib = r["library_ms"]
+        share = (f"{r['bound_ms'] / r['ms']:.1%}" if r["bound_ms"]
+                 else "n/a")
         log(f"  {kname}: ms {r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}  "
             f"library_ms {'null' if lib is None else f'{lib:.4f}'}  "
-            f"bound_ms {r['bound_ms']} ({r['bound_by']})  bytes "
-            f"{r['nbytes']}  ops {r['nflop']}")
+            f"bound_ms {r['bound_ms']} ({r['bound_by']}, {share} of it "
+            f"reached)  bytes {r['nbytes']}  ops {r['nflop']}  "
+            f"{r['nflop'] / r['ms'] / 1e9:.1f} TFLOP/s  "
+            f"{r['nbytes'] / r['ms'] / 1e9:.3f} TB/s")
     return rows
+
+
+def kernel_facts(build):
+    """Print what was compiled for the redesigned K4 (bf16) and K5:
+    nvcc's -Xptxas -v lines for each of their instances, and the count
+    of HGMMA (wgmma) instructions in K4's bf16 and fp32 hd = 80
+    instances, from the library's SASS, where cuobjdump is at hand."""
+    lines = build.build_log().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or not any(
+                name in line for name in ("flash_attention_tc_kernel",
+                                          "ssd_scan")):
+            continue
+        name = line.split("'")[1]
+        facts = [x.replace("ptxas info    :", "").strip()
+                 for x in lines[i + 1:i + 5] if "spill" in x or "Used" in x]
+        log(f"ptxas: {name}: {'; '.join(facts)}")
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    if not cuobjdump.is_file():
+        log("cuobjdump: not found beside nvcc; HGMMA counts not taken")
+        return
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build.library_path())], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = line.split("Function :")[1].strip()
+            counts[current] = 0
+        elif current is not None and "HGMMA" in line:
+            counts[current] += 1
+    for label, key in (("K4 bf16 hd 80 (flash_attention_tc_kernel<5>)",
+                        "flash_attention_tc_kernelILi5E"),
+                       ("K4 fp32 hd 80 (flash_attention_kernel<float, 5>)",
+                        "flash_attention_kernelIfLi5E")):
+        found = {n: c for n, c in counts.items() if key in n}
+        log(f"cuobjdump: {label}: "
+            + (", ".join(f"{c} HGMMA in {n}" for n, c in found.items())
+               if found else "function not found in the SASS"))
 
 
 def _greedy(model, params, tokens, steps):
@@ -587,6 +653,7 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.2f} s "
         f"({_build.library_path()})")
     log(_build.build_log().strip())
+    kernel_facts(_build)
     _build.load_library()
 
     dev = torch.device("cuda")

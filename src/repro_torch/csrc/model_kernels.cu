@@ -6,9 +6,11 @@
 // library with a plain C interface, loaded with ctypes).  Every entry
 // point launches on the stream it is given, allocates nothing, and
 // returns the CUDA error of the launch so the Python wrapper can raise
-// on a refused launch.  The wrappers check dtypes, shapes and strides
-// before passing pointers.  No kernel is compiled with fast math.
+// on a refused launch.  The wrappers check dtypes, shapes, strides and
+// alignment before passing pointers.  No kernel is compiled with fast
+// math.
 
+#include <cuda.h>  // CUtensorMap and its enums; no libcuda link
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,25 +48,34 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 // body `_kernel`, grid (B*H, q-blocks, kv-blocks) with the kv axis
 // sequential and m/l/acc in VMEM scratch).  Bound at the zamba2-2.7b
 // prefill, q (4, 32, 2048, 80) bf16, causal: 4*B*H*hd * (allowed pairs)
-// = 8.6e10 operations, 0.087 ms at 989 TFLOP/s bf16 on the tensor
+// = 8.59e10 operations, 0.087 ms at 989 TFLOP/s bf16 on the tensor
 // cores, against 84 MB of q/k/v/out, 0.025 ms at 3.35 TB/s: bound by
-// operations.
+// operations.  Two instances, chosen by dtype alone:
 //
-// Design (a simple kernel that is right; tensor cores come later): one
-// block of 256 threads per (64-row query tile, batch*head), heaviest
-// causal tiles first.  The block walks the 64-key tiles that the mask
-// can reach — none right of the diagonal, none left of the window, as
-// the Pallas grid's pl.when(reachable) — staging K and V in shared
-// memory as fp32.  Each thread computes a 4x4 patch of the 64x64 score
-// tile with fp32 FMAs on float4 reads (rows ty*4+i, keys tx+16j, rows
-// padded by 4 floats so the 16 key rows of a half-warp fall on distinct
-// banks), masks it (ragged S, causal, window) with -inf, and four
-// threads per row carry the online softmax's m and l; each thread then
-// accumulates its 4 rows x hd/16 columns of P v in registers.  Inputs
-// may be any strides with a contiguous head dim, so the model's
-// (B, S, H, hd) layout needs no transpose.  The probabilities stay fp32
-// (the Pallas kernel's numerics); rows never fully masked by causal
-// masks, and a row masked so far contributes nothing (p = 0, corr = 1).
+// - bf16 (the served path): flash_attention_tc_kernel below, on the
+//   tensor cores through wgmma.  Its note says what it does about the
+//   bound.
+// - fp32: flash_attention_kernel, fp32 SIMT FMAs from shared memory.  It
+//   serves the fp32 checks (rtol 1e-4) and the card-vs-CPU agreement
+//   run; TF32 tensor cores keep about three decimal digits and would
+//   not hold them.
+//
+// Masks are index predicates on absolute positions (ragged S, kv <= q
+// causal, kv > q - window); a row masked so far contributes nothing
+// (p = 0, corr = 1); l is floored at 1e-30.  Inputs may have any strides
+// with a contiguous head dim, so the model's (B, S, H, hd) layout needs
+// no transpose.
+//
+// fp32 instance: one block of 256 threads per (64-row query tile,
+// batch*head), heaviest causal tiles first.  The block walks the 64-key
+// tiles that the mask can reach — none right of the diagonal, none left
+// of the window, as the Pallas grid's pl.when(reachable) — staging K and
+// V in shared memory as fp32.  Each thread computes a 4x4 patch of the
+// 64x64 score tile with fp32 FMAs on float4 reads (rows ty*4+i, keys
+// tx+16j, rows padded by 4 floats so the 16 key rows of a half-warp fall
+// on distinct banks), masks it with -inf, and four threads per row carry
+// the online softmax's m and l; each thread then accumulates its 4 rows x
+// hd/16 columns of P v in registers.  The probabilities stay fp32.
 constexpr int kBq = 64;
 constexpr int kBk = 64;
 constexpr int kAttnThreads = 256;
@@ -321,6 +332,592 @@ int dispatch_flash_attention(int nc, const void* q, const void* k,
 }
 
 // ---------------------------------------------------------------------
+// K4, bf16 instance: flash_attention_tc_kernel, on the tensor cores.
+//
+// Design against the 8.59e10-operation bound (0.087 ms at 989 TFLOP/s):
+// both products run as wgmma on bf16 operands with fp32 accumulators in
+// registers, and the tensor memory accelerator (TMA) copies the next
+// tile while this one is computed.
+//
+// - A block of 256 threads (two consumer warpgroups) owns a 128-row
+//   query tile of one (batch, head): warpgroup w the rows 64w .. 64w+63.
+//   Both share each 64-key K/V tile, which halves the L2 -> shared
+//   traffic per operation against a 64-row block.  Grid (q-tiles, B*H),
+//   the q-tile index reversed, so each head's heaviest causal tiles
+//   start first and the blocks resident at once share a few heads' K/V
+//   in L2.
+// - S = Q K^T: hd/16 wgmma m64n64k16 (5 at hd = 80), Q (A) and K (B)
+//   both from shared memory, K-major.  Q is copied once.
+// - The online softmax runs in registers, in the accumulator layout: a
+//   thread holds 2 rows x 16 keys, a row spread over a quad of lanes and
+//   reduced with two shuffles.  The scale is folded into the exponent as
+//   hd^-1/2 * log2 e and 2^x runs on the special-function unit
+//   (ex2.approx); m and l stay in fp32; a row masked so far gets p = 0
+//   and corr = 1.  Only the tiles that cross the diagonal, the window
+//   edge or the ragged end of S evaluate the mask.
+// - P is rounded to bf16 in registers, where the accumulator layout of S
+//   is the A-fragment layout of the next product, and O += P V runs as 4
+//   wgmma m64n(hd)k16 with A from registers and V (B) from shared memory
+//   in its natural MN-major layout (transpose bit set).  Rounding P to
+//   bf16 before P V is where the JAX blockwise_attention rounds it; the
+//   Pallas kernel and the fp32 instance keep P in fp32 (ROADMAP D4).
+// - K/V tiles arrive by TMA into a ring of two shared-memory slots, each
+//   with an mbarrier that counts the bytes in.  At the top of tile t
+//   every thread waits for tile t's bytes, then one block barrier says
+//   every warpgroup is done with tile t - 1, whose slot takes the copy of
+//   tile t + 1 at once, so that copy overlaps tile t's products and no
+//   thread computes an address.  Rows past S arrive as zeros.
+//
+// Shared-memory layout, and why: a bf16 row is 2*hd bytes, 160 at
+// hd = 80, wider than the 128-byte span of the 128B swizzle and not a
+// multiple of it.  The head dim is padded to a multiple of 64 in shared
+// memory: a tile is kRegions = ceil(hd/64) regions of 64 head columns,
+// each its rows x 128 bytes, 128B-swizzled, written by one TMA box {64
+// columns, rows} of a 4-D tensor map {hd, S, heads, B}; the columns past
+// hd (80 .. 127 at hd = 80) are out of the map's bounds and arrive as
+// zeros.  The padding costs shared memory (96 KB a block at hd = 80, two
+// blocks an SM) but no wgmma k-step: the products stop at column hd (5
+// k-steps at hd = 80).  Narrower choices were measured first on the H100
+// and dropped: a no-swizzle layout needs 16-byte rows, so its copies —
+// 16-byte cp.async by every thread, or TMA boxes 16 bytes wide — moved
+// the same bytes in pieces too small for the memory system, and the
+// copies, not the products, set the pace.  wgmma itself read both
+// layouts at the same rate in a microbenchmark.
+// Descriptors (byte offsets, >> 4 in the descriptor; layout type 1):
+//   Q, K (K-major):  SBO = 1024 (next 8 rows), LBO unused; a k16 step
+//                    adds 32 bytes within a 128-byte row, and the fifth
+//                    step starts in region 1.
+//   V (MN-major):    LBO = 64 keys x 128 (next region, head columns
+//                    64 ..), SBO = 1024 (next 8 keys); a k16 step adds
+//                    16 rows (2048 bytes).
+// A tensor map needs a 16-byte-aligned base and every batch, head and
+// sequence stride a multiple of 16 bytes (8 elements); the wrapper's
+// check_kernel_args holds that rule and raises on any tensor that breaks
+// it (it never copies one), so the library does not check it again (a
+// map the driver refuses to encode still fails the launch).  The maps
+// are encoded per call on the host through the driver's
+// cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint (so the
+// library needs no link to libcuda), and passed as __grid_constant__
+// parameters.
+//
+// Also measured on the H100 and dropped: a third ring slot (128 KB a
+// block, one block an SM: slower); a producer warp with full/empty
+// barriers in place of the block barrier (288 threads cap the registers
+// at 96 for two blocks an SM, and the spills made it slower); issuing
+// tile t-1's P V behind tile t's S = Q K^T (more live registers, spills,
+// slower); the boxes of a tile issued by four warps instead of thread 0
+// (no change).
+constexpr int kTcRows = 128;  // query rows per block: two warpgroups
+constexpr int kTcKeys = 64;   // keys per tile
+constexpr int kTcThreads = 256;
+constexpr int kTcStages = 2;  // K/V ring slots
+
+template <int kNc>
+struct TcLayout {
+  static constexpr int kRegions = (kNc + 3) / 4;  // 64-column regions
+  static constexpr int kQBytes = kRegions * kTcRows * 128;
+  static constexpr int kTileBytes = kRegions * kTcKeys * 128;  // K or V
+  static constexpr int kStageBytes = 2 * kTileBytes;            // K, then V
+  // + 1024: the base is rounded up to the 128B swizzle's 1024-byte period
+  static constexpr int kSmemBytes =
+      kQBytes + kTcStages * kStageBytes + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Arms a barrier for one arrival that brings `bytes` with it.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits for the phase of parity `parity` to complete.  A wait that
+// outlasts 2^32 cycles (seconds) traps, so a lost copy fails the launch
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long start = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 32)) __trap();
+  }
+}
+
+// One TMA box {64, rows, 1, 1} of a map {hd, S, heads, B} at (col, row,
+// head, batch): head columns col .. col+63 of `rows` rows, as rows of 128
+// bytes, 128B-swizzled (columns past hd arrive as zeros), on bar.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
+                                        int col, int row, int head,
+                                        int batch, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(head),
+      "r"(batch), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of registers that an
+// asynchronous product writes across it.
+template <int kN>
+__device__ __forceinline__ void fence_regs(float (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a 128B-swizzled layout (type 1);
+// start addresses inside a 1024-byte swizzle period keep base offset 0.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (uint64_t{1} << 62);
+}
+
+// 2^x on the special-function unit: about 2 ulp, results below 2^-126
+// flushed to 0 (a probability that small adds nothing to a bf16 P).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// S (64 x 64, fp32) += A (64 x 16) * B (64 x 16)^T, A and B from shared
+// memory, both K-major.  Accumulator element i of a thread lies at row
+// 16*warp + lane/4 + 8*((i/2)%2), column 8*(i/4) + 2*(lane%4) + i%2.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// O (64 x 16*kNc, fp32) += P (64 x 16, bf16 in registers, the
+// A-fragment layout) * V (16 x 16*kNc) from shared memory, MN-major
+// (transpose bit set).
+template <int kNc>
+__device__ __forceinline__ void wgmma_pv(float (&d)[8 * kNc],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+// One macro writes every instance of wgmma_pv.  The accumulators
+// d[0 .. 8*kNc) are asm operands %0 .. %(8*kNc - 1), eight per row of
+// PV_OPS; the A fragment, V's descriptor and the scale-d flag are the
+// six operands after them, the first six numbers of row kNc.
+#define PV_OPS_0(M) M(0, 1, 2, 3, 4, 5, 6, 7)
+#define PV_OPS_1(M) M(8, 9, 10, 11, 12, 13, 14, 15)
+#define PV_OPS_2(M) M(16, 17, 18, 19, 20, 21, 22, 23)
+#define PV_OPS_3(M) M(24, 25, 26, 27, 28, 29, 30, 31)
+#define PV_OPS_4(M) M(32, 33, 34, 35, 36, 37, 38, 39)
+#define PV_OPS_5(M) M(40, 41, 42, 43, 44, 45, 46, 47)
+#define PV_OPS_6(M) M(48, 49, 50, 51, 52, 53, 54, 55)
+#define PV_OPS_7(M) M(56, 57, 58, 59, 60, 61, 62, 63)
+#define PV_OPS_8(M) M(64, 65, 66, 67, 68, 69, 70, 71)
+// Eight accumulators, as references in the asm string and as operands.
+#define PV_REFS(i0, i1, i2, i3, i4, i5, i6, i7)                             \
+  "%" #i0 ", %" #i1 ", %" #i2 ", %" #i3 ", %" #i4 ", %" #i5 ", %" #i6      \
+  ", %" #i7
+#define PV_OUTS(i0, i1, i2, i3, i4, i5, i6, i7)                             \
+  "+f"(d[i0]), "+f"(d[i1]), "+f"(d[i2]), "+f"(d[i3]), "+f"(d[i4]),         \
+      "+f"(d[i5]), "+f"(d[i6]), "+f"(d[i7])
+// The operands after the accumulators: scale-d, then A and V's
+// descriptor.
+#define PV_SCALE(i0, i1, i2, i3, i4, i5, i6, i7)                            \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %" #i5 ", 0;\n"
+#define PV_AB(i0, i1, i2, i3, i4, i5, i6, i7)                               \
+  "{%" #i0 ", %" #i1 ", %" #i2 ", %" #i3 "}, %" #i4 ", p, 1, 1, 1;\n}\n"
+#define PV_REFS_1 PV_OPS_0(PV_REFS)
+#define PV_REFS_2 PV_REFS_1 ", " PV_OPS_1(PV_REFS)
+#define PV_REFS_3 PV_REFS_2 ", " PV_OPS_2(PV_REFS)
+#define PV_REFS_4 PV_REFS_3 ", " PV_OPS_3(PV_REFS)
+#define PV_REFS_5 PV_REFS_4 ", " PV_OPS_4(PV_REFS)
+#define PV_REFS_6 PV_REFS_5 ", " PV_OPS_5(PV_REFS)
+#define PV_REFS_7 PV_REFS_6 ", " PV_OPS_6(PV_REFS)
+#define PV_REFS_8 PV_REFS_7 ", " PV_OPS_7(PV_REFS)
+#define PV_OUTS_1 PV_OPS_0(PV_OUTS)
+#define PV_OUTS_2 PV_OUTS_1, PV_OPS_1(PV_OUTS)
+#define PV_OUTS_3 PV_OUTS_2, PV_OPS_2(PV_OUTS)
+#define PV_OUTS_4 PV_OUTS_3, PV_OPS_3(PV_OUTS)
+#define PV_OUTS_5 PV_OUTS_4, PV_OPS_4(PV_OUTS)
+#define PV_OUTS_6 PV_OUTS_5, PV_OPS_5(PV_OUTS)
+#define PV_OUTS_7 PV_OUTS_6, PV_OPS_6(PV_OUTS)
+#define PV_OUTS_8 PV_OUTS_7, PV_OPS_7(PV_OUTS)
+#define PV_INSTANCE(N, WIDTH)                                               \
+  template <>                                                               \
+  __device__ __forceinline__ void wgmma_pv<N>(                              \
+      float (&d)[8 * N], const uint32_t (&a)[4], uint64_t db) {            \
+    asm volatile(PV_OPS_##N(PV_SCALE)                                       \
+                 "wgmma.mma_async.sync.aligned.m64n" #WIDTH                \
+                 "k16.f32.bf16.bf16 {" PV_REFS_##N "}, "                   \
+                 PV_OPS_##N(PV_AB)                                          \
+                 : PV_OUTS_##N                                              \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),    \
+                   "r"(1));                                                 \
+  }
+PV_INSTANCE(1, 16)
+PV_INSTANCE(2, 32)
+PV_INSTANCE(3, 48)
+PV_INSTANCE(4, 64)
+PV_INSTANCE(5, 80)
+PV_INSTANCE(6, 96)
+PV_INSTANCE(7, 112)
+PV_INSTANCE(8, 128)
+
+
+template <int kNc>
+__global__ void __launch_bounds__(kTcThreads, kNc <= 6 ? 2 : 1)
+flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          __nv_bfloat16* __restrict__ o, Strides so, int h,
+                          int group, int s, int causal, int window,
+                          float scale_log2) {
+  using L = TcLayout<kNc>;
+  constexpr int kOut = 8 * kNc;  // O accumulators per thread
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  __shared__ __align__(8) uint64_t bars[kTcStages + 1];  // slots, then Q
+  const uint32_t q_s = (smem_u32(tc_smem) + 1023) & ~1023u;
+  const uint32_t ring = q_s + L::kQBytes;
+  const uint32_t bar0 = smem_u32(bars);
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int n_qt = (s + kTcRows - 1) / kTcRows;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kTcRows;
+  const int bh = blockIdx.y;
+  const int b = bh / h;
+  const int head = bh % h;
+  const int kv_head = head / group;
+
+  // Key tiles: the block copies [t_lo, t_hi); this warpgroup, rows
+  // wq0 .. wq_last, computes [w_lo, w_hi).
+  const int n_kt = (s + kTcKeys - 1) / kTcKeys;
+  auto first_tile = [&](int row) {
+    return window > 0 && row - window + 1 > 0 ? (row - window + 1) / kTcKeys
+                                              : 0;
+  };
+  auto end_tile = [&](int row) {
+    return causal ? min(n_kt, row / kTcKeys + 1) : n_kt;
+  };
+  const int t_lo = first_tile(q0);
+  const int t_hi = end_tile(min(q0 + kTcRows, s) - 1);
+  const int wq0 = q0 + 64 * wg;
+  const int wq_last = min(wq0 + 63, s - 1);
+  const int w_lo = first_tile(wq0);
+  const int w_hi = wq0 < s ? end_tile(wq_last) : w_lo;
+
+  // Tile t lives in slot (t - t_lo) % kTcStages; its k-th use of the slot
+  // completes phase k of the slot's barrier (the bytes of K and V in).
+  // Thread 0 issues every copy: a tile is kRegions boxes of K, then V.
+  const uint32_t bar_q = bar0 + 8 * kTcStages;
+  auto copy_kv = [&](int t, int slot) {
+    const uint32_t st = ring + slot * L::kStageBytes;
+    const uint32_t bar = bar0 + 8 * slot;
+    mbar_expect(bar, L::kStageBytes);
+#pragma unroll
+    for (int r = 0; r < L::kRegions; ++r) {
+      tma_box(st + r * kTcKeys * 128, &tm_k, 64 * r, t * kTcKeys, kv_head,
+              b, bar);
+      tma_box(st + L::kTileBytes + r * kTcKeys * 128, &tm_v, 64 * r,
+              t * kTcKeys, kv_head, b, bar);
+    }
+  };
+  if (tid == 0) {
+    for (int i = 0; i <= kTcStages; ++i) mbar_init(bar0 + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the barriers are initialised
+  if (tid == 0) {
+    mbar_expect(bar_q, L::kQBytes);
+#pragma unroll
+    for (int r = 0; r < L::kRegions; ++r) {
+      tma_box(q_s + r * kTcRows * 128, &tm_q, 64 * r, q0, head, b, bar_q);
+    }
+    for (int i = 0; i < kTcStages - 1 && t_lo + i < t_hi; ++i) {
+      copy_kv(t_lo + i, i);
+    }
+  }
+
+  // This thread's rows are r0 and r0 + 8; in each 8-key (or 8-column)
+  // block it holds columns col0 and col0 + 1.
+  const int r0 = wq0 + 16 * warp + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  const uint32_t q_wg = q_s + wg * 64 * 128;  // this warpgroup's Q rows
+  float acc[kOut];
+#pragma unroll
+  for (int i = 0; i < kOut; ++i) acc[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};  // this thread's share; the quad's at the end
+  mbar_wait(bar_q, 0);
+
+  // One key tile t (K and V in the ring slot at `stage`) for this
+  // warpgroup's 64 rows.
+  auto attend_tile = [&](int t, uint32_t stage) {
+    // S = Q K^T.
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kNc; ++kk) {  // columns 16kk .. 16kk+15
+      const uint32_t col = (kk % 4) * 32;  // 32 bytes into the row
+      wgmma_m64n64k16_ss(
+          sc, gmma_desc(q_wg + (kk / 4) * kTcRows * 128 + col, 16, 1024),
+          gmma_desc(stage + (kk / 4) * kTcKeys * 128 + col, 16, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // The mask, on the tiles that cross the ragged end of S, the diagonal
+    // or the window edge for some row of this warpgroup.
+    const int k0 = t * kTcKeys;
+    if (k0 + kTcKeys > s || (causal && k0 + kTcKeys - 1 > wq0) ||
+        (window > 0 && k0 <= wq_last - window)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = k0 + 8 * (i >> 2) + col0 + (i & 1);
+        const int row = r0 + 8 * ((i >> 1) & 1);
+        bool ok = key < s;
+        if (causal) ok = ok && key <= row;
+        if (window > 0) ok = ok && key > row - window;
+        if (!ok) sc[i] = -INFINITY;
+      }
+    }
+
+    // Online softmax in the log2 domain.
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    }
+    float mu[2], corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r] * scale_log2);
+      const bool empty = m_new == -INFINITY;  // every key so far masked
+      mu[r] = empty ? 0.f : m_new;
+      corr[r] = empty ? 1.f : fast_exp2(m_run[r] - m_new);
+      m_run[r] = m_new;
+    }
+    // P in bf16, straight into the A fragments of the next product: keys
+    // 16kk .. 16kk+15 are accumulator elements 8kk .. 8kk+7.
+    uint32_t pa[4][4];
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p0 = fast_exp2(fmaf(sc[4 * j], scale_log2, -mu[0]));
+      const float p1 = fast_exp2(fmaf(sc[4 * j + 1], scale_log2, -mu[0]));
+      const float p2 = fast_exp2(fmaf(sc[4 * j + 2], scale_log2, -mu[1]));
+      const float p3 = fast_exp2(fmaf(sc[4 * j + 3], scale_log2, -mu[1]));
+      sum[0] += p0 + p1;
+      sum[1] += p2 + p3;
+      pa[j >> 1][2 * (j & 1)] = pack_bf16(p0, p1);
+      pa[j >> 1][2 * (j & 1) + 1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + sum[r];
+#pragma unroll
+    for (int i = 0; i < kOut; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+    // O += P V.
+    wgmma_fence();
+    const uint32_t v_s = stage + L::kTileBytes;
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+      wgmma_pv<kNc>(acc, pa[kk],
+                    gmma_desc(v_s + kk * 16 * 128, kTcKeys * 128, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+  };
+
+  int slot = 0;        // ring slot of tile t
+  uint32_t phase = 0;  // parity of the slot's use by tile t
+  for (int t = t_lo; t < t_hi; ++t) {
+    const uint32_t stage = ring + slot * L::kStageBytes;
+    mbar_wait(bar0 + 8 * slot, phase);  // tile t has landed
+    __syncthreads();  // and every warpgroup is done with tile t - 1
+    // Tile t + kTcStages - 1 goes into the slot that tile t - 1 left.
+    if (tid == 0 && t + kTcStages - 1 < t_hi) {
+      copy_kv(t + kTcStages - 1, slot == 0 ? kTcStages - 1 : slot - 1);
+    }
+    if (t >= w_lo && t < w_hi) attend_tile(t, stage);
+    if (++slot == kTcStages) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = 1.f / fmaxf(l, 1e-30f);
+  }
+  __nv_bfloat16* ob = o + b * so.b + head * so.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= s) continue;
+    __nv_bfloat16* orow = ob + static_cast<int64_t>(row) * so.s + col0;
+#pragma unroll
+    for (int j = 0; j < 2 * kNc; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv[r],
+                                acc[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+}
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                   cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime (no libcuda
+// link); null if the driver does not have it.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      return static_cast<EncodeTiledFn>(nullptr);
+    }
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// The 4-D map {hd, S, heads, B} of a bf16 tensor with element strides st
+// (head dim contiguous), read in 128B-swizzled boxes {64, rows, 1, 1}.
+bool encode_map(CUtensorMap* map, const void* base, int64_t hd, int64_t s,
+                int64_t heads, int64_t b, Strides st, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
+                                 static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kNc>
+int launch_flash_attention_tc(const void* q, const void* k, const void* v,
+                              void* o, Strides sq, Strides sk, Strides sv,
+                              Strides so, int b, int h, int kvh, int s,
+                              int causal, int window, float scale_log2,
+                              cudaStream_t stream) {
+  constexpr int hd = 16 * kNc;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode_map(&tm_q, q, hd, s, h, b, sq, kTcRows) ||
+      !encode_map(&tm_k, k, hd, s, kvh, b, sk, kTcKeys) ||
+      !encode_map(&tm_v, v, hd, s, kvh, b, sv, kTcKeys)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int smem = TcLayout<kNc>::kSmemBytes;
+  auto kernel = flash_attention_tc_kernel<kNc>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((s + kTcRows - 1) / kTcRows, b * h);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), so, h, h / kvh, s,
+      causal, window, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_flash_attention_tc(int nc, const void* q, const void* k,
+                                const void* v, void* o, Strides sq,
+                                Strides sk, Strides sv, Strides so, int b,
+                                int h, int kvh, int s, int causal,
+                                int window, float scale_log2,
+                                cudaStream_t stream) {
+#define FA_TC_CASE(N)                                                       \
+  case N:                                                                   \
+    return launch_flash_attention_tc<N>(q, k, v, o, sq, sk, sv, so, b, h,  \
+                                        kvh, s, causal, window,            \
+                                        scale_log2, stream);
+  switch (nc) {
+    FA_TC_CASE(1)
+    FA_TC_CASE(2)
+    FA_TC_CASE(3)
+    FA_TC_CASE(4)
+    FA_TC_CASE(5)
+    FA_TC_CASE(6)
+    FA_TC_CASE(7)
+    FA_TC_CASE(8)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FA_TC_CASE
+}
+
+// ---------------------------------------------------------------------
 // K5  ssd_scan: h_prev[c] = H_c,  H_0 = 0,  H_{c+1} = H_c * a_c + S_c,
 //     with an fp32 carry; h_last = H_C in fp32.
 //
@@ -328,18 +925,25 @@ int dispatch_flash_attention(int nc, const void* q, const void* k,
 // `_kernel`, grid (B*H, C) with the chunk axis sequential and the (P, N)
 // carry in VMEM).  Bound at the zamba2-2.7b prefill, states
 // (4, 32, 80, 64, 64) bf16: 2*B*C*H*P*N*2 bytes of states in and h_prev
-// out, plus 4*B*H*P*N bytes of h_last and the decays, 173 MB, about
-// 0.052 ms at 3.35 TB/s: bound by bytes (one multiply and one add per
-// element).
+// out, plus 4*B*H*P*N bytes of h_last and the decays, 173 MB, 0.0517 ms
+// at 3.35 TB/s: bound by bytes (one multiply and one add per element).
 //
-// Design: grid (B*H, ceil(P*N / 256)); each thread owns one element of
-// one (batch, head)'s P x N plane, keeps its carry in a register and
-// walks the chunks in order, reading the states where they lie in the
-// (B, C, H, P, N) layout (neighbouring threads on neighbouring
-// elements, a stride of H*P*N between chunks), so no transposed copy
-// is made.  carry * a and + s are rounded one at a time (__fmul_rn,
-// __fadd_rn): bit-equal to the plain version, which rounds the product
-// first.
+// Design against that bound: every access is a 16-byte vector and many
+// chunks' loads are in flight behind the dependent carry chain.  The
+// main kernel, ssd_scan_vec_kernel, gives each thread 16 bytes of a
+// (batch, head)'s P x N plane — 8 bf16 or 4 fp32 elements — and 8
+// carries in registers; it walks the chunks in the states' own
+// (B, C, H, P, N) layout (a stride of H*P*N between chunks, so no
+// transposed copy is made), issuing the loads of 8 chunks before their
+// multiply-adds, storing h_prev as 16-byte vectors and h_last as
+// float4s.  A block of 128 threads shares one (batch, head); it stages
+// that head's decays in shared memory, 64 chunks at a time, so each is
+// read once per block.  Loads and stores stream past L1 (__ldcs,
+// __stcs): nothing is read twice.  ssd_scan_kernel, one element per
+// thread, takes the rest: a plane size that is not a multiple of the
+// vector width, or a base that is not 16-byte aligned.  In both, carry
+// * a and + s are rounded one at a time (__fmul_rn, __fadd_rn):
+// bit-equal to the plain version, which rounds the product first.
 constexpr int kScanThreads = 256;
 
 template <typename T>
@@ -367,6 +971,142 @@ ssd_scan_kernel(const T* __restrict__ states,
   h_last[bh * pn + e] = carry;
 }
 
+constexpr int kScanVecThreads = 128;
+constexpr int kScanAhead = 8;     // chunks whose loads are issued together
+constexpr int kScanDecTile = 64;  // decays staged in shared memory per pass
+
+// 16 bytes of states as fp32 values, and back.
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ static void unpack(const uint4& u, float (&f)[kN]) {
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(p[i]);
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
+    }
+  }
+  __device__ static uint4 pack(const float (&f)[kN]) {
+    uint4 u;
+    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      p[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    }
+    return u;
+  }
+};
+template <>
+struct Vec16<float> {
+  static constexpr int kN = 4;
+  __device__ static void unpack(const uint4& u, float (&f)[kN]) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+  __device__ static uint4 pack(const float (&f)[kN]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kScanVecThreads)
+ssd_scan_vec_kernel(const T* __restrict__ states,
+                    const float* __restrict__ decays, T* __restrict__ h_prev,
+                    float* __restrict__ h_last, int c, int h, int64_t pn) {
+  using V = Vec16<T>;
+  __shared__ float dec_s[kScanDecTile];
+  const int64_t bh = blockIdx.x;
+  const int64_t e =
+      (static_cast<int64_t>(blockIdx.y) * kScanVecThreads + threadIdx.x) *
+      V::kN;
+  const bool live = e < pn;
+  const int64_t b = bh / h, head = bh % h;
+  const int64_t step = static_cast<int64_t>(h) * pn;  // one chunk
+  const int64_t base = (b * c * h + head) * pn + e;
+  const float* dec = decays + b * c * h + head;
+  float carry[V::kN];
+#pragma unroll
+  for (int i = 0; i < V::kN; ++i) carry[i] = 0.f;
+
+  for (int j0 = 0; j0 < c; j0 += kScanDecTile) {
+    const int nj = min(kScanDecTile, c - j0);
+    __syncthreads();  // the previous pass is done with dec_s
+    if (static_cast<int>(threadIdx.x) < nj) {
+      dec_s[threadIdx.x] = dec[static_cast<int64_t>(j0 + threadIdx.x) * h];
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int jj = 0; jj < nj; jj += kScanAhead) {
+      uint4 in[kScanAhead];
+#pragma unroll
+      for (int u = 0; u < kScanAhead; ++u) {
+        if (jj + u < nj) {
+          in[u] = __ldcs(reinterpret_cast<const uint4*>(
+              states + base + (j0 + jj + u) * step));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kScanAhead; ++u) {
+        if (jj + u < nj) {
+          const int64_t off = base + (j0 + jj + u) * step;
+          __stcs(reinterpret_cast<uint4*>(h_prev + off), V::pack(carry));
+          float sv[V::kN];
+          V::unpack(in[u], sv);
+          const float a = dec_s[jj + u];
+#pragma unroll
+          for (int i = 0; i < V::kN; ++i) {
+            carry[i] = __fadd_rn(__fmul_rn(carry[i], a), sv[i]);
+          }
+        }
+      }
+    }
+  }
+  if (live) {
+    float4* out = reinterpret_cast<float4*>(h_last + bh * pn + e);
+#pragma unroll
+    for (int i = 0; i < V::kN / 4; ++i) {
+      __stcs(out + i, make_float4(carry[4 * i], carry[4 * i + 1],
+                                  carry[4 * i + 2], carry[4 * i + 3]));
+    }
+  }
+}
+
+template <typename T>
+int launch_ssd_scan(const void* states, const float* decays, void* h_prev,
+                    float* h_last, int64_t b, int64_t c, int64_t h,
+                    int64_t pn, cudaStream_t stream) {
+  constexpr int kV = Vec16<T>::kN;
+  const bool vec =
+      pn % kV == 0 &&
+      ((reinterpret_cast<uintptr_t>(states) |
+        reinterpret_cast<uintptr_t>(h_prev) |
+        reinterpret_cast<uintptr_t>(h_last)) & 15) == 0;
+  const int threads = vec ? kScanVecThreads : kScanThreads;
+  const int64_t per_block = vec ? int64_t{kV} * threads : threads;
+  const int64_t tiles = (pn + per_block - 1) / per_block;
+  if (b * h > 0x7fffffff || tiles > 65535 || c > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>(b * h), static_cast<unsigned>(tiles));
+  const T* st = static_cast<const T*>(states);
+  T* hp = static_cast<T*>(h_prev);
+  if (vec) {
+    ssd_scan_vec_kernel<T><<<grid, threads, 0, stream>>>(
+        st, decays, hp, h_last, static_cast<int>(c), static_cast<int>(h), pn);
+  } else {
+    ssd_scan_kernel<T><<<grid, threads, 0, stream>>>(
+        st, decays, hp, h_last, static_cast<int>(c), static_cast<int>(h), pn);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -388,10 +1128,10 @@ int mk_flash_attention(const void* q, const void* k, const void* v, void* o,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nc = static_cast<int>(hd / 16);
   if (bf16) {
-    return dispatch_flash_attention<__nv_bfloat16>(
+    return dispatch_flash_attention_tc(
         nc, q, k, v, o, sq, sk, sv, so, static_cast<int>(b),
-        static_cast<int>(h), group, static_cast<int>(s), causal, window,
-        scale, st);
+        static_cast<int>(h), static_cast<int>(kvh), static_cast<int>(s),
+        causal, window, scale * 1.4426950408889634f, st);  // hd^-1/2 log2 e
   }
   return dispatch_flash_attention<float>(
       nc, q, k, v, o, sq, sk, sv, so, static_cast<int>(b),
@@ -402,24 +1142,14 @@ int mk_flash_attention(const void* q, const void* k, const void* v, void* o,
 int mk_ssd_scan(const void* states, const float* decays, void* h_prev,
                 float* h_last, int64_t b, int64_t c, int64_t h, int64_t pn,
                 int bf16, void* stream) {
-  const int64_t tiles = (pn + kScanThreads - 1) / kScanThreads;
-  if (b * h > 0x7fffffff || tiles > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid(static_cast<unsigned>(b * h), static_cast<unsigned>(tiles));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    ssd_scan_kernel<__nv_bfloat16><<<grid, kScanThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(states), decays,
-        static_cast<__nv_bfloat16*>(h_prev), h_last, static_cast<int>(c),
-        static_cast<int>(h), pn);
-  } else {
-    ssd_scan_kernel<float><<<grid, kScanThreads, 0, st>>>(
-        static_cast<const float*>(states), decays,
-        static_cast<float*>(h_prev), h_last, static_cast<int>(c),
-        static_cast<int>(h), pn);
+    return launch_ssd_scan<__nv_bfloat16>(states, decays, h_prev, h_last, b,
+                                          c, h, pn, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_ssd_scan<float>(states, decays, h_prev, h_last, b, c, h, pn,
+                                st);
 }
+
 
 }  // extern "C"

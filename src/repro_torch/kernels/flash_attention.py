@@ -1,23 +1,40 @@
 """K4: causal / sliding-window GQA flash attention (prefill).
 
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention``
-(Pallas body ``_kernel``).  Softmax scale hd^−½ applied to q in fp32;
-m, l and the accumulator in fp32; l floored at 1e-30; output in q's
-dtype.  Masks are index predicates on absolute positions 0..S−1:
-``kv ≤ q`` (causal) and ``kv > q − window`` (window > 0).
+(Pallas body ``_kernel``).  Softmax scale hd^−½; m, l and the
+accumulator in fp32; l floored at 1e-30; output in q's dtype.  Masks are
+index predicates on absolute positions 0..S−1: ``kv ≤ q`` (causal) and
+``kv > q − window`` (window > 0).
 
-The CUDA kernel (``csrc/model_kernels.cu::flash_attention_kernel``) runs
-one block per (batch·head, 64-row query tile) and loops over 64-key
-tiles in shared memory with an online softmax; it skips the tiles right
-of the diagonal and left of the window, as the Pallas grid's
-``pl.when(reachable)`` does, maps head h to kv head h // (H/KvH) without
-materialising repeats, and masks the ragged edge of S itself.  See the
-source note for its bound.
+The wrapper picks the CUDA kernel (``csrc/model_kernels.cu``) by dtype
+and nothing else:
+
+- **bf16** — ``flash_attention_tc_kernel``, on the tensor cores: a
+  block of two warpgroups owns 128 query rows of one (batch, head);
+  S = QKᵀ and O += PV run as ``wgmma`` with fp32 accumulators, the
+  online softmax stays in registers, P is rounded to bf16 in registers
+  before PV (where the JAX ``blockwise_attention`` rounds it; ROADMAP
+  D4), and 64-key K/V tiles arrive by TMA (the tensor memory
+  accelerator) into a two-slot shared-memory ring, 128B-swizzled with
+  the head dim padded to a multiple of 64.  A TMA tensor map needs every
+  input to start on a 16-byte boundary and every stride but the head
+  dim's to be a multiple of 8 elements; the wrapper raises on a tensor
+  that breaks that and never copies one.
+- **fp32** — ``flash_attention_kernel``, fp32 SIMT FMAs from shared
+  memory, P kept in fp32 as the Pallas kernel keeps it.
+
+Both skip the key tiles right of the diagonal and left of the window,
+as the Pallas grid's ``pl.when(reachable)`` does, map head h to kv head
+h // (H/KvH) without materialising repeats, and mask the ragged edge of
+S themselves.  The bound at the zamba2-2.7b prefill, (4, 32, 2048, 80)
+bf16 causal, is 8.59e10 operations: 0.087 ms at 989 TFLOP/s.
 
 Two layouts, read through strides (the head dim must be contiguous):
 ``"bhsd"`` — q (B, H, S, hd), k/v (B, KvH, S, hd), the Pallas kernel's;
 ``"bshd"`` — q (B, S, H, hd), k/v (B, S, KvH, hd), the model's, so the
 prefill needs no transposes.  The output has q's layout and shape.
+:func:`check_kernel_args` holds every rule the kernels put on their
+arguments, on plain shapes, dtypes, strides and addresses.
 """
 from __future__ import annotations
 
@@ -29,19 +46,24 @@ from ._build import check_launch, load_library
 from ._checks import is_cpu, stream_ptr
 
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_HEAD_DIM = 128  # the kernel keeps hd/16 accumulators per row group
+MAX_HEAD_DIM = 128  # the kernels are instantiated for hd/16 = 1 .. 8
 LAYOUTS = ("bhsd", "bshd")
+MAX_BATCH_HEADS = 65535  # a grid dimension of both instances
+ALIGN_BYTES = 16  # a TMA tensor map's base and strides
 
 
-def _dims(q, k, layout):
+def _dims(q_shape, k_shape, layout):
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    if len(q_shape) != 4 or len(k_shape) != 4:
+        raise ValueError(f"q, k must be 4-D, got {tuple(q_shape)}, "
+                         f"{tuple(k_shape)}")
     if layout == "bhsd":
-        b, h, s, hd = q.shape
-        kvh = k.shape[1]
+        b, h, s, hd = q_shape
+        kvh = k_shape[1]
     else:
-        b, s, h, hd = q.shape
-        kvh = k.shape[2]
+        b, s, h, hd = q_shape
+        kvh = k_shape[2]
     return b, h, kvh, s, hd
 
 
@@ -69,7 +91,7 @@ def flash_attention_hbm_bytes(b, h, kvh, s, hd, elem_bytes=2) -> int:
 def flash_attention_ref(q, k, v, *, causal=True, window=0, layout="bhsd"):
     """Plain PyTorch version: the masked softmax over the whole (S, S)
     score matrix, in fp32, then cast to q's dtype."""
-    b, h, kvh, s, hd = _dims(q, k, layout)
+    b, h, kvh, s, hd = _dims(q.shape, k.shape, layout)
     g = h // kvh
     qb, kb, vb = (_to_bhsd(t, layout) for t in (q, k, v))
     qg = qb.to(torch.float32).reshape(b, kvh, g, s, hd) * hd ** -0.5
@@ -88,32 +110,24 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, layout="bhsd"):
     return out if layout == "bhsd" else out.transpose(1, 2).contiguous()
 
 
-def _strides(t, layout):
-    """(batch, head, seq) strides in elements."""
-    if t.stride(-1) != 1:
-        raise ValueError("the head dim must be contiguous (stride 1)")
-    if layout == "bhsd":
-        return t.stride(0), t.stride(1), t.stride(2)
-    return t.stride(0), t.stride(2), t.stride(1)
-
-
-def flash_attention(q, k, v, *, causal=True, window=0, layout="bhsd"):
-    """Causal or sliding-window GQA attention; see the module note.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (or raise).
-    """
-    b, h, kvh, s, hd = _dims(q, k, layout)
-    if is_cpu(q, k, v):
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   layout=layout)
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+def check_kernel_args(shapes, dtypes, strides, ptrs, *, layout="bhsd",
+                      window=0):
+    """Every rule the CUDA kernels put on their arguments, checked on
+    plain values of q, k, v (in that order): shapes, dtypes, strides in
+    elements and data pointers (addresses).  Raises TypeError or
+    ValueError on what the kernels do not take; returns
+    (b, h, kvh, s, hd).  The wrapper calls it for CUDA tensors; it needs
+    no card."""
+    q_shape, k_shape, v_shape = (tuple(x) for x in shapes)
+    b, h, kvh, s, hd = _dims(q_shape, k_shape, layout)
+    dq, dk, dv = dtypes
+    if dq not in DTYPES or dk != dq or dv != dq:
         raise TypeError("q, k, v must share one dtype, float32 or bfloat16;"
-                        f" got {q.dtype}, {k.dtype}, {v.dtype}")
+                        f" got {dq}, {dk}, {dv}")
     kv_shape = (b, kvh, s, hd) if layout == "bhsd" else (b, s, kvh, hd)
-    if tuple(k.shape) != kv_shape or tuple(v.shape) != kv_shape:
+    if k_shape != kv_shape or v_shape != kv_shape:
         raise ValueError(f"k, v: expected {kv_shape}, got "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+                         f"{k_shape}, {v_shape}")
     if kvh == 0 or h % kvh:
         raise ValueError(f"{h} heads do not split into {kvh} kv heads")
     if hd % 16 or not 0 < hd <= MAX_HEAD_DIM:
@@ -121,12 +135,52 @@ def flash_attention(q, k, v, *, causal=True, window=0, layout="bhsd"):
                          f"{MAX_HEAD_DIM}, got {hd}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    if b * h > 65535:
-        raise ValueError(f"at most 65535 batch·heads per launch, got {b * h}")
+    if b * h > MAX_BATCH_HEADS:
+        raise ValueError(f"at most {MAX_BATCH_HEADS} batch·heads per launch, "
+                         f"got {b * h}")
+    for name, st in zip("qkv", strides, strict=True):
+        if len(st) != 4 or st[-1] != 1:
+            raise ValueError(f"{name}: the head dim must be contiguous "
+                             f"(stride 1), got strides {tuple(st)}")
+    if dq == torch.bfloat16:
+        for name, st, ptr in zip("qkv", strides, ptrs, strict=True):
+            if ptr % ALIGN_BYTES:
+                raise ValueError(
+                    f"{name}: bf16 inputs must start on a {ALIGN_BYTES}-byte "
+                    f"boundary (the kernel reads them through a TMA tensor "
+                    f"map), got address {ptr:#x}")
+            if any(x % 8 for x in st[:3]):
+                raise ValueError(
+                    f"{name}: bf16 strides must be multiples of 8 elements "
+                    f"(16 bytes), got {tuple(st)}")
+    return b, h, kvh, s, hd
+
+
+def _bhs_strides(st, layout):
+    """(batch, head, seq) strides in elements."""
+    return (st[0], st[1], st[2]) if layout == "bhsd" else (st[0], st[2],
+                                                           st[1])
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, layout="bhsd"):
+    """Causal or sliding-window GQA attention; see the module note.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    of their dtype (or raise).
+    """
+    if is_cpu(q, k, v):
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   layout=layout)
+    b, h, kvh, s, hd = check_kernel_args(
+        (q.shape, k.shape, v.shape), (q.dtype, k.dtype, v.dtype),
+        (q.stride(), k.stride(), v.stride()),
+        (q.data_ptr(), k.data_ptr(), v.data_ptr()), layout=layout,
+        window=window)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    sq, sk, sv, so = (_strides(t, layout) for t in (q, k, v, out))
+    sq, sk, sv, so = (_bhs_strides(t.stride(), layout)
+                      for t in (q, k, v, out))
     rc = load_library().mk_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         *sq, *sk, *sv, *so, b, h, kvh, s, hd, int(causal), int(window),

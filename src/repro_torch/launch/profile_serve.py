@@ -32,8 +32,9 @@ from repro_torch.launch.serve_lm import make_prompts
 from repro_torch.models import build_model
 
 # Kernel-name fragments by kind; the first match wins.
-KINDS = (("K4 flash_attention", ("flash_attention_kernel",)),
-         ("K5 ssd_scan", ("ssd_scan_kernel",)),
+KINDS = (("K4 flash_attention", ("flash_attention_kernel",
+                                  "flash_attention_tc_kernel")),
+         ("K5 ssd_scan", ("ssd_scan_kernel", "ssd_scan_vec_kernel")),
          ("matmul (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass",
                               "splitK")))
 

@@ -92,8 +92,9 @@ def test_kernel_refuses_wrong_dtype(dev):
 
 # K4 flash_attention: fp32 against the plain version at rtol 1e-4 (the
 # online softmax sums in another order); bf16 at 2e-2 (the plain version
-# reads the same bf16 inputs and keeps fp32 inside, as the kernel does;
-# the outputs round to bf16, 8 bits of mantissa).
+# reads the same bf16 inputs and keeps fp32 inside; the tensor-core
+# instance rounds P to bf16 before PV and the outputs round to bf16, 8
+# bits of mantissa).
 @pytest.mark.parametrize("b,h,kvh,s,hd,window", [
     (1, 4, 4, 128, 64, 0), (2, 8, 2, 256, 64, 0), (1, 4, 1, 128, 128, 0),
     (1, 2, 2, 100, 32, 0), (1, 2, 1, 37, 16, 0), (1, 4, 2, 200, 80, 0),
@@ -130,8 +131,51 @@ def test_flash_attention_kernel_model_layout(dev):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
+# The bf16 instance on the tensor cores: head dims 64, 80 (not a multiple
+# of the 128-byte swizzle span) and 128, causal with and without a
+# window, GQA, both layouts, S off every tile boundary.
+@pytest.mark.parametrize("hd", [64, 80, 128])
+@pytest.mark.parametrize("b,h,kvh,s,window,causal,layout", [
+    (2, 4, 4, 1000, 0, True, "bshd"), (2, 8, 2, 300, 100, True, "bhsd"),
+    (1, 4, 1, 2000, 0, True, "bshd"), (1, 2, 2, 64, 0, True, "bhsd"),
+    (1, 2, 1, 129, 16, True, "bshd"), (1, 4, 2, 200, 50, False, "bhsd")])
+def test_flash_attention_bf16_tensor_core_kernel(dev, hd, b, h, kvh, s,
+                                                 window, causal, layout):
+    rng = np.random.default_rng(s + hd)
+    kv_shape = (b, kvh, s, hd) if layout == "bhsd" else (b, s, kvh, hd)
+    q_shape = (b, h, s, hd) if layout == "bhsd" else (b, s, h, hd)
+    q, k, v = (_mk(rng, *shp).to(dev, torch.bfloat16)
+               for shp in (q_shape, kv_shape, kv_shape))
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              layout=layout)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    want = ops.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   layout=layout)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_flash_attention_bf16_refuses_misaligned_inputs(dev):
+    """TMA tensor maps: a view off a 16-byte boundary raises, never a
+    quiet copy; fp32 (the SIMT instance) takes it."""
+    b, h, s, hd = 1, 2, 64, 16
+    flat = torch.zeros(1 + b * h * s * hd, device=dev, dtype=torch.bfloat16)
+    q = flat[1:].view(b, h, s, hd)
+    k = torch.zeros(b, h, s, hd, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ops.flash_attention(q, k, k)
+    flat32 = torch.zeros(1 + b * h * s * hd, device=dev)
+    q32 = flat32[1:].view(b, h, s, hd)
+    out = ops.flash_attention(q32, k.float(), k.float())
+    assert torch.isfinite(out).all()
+
+
 @pytest.mark.parametrize("b,c,h,p,n", [(1, 4, 2, 8, 16), (2, 16, 3, 64, 128),
-                                       (1, 1, 1, 8, 8), (2, 5, 3, 7, 9)])
+                                       (1, 1, 1, 8, 8), (2, 5, 3, 7, 9),
+                                       (2, 3, 2, 3, 4), (1, 70, 2, 8, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_kernel_bit_exact(dev, b, c, h, p, n, dtype):
     rng = np.random.default_rng(c)
@@ -144,5 +188,23 @@ def test_ssd_scan_kernel_bit_exact(dev, b, c, h, p, n, dtype):
     torch.cuda.synchronize()
     assert ops.ssd_scan.launches == before + 1
     assert got_prev.dtype == dtype and got_last.dtype == torch.float32
+    assert torch.equal(got_prev.cpu(), want_prev)
+    assert torch.equal(got_last.cpu(), want_last)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_unaligned_base_bit_exact(dev, dtype):
+    """States starting off a 16-byte boundary take the one-element path
+    and give the same bits."""
+    rng = np.random.default_rng(3)
+    b, c, h, p, n = 2, 6, 3, 8, 16
+    flat = _mk(rng, 1 + b * c * h * p * n).to(dtype)
+    states = flat[1:].view(b, c, h, p, n)
+    decays = torch.from_numpy(rng.uniform(0.2, 0.99, (b, c, h)).astype(
+        np.float32))
+    want_prev, want_last = ops.ssd_scan_ref(states, decays)
+    dev_states = flat.to(dev)[1:].view(b, c, h, p, n)
+    assert dev_states.data_ptr() % 16
+    got_prev, got_last = ops.ssd_scan(dev_states, decays.to(dev))
     assert torch.equal(got_prev.cpu(), want_prev)
     assert torch.equal(got_last.cpu(), want_last)

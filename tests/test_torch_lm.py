@@ -452,3 +452,22 @@ def test_other_families_raise():
         build_model(dense)
     with pytest.raises(KeyError):
         get_config("no-such-model")
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("void (anonymous namespace)::flash_attention_kernel<float, 5>(float "
+     "const*, ...)", "K4 flash_attention"),
+    ("void (anonymous namespace)::flash_attention_tc_kernel<5>(CUtensorMap_st"
+     ", ...)", "K4 flash_attention"),
+    ("void (anonymous namespace)::ssd_scan_kernel<__nv_bfloat16>(...)",
+     "K5 ssd_scan"),
+    ("void (anonymous namespace)::ssd_scan_vec_kernel<__nv_bfloat16>(...)",
+     "K5 ssd_scan"),
+    ("nvjet_tst_320x128_64x3_1x2_h_bz_coopB_NNT", "matmul (cuBLAS)"),
+    ("void at::native::elementwise_kernel<128, 4, ...>", "other")])
+def test_profile_serve_names_every_kernel_instance(name, kind):
+    """The serve profile's breakdown finds both instances of K4 and both
+    kernels of K5 by name."""
+    from repro_torch.launch.profile_serve import kind_of
+
+    assert kind_of(name) == kind

@@ -200,3 +200,11 @@ def test_kernel_build_is_lazy():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr  # importing built nothing
+
+
+def test_time_kernels_refuses_without_cuda(monkeypatch, capsys):
+    from repro_torch.launch import time_kernels
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert time_kernels.main([]) == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
