@@ -11,9 +11,11 @@ non-zero):
    (one nvcc per source, started together);
 3. hold each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at odd ones — bit-exact for the
-   elementwise kernels and the SSD scan (K5), rtol 1e-5 for the
-   trigger's sum over D (taken in another order, with each
-   square-and-add fused), and for flash attention (K4) atol/rtol 2e-2
+   elementwise kernels (K3 with the first slot valid and not, and at an
+   odd D) and the SSD scan (K5), rtol 1e-5 for the trigger's sum over D
+   (taken in another order, with each square-and-add fused; the same
+   row bit-equal at N = 100, at N = 1, at a 4-byte-offset view and with
+   ω off 16 bytes), and for flash attention (K4) atol/rtol 2e-2
    in bf16 (the tensor-core instance) at the serve shape (4, 32, 2048,
    80), with a window of 1024, at hd 64 and 128, with GQA 4:1 and a
    window of 100 in the (B, H, S, hd) layout and at a ragged S = 2000,
@@ -22,9 +24,12 @@ non-zero):
    the kernel, its plain version and, where one PyTorch call computes
    the same function, that call, all as device time
    (``repro_torch.launch.time_kernels.device_ms``: calls captured in a
-   CUDA graph and replayed); print nvcc's -Xptxas -v lines for the K4
-   and K5 instances and, where cuobjdump is at hand, the count of
-   HGMMA instructions in K4's bf16 and fp32 hd = 80 instances;
+   CUDA graph and replayed) — K1–K3 cold, over input sets that the L2
+   cannot hold (the kernels line's ``ms``), and warm, and K4's fp32
+   instance beside ``scaled_dot_product_attention`` in fp32; print
+   nvcc's -Xptxas -v lines for the K1, K3, K4 and K5 instances and,
+   where cuobjdump is at hand, the count of HGMMA instructions in K4's
+   bf16 and fp32 hd = 80 instances;
 4. form A at the paper-MNIST width (N=100 clients, the 784-200-10 MLP,
    D=159,010): compacted rounds with the fused commit, 1 warm-up and 5
    timed, asserting one trigger and one fused_gss launch per round and
@@ -71,9 +76,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-# Peak HBM bandwidth by card name (NVIDIA data sheets), for bound_ms.
-PEAK_BYTES_PER_S = (("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
-                    ("H100", 3.35e12), ("H200", 4.8e12))
 # Dense bf16 tensor-core peak by card name (NVIDIA data sheets).
 PEAK_BF16_FLOPS = (("H100 NVL", 835e12), ("H100 PCIe", 756e12),
                    ("H100", 989e12), ("H200", 989e12))
@@ -93,21 +95,16 @@ def log(*a):
     print(*a, flush=True)
 
 
-def peak_for(table, name: str):
-    for key, value in table:
-        if key in name:
-            return value
-    return None
-
-
-def peak_bandwidth(name: str):
-    return peak_for(PEAK_BYTES_PER_S, name)
-
-
 def check_kernels(dev, ops, n, d, c):
     """Phase 3: every kernel against its plain version; returns rows of
-    the kernels line (launches filled in later)."""
-    from repro_torch.launch.time_kernels import device_ms
+    the kernels line (launches filled in later).  K1–K3 are timed at the
+    round's shapes by ``time_kernels.round_kernel_ms``: cold (``ms``,
+    the calls rotating over input sets that L2 cannot hold, as the
+    round finds its rows, so that ``ms`` and the HBM bound describe the
+    same traffic) and warm (``warm_ms``, one set of inputs, the measure
+    of earlier records; K3's 36 MB then sits in L2)."""
+    from repro_torch.launch.time_kernels import (device_ms, peak_bandwidth,
+                                                 round_kernel_ms)
     rng = np.random.default_rng(SEED)
 
     def mk(*shape):
@@ -128,25 +125,43 @@ def check_kernels(dev, ops, n, d, c):
         err = max(err, float((got - want).abs().max()))
     # Identical rows (every never-served client's z_prev is the initial
     # weights) must give bit-equal distances whatever their alignment,
-    # or the plan breaks priority ties unlike the reference.
-    z, w = mk(d)[None].repeat(n, 1), mk(d)
+    # N, or ω's alignment, or the plan breaks priority ties unlike the
+    # reference.
+    row, w = mk(d), mk(d)
+    z = row[None].repeat(n, 1)
     got = ops.trigger_sq_norms(z, w)
     if not torch.equal(got, got[:1].expand(n)):
         raise AssertionError("trigger_sq_norms: identical rows give "
                              f"{int(torch.unique(got).numel())} distinct "
                              "sums")
+    flat = torch.empty(n * d + 1, device=dev)
+    flat[1:] = z.reshape(-1)
+    w_off = torch.empty(d + 1, device=dev)
+    w_off[1:] = w
+    for label, other in (
+            ("N = 1", ops.trigger_sq_norms(row[None].contiguous(), w)),
+            ("a 4-byte-offset view", ops.trigger_sq_norms(
+                flat[1:].view(n, d), w)),
+            ("ω off 16 bytes", ops.trigger_sq_norms(z, w_off[1:]))):
+        if not torch.equal(other, got[:other.shape[0]]):
+            raise AssertionError(f"trigger_sq_norms: the same row at {label} "
+                                 f"gives {other[0].item()!r}, at N = {n} "
+                                 f"{got[0].item()!r}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    timed = round_kernel_ms(ops, dev, gen)
     z, w = mk(n, d), mk(d)
-    nbytes = ops.trigger_sq_norms_hbm_bytes(n, d)
     rows["trigger_sq_norms"] = dict(
         replaces="src/repro/kernels/trigger_norms.py:59", max_abs_err=err,
-        ms=device_ms(lambda: ops.trigger_sq_norms(z, w)),
         plain_ms=device_ms(lambda: ops.trigger_sq_norms_ref(z, w),
                            calls=PLAIN_CALLS),
         library_ms=device_ms(lambda: torch.cdist(
             z, w[None], compute_mode="donot_use_mm_for_euclid_dist")),
-        nbytes=nbytes, nflop=3 * n * d)
+        nflop=3 * n * d)
     log(f"trigger_sq_norms: max_abs_err {err:.3e} (rtol 1e-5 held) "
-        f"at ({n}, {d}), (1, 130), (7, 1001); identical rows bit-equal")
+        f"at ({n}, {d}), (1, 130), (7, 1001); identical rows bit-equal at "
+        f"N = {n}, at N = 1, at a 4-byte-offset view and with ω off 16 "
+        "bytes")
 
     # K2 admm_update, both forms, bit-exact.
     for with_z in (True, False):
@@ -161,24 +176,25 @@ def check_kernels(dev, ops, n, d, c):
     th, la, w = mk(n, d), mk(n, d), mk(d)
     rows["admm_update"] = dict(
         replaces="src/repro/kernels/admm_update.py:88", max_abs_err=0.0,
-        ms=device_ms(lambda: ops.admm_update(th, la, w, with_z=False)),
         plain_ms=device_ms(lambda: ops.admm_update_ref(th, la, w,
                                                        with_z=False),
                            calls=PLAIN_CALLS),
-        library_ms=None,
-        nbytes=ops.admm_update_hbm_bytes(n, d, with_z=False), nflop=2 * n * d)
+        library_ms=None, nflop=2 * n * d)
     log("admm_update: bit-exact, with and without z, at "
         f"({n}, {d}) and (1, 130)")
 
-    # K3 fused_gss, both forms, some invalid lanes, bit-exact.
+    # K3 fused_gss, both forms, some invalid lanes (the first slot valid
+    # or not, the last one not), odd D (the 4-byte path), bit-exact over
+    # the whole state, so rows outside the plan must stay untouched.
     for with_z in (True, False):
-        for nn_, cc, dd in ((n, c, d), (1, 1, 130)):
+        for nn_, cc, dd, first in ((n, c, d, True), (n, c, d, False),
+                                   (7, 3, 1001, False), (1, 1, 130, True)):
             state = [mk(nn_, dd) for _ in range(3)]
             solved, w = mk(cc, dd), mk(dd)
             idx = torch.from_numpy(rng.permutation(nn_)[:cc].astype(
                 np.int32)).to(dev)
             valid = torch.from_numpy(rng.random(cc) < 0.75).to(dev)
-            valid[0] = True
+            valid[0] = first
             if cc > 1:
                 valid[-1] = False
             got = ops.fused_gss(idx, valid, solved, w,
@@ -198,34 +214,42 @@ def check_kernels(dev, ops, n, d, c):
     n_valid = int(valid.sum())
     rows["fused_gss"] = dict(
         replaces="src/repro/kernels/fused_gss.py:148", max_abs_err=0.0,
-        ms=device_ms(lambda: ops.fused_gss(idx, valid, solved, w, th, la,
-                                           zp)),
         plain_ms=device_ms(lambda: ops.fused_gss_ref(idx, valid, solved, w,
                                                      th, la, zp),
                            calls=PLAIN_CALLS),
-        library_ms=None,
-        nbytes=ops.fused_gss_hbm_bytes(n_valid, d) + 5 * c,
-        nflop=3 * n_valid * d)
+        library_ms=None, nflop=3 * n_valid * d)
     log(f"fused_gss: bit-exact, with and without z, at ({n}, {c}, {d}) "
-        "and (1, 1, 130), invalid lanes untouched")
+        "with the first slot valid and not, at (7, 3, 1001) (odd D) and "
+        "(1, 1, 130); invalid lanes and unplanned rows untouched")
 
     for name, r in rows.items():
+        r.update(ms=timed[name]["cold"], warm_ms=timed[name]["warm"],
+                 nbytes=timed[name]["bytes"])
         t_bytes = r["nbytes"] / bw * 1e3 if bw else None
         t_ops = r["nflop"] / 67e12 * 1e3  # fp32 outside the tensor cores
         r["bound_ms"] = None if t_bytes is None else max(t_bytes, t_ops)
         r["bound_by"] = ("bytes" if t_bytes is None or t_bytes >= t_ops
                          else "operations")
         lib = r["library_ms"]
-        log(f"  {name}: ms {r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}  "
+        share = (f"{r['bound_ms'] / r['ms']:.1%} cold, "
+                 f"{r['bound_ms'] / r['warm_ms']:.1%} warm"
+                 if r["bound_ms"] else "n/a")
+        log(f"  {name}: ms {r['ms']:.4f} (cold)  warm_ms {r['warm_ms']:.4f}  "
+            f"plain_ms {r['plain_ms']:.4f}  "
             f"library_ms {'null' if lib is None else f'{lib:.4f}'}  "
-            f"bound_ms {r['bound_ms']}  bytes {r['nbytes']}")
+            f"bound_ms {r['bound_ms']} ({share} of it reached)  "
+            f"bytes {r['nbytes']}")
     return rows
 
 
 def check_model_kernels(dev, ops):
     """Phase 3, slice 2: K4 and K5 against their plain versions at the
-    serve shapes; returns rows of the kernels line."""
-    from repro_torch.launch.time_kernels import device_ms
+    serve shapes; returns rows of the kernels line.  Also times K4's
+    fp32 (SIMT) instance, its plain version and
+    ``scaled_dot_product_attention`` in fp32 on the same inputs, for a
+    log line."""
+    from repro_torch.launch.time_kernels import (device_ms, peak_bandwidth,
+                                                 peak_for)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     name = torch.cuda.get_device_name(0)
@@ -301,6 +325,30 @@ def check_model_kernels(dev, ops):
                                qt, kt, vt, is_causal=True, enable_gqa=True)),
         nbytes=ops.flash_attention_hbm_bytes(b, h, h, s, hd, 2),
         nflop=ops.flash_attention_flops(b, h, s, hd), peak_flops=peak)
+    # K4's fp32 instance (SIMT, no tensor cores) at the same shape: not
+    # on the serve path (bf16), timed for the record.
+    q, k, v = (randn(b, s, h, hd) for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    nflop = ops.flash_attention_flops(b, h, s, hd)
+    t_ops = nflop / PEAK_FP32_FLOPS * 1e3
+    t_bytes = (ops.flash_attention_hbm_bytes(b, h, h, s, hd, 4) / bw * 1e3
+               if bw else 0.0)
+    fp32_ms = device_ms(lambda: ops.flash_attention(q, k, v, layout="bshd"))
+    fp32_plain = device_ms(lambda: ops.flash_attention_ref(q, k, v,
+                                                           layout="bshd"),
+                           calls=PLAIN_CALLS)
+    fp32_sdpa = device_ms(lambda: torch.nn.functional.
+                          scaled_dot_product_attention(
+                              qt, kt, vt, is_causal=True, enable_gqa=True))
+    fp32_bound = max(t_ops, t_bytes)
+    log(f"  flash_attention fp32 (SIMT instance) ({b}, {h}, {s}, {hd}) "
+        f"causal: ms {fp32_ms:.4f}  plain_ms {fp32_plain:.4f}  "
+        f"library_ms {fp32_sdpa:.4f} (scaled_dot_product_attention fp32)  "
+        f"bound_ms {fp32_bound} "
+        f"({'operations' if t_ops >= t_bytes else 'bytes'} at "
+        f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s fp32, "
+        f"{fp32_bound / fp32_ms:.1%} of it reached)")
+    del q, k, v, qt, kt, vt
 
     # K5 ssd_scan: bf16 states, fp32 decays, bit-exact.
     shape = (SERVE_BATCH, SERVE_PROMPT // 64, 80, 64, 64)
@@ -351,14 +399,16 @@ def check_model_kernels(dev, ops):
 
 
 def kernel_facts(build):
-    """Print what was compiled for the redesigned K4 (bf16) and K5:
-    nvcc's -Xptxas -v lines for each of their instances, and the count
-    of HGMMA (wgmma) instructions in K4's bf16 and fp32 hd = 80
-    instances, from the library's SASS, where cuobjdump is at hand."""
+    """Print what was compiled for the redesigned K1, K3, K4 (bf16) and
+    K5: nvcc's -Xptxas -v lines (registers, spills) for each of their
+    instances, and the count of HGMMA (wgmma) instructions in K4's bf16
+    and fp32 hd = 80 instances, from the library's SASS, where cuobjdump
+    is at hand."""
     lines = build.build_log().splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" not in line or not any(
-                name in line for name in ("flash_attention_tc_kernel",
+                name in line for name in ("trigger_sq_norms", "fused_gss",
+                                          "flash_attention_tc_kernel",
                                           "ssd_scan")):
             continue
         name = line.split("'")[1]
@@ -691,11 +741,12 @@ def main() -> int:
         if launches == 0:
             raise AssertionError(f"{name} was never launched on the path")
         lib = r["library_ms"]
+        warm = f" (cold; warm {r['warm_ms']:.4f})" if "warm_ms" in r else ""
         log(f"{name}: launches {launches} (form A {counts_a[name]}, "
             f"form B {counts_b[name]}, serve {counts_serve[name]}), "
             f"max_abs_err {r['max_abs_err']:.3e}, "
-            f"ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, library_ms "
-            f"{'null' if lib is None else f'{lib:.4f}'}, bound_ms "
+            f"ms {r['ms']:.4f}{warm}, plain_ms {r['plain_ms']:.4f}, "
+            f"library_ms {'null' if lib is None else f'{lib:.4f}'}, bound_ms "
             f"{r['bound_ms']} ({r['bound_by']})")
         kernels.append({
             "name": name, "route": "cuda",

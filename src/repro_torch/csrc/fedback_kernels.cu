@@ -5,27 +5,35 @@
 //        -Xcompiler -fPIC
 // into a shared library with a plain C interface, loaded with ctypes.
 // Every entry point launches on the stream it is given, allocates
-// nothing, and returns cudaGetLastError() so the Python wrapper can
-// raise on a refused launch.  Tensors are fp32, row-major and
-// contiguous; the wrappers check that before passing pointers.
+// nothing, and returns the launch's CUDA error code so the Python
+// wrapper can raise on a refused launch.  Tensors are fp32, row-major
+// and contiguous; the wrappers check that before passing pointers, and
+// compute each launch's geometry (K1's segments, K3's grid and tiles)
+// in Python, where the CPU tests check it.
 //
 // All three kernels move bytes and do almost no arithmetic, so on an
 // H100 (3.35 TB/s HBM3, 67 TFLOP/s fp32) each is bound by memory
-// traffic; the byte counts below are what one call must move.
+// traffic; the byte counts below are what one call must move.  At the
+// paper-MNIST width (D = 159,010) a row is 636,040 bytes, 8 mod 16, so
+// odd rows start 8 bytes off a 16-byte boundary: no TMA tensor map
+// (global strides must be multiples of 16) or bulk copy can describe
+// the (N, D) arrays, and the kernels move them with vector loads, with
+// enough of them in flight to cover the memory's latency.
 //
 // No kernel is compiled with fast math, and the elementwise ones
 // contain no multiply, so nvcc has nothing to contract into an FMA:
 // their outputs are bit-identical to the plain PyTorch versions.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// fused_gss: columns one block covers (4 per thread).
-constexpr int kColsPerBlock = 4 * kThreads;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -40,31 +48,48 @@ __device__ __forceinline__ float warp_sum(float v) {
 //
 // Replaces src/repro/kernels/trigger_norms.py::trigger_sq_norms (Pallas
 // body `_kernel`, which carried the row sum in VMEM scratch across a
-// sequential grid over D).  Bound: N*D*4 + D*4 bytes (63.6 MB at the
+// sequential grid over D).  Bound: N*D*4 + D*4 bytes (64.2 MB at the
 // paper-MNIST width N=100, D=159,010, about 19 us at 3.35 TB/s).
 //
-// Design: one block per client row.  Thread t sums the row-relative
-// groups of 4 elements g = t, t + 256, ..., then the tail elements
-// 4*floor(D/4) + t, so the order of the sum depends only on the row's
-// values and never on where the row lies: identical rows give identical
-// distances, as in the reference, and ties in the compact plan's
-// priority are broken by client index on the card too.  A group is
-// read with one 16-byte float4 load where the row start is 16-byte
-// aligned, else with two 8-byte float2 loads (D = 159,010 is 2 mod 4,
-// so odd rows start 8 bytes off), else with four scalar loads; the
-// arithmetic is the same in all three.  w is shared by all rows and
-// read through the read-only cache.  Each thread keeps one fp32
-// partial; the block reduces them with warp shuffles and a
-// shared-memory pass, in a fixed order, so the result is deterministic.
-// The per-element square-and-add contracts into an FMA (one rounding),
-// so the sum differs from the plain version only by summation order and
-// that rounding.
+// Design: each row is split into S segments (S <= 8, chosen from D
+// alone by the wrapper: 8 at the paper width, so 800 blocks fill the
+// 132 SMs in one wave), and the S blocks of a row form one thread-block
+// cluster.  Segment boundaries fall at row-relative multiples of 4
+// elements: segment r covers the groups of 4 [r*G, min((r+1)*G, D/4)),
+// and the last one also the D mod 4 tail elements.  Thread t of a
+// segment reads the groups g0 + t, g0 + t + 256, ..., 4 groups per
+// step, all loads issued before their multiply-adds, into 4
+// accumulators (one per slot of the step); w is read through the
+// read-only cache (shared by every row: one HBM read, the rest hit L2).
+// z takes plain loads: evict-first (streaming) loads made the pass a
+// third slower at 8 segments on an H100 80GB HBM3 (PERF.md).  A group of z is
+// one 16-byte float4 load where the row start is 16-byte aligned, else
+// two 8-byte float2 loads (at D = 159,010 odd rows start 8 bytes off),
+// else four scalar loads; w is read as float4 where its base is 16-byte
+// aligned (the wrapper checks it and picks the instance), else as
+// scalars.  The arithmetic is the same in every path: one fmaf per
+// element into the step slot's accumulator, the 4 accumulators added as
+// (a0+a1)+(a2+a3), then the tail, then a block reduction (warp
+// shuffles, then one warp over the 8 warp sums), each in a fixed
+// order.  Each block leaves its segment's sum in its own shared memory;
+// after a cluster barrier the cluster's rank-0 block reads the S sums
+// through distributed shared memory in rank order, adds them in that
+// order and writes out[row]; a second barrier keeps the peers resident
+// until it has read.  So a row's result depends only on its values and D
+// -- not on its address, its alignment, N, or the order in which blocks
+// run -- and identical rows give bit-equal distances, as the compact
+// plan's ties need.  The sum differs from the plain version's only by
+// its order and the FMA's single rounding.
 //
-// Known limit: one block per row gives only N blocks; at N=100 that is
-// fewer than the 132 SMs, so the pass cannot reach the card's bandwidth.
-// Splitting D across blocks with a second reduction pass is the fix.
+// What bounds it: HBM bandwidth over the z stream.  Every SM holds about
+// six blocks of 256 threads, each thread with 64 bytes of z (and 64 of
+// w) in flight, above the ~20 KB per SM that Little's law asks for at
+// 3.35 TB/s.  A variant that never read w was no faster, so the L2
+// traffic of w does not bound it.
+constexpr int kTrigSteps = 4;  // groups of 4 per thread in flight
+
 template <int kVec>
-__device__ __forceinline__ float4 load_group(const float* zr, int64_t g) {
+__device__ __forceinline__ float4 load_z_group(const float* zr, int64_t g) {
   if (kVec == 4) return reinterpret_cast<const float4*>(zr)[g];
   if (kVec == 2) {
     const float2* p = reinterpret_cast<const float2*>(zr) + 2 * g;
@@ -76,54 +101,102 @@ __device__ __forceinline__ float4 load_group(const float* zr, int64_t g) {
 }
 
 template <int kVec>
-__device__ __forceinline__ float row_partial(const float* __restrict__ zr,
-                                             const float* __restrict__ w,
-                                             int64_t d) {
-  const int64_t ngroups = d / 4;
-  float acc = 0.f;
-  for (int64_t g = threadIdx.x; g < ngroups; g += kThreads) {
-    const float4 a = load_group<kVec>(zr, g);
-    const float* wp = w + 4 * g;
-    const float t0 = a.x - __ldg(wp);
-    const float t1 = a.y - __ldg(wp + 1);
-    const float t2 = a.z - __ldg(wp + 2);
-    const float t3 = a.w - __ldg(wp + 3);
-    acc += t0 * t0;
-    acc += t1 * t1;
-    acc += t2 * t2;
-    acc += t3 * t3;
-  }
-  for (int64_t j = 4 * ngroups + threadIdx.x; j < d; j += kThreads) {
-    const float t = zr[j] - __ldg(w + j);
-    acc += t * t;
-  }
-  return acc;
+__device__ __forceinline__ float4 load_w_group(const float* w, int64_t g) {
+  if (kVec == 4) return __ldg(reinterpret_cast<const float4*>(w) + g);
+  const float* p = w + 4 * g;
+  return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
 }
 
+__device__ __forceinline__ float add_squares(float acc, float4 a, float4 b) {
+  float t = a.x - b.x;
+  acc = fmaf(t, t, acc);
+  t = a.y - b.y;
+  acc = fmaf(t, t, acc);
+  t = a.z - b.z;
+  acc = fmaf(t, t, acc);
+  t = a.w - b.w;
+  return fmaf(t, t, acc);
+}
+
+// This thread's part of the groups [g0, g1) of one row.  A slot past g1
+// adds (0 - 0)^2 = +0 to a non-negative sum, which leaves it unchanged.
+template <int kVecZ, int kVecW>
+__device__ __forceinline__ float segment_partial(const float* __restrict__ zr,
+                                                 const float* __restrict__ w,
+                                                 int64_t g0, int64_t g1) {
+  float acc[kTrigSteps];
+#pragma unroll
+  for (int u = 0; u < kTrigSteps; ++u) acc[u] = 0.f;
+  for (int64_t g = g0 + threadIdx.x; g < g1; g += kTrigSteps * kThreads) {
+    float4 a[kTrigSteps], b[kTrigSteps];
+#pragma unroll
+    for (int u = 0; u < kTrigSteps; ++u) {
+      const int64_t gg = g + u * kThreads;
+      if (gg < g1) {
+        a[u] = load_z_group<kVecZ>(zr, gg);
+        b[u] = load_w_group<kVecW>(w, gg);
+      } else {
+        a[u] = b[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kTrigSteps; ++u) {
+      acc[u] = add_squares(acc[u], a[u], b[u]);
+    }
+  }
+  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+}
+
+// Grid: N * S blocks in clusters of S (cluster r of the grid is row r).
+template <int kVecW>
 __global__ void __launch_bounds__(kThreads)
 trigger_sq_norms_kernel(const float* __restrict__ z,
                         const float* __restrict__ w,
-                        float* __restrict__ out, int64_t d) {
-  const float* zr = z + static_cast<int64_t>(blockIdx.x) * d;
+                        float* __restrict__ out, int64_t d,
+                        int64_t seg_groups) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const unsigned nseg = cluster.num_blocks();
+  const int64_t row = blockIdx.x / nseg;
+  const float* zr = z + row * d;
+  const int64_t ngroups = d / 4;
+  const int64_t g0 = min(static_cast<int64_t>(rank) * seg_groups, ngroups);
+  const int64_t g1 = min(g0 + seg_groups, ngroups);
   const uintptr_t addr = reinterpret_cast<uintptr_t>(zr);
   float acc;
   if ((addr & 15u) == 0) {
-    acc = row_partial<4>(zr, w, d);
+    acc = segment_partial<4, kVecW>(zr, w, g0, g1);
   } else if ((addr & 7u) == 0) {
-    acc = row_partial<2>(zr, w, d);
+    acc = segment_partial<2, kVecW>(zr, w, g0, g1);
   } else {
-    acc = row_partial<1>(zr, w, d);
+    acc = segment_partial<1, kVecW>(zr, w, g0, g1);
+  }
+  if (rank == nseg - 1) {
+    for (int64_t j = 4 * ngroups + threadIdx.x; j < d; j += kThreads) {
+      const float t = zr[j] - __ldg(w + j);
+      acc = fmaf(t, t, acc);
+    }
   }
 
   __shared__ float partial[kWarps];
+  __shared__ float seg_sum;
   acc = warp_sum(acc);
   if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = acc;
   __syncthreads();
   if (threadIdx.x < 32) {
     float v = threadIdx.x < kWarps ? partial[threadIdx.x] : 0.f;
     v = warp_sum(v);
-    if (threadIdx.x == 0) out[blockIdx.x] = v;
+    if (threadIdx.x == 0) seg_sum = v;
   }
+  cluster.sync();  // every segment's sum is in its block's shared memory
+  if (rank == 0 && threadIdx.x == 0) {
+    float v = 0.f;
+    for (unsigned r = 0; r < nseg; ++r) {
+      v += *cluster.map_shared_rank(&seg_sum, r);
+    }
+    out[row] = v;
+  }
+  cluster.sync();  // peers stay resident until rank 0 has read them
 }
 
 // ---------------------------------------------------------------------
@@ -168,41 +241,155 @@ admm_update_kernel(const float* __restrict__ th,
 // `_fused_gss3` / `_fused_gss2`, which gathered rows through
 // scalar-prefetch BlockSpec index maps and wrote back through aliased
 // outputs).  Bound: for V valid slots, reads theta/lam rows and the
-// solved row, writes theta/lam (+z) rows: 6*V*D*4 bytes with z (5 without)
-// plus w, 61 MB at V=16, D=159,010 (about 18 us at 3.35 TB/s).  Unlike
-// the Pallas kernel, an invalid slot neither reads nor writes anything,
-// so z_prev is never read.
+// solved row, writes theta/lam (+z) rows: 6*V*D*4 bytes with z (5
+// without) plus w, 54.1 MB at V = 14 valid of C = 16, D = 159,010
+// (about 16.1 us at 3.35 TB/s).  An invalid slot neither reads nor
+// writes anything and z_prev is never read, so this is 6 streams; the
+// Pallas kernel's count is 7 (it reads z_prev for its masked
+// write-back), which is not this kernel's.
 //
-// Design: grid (ceil(D / 1024), C); each block reads idx[i] and valid[i]
-// itself, returns at once for an invalid slot (or an out-of-range row),
-// and otherwise updates up to 1024 columns of the row, 4 per thread with
-// neighbouring threads on neighbouring addresses.  Plan indices are
-// distinct, so no two blocks write the same element.
-template <bool kWithZ>
+// Design: a grid sized to the card by the wrapper (16 blocks of 256
+// threads per SM, two waves of the 8 an SM holds) strides over tiles t
+// = slot * T + chunk, T = ceil(D / 1024): block b takes tiles b, b + G,
+// b + 2G, ..., two per step, and issues the loads of both tiles (theta,
+// lam, solved, w) before their stores.  At the paper width a block has 1
+// or 2 tiles: with 4 blocks per SM, each striding over ~5 tiles, the
+// blocks left with a third step made a tail that cost 9% on an H100
+// 80GB HBM3 (PERF.md); for larger C * D the blocks stride further.  A
+// tile reads valid[slot] and idx[slot] (one byte and one int) and is
+// skipped when the slot is invalid or its row lies outside [0, N);
+// blocks are not tied to slots, so an invalid slot adds no blocks that
+// launch only to exit, and the plan needs no host-side compaction.  A
+// tile covers 1024 columns, 4 per thread: as two float2 per stream
+// where D is even and every base is 8-byte aligned (so every row is),
+// else as four scalars; the wrapper picks the instance per launch and
+// the arithmetic is the same.  solved (read once) and z (written once)
+// take streaming hints (plain accesses timed the same on the
+// H100).  Plan indices are distinct, so no two threads write one
+// element.
+constexpr int kGssColsPerThread = 4;
+constexpr int kGssTileCols = kGssColsPerThread * kThreads;  // 1024
+constexpr int kGssTilesPerStep = 2;
+
+enum Access { kPlain, kStream, kReadOnly };
+
+template <Access kAcc>
+__device__ __forceinline__ float2 load2(const float* p) {
+  const float2* q = reinterpret_cast<const float2*>(p);
+  if (kAcc == kStream) return __ldcs(q);
+  if (kAcc == kReadOnly) return __ldg(q);
+  return *q;
+}
+
+template <Access kAcc>
+__device__ __forceinline__ float load1(const float* p) {
+  if (kAcc == kStream) return __ldcs(p);
+  if (kAcc == kReadOnly) return __ldg(p);
+  return *p;
+}
+
+// Column of this thread's k-th element (k < 4) in the tile at column
+// j0: float2 pairs 2*(u*256 + t) for u = 0, 1, or scalars u*256 + t.
+template <int kVec>
+__device__ __forceinline__ int64_t gss_col(int64_t j0, int k) {
+  return kVec == 2 ? j0 + 2 * ((k >> 1) * kThreads + threadIdx.x) + (k & 1)
+                   : j0 + k * kThreads + threadIdx.x;
+}
+
+template <int kVec, Access kAcc>
+__device__ __forceinline__ void load_tile(const float* row, int64_t j0,
+                                          int64_t d, bool on,
+                                          float (&v)[kGssColsPerThread]) {
+#pragma unroll
+  for (int k = 0; k < kGssColsPerThread; k += kVec) {
+    const int64_t j = gss_col<kVec>(j0, k);
+    if (on && j < d) {
+      if (kVec == 2) {
+        const float2 x = load2<kAcc>(row + j);
+        v[k] = x.x;
+        v[k + 1] = x.y;
+      } else {
+        v[k] = load1<kAcc>(row + j);
+      }
+    } else {
+      v[k] = 0.f;
+      if (kVec == 2) v[k + 1] = 0.f;
+    }
+  }
+}
+
+template <int kVec, bool kStreaming>
+__device__ __forceinline__ void store_tile(
+    float* row, int64_t j0, int64_t d, bool on,
+    const float (&v)[kGssColsPerThread]) {
+#pragma unroll
+  for (int k = 0; k < kGssColsPerThread; k += kVec) {
+    const int64_t j = gss_col<kVec>(j0, k);
+    if (on && j < d) {
+      if (kVec == 2) {
+        float2* q = reinterpret_cast<float2*>(row + j);
+        const float2 x = make_float2(v[k], v[k + 1]);
+        if (kStreaming) {
+          __stcs(q, x);
+        } else {
+          *q = x;
+        }
+      } else if (kStreaming) {
+        __stcs(row + j, v[k]);
+      } else {
+        row[j] = v[k];
+      }
+    }
+  }
+}
+
+template <bool kWithZ, int kVec>
 __global__ void __launch_bounds__(kThreads)
 fused_gss_kernel(const int32_t* __restrict__ idx,
                  const bool* __restrict__ valid,
                  const float* __restrict__ solved,
                  const float* __restrict__ w, float* __restrict__ th,
-                 float* __restrict__ la, float* __restrict__ z, int64_t n,
-                 int64_t d) {
-  const int64_t slot = blockIdx.y;
-  if (!valid[slot]) return;
-  const int64_t row = idx[slot];
-  if (row < 0 || row >= n) return;
-  float* thr = th + row * d;
-  float* lar = la + row * d;
-  const float* sr = solved + slot * d;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kColsPerBlock;
+                 float* __restrict__ la, float* __restrict__ z, int64_t c,
+                 int64_t n, int64_t d, int64_t tiles_per_slot) {
+  constexpr int S = kGssTilesPerStep;
+  const int64_t tiles = c * tiles_per_slot;
+  const int64_t grid = gridDim.x;
+  for (int64_t t0 = blockIdx.x; t0 < tiles; t0 += S * grid) {
+    bool on[S];
+    int64_t slot[S], row[S], j0[S];
+    float thv[S][kGssColsPerThread], lav[S][kGssColsPerThread];
+    float sv[S][kGssColsPerThread], wv[S][kGssColsPerThread];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int64_t j = base + k * kThreads + threadIdx.x;
-    if (j < d) {
-      const float lam_new = (lar[j] + thr[j]) - __ldg(w + j);
-      const float s = sr[j];
-      thr[j] = s;
-      lar[j] = lam_new;
-      if (kWithZ) z[row * d + j] = s + lam_new;
+    for (int i = 0; i < S; ++i) {
+      const int64_t t = t0 + i * grid;
+      on[i] = false;
+      slot[i] = row[i] = j0[i] = 0;
+      if (t < tiles) {
+        slot[i] = t / tiles_per_slot;
+        j0[i] = (t - slot[i] * tiles_per_slot) * kGssTileCols;
+        if (valid[slot[i]]) {
+          row[i] = idx[slot[i]];
+          on[i] = row[i] >= 0 && row[i] < n;
+        }
+      }
+      if (!on[i]) row[i] = 0;
+      load_tile<kVec, kPlain>(th + row[i] * d, j0[i], d, on[i], thv[i]);
+      load_tile<kVec, kPlain>(la + row[i] * d, j0[i], d, on[i], lav[i]);
+      load_tile<kVec, kStream>(solved + slot[i] * d, j0[i], d, on[i], sv[i]);
+      load_tile<kVec, kReadOnly>(w, j0[i], d, on[i], wv[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      float zv[kGssColsPerThread];
+#pragma unroll
+      for (int k = 0; k < kGssColsPerThread; ++k) {
+        const float lam_new = (lav[i][k] + thv[i][k]) - wv[i][k];
+        lav[i][k] = lam_new;
+        zv[k] = sv[i][k] + lam_new;
+      }
+      store_tile<kVec, false>(th + row[i] * d, j0[i], d, on[i], sv[i]);
+      store_tile<kVec, false>(la + row[i] * d, j0[i], d, on[i], lav[i]);
+      if (kWithZ) store_tile<kVec, true>(z + row[i] * d, j0[i], d, on[i], zv);
     }
   }
 }
@@ -219,10 +406,29 @@ int grid_for(int64_t total) {
 
 extern "C" {
 
+// z: (n, d); one cluster of `segs` blocks per row, each summing
+// `seg_groups` groups of 4; w_vec 4 where w is 16-byte aligned, else 1.
 int fb_trigger_sq_norms(const float* z, const float* w, float* out,
-                        int64_t n, int64_t d, void* stream) {
-  trigger_sq_norms_kernel<<<static_cast<unsigned>(n), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(z, w, out, d);
+                        int64_t n, int64_t d, int segs, int64_t seg_groups,
+                        int w_vec, void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n * segs));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(segs);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      w_vec == 4 ? cudaLaunchKernelEx(&cfg, trigger_sq_norms_kernel<4>, z, w,
+                                      out, d, seg_groups)
+                 : cudaLaunchKernelEx(&cfg, trigger_sq_norms_kernel<1>, z, w,
+                                      out, d, seg_groups);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -252,19 +458,26 @@ int fb_admm_update(const float* th, const float* la, const float* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `grid` blocks stride over c * tiles_per_slot tiles of 1024 columns;
+// vec 2 (float2) where d is even and every base is 8-byte aligned, else 1.
 int fb_fused_gss(const int32_t* idx, const bool* valid, const float* solved,
                  const float* w, float* th, float* la, float* z, int64_t c,
-                 int64_t n, int64_t d, int with_z, void* stream) {
-  const dim3 grid(static_cast<unsigned>((d + kColsPerBlock - 1) /
-                                        kColsPerBlock),
-                  static_cast<unsigned>(c));
+                 int64_t n, int64_t d, int grid, int64_t tiles_per_slot,
+                 int vec, int with_z, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (with_z) {
-    fused_gss_kernel<true><<<grid, kThreads, 0, s>>>(idx, valid, solved, w,
-                                                     th, la, z, n, d);
+  const unsigned g = static_cast<unsigned>(grid);
+  if (with_z && vec == 2) {
+    fused_gss_kernel<true, 2><<<g, kThreads, 0, s>>>(
+        idx, valid, solved, w, th, la, z, c, n, d, tiles_per_slot);
+  } else if (with_z) {
+    fused_gss_kernel<true, 1><<<g, kThreads, 0, s>>>(
+        idx, valid, solved, w, th, la, z, c, n, d, tiles_per_slot);
+  } else if (vec == 2) {
+    fused_gss_kernel<false, 2><<<g, kThreads, 0, s>>>(
+        idx, valid, solved, w, th, la, z, c, n, d, tiles_per_slot);
   } else {
-    fused_gss_kernel<false><<<grid, kThreads, 0, s>>>(idx, valid, solved, w,
-                                                      th, la, z, n, d);
+    fused_gss_kernel<false, 1><<<g, kThreads, 0, s>>>(
+        idx, valid, solved, w, th, la, z, c, n, d, tiles_per_slot);
   }
   return static_cast<int>(cudaGetLastError());
 }

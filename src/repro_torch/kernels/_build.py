@@ -108,10 +108,11 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.fb_trigger_sq_norms.argtypes = [p, p, p, i64, i64, p]
+        lib.fb_trigger_sq_norms.argtypes = [p, p, p, i64, i64, i32, i64,
+                                            i32, p]
         lib.fb_admm_update.argtypes = [p, p, p, p, p, p, i64, i64, i32, p]
         lib.fb_fused_gss.argtypes = [p, p, p, p, p, p, p, i64, i64, i64,
-                                     i32, p]
+                                     i32, i64, i32, i32, p]
         lib.mk_flash_attention.argtypes = ([p] * 4 + [i64] * 12 + [i64] * 5
                                            + [i32] * 3
                                            + [ctypes.c_float, p])

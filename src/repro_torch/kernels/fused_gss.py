@@ -15,15 +15,62 @@ are: they are a prefix of a permutation).  Callers that need the old
 state clone it first.
 
 The CUDA kernel (``csrc/fedback_kernels.cu::fused_gss_kernel``) runs a
-(⌈D/1024⌉, C) grid whose blocks read their slot's index and mask
-themselves; see the source note for its bound.
+grid sized to the card (:func:`fused_gss_geometry`) whose blocks stride
+over (slot, 1024-column) tiles, two at a time, each tile reading its
+slot's index and mask itself and skipping an invalid slot; rows move as
+float2 where D is even and every base is 8-byte aligned
+(:func:`check_kernel_args`), else as scalars.  See the source note for
+its bound.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ._build import check_launch, load_library
 from ._checks import check_f32, is_cpu, stream_ptr
+
+
+TILE_COLS = 1024  # columns of a tile: 4 for each of the kernel's 256 threads
+# Two waves of the 8 blocks of 256 threads an SM holds: at the round's
+# width (C = 16, D = 159,010) each block gets 1 or 2 tiles, which ran
+# 9% faster than 4 blocks per SM striding over ~5 on an H100 (PERF.md).
+BLOCKS_PER_SM = 16
+MAX_TILES = 2**31 - 1
+
+
+def fused_gss_geometry(c: int, d: int, sms: int) -> tuple[int, int]:
+    """(grid, T): C·T tiles of ``TILE_COLS`` columns, tile t = slot·T +
+    chunk covering columns [chunk·TILE_COLS, (chunk+1)·TILE_COLS) ∩
+    [0, d) of its slot; block b of the grid takes the tiles b, b + grid,
+    b + 2·grid, ...  The grid is ``BLOCKS_PER_SM`` blocks per SM, or one
+    per tile where there are fewer tiles."""
+    if c < 1 or d < 1 or sms < 1:
+        raise ValueError(f"c, d and sms must be >= 1, got {(c, d, sms)}")
+    tiles_per_slot = -(-d // TILE_COLS)
+    if c * tiles_per_slot > MAX_TILES:
+        raise ValueError(f"{c} slots × {tiles_per_slot} tiles exceed "
+                         f"{MAX_TILES} tiles")
+    return min(c * tiles_per_slot, sms * BLOCKS_PER_SM), tiles_per_slot
+
+
+def check_kernel_args(c: int, d: int, sms: int,
+                      ptrs: tuple[int, ...]) -> tuple[int, int, int]:
+    """The launch of the CUDA kernel for C slots of rows of ``d``
+    elements on a card of ``sms`` SMs, with its fp32 arrays (solved, ω,
+    θ, λ and z_prev if present) at ``ptrs``: (grid, T, vector width —
+    2 where d is even and every base is 8-byte aligned, so every row
+    is, else 1).  Raises ValueError on what it does not take.  It needs
+    no card."""
+    grid, tiles_per_slot = fused_gss_geometry(c, d, sms)
+    vec = 2 if d % 2 == 0 and all(p % 8 == 0 for p in ptrs) else 1
+    return grid, tiles_per_slot, vec
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def fused_gss_hbm_bytes(rows: int, dim: int, *, with_z: bool = True,
@@ -83,18 +130,19 @@ def fused_gss(idx, valid, solved, omega, theta, lam, z_prev=None, *,
                         f"{tuple(valid.shape)}")
     if not (idx.is_contiguous() and valid.is_contiguous()):
         raise ValueError("idx and valid must be contiguous")
-    if c > 65535:
-        raise ValueError(f"at most 65535 slots per launch, got {c}")
     check_f32("solved", solved, (c, d))
     check_f32("omega", omega, (d,))
     for name, t in zip(("theta", "lam", "z_prev"), state, strict=False):
         check_f32(name, t, (n, d))
     if c and d:
+        grid, tiles_per_slot, vec = check_kernel_args(
+            c, d, _sm_count(theta.device),
+            tuple(t.data_ptr() for t in (solved, omega) + state))
         rc = load_library().fb_fused_gss(
             idx.data_ptr(), valid.data_ptr(), solved.data_ptr(),
             omega.data_ptr(), theta.data_ptr(), lam.data_ptr(),
-            z_prev.data_ptr() if with_z else None, c, n, d, int(with_z),
-            stream_ptr(theta))
+            z_prev.data_ptr() if with_z else None, c, n, d, grid,
+            tiles_per_slot, vec, int(with_z), stream_ptr(theta))
         check_launch("fused_gss", rc)
         fused_gss.launches += 1
     return state

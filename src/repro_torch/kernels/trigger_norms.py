@@ -2,11 +2,13 @@
 
 Replaces ``src/repro/kernels/trigger_norms.py::trigger_sq_norms`` (the
 Pallas body ``_kernel``).  The CUDA kernel
-(``csrc/fedback_kernels.cu::trigger_sq_norms_kernel``) runs one block
-per client row, summing groups of 4 in an order that depends only on
-the row's values (identical rows give bit-equal sums, whatever their
-alignment), with an fp32 block reduction; see the source note for its
-bound and its known limit.  It masks the ragged edge of D itself
+(``csrc/fedback_kernels.cu::trigger_sq_norms_kernel``) splits each
+client row into S segments (:func:`trigger_segments`, from D alone),
+summed by the S blocks of one thread-block cluster and added in rank
+order through distributed shared memory, in one launch.  The order of
+the sum depends only on the row's values and D (identical rows give
+bit-equal sums, whatever their alignment, N or block order); see the
+source note for its bound.  It masks the ragged edge of D itself
 instead of padding to TPU tiles.
 
 The caller takes the square root (``core/fedback.py``).
@@ -17,6 +19,38 @@ import torch
 
 from ._build import check_launch, load_library
 from ._checks import check_f32, is_cpu, stream_ptr
+
+
+MAX_SEGMENTS = 8  # a thread-block cluster's portable maximum size
+SEGMENT_MIN_GROUPS = 2048  # groups of 4 a segment takes before a row splits
+MAX_BLOCKS = 2**31 - 1  # the grid's x dimension
+
+
+def trigger_segments(d: int) -> tuple[int, int]:
+    """(S, G) for rows of ``d`` elements: cluster block r sums the groups
+    of 4 elements [r·G, min((r+1)·G, d // 4)) of its row, and block S−1
+    also the d mod 4 tail elements.  S and G depend on d alone, so a
+    row's sum does too."""
+    if d < 1:
+        raise ValueError(f"d must be >= 1, got {d}")
+    groups = d // 4
+    segs = max(1, min(MAX_SEGMENTS, -(-groups // SEGMENT_MIN_GROUPS)))
+    return segs, -(-groups // segs)
+
+
+def check_kernel_args(n: int, d: int, omega_ptr: int) -> tuple[int, int,
+                                                                int]:
+    """The launch of the CUDA kernel for an (n, d) z_prev and ω at
+    ``omega_ptr``: (S, G, ω's vector width — 4 where ω starts on a
+    16-byte boundary, else 1).  Raises ValueError on what it does not
+    take.  It needs no card."""
+    if n < 1:
+        raise ValueError(f"n must be >= 1, got {n}")
+    segs, seg_groups = trigger_segments(d)
+    if n * segs > MAX_BLOCKS:
+        raise ValueError(f"{n} rows × {segs} segments exceed the grid's "
+                         f"{MAX_BLOCKS} blocks")
+    return segs, seg_groups, 4 if omega_ptr % 16 == 0 else 1
 
 
 def trigger_sq_norms_hbm_bytes(rows: int, dim: int) -> int:
@@ -48,9 +82,10 @@ def trigger_sq_norms(z_prev: torch.Tensor,
         return out
     if d == 0:
         return out.zero_()
+    segs, seg_groups, w_vec = check_kernel_args(n, d, omega.data_ptr())
     rc = load_library().fb_trigger_sq_norms(
-        z_prev.data_ptr(), omega.data_ptr(), out.data_ptr(), n, d,
-        stream_ptr(z_prev))
+        z_prev.data_ptr(), omega.data_ptr(), out.data_ptr(), n, d, segs,
+        seg_groups, w_vec, stream_ptr(z_prev))
     check_launch("trigger_sq_norms", rc)
     trigger_sq_norms.launches += 1
     return out

@@ -1,8 +1,20 @@
-"""Device time of the zamba2-2.7b prefill's kernels at their serve shapes:
-K4 ``flash_attention`` at (4, 2048, 32, 80) bf16 causal in the model's
-(B, S, H, hd) layout, with ``scaled_dot_product_attention`` on the same
-inputs beside it, and K5 ``ssd_scan`` at states (4, 32, 80, 64, 64)
-bf16.  ``chip_smoke.py`` times every kernel with :func:`device_ms`; this
+"""Device time of the port's kernels at their main paths' shapes.
+
+- The FedBack round's K1 ``trigger_sq_norms`` at (100, 159010), K2
+  ``admm_update`` (with_z=False, as the dense round calls it) at the
+  same width and K3 ``fused_gss`` with C = 16 slots of which 14 are
+  valid, each timed two ways: **warm**, :func:`device_ms` on one set of
+  inputs (K3's 36 MB footprint then sits in the H100's 50 MB L2), and
+  **cold**, the captured calls rotating over ``COLD_COPIES`` sets of
+  inputs, so that no call finds its rows in L2, as in the round, where
+  the solve runs between the gather and the commit.  Beside each, the
+  bytes it must move and that over the card's HBM rate (the bound).
+- The zamba2-2.7b prefill's K4 ``flash_attention`` at (4, 2048, 32, 80)
+  bf16 causal in the model's (B, S, H, hd) layout, with
+  ``scaled_dot_product_attention`` on the same inputs beside it, and K5
+  ``ssd_scan`` at states (4, 32, 80, 64, 64) bf16.
+
+``chip_smoke.py`` times every kernel with :func:`device_ms`; this
 script applies the same measure to another checkout, so two commits are
 compared on one card in one call::
 
@@ -16,6 +28,8 @@ unpacked with ``git archive``.  Prints one JSON line.  Needs a card.
 from __future__ import annotations
 
 import argparse
+import functools
+import itertools
 import json
 import statistics
 import subprocess
@@ -23,6 +37,26 @@ import sys
 from pathlib import Path
 
 import torch
+
+# Peak HBM bandwidth by card name (NVIDIA data sheets), for bound_ms.
+PEAK_BYTES_PER_S = (("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
+                    ("H100", 3.35e12), ("H200", 4.8e12))
+# The FedBack round at the paper-MNIST width: clients, D, slots, valid.
+ROUND_N, ROUND_D, ROUND_C, ROUND_VALID = 100, 159010, 16, 14
+# Input sets the cold measure rotates over: 4 × K3's 36 MB footprint
+# (4 × 64 MB for K1) between two calls on one set, beyond the 50 MB L2.
+COLD_COPIES = 4
+
+
+def peak_for(table, name: str):
+    for key, value in table:
+        if key in name:
+            return value
+    return None
+
+
+def peak_bandwidth(name: str):
+    return peak_for(PEAK_BYTES_PER_S, name)
 
 
 def device_ms(fn, calls: int = 20, reps: int = 7) -> float:
@@ -51,6 +85,47 @@ def device_ms(fn, calls: int = 20, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+def cycle(calls):
+    """One closure that makes the next of ``calls`` each time, round and
+    round: captured by :func:`device_ms`, the graph's launches rotate
+    over the inputs the calls close over."""
+    it = itertools.cycle(calls)
+    return lambda: next(it)()
+
+
+def round_kernel_ms(ops, dev, gen) -> dict:
+    """{name: {"warm", "cold", "bytes", "bound_ms"}} for K1, K2 and K3 at
+    the round's shapes, over ``COLD_COPIES`` sets of inputs made from
+    ``gen`` (bound_ms None on a card the table does not name)."""
+    n, d, c = ROUND_N, ROUND_D, ROUND_C
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    calls = {"trigger_sq_norms": [], "admm_update": [], "fused_gss": []}
+    valid = torch.arange(c, device=dev) < ROUND_VALID
+    for _ in range(COLD_COPIES):
+        z, w = randn(n, d), randn(d)
+        calls["trigger_sq_norms"].append(
+            functools.partial(ops.trigger_sq_norms, z, w))
+        th, la = randn(n, d), randn(n, d)
+        calls["admm_update"].append(
+            functools.partial(ops.admm_update, th, la, w, with_z=False))
+        idx = torch.randperm(n, generator=gen, device=dev)[:c].to(
+            torch.int32)
+        state = (randn(n, d), randn(n, d), randn(n, d))
+        calls["fused_gss"].append(functools.partial(
+            ops.fused_gss, idx, valid, randn(c, d), w, *state))
+    nbytes = {"trigger_sq_norms": ops.trigger_sq_norms_hbm_bytes(n, d),
+              "admm_update": ops.admm_update_hbm_bytes(n, d, with_z=False),
+              "fused_gss": ops.fused_gss_hbm_bytes(ROUND_VALID, d) + 5 * c}
+    bw = peak_bandwidth(torch.cuda.get_device_name(dev))
+    return {name: dict(warm=device_ms(fns[0]), cold=device_ms(cycle(fns)),
+                       bytes=nbytes[name],
+                       bound_ms=nbytes[name] / bw * 1e3 if bw else None)
+            for name, fns in calls.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", type=Path,
@@ -77,6 +152,7 @@ def main(argv=None) -> int:
     states = torch.randn((4, 32, 80, 64, 64), generator=gen,
                          device=dev).to(torch.bfloat16)
     decays = torch.rand((4, 32, 80), generator=gen, device=dev)
+    rounds = round_kernel_ms(ops, dev, gen)
     ms = {
         "flash_attention": device_ms(
             lambda: ops.flash_attention(q, k, v, layout="bshd")),
@@ -85,8 +161,8 @@ def main(argv=None) -> int:
                 qt, kt, vt, is_causal=True, enable_gqa=True)),
         "ssd_scan": device_ms(lambda: ops.ssd_scan(states, decays)),
     }
-    print(json.dumps({"src": str(src), "card": smi, "device_ms": ms}),
-          flush=True)
+    print(json.dumps({"src": str(src), "card": smi, "device_ms": ms,
+                      "round_kernels": rounds}), flush=True)
     return 0
 
 

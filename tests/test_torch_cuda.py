@@ -56,6 +56,53 @@ def test_trigger_kernel_sums_identical_rows_identically(dev, d):
     assert torch.equal(got_shifted, got)
 
 
+# D spanning several segments, with a ragged last segment and a tail
+# that is not a multiple of 4: the paper width, 8·4096 + 6, and 1001.
+SEGMENT_DIMS = [159010, 8 * 4096 + 6, 1001]
+
+
+@pytest.mark.parametrize("d", SEGMENT_DIMS)
+def test_trigger_kernel_segments(dev, d):
+    rng = np.random.default_rng(d)
+    z, w = _mk(rng, 3, d), _mk(rng, d)
+    got = ops.trigger_sq_norms(z.to(dev), w.to(dev))
+    torch.testing.assert_close(got.cpu(), ops.trigger_sq_norms_ref(z, w),
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("d", SEGMENT_DIMS)
+def test_trigger_kernel_same_row_same_bits(dev, d):
+    """One row's distance depends on its values and D alone: at N = 1,
+    at N = 100, at a 4-byte-offset view and with ω off a 16-byte
+    boundary it is the same float."""
+    rng = np.random.default_rng(d + 1)
+    row, w = _mk(rng, d).to(dev), _mk(rng, d).to(dev)
+    z = row[None].repeat(100, 1)
+    got = ops.trigger_sq_norms(z, w)
+    assert torch.equal(got, got[:1].expand(100))
+    one = ops.trigger_sq_norms(row[None].contiguous(), w)
+    flat = torch.empty(100 * d + 1, device=dev)
+    flat[1:] = z.reshape(-1)
+    shifted = ops.trigger_sq_norms(flat[1:].view(100, d), w)
+    w_flat = torch.empty(d + 1, device=dev)
+    w_flat[1:] = w
+    assert w_flat[1:].data_ptr() % 16
+    w_off = ops.trigger_sq_norms(z, w_flat[1:])
+    assert torch.equal(one, got[:1])
+    assert torch.equal(shifted, got)
+    assert torch.equal(w_off, got)
+
+
+@pytest.mark.parametrize("d", [130, 1001, 159010])
+def test_trigger_kernel_misaligned_omega(dev, d):
+    rng = np.random.default_rng(d + 2)
+    z, w = _mk(rng, 5, d), _mk(rng, d)
+    w_flat = torch.cat([torch.zeros(1), w]).to(dev)
+    got = ops.trigger_sq_norms(z.to(dev), w_flat[1:])
+    torch.testing.assert_close(got.cpu(), ops.trigger_sq_norms_ref(z, w),
+                               rtol=1e-5, atol=0)
+
+
 @pytest.mark.parametrize("with_z", [True, False])
 @pytest.mark.parametrize("n,d", [(1, 130), (9, 1001)])
 def test_admm_kernel_bit_exact(dev, with_z, n, d):
@@ -79,6 +126,54 @@ def test_fused_gss_kernel_bit_exact(dev, with_z):
                              z.clone(), with_z=with_z)
     got = ops.fused_gss(idx.to(dev), valid.to(dev), s.to(dev), w.to(dev),
                         th.to(dev), la.to(dev), z.to(dev), with_z=with_z)
+    for g, x in zip(got, want, strict=True):
+        assert torch.equal(g.cpu(), x)
+
+
+@pytest.mark.parametrize("with_z", [True, False])
+@pytest.mark.parametrize("n,c,d,invalid", [
+    (100, 16, 159010, (0, 15)),   # the round, first and last slot invalid
+    (100, 1, 159010, ()),         # C = 1
+    (100, 7, 159010, (3,)),       # C not a divisor of the block count
+    (100, 16, 159011, (0, 15)),   # odd D: the 4-byte path
+    (20, 5, 1001, (4,))])
+def test_fused_gss_kernel_geometry_bit_exact(dev, with_z, n, c, d, invalid):
+    """Bit-exact against the plain version over the whole state: rows
+    outside the plan and the rows of invalid slots keep their bytes."""
+    rng = np.random.default_rng(c + d)
+    th, la, z, w, s = (_mk(rng, n, d), _mk(rng, n, d), _mk(rng, n, d),
+                       _mk(rng, d), _mk(rng, c, d))
+    idx = torch.from_numpy(rng.permutation(n)[:c].astype(np.int32))
+    valid = torch.ones(c, dtype=torch.bool)
+    valid[list(invalid)] = False
+    want = ops.fused_gss_ref(idx, valid, s, w, th.clone(), la.clone(),
+                             z.clone(), with_z=with_z)
+    got = ops.fused_gss(idx.to(dev), valid.to(dev), s.to(dev), w.to(dev),
+                        th.to(dev), la.to(dev), z.to(dev), with_z=with_z)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want, strict=True):
+        assert torch.equal(g.cpu(), x)
+    untouched = np.setdiff1d(np.arange(n), idx[valid].numpy())
+    for g, before in zip(got, (th, la, z), strict=False):
+        assert torch.equal(g.cpu()[untouched].view(torch.int32),
+                           before[untouched].view(torch.int32))
+
+
+def test_fused_gss_kernel_misaligned_base_bit_exact(dev):
+    """θ one element into its storage at an even D: the 4-byte path."""
+    rng = np.random.default_rng(7)
+    n, c, d = 12, 4, 2050
+    th, la, z, w, s = (_mk(rng, n, d), _mk(rng, n, d), _mk(rng, n, d),
+                       _mk(rng, d), _mk(rng, c, d))
+    idx = torch.from_numpy(rng.permutation(n)[:c].astype(np.int32))
+    valid = torch.tensor([True, False, True, True])
+    want = ops.fused_gss_ref(idx, valid, s, w, th.clone(), la.clone(),
+                             z.clone())
+    th_dev = torch.cat([torch.zeros(1), th.reshape(-1)]).to(dev)[1:]
+    th_dev = th_dev.view(n, d)
+    assert th_dev.data_ptr() % 8
+    got = ops.fused_gss(idx.to(dev), valid.to(dev), s.to(dev), w.to(dev),
+                        th_dev, la.to(dev), z.to(dev))
     for g, x in zip(got, want, strict=True):
         assert torch.equal(g.cpu(), x)
 
