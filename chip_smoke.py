@@ -19,17 +19,20 @@ non-zero):
    in bf16 (the tensor-core instance) at the serve shape (4, 32, 2048,
    80), with a window of 1024, at hd 64 and 128, with GQA 4:1 and a
    window of 100 in the (B, H, S, hd) layout and at a ragged S = 2000,
-   and rtol 1e-4 (atol 1e-5) in fp32 (the SIMT instance) at the serve
-   shape, a ragged S = 2000, a window of 1024 and GQA 4:1 — and time
-   the kernel, its plain version and, where one PyTorch call computes
-   the same function, that call, all as device time
+   and rtol 1e-4 (atol 1e-5) in fp32 — the 3xTF32 tensor-core instance
+   at the serve shape, a ragged S = 2000, a window of 1024, GQA 4:1
+   with a window of 100 in (B, H, S, hd) and hd 64 and 128, and the
+   SIMT instance on a view 4 bytes off its storage — and time the
+   kernel, its plain version and, where one PyTorch call computes the
+   same function, that call, all as device time
    (``repro_torch.launch.time_kernels.device_ms``: calls captured in a
    CUDA graph and replayed) — K1–K3 cold, over input sets that the L2
    cannot hold (the kernels line's ``ms``), and warm, and K4's fp32
-   instance beside ``scaled_dot_product_attention`` in fp32; print
-   nvcc's -Xptxas -v lines for the K1, K3, K4 and K5 instances and,
-   where cuobjdump is at hand, the count of HGMMA instructions in K4's
-   bf16 and fp32 hd = 80 instances;
+   instances beside ``scaled_dot_product_attention`` in fp32; print
+   nvcc's -Xptxas -v lines for the K1, K3, K4 (bf16 and 3xTF32) and K5
+   instances and, where cuobjdump is at hand, the count of HGMMA
+   instructions in K4's hd = 80 instances (none in the 3xTF32 one
+   fails the run);
 4. form A at the paper-MNIST width (N=100 clients, the 784-200-10 MLP,
    D=159,010): compacted rounds with the fused commit, 1 warm-up and 5
    timed, asserting one trigger and one fused_gss launch per round and
@@ -43,8 +46,8 @@ non-zero):
    shared block), fp32 with TF32 off: 1 request × 256 tokens, prefill
    and 4 greedy decode steps on the card (kernels) against the CPU's
    plain path on the same weights — logits at rtol/atol 1e-3, the
-   greedy tokens equal, 1 flash_attention and 6 ssd_scan launches in
-   the prefill and none in decode;
+   greedy tokens equal, 1 flash_attention (the 3xTF32 instance) and 6
+   ssd_scan launches in the prefill and none in decode;
 7. zamba2-2.7b at full width and depth (54 layers), bf16, seeded
    random weights: 4 requests × 2048 prompt tokens, 32 new tokens,
    greedy, through ``repro_torch.launch.serve_lm.serve`` (warm-up off
@@ -53,8 +56,10 @@ non-zero):
    against decode of tₙ after prefill(t₀..tₙ₋₁) on the card, within
    8% of the largest logit (bf16 activations through 54 layers; the
    two paths round at different places);
-8. print the serve line, the kernels line, the card line and, last, the
-   ok line.
+8. print the serve line, the kernels line (K4's bf16 instance as
+   ``flash_attention``, launched in phase 7, and its 3xTF32 instance as
+   ``flash_attention_fp32``, launched in phase 6), the card line and,
+   last, the ok line.
 
 Exits non-zero without a result where no CUDA device is visible, or
 where the port's package is missing next to this script.
@@ -79,6 +84,10 @@ SEED = 0
 # Dense bf16 tensor-core peak by card name (NVIDIA data sheets).
 PEAK_BF16_FLOPS = (("H100 NVL", 835e12), ("H100 PCIe", 756e12),
                    ("H100", 989e12), ("H200", 989e12))
+# Dense TF32 tensor-core peak by card name (NVIDIA data sheets): the
+# rate of the 3xTF32 fp32 instance of K4, which does three products.
+PEAK_TF32_FLOPS = (("H100 NVL", 417.5e12), ("H100 PCIe", 378e12),
+                   ("H100", 494.7e12), ("H200", 494.7e12))
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
 CUDA_SRC = "src/repro_torch/csrc/fedback_kernels.cu"
 MODEL_SRC = "src/repro_torch/csrc/model_kernels.cu"
@@ -243,11 +252,10 @@ def check_kernels(dev, ops, n, d, c):
 
 
 def check_model_kernels(dev, ops):
-    """Phase 3, slice 2: K4 and K5 against their plain versions at the
-    serve shapes; returns rows of the kernels line.  Also times K4's
-    fp32 (SIMT) instance, its plain version and
-    ``scaled_dot_product_attention`` in fp32 on the same inputs, for a
-    log line."""
+    """Phase 3, slices 2 and 5: K4 (its bf16 and 3xTF32 instances) and
+    K5 against their plain versions at the serve shapes; returns rows
+    of the kernels line.  Also times K4's SIMT instance on the same
+    fp32 inputs, 4 bytes off their storage, for a log line."""
     from repro_torch.launch.time_kernels import (device_ms, peak_bandwidth,
                                                  peak_for)
     gen = torch.Generator(device=dev)
@@ -261,7 +269,7 @@ def check_model_kernels(dev, ops):
 
     # K4 flash_attention, the model's (B, S, H, hd) layout.
     b, h, s, hd = SERVE_BATCH, 32, SERVE_PROMPT, 80
-    err = 0.0
+    err = err32 = 0.0
     for dtype, seq, window, tol in (
             (torch.bfloat16, s, 0, 2e-2), (torch.float32, s, 0, 1e-4),
             (torch.float32, 2000, 0, 1e-4), (torch.float32, s, 1024, 1e-4),
@@ -275,19 +283,40 @@ def check_model_kernels(dev, ops):
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=atol)
         e = float((got.float() - want.float()).abs().max())
-        if dtype == torch.bfloat16 and window == 0:
-            err = e
+        if window == 0 and seq == s:
+            if dtype == torch.bfloat16:
+                err = e
+            else:
+                err32 = e
         log(f"flash_attention {str(dtype).split('.')[-1]} ({b}, {h}, "
             f"{seq}, {hd}) window {window}: max_abs_err {e:.3e} "
             f"(rtol {tol} held)")
-    # the Pallas kernel's (B, H, S, hd) layout and GQA 4:1, odd shape
-    q, k, v = randn(2, 8, 300, 80), randn(2, 2, 300, 80), randn(2, 2, 300,
-                                                               80)
-    torch.testing.assert_close(ops.flash_attention(q, k, v, window=100),
-                               ops.flash_attention_ref(q, k, v, window=100),
-                               rtol=1e-4, atol=1e-5)
-    log("flash_attention fp32 (2, 8, 300, 80) GQA 4:1, (B, H, S, hd) "
-        "layout, window 100: rtol 1e-4 held")
+    # fp32 in the Pallas kernel's (B, H, S, hd) layout: GQA 4:1 with a
+    # window, hd 64 and 128 (the 32-key tiles), all on the 3xTF32
+    # instance; then one view 4 bytes into its storage, which suits no
+    # tensor map and takes the SIMT instance.  rtol 1e-4, atol 1e-5.
+    for label, qs, kvs, window, offset in (
+            ("GQA 4:1 window 100", (2, 8, 300, 80), (2, 2, 300, 80), 100, 0),
+            ("hd 64 causal", (2, 8, 1000, 64), (2, 8, 1000, 64), 0, 0),
+            ("hd 128 causal", (2, 8, 1000, 128), (2, 8, 1000, 128), 0, 0),
+            ("GQA 4:1 window 100, q 4 bytes off its storage",
+             (2, 8, 300, 80), (2, 2, 300, 80), 100, 1)):
+        q = randn(math.prod(qs) + offset)[offset:].view(qs)
+        k, v = randn(*kvs), randn(*kvs)
+        want_instance = "simt" if offset else "tf32x3"
+        before = ops.flash_attention.instance_launches[want_instance]
+        got = ops.flash_attention(q, k, v, window=window)
+        want = ops.flash_attention_ref(q, k, v, window=window)
+        torch.cuda.synchronize()
+        if ops.flash_attention.instance_launches[want_instance] != \
+                before + 1:
+            raise AssertionError(f"flash_attention fp32 {qs} {label} did not "
+                                 f"take the {want_instance} instance")
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+        e = float((got - want).abs().max())
+        log(f"flash_attention fp32 {qs} {label}, (B, H, S, hd), "
+            f"{want_instance} instance: max_abs_err {e:.3e} (rtol 1e-4 "
+            "held)")
     # The bf16 (tensor-core) instance at other head dims, GQA, a window
     # and a ragged S, against the plain version at 2e-2.
     for label, qs, kvs, window, layout in (
@@ -325,30 +354,38 @@ def check_model_kernels(dev, ops):
                                qt, kt, vt, is_causal=True, enable_gqa=True)),
         nbytes=ops.flash_attention_hbm_bytes(b, h, h, s, hd, 2),
         nflop=ops.flash_attention_flops(b, h, s, hd), peak_flops=peak)
-    # K4's fp32 instance (SIMT, no tensor cores) at the same shape: not
-    # on the serve path (bf16), timed for the record.
+    # K4's 3xTF32 instance at the same shape in fp32: on the path of
+    # phase 6 (the fp32 one-group check), a row of the kernels line.
+    # Its operations are counted three times (three TF32 products) at
+    # the TF32 tensor-core peak.  The SIMT instance is timed on the same
+    # values 4 bytes off their storage, against its own bound (one
+    # product at 67 TFLOP/s fp32).
     q, k, v = (randn(b, s, h, hd) for _ in range(3))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     nflop = ops.flash_attention_flops(b, h, s, hd)
-    t_ops = nflop / PEAK_FP32_FLOPS * 1e3
-    t_bytes = (ops.flash_attention_hbm_bytes(b, h, h, s, hd, 4) / bw * 1e3
-               if bw else 0.0)
-    fp32_ms = device_ms(lambda: ops.flash_attention(q, k, v, layout="bshd"))
-    fp32_plain = device_ms(lambda: ops.flash_attention_ref(q, k, v,
+    rows["flash_attention_fp32"] = dict(
+        replaces="src/repro/kernels/flash_attention.py:112",
+        source=MODEL_SRC, max_abs_err=err32,
+        ms=device_ms(lambda: ops.flash_attention(q, k, v, layout="bshd")),
+        plain_ms=device_ms(lambda: ops.flash_attention_ref(q, k, v,
                                                            layout="bshd"),
-                           calls=PLAIN_CALLS)
-    fp32_sdpa = device_ms(lambda: torch.nn.functional.
-                          scaled_dot_product_attention(
-                              qt, kt, vt, is_causal=True, enable_gqa=True))
-    fp32_bound = max(t_ops, t_bytes)
-    log(f"  flash_attention fp32 (SIMT instance) ({b}, {h}, {s}, {hd}) "
-        f"causal: ms {fp32_ms:.4f}  plain_ms {fp32_plain:.4f}  "
-        f"library_ms {fp32_sdpa:.4f} (scaled_dot_product_attention fp32)  "
-        f"bound_ms {fp32_bound} "
-        f"({'operations' if t_ops >= t_bytes else 'bytes'} at "
+                           calls=PLAIN_CALLS),
+        library_ms=device_ms(lambda: torch.nn.functional.
+                             scaled_dot_product_attention(
+                                 qt, kt, vt, is_causal=True,
+                                 enable_gqa=True)),
+        nbytes=ops.flash_attention_hbm_bytes(b, h, h, s, hd, 4),
+        nflop=3 * nflop, peak_flops=peak_for(PEAK_TF32_FLOPS, name))
+    off = [randn(b * s * h * hd + 1)[1:].view(b, s, h, hd) for _ in range(3)]
+    for t, src in zip(off, (q, k, v), strict=True):
+        t.copy_(src)
+    simt_ms = device_ms(lambda: ops.flash_attention(*off, layout="bshd"))
+    simt_bound = nflop / PEAK_FP32_FLOPS * 1e3
+    log(f"  flash_attention fp32, SIMT instance (4 bytes off): ms "
+        f"{simt_ms:.4f}  bound_ms {simt_bound} (operations at "
         f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s fp32, "
-        f"{fp32_bound / fp32_ms:.1%} of it reached)")
-    del q, k, v, qt, kt, vt
+        f"{simt_bound / simt_ms:.1%} of it reached)")
+    del q, k, v, qt, kt, vt, off
 
     # K5 ssd_scan: bf16 states, fp32 decays, bit-exact.
     shape = (SERVE_BATCH, SERVE_PROMPT // 64, 80, 64, 64)
@@ -399,16 +436,18 @@ def check_model_kernels(dev, ops):
 
 
 def kernel_facts(build):
-    """Print what was compiled for the redesigned K1, K3, K4 (bf16) and
-    K5: nvcc's -Xptxas -v lines (registers, spills) for each of their
-    instances, and the count of HGMMA (wgmma) instructions in K4's bf16
-    and fp32 hd = 80 instances, from the library's SASS, where cuobjdump
-    is at hand."""
+    """Print what was compiled for the redesigned K1, K3, K4 (bf16 and
+    3xTF32) and K5: nvcc's -Xptxas -v lines (registers, spills) for each
+    of their instances, and the count of HGMMA (wgmma) instructions in
+    K4's hd = 80 instances, from the library's SASS, where cuobjdump is
+    at hand; raises if the 3xTF32 hd = 80 instance has none."""
     lines = build.build_log().splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" not in line or not any(
                 name in line for name in ("trigger_sq_norms", "fused_gss",
                                           "flash_attention_tc_kernel",
+                                          "flash_attention_tf32x3_kernel",
+                                          "tf32x3_split_kernel",
                                           "ssd_scan")):
             continue
         name = line.split("'")[1]
@@ -431,12 +470,28 @@ def kernel_facts(build):
             counts[current] += 1
     for label, key in (("K4 bf16 hd 80 (flash_attention_tc_kernel<5>)",
                         "flash_attention_tc_kernelILi5E"),
-                       ("K4 fp32 hd 80 (flash_attention_kernel<float, 5>)",
-                        "flash_attention_kernelIfLi5E")):
+                       ("K4 fp32 3xTF32 hd 80 "
+                        "(flash_attention_tf32x3_kernel<5>)",
+                        "flash_attention_tf32x3_kernelILi5E"),
+                       ("K4 fp32 SIMT hd 80 (flash_attention_kernel<float, "
+                        "5>)", "flash_attention_kernelIfLi5E")):
         found = {n: c for n, c in counts.items() if key in n}
         log(f"cuobjdump: {label}: "
             + (", ".join(f"{c} HGMMA in {n}" for n, c in found.items())
                if found else "function not found in the SASS"))
+        if "tf32x3" in key and not any(found.values()):
+            raise AssertionError(f"{label}: no HGMMA instruction in the SASS")
+
+
+def path_counts(ops):
+    """The launch counts of a phase by row of the kernels line: K4's
+    bf16 (tensor-core) instance as ``flash_attention``, its 3xTF32 one
+    as ``flash_attention_fp32`` (the SIMT instance is on no path)."""
+    counts = ops.launch_counts()
+    by = ops.flash_attention.instance_launches
+    counts["flash_attention"] = by["bf16_tc"]
+    counts["flash_attention_fp32"] = by["tf32x3"]
+    return counts
 
 
 def _greedy(model, params, tokens, steps):
@@ -468,12 +523,14 @@ def check_slice_against_cpu(dev, ops):
     ops.reset_launch_counts()
     got_logits, got_tok = _greedy(model, params, tokens, SLICE_DECODE)
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    counts = path_counts(ops)
     want_logits, want_tok = _greedy(model, params_cpu, tokens.cpu(),
                                     SLICE_DECODE)
-    if counts["flash_attention"] != 1 or counts["ssd_scan"] != 6:
+    if counts["flash_attention_fp32"] != 1 or counts["ssd_scan"] != 6 or \
+            counts["flash_attention"] != 0:
         raise AssertionError(f"one-group prefill launched {counts}, "
-                             "expected 1 flash_attention and 6 ssd_scan")
+                             "expected 1 flash_attention on the 3xTF32 "
+                             "instance and 6 ssd_scan")
     np.testing.assert_array_equal(got_tok.cpu().numpy(), want_tok.numpy(),
                                   err_msg="greedy tokens differ")
     err = 0.0
@@ -484,7 +541,7 @@ def check_slice_against_cpu(dev, ops):
         f"tokens + {SLICE_DECODE} decode steps): card agrees with the CPU "
         f"plain path (logits max_abs_err {err:.3e}, rtol/atol 1e-3 held; "
         f"tokens {got_tok.cpu().tolist()[0]} equal); launches {counts}")
-    return dict(max_abs_err=err, tokens=got_tok.cpu().tolist()[0])
+    return dict(max_abs_err=err, tokens=got_tok.cpu().tolist()[0]), counts
 
 
 def serve_full(dev, ops, smi):
@@ -502,7 +559,7 @@ def serve_full(dev, ops, smi):
                    new_tokens=SERVE_NEW, seed=SEED, device=dev,
                    params=params)
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    counts = path_counts(ops)
     per = report["launches"]
     ng = cfg.num_layers // cfg.attn_every
     for phase, want in (("prefill", {"flash_attention": ng,
@@ -644,7 +701,7 @@ def drive(form, n_rounds, warmup, ctx, ops, expect):
     if syncs:
         raise AssertionError(f"form {form}: {len(syncs)} host syncs inside "
                              f"the rounds, e.g. {syncs[:3]}")
-    counts = ops.launch_counts()
+    counts = path_counts(ops)
     total = warmup + n_rounds
     for name, per_round in expect.items():
         if counts[name] != per_round * total:
@@ -730,20 +787,22 @@ def main() -> int:
                               "fused_gss": 0})
     log(json.dumps({"forms": {"A": form_a, "B": form_b}}))
 
-    check_slice_against_cpu(dev, ops)
+    _, counts_slice = check_slice_against_cpu(dev, ops)
     torch.cuda.empty_cache()
     serve_report, counts_serve = serve_full(dev, ops, smi)
     log(json.dumps({"serve": serve_report}))
 
     kernels = []
     for name, r in rows.items():
-        launches = counts_a[name] + counts_b[name] + counts_serve[name]
+        launches = (counts_a[name] + counts_b[name] + counts_slice[name]
+                    + counts_serve[name])
         if launches == 0:
             raise AssertionError(f"{name} was never launched on the path")
         lib = r["library_ms"]
         warm = f" (cold; warm {r['warm_ms']:.4f})" if "warm_ms" in r else ""
         log(f"{name}: launches {launches} (form A {counts_a[name]}, "
-            f"form B {counts_b[name]}, serve {counts_serve[name]}), "
+            f"form B {counts_b[name]}, fp32 group {counts_slice[name]}, "
+            f"serve {counts_serve[name]}), "
             f"max_abs_err {r['max_abs_err']:.3e}, "
             f"ms {r['ms']:.4f}{warm}, plain_ms {r['plain_ms']:.4f}, "
             f"library_ms {'null' if lib is None else f'{lib:.4f}'}, bound_ms "

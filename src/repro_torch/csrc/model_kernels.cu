@@ -50,15 +50,20 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 // prefill, q (4, 32, 2048, 80) bf16, causal: 4*B*H*hd * (allowed pairs)
 // = 8.59e10 operations, 0.087 ms at 989 TFLOP/s bf16 on the tensor
 // cores, against 84 MB of q/k/v/out, 0.025 ms at 3.35 TB/s: bound by
-// operations.  Two instances, chosen by dtype alone:
+// operations.  Three instances, chosen by the wrapper before the launch
+// (flash_attention.kernel_instance: dtype, strides and addresses):
 //
 // - bf16 (the served path): flash_attention_tc_kernel below, on the
 //   tensor cores through wgmma.  Its note says what it does about the
 //   bound.
-// - fp32: flash_attention_kernel, fp32 SIMT FMAs from shared memory.  It
-//   serves the fp32 checks (rtol 1e-4) and the card-vs-CPU agreement
-//   run; TF32 tensor cores keep about three decimal digits and would
-//   not hold them.
+// - fp32 whose tensors suit TMA (16-byte bases, strides in multiples of
+//   4 elements): flash_attention_tf32x3_kernel, on the tensor cores in
+//   3xTF32.  One TF32 product keeps 10 mantissa bits and misses the
+//   fp32 checks (rtol 1e-4) by two orders of magnitude; three products
+//   of split operands (big*big + big*small + small*big) keep 22 bits and
+//   hold them.  Its note says how.
+// - other fp32: flash_attention_kernel, fp32 SIMT FMAs from shared
+//   memory.
 //
 // Masks are index predicates on absolute positions (ragged S, kv <= q
 // causal, kv > q - window); a row masked so far contributes nothing
@@ -66,7 +71,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 // with a contiguous head dim, so the model's (B, S, H, hd) layout needs
 // no transpose.
 //
-// fp32 instance: one block of 256 threads per (64-row query tile,
+// SIMT instance: one block of 256 threads per (64-row query tile,
 // batch*head), heaviest causal tiles first.  The block walks the 64-key
 // tiles that the mask can reach — none right of the diagonal, none left
 // of the window, as the Pallas grid's pl.when(reachable) — staging K and
@@ -360,7 +365,8 @@ int dispatch_flash_attention(int nc, const void* q, const void* k,
 //   wgmma m64n(hd)k16 with A from registers and V (B) from shared memory
 //   in its natural MN-major layout (transpose bit set).  Rounding P to
 //   bf16 before P V is where the JAX blockwise_attention rounds it; the
-//   Pallas kernel and the fp32 instance keep P in fp32 (ROADMAP D4).
+//   Pallas kernel keeps P in fp32, the SIMT instance too, the 3xTF32
+//   one to 22 bits (ROADMAP D4).
 // - K/V tiles arrive by TMA into a ring of two shared-memory slots, each
 //   with an mbarrier that counts the bytes in.  At the top of tile t
 //   every thread waits for tile t's bytes, then one block barrier says
@@ -844,23 +850,29 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The 4-D map {hd, S, heads, B} of a bf16 tensor with element strides st
-// (head dim contiguous), read in 128B-swizzled boxes {64, rows, 1, 1}.
-bool encode_map(CUtensorMap* map, const void* base, int64_t hd, int64_t s,
-                int64_t heads, int64_t b, Strides st, int rows) {
+// A 4-D map {d0, d1, d2, d3} of bf16 or fp32 elements with element
+// strides s1, s2, s3 (d0 contiguous), read in 128B-swizzled boxes of one
+// 128-byte row of d0 (64 bf16 or 32 fp32 elements) by `rows` of d1.
+template <typename T>
+bool encode_map(CUtensorMap* map, const void* base, int64_t d0, int64_t d1,
+                int64_t d2, int64_t d3, int64_t s1, int64_t s2, int64_t s3,
+                int rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
-                              static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
-                                 static_cast<cuuint64_t>(st.h) * 2,
-                                 static_cast<cuuint64_t>(st.b) * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const cuuint64_t dims[4] = {
+      static_cast<cuuint64_t>(d0), static_cast<cuuint64_t>(d1),
+      static_cast<cuuint64_t>(d2), static_cast<cuuint64_t>(d3)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s1) * sizeof(T),
+                                 static_cast<cuuint64_t>(s2) * sizeof(T),
+                                 static_cast<cuuint64_t>(s3) * sizeof(T)};
+  const cuuint32_t box[4] = {128 / sizeof(T),
+                             static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, unit,
+  return encode(map,
+                kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                4, const_cast<void*>(base), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -874,9 +886,12 @@ int launch_flash_attention_tc(const void* q, const void* k, const void* v,
                               cudaStream_t stream) {
   constexpr int hd = 16 * kNc;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!encode_map(&tm_q, q, hd, s, h, b, sq, kTcRows) ||
-      !encode_map(&tm_k, k, hd, s, kvh, b, sk, kTcKeys) ||
-      !encode_map(&tm_v, v, hd, s, kvh, b, sv, kTcKeys)) {
+  using bf16 = __nv_bfloat16;
+  if (!encode_map<bf16>(&tm_q, q, hd, s, h, b, sq.s, sq.h, sq.b, kTcRows) ||
+      !encode_map<bf16>(&tm_k, k, hd, s, kvh, b, sk.s, sk.h, sk.b,
+                        kTcKeys) ||
+      !encode_map<bf16>(&tm_v, v, hd, s, kvh, b, sv.s, sv.h, sv.b,
+                        kTcKeys)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   constexpr int smem = TcLayout<kNc>::kSmemBytes;
@@ -915,6 +930,510 @@ int dispatch_flash_attention_tc(int nc, const void* q, const void* k,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef FA_TC_CASE
+}
+
+// ---------------------------------------------------------------------
+// K4, fp32 instance on the tensor cores: flash_attention_tf32x3_kernel.
+//
+// Bound at (4, 32, 2048, 80) fp32 causal: the 8.59e10 operations of
+// QK^T and PV, done three times over in TF32 (below), 2.58e11 at 494.7
+// TFLOP/s dense TF32 = 0.521 ms; the 335.5 MB of fp32 q/k/v/out take
+// 0.100 ms at 3.35 TB/s: bound by operations.  The SIMT instance above
+// is bound at 1.28 ms (one product at 67 TFLOP/s fp32).
+//
+// 3xTF32.  A TF32 operand keeps 10 explicit mantissa bits; one TF32
+// product misses the fp32 checks (rtol 1e-4) by two orders of
+// magnitude.  Each operand x is split into big = tf32(x) and small =
+// tf32(x - big) (cvt.rna, written out, never left to the tensor core's
+// own truncation), and each product is small*big + big*small + big*big
+// into one fp32 accumulator, the small cross terms issued first as
+// CUTLASS's FastF32 does: 22 bits of each operand, within the fp32
+// tolerance (tests/test_torch_tf32x3.py emulates it on the CPU).
+//
+// Layout.  TF32 wgmma takes no transpose bit: both operands must be
+// K-major.  Q (A of S = Q K^T) and K (B) are, as they lie; V is not, so
+// a pre-pass, tf32x3_split_kernel, writes K's big and small parts and
+// V^T's (hd rows of keys) into scratch the wrapper allocates, once per
+// call (0.5 GB moved at the serve shape).  In V^T the keys of each group
+// of 8 are stored in the order 0 2 4 6 1 3 5 7: a TF32 A fragment holds
+// columns t and t+4 of each 8-wide k-slice (t = lane % 4), the S
+// accumulator gives the lane columns 2t and 2t+1, and with that order
+// P goes from the one to the other in registers, without a shuffle.
+//
+// The block is the bf16 instance's: two consumer warpgroups own 128
+// query rows of one (batch, head), heaviest causal tiles first, the
+// diagonal and the window skip whole tiles, masks are index predicates,
+// and K/V tiles arrive by TMA into a two-slot mbarrier ring,
+// 128B-swizzled (one box row is 32 floats; hd 80 pads to 96 in shared
+// memory, but the products stop at column hd).  Q is copied once by TMA
+// into the second slot's space, and each thread reads its A fragments
+// from there and splits them into registers (hd/2 + hd/2 a thread: 80
+// at hd 80) before that slot takes its first tile.  A stage holds K big
+// and small (kRegions x keys x 128 B each) and V^T big and small (keys/32
+// x hd x 128 B each): 88 KB at hd 80, so one block a SM.  Up to hd 96
+// a tile has 64 keys; at hd 112 and 128 it has 32, which keeps two
+// stages in shared memory and S and P in fewer registers.
+// Products per tile and warpgroup (64 keys, hd 80): S as 30 wgmma
+// m64n64k8 (10 k-steps x 3), then O += P V as 24 wgmma m64n80k8 (8 x
+// 3), A from registers, B by descriptor (K-major, SBO = 1024: the next
+// 8 rows; a k8 step is 32 bytes within a 128-byte row, the fifth starts
+// the next region).  The online softmax is the bf16 instance's (scale
+// folded into ex2.approx, m and l in fp32); P stays fp32 and is split
+// in registers.
+//
+// The tensor maps need 16-byte-aligned bases and strides that are
+// multiples of 16 bytes (4 floats): the wrapper sends every other fp32
+// input to the SIMT instance by that rule (kernel_instance), before the
+// launch; a failed launch here raises.
+constexpr int kSplitKeys = 64;  // keys per block of the pre-pass
+constexpr int kSplitThreads = 256;
+
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t u;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(u) : "f"(x));
+  return __uint_as_float(u);
+}
+
+// (big, small) of x as 32-bit A-fragment registers.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big,
+                                           uint32_t& small) {
+  const float b = tf32_rna(x);
+  big = __float_as_uint(b);
+  small = __float_as_uint(tf32_rna(x - b));
+}
+
+// K (B, KvH, S, hd) -> kx = [big | small], each (B*KvH, S, hd);
+// V -> vtx = [big | small], each (B*KvH, hd, S8), keys 0 2 4 6 1 3 5 7
+// within each group of 8, zero past S.  A block: 64 keys of one
+// (batch, kv head); float4 reads of K and V, V staged in shared memory
+// for the transpose.
+__global__ void __launch_bounds__(kSplitThreads)
+tf32x3_split_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                    Strides sk, Strides sv, float* __restrict__ kx,
+                    float* __restrict__ vtx, int kvh, int s, int s8, int hd) {
+  __shared__ float vs[kSplitKeys * (128 + 1)];
+  const int ld = hd + 1;  // odd: the transposed reads spread over banks
+  const int k0 = blockIdx.x * kSplitKeys;
+  const int64_t bh = blockIdx.y;
+  const int64_t nbh = gridDim.y;
+  const int64_t b = bh / kvh, head = bh % kvh;
+  const float* kb = k + b * sk.b + head * sk.h;
+  const float* vb = v + b * sv.b + head * sv.h;
+  float* k_big = kx + bh * s * hd;
+  float* k_small = k_big + nbh * s * hd;
+  const int n4 = hd / 4;
+  for (int i = threadIdx.x; i < kSplitKeys * n4; i += kSplitThreads) {
+    const int r = i / n4, c = 4 * (i % n4);
+    const int key = k0 + r;
+    float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (key < s) {
+      const float4 kk = __ldg(reinterpret_cast<const float4*>(
+          kb + key * sk.s + c));
+      vv = __ldg(reinterpret_cast<const float4*>(vb + key * sv.s + c));
+      float4 big, small;
+      big.x = tf32_rna(kk.x);
+      big.y = tf32_rna(kk.y);
+      big.z = tf32_rna(kk.z);
+      big.w = tf32_rna(kk.w);
+      small.x = tf32_rna(kk.x - big.x);
+      small.y = tf32_rna(kk.y - big.y);
+      small.z = tf32_rna(kk.z - big.z);
+      small.w = tf32_rna(kk.w - big.w);
+      const int64_t off = static_cast<int64_t>(key) * hd + c;
+      *reinterpret_cast<float4*>(k_big + off) = big;
+      *reinterpret_cast<float4*>(k_small + off) = small;
+    }
+    float* row = vs + r * ld + c;
+    row[0] = vv.x;
+    row[1] = vv.y;
+    row[2] = vv.z;
+    row[3] = vv.w;
+  }
+  __syncthreads();
+  float* v_big = vtx + bh * hd * s8;
+  float* v_small = v_big + nbh * hd * s8;
+  for (int i = threadIdx.x; i < hd * kSplitKeys; i += kSplitThreads) {
+    const int d = i / kSplitKeys, pos = i % kSplitKeys;
+    if (k0 + pos >= s8) continue;
+    const int r = (pos & ~7) + 2 * (pos & 3) + ((pos >> 2) & 1);
+    const float x = vs[r * ld + d];
+    const float big = tf32_rna(x);
+    const int64_t off = static_cast<int64_t>(d) * s8 + k0 + pos;
+    v_big[off] = big;
+    v_small[off] = tf32_rna(x - big);
+  }
+}
+
+template <int kNc>
+struct Tf32Layout {
+  static constexpr int kHd = 16 * kNc;
+  static constexpr int kKeys = kNc <= 6 ? 64 : 32;  // keys per tile
+  static constexpr int kRegions = (kHd + 31) / 32;   // of Q and K
+  static constexpr int kKRegion = kKeys * 128;       // 32 head columns
+  static constexpr int kKBytes = kRegions * kKRegion;  // K big or small
+  static constexpr int kVRegion = kHd * 128;           // 32 keys of V^T
+  static constexpr int kVBytes = (kKeys / 32) * kVRegion;
+  static constexpr int kStageBytes = 2 * kKBytes + 2 * kVBytes;
+  static constexpr int kQBytes = kRegions * kTcRows * 128;
+  // slot 0, then slot 1 (which Q occupies first), + 1024 for the
+  // swizzle period's alignment
+  static constexpr int kSmemBytes =
+      kStageBytes + (kQBytes > kStageBytes ? kQBytes : kStageBytes) + 1024;
+};
+
+// D (64 x 16N, fp32) += A (64 x 8, TF32 in registers, the A-fragment
+// layout) * B (16N x 8)^T, B from shared memory, K-major: S = Q K^T at
+// N = keys/16, O += P V^T^T at N = kNc.
+template <int kN>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8 * kN],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db);
+#define TF32_AB(i0, i1, i2, i3, i4, i5, i6, i7)                             \
+  "{%" #i0 ", %" #i1 ", %" #i2 ", %" #i3 "}, %" #i4 ", p, 1, 1;\n}\n"
+#define TF32_INSTANCE(N, WIDTH)                                             \
+  template <>                                                               \
+  __device__ __forceinline__ void wgmma_tf32<N>(                            \
+      float (&d)[8 * N], const uint32_t (&a)[4], uint64_t db) {            \
+    asm volatile(PV_OPS_##N(PV_SCALE)                                       \
+                 "wgmma.mma_async.sync.aligned.m64n" #WIDTH                \
+                 "k8.f32.tf32.tf32 {" PV_REFS_##N "}, "                    \
+                 PV_OPS_##N(TF32_AB)                                        \
+                 : PV_OUTS_##N                                              \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),    \
+                   "r"(1));                                                 \
+  }
+TF32_INSTANCE(1, 16)
+TF32_INSTANCE(2, 32)
+TF32_INSTANCE(3, 48)
+TF32_INSTANCE(4, 64)
+TF32_INSTANCE(5, 80)
+TF32_INSTANCE(6, 96)
+TF32_INSTANCE(7, 112)
+TF32_INSTANCE(8, 128)
+
+__device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
+  float x;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(addr));
+  return x;
+}
+
+template <int kNc>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_kb,
+                              const __grid_constant__ CUtensorMap tm_ks,
+                              const __grid_constant__ CUtensorMap tm_vb,
+                              const __grid_constant__ CUtensorMap tm_vs,
+                              float* __restrict__ o, Strides so, int h,
+                              int group, int s, int causal, int window,
+                              float scale_log2) {
+  using L = Tf32Layout<kNc>;
+  constexpr int kKeys = L::kKeys;
+  constexpr int kOut = 8 * kNc;    // O accumulators per thread
+  constexpr int kSc = kKeys / 2;   // S accumulators per thread
+  constexpr int kKq = 2 * kNc;     // k8 steps over the head dim
+  constexpr int kKp = kKeys / 8;   // k8 steps over a tile's keys
+  extern __shared__ __align__(1024) unsigned char x3_smem[];
+  __shared__ __align__(8) uint64_t bars[3];  // slot 0, slot 1, Q
+  const uint32_t ring = (smem_u32(x3_smem) + 1023) & ~1023u;
+  const uint32_t q_s = ring + L::kStageBytes;  // slot 1's space, at first
+  const uint32_t bar0 = smem_u32(bars);
+  const uint32_t bar_q = bar0 + 16;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int n_qt = (s + kTcRows - 1) / kTcRows;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kTcRows;
+  const int bh = blockIdx.y;
+  const int b = bh / h;
+  const int head = bh % h;
+  const int kv_head = head / group;
+
+  // Key tiles: the block copies [t_lo, t_hi); this warpgroup, rows
+  // wq0 .. wq_last, computes [w_lo, w_hi).
+  const int n_kt = (s + kKeys - 1) / kKeys;
+  auto first_tile = [&](int row) {
+    return window > 0 && row - window + 1 > 0 ? (row - window + 1) / kKeys
+                                              : 0;
+  };
+  auto end_tile = [&](int row) {
+    return causal ? min(n_kt, row / kKeys + 1) : n_kt;
+  };
+  const int t_lo = first_tile(q0);
+  const int t_hi = end_tile(min(q0 + kTcRows, s) - 1);
+  const int wq0 = q0 + 64 * wg;
+  const int wq_last = min(wq0 + 63, s - 1);
+  const int w_lo = first_tile(wq0);
+  const int w_hi = wq0 < s ? end_tile(wq_last) : w_lo;
+
+  // A stage: K big, K small, V^T big, V^T small.  Thread 0 issues every
+  // copy.
+  auto copy_kv = [&](int t, int slot) {
+    const uint32_t st = ring + slot * L::kStageBytes;
+    const uint32_t bar = bar0 + 8 * slot;
+    mbar_expect(bar, L::kStageBytes);
+#pragma unroll
+    for (int r = 0; r < L::kRegions; ++r) {
+      tma_box(st + r * L::kKRegion, &tm_kb, 32 * r, t * kKeys, kv_head, b,
+              bar);
+      tma_box(st + L::kKBytes + r * L::kKRegion, &tm_ks, 32 * r, t * kKeys,
+              kv_head, b, bar);
+    }
+#pragma unroll
+    for (int r = 0; r < kKeys / 32; ++r) {
+      const uint32_t vt = st + 2 * L::kKBytes + r * L::kVRegion;
+      tma_box(vt, &tm_vb, t * kKeys + 32 * r, 0, kv_head, b, bar);
+      tma_box(vt + L::kVBytes, &tm_vs, t * kKeys + 32 * r, 0, kv_head, b,
+              bar);
+    }
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bar0 + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the barriers are initialised
+  if (tid == 0) {
+    mbar_expect(bar_q, L::kQBytes);
+#pragma unroll
+    for (int r = 0; r < L::kRegions; ++r) {
+      tma_box(q_s + r * kTcRows * 128, &tm_q, 32 * r, q0, head, b, bar_q);
+    }
+    if (t_lo < t_hi) copy_kv(t_lo, 0);
+  }
+
+  // This thread's rows are r0 and r0 + 8; in each 8-key (or 8-column)
+  // block of an accumulator it holds columns col0 and col0 + 1, and in
+  // each k-slice of an A fragment columns lane%4 and lane%4 + 4.
+  const int r0 = wq0 + 16 * warp + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  uint32_t qb[kKq][4], qsm[kKq][4];  // Q's A fragments: big, small
+  mbar_wait(bar_q, 0);
+  {
+    const int row_t = 64 * wg + 16 * warp + (lane >> 2);  // in the tile
+#pragma unroll
+    for (int kk = 0; kk < kKq; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // a0 (g, t) a1 (g+8, t) a2, a3 (t+4)
+        const int row = row_t + 8 * (e & 1);
+        const int col = 8 * kk + (lane & 3) + 4 * (e >> 1);
+        const uint32_t addr = q_s + (col / 32) * (kTcRows * 128) +
+                              row * 128 +
+                              (((col % 32) * 4) ^ ((row & 7) << 4));
+        tf32_split(ld_shared_f32(addr), qb[kk][e], qsm[kk][e]);
+      }
+    }
+  }
+  float acc[kOut];
+#pragma unroll
+  for (int i = 0; i < kOut; ++i) acc[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};  // this thread's share; the quad's at the end
+
+  auto attend_tile = [&](int t, uint32_t stage) {
+    // S = Q K^T: the small cross terms, then big * big.
+    float sc[kSc];
+#pragma unroll
+    for (int i = 0; i < kSc; ++i) sc[i] = 0.f;
+    const uint32_t kb_s = stage, ks_s = stage + L::kKBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKq; ++kk) {
+      const uint32_t off = (kk / 4) * L::kKRegion + (kk % 4) * 32;
+      wgmma_tf32<kKeys / 16>(sc, qsm[kk], gmma_desc(kb_s + off, 16, 1024));
+      wgmma_tf32<kKeys / 16>(sc, qb[kk], gmma_desc(ks_s + off, 16, 1024));
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKq; ++kk) {
+      const uint32_t off = (kk / 4) * L::kKRegion + (kk % 4) * 32;
+      wgmma_tf32<kKeys / 16>(sc, qb[kk], gmma_desc(kb_s + off, 16, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    const int k0 = t * kKeys;
+    if (k0 + kKeys > s || (causal && k0 + kKeys - 1 > wq0) ||
+        (window > 0 && k0 <= wq_last - window)) {
+#pragma unroll
+      for (int i = 0; i < kSc; ++i) {
+        const int key = k0 + 8 * (i >> 2) + col0 + (i & 1);
+        const int row = r0 + 8 * ((i >> 1) & 1);
+        bool ok = key < s;
+        if (causal) ok = ok && key <= row;
+        if (window > 0) ok = ok && key > row - window;
+        if (!ok) sc[i] = -INFINITY;
+      }
+    }
+
+    // Online softmax in the log2 domain.
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < kSc; ++i) {
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    }
+    float mu[2], corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r] * scale_log2);
+      const bool empty = m_new == -INFINITY;  // every key so far masked
+      mu[r] = empty ? 0.f : m_new;
+      corr[r] = empty ? 1.f : fast_exp2(m_run[r] - m_new);
+      m_run[r] = m_new;
+    }
+    // P in fp32, split into the A fragments of the next product: in
+    // k-slice j, a0 = P(g, key 2t) = sc[4j], a1 = P(g+8, key 2t) =
+    // sc[4j+2], a2 = P(g, key 2t+1) = sc[4j+1], a3 = sc[4j+3], which
+    // V^T's key order puts at positions t and t+4.
+    uint32_t pb[kKp][4], ps[kKp][4];
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kKp; ++j) {
+      const float p0 = fast_exp2(fmaf(sc[4 * j], scale_log2, -mu[0]));
+      const float p1 = fast_exp2(fmaf(sc[4 * j + 1], scale_log2, -mu[0]));
+      const float p2 = fast_exp2(fmaf(sc[4 * j + 2], scale_log2, -mu[1]));
+      const float p3 = fast_exp2(fmaf(sc[4 * j + 3], scale_log2, -mu[1]));
+      sum[0] += p0 + p1;
+      sum[1] += p2 + p3;
+      tf32_split(p0, pb[j][0], ps[j][0]);
+      tf32_split(p2, pb[j][1], ps[j][1]);
+      tf32_split(p1, pb[j][2], ps[j][2]);
+      tf32_split(p3, pb[j][3], ps[j][3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + sum[r];
+#pragma unroll
+    for (int i = 0; i < kOut; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+    // O += P V: the small cross terms, then big * big.
+    const uint32_t vb_s = stage + 2 * L::kKBytes, vs_s = vb_s + L::kVBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kKp; ++j) {
+      const uint32_t off = (j / 4) * L::kVRegion + (j % 4) * 32;
+      wgmma_tf32<kNc>(acc, ps[j], gmma_desc(vb_s + off, 16, 1024));
+      wgmma_tf32<kNc>(acc, pb[j], gmma_desc(vs_s + off, 16, 1024));
+    }
+#pragma unroll
+    for (int j = 0; j < kKp; ++j) {
+      const uint32_t off = (j / 4) * L::kVRegion + (j % 4) * 32;
+      wgmma_tf32<kNc>(acc, pb[j], gmma_desc(vb_s + off, 16, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+  };
+
+  int slot = 0;        // ring slot of tile t
+  uint32_t phase = 0;  // parity of the slot's use by tile t
+  for (int t = t_lo; t < t_hi; ++t) {
+    const uint32_t stage = ring + slot * L::kStageBytes;
+    mbar_wait(bar0 + 8 * slot, phase);  // tile t has landed
+    // and every warpgroup is done with tile t - 1 (and, at the first
+    // tile, with Q in slot 1's space)
+    __syncthreads();
+    if (tid == 0 && t + 1 < t_hi) copy_kv(t + 1, slot ^ 1);
+    if (t >= w_lo && t < w_hi) attend_tile(t, stage);
+    slot ^= 1;
+    if (slot == 0) phase ^= 1;
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = 1.f / fmaxf(l, 1e-30f);
+  }
+  float* ob = o + b * so.b + head * so.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= s) continue;
+    float* orow = ob + static_cast<int64_t>(row) * so.s + col0;
+#pragma unroll
+    for (int j = 0; j < 2 * kNc; ++j) {
+      *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(
+          acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+}
+
+template <int kNc>
+int launch_flash_attention_tf32x3(const void* q, const void* k,
+                                  const void* v, void* o, void* kx,
+                                  void* vtx, Strides sq, Strides sk,
+                                  Strides sv, Strides so, int b, int h,
+                                  int kvh, int s, int causal, int window,
+                                  float scale_log2, cudaStream_t stream) {
+  using L = Tf32Layout<kNc>;
+  constexpr int hd = L::kHd;
+  const int s8 = (s + 7) / 8 * 8;
+  float* kxf = static_cast<float*>(kx);
+  float* vtf = static_cast<float*>(vtx);
+  const int64_t bk = static_cast<int64_t>(b) * kvh;
+  const int64_t k_part = bk * s * hd, v_part = bk * hd * s8;
+  // K's parts are (B, KvH, S, hd), V^T's (B, KvH, hd, S8), contiguous.
+  const int64_t ks = static_cast<int64_t>(s) * hd, vs = int64_t{hd} * s8;
+  CUtensorMap tm_q, tm_kb, tm_ks, tm_vb, tm_vs;
+  if (!encode_map<float>(&tm_q, q, hd, s, h, b, sq.s, sq.h, sq.b,
+                         kTcRows) ||
+      !encode_map<float>(&tm_kb, kxf, hd, s, kvh, b, hd, ks, kvh * ks,
+                         L::kKeys) ||
+      !encode_map<float>(&tm_ks, kxf + k_part, hd, s, kvh, b, hd, ks,
+                         kvh * ks, L::kKeys) ||
+      !encode_map<float>(&tm_vb, vtf, s8, hd, kvh, b, s8, vs, kvh * vs,
+                         hd) ||
+      !encode_map<float>(&tm_vs, vtf + v_part, s8, hd, kvh, b, s8, vs,
+                         kvh * vs, hd)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 split_grid((s8 + kSplitKeys - 1) / kSplitKeys, b * kvh);
+  tf32x3_split_kernel<<<split_grid, kSplitThreads, 0, stream>>>(
+      static_cast<const float*>(k), static_cast<const float*>(v), sk, sv,
+      kxf, vtf, kvh, s, s8, hd);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int smem = L::kSmemBytes;
+  auto kernel = flash_attention_tf32x3_kernel<kNc>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((s + kTcRows - 1) / kTcRows, b * h);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      tm_q, tm_kb, tm_ks, tm_vb, tm_vs, static_cast<float*>(o), so, h,
+      h / kvh, s, causal, window, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_flash_attention_tf32x3(int nc, const void* q, const void* k,
+                                    const void* v, void* o, void* kx,
+                                    void* vtx, Strides sq, Strides sk,
+                                    Strides sv, Strides so, int b, int h,
+                                    int kvh, int s, int causal, int window,
+                                    float scale_log2, cudaStream_t stream) {
+#define FA_X3_CASE(N)                                                       \
+  case N:                                                                   \
+    return launch_flash_attention_tf32x3<N>(q, k, v, o, kx, vtx, sq, sk,   \
+                                            sv, so, b, h, kvh, s, causal,  \
+                                            window, scale_log2, stream);
+  switch (nc) {
+    FA_X3_CASE(1)
+    FA_X3_CASE(2)
+    FA_X3_CASE(3)
+    FA_X3_CASE(4)
+    FA_X3_CASE(5)
+    FA_X3_CASE(6)
+    FA_X3_CASE(7)
+    FA_X3_CASE(8)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FA_X3_CASE
 }
 
 // ---------------------------------------------------------------------
@@ -1112,12 +1631,12 @@ int launch_ssd_scan(const void* states, const float* decays, void* h_prev,
 extern "C" {
 
 int mk_flash_attention(const void* q, const void* k, const void* v, void* o,
-                       int64_t sqb, int64_t sqh, int64_t sqs, int64_t skb,
-                       int64_t skh, int64_t sks, int64_t svb, int64_t svh,
-                       int64_t svs, int64_t sob, int64_t soh, int64_t sos,
-                       int64_t b, int64_t h, int64_t kvh, int64_t s,
-                       int64_t hd, int causal, int window, int bf16,
-                       float scale, void* stream) {
+                       void* kx, void* vtx, int64_t sqb, int64_t sqh,
+                       int64_t sqs, int64_t skb, int64_t skh, int64_t sks,
+                       int64_t svb, int64_t svh, int64_t svs, int64_t sob,
+                       int64_t soh, int64_t sos, int64_t b, int64_t h,
+                       int64_t kvh, int64_t s, int64_t hd, int causal,
+                       int window, int instance, float scale, void* stream) {
   if (hd % 16 != 0 || hd < 16 || hd > 128 || kvh <= 0 || h % kvh != 0 ||
       b * h > 65535 || s <= 0 || s > (int64_t{1} << 30)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1127,16 +1646,28 @@ int mk_flash_attention(const void* q, const void* k, const void* v, void* o,
   const int group = static_cast<int>(h / kvh);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nc = static_cast<int>(hd / 16);
-  if (bf16) {
-    return dispatch_flash_attention_tc(
-        nc, q, k, v, o, sq, sk, sv, so, static_cast<int>(b),
-        static_cast<int>(h), static_cast<int>(kvh), static_cast<int>(s),
-        causal, window, scale * 1.4426950408889634f, st);  // hd^-1/2 log2 e
+  const float scale_log2 = scale * 1.4426950408889634f;  // hd^-1/2 log2 e
+  switch (instance) {
+    case 0:  // SIMT, fp32
+      return dispatch_flash_attention<float>(
+          nc, q, k, v, o, sq, sk, sv, so, static_cast<int>(b),
+          static_cast<int>(h), group, static_cast<int>(s), causal, window,
+          scale, st);
+    case 1:  // tensor cores, bf16
+      return dispatch_flash_attention_tc(
+          nc, q, k, v, o, sq, sk, sv, so, static_cast<int>(b),
+          static_cast<int>(h), static_cast<int>(kvh), static_cast<int>(s),
+          causal, window, scale_log2, st);
+    case 2:  // tensor cores, fp32 in 3xTF32
+      if (kx == nullptr || vtx == nullptr) break;
+      return dispatch_flash_attention_tf32x3(
+          nc, q, k, v, o, kx, vtx, sq, sk, sv, so, static_cast<int>(b),
+          static_cast<int>(h), static_cast<int>(kvh), static_cast<int>(s),
+          causal, window, scale_log2, st);
+    default:
+      break;
   }
-  return dispatch_flash_attention<float>(
-      nc, q, k, v, o, sq, sk, sv, so, static_cast<int>(b),
-      static_cast<int>(h), group, static_cast<int>(s), causal, window, scale,
-      st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int mk_ssd_scan(const void* states, const float* decays, void* h_prev,

@@ -113,7 +113,7 @@ def load_library() -> ctypes.CDLL:
         lib.fb_admm_update.argtypes = [p, p, p, p, p, p, i64, i64, i32, p]
         lib.fb_fused_gss.argtypes = [p, p, p, p, p, p, p, i64, i64, i64,
                                      i32, i64, i32, i32, p]
-        lib.mk_flash_attention.argtypes = ([p] * 4 + [i64] * 12 + [i64] * 5
+        lib.mk_flash_attention.argtypes = ([p] * 6 + [i64] * 12 + [i64] * 5
                                            + [i32] * 3
                                            + [ctypes.c_float, p])
         lib.mk_ssd_scan.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, p]

@@ -6,8 +6,10 @@ accumulator in fp32; l floored at 1e-30; output in q's dtype.  Masks are
 index predicates on absolute positions 0..S−1: ``kv ≤ q`` (causal) and
 ``kv > q − window`` (window > 0).
 
-The wrapper picks the CUDA kernel (``csrc/model_kernels.cu``) by dtype
-and nothing else:
+The wrapper picks one of three CUDA instances (``csrc/model_kernels.cu``)
+by a plain rule on dtype, strides and addresses (:func:`kernel_instance`),
+before the launch; a failed launch raises and never gives way to
+another instance or to the plain version:
 
 - **bf16** — ``flash_attention_tc_kernel``, on the tensor cores: a
   block of two warpgroups owns 128 query rows of one (batch, head);
@@ -20,8 +22,21 @@ and nothing else:
   input to start on a 16-byte boundary and every stride but the head
   dim's to be a multiple of 8 elements; the wrapper raises on a tensor
   that breaks that and never copies one.
-- **fp32** — ``flash_attention_kernel``, fp32 SIMT FMAs from shared
-  memory, P kept in fp32 as the Pallas kernel keeps it.
+- **fp32 whose tensors suit TMA** (every base on a 16-byte boundary,
+  every stride but the head dim's a multiple of 4 elements) —
+  ``flash_attention_tf32x3_kernel``, on the tensor cores in 3×TF32:
+  each operand x is split into big = tf32(x) and small = tf32(x − big)
+  (round to nearest, :func:`tf32_round`), and each product is
+  big·small + small·big + big·big as TF32 ``wgmma`` with fp32
+  accumulators, which keeps the fp32 checks (rtol 1e-4) where one TF32
+  product misses them by two orders of magnitude.  A pre-pass,
+  ``tf32x3_split_kernel``, writes K's big and small parts and Vᵀ's
+  (TF32 ``wgmma`` takes both operands K-major, so PV needs Vᵀ) into
+  scratch that the wrapper allocates (:func:`tf32x3_scratch_shapes`);
+  Vᵀ's keys are stored in :func:`tf32_key_order` within each group of
+  8, so that P feeds the next product straight from the accumulator.
+- **fp32 otherwise** — ``flash_attention_kernel``, fp32 SIMT FMAs from
+  shared memory, P kept in fp32 as the Pallas kernel keeps it.
 
 Both skip the key tiles right of the diagonal and left of the window,
 as the Pallas grid's ``pl.when(reachable)`` does, map head h to kv head
@@ -50,6 +65,8 @@ MAX_HEAD_DIM = 128  # the kernels are instantiated for hd/16 = 1 .. 8
 LAYOUTS = ("bhsd", "bshd")
 MAX_BATCH_HEADS = 65535  # a grid dimension of both instances
 ALIGN_BYTES = 16  # a TMA tensor map's base and strides
+# The instances, by the code the C entry point takes.
+INSTANCES = ("simt", "bf16_tc", "tf32x3")
 
 
 def _dims(q_shape, k_shape, layout):
@@ -116,8 +133,8 @@ def check_kernel_args(shapes, dtypes, strides, ptrs, *, layout="bhsd",
     plain values of q, k, v (in that order): shapes, dtypes, strides in
     elements and data pointers (addresses).  Raises TypeError or
     ValueError on what the kernels do not take; returns
-    (b, h, kvh, s, hd).  The wrapper calls it for CUDA tensors; it needs
-    no card."""
+    (b, h, kvh, s, hd).  The wrapper calls it for CUDA tensors, then
+    :func:`kernel_instance` on the same values; neither needs a card."""
     q_shape, k_shape, v_shape = (tuple(x) for x in shapes)
     b, h, kvh, s, hd = _dims(q_shape, k_shape, layout)
     dq, dk, dv = dtypes
@@ -156,6 +173,52 @@ def check_kernel_args(shapes, dtypes, strides, ptrs, *, layout="bhsd",
     return b, h, kvh, s, hd
 
 
+def kernel_instance(dtype, strides, ptrs) -> str:
+    """The CUDA instance that takes q, k, v of ``dtype`` with these
+    strides (in elements) and data pointers: ``"bf16_tc"`` for bf16,
+    ``"tf32x3"`` for fp32 whose tensors suit TMA (every base on a
+    16-byte boundary, every stride but the head dim's a multiple of 4
+    elements), ``"simt"`` for the other fp32 tensors.  A plain rule,
+    decided before the launch."""
+    if dtype == torch.bfloat16:
+        return "bf16_tc"
+    per = ALIGN_BYTES // dtype.itemsize
+    fits = all(ptr % ALIGN_BYTES == 0 and all(x % per == 0 for x in st[:3])
+               for st, ptr in zip(strides, ptrs, strict=True))
+    return "tf32x3" if fits else "simt"
+
+
+def tf32_key_order() -> list[int]:
+    """Which key of a group of 8 the tf32x3 instance stores at each
+    position of Vᵀ's rows: position t holds key 2t and position t + 4
+    key 2t + 1 (t < 4).  A TF32 ``wgmma`` A fragment holds columns t and
+    t + 4 of each 8-wide k-slice (t = lane % 4), and the S accumulator
+    gives the lane columns 2t and 2t + 1: with this order P goes from
+    the one to the other without a shuffle."""
+    return [2 * (p % 4) + p // 4 for p in range(8)]
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 explicit mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32``: the low 13 bits of
+    the result are 0."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """(big, small) with big = tf32(x), small = tf32(x − big), as the
+    tf32x3 instance splits every operand."""
+    big = tf32_round(x)
+    return big, tf32_round(x - big)
+
+
+def tf32x3_scratch_shapes(b, kvh, s, hd):
+    """Shapes of the tf32x3 instance's scratch: K's big and small parts
+    (2, B·KvH, S, hd) and Vᵀ's (2, B·KvH, hd, S8)."""
+    return (2, b * kvh, s, hd), (2, b * kvh, hd, -(-s // 8) * 8)
+
+
 def _bhs_strides(st, layout):
     """(batch, head, seq) strides in elements."""
     return (st[0], st[1], st[2]) if layout == "bhsd" else (st[0], st[2],
@@ -165,8 +228,8 @@ def _bhs_strides(st, layout):
 def flash_attention(q, k, v, *, causal=True, window=0, layout="bhsd"):
     """Causal or sliding-window GQA attention; see the module note.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    of their dtype (or raise).
+    CPU tensors take the plain version; CUDA tensors launch the instance
+    that :func:`kernel_instance` names (or raise).
     """
     if is_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -179,15 +242,27 @@ def flash_attention(q, k, v, *, causal=True, window=0, layout="bhsd"):
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    instance = kernel_instance(q.dtype, (q.stride(), k.stride(),
+                                         v.stride()),
+                               (q.data_ptr(), k.data_ptr(), v.data_ptr()))
+    scratch = ()  # K's and Vᵀ's TF32 parts, for the tf32x3 instance
+    if instance == "tf32x3":
+        scratch = tuple(torch.empty(shp, dtype=torch.float32,
+                                    device=q.device)
+                        for shp in tf32x3_scratch_shapes(b, kvh, s, hd))
     sq, sk, sv, so = (_bhs_strides(t.stride(), layout)
                       for t in (q, k, v, out))
     rc = load_library().mk_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        *sq, *sk, *sv, *so, b, h, kvh, s, hd, int(causal), int(window),
-        int(q.dtype == torch.bfloat16), hd ** -0.5, stream_ptr(q))
-    check_launch("flash_attention", rc)
+        *([t.data_ptr() for t in scratch] or [None, None]), *sq, *sk, *sv,
+        *so, b, h, kvh, s, hd, int(causal), int(window),
+        INSTANCES.index(instance), hd ** -0.5, stream_ptr(q))
+    check_launch(f"flash_attention ({instance})", rc)
     flash_attention.launches += 1
+    flash_attention.instance_launches[instance] += 1
     return out
 
 
 flash_attention.launches = 0
+# Launches by instance, beside the total.
+flash_attention.instance_launches = dict.fromkeys(INSTANCES, 0)

@@ -4,8 +4,9 @@ Each op takes the hand-written CUDA kernel for CUDA tensors and the
 plain PyTorch version for CPU tensors; the choice is made by the
 wrapper from where its inputs lie, never by a fallback.  Every kernel
 wrapper counts its launches; :func:`launch_counts` reads the counts and
-:func:`reset_launch_counts` sets them to 0, so a run can show that its
-main path went through the kernels.
+:func:`reset_launch_counts` sets them to 0 (flash attention's counts by
+instance, ``flash_attention.instance_launches``, too), so a run can
+show that its main path went through the kernels.
 """
 from __future__ import annotations
 
@@ -45,6 +46,8 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    flash_attention.instance_launches = dict.fromkeys(
+        flash_attention.instance_launches, 0)
 
 
 def trigger_sq_norms_pytree(z_prev: torch.Tensor,

@@ -11,8 +11,14 @@
   bytes it must move and that over the card's HBM rate (the bound).
 - The zamba2-2.7b prefill's K4 ``flash_attention`` at (4, 2048, 32, 80)
   bf16 causal in the model's (B, S, H, hd) layout, with
-  ``scaled_dot_product_attention`` on the same inputs beside it, and K5
-  ``ssd_scan`` at states (4, 32, 80, 64, 64) bf16.
+  ``scaled_dot_product_attention`` on the same inputs beside it; K4 on
+  the same shape in fp32 (the instance the checkout's rule picks for
+  fresh tensors: SIMT before the 3xTF32 instance existed, 3xTF32
+  since), with ``scaled_dot_product_attention`` in fp32 beside it; and
+  K5 ``ssd_scan`` at states (4, 32, 80, 64, 64) bf16.
+- How fp32 K4's device time splits between the kernels it launches
+  (the 3xTF32 instance's pre-pass and main kernel), from torch.profiler
+  (:func:`kernel_breakdown`).
 
 ``chip_smoke.py`` times every kernel with :func:`device_ms`; this
 script applies the same measure to another checkout, so two commits are
@@ -93,6 +99,21 @@ def cycle(calls):
     return lambda: next(it)()
 
 
+def kernel_breakdown(fn, calls: int = 10) -> dict:
+    """{CUDA kernel name: device ms per call of ``fn``}, from
+    torch.profiler over ``calls`` calls after one warm-up: how a call
+    that launches more than one kernel splits its time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / 1e3 / calls
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
 def round_kernel_ms(ops, dev, gen) -> dict:
     """{name: {"warm", "cold", "bytes", "bound_ms"}} for K1, K2 and K3 at
     the round's shapes, over ``COLD_COPIES`` sets of inputs made from
@@ -143,12 +164,17 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False  # as chip_smoke.py
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    q, k, v = (torch.randn((4, 2048, 32, 80), generator=gen, device=dev)
-               .to(torch.bfloat16) for _ in range(3))
+    q32, k32, v32 = (torch.randn((4, 2048, 32, 80), generator=gen,
+                                 device=dev) for _ in range(3))
+    q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    qt32, kt32, vt32 = (t.transpose(1, 2).contiguous()
+                        for t in (q32, k32, v32))
     states = torch.randn((4, 32, 80, 64, 64), generator=gen,
                          device=dev).to(torch.bfloat16)
     decays = torch.rand((4, 32, 80), generator=gen, device=dev)
@@ -159,10 +185,19 @@ def main(argv=None) -> int:
         "scaled_dot_product_attention": device_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)),
+        "flash_attention_fp32": device_ms(
+            lambda: ops.flash_attention(q32, k32, v32, layout="bshd")),
+        "scaled_dot_product_attention_fp32": device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt32, kt32, vt32, is_causal=True, enable_gqa=True)),
         "ssd_scan": device_ms(lambda: ops.ssd_scan(states, decays)),
     }
+    fp32_kernels = kernel_breakdown(
+        lambda: ops.flash_attention(q32, k32, v32, layout="bshd"))
     print(json.dumps({"src": str(src), "card": smi, "device_ms": ms,
-                      "round_kernels": rounds}), flush=True)
+                      "round_kernels": rounds,
+                      "flash_attention_fp32_kernels": fp32_kernels}),
+          flush=True)
     return 0
 
 

@@ -186,7 +186,8 @@ def test_kernel_refuses_wrong_dtype(dev):
 
 
 # K4 flash_attention: fp32 against the plain version at rtol 1e-4 (the
-# online softmax sums in another order); bf16 at 2e-2 (the plain version
+# online softmax sums in another order; fresh fp32 tensors take the
+# 3xTF32 instance); bf16 at 2e-2 (the plain version
 # reads the same bf16 inputs and keeps fp32 inside; the tensor-core
 # instance rounds P to bf16 before PV and the outputs round to bf16, 8
 # bits of mantissa).
@@ -266,6 +267,55 @@ def test_flash_attention_bf16_refuses_misaligned_inputs(dev):
     q32 = flat32[1:].view(b, h, s, hd)
     out = ops.flash_attention(q32, k.float(), k.float())
     assert torch.isfinite(out).all()
+
+
+# The fp32 instance on the tensor cores (3xTF32): head dims 16, 64, 80
+# and 128 (the 32-key tiles), GQA 4:1, windows 100 and 1024, a ragged
+# S = 2000, no mask, both layouts; rtol 1e-4 / atol 1e-5 as every fp32
+# check of K4.
+@pytest.mark.parametrize("hd", [16, 64, 80, 128])
+@pytest.mark.parametrize("b,h,kvh,s,window,causal,layout", [
+    (2, 8, 2, 300, 100, True, "bhsd"), (1, 4, 4, 2000, 0, True, "bshd"),
+    (1, 4, 1, 2000, 1024, True, "bshd"), (1, 2, 2, 64, 0, True, "bhsd"),
+    (1, 4, 2, 200, 50, False, "bhsd"), (1, 2, 1, 37, 16, True, "bshd")])
+def test_flash_attention_tf32x3_kernel(dev, hd, b, h, kvh, s, window,
+                                       causal, layout):
+    rng = np.random.default_rng(s + hd + 1)
+    kv_shape = (b, kvh, s, hd) if layout == "bhsd" else (b, s, kvh, hd)
+    q_shape = (b, h, s, hd) if layout == "bhsd" else (b, s, h, hd)
+    q, k, v = (_mk(rng, *shp) for shp in (q_shape, kv_shape, kv_shape))
+    want = ops.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   layout=layout)
+    before = ops.flash_attention.launches
+    by_instance = dict(ops.flash_attention.instance_launches)
+    got = ops.flash_attention(q.to(dev), k.to(dev), v.to(dev),
+                              causal=causal, window=window, layout=layout)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert ops.flash_attention.instance_launches["tf32x3"] == \
+        by_instance["tf32x3"] + 1
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("offset,which", [(1, 0), (2, 1), (3, 2)])
+def test_flash_attention_fp32_off_tma_takes_the_simt_instance(dev, offset,
+                                                              which):
+    """An fp32 view 4, 8 or 12 bytes into its storage suits no tensor
+    map: the rule sends it to the SIMT instance, at the same tolerance."""
+    rng = np.random.default_rng(offset)
+    b, h, s, hd = 1, 4, 300, 80
+    ts = [_mk(rng, b, h, s, hd) for _ in range(3)]
+    want = ops.flash_attention_ref(*ts, window=100)
+    flat = torch.zeros(offset + b * h * s * hd, device=dev)
+    flat[offset:] = ts[which].reshape(-1).to(dev)
+    args = [t.to(dev) for t in ts]
+    args[which] = flat[offset:].view(b, h, s, hd)
+    simt = ops.flash_attention.instance_launches["simt"]
+    got = ops.flash_attention(*args, window=100)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.instance_launches["simt"] == simt + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("b,c,h,p,n", [(1, 4, 2, 8, 16), (2, 16, 3, 64, 128),

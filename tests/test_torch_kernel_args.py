@@ -6,8 +6,11 @@ shapes, dtypes, strides and addresses; the wrappers call them for CUDA
 tensors.  Here they are called directly: the bf16 flash-attention
 instance reads its inputs through TMA tensor maps, so it refuses a base
 off a 16-byte boundary and strides that are not multiples of 8 elements
-(16 bytes), where the fp32 instance takes them; both refuse the dtypes, head dims and windows
-they always refused.
+(16 bytes), where fp32 takes them; both refuse the dtypes, head dims and
+windows they always refused.  ``flash_attention.kernel_instance`` picks
+the instance before the launch: fp32 tensors that suit TMA (16-byte
+bases, strides in multiples of 4 elements) go to the 3xTF32 tensor-core
+instance, every other fp32 tensor to the SIMT one, bf16 to its own.
 """
 import pytest
 import torch
@@ -152,6 +155,97 @@ def test_flash_attention_refuses_too_many_batch_heads():
     shape = (65536, 1, 16, 16)
     with pytest.raises(ValueError, match="batch·heads"):
         fa.check_kernel_args(*_fa_args(shape, shape, F32))
+
+
+def _instance(shapes, dtype, strides=None, ptrs=None):
+    (shapes, dtypes, strides, ptrs) = _fa_args(*shapes, dtype,
+                                               strides=strides, ptrs=ptrs)
+    return fa.kernel_instance(dtypes[0], strides, ptrs)
+
+
+@pytest.mark.parametrize("layout,q_shape,kv_shape", [
+    ("bshd", (4, 2048, 32, 80), (4, 2048, 32, 80)),
+    ("bhsd", (2, 8, 300, 80), (2, 2, 300, 80)),
+    ("bhsd", (1, 4, 37, 16), (1, 1, 37, 16)),
+    ("bshd", (2, 1000, 8, 128), (2, 1000, 8, 128))])
+def test_aligned_fp32_takes_the_tensor_core_instance(layout, q_shape,
+                                                      kv_shape):
+    assert fa.check_kernel_args(*_fa_args(q_shape, kv_shape, F32),
+                                layout=layout)
+    assert _instance((q_shape, kv_shape), F32) == "tf32x3"
+
+
+def test_the_model_layout_views_take_the_tensor_core_instance():
+    """q, k, v cut from one fused (B, S, (H + 2 KvH) hd) projection, as
+    the model makes them: every base and stride is a multiple of 16
+    bytes."""
+    b, s, h, kvh, hd = 2, 150, 4, 2, 80
+    qkv = torch.zeros(b, s, (h + 2 * kvh) * hd)
+    q = qkv[..., :h * hd].view(b, s, h, hd)
+    k = qkv[..., h * hd:(h + kvh) * hd].view(b, s, kvh, hd)
+    v = qkv[..., (h + kvh) * hd:].view(b, s, kvh, hd)
+    assert fa.kernel_instance(
+        F32, (q.stride(), k.stride(), v.stride()),
+        (q.data_ptr(), k.data_ptr(), v.data_ptr())) == "tf32x3"
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+@pytest.mark.parametrize("offset_bytes", [4, 8, 12])
+def test_fp32_off_a_16_byte_base_takes_the_simt_instance(which,
+                                                         offset_bytes):
+    ptrs = [0x7f0000000000, 0x7f0000100000, 0x7f0000200000]
+    ptrs[which] += offset_bytes
+    shape = (1, 2, 64, 16)
+    fa.check_kernel_args(*_fa_args(shape, shape, F32, ptrs=tuple(ptrs)))
+    assert _instance((shape, shape), F32, ptrs=tuple(ptrs)) == "simt"
+
+
+def test_an_fp32_view_off_its_storage_takes_the_simt_instance():
+    """A real tensor one element into its storage."""
+    shape = (1, 2, 64, 16)
+    t = torch.zeros(1 + 2 * 64 * 16)[1:].view(shape)
+    ok = torch.zeros(shape)
+    assert fa.kernel_instance(F32, [x.stride() for x in (t, ok, ok)],
+                              [x.data_ptr() for x in (t, ok, ok)]) == "simt"
+
+
+@pytest.mark.parametrize("strides", [
+    ((64 * 18 * 2, 64 * 18, 18, 1), (64 * 16 * 2, 64 * 16, 16, 1),
+     (64 * 16 * 2, 64 * 16, 16, 1)),  # q rows 18 elements apart
+    ((64 * 16 * 2, 64 * 16, 16, 1), (64 * 16 * 2 + 2, 64 * 16, 16, 1),
+     (64 * 16 * 2, 64 * 16, 16, 1)),  # k batch stride off by 2
+    ((64 * 16 * 2, 64 * 16, 16, 1), (64 * 16 * 2, 64 * 16, 16, 1),
+     (64 * 16 * 2, 64 * 16 + 1, 16, 1))])  # v head stride off by 1
+def test_fp32_strides_off_4_elements_take_the_simt_instance(strides):
+    shape = (2, 2, 64, 16)
+    fa.check_kernel_args((shape,) * 3, (F32,) * 3, strides, (0, 0, 0))
+    assert fa.kernel_instance(F32, strides, (0, 0, 0)) == "simt"
+
+
+def test_fp32_strides_of_4_elements_take_the_tensor_core_instance():
+    """16 bytes is enough for fp32: strides of 4 elements that bf16 (8)
+    would refuse."""
+    shape = (2, 2, 64, 16)
+    strides = ((64 * 20 * 2, 64 * 20, 20, 1),) * 3
+    assert fa.kernel_instance(F32, strides, (0, 0, 0)) == "tf32x3"
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa.check_kernel_args((shape,) * 3, (BF16,) * 3, strides, (0, 0, 0))
+
+
+@pytest.mark.parametrize("strides,ptrs", [
+    (None, None), (((64 * 20 * 2, 64 * 20, 20, 1),) * 3, None),
+    (None, (0x1004, 0x2000, 0x3000))])
+def test_bf16_keeps_its_instance_and_its_rules(strides, ptrs):
+    """bf16 always names its own instance; check_kernel_args still
+    refuses what its tensor maps cannot read."""
+    shape = (2, 2, 64, 16)
+    args = _fa_args(shape, shape, BF16, strides=strides, ptrs=ptrs)
+    assert _instance((shape, shape), BF16, strides, ptrs) == "bf16_tc"
+    if strides is None and ptrs is None:
+        fa.check_kernel_args(*args)
+    else:
+        with pytest.raises(ValueError):
+            fa.check_kernel_args(*args)
 
 
 @pytest.mark.parametrize("dtype", [BF16, F32])
