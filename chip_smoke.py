@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port on one GPU: the FedBack round (slice 1)
-and zamba2-2.7b serving (slice 2).
+"""Drive the PyTorch/CUDA port on one GPU: the FedBack round (slice 1),
+zamba2-2.7b serving (slice 2) and the paper's baselines (slice 6).
 
     python3 chip_smoke.py
 
@@ -42,14 +42,24 @@ non-zero):
    before each form's run, its second round from ``init_state`` (one
    that commits clients) is held against the same round on the CPU's
    plain path: the same events and state (rtol 1e-4);
+5b. the paper's baselines at the same width and L̄ = 0.1, each 1 warm-up
+   and 3 timed rounds with its launches per round asserted and its
+   second round held against the CPU's plain path (events and
+   ``committed`` equal, state at rtol 1e-4, the AVG family's ω at rtol
+   1e-6 / atol 1e-7): C1 FedADMM compact + fused (K1, K3), C2 FedADMM
+   dense (K1, K2), C3 FedAvg dense (K1), C4 FedProx compact with
+   μ = 0.01 (K1), C5 FedBack with the bernoulli selection, dense (K1,
+   K2), C6 FedADMM with the round-robin selection, compact and unfused
+   (K1, K2 on the gathered rows), C7 SCAFFOLD (no kernel);
 6. zamba2-2.7b at full width cut to one group (6 mamba layers and the
    shared block), fp32 with TF32 off: 1 request × 256 tokens, prefill
    and 4 greedy decode steps on the card (kernels) against the CPU's
    plain path on the same weights — logits at rtol/atol 1e-3, the
    greedy tokens equal, 1 flash_attention (the 3xTF32 instance) and 6
    ssd_scan launches in the prefill and none in decode;
-7. zamba2-2.7b at full width and depth (54 layers), bf16, seeded
-   random weights: 4 requests × 2048 prompt tokens, 32 new tokens,
+7. zamba2-2.7b at full width and depth (54 layers), bf16, weights of
+   the reference's seeded init (drawn on the card, its wall time
+   printed): 4 requests × 2048 prompt tokens, 32 new tokens,
    greedy, through ``repro_torch.launch.serve_lm.serve`` (warm-up off
    the clock), asserting 9 flash_attention and 54 ssd_scan launches per
    prefill and none in decode; then prefill(t₀..tₙ)'s last logits
@@ -58,8 +68,9 @@ non-zero):
    two paths round at different places);
 8. print the serve line, the kernels line (K4's bf16 instance as
    ``flash_attention``, launched in phase 7, and its 3xTF32 instance as
-   ``flash_attention_fp32``, launched in phase 6), the card line and,
-   last, the ok line.
+   ``flash_attention_fp32``, launched in phase 6; K1–K3's launches are
+   those of phases 4, 5 and 5b), the card line and, last, the ok
+   line.
 
 Exits non-zero without a result where no CUDA device is visible, or
 where the port's package is missing next to this script.
@@ -552,8 +563,13 @@ def serve_full(dev, ops, smi):
 
     cfg = get_config("zamba2-2.7b")
     model = build_model(cfg)
+    t0 = time.perf_counter()
     params = model.init(SEED, device=dev)
     torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"init {cfg.name}: {sum(p.numel() for p in params.parameters())} "
+        f"parameters drawn on the card by the jax.random twin in "
+        f"{init_s:.2f} s")
     ops.reset_launch_counts()
     report = serve(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
                    new_tokens=SERVE_NEW, seed=SEED, device=dev,
@@ -593,7 +609,7 @@ def serve_full(dev, ops, smi):
         raise AssertionError(f"prefill/decode disagree: max |Δ logit| / "
                              f"max |logit| = {rel} > {CONSISTENCY_REL}")
     report.update(
-        card=smi, tokens_request0=tokens[0].tolist(),
+        card=smi, init_s=init_s, tokens_request0=tokens[0].tolist(),
         consistency_rel=rel,
         argmax_equal=(full.argmax(-1) == dec.argmax(-1)).flatten().tolist(),
         launches_total=counts)
@@ -606,12 +622,14 @@ def serve_full(dev, ops, smi):
 
 
 def compare_with_cpu(round_fn_cpu, state_before, state_after, m_after,
-                     label):
+                     label, *, exact_events=False, omega_tol=None):
     """One round from the same state on the CPU's plain path must agree
-    with the card's: events (off a 1e-5 margin around δ) and, when the
-    events agree, the state at rtol 1e-4 / atol 1e-6.  The round must
-    commit a client, or the state check would hold whatever the solve
-    and the commit computed."""
+    with the card's: events (off a 1e-5 margin around δ, or everywhere
+    with ``exact_events``: a random draw is integer math) and, when the
+    events agree, the committed set and the state at rtol 1e-4 / atol
+    1e-6 (ω at ``omega_tol`` = (rtol, atol) too).  The round must commit
+    a client, or the state check would hold whatever the solve and the
+    commit computed."""
     from repro_torch.convert import state_from_numpy, state_to_numpy
 
     committed = int(m_after.committed.sum())
@@ -623,6 +641,8 @@ def compare_with_cpu(round_fn_cpu, state_before, state_after, m_after,
     dist = rm.distances.numpy()
     delta = before.ctrl.delta
     margin = np.abs(dist - delta) <= 1e-5 * np.maximum(1.0, np.abs(delta))
+    if exact_events:
+        margin[:] = False
     ev_gpu = m_after.events.cpu().numpy()
     ev_cpu = rm.events.numpy()
     if (ev_gpu[~margin] != ev_cpu[~margin]).any():
@@ -640,27 +660,32 @@ def compare_with_cpu(round_fn_cpu, state_before, state_after, m_after,
     for f in ("theta", "lam", "z_prev", "omega"):
         np.testing.assert_allclose(getattr(got, f), getattr(want, f),
                                    rtol=1e-4, atol=1e-6, err_msg=f)
+    omega_err = float(np.abs(got.omega - want.omega).max())
+    if omega_tol is not None:
+        np.testing.assert_allclose(got.omega, want.omega, rtol=omega_tol[0],
+                                   atol=omega_tol[1], err_msg="omega")
     np.testing.assert_array_equal(got.queue.age, want.queue.age)
     log(f"{label}: round {int(before.round) + 1} ({committed} clients "
         "committed) agrees with the CPU plain path (events equal, state "
-        "rtol 1e-4)")
+        f"rtol 1e-4, ω max_abs_err {omega_err:.3e}"
+        + (f", ω rtol {omega_tol[0]} / atol {omega_tol[1]} held"
+           if omega_tol else "") + ")")
 
 
-def drive(form, n_rounds, warmup, ctx, ops, expect):
-    """Run ``warmup`` + ``n_rounds`` rounds of one form with the launch
-    counts set to 0 just before; returns (timing, counts, metrics)."""
+def drive(form, n_rounds, warmup, ctx, ops, expect, **check):
+    """Run ``warmup`` + ``n_rounds`` rounds of one of
+    ``configs.paper_mnist.FORMS``, with the launch counts set to 0 just
+    before; ``check`` goes to :func:`compare_with_cpu`.  Returns
+    (timing, counts)."""
     from repro_torch.configs import paper_mnist
     from repro_torch.convert import state_from_numpy, state_to_numpy
-    from repro_torch.core import init_state, make_round_fn
     from repro_torch.models import make_loss_fn
 
-    compact = form == "A"
-    cfg = paper_mnist.fl_config("fedback", 0.1, compact=compact,
-                                fused_gss=compact)
-    dev = ctx["dev"]
-    state = init_state(cfg, ctx["params0"], spec=ctx["spec"], device=dev)
-    round_fn = make_round_fn(cfg, make_loss_fn(), ctx["data"],
-                             spec=ctx["spec"], device=dev)
+    dev, f = ctx["dev"], paper_mnist.FORMS[form]
+    cfg = paper_mnist.form_config(form)
+    state = f.init(cfg, ctx["params0"], spec=ctx["spec"], device=dev)
+    round_fn = f.make_round(cfg, make_loss_fn(), ctx["data"],
+                            spec=ctx["spec"], device=dev)
 
     def copy(s):  # the fused round updates its input in place
         return state_from_numpy(state_to_numpy(s), device=dev)
@@ -670,16 +695,48 @@ def drive(form, n_rounds, warmup, ctx, ops, expect):
     # plain path, from copies, before the counted run.
     before, _ = round_fn(copy(state))
     after, m = round_fn(copy(before))
-    cpu_round = make_round_fn(cfg, make_loss_fn(), {
+    cpu_round = f.make_round(cfg, make_loss_fn(), {
         k: v.cpu() for k, v in ctx["data"].items()}, spec=ctx["spec"],
         device="cpu")
-    compare_with_cpu(cpu_round, before, after, m, f"form {form}")
+    compare_with_cpu(cpu_round, before, after, m, f"form {form}", **check)
     del before, after, m
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    # The round must never make the host wait for the card: CUDA's sync
-    # debug mode warns at every implicit synchronization (a read-back,
-    # a pageable host→device copy), and any warning fails the phase.
+    state, history, ms_round = timed_rounds(form, round_fn, state, warmup,
+                                            n_rounds)
+    counts = path_counts(ops)
+    total = warmup + n_rounds
+    for name, per_round in expect.items():
+        if counts[name] != per_round * total:
+            raise AssertionError(f"form {form}: {name} launched "
+                                 f"{counts[name]} times in {total} rounds, "
+                                 f"expected {per_round * total}")
+    omega = state.omega
+    if omega.shape != (ctx["spec"].dim,) or not bool(
+            torch.isfinite(omega).all()):
+        raise AssertionError(f"form {form}: ω is not a finite "
+                             f"({ctx['spec'].dim},) vector")
+    loss, acc = ctx["eval_fn"](state, ctx["test"]["x"], ctx["test"]["y"])
+    loss, acc = float(loss), float(acc)
+    if not (math.isfinite(loss) and 0.0 <= acc <= 1.0):
+        raise AssertionError(f"form {form}: eval gave loss {loss}, "
+                             f"acc {acc}")
+    events = [int(m.num_events) for m in history]
+    deferred = [int(m.num_deferred) for m in history]
+    log(f"form {form}: {ms_round:.3f} ms/round over {n_rounds} rounds "
+        f"(after {warmup} warm-up) on {ctx['smi']}; events/round {events}; "
+        f"num_deferred {deferred}; test loss {loss:.4f} acc {acc:.4f}; "
+        f"launches {counts}")
+    return dict(ms_per_round=ms_round, events=events, deferred=deferred,
+                acc=acc, loss=loss), counts
+
+
+def timed_rounds(form, round_fn, state, warmup, n_rounds):
+    """``warmup`` rounds, then ``n_rounds`` timed by the host clock to a
+    synchronize, all under CUDA's sync debug mode: the round must never
+    make the host wait for the card (a read-back, a pageable host→device
+    copy), and any such warning fails the phase.  Returns (state, the
+    timed rounds' metrics, ms per round)."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -701,31 +758,90 @@ def drive(form, n_rounds, warmup, ctx, ops, expect):
     if syncs:
         raise AssertionError(f"form {form}: {len(syncs)} host syncs inside "
                              f"the rounds, e.g. {syncs[:3]}")
+    return state, history, ms_round
+
+
+# Phase 5b: launches per round of the baseline forms C1–C6 of
+# ``configs.paper_mnist.FORMS`` (C7, SCAFFOLD, launches none).
+BASELINE_LAUNCHES = {
+    "C1": {"trigger_sq_norms": 1, "fused_gss": 1, "admm_update": 0},
+    "C2": {"trigger_sq_norms": 1, "admm_update": 1, "fused_gss": 0},
+    "C3": {"trigger_sq_norms": 1, "admm_update": 0, "fused_gss": 0},
+    "C4": {"trigger_sq_norms": 1, "admm_update": 0, "fused_gss": 0},
+    "C5": {"trigger_sq_norms": 1, "admm_update": 1, "fused_gss": 0},
+    "C6": {"trigger_sq_norms": 1, "admm_update": 1, "fused_gss": 0},
+}
+AVG_OMEGA_TOL = (1e-6, 1e-7)
+
+
+def drive_baselines(ctx, ops):
+    """Phase 5b: forms C1–C6 through ``make_round_fn``, C7 (SCAFFOLD)
+    through its own round; returns (a report per form, the launch
+    counts summed over the phase)."""
+    from repro_torch.configs import paper_mnist
+    from repro_torch.core import AVG_FAMILY
+
+    reports, total = {}, {}
+    for form, expect in BASELINE_LAUNCHES.items():
+        avg = paper_mnist.FORMS[form].kw["algorithm"] in AVG_FAMILY
+        report, counts = drive(
+            form, 3, 1, ctx, ops, expect, exact_events=True,
+            omega_tol=AVG_OMEGA_TOL if avg else None)
+        reports[form] = dict(report, what=paper_mnist.FORMS[form].what)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    reports["C7"] = dict(drive_scaffold(ctx, ops, 3, 1),
+                         what=paper_mnist.FORMS["C7"].what)
+    return reports, total
+
+
+def drive_scaffold(ctx, ops, n_rounds, warmup):
+    """Form C7: SCAFFOLD at the paper width, its second round held
+    against the CPU's plain path; it launches no kernel."""
+    from repro_torch.configs import paper_mnist
+    from repro_torch.convert import scaffold_state_to_numpy
+    from repro_torch.core import ScaffoldState
+    from repro_torch.models import make_loss_fn
+
+    dev, spec, f = ctx["dev"], ctx["spec"], paper_mnist.FORMS["C7"]
+    cfg = paper_mnist.form_config("C7")
+    state = f.init(cfg, ctx["params0"], spec=spec, device=dev)
+    round_fn = f.make_round(cfg, make_loss_fn(), ctx["data"], spec=spec,
+                            device=dev)
+    cpu_round = f.make_round(cfg, make_loss_fn(), {
+        k: v.cpu() for k, v in ctx["data"].items()}, spec=spec,
+        device="cpu")
+    before, _ = round_fn(state)
+    after, m = round_fn(before)
+    want, wm = cpu_round(ScaffoldState(*(t.cpu() for t in before)))
+    np.testing.assert_array_equal(m["events"].cpu().numpy(),
+                                  wm["events"].numpy(), err_msg="form C7")
+    got, want = scaffold_state_to_numpy(after), scaffold_state_to_numpy(want)
+    for f in ("c_server", "c_clients", "omega"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                   rtol=1e-4, atol=1e-6, err_msg=f"C7 {f}")
+    log(f"form C7: round 2 ({int(m['num_events'])} clients) agrees with "
+        "the CPU plain path (events equal, c, c_i and ω at rtol 1e-4)")
+    del before, after, m, want, wm
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    state, history, ms_round = timed_rounds("C7", round_fn, state, warmup,
+                                            n_rounds)
     counts = path_counts(ops)
-    total = warmup + n_rounds
-    for name, per_round in expect.items():
-        if counts[name] != per_round * total:
-            raise AssertionError(f"form {form}: {name} launched "
-                                 f"{counts[name]} times in {total} rounds, "
-                                 f"expected {per_round * total}")
-    omega = state.omega
-    if omega.shape != (ctx["spec"].dim,) or not bool(
-            torch.isfinite(omega).all()):
-        raise AssertionError(f"form {form}: ω is not a finite "
-                             f"({ctx['spec'].dim},) vector")
-    loss, acc = ctx["eval_fn"](state, ctx["test"]["x"], ctx["test"]["y"])
-    loss, acc = float(loss), float(acc)
+    if any(counts.values()):
+        raise AssertionError(f"form C7 launched {counts}; SCAFFOLD runs no "
+                             "kernel")
+    if not bool(torch.isfinite(state.omega).all()):
+        raise AssertionError("form C7: ω is not finite")
+    loss, acc = (float(v) for v in ctx["eval_fn"](
+        state, ctx["test"]["x"], ctx["test"]["y"]))
     if not (math.isfinite(loss) and 0.0 <= acc <= 1.0):
-        raise AssertionError(f"form {form}: eval gave loss {loss}, "
-                             f"acc {acc}")
-    events = [int(m.num_events) for m in history]
-    deferred = [int(m.num_deferred) for m in history]
-    log(f"form {form}: {ms_round:.3f} ms/round over {n_rounds} rounds "
-        f"(after {warmup} warm-up); events/round {events}; "
-        f"num_deferred {deferred}; test loss {loss:.4f} acc {acc:.4f}; "
-        f"launches {counts}")
-    return dict(ms_per_round=ms_round, events=events, deferred=deferred,
-                acc=acc, loss=loss), counts
+        raise AssertionError(f"form C7: eval gave loss {loss}, acc {acc}")
+    events = [int(m["num_events"]) for m in history]
+    log(f"form C7: {ms_round:.3f} ms/round over {n_rounds} rounds (after "
+        f"{warmup} warm-up) on {ctx['smi']}; events/round {events}; test "
+        f"loss {loss:.4f} acc {acc:.4f}; launches {counts}")
+    return dict(ms_per_round=ms_round, events=events, acc=acc, loss=loss)
 
 
 def main() -> int:
@@ -742,6 +858,7 @@ def main() -> int:
     from repro_torch.core import make_eval_fn
     from repro_torch.kernels import _build, ops
     from repro_torch.models import init_mlp, make_loss_and_acc_fn
+    from repro_torch.prng import PRNGKey
     from repro_torch.utils import make_flat_spec
 
     smi = subprocess.run(
@@ -766,7 +883,7 @@ def main() -> int:
     dev = torch.device("cuda")
     ds = make_synthetic_mnist()
     data, test = federated_arrays(ds, n_clients=100, device=dev)
-    params0 = init_mlp(SEED, device=dev)
+    params0 = init_mlp(PRNGKey(SEED, device=dev), device=dev)
     spec = make_flat_spec(params0)
     n, d = data["x"].shape[0], spec.dim
     log(f"paper-MNIST: data {tuple(data['x'].shape)}, D = {d}")
@@ -777,15 +894,17 @@ def main() -> int:
     rows.update(check_model_kernels(dev, ops))
 
     ctx = dict(dev=dev, data=data, test=test, params0=params0, spec=spec,
-               eval_fn=make_eval_fn(make_loss_and_acc_fn(), spec=spec,
-                                    device=dev))
-    form_a, counts_a = drive("A", 5, 1, ctx, ops,
-                             {"trigger_sq_norms": 1, "fused_gss": 1,
-                              "admm_update": 0})
-    form_b, counts_b = drive("B", 3, 1, ctx, ops,
-                             {"trigger_sq_norms": 1, "admm_update": 1,
-                              "fused_gss": 0})
-    log(json.dumps({"forms": {"A": form_a, "B": form_b}}))
+               smi=smi, eval_fn=make_eval_fn(make_loss_and_acc_fn(),
+                                             spec=spec, device=dev))
+    form_a, counts_a = drive(
+        "A", 5, 1, ctx, ops,
+        {"trigger_sq_norms": 1, "fused_gss": 1, "admm_update": 0})
+    form_b, counts_b = drive(
+        "B", 3, 1, ctx, ops,
+        {"trigger_sq_norms": 1, "admm_update": 1, "fused_gss": 0})
+    forms_c, counts_c = drive_baselines(ctx, ops)
+    log(json.dumps({"forms": {"A": form_a, "B": form_b, **forms_c},
+                    "card": smi}))
 
     _, counts_slice = check_slice_against_cpu(dev, ops)
     torch.cuda.empty_cache()
@@ -794,14 +913,16 @@ def main() -> int:
 
     kernels = []
     for name, r in rows.items():
-        launches = (counts_a[name] + counts_b[name] + counts_slice[name]
+        launches = (counts_a[name] + counts_b[name]
+                    + counts_c.get(name, 0) + counts_slice[name]
                     + counts_serve[name])
         if launches == 0:
             raise AssertionError(f"{name} was never launched on the path")
         lib = r["library_ms"]
         warm = f" (cold; warm {r['warm_ms']:.4f})" if "warm_ms" in r else ""
         log(f"{name}: launches {launches} (form A {counts_a[name]}, "
-            f"form B {counts_b[name]}, fp32 group {counts_slice[name]}, "
+            f"form B {counts_b[name]}, forms C {counts_c.get(name, 0)}, "
+            f"fp32 group {counts_slice[name]}, "
             f"serve {counts_serve[name]}), "
             f"max_abs_err {r['max_abs_err']:.3e}, "
             f"ms {r['ms']:.4f}{warm}, plain_ms {r['plain_ms']:.4f}, "

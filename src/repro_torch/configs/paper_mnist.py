@@ -1,10 +1,15 @@
 """The paper's MNIST experiment configuration (§5), for the port.
 
 100 clients, 2 unique digits each, single-hidden-layer MLP (200 ReLU),
-SGD lr 0.01 momentum 0.9, batch 42, 2 local epochs, K=2, α=0.9.
+SGD lr 0.01 momentum 0.9, batch 42, 2 local epochs, K=2, α=0.9;
+ρ = μ = 0.01.  ``fl_config(algorithm)`` builds FedBack or any of the
+paper's baselines (``fedadmm``, ``fedavg``, ``fedprox``, ``admm``).
 """
+from typing import Callable, NamedTuple
+
+from repro_torch.core.baselines import init_scaffold, make_scaffold_round
 from repro_torch.core.controller import ControllerConfig
-from repro_torch.core.fedback import FLConfig
+from repro_torch.core.fedback import FLConfig, init_state, make_round_fn
 
 N_CLIENTS = 100
 TARGET_ACCURACY = 0.90  # paper Tab. 1 threshold (central model ≈ 93%)
@@ -24,3 +29,40 @@ def fl_config(algorithm="fedback", participation=0.1, **kw) -> FLConfig:
         controller=ControllerConfig(K=2.0, alpha=0.9),
         **kw,
     )
+
+
+class Form(NamedTuple):
+    """One round form at this width: what it is, its ``fl_config``
+    keywords, and the builders of its state and its round."""
+    what: str
+    kw: dict
+    init: Callable = init_state
+    make_round: Callable = make_round_fn
+
+
+# The round forms driven at this width and L̄ = 0.1 (``chip_smoke.py``,
+# ``launch/profile_round.py``).  SCAFFOLD keeps control variates, so it
+# has a state and a round of its own.
+FORMS = {
+    "A": Form("FedBack, compact + fused",
+              dict(algorithm="fedback", compact=True, fused_gss=True)),
+    "B": Form("FedBack, dense", dict(algorithm="fedback")),
+    "C1": Form("FedADMM, compact + fused",
+               dict(algorithm="fedadmm", compact=True, fused_gss=True)),
+    "C2": Form("FedADMM, dense", dict(algorithm="fedadmm")),
+    "C3": Form("FedAvg, dense", dict(algorithm="fedavg")),
+    "C4": Form("FedProx, compact, mu 0.01",
+               dict(algorithm="fedprox", compact=True)),
+    "C5": Form("FedBack, bernoulli selection, dense",
+               dict(algorithm="fedback", selection="bernoulli")),
+    "C6": Form("FedADMM, round-robin selection, compact, unfused",
+               dict(algorithm="fedadmm", selection="round_robin",
+                    compact=True)),
+    "C7": Form("SCAFFOLD", dict(algorithm="scaffold"), init_scaffold,
+               make_scaffold_round),
+}
+
+
+def form_config(form: str) -> FLConfig:
+    """The ``FLConfig`` of one of :data:`FORMS`, at L̄ = 0.1."""
+    return fl_config(**FORMS[form].kw)

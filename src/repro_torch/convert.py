@@ -12,6 +12,9 @@ go to ``device``: CUDA unless the caller passes another.
   two uint32 words, the round);
 * :func:`state_to_numpy` — the other way, as the port's ``FLState``
   with numpy leaves, for comparisons;
+* :func:`scaffold_state_from_numpy` / :func:`scaffold_state_to_numpy` —
+  a fetched JAX ``ScaffoldState`` (pytrees of the params' shape) ⇄ the
+  port's flat one, through a ``FlatSpec``;
 * :func:`lm_params_from_numpy` — the model zoo's hybrid parameter tree
   (stacked (L, ...) layers) → the port's parameter module (one module
   per layer, the shared block, JAX's (n_in, n_out) weight layout kept);
@@ -22,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.baselines import ScaffoldState
 from repro_torch.core.controller import ControllerState
 from repro_torch.core.state import DeferQueue, FLState
 from repro_torch.device import resolve_device
@@ -112,8 +116,7 @@ def state_from_numpy(s, device=None) -> FLState:
             load=_t(s.ctrl.load, device, torch.float32),
             round=_t(s.ctrl.round, device, torch.int32),
             event_count=_t(s.ctrl.event_count, device, torch.int32)),
-        rng=_t(np.asarray(s.rng).astype(np.uint32).astype(np.int64),
-               device),
+        rng=_rng_words(s.rng, device),
         round=_t(s.round, device, torch.int32),
         queue=DeferQueue(age=_t(s.queue.age, device, torch.int32),
                          load=_t(s.queue.load, device, torch.float32)),
@@ -131,3 +134,38 @@ def state_to_numpy(s: FLState) -> FLState:
         ctrl=ControllerState(*(cpu(t) for t in s.ctrl)),
         rng=cpu(s.rng).astype(np.uint32), round=cpu(s.round),
         queue=DeferQueue(*(cpu(t) for t in s.queue)))
+
+
+def _rng_words(rng, device):
+    return _t(np.asarray(rng).astype(np.uint32).astype(np.int64), device)
+
+
+def scaffold_state_from_numpy(s, spec, device=None) -> ScaffoldState:
+    """A JAX ``ScaffoldState`` with numpy-convertible leaves → the port's
+    flat one on ``device``: ω and c through ``spec.flatten``, the
+    stacked client variates through ``spec.flatten_stacked``."""
+    device = resolve_device(device)
+
+    def tree(node):
+        if isinstance(node, dict):
+            return {k: tree(v) for k, v in node.items()}
+        return _t(node, device)
+
+    return ScaffoldState(
+        c_server=spec.flatten(tree(s.c_server)),
+        c_clients=spec.flatten_stacked(tree(s.c_clients)),
+        omega=spec.flatten(tree(s.omega)),
+        rng=_rng_words(s.rng, device),
+        round=_t(s.round, device, torch.int32))
+
+
+def scaffold_state_to_numpy(s: ScaffoldState) -> ScaffoldState:
+    """The port's SCAFFOLD state with numpy leaves (flat, the rng as two
+    uint32 words)."""
+    def cpu(t):
+        return t.detach().cpu().numpy()
+
+    return ScaffoldState(c_server=cpu(s.c_server),
+                         c_clients=cpu(s.c_clients), omega=cpu(s.omega),
+                         rng=cpu(s.rng).astype(np.uint32),
+                         round=cpu(s.round))

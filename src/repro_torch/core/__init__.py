@@ -1,4 +1,10 @@
 """The FedBack round engine of the port (``repro/core``)."""
+from .baselines import (  # noqa: F401
+    ScaffoldState,
+    baseline_config,
+    init_scaffold,
+    make_scaffold_round,
+)
 from .compact import (  # noqa: F401
     CompactPlan,
     adaptive_limit,
@@ -16,6 +22,8 @@ from .controller import (  # noqa: F401
     init_controller,
 )
 from .fedback import (  # noqa: F401
+    ADMM_FAMILY,
+    AVG_FAMILY,
     FLConfig,
     init_state,
     make_eval_fn,
@@ -23,8 +31,12 @@ from .fedback import (  # noqa: F401
     run_rounds,
 )
 from .selection import (  # noqa: F401
+    BernoulliSelection,
     FedBackSelection,
     FullSelection,
+    RandomSelection,
+    RoundRobinSelection,
     make_selection,
+    subset_size,
 )
 from .state import DeferQueue, FLState, RoundMetrics  # noqa: F401

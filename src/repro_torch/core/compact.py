@@ -177,9 +177,9 @@ def scatter_rows(current: torch.Tensor, rows: torch.Tensor,
 
 
 def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
-                       *, warm_start: bool, c_min: int | None = None,
-                       adaptive: bool = False, alpha: float = 0.9,
-                       fused: bool = False) -> Callable:
+                       *, is_admm: bool, warm_start: bool,
+                       c_min: int | None = None, adaptive: bool = False,
+                       alpha: float = 0.9, fused: bool = False) -> Callable:
     """Build the plan → gather → solve → commit block of one round.
 
     solver(theta0, center, x, y, idx) -> (theta, losses) over C rows;
@@ -187,15 +187,21 @@ def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
 
     Returns block(events, distances, age, qload, theta, lam, z_prev,
     omega, x, y, keys) -> (θ', λ', z', age', qload', committed, losses,
-    slot_valid, limit).  The ADMM family's block (the only one ported):
-    λ⁺ and the prox center before the solve, z = θ + λ⁺ at the commit.
-    With ``fused`` the post-solve commit is one fused pass
+    slot_valid, limit).  The ADMM family's block (``is_admm``): λ⁺ and
+    the prox center before the solve, z = θ + λ⁺ at the commit.  With
+    ``fused`` the post-solve commit is one fused pass
     (``kernels.fused_gss``) that updates θ/λ/z_prev **in place**;
     otherwise λ⁺ and the center come from ``kernels.admm_update`` on the
     gathered rows, new tensors are returned and the inputs are left as
-    they were.
+    they were.  The AVG family's block (FedAvg, FedProx) launches no
+    state kernel: λ stays as it is (zero), the center is ω, and the
+    commit scatters θ and z = θ.
     """
     from repro_torch.kernels import ops
+
+    if fused and not is_admm:
+        raise ValueError("fused commit is the ADMM dual algebra — "
+                         "non-ADMM compaction has no λ/z streams to fuse")
 
     def block(events, distances, age, qload, theta, lam, z_prev, omega,
               x, y, keys):
@@ -224,6 +230,8 @@ def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
 
     def presolve(plan, theta, lam, omega):
         th_rows = gather_rows(theta, plan.idx)
+        if not is_admm:
+            return th_rows, None, omega[None].expand(capacity, -1)
         lam_rows = gather_rows(lam, plan.idx)
         if fused:
             # The fused commit re-derives λ⁺ itself, so the pre-solve
@@ -241,6 +249,9 @@ def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
                                  th_out_rows.contiguous(), omega, theta, lam,
                                  z_prev, with_z=True)
         theta_new = scatter_rows(theta, th_out_rows, plan.idx, plan.valid)
+        if not is_admm:
+            return theta_new, lam, scatter_rows(z_prev, th_out_rows,
+                                                plan.idx, plan.valid)
         lam_new = scatter_rows(lam, lam_new_rows, plan.idx, plan.valid)
         z_new = scatter_rows(z_prev, th_out_rows + lam_new_rows, plan.idx,
                              plan.valid)

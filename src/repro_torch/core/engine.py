@@ -4,6 +4,7 @@
     prox center   c_i = ω − λ_i
     gated commit  state_i ← proposed_i  iff  S_i^k
     consensus     ω = (1/N) Σ_i z_i^prev       (Eq. 2.4)
+    participants  ω = mean of z_i over S_i^k   (FedAvg, FedProx)
 
 on the flat layout: (N, D) client matrices and a (D,) ω.
 """
@@ -30,6 +31,22 @@ def gated_commit(events, proposed, current):
 def consensus_mean(z_prev):
     """ω = (1/N) Σ_i z_i^prev — stale rows included (Eq. 2.4)."""
     return torch.mean(z_prev, dim=0)
+
+
+def participant_mean(per_client, events, fallback, num_events=None):
+    """Mean of the (N, D) rows whose event fired (FedAvg/FedProx
+    aggregation): the masked sum in fp32 over max(count, 1), cast to the
+    rows' dtype; ``fallback`` (D,) where no client fired.  The count
+    stays on the device (no host branch)."""
+    if num_events is None:
+        num_events = torch.sum(events.to(torch.int32))
+    acc = torch.promote_types(per_client.dtype, torch.float32)
+    total = torch.sum(torch.where(events[:, None], per_client,
+                                  torch.zeros((), dtype=per_client.dtype,
+                                              device=per_client.device)
+                                  ).to(acc), dim=0)
+    mean = total / torch.clamp(num_events, min=1).to(acc)
+    return torch.where(num_events > 0, mean.to(per_client.dtype), fallback)
 
 
 def participant_mean_loss(losses, events):

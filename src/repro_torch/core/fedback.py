@@ -1,12 +1,26 @@
 """The FedBack round engine (paper Alg. 2), ported to PyTorch.
 
-Port of ``repro/core/fedback.py`` for the flat layout, the synchronous
-engine and the ADMM family (``fedback``, and ``admm`` with full
-selection).  One round, in order:
+Port of ``repro/core/fedback.py`` for the flat layout and the
+synchronous engine.  One program covers the algorithm family of the
+reference's table:
+
+  ================  =========  ==========  ===============  ============
+  algorithm         selection  dual λ      local prox ρ     aggregation
+  ================  =========  ==========  ===============  ============
+  fedback           fedback    ADMM        ρ (Eq. 2.3)      mean z_i^prev
+  fedadmm           random     ADMM        ρ                mean z_i^prev
+  admm (vanilla)    full       ADMM        ρ                mean z_i^prev
+  fedavg            random     0           0                mean over I_s
+  fedprox           random     0           μ (center ω)     mean over I_s
+  ================  =========  ==========  ===============  ============
+
+(``selection=`` overrides the column: ``bernoulli`` and ``round_robin``
+too.)  One round, in order:
 
 1. trigger distances ‖ω − z_i^prev‖ (K1 ``trigger_sq_norms`` for the
-   l2 metric);
-2. event-triggered selection and the integral controller step;
+   l2 metric), taken for every algorithm as the reference does;
+2. the selection (its key is the round key's second split) and the
+   controller step;
 3. the client update, in one of two forms:
 
    * **compact** (``compact=True``): the capacity-bounded plan and its
@@ -18,7 +32,10 @@ selection).  One round, in order:
      over all N rows, the solve over all N clients, and the
      event-gated commit;
 
-4. the consensus mean ω = (1/N) Σ z_i^prev.
+   the AVG family (FedAvg, FedProx) skips the dual algebra and its
+   kernels: λ stays zero, the center is ω and z = θ;
+4. the consensus mean ω = (1/N) Σ z_i^prev for the ADMM family, the
+   mean over the committed clients for the AVG family.
 
 The kernels are reached through :mod:`repro_torch.kernels.ops`, whose
 wrappers launch the hand-written kernel for a CUDA tensor and run the
@@ -35,7 +52,8 @@ products run at fp32 on the CPU.
 
 What the JAX engine also offers and later slices port: the tree
 layout, stale-tolerant rounds, ragged clients, compressed consensus,
-host-offloaded state, the client mesh, and the randomized baselines.
+host-offloaded state and the client mesh.  SCAFFOLD has its own round
+(:mod:`repro_torch.core.baselines`).
 """
 from __future__ import annotations
 
@@ -52,7 +70,8 @@ from repro_torch.utils.flatstate import FlatSpec
 
 from .compact import capacity_bounds, init_queue, make_compact_block
 from .controller import ControllerConfig, init_controller
-from .engine import consensus_mean, gated_commit, participant_mean_loss
+from .engine import consensus_mean, gated_commit, participant_mean, \
+    participant_mean_loss
 from .selection import make_selection
 from .state import FLState, RoundMetrics
 from .trigger import trigger_distances
@@ -62,6 +81,7 @@ from .trigger import trigger_distances
 span = torch.profiler.record_function
 
 ADMM_FAMILY = ("fedback", "fedadmm", "admm")
+AVG_FAMILY = ("fedavg", "fedprox")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,7 +157,7 @@ def _check_supported(cfg: FLConfig, spec: FlatSpec | None) -> None:
         "max_staleness": cfg.max_staleness is not None,
         "consensus_compress": cfg.consensus_compress != "none",
         "state_backend": cfg.state_backend != "device",
-        "algorithm": cfg.algorithm not in ("fedback", "admm"),
+        "algorithm": cfg.algorithm not in ADMM_FAMILY + AVG_FAMILY,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -181,15 +201,18 @@ def _epoch_indices(keys: torch.Tensor, n_points: int, batch_size: int,
 
 
 def _local_solve(loss_fn: Callable, spec: FlatSpec, theta0, center, x, y,
-                 idx, *, rho: float, lr: float, momentum: float):
+                 idx, *, rho: float, lr: float, momentum: float,
+                 control=None):
     """Inexact prox update (Eq. 2.3) for a batch of clients at once.
 
     SGD with momentum on f_i(θ) + ρ/2‖θ − c‖².  theta0/center: (C, D)
     rows; x: (C, n, ...); y: (C, n); idx: (C, steps, batch).  The
     per-client gradient is ``torch.func.vmap`` of ``grad_and_value`` of
     ``loss_fn`` on the params dict the row views unflatten to; the
-    update itself runs on the flat rows.  Returns ((C, D), (C,) mean
-    loss over the steps).
+    update itself runs on the flat rows.  ``control`` = (c, c_i), the
+    (D,) server and (C, D) client control variates, makes each gradient
+    g + c − c_i (SCAFFOLD's drift correction).  Returns ((C, D), (C,)
+    mean loss over the steps).
     """
     vg = torch.func.vmap(torch.func.grad_and_value(loss_fn))
     theta = theta0.contiguous().clone()
@@ -201,6 +224,8 @@ def _local_solve(loss_fn: Callable, spec: FlatSpec, theta0, center, x, y,
         grads, loss = vg(spec.unflatten_stacked(theta), x[rows, ib],
                          y[rows, ib])
         g = spec.flatten_stacked(grads)
+        if control is not None:
+            g = g + control[0] - control[1]
         if rho:
             g = g + rho * (theta - center)
         theta, buf = sgd_step(theta, g, buf, lr, momentum)
@@ -229,8 +254,13 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
     if x.shape[0] != n:
         raise ValueError(f"data has {x.shape[0]} clients, cfg.n_clients={n}")
     n_points = x.shape[1]
-    if cfg.fused_gss and not cfg.compact:
-        raise ValueError("fused_gss=True needs compact=True")
+    is_admm = cfg.algorithm in ADMM_FAMILY
+    if cfg.fused_gss and not (cfg.compact and is_admm):
+        raise ValueError(
+            "fused_gss=True needs compact=True, an ADMM-family "
+            "algorithm and the flat (spec=) layout — got "
+            f"compact={cfg.compact}, algorithm={cfg.algorithm!r}, "
+            "flat=True")
     select = make_selection(cfg.selection_name(), rate=cfg.participation,
                             controller=_ctrl_cfg(cfg),
                             metric=cfg.trigger_metric)
@@ -248,7 +278,8 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
         c_min, cap = capacity_bounds(n, cfg.participation,
                                      cfg.capacity_slack, cfg.capacity)
         block = make_compact_block(
-            solver, epoch_fn, cap, warm_start=cfg.warm_start, c_min=c_min,
+            solver, epoch_fn, cap, warm_start=cfg.warm_start,
+            is_admm=is_admm, c_min=c_min,
             adaptive=cfg.adaptive_capacity and cfg.capacity is None,
             alpha=_ctrl_cfg(cfg).alpha, fused=cfg.fused_gss)
 
@@ -262,21 +293,24 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
     def dense_client_update(state, data_rng):
         """All-N solve; returns service proposals (θ_out, λ⁺, z)."""
         with span("fedback/presolve"):
-            lam_new, center = ops.admm_update(state.theta, state.lam,
-                                              state.omega, with_z=False)
+            if is_admm:
+                lam_new, center = ops.admm_update(state.theta, state.lam,
+                                                  state.omega, with_z=False)
+            else:
+                lam_new, center = state.lam, state.omega[None].expand(n, -1)
             theta_init = (state.omega[None].expand(n, -1) if cfg.warm_start
                           else state.theta)
         with span("fedback/minibatch_rng"):
             idx = epoch_fn(prng.split(data_rng, n))
         theta_out, losses = solver(theta_init, center, x, y, idx)
-        return theta_out, lam_new, theta_out + lam_new, losses
+        z_new = theta_out + lam_new if is_admm else theta_out
+        return theta_out, lam_new, z_new, losses
 
     def round_fn(state: FLState):
         with span("fedback/trigger_select"):
-            keys = prng.split(state.rng, 3)
-            rng, data_rng = keys[0], keys[2]  # keys[1]: selection (unused)
+            rng, sel_rng, data_rng = prng.split(state.rng, 3)
             distances = trigger(state)
-            events, ctrl = select(state, distances)
+            events, ctrl = select(sel_rng, state, distances)
         if cfg.compact:
             (theta, lam, z_prev, q_age, q_load, committed, losses,
              loss_mask, limit) = block(
@@ -300,7 +334,12 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
             num_deferred = torch.zeros((), dtype=torch.int32, device=device)
         num_events = torch.sum(events.to(torch.int32)).to(torch.int32)
         with span("fedback/consensus"):
-            omega = consensus_mean(z_prev)
+            if is_admm:
+                omega = consensus_mean(z_prev)
+            else:  # the non-weighted mean over this round's uploads
+                omega = participant_mean(
+                    z_prev, committed, state.omega,
+                    num_events=torch.sum(committed.to(torch.int32)))
         rate_floor = cfg.participation * n
         metrics = RoundMetrics(
             events=events,

@@ -2,34 +2,83 @@
 
 ``FedBackSelection`` is the paper's event trigger driven by the integral
 controller; ``FullSelection`` fires every client every round (vanilla
-consensus ADMM).  Both split into ``decide`` (the events) and
-``measure`` (the controller step on the observed events); ``__call__``
-composes them for the synchronous round.  The randomized k-subset
-strategies come with a later slice of the port.
+consensus ADMM); ``RandomSelection`` draws the ⌊L̄·N⌋-subset of the
+paper's baselines (FedADMM, FedAvg, FedProx), ``BernoulliSelection``
+flips an i.i.d. coin per client and ``RoundRobinSelection`` cycles
+through the clients ⌊L̄·N⌋ at a time.  Every strategy splits into
+``decide`` (the events) and ``measure`` (the controller step on the
+observed events); ``__call__`` composes them for the synchronous round.
+The random draws come from the ``jax.random`` twin
+(:mod:`repro_torch.prng`), so a strategy given the reference's key picks
+the reference's clients.  Everything runs on the device of the inputs;
+round-robin reads ``state.round`` there, without a host sync.
+
+The sweep runner's runtime controller overrides (``ctrl_overrides``)
+are refused until the sweeps are ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+
+from repro_torch import prng
 
 from .controller import ControllerConfig, ControllerState, controller_step
 from .trigger import evaluate_trigger
 
 
+def _no_overrides(ctrl_overrides) -> None:
+    if ctrl_overrides:
+        raise NotImplementedError("ctrl_overrides (the one-program sweeps) "
+                                  "are not ported yet")
+
+
 class _SelectionBase:
+    """``decide`` takes the engine's eligibility mask (None on the
+    synchronous engine): the open-loop k-subset strategies draw their
+    picks among eligible clients; the others ignore it."""
+
     def _measure_cfg(self) -> ControllerConfig:
         raise NotImplementedError
 
-    def decide(self, state, distances):
+    def decide(self, rng, state, distances, ctrl_overrides=None,
+               eligible=None):
         raise NotImplementedError
 
-    def measure(self, ctrl: ControllerState, events) -> ControllerState:
+    def measure(self, ctrl: ControllerState, events,
+                ctrl_overrides=None) -> ControllerState:
+        _no_overrides(ctrl_overrides)
         return controller_step(ctrl, events, self._measure_cfg())
 
-    def __call__(self, state, distances):
-        events = self.decide(state, distances)
-        return events, self.measure(state.ctrl, events)
+    def __call__(self, rng, state, distances, ctrl_overrides=None):
+        events = self.decide(rng, state, distances, ctrl_overrides)
+        return events, self.measure(state.ctrl, events, ctrl_overrides)
+
+
+def _first_k_eligible(order_rank: torch.Tensor, eligible, k: int):
+    """Events for the first k eligible clients in the order ``order_rank``
+    ((N,) int32, each client's position in the draw order): with
+    ``eligible=None`` exactly ``order_rank < k``; otherwise ineligible
+    clients go behind every eligible one (order kept within each group,
+    a stable sort as ``jnp.argsort``) and the first k eligible fire."""
+    n = order_rank.shape[0]
+    if eligible is None:
+        return order_rank < k
+    keyed = torch.where(eligible, order_rank, order_rank + n)
+    order = torch.argsort(keyed, stable=True)
+    pos = torch.empty_like(order_rank)
+    pos[order] = torch.arange(n, dtype=order_rank.dtype,
+                              device=order_rank.device)
+    return (pos < k) & eligible
+
+
+def subset_size(rate: float, n: int) -> int:
+    """k = max(⌊L̄·N⌋, 1), the paper's k-subset size; the epsilon absorbs
+    products such as 0.29·100 = 28.999…96 that land just below an
+    integer in binary."""
+    return max(math.floor(rate * n + 1e-9), 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,8 +89,44 @@ class FedBackSelection(_SelectionBase):
     def _measure_cfg(self):
         return self.controller
 
-    def decide(self, state, distances):
+    def decide(self, rng, state, distances, ctrl_overrides=None,
+               eligible=None):
+        _no_overrides(ctrl_overrides)
         return evaluate_trigger(distances, state.ctrl.delta)
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomSelection(_SelectionBase):
+    """Uniform ⌊L̄·N⌋-subset without replacement (the paper's
+    baselines): the first k of ``permutation(rng, N)``."""
+
+    rate: float
+
+    def _measure_cfg(self):
+        return ControllerConfig(K=0.0, target_rate=self.rate)
+
+    def decide(self, rng, state, distances, ctrl_overrides=None,
+               eligible=None):
+        n = state.ctrl.delta.shape[0]
+        perm = prng.permutation(rng, n)
+        rank = torch.empty((n,), dtype=torch.int32, device=perm.device)
+        rank[perm] = torch.arange(n, dtype=torch.int32, device=perm.device)
+        return _first_k_eligible(rank, eligible, subset_size(self.rate, n))
+
+
+@dataclasses.dataclass(frozen=True)
+class BernoulliSelection(_SelectionBase):
+    """I.i.d. Bernoulli(L̄) participation (unreliable clients): an
+    ineligible client's flip is dropped, not redrawn."""
+
+    rate: float
+
+    def _measure_cfg(self):
+        return ControllerConfig(K=0.0, target_rate=self.rate)
+
+    def decide(self, rng, state, distances, ctrl_overrides=None,
+               eligible=None):
+        return prng.bernoulli(rng, self.rate, (state.ctrl.delta.shape[0],))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,8 +136,28 @@ class FullSelection(_SelectionBase):
     def _measure_cfg(self):
         return ControllerConfig(K=0.0, target_rate=1.0)
 
-    def decide(self, state, distances):
+    def decide(self, rng, state, distances, ctrl_overrides=None,
+               eligible=None):
         return torch.ones_like(state.ctrl.delta, dtype=torch.bool)
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundRobinSelection(_SelectionBase):
+    """Deterministic cyclic ⌊L̄·N⌋-subset starting at round·k mod N."""
+
+    rate: float
+
+    def _measure_cfg(self):
+        return ControllerConfig(K=0.0, target_rate=self.rate)
+
+    def decide(self, rng, state, distances, ctrl_overrides=None,
+               eligible=None):
+        n = state.ctrl.delta.shape[0]
+        k = subset_size(self.rate, n)
+        start = (state.round * k) % n
+        cyclic = (torch.arange(n, dtype=torch.int32,
+                               device=state.round.device) - start) % n
+        return _first_k_eligible(cyclic.to(torch.int32), eligible, k)
 
 
 def make_selection(name: str, *, rate: float, controller: ControllerConfig,
@@ -60,9 +165,12 @@ def make_selection(name: str, *, rate: float, controller: ControllerConfig,
     name = name.lower()
     if name == "fedback":
         return FedBackSelection(controller=controller, metric=metric)
+    if name == "random":
+        return RandomSelection(rate=rate)
+    if name == "bernoulli":
+        return BernoulliSelection(rate=rate)
     if name == "full":
         return FullSelection()
-    if name in ("random", "bernoulli", "round_robin"):
-        raise NotImplementedError(
-            f"selection {name!r} is not ported yet (fedback and full are)")
+    if name == "round_robin":
+        return RoundRobinSelection(rate=rate)
     raise ValueError(f"unknown selection strategy: {name}")

@@ -1,10 +1,12 @@
 """Where a paper-MNIST FedBack round spends its time, from torch.profiler.
 
-    python -m repro_torch.launch.profile_round [--form A|B] [--rounds 3]
+    python -m repro_torch.launch.profile_round [--form A] [--rounds 3]
 
-Builds the round at full width (N=100, the 784-200-10 MLP, D=159,010;
-form A compacted with the fused commit, form B dense), runs two
-warm-up rounds, then profiles ``--rounds`` rounds and prints, per round:
+Builds the round at full width (N=100, the 784-200-10 MLP, D=159,010)
+in one of ``configs.paper_mnist.FORMS`` (FedBack compacted with the
+fused commit, A, or dense, B; the paper's baselines C1–C6; SCAFFOLD,
+C7), runs two warm-up rounds, then profiles ``--rounds`` rounds and
+prints, per round:
 
 * the wall time (host clock around rounds that end in a synchronize);
 * the device's busy time (sum of kernel durations; the round runs on
@@ -27,25 +29,24 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import paper_mnist
-from repro_torch.core import init_state, make_round_fn
 from repro_torch.data import federated_arrays, make_synthetic_mnist
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import init_mlp, make_loss_fn
+from repro_torch.prng import PRNGKey
 from repro_torch.utils import make_flat_spec
 
 
 def build(form: str, device):
-    compact = form == "A"
-    cfg = paper_mnist.fl_config("fedback", 0.1, compact=compact,
-                                fused_gss=compact)
+    cfg = paper_mnist.form_config(form)
     data, _ = federated_arrays(make_synthetic_mnist(), n_clients=100,
                                device=device)
-    params0 = init_mlp(0, device=device)
+    params0 = init_mlp(PRNGKey(0, device=device), device=device)
     spec = make_flat_spec(params0)
-    state = init_state(cfg, params0, spec=spec, device=device)
-    return state, make_round_fn(cfg, make_loss_fn(), data, spec=spec,
-                                device=device)
+    f = paper_mnist.FORMS[form]
+    return (f.init(cfg, params0, spec=spec, device=device),
+            f.make_round(cfg, make_loss_fn(), data, spec=spec,
+                         device=device))
 
 
 def sync(device):
@@ -111,7 +112,8 @@ def profile_rounds(form: str, rounds: int, device) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--form", choices=("A", "B"), action="append")
+    ap.add_argument("--form", choices=tuple(paper_mnist.FORMS),
+                    action="append")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)

@@ -3,7 +3,7 @@
     python -m repro_torch.launch.profile_serve [--batch 4]
         [--prompt-len 2048] [--decode-steps 8]
 
-Builds the model at full width and depth (random weights from
+Builds the model at full width and depth (the reference's init of
 ``--seed``), warms prefill and decode up, then profiles one prefill
 and ``--decode-steps`` decode steps and prints, for each phase:
 

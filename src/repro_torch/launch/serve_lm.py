@@ -4,8 +4,8 @@
     python -m repro_torch.launch.serve_lm --arch zamba2-2.7b \\
         --batch 4 --prompt-len 2048 --new-tokens 32
 
-builds the model on the card from the port's seeded init (random
-weights, ``--seed``), makes the prompts from a seeded numpy generator,
+builds the model on the card from the reference's seeded init (the
+JAX package's weights for ``--seed``), makes the prompts from a seeded numpy generator,
 warms prefill and decode up off the clock, then times one prefill and
 ``new_tokens − 1`` decode steps (the first new token falls out of
 prefill) and prints prefill ms, decode ms per step, tok/s and the

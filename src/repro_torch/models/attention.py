@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import prng
 from repro_torch.kernels import ops
 
 from .layers import apply_rope, dense_init
@@ -28,15 +29,16 @@ from .layers import apply_rope, dense_init
 NEG_INF = -1e30
 
 
-def attention_init(gen, d_model, num_heads, num_kv_heads, head_dim, dtype,
+def attention_init(key, d_model, num_heads, num_kv_heads, head_dim, dtype,
                    device):
+    kq, kk, kv, ko = prng.split(key, 4)
     return {
-        "wq": dense_init(gen, d_model, num_heads * head_dim, dtype, device),
-        "wk": dense_init(gen, d_model, num_kv_heads * head_dim, dtype,
+        "wq": dense_init(kq, d_model, num_heads * head_dim, dtype, device),
+        "wk": dense_init(kk, d_model, num_kv_heads * head_dim, dtype,
                          device),
-        "wv": dense_init(gen, d_model, num_kv_heads * head_dim, dtype,
+        "wv": dense_init(kv, d_model, num_kv_heads * head_dim, dtype,
                          device),
-        "wo": dense_init(gen, num_heads * head_dim, d_model, dtype, device),
+        "wo": dense_init(ko, num_heads * head_dim, d_model, dtype, device),
     }
 
 

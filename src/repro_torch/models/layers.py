@@ -5,17 +5,21 @@ Functions over plain tensors; parameters are nested dicts of tensors
 package's layout: a dense weight is (n_in, n_out) and applies as
 ``x @ w``.
 
-Init draws from an explicit ``torch.Generator`` with the JAX package's
-distributions and scales.  It is not bit-equal to ``jax.random`` (the
-two generators differ), so tests carry weights across with
-``repro_torch.convert.lm_params_from_numpy`` instead.  A generator of
-``None`` with ``device="meta"`` gives shapes only (``param_count``).
+Init follows the JAX package's key tree with the ``jax.random`` twin
+(:mod:`repro_torch.prng`): each init takes a key (two uint32 words),
+splits it as the reference does and draws its normals in fp32 with
+:func:`repro_torch.prng.normal`, so a seed gives the reference's weights
+within the twin's ulp bound (ROADMAP D5).  On ``device="meta"`` the
+draws are shapes only (``param_count``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch import prng
 
 
 class ParamTree(nn.Module):
@@ -38,18 +42,20 @@ class ParamTree(nn.Module):
         return getattr(self, key)
 
 
-def normal(gen, shape, device) -> torch.Tensor:
-    """Standard normal fp32 draws from ``gen`` on ``device``."""
+def scaled_normal(key, shape, scale, dtype, device) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)`` on ``device`` times a
+    Python scale (rounded to fp32, as JAX takes a weakly typed scalar),
+    cast to ``dtype``; on ``device="meta"`` shapes only."""
     device = torch.device(device)
     if device.type == "meta":
-        return torch.empty(shape, device=device)
-    return torch.randn(shape, generator=gen, device=device,
-                       dtype=torch.float32)
+        return torch.empty(shape, dtype=dtype, device=device)
+    draws = prng.normal(key.to(device), shape)
+    return (draws * float(np.float32(scale))).to(dtype)
 
 
-def dense_init(gen, n_in, n_out, dtype, device, scale=None):
+def dense_init(key, n_in, n_out, dtype, device, scale=None):
     s = scale if scale is not None else (2.0 / (n_in + n_out)) ** 0.5
-    return (normal(gen, (n_in, n_out), device) * s).to(dtype)
+    return scaled_normal(key, (n_in, n_out), s, dtype, device)
 
 
 def rmsnorm_init(dim, dtype, device):
@@ -63,11 +69,12 @@ def rmsnorm(x, gamma, eps=1e-5):
     return (x32 * rms).to(x.dtype) * gamma
 
 
-def swiglu_init(gen, d_model, d_ff, dtype, device):
+def swiglu_init(key, d_model, d_ff, dtype, device):
+    k1, k2, k3 = prng.split(key, 3)
     return {
-        "w_gate": dense_init(gen, d_model, d_ff, dtype, device),
-        "w_up": dense_init(gen, d_model, d_ff, dtype, device),
-        "w_down": dense_init(gen, d_ff, d_model, dtype, device),
+        "w_gate": dense_init(k1, d_model, d_ff, dtype, device),
+        "w_up": dense_init(k2, d_model, d_ff, dtype, device),
+        "w_down": dense_init(k3, d_ff, d_model, dtype, device),
     }
 
 
@@ -94,6 +101,6 @@ def apply_rope(x, positions, theta=1e4):
     return out.to(x.dtype)
 
 
-def embed_init(gen, vocab, d_model, dtype, device):
-    return (normal(gen, (vocab, d_model), device)
-            * (1.0 / d_model ** 0.5)).to(dtype)
+def embed_init(key, vocab, d_model, dtype, device):
+    return scaled_normal(key, (vocab, d_model), 1.0 / d_model ** 0.5, dtype,
+                         device)

@@ -10,10 +10,10 @@ Weights go to ``device``: CUDA unless the caller passes another.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import prng
 from repro_torch.device import resolve_device
 
 
@@ -42,18 +42,23 @@ class MLP(nn.Module):
         return mlp_logits(self.params(), x)
 
 
-def init_mlp(seed: int = 0, n_in: int = 784, hidden: int = 200,
-             n_out: int = 10, device=None) -> dict:
-    """He-normal weights from a numpy seed, zero biases (nested dict)."""
+def _dense_init(key, n_in, n_out, device):
+    wk, _ = prng.split(key)
+    scale = torch.sqrt(torch.tensor(2.0 / n_in, dtype=torch.float32))
+    return {"w": prng.normal(wk, (n_in, n_out)) * float(scale),
+            "b": torch.zeros(n_out, dtype=torch.float32, device=device)}
+
+
+def init_mlp(key, n_in: int = 784, hidden: int = 200, n_out: int = 10,
+             device=None) -> dict:
+    """He-normal weights and zero biases (nested dict) on ``device``:
+    the JAX package's ``init_mlp(key)`` for the same key words
+    (``prng.PRNGKey(s)`` ↔ ``jax.random.PRNGKey(s)``), drawn by the
+    ``jax.random`` twin within its ulp bound (ROADMAP D5)."""
     device = resolve_device(device)
-    rng = np.random.default_rng(seed)
-
-    def dense(a, b):
-        w = rng.normal(size=(a, b)) * np.sqrt(2.0 / a)
-        return {"w": torch.tensor(w, dtype=torch.float32, device=device),
-                "b": torch.zeros(b, dtype=torch.float32, device=device)}
-
-    return {"fc1": dense(n_in, hidden), "fc2": dense(hidden, n_out)}
+    k1, k2 = prng.split(key.to(device))
+    return {"fc1": _dense_init(k1, n_in, hidden, device),
+            "fc2": _dense_init(k2, hidden, n_out, device)}
 
 
 def mlp_logits(params, x):

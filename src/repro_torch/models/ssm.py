@@ -17,9 +17,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import prng
 from repro_torch.kernels import ops
 
-from .layers import dense_init, normal, rmsnorm
+from .layers import dense_init, rmsnorm, scaled_normal
 
 
 def softplus(x):
@@ -35,20 +36,20 @@ def ssm_dims(d_model, expand, ssm_state, head_dim):
     return d_inner, n_heads, conv_dim
 
 
-def ssm_init(gen, d_model, *, expand, ssm_state, head_dim, conv_kernel,
+def ssm_init(key, d_model, *, expand, ssm_state, head_dim, conv_kernel,
              dtype, device):
     d_inner, n_heads, conv_dim = ssm_dims(d_model, expand, ssm_state,
                                           head_dim)
+    k1, k2, k3, _ = prng.split(key, 4)
     proj_out = 2 * d_inner + 2 * ssm_state + n_heads
-    f32 = dict(dtype=torch.float32, device=device)
     return {
         **ssm_fixed_params(n_heads, device),
-        "in_proj": dense_init(gen, d_model, proj_out, dtype, device),
-        "conv_w": (normal(gen, (conv_kernel, conv_dim), device)
-                   * (1.0 / conv_kernel) ** 0.5).to(dtype),
+        "in_proj": dense_init(k1, d_model, proj_out, dtype, device),
+        "conv_w": scaled_normal(k2, (conv_kernel, conv_dim),
+                                (1.0 / conv_kernel) ** 0.5, dtype, device),
         "conv_b": torch.zeros((conv_dim,), dtype=dtype, device=device),
         "norm_g": torch.ones((d_inner,), dtype=dtype, device=device),
-        "out_proj": dense_init(gen, d_inner, d_model, dtype, device),
+        "out_proj": dense_init(k3, d_inner, d_model, dtype, device),
     }
 
 

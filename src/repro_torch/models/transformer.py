@@ -26,6 +26,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch import prng
+
 from .attention import attention_decode, attention_forward, attention_init
 from .layers import (
     ParamTree,
@@ -54,14 +56,15 @@ def check_family(cfg) -> None:
 # ----------------------------------------------------------------------
 
 
-def _attn_block_init(gen, cfg, device):
+def _attn_block_init(key, cfg, device):
     dt = cfg.param_dtype
+    k1, k2 = prng.split(key)
     return {
         "ln1": rmsnorm_init(cfg.d_model, dt, device),
-        "attn": attention_init(gen, cfg.d_model, cfg.num_heads,
+        "attn": attention_init(k1, cfg.d_model, cfg.num_heads,
                                cfg.num_kv_heads, cfg.head_dim, dt, device),
         "ln2": rmsnorm_init(cfg.d_model, dt, device),
-        "mlp": swiglu_init(gen, cfg.d_model, cfg.d_ff, dt, device),
+        "mlp": swiglu_init(k2, cfg.d_model, cfg.d_ff, dt, device),
     }
 
 
@@ -94,10 +97,10 @@ def _ssm_kw(cfg):
                 head_dim=cfg.ssm_head_dim, conv_kernel=cfg.conv_kernel)
 
 
-def _ssm_block_init(gen, cfg, device):
+def _ssm_block_init(key, cfg, device):
     return {
         "ln": rmsnorm_init(cfg.d_model, cfg.param_dtype, device),
-        "ssm": ssm_init(gen, cfg.d_model, dtype=cfg.param_dtype,
+        "ssm": ssm_init(key, cfg.d_model, dtype=cfg.param_dtype,
                         device=device, **_ssm_kw(cfg)),
     }
 
@@ -126,27 +129,30 @@ def _ssm_block_decode(cfg, p, h, cache):
 
 
 def init_params(cfg, seed: int = 0, *, device) -> ParamTree:
-    """The hybrid's parameters from ``torch.Generator(device)`` seeded
-    with ``seed`` (on ``device="meta"``: shapes only)."""
+    """The hybrid's parameters of the JAX package's
+    ``init_params(PRNGKey(seed), cfg)``, drawn on ``device`` by the
+    ``jax.random`` twin along the reference's key tree (on
+    ``device="meta"``: shapes only).  The reference draws the layer stack
+    as one ``vmap`` over per-layer keys; here each layer, and each leaf,
+    is drawn on its own, which gives the same values and bounds the
+    draws' temporaries by the largest leaf."""
     check_family(cfg)
     if cfg.num_layers % cfg.attn_every:
         raise ValueError(f"{cfg.num_layers} layers do not split into groups "
                          f"of {cfg.attn_every}")
     device = torch.device(device)
-    gen = None
-    if device.type != "meta":
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
+    keys = prng.split(prng.PRNGKey(seed, device=device), 8)
     dt = cfg.param_dtype
     tree = {
         "final_ln": rmsnorm_init(cfg.d_model, dt, device),
-        "embed": embed_init(gen, cfg.vocab_padded, cfg.d_model, dt, device),
-        "lm_head": dense_init(gen, cfg.d_model, cfg.vocab_padded, dt,
+        "embed": embed_init(keys[0], cfg.vocab_padded, cfg.d_model, dt,
+                            device),
+        "lm_head": dense_init(keys[1], cfg.d_model, cfg.vocab_padded, dt,
                               device),
-        "shared": _attn_block_init(gen, cfg, device),
+        "shared": _attn_block_init(keys[5], cfg, device),
     }
-    layers = [_ssm_block_init(gen, cfg, device)
-              for _ in range(cfg.num_layers)]
+    layers = [_ssm_block_init(k, cfg, device)
+              for k in prng.split(keys[2], cfg.num_layers)]
     return hybrid_params(tree, layers)
 
 

@@ -15,7 +15,14 @@ bit, with ``jax_threefry_partitionable=True`` (the default there):
   ``out1 ^ out2``;
 * ``permutation(key, n)`` is ``_shuffle``: ⌈3·ln n / ln(2³²−1)⌉ rounds
   of (``key, sub = split(key)``; stable sort of the values by
-  ``random_bits(sub, n)``).
+  ``random_bits(sub, n)``);
+* ``uniform``, ``bernoulli`` and ``normal`` are ``jax.random``'s fp32
+  draws from those bits (a shape's bits are those of its flattened
+  length).  ``uniform`` and ``bernoulli`` are bit-equal; ``normal`` goes
+  through an fp32 twin of XLA's ``erf_inv`` (within 2 ulp of
+  ``jax.lax.erf_inv``, bit-equal on most draws) and lands within 3 ulp
+  of ``jax.random.normal`` (ROADMAP D5: XLA's CPU ``log1p`` is not
+  correctly rounded, and the twin uses torch's).
 
 Words are held in int64 tensors masked to 32 bits, so every operation
 is a plain torch integer op and the stream runs on whatever device the
@@ -26,6 +33,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -99,3 +107,70 @@ def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
         order = torch.sort(random_bits(sub, n), dim=-1, stable=True).indices
         x = torch.gather(x, -1, order)
     return x
+
+
+def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``:
+    (..., 2) keys → (..., *shape) fp32, bit-equal.
+
+    The top 23 bits of each draw fill the mantissa of a float in [1, 2),
+    less 1; then scaled to the range by one fused multiply-add (XLA's
+    CPU backend contracts ``u·(hi − lo) + lo``: the product is exact in
+    float64 and the sum rounds once) and clamped below at ``minval``.
+    """
+    shape = tuple(shape)
+    bits = random_bits(key, math.prod(shape))
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    floats = mant.view(torch.float32) - 1.0
+    lo, hi = float(np.float32(minval)), float(np.float32(maxval))
+    width = float(np.float32(hi) - np.float32(lo))
+    out = (floats.double() * width + lo).to(torch.float32)
+    return torch.clamp(out, min=lo).reshape(*key.shape[:-1], *shape)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape=()) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (mode "low"): a uniform
+    draw below p in fp32 → (..., *shape) bool, bit-equal."""
+    return uniform(key, shape) < float(np.float32(p))
+
+
+# Giles' single-precision erf⁻¹ polynomials, in the order XLA's chlo
+# decomposition evaluates them: one for w < 5, one for w ≥ 5.
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """fp32 twin of ``jax.lax.erf_inv`` as XLA lowers it.
+
+    w = −log1p(−x²); p(w − 2.5) on the w < 5 branch, else p(√w − 3);
+    erf⁻¹(x) = p·x, and ±1 → ±inf.  Each Horner step is one fused
+    multiply-add, as XLA's CPU backend contracts it: the fp32 product is
+    exact in float64, and the sum is rounded to fp32 once.
+    """
+    x = x.to(torch.float32)
+    w = -torch.log1p(x * -x)
+    small = w < 5.0
+    t = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
+
+    def coef(i):  # fp32 constants, as XLA's
+        return torch.where(small, float(np.float32(_ERFINV_SMALL[i])),
+                           float(np.float32(_ERFINV_LARGE[i]))).double()
+
+    p = coef(0).to(torch.float32)
+    for i in range(1, len(_ERFINV_SMALL)):
+        p = (p.double() * t + coef(i)).to(torch.float32)
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: √2·erf⁻¹ of a uniform
+    draw over (−1, 1) → (..., *shape) fp32, within 3 ulp of JAX's."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0)
+    return float(np.float32(math.sqrt(2.0))) * erf_inv(u)

@@ -353,3 +353,52 @@ def test_ssd_scan_kernel_unaligned_base_bit_exact(dev, dtype):
     got_prev, got_last = ops.ssd_scan(dev_states, decays.to(dev))
     assert torch.equal(got_prev.cpu(), want_prev)
     assert torch.equal(got_last.cpu(), want_last)
+
+
+@pytest.mark.parametrize("algorithm,compact,expect", [
+    ("fedadmm", True, {"trigger_sq_norms": 1, "fused_gss": 1,
+                       "admm_update": 0}),
+    ("fedavg", False, {"trigger_sq_norms": 1, "fused_gss": 0,
+                       "admm_update": 0}),
+])
+def test_baseline_round_matches_the_cpu(dev, algorithm, compact, expect):
+    """One FedADMM round (compact, fused commit) and one FedAvg round
+    (dense) on the card against the same round on the CPU: the random
+    selection's events and the committed set equal, the state at rtol
+    1e-4, and FedAvg's ω — a mean over the committed rows — at rtol
+    1e-6 / atol 1e-7."""
+    from repro_torch.convert import state_from_numpy, state_to_numpy
+    from repro_torch.core import FLConfig, init_state, make_round_fn
+    from repro_torch.models import init_mlp, make_loss_fn
+    from repro_torch.prng import PRNGKey
+    from repro_torch.utils import make_flat_spec
+
+    rng = np.random.default_rng(0)
+    n, n_pts = 16, 24
+    data = {"x": rng.random((n, n_pts, 32)).astype(np.float32),
+            "y": rng.integers(0, 4, (n, n_pts)).astype(np.int32)}
+    cfg = FLConfig(algorithm=algorithm, n_clients=n, participation=0.25,
+                   rho=0.01, lr=0.05, epochs=2, batch_size=8,
+                   compact=compact, fused_gss=compact)
+    params = init_mlp(PRNGKey(0, device="cpu"), 32, 16, 4, device="cpu")
+    spec = make_flat_spec(params)
+    cpu_round = make_round_fn(cfg, make_loss_fn(), data, spec=spec,
+                              device="cpu")
+    gpu_round = make_round_fn(cfg, make_loss_fn(), data, spec=spec,
+                              device=dev)
+    state, _ = cpu_round(init_state(cfg, params, spec=spec, device="cpu"))
+    start = state_to_numpy(state)
+    want, wm = cpu_round(state_from_numpy(start, device="cpu"))
+    ops.reset_launch_counts()
+    got, gm = gpu_round(state_from_numpy(start, device=dev))
+    torch.cuda.synchronize()
+    assert {k: ops.launch_counts()[k] for k in expect} == expect
+    assert torch.equal(gm.events.cpu(), wm.events)
+    assert torch.equal(gm.committed.cpu(), wm.committed)
+    got, want = state_to_numpy(got), state_to_numpy(want)
+    for f in ("theta", "lam", "z_prev", "omega"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                   rtol=1e-4, atol=1e-6, err_msg=f)
+    if algorithm == "fedavg":
+        np.testing.assert_allclose(got.omega, want.omega, rtol=1e-6,
+                                   atol=1e-7)

@@ -29,6 +29,7 @@ def test_package_has_the_slice_modules():
               "kernels/fused_gss.py", "kernels/ops.py", "core/controller.py",
               "core/trigger.py", "core/state.py", "core/selection.py",
               "core/engine.py", "core/compact.py", "core/fedback.py",
+              "core/baselines.py",
               "optim/sgd.py", "models/mlp.py", "data/synthetic.py",
               "data/partition.py", "data/pipeline.py",
               "configs/paper_mnist.py", "configs/model_config.py",
@@ -65,8 +66,8 @@ def test_importing_the_port_leaves_jax_out():
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
-    from repro_torch.core import FLConfig, init_state, make_eval_fn, \
-        make_round_fn
+    from repro_torch.core import FLConfig, init_scaffold, init_state, \
+        make_eval_fn, make_round_fn, make_scaffold_round
     from repro_torch.data import make_least_squares
     from repro_torch.utils import make_flat_spec
 
@@ -83,6 +84,12 @@ def test_default_device_raises_without_cuda(monkeypatch):
         make_eval_fn(lambda p, x, y: (x, y), spec=spec)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_least_squares(4, 2, 3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_scaffold(cfg, params0, spec=spec)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_scaffold_round(cfg, lambda p, x, y: x.sum(),
+                            {"x": torch.zeros(4, 2, 3),
+                             "y": torch.zeros(4, 2)}, spec=spec)
     state = init_state(cfg, params0, spec=spec, device="cpu")
     assert state.theta.device.type == "cpu" and state.theta.shape == (4, 3)
 
@@ -130,7 +137,8 @@ def test_default_device_of_builders_raises_without_cuda(entry, monkeypatch):
         "params_from_numpy": lambda: convert.params_from_numpy(
             {"fc1": {"w": np.zeros((2, 3), np.float32)}}),
         "state_from_numpy": lambda: convert.state_from_numpy(state_np),
-        "init_mlp": lambda: init_mlp(0, 4, 3, 2),
+        "init_mlp": lambda: init_mlp(prng.PRNGKey(0, device="cpu"), 4, 3,
+                                     2),
         "MLP": lambda: MLP(4, 3, 2),
         "PRNGKey": lambda: prng.PRNGKey(0),
         "init_controller": lambda: controller.init_controller(
@@ -156,7 +164,7 @@ def test_unported_features_are_refused():
     params0 = {"theta": torch.zeros(3)}
     spec = make_flat_spec(params0)
     for kw in (dict(max_staleness=2), dict(consensus_compress="int8"),
-               dict(algorithm="fedavg"), dict(state_backend="host")):
+               dict(algorithm="scaffold"), dict(state_backend="host")):
         with pytest.raises(NotImplementedError):
             init_state(FLConfig(n_clients=4, **kw), params0, spec=spec,
                        device="cpu")

@@ -79,7 +79,10 @@ def _margin_clients(dist, delta):
 
 
 def _run_synced(jcfg, tcfg, jloss, tloss, jdata, tdata, jparams, tparams,
-                rounds):
+                rounds, omega_tol=None):
+    """Step both packages from the JAX state for ``rounds`` rounds and
+    compare as the module docstring says; ``omega_tol`` (rtol, atol)
+    holds ω tighter as well.  Returns counts of what the run saw."""
     jspec = jax_make_flat_spec(jparams)
     tspec = make_flat_spec(tparams)
     assert jspec.dim == tspec.dim
@@ -124,6 +127,10 @@ def _run_synced(jcfg, tcfg, jloss, tloss, jdata, tdata, jparams, tparams,
             np.testing.assert_allclose(
                 getattr(got, f), np.asarray(getattr(want, f)), rtol=1e-4,
                 atol=1e-6, err_msg=f"round {r} {f}")
+        if omega_tol is not None:
+            np.testing.assert_allclose(
+                got.omega, np.asarray(want.omega), rtol=omega_tol[0],
+                atol=omega_tol[1], err_msg=f"round {r} omega")
         np.testing.assert_array_equal(got.rng, np.asarray(want.rng))
         assert int(got.round) == int(want.round) == r + 1
     return seen
