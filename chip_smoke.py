@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port on one GPU: the FedBack round (slice 1),
-zamba2-2.7b serving (slice 2) and the paper's baselines (slice 6).
+zamba2-2.7b serving (slice 2), the paper's baselines (slice 6), and the
+tree client-state layout and the paper's CIFAR-10 workload (slice 7).
 
     python3 chip_smoke.py
 
@@ -32,7 +33,10 @@ non-zero):
    nvcc's -Xptxas -v lines for the K1, K3, K4 (bf16 and 3xTF32) and K5
    instances and, where cuobjdump is at hand, the count of HGMMA
    instructions in K4's hd = 80 instances (none in the 3xTF32 one
-   fails the run);
+   fails the run); K1c (``trigger_sq_norms_pytree``, the stacked-tree
+   front end of K1) against its plain version at rtol 1e-5 on the
+   MLP's 4 and the CNN's 12 leaves stacked for N = 100, and with the
+   MLP's fc1/w in bf16, timed cold at both (the row: the CNN's);
 4. form A at the paper-MNIST width (N=100 clients, the 784-200-10 MLP,
    D=159,010): compacted rounds with the fused commit, 1 warm-up and 5
    timed, asserting one trigger and one fused_gss launch per round and
@@ -51,6 +55,30 @@ non-zero):
    μ = 0.01 (K1), C5 FedBack with the bernoulli selection, dense (K1,
    K2), C6 FedADMM with the round-robin selection, compact and unfused
    (K1, K2 on the gathered rows), C7 SCAFFOLD (no kernel);
+5c. the tree client-state layout at the paper-MNIST width, 1 warm-up
+   and 3 timed rounds each, launches per round asserted, the second
+   round held against the CPU's plain path as in 5b: TA compact and TB
+   dense (each: K1c and K1 once, neither K2 nor K3); TB's second round
+   also against form B's from the same state, flattened (events equal,
+   ω at rtol 1e-5 / atol 1e-7);
+5d. the paper's CIFAR-10 workload at full width (N = 100, the CNN, D =
+   196,426, Dirichlet β = 0.5 over 12,000 synthetic examples, 33 per
+   client).  First, a round built for the card must switch TF32 off
+   (set on just before), and the solve's convolutions, batched over a
+   round's 16 slots × 20 images by ``vmap`` as the solve batches them,
+   must lie within 5e-5 of float64 in every pass (forward, data and
+   weight gradients) at the CNN's three layer shapes; the same passes
+   with cuDNN's TF32 on are printed beside.  Then 1 warm-up and 3 timed
+   rounds each: CF-A flat, compact + fused (K1, K3) and CF-T tree,
+   compact (K1c, K1); the second round held against the CPU's plain
+   path with events and the committed set equal and each state field
+   within 1e-2 of the norm of the round's update (two values of a
+   max-pool window, or a pre-activation and 0, within a rounding of
+   each other may send a gradient another way on the two paths and move
+   that client's later steps, so not element by element: on an H100
+   such flips moved the fields by up to 8.8e-3 of their update norm,
+   with cuDNN on or off; a wrong kernel or layout moves them by ~1);
+   test accuracy printed, not gated;
 6. zamba2-2.7b at full width cut to one group (6 mamba layers and the
    shared block), fp32 with TF32 off: 1 request × 256 tokens, prefill
    and 4 greedy decode steps on the card (kernels) against the CPU's
@@ -69,8 +97,8 @@ non-zero):
 8. print the serve line, the kernels line (K4's bf16 instance as
    ``flash_attention``, launched in phase 7, and its 3xTF32 instance as
    ``flash_attention_fp32``, launched in phase 6; K1–K3's launches are
-   those of phases 4, 5 and 5b), the card line and, last, the ok
-   line.
+   those of phases 4–5d, K1c's those of 5c and 5d), the card line and,
+   last, the ok line.
 
 Exits non-zero without a result where no CUDA device is visible, or
 where the port's package is missing next to this script.
@@ -260,6 +288,84 @@ def check_kernels(dev, ops, n, d, c):
             f"bound_ms {r['bound_ms']} ({share} of it reached)  "
             f"bytes {r['nbytes']}")
     return rows
+
+
+def _stacked_leaves(params, n, gen):
+    """A stacked tree of ``params``' structure, every leaf (n, ...) drawn
+    from ``gen``, and an unstacked ω tree: K1c's operands."""
+    from repro_torch.utils.pytree import tree_map
+
+    def draw(shape, like):
+        return torch.randn(shape, generator=gen, device=like.device)
+
+    return (tree_map(lambda w: draw((n,) + tuple(w.shape), w), params),
+            tree_map(lambda w: draw(tuple(w.shape), w), params))
+
+
+def check_pytree_kernel(dev, ops, trees):
+    """Phase 3, slice 7: K1c (``trigger_sq_norms_pytree``: the stacked
+    tree's leaves concatenated in fp32, then K1) against its plain
+    version at the main path's leaf shapes — ``trees`` maps a workload's
+    name to its params (the MLP's 4 leaves, the CNN's 12) — and at the
+    MLP's with fc1/w in bf16, rtol 1e-5; timed cold (the graph rotates
+    over input sets L2 cannot hold) at each workload's shape.  Returns
+    the kernels line's row (timed at the CNN's shapes, the larger)."""
+    from repro_torch.launch.time_kernels import (COLD_COPIES, cycle,
+                                                 device_ms, peak_bandwidth)
+    from repro_torch.utils.pytree import tree_size
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    bw = peak_bandwidth(torch.cuda.get_device_name(0))
+    err, times = 0.0, {}
+    cases = [(name, False) for name in trees] + [("mlp", True)]
+    for name, bf16 in cases:
+        z, w = _stacked_leaves(trees[name], 100, gen)
+        if bf16:
+            z["fc1"]["w"] = z["fc1"]["w"].to(torch.bfloat16)
+            w["fc1"]["w"] = w["fc1"]["w"].to(torch.bfloat16)
+        before = ops.trigger_sq_norms_pytree.launches
+        got = ops.trigger_sq_norms_pytree(z, w)
+        want = ops.trigger_sq_norms_pytree_ref(z, w)
+        torch.cuda.synchronize()
+        if ops.trigger_sq_norms_pytree.launches != before + 1:
+            raise AssertionError("trigger_sq_norms_pytree did not launch K1")
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+        err = max(err, float((got - want).abs().max()))
+        label = f"{name}{' (fc1/w bf16)' if bf16 else ''}"
+        log(f"trigger_sq_norms_pytree, the {label}'s leaves at N = 100 "
+            f"(D = {tree_size(w)}): max_abs_err "
+            f"{float((got - want).abs().max()):.3e} (rtol 1e-5 held)")
+        if bf16:
+            continue
+        sets = [(z, w)] + [_stacked_leaves(trees[name], 100, gen)
+                           for _ in range(COLD_COPIES - 1)]
+        nbytes = ops.trigger_sq_norms_pytree_hbm_bytes(z, w)
+        times[name] = dict(
+            ms=device_ms(cycle([lambda a=a, b=b: ops.trigger_sq_norms_pytree(
+                a, b) for a, b in sets])),
+            warm_ms=device_ms(lambda: ops.trigger_sq_norms_pytree(z, w)),
+            plain_ms=device_ms(lambda: ops.trigger_sq_norms_pytree_ref(z, w),
+                               calls=PLAIN_CALLS),
+            nbytes=nbytes, bound_ms=nbytes / bw * 1e3 if bw else None)
+        t = times[name]
+        log(f"  trigger_sq_norms_pytree at the {name}'s leaves: ms "
+            f"{t['ms']:.4f} (cold)  warm_ms {t['warm_ms']:.4f}  plain_ms "
+            f"{t['plain_ms']:.4f}  bound_ms {t['bound_ms']} (the leaves "
+            f"read once: {nbytes} bytes; "
+            f"{t['bound_ms'] / t['ms']:.1%} of it reached)")
+        del sets
+    row = times["cnn"]
+    t_bytes = row["bound_ms"]
+    t_ops = 3 * 100 * tree_size(trees["cnn"]) / PEAK_FP32_FLOPS * 1e3
+    return dict(replaces="src/repro/kernels/ops.py:89",
+                source="src/repro_torch/kernels/trigger_pytree.py",
+                max_abs_err=err, ms=row["ms"], warm_ms=row["warm_ms"],
+                plain_ms=row["plain_ms"], library_ms=None,
+                bound_ms=None if t_bytes is None else max(t_bytes, t_ops),
+                bound_by=None if t_bytes is None else
+                ("bytes" if t_bytes >= t_ops else "operations"),
+                nbytes=row["nbytes"])
 
 
 def check_model_kernels(dev, ops):
@@ -621,16 +727,30 @@ def serve_full(dev, ops, smi):
     return report, counts
 
 
+def _max_abs_diff(got, want):
+    from repro_torch.utils.pytree import tree_leaves
+    return max(float(np.abs(g - w).max())
+               for g, w in zip(tree_leaves(got), tree_leaves(want),
+                               strict=True))
+
+
 def compare_with_cpu(round_fn_cpu, state_before, state_after, m_after,
-                     label, *, exact_events=False, omega_tol=None):
+                     label, *, exact_events=False, omega_tol=None,
+                     update_tol=None):
     """One round from the same state on the CPU's plain path must agree
     with the card's: events (off a 1e-5 margin around δ, or everywhere
     with ``exact_events``: a random draw is integer math) and, when the
     events agree, the committed set and the state at rtol 1e-4 / atol
-    1e-6 (ω at ``omega_tol`` = (rtol, atol) too).  The round must commit
-    a client, or the state check would hold whatever the solve and the
-    commit computed."""
+    1e-6 (ω at ``omega_tol`` = (rtol, atol) too), leaf by leaf in either
+    layout.  With ``update_tol`` (the CNN, whose max-pools can route a
+    gradient to another pixel when two values lie within a rounding of
+    each other) each state field is held by the norm of its difference
+    instead, at most ``update_tol`` of the norm of the round's update.
+    The round must commit a client, or the state check would hold
+    whatever the solve and the commit computed."""
     from repro_torch.convert import state_from_numpy, state_to_numpy
+    from repro_torch.launch.conv_precision import update_ratio
+    from repro_torch.utils.pytree import tree_leaves
 
     committed = int(m_after.committed.sum())
     if committed == 0:
@@ -657,35 +777,61 @@ def compare_with_cpu(round_fn_cpu, state_before, state_after, m_after,
                                   rm.committed.numpy(), err_msg=label)
     got = state_to_numpy(state_after)
     want = state_to_numpy(ref)
-    for f in ("theta", "lam", "z_prev", "omega"):
-        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
-                                   rtol=1e-4, atol=1e-6, err_msg=f)
-    omega_err = float(np.abs(got.omega - want.omega).max())
+    fields = ("theta", "lam", "z_prev", "omega")
+    if update_tol is not None:
+        ratios = {f: update_ratio(getattr(got, f), getattr(want, f),
+                                  getattr(before, f)) for f in fields}
+        if max(ratios.values()) > update_tol:
+            raise AssertionError(f"{label}: state off the CPU's by "
+                                 f"{ratios} of the round's update, more "
+                                 f"than {update_tol}")
+        held = (f"state within {update_tol} of the update's norm: "
+                + ", ".join(f"{f} {r:.2e}" for f, r in ratios.items())
+                + "; largest element difference "
+                + ", ".join(f"{f} {_max_abs_diff(getattr(got, f), getattr(want, f)):.3e}"
+                            for f in fields))
+    else:
+        for f in fields:
+            for g, w in zip(tree_leaves(getattr(got, f)),
+                            tree_leaves(getattr(want, f)), strict=True):
+                np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-6,
+                                           err_msg=f)
+        held = "state rtol 1e-4"
+    omega_err = _max_abs_diff(got.omega, want.omega)
     if omega_tol is not None:
-        np.testing.assert_allclose(got.omega, want.omega, rtol=omega_tol[0],
-                                   atol=omega_tol[1], err_msg="omega")
+        for g, w in zip(tree_leaves(got.omega), tree_leaves(want.omega),
+                        strict=True):
+            np.testing.assert_allclose(g, w, rtol=omega_tol[0],
+                                       atol=omega_tol[1], err_msg="omega")
     np.testing.assert_array_equal(got.queue.age, want.queue.age)
     log(f"{label}: round {int(before.round) + 1} ({committed} clients "
-        "committed) agrees with the CPU plain path (events equal, state "
-        f"rtol 1e-4, ω max_abs_err {omega_err:.3e}"
+        f"committed) agrees with the CPU plain path (events equal, {held}, "
+        f"ω max_abs_err {omega_err:.3e}"
         + (f", ω rtol {omega_tol[0]} / atol {omega_tol[1]} held"
            if omega_tol else "") + ")")
 
 
-def drive(form, n_rounds, warmup, ctx, ops, expect, **check):
-    """Run ``warmup`` + ``n_rounds`` rounds of one of
-    ``configs.paper_mnist.FORMS``, with the launch counts set to 0 just
-    before; ``check`` goes to :func:`compare_with_cpu`.  Returns
-    (timing, counts)."""
-    from repro_torch.configs import paper_mnist
-    from repro_torch.convert import state_from_numpy, state_to_numpy
-    from repro_torch.models import make_loss_fn
+def drive(form, n_rounds, warmup, ctx, ops, expect, against=None, **check):
+    """Run ``warmup`` + ``n_rounds`` rounds of one of the ``FORMS`` of
+    ``ctx["cfgs"]`` (``configs.paper_mnist`` or ``paper_cifar``), on the
+    flat or the tree layout as the form says, with the launch counts set
+    to 0 just before; ``check`` goes to :func:`compare_with_cpu`.  With
+    ``against`` (a flat form of the same configuration), the form's
+    second round is also held against that form's round on the card
+    from the same state, flattened: events equal, ω at rtol 1e-5 / atol
+    1e-7.  Returns (timing, counts)."""
+    from repro_torch.convert import flat_state, state_from_numpy, \
+        state_to_numpy
+    from repro_torch.core import make_eval_fn
+    from repro_torch.models import make_loss_and_acc_fn, make_loss_fn
 
-    dev, f = ctx["dev"], paper_mnist.FORMS[form]
-    cfg = paper_mnist.form_config(form)
-    state = f.init(cfg, ctx["params0"], spec=ctx["spec"], device=dev)
-    round_fn = f.make_round(cfg, make_loss_fn(), ctx["data"],
-                            spec=ctx["spec"], device=dev)
+    dev, cfgs = ctx["dev"], ctx["cfgs"]
+    f, cfg = cfgs.FORMS[form], cfgs.form_config(form)
+    spec = f.spec(ctx["spec"])
+    loss_fn = make_loss_fn(ctx["logits"])
+    state = f.init(cfg, ctx["params0"], spec=spec, device=dev)
+    round_fn = f.make_round(cfg, loss_fn, ctx["data"], spec=spec,
+                            device=dev)
 
     def copy(s):  # the fused round updates its input in place
         return state_from_numpy(state_to_numpy(s), device=dev)
@@ -695,10 +841,28 @@ def drive(form, n_rounds, warmup, ctx, ops, expect, **check):
     # plain path, from copies, before the counted run.
     before, _ = round_fn(copy(state))
     after, m = round_fn(copy(before))
-    cpu_round = f.make_round(cfg, make_loss_fn(), {
-        k: v.cpu() for k, v in ctx["data"].items()}, spec=ctx["spec"],
+    cpu_round = f.make_round(cfg, loss_fn, {
+        k: v.cpu() for k, v in ctx["data"].items()}, spec=spec,
         device="cpu")
     compare_with_cpu(cpu_round, before, after, m, f"form {form}", **check)
+    if against is not None:
+        other = cfgs.FORMS[against]
+        flat_round = other.make_round(cfgs.form_config(against), loss_fn,
+                                      ctx["data"], spec=ctx["spec"],
+                                      device=dev)
+        flat_after, fm = flat_round(flat_state(copy(before), ctx["spec"]))
+        if not torch.equal(fm.events, m.events):
+            raise AssertionError(f"form {form}: events differ from form "
+                                 f"{against}'s from the same state")
+        got = ctx["spec"].flatten(after.omega)
+        torch.testing.assert_close(got, flat_after.omega, rtol=1e-5,
+                                   atol=1e-7)
+        log(f"form {form}: round {int(before.round.item()) + 1} agrees "
+            f"with form {against}'s from the same state, flattened "
+            f"(events equal, ω max_abs_err "
+            f"{float((got - flat_after.omega).abs().max()):.3e}, rtol 1e-5 "
+            "/ atol 1e-7 held)")
+        del flat_after, fm
     del before, after, m
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -711,12 +875,15 @@ def drive(form, n_rounds, warmup, ctx, ops, expect, **check):
             raise AssertionError(f"form {form}: {name} launched "
                                  f"{counts[name]} times in {total} rounds, "
                                  f"expected {per_round * total}")
-    omega = state.omega
+    omega = state.omega if spec is not None else ctx["spec"].flatten(
+        state.omega)
     if omega.shape != (ctx["spec"].dim,) or not bool(
             torch.isfinite(omega).all()):
         raise AssertionError(f"form {form}: ω is not a finite "
                              f"({ctx['spec'].dim},) vector")
-    loss, acc = ctx["eval_fn"](state, ctx["test"]["x"], ctx["test"]["y"])
+    eval_fn = make_eval_fn(make_loss_and_acc_fn(ctx["logits"]), spec=spec,
+                           device=dev)
+    loss, acc = eval_fn(state, ctx["test"]["x"], ctx["test"]["y"])
     loss, acc = float(loss), float(acc)
     if not (math.isfinite(loss) and 0.0 <= acc <= 1.0):
         raise AssertionError(f"form {form}: eval gave loss {loss}, "
@@ -761,37 +928,48 @@ def timed_rounds(form, round_fn, state, warmup, n_rounds):
     return state, history, ms_round
 
 
-# Phase 5b: launches per round of the baseline forms C1–C6 of
-# ``configs.paper_mnist.FORMS`` (C7, SCAFFOLD, launches none).
-BASELINE_LAUNCHES = {
-    "C1": {"trigger_sq_norms": 1, "fused_gss": 1, "admm_update": 0},
-    "C2": {"trigger_sq_norms": 1, "admm_update": 1, "fused_gss": 0},
-    "C3": {"trigger_sq_norms": 1, "admm_update": 0, "fused_gss": 0},
-    "C4": {"trigger_sq_norms": 1, "admm_update": 0, "fused_gss": 0},
-    "C5": {"trigger_sq_norms": 1, "admm_update": 1, "fused_gss": 0},
-    "C6": {"trigger_sq_norms": 1, "admm_update": 1, "fused_gss": 0},
-}
+# Phase 5b: the baseline forms C1–C6 of ``configs.paper_mnist.FORMS``
+# as (form, launches per round, ``compare_with_cpu`` options); C7,
+# SCAFFOLD, launches none and has its own driver.
 AVG_OMEGA_TOL = (1e-6, 1e-7)
+EXACT = {"exact_events": True}
+AVG = {"exact_events": True, "omega_tol": AVG_OMEGA_TOL}
+BASELINE_FORMS = (
+    ("C1", {"trigger_sq_norms": 1, "fused_gss": 1, "admm_update": 0}, EXACT),
+    ("C2", {"trigger_sq_norms": 1, "admm_update": 1, "fused_gss": 0}, EXACT),
+    ("C3", {"trigger_sq_norms": 1, "admm_update": 0, "fused_gss": 0}, AVG),
+    ("C4", {"trigger_sq_norms": 1, "admm_update": 0, "fused_gss": 0}, AVG),
+    ("C5", {"trigger_sq_norms": 1, "admm_update": 1, "fused_gss": 0}, EXACT),
+    ("C6", {"trigger_sq_norms": 1, "admm_update": 1, "fused_gss": 0}, EXACT),
+)
+# Phases 5c and 5d: the tree forms (TB's second round also against form
+# B's) and the CIFAR forms.  The CNN's states are held by the norm of
+# their difference from the CPU's relative to the round's update
+# (``compare_with_cpu``): ReLU and max-pool flips moved it by up to
+# 8.8e-3 over 4 rounds of CF-A and CF-T with cuDNN on or off on an H100
+# (``launch/conv_precision.py --rounds 4``); a fault moves it by ~1.
+CNN_UPDATE_TOL = 1e-2
+TREE = {"trigger_sq_norms_pytree": 1, "trigger_sq_norms": 1,
+        "admm_update": 0, "fused_gss": 0}
+TREE_FORMS = (("TA", TREE, {}), ("TB", TREE, {"against": "B"}))
+CIFAR_FORMS = (
+    ("CF-A", {"trigger_sq_norms_pytree": 0, "trigger_sq_norms": 1,
+              "admm_update": 0, "fused_gss": 1},
+     {"update_tol": CNN_UPDATE_TOL}),
+    ("CF-T", TREE, {"update_tol": CNN_UPDATE_TOL}),
+)
 
 
-def drive_baselines(ctx, ops):
-    """Phase 5b: forms C1–C6 through ``make_round_fn``, C7 (SCAFFOLD)
-    through its own round; returns (a report per form, the launch
-    counts summed over the phase)."""
-    from repro_torch.configs import paper_mnist
-    from repro_torch.core import AVG_FAMILY
-
+def drive_forms(ctx, ops, table):
+    """Drive each (form, launches per round, check options) of ``table``
+    over 1 warm-up and 3 timed rounds (:func:`drive`); returns (a report
+    per form, the launch counts summed over the table)."""
     reports, total = {}, {}
-    for form, expect in BASELINE_LAUNCHES.items():
-        avg = paper_mnist.FORMS[form].kw["algorithm"] in AVG_FAMILY
-        report, counts = drive(
-            form, 3, 1, ctx, ops, expect, exact_events=True,
-            omega_tol=AVG_OMEGA_TOL if avg else None)
-        reports[form] = dict(report, what=paper_mnist.FORMS[form].what)
+    for form, expect, check in table:
+        report, counts = drive(form, 3, 1, ctx, ops, expect, **check)
+        reports[form] = dict(report, what=ctx["cfgs"].FORMS[form].what)
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
-    reports["C7"] = dict(drive_scaffold(ctx, ops, 3, 1),
-                         what=paper_mnist.FORMS["C7"].what)
     return reports, total
 
 
@@ -844,6 +1022,54 @@ def drive_scaffold(ctx, ops, n_rounds, warmup):
     return dict(ms_per_round=ms_round, events=events, acc=acc, loss=loss)
 
 
+# Phase 5d's first check: the solve's batched convolutions against
+# float64.  cuDNN in fp32 read at most 6.2e-6 of the largest value on an
+# H100 (Winograd in the weight gradient; a cuBLAS GEMM of the unfolded
+# images 5.2e-6); TF32 rounds products to 11 bits, ~1e-3.
+CONV_REL_TOL = 5e-5
+
+
+def check_conv_precision(ctx):
+    """A round built for the card switches TF32 off (the flags are set on
+    first), and then the CNN's convolutions (``models.mlp.conv3x3_same``),
+    batched over a CIFAR round's slots by ``vmap`` as the solve batches
+    them — forward, data and weight gradients at the three layers'
+    shapes — lie within ``CONV_REL_TOL`` of float64 (max |error| / max
+    |value|).  The same passes with cuDNN's TF32 on are printed beside."""
+    from repro_torch.core.compact import capacity_bounds
+    from repro_torch.launch.conv_precision import (cudnn_flags,
+                                                   layer_inputs,
+                                                   pass_errors, worst)
+    from repro_torch.models import make_loss_fn
+    from repro_torch.models.mlp import conv3x3_same
+
+    cfgs, dev = ctx["cfgs"], ctx["dev"]
+    f, cfg = cfgs.FORMS["CF-T"], cfgs.form_config("CF-T")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    f.make_round(cfg, make_loss_fn(ctx["logits"]), ctx["data"], spec=None,
+                 device=dev)
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("a round built for the card left TF32 on")
+    _, slots = capacity_bounds(cfg.n_clients, cfg.participation,
+                               cfg.capacity_slack, cfg.capacity)
+    inputs = layer_inputs(slots, cfg.batch_size, dev)
+    errs = pass_errors(conv3x3_same, inputs)
+    with cudnn_flags(allow_tf32=True):
+        tf32 = pass_errors(conv3x3_same, inputs)
+    fmt = "; ".join(f"{layer} " + " ".join(f"{p} {e:.2e}" for p, e in
+                                            errs[layer].items())
+                    for layer in errs)
+    if worst(errs) > CONV_REL_TOL:
+        raise AssertionError(f"the solve's convolutions lie {fmt} off "
+                             f"float64, more than {CONV_REL_TOL}")
+    log(f"CNN convolutions, {slots} clients x {cfg.batch_size} images "
+        f"batched by vmap, against float64 (max |error| / max |value|): "
+        f"{fmt}; worst {worst(errs):.2e} (limit {CONV_REL_TOL}); with "
+        f"cuDNN's TF32 on, worst {worst(tf32):.2e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -854,11 +1080,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
-    from repro_torch.data import federated_arrays, make_synthetic_mnist
+    from repro_torch.configs import paper_cifar, paper_mnist
     from repro_torch.core import make_eval_fn
     from repro_torch.kernels import _build, ops
-    from repro_torch.models import init_mlp, make_loss_and_acc_fn
-    from repro_torch.prng import PRNGKey
+    from repro_torch.models import make_loss_and_acc_fn
     from repro_torch.utils import make_flat_spec
 
     smi = subprocess.run(
@@ -881,30 +1106,50 @@ def main() -> int:
     _build.load_library()
 
     dev = torch.device("cuda")
-    ds = make_synthetic_mnist()
-    data, test = federated_arrays(ds, n_clients=100, device=dev)
-    params0 = init_mlp(PRNGKey(SEED, device=dev), device=dev)
+    data, test, params0, mlp_logits = paper_mnist.workload(SEED, device=dev)
     spec = make_flat_spec(params0)
     n, d = data["x"].shape[0], spec.dim
     log(f"paper-MNIST: data {tuple(data['x'].shape)}, D = {d}")
     if (n, d) != (100, 159010):
         raise AssertionError(f"unexpected width {(n, d)}")
 
+    t0 = time.perf_counter()
+    cifar_data, cifar_test, cifar_params0, cnn_logits = \
+        paper_cifar.workload(SEED, device=dev)
+    cifar_spec = make_flat_spec(cifar_params0)
+    log(f"paper-CIFAR: data {tuple(cifar_data['x'].shape)} (Dirichlet β = "
+        f"{paper_cifar.DIRICHLET_BETA}, trimmed to the smallest client), "
+        f"D = {cifar_spec.dim}, made in {time.perf_counter() - t0:.2f} s")
+    if (cifar_data["x"].shape[0], cifar_spec.dim) != (100, 196426):
+        raise AssertionError("unexpected CIFAR width "
+                             f"{(cifar_data['x'].shape[0], cifar_spec.dim)}")
+
     rows = check_kernels(dev, ops, n, d, 16)
+    rows["trigger_sq_norms_pytree"] = check_pytree_kernel(
+        dev, ops, {"mlp": params0, "cnn": cifar_params0})
     rows.update(check_model_kernels(dev, ops))
 
     ctx = dict(dev=dev, data=data, test=test, params0=params0, spec=spec,
-               smi=smi, eval_fn=make_eval_fn(make_loss_and_acc_fn(),
-                                             spec=spec, device=dev))
+               smi=smi, cfgs=paper_mnist, logits=mlp_logits,
+               eval_fn=make_eval_fn(make_loss_and_acc_fn(), spec=spec,
+                                    device=dev))
     form_a, counts_a = drive(
         "A", 5, 1, ctx, ops,
         {"trigger_sq_norms": 1, "fused_gss": 1, "admm_update": 0})
     form_b, counts_b = drive(
         "B", 3, 1, ctx, ops,
         {"trigger_sq_norms": 1, "admm_update": 1, "fused_gss": 0})
-    forms_c, counts_c = drive_baselines(ctx, ops)
-    log(json.dumps({"forms": {"A": form_a, "B": form_b, **forms_c},
-                    "card": smi}))
+    forms_c, counts_c = drive_forms(ctx, ops, BASELINE_FORMS)
+    forms_c["C7"] = dict(drive_scaffold(ctx, ops, 3, 1),
+                         what=paper_mnist.FORMS["C7"].what)
+    forms_t, counts_t = drive_forms(ctx, ops, TREE_FORMS)
+    cifar_ctx = dict(ctx, data=cifar_data, test=cifar_test,
+                     params0=cifar_params0, spec=cifar_spec,
+                     cfgs=paper_cifar, logits=cnn_logits)
+    check_conv_precision(cifar_ctx)
+    forms_cf, counts_cf = drive_forms(cifar_ctx, ops, CIFAR_FORMS)
+    log(json.dumps({"forms": {"A": form_a, "B": form_b, **forms_c,
+                              **forms_t, **forms_cf}, "card": smi}))
 
     _, counts_slice = check_slice_against_cpu(dev, ops)
     torch.cuda.empty_cache()
@@ -914,7 +1159,8 @@ def main() -> int:
     kernels = []
     for name, r in rows.items():
         launches = (counts_a[name] + counts_b[name]
-                    + counts_c.get(name, 0) + counts_slice[name]
+                    + counts_c.get(name, 0) + counts_t.get(name, 0)
+                    + counts_cf.get(name, 0) + counts_slice[name]
                     + counts_serve[name])
         if launches == 0:
             raise AssertionError(f"{name} was never launched on the path")
@@ -922,6 +1168,8 @@ def main() -> int:
         warm = f" (cold; warm {r['warm_ms']:.4f})" if "warm_ms" in r else ""
         log(f"{name}: launches {launches} (form A {counts_a[name]}, "
             f"form B {counts_b[name]}, forms C {counts_c.get(name, 0)}, "
+            f"forms TA/TB {counts_t.get(name, 0)}, forms CF-A/CF-T "
+            f"{counts_cf.get(name, 0)}, "
             f"fp32 group {counts_slice[name]}, "
             f"serve {counts_serve[name]}), "
             f"max_abs_err {r['max_abs_err']:.3e}, "

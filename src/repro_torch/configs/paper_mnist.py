@@ -3,7 +3,9 @@
 100 clients, 2 unique digits each, single-hidden-layer MLP (200 ReLU),
 SGD lr 0.01 momentum 0.9, batch 42, 2 local epochs, K=2, α=0.9;
 ρ = μ = 0.01.  ``fl_config(algorithm)`` builds FedBack or any of the
-paper's baselines (``fedadmm``, ``fedavg``, ``fedprox``, ``admm``).
+paper's baselines (``fedadmm``, ``fedavg``, ``fedprox``, ``admm``);
+``workload()`` the data and starting weights the paper grid runs them
+on.
 """
 from typing import Callable, NamedTuple
 
@@ -32,12 +34,19 @@ def fl_config(algorithm="fedback", participation=0.1, **kw) -> FLConfig:
 
 
 class Form(NamedTuple):
-    """One round form at this width: what it is, its ``fl_config``
-    keywords, and the builders of its state and its round."""
+    """One round form: what it is, its ``fl_config`` keywords, its
+    client-state layout (``"flat"``: pass ``spec=make_flat_spec(params0)``
+    to its builders; ``"tree"``: ``spec=None``), and the builders of its
+    state and its round."""
     what: str
     kw: dict
+    layout: str = "flat"
     init: Callable = init_state
     make_round: Callable = make_round_fn
+
+    def spec(self, flat_spec):
+        """The ``spec=`` its builders take, given the params' FlatSpec."""
+        return flat_spec if self.layout == "flat" else None
 
 
 # The round forms driven at this width and L̄ = 0.1 (``chip_smoke.py``,
@@ -58,11 +67,30 @@ FORMS = {
     "C6": Form("FedADMM, round-robin selection, compact, unfused",
                dict(algorithm="fedadmm", selection="round_robin",
                     compact=True)),
-    "C7": Form("SCAFFOLD", dict(algorithm="scaffold"), init_scaffold,
-               make_scaffold_round),
+    "C7": Form("SCAFFOLD", dict(algorithm="scaffold"), "flat",
+               init_scaffold, make_scaffold_round),
+    "TA": Form("FedBack, tree layout, compact",
+               dict(algorithm="fedback", compact=True), "tree"),
+    "TB": Form("FedBack, tree layout, dense", dict(algorithm="fedback"),
+               "tree"),
 }
 
 
 def form_config(form: str) -> FLConfig:
     """The ``FLConfig`` of one of :data:`FORMS`, at L̄ = 0.1."""
     return fl_config(**FORMS[form].kw)
+
+
+def workload(seed: int = 0, device=None):
+    """(data, test, params0, logits_fn) of the paper grid at this width
+    (``benchmarks/common.py``'s ``paper`` preset: 12,000 / 2,000
+    synthetic examples, two labels per client) on ``device``."""
+    from repro_torch.data import federated_arrays, make_synthetic_mnist
+    from repro_torch.models import init_mlp, mlp_logits
+    from repro_torch.prng import PRNGKey
+
+    data, test = federated_arrays(make_synthetic_mnist(12000, 2000),
+                                  n_clients=N_CLIENTS, scheme="label_shard",
+                                  seed=seed, device=device)
+    params0 = init_mlp(PRNGKey(seed, device=device), device=device)
+    return data, test, params0, mlp_logits

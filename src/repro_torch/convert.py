@@ -9,12 +9,16 @@ go to ``device``: CUDA unless the caller passes another.
   ``models.MLP.load_state_dict`` takes;
 * :func:`state_from_numpy` — a fetched JAX ``FLState`` → the port's
   ``FLState`` (θ/λ/z_prev/ω, controller, deferral queue, the rng key's
-  two uint32 words, the round);
+  two uint32 words, the round), in either layout: (N, D) matrices or
+  nested dicts of stacked leaves;
 * :func:`state_to_numpy` — the other way, as the port's ``FLState``
   with numpy leaves, for comparisons;
+* :func:`flat_state` — a tree-layout state → the flat one, through a
+  ``FlatSpec`` (the same numbers, for holding one layout against the
+  other);
 * :func:`scaffold_state_from_numpy` / :func:`scaffold_state_to_numpy` —
   a fetched JAX ``ScaffoldState`` (pytrees of the params' shape) ⇄ the
-  port's flat one, through a ``FlatSpec``;
+  port's, flat through a ``FlatSpec`` or kept as trees without one;
 * :func:`lm_params_from_numpy` — the model zoo's hybrid parameter tree
   (stacked (L, ...) layers) → the port's parameter module (one module
   per layer, the shared block, JAX's (n_in, n_out) weight layout kept);
@@ -29,6 +33,7 @@ from repro_torch.core.baselines import ScaffoldState
 from repro_torch.core.controller import ControllerState
 from repro_torch.core.state import DeferQueue, FLState
 from repro_torch.device import resolve_device
+from repro_torch.utils.pytree import tree_map
 
 
 def params_from_numpy(tree, device=None) -> dict:
@@ -100,17 +105,25 @@ def _t(a, device, dtype=None):
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
+def _tree_t(node, device, dtype=None):
+    """A nested dict of arrays (or one array) → the same of tensors."""
+    return tree_map(lambda a: _t(a, device, dtype), node)
+
+
+def _tree_numpy(node):
+    return tree_map(lambda t: t.detach().cpu().numpy(), node)
+
+
 def state_from_numpy(s, device=None) -> FLState:
     """A JAX ``FLState`` with numpy-convertible leaves → the port's state
-    on ``device``.  The flat layout is required (θ is (N, D))."""
+    on ``device``, fp32: the flat layout's (N, D) / (D,) arrays, or the
+    tree layout's nested dicts of them."""
     device = resolve_device(device)
-    if np.ndim(s.theta) != 2:
-        raise ValueError("state_from_numpy takes the flat (N, D) layout")
     return FLState(
-        theta=_t(s.theta, device, torch.float32),
-        lam=_t(s.lam, device, torch.float32),
-        z_prev=_t(s.z_prev, device, torch.float32),
-        omega=_t(s.omega, device, torch.float32),
+        theta=_tree_t(s.theta, device, torch.float32),
+        lam=_tree_t(s.lam, device, torch.float32),
+        z_prev=_tree_t(s.z_prev, device, torch.float32),
+        omega=_tree_t(s.omega, device, torch.float32),
         ctrl=ControllerState(
             delta=_t(s.ctrl.delta, device, torch.float32),
             load=_t(s.ctrl.load, device, torch.float32),
@@ -129,43 +142,48 @@ def state_to_numpy(s: FLState) -> FLState:
         return t.detach().cpu().numpy()
 
     return FLState(
-        theta=cpu(s.theta), lam=cpu(s.lam), z_prev=cpu(s.z_prev),
-        omega=cpu(s.omega),
+        theta=_tree_numpy(s.theta), lam=_tree_numpy(s.lam),
+        z_prev=_tree_numpy(s.z_prev), omega=_tree_numpy(s.omega),
         ctrl=ControllerState(*(cpu(t) for t in s.ctrl)),
         rng=cpu(s.rng).astype(np.uint32), round=cpu(s.round),
         queue=DeferQueue(*(cpu(t) for t in s.queue)))
+
+
+def flat_state(s: FLState, spec) -> FLState:
+    """A tree-layout state → the flat layout's, new (N, D) / (D,) fp32
+    tensors on the same device (controller, queue, rng and round are
+    shared, not copied)."""
+    return s._replace(theta=spec.flatten_stacked(s.theta),
+                      lam=spec.flatten_stacked(s.lam),
+                      z_prev=spec.flatten_stacked(s.z_prev),
+                      omega=spec.flatten(s.omega))
 
 
 def _rng_words(rng, device):
     return _t(np.asarray(rng).astype(np.uint32).astype(np.int64), device)
 
 
-def scaffold_state_from_numpy(s, spec, device=None) -> ScaffoldState:
+def scaffold_state_from_numpy(s, spec=None,
+                              device=None) -> ScaffoldState:
     """A JAX ``ScaffoldState`` with numpy-convertible leaves → the port's
-    flat one on ``device``: ω and c through ``spec.flatten``, the
-    stacked client variates through ``spec.flatten_stacked``."""
+    on ``device``: with ``spec`` flat (ω and c through ``spec.flatten``,
+    the stacked client variates through ``spec.flatten_stacked``),
+    without it the same trees."""
     device = resolve_device(device)
-
-    def tree(node):
-        if isinstance(node, dict):
-            return {k: tree(v) for k, v in node.items()}
-        return _t(node, device)
-
-    return ScaffoldState(
-        c_server=spec.flatten(tree(s.c_server)),
-        c_clients=spec.flatten_stacked(tree(s.c_clients)),
-        omega=spec.flatten(tree(s.omega)),
-        rng=_rng_words(s.rng, device),
-        round=_t(s.round, device, torch.int32))
+    c, ci, w = (_tree_t(t, device) for t in (s.c_server, s.c_clients,
+                                             s.omega))
+    if spec is not None:
+        c, ci, w = spec.flatten(c), spec.flatten_stacked(ci), spec.flatten(w)
+    return ScaffoldState(c_server=c, c_clients=ci, omega=w,
+                         rng=_rng_words(s.rng, device),
+                         round=_t(s.round, device, torch.int32))
 
 
 def scaffold_state_to_numpy(s: ScaffoldState) -> ScaffoldState:
-    """The port's SCAFFOLD state with numpy leaves (flat, the rng as two
-    uint32 words)."""
-    def cpu(t):
-        return t.detach().cpu().numpy()
-
-    return ScaffoldState(c_server=cpu(s.c_server),
-                         c_clients=cpu(s.c_clients), omega=cpu(s.omega),
-                         rng=cpu(s.rng).astype(np.uint32),
-                         round=cpu(s.round))
+    """The port's SCAFFOLD state with numpy leaves (in its layout, the
+    rng as two uint32 words)."""
+    return ScaffoldState(c_server=_tree_numpy(s.c_server),
+                         c_clients=_tree_numpy(s.c_clients),
+                         omega=_tree_numpy(s.omega),
+                         rng=s.rng.detach().cpu().numpy().astype(np.uint32),
+                         round=s.round.detach().cpu().numpy())

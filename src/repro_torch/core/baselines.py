@@ -5,8 +5,10 @@ The paper's baselines (FedADMM, FedAvg, FedProx) and vanilla ADMM are
 instances of the generic round (:func:`repro_torch.core.fedback.
 make_round_fn`): :func:`baseline_config` names their presets.  SCAFFOLD
 (Karimireddy et al. 2020) keeps server and client control variates, so
-it has a round of its own, here on the flat layout: ω and the server
-variate c are (D,) fp32, the client variates c_i (N, D).  Every client
+it has a round of its own, on either layout of the round: flat
+(``spec=``: ω and the server variate c are (D,) fp32, the client
+variates c_i (N, D)) or the reference's own tree layout (``spec=None``:
+ω and c are dicts like the params, c_i the stacked dict).  Every client
 solves (as in the reference) and only the drawn ones commit.
 """
 from __future__ import annotations
@@ -17,8 +19,10 @@ import numpy as np
 import torch
 
 from repro_torch import prng
-from repro_torch.device import resolve_device
+from repro_torch.device import fp32_products, resolve_device
 from repro_torch.utils.flatstate import FlatSpec
+from repro_torch.utils.pytree import rows_mask, tree_broadcast_like, \
+    tree_map, tree_where, tree_zeros_like
 
 from .fedback import FLConfig, _epoch_indices, _local_solve
 
@@ -39,39 +43,43 @@ def baseline_config(name: str, **kw) -> FLConfig:
 
 
 class ScaffoldState(NamedTuple):
-    c_server: torch.Tensor  # (D,) fp32 — server control variate c
-    c_clients: torch.Tensor  # (N, D) fp32 — client control variates c_i
-    omega: torch.Tensor  # (D,) fp32 — server parameters ω
+    c_server: object  # (D,) fp32 or a params tree — server variate c
+    c_clients: object  # (N, D) fp32 or a stacked tree — client c_i
+    omega: object  # (D,) fp32 or a params tree — server parameters ω
     rng: torch.Tensor  # (2,) int64 — threefry key words
     round: torch.Tensor  # () int32
 
 
-def init_scaffold(cfg: FLConfig, params0, *, spec: FlatSpec,
+def init_scaffold(cfg: FLConfig, params0, *, spec: FlatSpec | None = None,
                   device=None) -> ScaffoldState:
-    """Zero control variates and ω = the flattened ``params0``, on
-    ``device`` (CUDA unless another is passed)."""
+    """Zero control variates and ω = ``params0`` (flattened with
+    ``spec``, a copy of the dict without), on ``device`` (CUDA unless
+    another is passed)."""
     device = resolve_device(device)
-    omega = spec.flatten(params0).to(device)
+    if spec is not None:
+        omega = spec.flatten(params0).to(device)
+    else:
+        omega = tree_map(lambda x: torch.as_tensor(x).to(device).clone(),
+                         params0)
     return ScaffoldState(
-        c_server=torch.zeros_like(omega),
-        c_clients=torch.zeros((cfg.n_clients, spec.dim), dtype=torch.float32,
-                              device=device),
+        c_server=tree_zeros_like(omega),
+        c_clients=tree_map(lambda w: w.new_zeros((cfg.n_clients,)
+                                                 + tuple(w.shape)), omega),
         omega=omega,
         rng=prng.PRNGKey(cfg.seed, device=device),
         round=torch.zeros((), dtype=torch.int32, device=device))
 
 
 def make_scaffold_round(cfg: FLConfig, loss_fn: Callable, data: dict, *,
-                        spec: FlatSpec, device=None) -> Callable:
+                        spec: FlatSpec | None = None,
+                        device=None) -> Callable:
     """SCAFFOLD with option-II control-variate updates and a uniform
     random subset of the clients each round; returns
     ``round_fn(state) -> (state, {"events", "train_loss",
-    "num_events"})``.  ``data`` as for ``make_round_fn``, moved to
-    ``device`` (CUDA by default)."""
+    "num_events"})``.  ``data`` and ``spec`` as for ``make_round_fn``,
+    the data moved to ``device`` (CUDA by default)."""
     device = resolve_device(device)
-    if device.type == "cuda":
-        # The reference's solve products run at full fp32; keep TF32 off.
-        torch.backends.cuda.matmul.allow_tf32 = False
+    fp32_products(device)
     n = cfg.n_clients
     x = torch.as_tensor(data["x"], device=device)
     y = torch.as_tensor(data["y"], device=device)
@@ -88,7 +96,7 @@ def make_scaffold_round(cfg: FLConfig, loss_fn: Callable, data: dict, *,
         events.index_fill_(0, prng.permutation(sel_rng, n)[:k_sel], True)
         idx = _epoch_indices(prng.split(data_rng, n), n_points,
                              cfg.batch_size, cfg.epochs)
-        omega_b = state.omega[None].expand(n, -1)
+        omega_b = tree_broadcast_like(state.omega, n)
         theta, losses = _local_solve(
             loss_fn, spec, omega_b, omega_b, x, y, idx, rho=0.0, lr=cfg.lr,
             momentum=cfg.momentum, control=(state.c_server,
@@ -96,20 +104,24 @@ def make_scaffold_round(cfg: FLConfig, loss_fn: Callable, data: dict, *,
         # option II: c_i⁺ = c_i − c + (ω − θ)/(steps·lr), in fp32
         coef = float(np.float32(1.0) / (np.float32(idx.shape[1])
                                         * np.float32(cfg.lr)))
-        ci_new = (state.c_clients - state.c_server
-                  + coef * (state.omega - theta))
+        ci_new = tree_map(lambda ci, c, w, t: ci - c + coef * (w - t),
+                          state.c_clients, state.c_server, state.omega,
+                          theta)
         ev = events.to(torch.float32)
         denom = torch.clamp(torch.sum(ev), min=1.0)
-        mask = events[:, None]
-        zero = torch.zeros((), dtype=torch.float32, device=device)
-        omega = state.omega + torch.sum(
-            torch.where(mask, theta - state.omega, zero), dim=0) / denom
-        dc = torch.sum(torch.where(mask, ci_new - state.c_clients, zero),
-                       dim=0) / n
+
+        def masked_sum(new, old):  # Σ over the drawn clients of new − old
+            return torch.sum(torch.where(rows_mask(events, new), new - old,
+                                         torch.zeros((), dtype=new.dtype,
+                                                     device=device)), dim=0)
+
         new = ScaffoldState(
-            c_server=state.c_server + dc,
-            c_clients=torch.where(mask, ci_new, state.c_clients),
-            omega=omega, rng=rng, round=state.round + 1)
+            c_server=tree_map(lambda c, cn, co: c + masked_sum(cn, co) / n,
+                              state.c_server, ci_new, state.c_clients),
+            c_clients=tree_where(events, ci_new, state.c_clients),
+            omega=tree_map(lambda w, t: w + masked_sum(t, w) / denom,
+                           state.omega, theta),
+            rng=rng, round=state.round + 1)
         return new, {"events": events,
                      "train_loss": torch.sum(losses * ev) / denom,
                      "num_events": torch.sum(events.to(torch.int32))}

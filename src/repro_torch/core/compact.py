@@ -28,6 +28,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.utils.pytree import rows_mask, tree_broadcast_like, \
+    tree_map
 
 from .controller import demand_load_step
 from .engine import dual_ascent, prox_center
@@ -160,26 +162,30 @@ def queue_update(queue: DeferQueue, plan: CompactPlan, *,
                       load=demand_load_step(queue.load, plan.demand, alpha))
 
 
-def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows ``idx`` of an (N, ...) tensor as a (C, ...) tensor."""
-    return x[idx.long()]
+def gather_rows(tree, idx: torch.Tensor):
+    """Rows ``idx`` of every (N, ...) leaf as (C, ...) leaves."""
+    i = idx.long()
+    return tree_map(lambda x: x[i], tree)
 
 
-def scatter_rows(current: torch.Tensor, rows: torch.Tensor,
-                 idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def scatter_rows(current, rows, idx: torch.Tensor, valid: torch.Tensor):
     """A copy of ``current`` with slot rows written back where ``valid``
     (indices are distinct, so an invalid slot rewrites its own row)."""
-    out = current.clone()
     i = idx.long()
-    mask = valid.reshape((-1,) + (1,) * (rows.dim() - 1))
-    out[i] = torch.where(mask, rows.to(out.dtype), current[i])
-    return out
+
+    def put(c, r):
+        out = c.clone()
+        out[i] = torch.where(rows_mask(valid, r), r.to(out.dtype), c[i])
+        return out
+
+    return tree_map(put, current, rows)
 
 
 def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
                        *, is_admm: bool, warm_start: bool,
                        c_min: int | None = None, adaptive: bool = False,
-                       alpha: float = 0.9, fused: bool = False) -> Callable:
+                       alpha: float = 0.9, fused: bool = False,
+                       use_admm_kernel: bool = False) -> Callable:
     """Build the plan → gather → solve → commit block of one round.
 
     solver(theta0, center, x, y, idx) -> (theta, losses) over C rows;
@@ -187,15 +193,19 @@ def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
 
     Returns block(events, distances, age, qload, theta, lam, z_prev,
     omega, x, y, keys) -> (θ', λ', z', age', qload', committed, losses,
-    slot_valid, limit).  The ADMM family's block (``is_admm``): λ⁺ and
-    the prox center before the solve, z = θ + λ⁺ at the commit.  With
-    ``fused`` the post-solve commit is one fused pass
-    (``kernels.fused_gss``) that updates θ/λ/z_prev **in place**;
-    otherwise λ⁺ and the center come from ``kernels.admm_update`` on the
-    gathered rows, new tensors are returned and the inputs are left as
-    they were.  The AVG family's block (FedAvg, FedProx) launches no
-    state kernel: λ stays as it is (zero), the center is ω, and the
-    commit scatters θ and z = θ.
+    slot_valid, limit).  The state is a stacked tree: the flat (N, D)
+    matrices or the tree layout's dicts.  The ADMM family's
+    block (``is_admm``): λ⁺ and the prox center before the solve, z = θ
+    + λ⁺ at the commit.  With ``fused`` (flat only) the post-solve
+    commit is one fused pass (``kernels.fused_gss``) that updates
+    θ/λ/z_prev **in place**; otherwise new tensors are returned and the
+    inputs are left as they were, λ⁺ and the center coming from
+    ``kernels.admm_update`` on the gathered rows with
+    ``use_admm_kernel`` (the flat layout, unfused) and from the plain
+    dual algebra otherwise (the tree layout launches neither K2 nor K3,
+    as in the reference).  The AVG family's block
+    (FedAvg, FedProx) launches no state kernel: λ stays as it is (zero),
+    the center is ω, and the commit scatters θ and z = θ.
     """
     from repro_torch.kernels import ops
 
@@ -215,8 +225,8 @@ def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
         with span("fedback/presolve"):
             th_rows, lam_new_rows, center_rows = presolve(
                 plan, theta, lam, omega)
-            theta0_rows = (omega[None].expand(capacity, -1) if warm_start
-                           else th_rows)
+            theta0_rows = (tree_broadcast_like(omega, capacity)
+                           if warm_start else th_rows)
         with span("fedback/minibatch_rng"):
             idx_b = epoch_fn(gather_rows(keys, plan.idx))
         th_out_rows, losses = solver(
@@ -231,16 +241,16 @@ def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
     def presolve(plan, theta, lam, omega):
         th_rows = gather_rows(theta, plan.idx)
         if not is_admm:
-            return th_rows, None, omega[None].expand(capacity, -1)
+            return th_rows, None, tree_broadcast_like(omega, capacity)
         lam_rows = gather_rows(lam, plan.idx)
-        if fused:
+        if use_admm_kernel and not fused:
+            lam_new_rows, center_rows = ops.admm_update(
+                th_rows, lam_rows, omega, with_z=False)
+        else:
             # The fused commit re-derives λ⁺ itself, so the pre-solve
             # pass stays plain torch (as in the reference).
             lam_new_rows = dual_ascent(lam_rows, th_rows, omega)
             center_rows = prox_center(omega, lam_new_rows)
-        else:
-            lam_new_rows, center_rows = ops.admm_update(
-                th_rows, lam_rows, omega, with_z=False)
         return th_rows, lam_new_rows, center_rows
 
     def commit(plan, th_out_rows, lam_new_rows, omega, theta, lam, z_prev):
@@ -253,8 +263,9 @@ def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
             return theta_new, lam, scatter_rows(z_prev, th_out_rows,
                                                 plan.idx, plan.valid)
         lam_new = scatter_rows(lam, lam_new_rows, plan.idx, plan.valid)
-        z_new = scatter_rows(z_prev, th_out_rows + lam_new_rows, plan.idx,
-                             plan.valid)
+        z_new = scatter_rows(z_prev, tree_map(torch.add, th_out_rows,
+                                              lam_new_rows),
+                             plan.idx, plan.valid)
         return theta_new, lam_new, z_new
 
     return block

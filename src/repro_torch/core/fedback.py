@@ -1,8 +1,14 @@
 """The FedBack round engine (paper Alg. 2), ported to PyTorch.
 
-Port of ``repro/core/fedback.py`` for the flat layout and the
-synchronous engine.  One program covers the algorithm family of the
-reference's table:
+Port of ``repro/core/fedback.py`` for the synchronous engine, on both
+client-state layouts of the reference: the **flat** layout (``spec=``
+a ``FlatSpec``: θ, λ, z_prev as (N, D) fp32 matrices, ω a (D,) vector)
+and the **tree** layout (``spec=None``: nested dicts of stacked (N,
+...) tensors with the model's keys, ω the unstacked dict).  Both run
+the same code: the algebra is written over trees
+(:mod:`repro_torch.utils.pytree`), and a flat matrix is a tree of one
+leaf.  One program covers the algorithm family of the reference's
+table:
 
   ================  =========  ==========  ===============  ============
   algorithm         selection  dual λ      local prox ρ     aggregation
@@ -17,8 +23,11 @@ reference's table:
 (``selection=`` overrides the column: ``bernoulli`` and ``round_robin``
 too.)  One round, in order:
 
-1. trigger distances ‖ω − z_i^prev‖ (K1 ``trigger_sq_norms`` for the
-   l2 metric), taken for every algorithm as the reference does;
+1. trigger distances ‖ω − z_i^prev‖ (for the l2 metric K1
+   ``trigger_sq_norms``, through its stacked-tree front end K1c
+   ``trigger_sq_norms_pytree``, which reads the flat matrix in place and
+   concatenates the tree's leaves), taken for every algorithm as the
+   reference does;
 2. the selection (its key is the round key's second split) and the
    controller step;
 3. the client update, in one of two forms:
@@ -26,11 +35,14 @@ too.)  One round, in order:
    * **compact** (``compact=True``): the capacity-bounded plan and its
      deferral queue, the pre-solve λ⁺/center over the C planned rows,
      the SGD prox solve over C slots, and the commit — with
-     ``fused_gss`` one in-place K3 pass, otherwise K2 ``admm_update``
-     on the gathered rows and three scatters;
-   * **dense** (``compact=False``): K2 ``admm_update(with_z=False)``
-     over all N rows, the solve over all N clients, and the
-     event-gated commit;
+     ``fused_gss`` (flat only) one in-place K3 pass, otherwise K2
+     ``admm_update`` on the gathered rows (flat) or the plain dual
+     algebra (tree) and three scatters;
+   * **dense** (``compact=False``): λ⁺ and the centers over all N rows
+     (K2 ``admm_update(with_z=False)`` on the flat layout, the plain
+     algebra on the tree layout, as the reference gates its kernel on
+     ``flat``), the solve over all N clients, and the event-gated
+     commit;
 
    the AVG family (FedAvg, FedProx) skips the dual algebra and its
    kernels: λ stays zero, the center is ω and z = θ;
@@ -46,13 +58,13 @@ it: no value is read back to the host and no host tensor is copied in
 Minibatch orders come from the
 ``jax.random`` twin (:mod:`repro_torch.prng`), so a round started from
 the JAX package's state draws the same indices.  The solve's matrix
-products run in full fp32: TF32 is switched off where a round is built
-(``torch.backends.cuda.matmul.allow_tf32 = False``), as the reference's
-products run at fp32 on the CPU.
+products and convolutions run in full fp32: TF32 is switched off for
+cuBLAS and cuDNN where a round is built (``device.fp32_products``), as
+the reference's products run at fp32 on the CPU.
 
-What the JAX engine also offers and later slices port: the tree
-layout, stale-tolerant rounds, ragged clients, compressed consensus,
-host-offloaded state and the client mesh.  SCAFFOLD has its own round
+What the JAX engine also offers and later slices port: stale-tolerant
+rounds, ragged clients, compressed consensus, host-offloaded state and
+the client mesh.  SCAFFOLD has its own round
 (:mod:`repro_torch.core.baselines`).
 """
 from __future__ import annotations
@@ -63,15 +75,17 @@ from typing import Callable
 import torch
 
 from repro_torch import prng
-from repro_torch.device import resolve_device
+from repro_torch.device import fp32_products, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.optim.sgd import sgd_step
 from repro_torch.utils.flatstate import FlatSpec
+from repro_torch.utils.pytree import tree_broadcast_like, tree_map, \
+    tree_zeros_like
 
 from .compact import capacity_bounds, init_queue, make_compact_block
 from .controller import ControllerConfig, init_controller
-from .engine import consensus_mean, gated_commit, participant_mean, \
-    participant_mean_loss
+from .engine import consensus_mean, dual_ascent, gated_commit, \
+    participant_mean, participant_mean_loss, prox_center
 from .selection import make_selection
 from .state import FLState, RoundMetrics
 from .trigger import trigger_distances
@@ -149,10 +163,7 @@ def _ctrl_cfg(cfg: FLConfig) -> ControllerConfig:
     return c
 
 
-def _check_supported(cfg: FLConfig, spec: FlatSpec | None) -> None:
-    if spec is None:
-        raise NotImplementedError("the port keeps client state in the flat "
-                                  "layout: pass spec=make_flat_spec(params0)")
+def _check_supported(cfg: FLConfig) -> None:
     unported = {
         "max_staleness": cfg.max_staleness is not None,
         "consensus_compress": cfg.consensus_compress != "none",
@@ -165,20 +176,30 @@ def _check_supported(cfg: FLConfig, spec: FlatSpec | None) -> None:
         raise NotImplementedError(f"not ported yet: {settings}")
 
 
-def init_state(cfg: FLConfig, params0, *, spec: FlatSpec,
+def init_state(cfg: FLConfig, params0, *, spec: FlatSpec | None = None,
                device=None) -> FLState:
     """Alg. 2 initialization: θ_i = z⁰, λ_i = 0, z_i^prev = θ_i, ω = z⁰,
-    as (N, D) / (D,) fp32 tensors on ``device`` (CUDA by default)."""
+    on ``device`` (CUDA by default).  With ``spec`` the flat layout:
+    (N, D) / (D,) fp32 tensors; without, the tree layout: the params
+    dict's leaves stacked N times.  θ, z_prev and ω are distinct
+    buffers."""
     device = resolve_device(device)
-    _check_supported(cfg, spec)
+    _check_supported(cfg)
     n = cfg.n_clients
-    w0 = spec.flatten(params0).to(device)
-    theta = w0[None].repeat(n, 1)
+    if spec is not None:
+        w0 = spec.flatten(params0).to(device)
+    else:
+        w0 = tree_map(lambda x: torch.as_tensor(x).to(device), params0)
+
+    def stacked(x):
+        return x[None].repeat((n,) + (1,) * x.dim())
+
+    theta = tree_map(stacked, w0)
     return FLState(
         theta=theta,
-        lam=torch.zeros_like(theta),
-        z_prev=theta.clone(),
-        omega=w0.clone(),
+        lam=tree_zeros_like(theta),
+        z_prev=tree_map(stacked, w0),
+        omega=tree_map(torch.clone, w0),
         ctrl=init_controller(n, _ctrl_cfg(cfg), device=device),
         rng=prng.PRNGKey(cfg.seed, device=device),
         round=torch.zeros((), dtype=torch.int32, device=device),
@@ -200,54 +221,58 @@ def _epoch_indices(keys: torch.Tensor, n_points: int, batch_size: int,
     return perms.reshape(*keys.shape[:-1], epochs * per_epoch, batch_size)
 
 
-def _local_solve(loss_fn: Callable, spec: FlatSpec, theta0, center, x, y,
-                 idx, *, rho: float, lr: float, momentum: float,
+def _local_solve(loss_fn: Callable, spec: FlatSpec | None, theta0, center,
+                 x, y, idx, *, rho: float, lr: float, momentum: float,
                  control=None):
     """Inexact prox update (Eq. 2.3) for a batch of clients at once.
 
-    SGD with momentum on f_i(θ) + ρ/2‖θ − c‖².  theta0/center: (C, D)
-    rows; x: (C, n, ...); y: (C, n); idx: (C, steps, batch).  The
+    SGD with momentum on f_i(θ) + ρ/2‖θ − c‖².  theta0/center: stacked
+    (C, ...) trees — (C, D) rows with ``spec``, the stacked params dict
+    without; x: (C, n, ...); y: (C, n); idx: (C, steps, batch).  The
     per-client gradient is ``torch.func.vmap`` of ``grad_and_value`` of
-    ``loss_fn`` on the params dict the row views unflatten to; the
-    update itself runs on the flat rows.  ``control`` = (c, c_i), the
-    (D,) server and (C, D) client control variates, makes each gradient
-    g + c − c_i (SCAFFOLD's drift correction).  Returns ((C, D), (C,)
-    mean loss over the steps).
+    ``loss_fn`` on the stacked params dict (the row views unflatten to
+    it on the flat layout); the update runs leaf by leaf.  ``control``
+    = (c, c_i), the unstacked server and stacked client control
+    variates, makes each gradient g + c − c_i (SCAFFOLD's drift
+    correction).  Returns (the stacked solution, (C,) mean loss over
+    the steps).
     """
     vg = torch.func.vmap(torch.func.grad_and_value(loss_fn))
-    theta = theta0.contiguous().clone()
-    buf = torch.zeros_like(theta)
-    rows = torch.arange(theta.shape[0], device=theta.device)[:, None]
+    theta = tree_map(lambda t: t.contiguous().clone(), theta0)
+    buf = tree_zeros_like(theta)
+    rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
     losses = []
     for step in range(idx.shape[1]):
         ib = idx[:, step]
-        grads, loss = vg(spec.unflatten_stacked(theta), x[rows, ib],
-                         y[rows, ib])
-        g = spec.flatten_stacked(grads)
+        params = theta if spec is None else spec.unflatten_stacked(theta)
+        grads, loss = vg(params, x[rows, ib], y[rows, ib])
+        g = grads if spec is None else spec.flatten_stacked(grads)
         if control is not None:
-            g = g + control[0] - control[1]
+            g = tree_map(lambda gl, c, ci: gl + c - ci, g, *control)
         if rho:
-            g = g + rho * (theta - center)
+            g = tree_map(lambda gl, p, c: gl + rho * (p - c), g, theta,
+                         center)
         theta, buf = sgd_step(theta, g, buf, lr, momentum)
         losses.append(loss)
     return theta, torch.stack(losses, dim=1).mean(dim=1)
 
 
 def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
-                  spec: FlatSpec, device=None) -> Callable:
+                  spec: FlatSpec | None = None, device=None) -> Callable:
     """Build ``round_fn(state) -> (state, RoundMetrics)``.
 
     loss_fn(params, x_batch, y_batch) -> scalar mean loss, on the params
     dict of one client (``torch.func`` batches it over clients).
     data: {"x": (N, n_i, ...), "y": (N, n_i)} tensors or arrays, moved to
-    ``device`` (CUDA by default).  With ``compact`` and ``fused_gss`` the
-    round updates the state's θ/λ/z_prev in place.
+    ``device`` (CUDA by default).  ``spec``: the flat layout's codec, as
+    given to :func:`init_state` (None: the tree layout).  With
+    ``compact`` and ``fused_gss`` the round updates the state's
+    θ/λ/z_prev in place.
     """
     device = resolve_device(device)
-    _check_supported(cfg, spec)
-    if device.type == "cuda":
-        # The reference's solve products run at full fp32; keep TF32 off.
-        torch.backends.cuda.matmul.allow_tf32 = False
+    _check_supported(cfg)
+    fp32_products(device)
+    flat = spec is not None
     n = cfg.n_clients
     x = torch.as_tensor(data["x"], device=device)
     y = torch.as_tensor(data["y"], device=device)
@@ -255,12 +280,12 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
         raise ValueError(f"data has {x.shape[0]} clients, cfg.n_clients={n}")
     n_points = x.shape[1]
     is_admm = cfg.algorithm in ADMM_FAMILY
-    if cfg.fused_gss and not (cfg.compact and is_admm):
+    if cfg.fused_gss and not (cfg.compact and is_admm and flat):
         raise ValueError(
             "fused_gss=True needs compact=True, an ADMM-family "
             "algorithm and the flat (spec=) layout — got "
             f"compact={cfg.compact}, algorithm={cfg.algorithm!r}, "
-            "flat=True")
+            f"flat={flat}")
     select = make_selection(cfg.selection_name(), rate=cfg.participation,
                             controller=_ctrl_cfg(cfg),
                             metric=cfg.trigger_metric)
@@ -281,7 +306,8 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
             solver, epoch_fn, cap, warm_start=cfg.warm_start,
             is_admm=is_admm, c_min=c_min,
             adaptive=cfg.adaptive_capacity and cfg.capacity is None,
-            alpha=_ctrl_cfg(cfg).alpha, fused=cfg.fused_gss)
+            alpha=_ctrl_cfg(cfg).alpha, fused=cfg.fused_gss,
+            use_admm_kernel=is_admm and flat)
 
     def trigger(state):
         if cfg.trigger_metric == "l2":
@@ -293,17 +319,22 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
     def dense_client_update(state, data_rng):
         """All-N solve; returns service proposals (θ_out, λ⁺, z)."""
         with span("fedback/presolve"):
-            if is_admm:
+            if is_admm and flat:
                 lam_new, center = ops.admm_update(state.theta, state.lam,
                                                   state.omega, with_z=False)
+            elif is_admm:
+                lam_new = dual_ascent(state.lam, state.theta, state.omega)
+                center = prox_center(state.omega, lam_new)
             else:
-                lam_new, center = state.lam, state.omega[None].expand(n, -1)
-            theta_init = (state.omega[None].expand(n, -1) if cfg.warm_start
-                          else state.theta)
+                lam_new = state.lam
+                center = tree_broadcast_like(state.omega, n)
+            theta_init = (tree_broadcast_like(state.omega, n)
+                          if cfg.warm_start else state.theta)
         with span("fedback/minibatch_rng"):
             idx = epoch_fn(prng.split(data_rng, n))
         theta_out, losses = solver(theta_init, center, x, y, idx)
-        z_new = theta_out + lam_new if is_admm else theta_out
+        z_new = (tree_map(torch.add, theta_out, lam_new) if is_admm
+                 else theta_out)
         return theta_out, lam_new, z_new, losses
 
     def round_fn(state: FLState):
@@ -362,16 +393,18 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
     return round_fn
 
 
-def make_eval_fn(loss_and_acc_fn: Callable, *, spec: FlatSpec,
-                 device=None) -> Callable:
+def make_eval_fn(loss_and_acc_fn: Callable, *,
+                 spec: FlatSpec | None = None, device=None) -> Callable:
     """eval_fn(state, x, y) -> (loss, accuracy) of the server ω, on
-    ``device`` (CUDA by default; x and y are moved there)."""
+    ``device`` (CUDA by default; x and y are moved there).  With
+    ``spec`` the flat ω is unflattened to the params dict; without, ω is
+    the tree layout's dict."""
     device = resolve_device(device)
 
     def eval_fn(state: FLState, x, y):
-        omega = state.omega.to(device)
-        return loss_and_acc_fn(spec.unflatten(omega), x.to(device),
-                               y.to(device))
+        omega = tree_map(lambda w: w.to(device), state.omega)
+        params = omega if spec is None else spec.unflatten(omega)
+        return loss_and_acc_fn(params, x.to(device), y.to(device))
 
     return eval_fn
 

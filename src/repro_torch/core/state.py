@@ -1,10 +1,14 @@
 """Federated state containers of the port (``repro/core/state.py``).
 
-Flat layout only: θ, λ and z_prev are (N, D) fp32 matrices and ω a (D,)
-vector, all on the round's device.  The containers are NamedTuples of
-tensors like the JAX package's, but the port's compacted round commits
-θ/λ/z_prev **in place** (``kernels.fused_gss``), so a state passed to a
-round must not be used afterwards as if unchanged; clone it first.
+θ, λ, z_prev and ω are held in one of the round's two layouts, all on
+the round's device: the flat layout (``spec=``) keeps θ, λ and z_prev
+as (N, D) fp32 matrices and ω as a (D,) vector; the tree layout
+(``spec=None``) keeps them as nested dicts with the model's keys, each
+client-state leaf stacked (N, ...) and ω the unstacked dict.  The
+containers are NamedTuples like the JAX package's, but the port's
+compacted flat round with the fused commit updates θ/λ/z_prev **in
+place** (``kernels.fused_gss``), so a state passed to such a round
+must not be used afterwards as if unchanged; clone it first.
 
 Stale-tolerant pipelines (``InFlight``), compressed-consensus residuals
 and host-offloaded state belong to later slices of the port.
@@ -26,10 +30,10 @@ class DeferQueue(NamedTuple):
 
 
 class FLState(NamedTuple):
-    theta: torch.Tensor  # (N, D) fp32 — local primal variables θ_i
-    lam: torch.Tensor  # (N, D) fp32 — dual variables λ_i
-    z_prev: torch.Tensor  # (N, D) fp32 — server copies z_i^prev = θ_i + λ_i
-    omega: torch.Tensor  # (D,) fp32 — server parameters ω
+    theta: object  # (N, D) fp32 or a stacked tree — local primal θ_i
+    lam: object  # (N, D) fp32 or a stacked tree — dual variables λ_i
+    z_prev: object  # (N, D) or a stacked tree — z_i^prev = θ_i + λ_i
+    omega: object  # (D,) fp32 or the params tree — server parameters ω
     ctrl: ControllerState
     rng: torch.Tensor  # (2,) int64 — threefry key words (repro_torch.prng)
     round: torch.Tensor  # () int32

@@ -22,3 +22,12 @@ def default_device() -> torch.device:
 def resolve_device(device=None) -> torch.device:
     """``None`` → :func:`default_device`; anything else → torch.device."""
     return default_device() if device is None else torch.device(device)
+
+
+def fp32_products(device: torch.device) -> None:
+    """On CUDA, switch TF32 off for cuBLAS matrix products and cuDNN
+    convolutions, so a solve's products run in full fp32 as the
+    reference's do on the CPU (cuDNN's default is TF32, ~1e-3 off)."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False

@@ -7,10 +7,11 @@ wrapper counts its launches; :func:`launch_counts` reads the counts and
 :func:`reset_launch_counts` sets them to 0 (flash attention's counts by
 instance, ``flash_attention.instance_launches``, too), so a run can
 show that its main path went through the kernels.
+``trigger_sq_norms_pytree`` (K1c, the stacked-tree front end of K1)
+counts the K1 launches it makes on a concatenated tree; K1 counts them
+too.
 """
 from __future__ import annotations
-
-import torch
 
 from .admm_update import admm_update, admm_update_hbm_bytes  # noqa: F401
 from .flash_attention import (  # noqa: F401
@@ -24,6 +25,7 @@ from .ref import (  # noqa: F401
     flash_attention_ref,
     fused_gss_ref,
     ssd_scan_ref,
+    trigger_sq_norms_pytree_ref,
     trigger_sq_norms_ref,
 )
 from .ssd_scan import ssd_scan, ssd_scan_hbm_bytes  # noqa: F401
@@ -31,8 +33,13 @@ from .trigger_norms import (  # noqa: F401
     trigger_sq_norms,
     trigger_sq_norms_hbm_bytes,
 )
+from .trigger_pytree import (  # noqa: F401
+    trigger_sq_norms_pytree,
+    trigger_sq_norms_pytree_hbm_bytes,
+)
 
 KERNELS = {"trigger_sq_norms": trigger_sq_norms,
+           "trigger_sq_norms_pytree": trigger_sq_norms_pytree,
            "admm_update": admm_update,
            "fused_gss": fused_gss,
            "flash_attention": flash_attention,
@@ -49,12 +56,3 @@ def reset_launch_counts() -> None:
     flash_attention.instance_launches = dict.fromkeys(
         flash_attention.instance_launches, 0)
 
-
-def trigger_sq_norms_pytree(z_prev: torch.Tensor,
-                            omega: torch.Tensor) -> torch.Tensor:
-    """The server trigger on the flat layout: the (N, D) state is read
-    in place.  (The stacked-pytree form of the JAX package is not
-    ported: the port keeps client state flat.)"""
-    if z_prev.dim() != 2:
-        raise NotImplementedError("only the flat (N, D) layout is ported")
-    return trigger_sq_norms(z_prev, omega.reshape(-1))

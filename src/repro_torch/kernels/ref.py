@@ -10,3 +10,4 @@ from .flash_attention import flash_attention_ref  # noqa: F401
 from .fused_gss import fused_gss_ref  # noqa: F401
 from .ssd_scan import ssd_scan_ref  # noqa: F401
 from .trigger_norms import trigger_sq_norms_ref  # noqa: F401
+from .trigger_pytree import trigger_sq_norms_pytree_ref  # noqa: F401

@@ -1,12 +1,16 @@
-"""Where a paper-MNIST FedBack round spends its time, from torch.profiler.
+"""Where a paper-workload FedBack round spends its time, from torch.profiler.
 
     python -m repro_torch.launch.profile_round [--form A] [--rounds 3]
 
-Builds the round at full width (N=100, the 784-200-10 MLP, D=159,010)
-in one of ``configs.paper_mnist.FORMS`` (FedBack compacted with the
-fused commit, A, or dense, B; the paper's baselines C1–C6; SCAFFOLD,
-C7), runs two warm-up rounds, then profiles ``--rounds`` rounds and
-prints, per round:
+Builds the round at full width in one of the forms of
+``configs.paper_mnist.FORMS`` (N=100, the 784-200-10 MLP, D=159,010:
+FedBack compacted with the fused commit, A, or dense, B; the paper's
+baselines C1–C6; SCAFFOLD, C7; FedBack on the tree layout, compacted,
+TA, or dense, TB) or ``configs.paper_cifar.FORMS`` (N=100, the CIFAR
+CNN, D=196,426: FedBack compacted with the fused commit, CF-A, or on
+the tree layout, CF-T), on the paper grid's data and the reference's
+seeded weights (the module's ``workload()``), runs two warm-up rounds,
+then profiles ``--rounds`` rounds and prints, per round:
 
 * the wall time (host clock around rounds that end in a synchronize);
 * the device's busy time (sum of kernel durations; the round runs on
@@ -28,24 +32,24 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import paper_mnist
-from repro_torch.data import federated_arrays, make_synthetic_mnist
+from repro_torch.configs import paper_cifar, paper_mnist
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models import init_mlp, make_loss_fn
-from repro_torch.prng import PRNGKey
+from repro_torch.models import make_loss_fn
 from repro_torch.utils import make_flat_spec
+
+# The configuration module of every form.
+CONFIGS = {form: m for m in (paper_mnist, paper_cifar) for form in m.FORMS}
 
 
 def build(form: str, device):
-    cfg = paper_mnist.form_config(form)
-    data, _ = federated_arrays(make_synthetic_mnist(), n_clients=100,
-                               device=device)
-    params0 = init_mlp(PRNGKey(0, device=device), device=device)
-    spec = make_flat_spec(params0)
-    f = paper_mnist.FORMS[form]
+    cfgs = CONFIGS[form]
+    cfg = cfgs.form_config(form)
+    data, _, params0, logits_fn = cfgs.workload(device=device)
+    f = cfgs.FORMS[form]
+    spec = f.spec(make_flat_spec(params0))
     return (f.init(cfg, params0, spec=spec, device=device),
-            f.make_round(cfg, make_loss_fn(), data, spec=spec,
+            f.make_round(cfg, make_loss_fn(logits_fn), data, spec=spec,
                          device=device))
 
 
@@ -112,7 +116,7 @@ def profile_rounds(form: str, rounds: int, device) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--form", choices=tuple(paper_mnist.FORMS),
+    ap.add_argument("--form", choices=tuple(CONFIGS),
                     action="append")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--device", default=None)

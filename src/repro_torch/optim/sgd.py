@@ -5,16 +5,17 @@ update is bit-identical given the same gradient:
 
     buf ← momentum·buf + g ;  p ← p − lr·buf
 
-The round keeps parameters and momentum as flat (C, D) rows, so one
-step is two elementwise passes over the whole solve batch.
+Parameters, gradients and momentum are trees of one structure
+(:mod:`repro_torch.utils.pytree`): the round's flat (C, D) rows, or the
+stacked params dict of the tree layout.  One step is two elementwise
+passes over every leaf of the solve batch.
 """
 from __future__ import annotations
 
-import torch
+from repro_torch.utils.pytree import tree_map
 
 
-def sgd_step(params: torch.Tensor, grads: torch.Tensor, buf: torch.Tensor,
-             lr: float, momentum: float = 0.9):
+def sgd_step(params, grads, buf, lr: float, momentum: float = 0.9):
     """One SGD+momentum update; returns (new_params, new_buf)."""
-    buf = momentum * buf + grads
-    return params - lr * buf, buf
+    buf = tree_map(lambda m, g: momentum * m + g, buf, grads)
+    return tree_map(lambda p, u: p - lr * u, params, buf), buf

@@ -1,2 +1,3 @@
-"""Layout helpers of the port (the flat client-state codec)."""
+"""Layout helpers of the port: the flat client-state codec
+(``flatstate``) and the tree helpers (``pytree``)."""
 from .flatstate import FlatSpec, make_flat_spec  # noqa: F401

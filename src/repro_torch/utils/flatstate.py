@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from .pytree import flatten, flatten_stacked
+
 
 def _leaf_paths(tree, prefix=()):
     """(path, leaf) pairs of a nested dict, keys sorted at every level."""
@@ -58,8 +60,8 @@ class FlatSpec:
 
     def flatten(self, tree) -> torch.Tensor:
         """Params dict → contiguous (D,) fp32."""
-        return torch.cat([torch.as_tensor(x).to(torch.float32).reshape(-1)
-                          for x in self.leaves(tree)])
+        self.leaves(tree)
+        return flatten(tree)
 
     def unflatten(self, vec: torch.Tensor):
         """(D,) vector → params dict of views with the template shapes."""
@@ -70,10 +72,8 @@ class FlatSpec:
 
     def flatten_stacked(self, tree) -> torch.Tensor:
         """Dict of (N, ...) leaves → contiguous (N, D) fp32."""
-        leaves = self.leaves(tree)
-        n = leaves[0].shape[0]
-        return torch.cat([x.to(torch.float32).reshape(n, -1)
-                          for x in leaves], dim=1)
+        self.leaves(tree)
+        return flatten_stacked(tree)
 
     def unflatten_stacked(self, mat: torch.Tensor):
         """(N, D) matrix → dict of (N, ...) views (rows stay in ``mat``)."""

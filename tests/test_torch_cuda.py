@@ -402,3 +402,61 @@ def test_baseline_round_matches_the_cpu(dev, algorithm, compact, expect):
     if algorithm == "fedavg":
         np.testing.assert_allclose(got.omega, want.omega, rtol=1e-6,
                                    atol=1e-7)
+
+
+def _stacked(rng, shapes, n, bf16=()):
+    """A stacked tree (n, ...) and its ω of the given leaf shapes, the
+    leaves named in ``bf16`` in bf16."""
+    z, w = {}, {}
+    for layer, leaves in shapes.items():
+        z[layer], w[layer] = {}, {}
+        for k, shape in leaves.items():
+            dtype = torch.bfloat16 if (layer, k) in bf16 else torch.float32
+            z[layer][k] = _mk(rng, n, *shape).to(dtype)
+            w[layer][k] = _mk(rng, *shape).to(dtype)
+    return z, w
+
+
+# The paper models' leaves: the CIFAR CNN's 12 (HWIO kernels) and the
+# MNIST MLP's 4.
+CNN_LEAVES = {"conv1": {"w": (3, 3, 3, 32), "b": (32,)},
+              "conv2": {"w": (3, 3, 32, 64), "b": (64,)},
+              "conv3": {"w": (3, 3, 64, 64), "b": (64,)},
+              "fc1": {"w": (1024, 128), "b": (128,)},
+              "fc2": {"w": (128, 64), "b": (64,)},
+              "fc3": {"w": (64, 10), "b": (10,)}}
+MLP_LEAVES = {"fc1": {"w": (784, 200), "b": (200,)},
+              "fc2": {"w": (200, 10), "b": (10,)}}
+
+
+@pytest.mark.parametrize("shapes,bf16", [
+    (CNN_LEAVES, ()), (MLP_LEAVES, ()), (MLP_LEAVES, (("fc1", "w"),))],
+    ids=["cnn", "mlp", "mlp_bf16_leaf"])
+def test_trigger_pytree_kernel(dev, shapes, bf16):
+    """K1c: the stacked tree's leaves concatenated in fp32, then one K1
+    launch, against the plain version (rtol 1e-5, as K1)."""
+    from repro_torch.utils.pytree import tree_map
+
+    rng = np.random.default_rng(len(shapes))
+    z, w = _stacked(rng, shapes, 100, bf16)
+    want = ops.trigger_sq_norms_pytree_ref(z, w)
+    before = (ops.trigger_sq_norms_pytree.launches,
+              ops.trigger_sq_norms.launches)
+    got = ops.trigger_sq_norms_pytree(tree_map(lambda t: t.to(dev), z),
+                                      tree_map(lambda t: t.to(dev), w))
+    torch.cuda.synchronize()
+    assert (ops.trigger_sq_norms_pytree.launches,
+            ops.trigger_sq_norms.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0)
+
+
+def test_trigger_pytree_kernel_reads_the_flat_matrix_in_place(dev):
+    """One (N, D) leaf goes to K1 as it is; K1c counts nothing."""
+    rng = np.random.default_rng(0)
+    z, w = _mk(rng, 100, 4099).to(dev), _mk(rng, 4099).to(dev)
+    before = (ops.trigger_sq_norms_pytree.launches,
+              ops.trigger_sq_norms.launches)
+    got = ops.trigger_sq_norms_pytree(z, w)
+    assert (ops.trigger_sq_norms_pytree.launches,
+            ops.trigger_sq_norms.launches) == (before[0], before[1] + 1)
+    assert torch.equal(got, ops.trigger_sq_norms(z, w))

@@ -163,13 +163,45 @@ def test_unported_features_are_refused():
 
     params0 = {"theta": torch.zeros(3)}
     spec = make_flat_spec(params0)
-    for kw in (dict(max_staleness=2), dict(consensus_compress="int8"),
-               dict(algorithm="scaffold"), dict(state_backend="host")):
-        with pytest.raises(NotImplementedError):
-            init_state(FLConfig(n_clients=4, **kw), params0, spec=spec,
+    for layout in (spec, None):
+        for kw in (dict(max_staleness=2), dict(consensus_compress="int8"),
+                   dict(algorithm="scaffold"), dict(state_backend="host")):
+            with pytest.raises(NotImplementedError):
+                init_state(FLConfig(n_clients=4, **kw), params0, spec=layout,
+                           device="cpu")
+    # The tree layout (spec=None) is ported: stacked leaves, unstacked ω.
+    state = init_state(FLConfig(n_clients=4), params0, spec=None,
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="flat"):
-        init_state(FLConfig(n_clients=4), params0, spec=None, device="cpu")
+    assert state.theta["theta"].shape == (4, 3)
+    assert state.omega["theta"].shape == (3,)
+
+
+@pytest.mark.parametrize("builder", ["make_round_fn",
+                                     "make_scaffold_round"])
+def test_rounds_built_for_cuda_turn_tf32_off(builder, monkeypatch):
+    """A round hands its device to ``device.fp32_products``, which on a
+    CUDA device switches TF32 off for cuBLAS and cuDNN (the CNN's
+    convolutions), so the solve runs in full fp32 as on the CPU.  The
+    round is built on the CPU, so the test reads the same on any
+    machine."""
+    from repro_torch import device as device_mod
+    from repro_torch.core import FLConfig, baselines, fedback
+
+    module = baselines if builder == "make_scaffold_round" else fedback
+    seen = []
+    monkeypatch.setattr(module, "fp32_products", seen.append)
+    data = {"x": torch.zeros(4, 2, 3), "y": torch.zeros(4, 2)}
+    getattr(module, builder)(FLConfig(n_clients=4), lambda *a: 0.0, data,
+                             device="cpu")
+    assert seen == [torch.device("cpu")]
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    device_mod.fp32_products(torch.device("cpu"))
+    assert torch.backends.cuda.matmul.allow_tf32
+    assert torch.backends.cudnn.allow_tf32
+    device_mod.fp32_products(torch.device("cuda"))
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
 
 
 def test_unported_model_paths_raise():
