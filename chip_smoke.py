@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one GPU: the FedBack round (slice 1),
-zamba2-2.7b serving (slice 2), the paper's baselines (slice 6), and the
-tree client-state layout and the paper's CIFAR-10 workload (slice 7).
+zamba2-2.7b serving (slice 2), the paper's baselines (slice 6), the
+tree client-state layout and the paper's CIFAR-10 workload (slice 7),
+and the client-sharded round (slice 8).
 
     python3 chip_smoke.py
 
@@ -36,7 +37,12 @@ non-zero):
    fails the run); K1c (``trigger_sq_norms_pytree``, the stacked-tree
    front end of K1) against its plain version at rtol 1e-5 on the
    MLP's 4 and the CNN's 12 leaves stacked for N = 100, and with the
-   MLP's fc1/w in bf16, timed cold at both (the row: the CNN's);
+   MLP's fc1/w in bf16, timed cold at both (the row: the CNN's); K1b
+   and K2b (``trigger_sq_norms_sharded``, ``admm_update_sharded``: K1's
+   and K2's kernels launched once per shard of a client mesh) on P = 2
+   and 4 shards of (100, 159010) on the card, every shard's rows
+   bit-equal to the unsharded kernel's, each launch timed alone and
+   cold at its (N/P, D) shape (the rows: P = 2);
 4. form A at the paper-MNIST width (N=100 clients, the 784-200-10 MLP,
    D=159,010): compacted rounds with the fused commit, 1 warm-up and 5
    timed, asserting one trigger and one fused_gss launch per round and
@@ -79,6 +85,17 @@ non-zero):
    such flips moved the fields by up to 8.8e-3 of their update norm,
    with cuDNN on or off; a wrong kernel or layout moves them by ~1);
    test accuracy printed, not gated;
+5e. the client-sharded round at the paper-MNIST width, P shards of one
+   card (``configs.paper_mnist.FORMS``' ``shards``), 1 warm-up and 3
+   timed rounds each under the sync debug mode, launches per round
+   asserted, the second round held against the same sharded round on P
+   CPU shards (as in 5b): SA FedBack compact + fused at P = 2, ⌈16/2⌉ =
+   8 slots a shard (K1b ×2, K3 ×2), SB FedBack dense at P = 2 (K1b ×2,
+   K2b ×2), ST FedBack on the tree layout, dense, at P = 2 (K1c → K1b
+   ×2), SR FedADMM compact + fused at P = 4, 4 slots a shard (K1b ×4,
+   K3 ×4); SB's and ST's second rounds also against forms B and TB from
+   the same state (events equal, ω at rtol 1e-5 / atol 1e-7, as TB
+   against B in 5c);
 6. zamba2-2.7b at full width cut to one group (6 mamba layers and the
    shared block), fp32 with TF32 off: 1 request × 256 tokens, prefill
    and 4 greedy decode steps on the card (kernels) against the CPU's
@@ -97,8 +114,8 @@ non-zero):
 8. print the serve line, the kernels line (K4's bf16 instance as
    ``flash_attention``, launched in phase 7, and its 3xTF32 instance as
    ``flash_attention_fp32``, launched in phase 6; K1–K3's launches are
-   those of phases 4–5d, K1c's those of 5c and 5d), the card line and,
-   last, the ok line.
+   those of phases 4–5e, K1c's those of 5c–5e, K1b's and K2b's those of
+   5e), the card line and, last, the ok line.
 
 Exits non-zero without a result where no CUDA device is visible, or
 where the port's package is missing next to this script.
@@ -366,6 +383,117 @@ def check_pytree_kernel(dev, ops, trees):
                 bound_by=None if t_bytes is None else
                 ("bytes" if t_bytes >= t_ops else "operations"),
                 nbytes=row["nbytes"])
+
+
+def check_sharded_kernels(dev, ops, n, d):
+    """Phase 3, slice 8: K1b and K2b — K1's and K2's kernels launched
+    once per shard of a client mesh — at the sharded forms' shapes, N =
+    100 rows of D in P = 2 and P = 4 shards on the card: each shard's
+    results bit-equal to the unsharded kernel's on the same rows (and
+    K1b within rtol 1e-5 of its plain version), one launch per shard,
+    counted under K1b / K2b and not under K1 / K2.  Each launch is timed
+    alone, at the shape it sees (N/P rows), cold over input sets L2
+    cannot hold, beside one shard's plain version and, for K1b,
+    ``torch.cdist`` on one shard's rows.  Returns the kernels line's
+    rows (timed at P = 2, the shards of SA, SB, ST; P = 4, SR's, logged)."""
+    from repro_torch.launch.time_kernels import (COLD_COPIES, cycle,
+                                                 device_ms, peak_bandwidth)
+    from repro_torch.sharding import make_client_mesh, replicate_data, \
+        shard_rows
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    bw = peak_bandwidth(torch.cuda.get_device_name(0))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    rows, err = {}, 0.0
+    for p in (2, 4):
+        mesh, n_local = make_client_mesh(p, [dev]), n // p
+        z, th, la, w = randn(n, d), randn(n, d), randn(n, d), randn(d)
+        ws = replicate_data(mesh, w)
+        ops.reset_launch_counts()
+        sq = ops.trigger_sq_norms_sharded(shard_rows(z, mesh), ws, mesh)
+        outs = [ops.admm_update(shard_rows(th, mesh), shard_rows(la, mesh),
+                                ws, with_z=with_z, mesh=mesh)
+                for with_z in (True, False)]
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = {"trigger_sq_norms_sharded": p, "admm_update_sharded": 2 * p,
+                "trigger_sq_norms": 0, "admm_update": 0}
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"K1b/K2b at P = {p} launched {counts}, "
+                                 f"expected {want}")
+        if not torch.equal(torch.cat(sq), ops.trigger_sq_norms(z, w)):
+            raise AssertionError(f"trigger_sq_norms_sharded at P = {p}: a "
+                                 "shard's rows differ from K1's bits")
+        plain = ops.trigger_sq_norms_sharded_ref(shard_rows(z, mesh), ws)
+        torch.testing.assert_close(torch.cat(sq), torch.cat(plain),
+                                   rtol=1e-5, atol=0)
+        err = max(err, float((torch.cat(sq) - torch.cat(plain)).abs().max()))
+        for with_z, got in zip((True, False), outs, strict=True):
+            for part, whole in zip(got, ops.admm_update(th, la, w,
+                                                        with_z=with_z),
+                                   strict=True):
+                if not torch.equal(torch.cat(part), whole):
+                    raise AssertionError(
+                        f"admm_update_sharded(with_z={with_z}) at P = {p}: "
+                        "a shard's rows differ from K2's bits")
+        log(f"trigger_sq_norms_sharded, admm_update_sharded: P = {p} shards "
+            f"of ({n}, {d}) on one card, one launch per shard, every row "
+            "bit-equal to the unsharded kernel's (K2b with and without z); "
+            f"K1b within rtol 1e-5 of its plain version")
+        del z, th, la, sq, outs, plain
+        one = make_client_mesh(1, [dev])
+        sets = [(randn(n_local, d), randn(n_local, d), randn(n_local, d),
+                 randn(d)) for _ in range(COLD_COPIES)]
+        z0, th0, la0, w0 = sets[0]
+        k1b = dict(
+            ms=device_ms(cycle([lambda s=s: ops.trigger_sq_norms_sharded(
+                [s[0]], [s[3]], one) for s in sets])),
+            warm_ms=device_ms(lambda: ops.trigger_sq_norms_sharded(
+                [z0], [w0], one)),
+            plain_ms=device_ms(lambda: ops.trigger_sq_norms_sharded_ref(
+                [z0], [w0]), calls=PLAIN_CALLS),
+            library_ms=device_ms(lambda: torch.cdist(
+                z0, w0[None], compute_mode="donot_use_mm_for_euclid_dist")),
+            nbytes=ops.trigger_sq_norms_hbm_bytes(n_local, d),
+            nflop=3 * n_local * d)
+        k2b = dict(
+            ms=device_ms(cycle([lambda s=s: ops.admm_update_sharded(
+                [s[1]], [s[2]], [s[3]], one, with_z=False) for s in sets])),
+            warm_ms=device_ms(lambda: ops.admm_update_sharded(
+                [th0], [la0], [w0], one, with_z=False)),
+            plain_ms=device_ms(lambda: ops.admm_update_sharded_ref(
+                [th0], [la0], [w0], with_z=False), calls=PLAIN_CALLS),
+            library_ms=None,
+            nbytes=ops.admm_update_hbm_bytes(n_local, d, with_z=False),
+            nflop=2 * n_local * d)
+        del sets, z0, th0, la0, w0
+        for name, r, src in (
+                ("trigger_sq_norms_sharded", k1b,
+                 "src/repro/kernels/trigger_norms.py:74"),
+                ("admm_update_sharded", k2b,
+                 "src/repro/kernels/admm_update.py:100")):
+            t_bytes = r["nbytes"] / bw * 1e3 if bw else None
+            t_ops = r["nflop"] / PEAK_FP32_FLOPS * 1e3
+            r["bound_ms"] = None if t_bytes is None else max(t_bytes, t_ops)
+            r["bound_by"] = ("bytes" if t_bytes is None or t_bytes >= t_ops
+                             else "operations")
+            lib = r["library_ms"]
+            log(f"  {name} at P = {p}, one launch on ({n_local}, {d}): ms "
+                f"{r['ms']:.4f} (cold)  warm_ms {r['warm_ms']:.4f}  plain_ms "
+                f"{r['plain_ms']:.4f}  library_ms "
+                f"{'null' if lib is None else f'{lib:.4f}'}  bound_ms "
+                f"{r['bound_ms']} ("
+                + (f"{r['bound_ms'] / r['ms']:.1%} of it reached"
+                   if r["bound_ms"] else "n/a")
+                + f")  bytes {r['nbytes']}")
+            if p == 2:
+                rows[name] = dict(r, replaces=src, max_abs_err=0.0)
+    rows["trigger_sq_norms_sharded"]["max_abs_err"] = err
+    return rows
 
 
 def check_model_kernels(dev, ops):
@@ -736,7 +864,7 @@ def _max_abs_diff(got, want):
 
 def compare_with_cpu(round_fn_cpu, state_before, state_after, m_after,
                      label, *, exact_events=False, omega_tol=None,
-                     update_tol=None):
+                     update_tol=None, cpu_placement=None):
     """One round from the same state on the CPU's plain path must agree
     with the card's: events (off a 1e-5 margin around δ, or everywhere
     with ``exact_events``: a random draw is integer math) and, when the
@@ -746,8 +874,10 @@ def compare_with_cpu(round_fn_cpu, state_before, state_after, m_after,
     gradient to another pixel when two values lie within a rounding of
     each other) each state field is held by the norm of its difference
     instead, at most ``update_tol`` of the norm of the round's update.
-    The round must commit a client, or the state check would hold
-    whatever the solve and the commit computed."""
+    ``cpu_placement`` (``Form.placement("cpu")``) puts a sharded form's
+    state on a client mesh of CPU shards.  The round must commit a
+    client, or the state check would hold whatever the solve and the
+    commit computed."""
     from repro_torch.convert import state_from_numpy, state_to_numpy
     from repro_torch.launch.conv_precision import update_ratio
     from repro_torch.utils.pytree import tree_leaves
@@ -757,7 +887,8 @@ def compare_with_cpu(round_fn_cpu, state_before, state_after, m_after,
         raise AssertionError(f"{label}: the checked round commits no "
                              "client")
     before = state_to_numpy(state_before)
-    ref, rm = round_fn_cpu(state_from_numpy(before, device="cpu"))
+    ref, rm = round_fn_cpu(state_from_numpy(
+        before, **(cpu_placement or {"device": "cpu"})))
     dist = rm.distances.numpy()
     delta = before.ctrl.delta
     margin = np.abs(dist - delta) <= 1e-5 * np.maximum(1.0, np.abs(delta))
@@ -814,11 +945,14 @@ def compare_with_cpu(round_fn_cpu, state_before, state_after, m_after,
 def drive(form, n_rounds, warmup, ctx, ops, expect, against=None, **check):
     """Run ``warmup`` + ``n_rounds`` rounds of one of the ``FORMS`` of
     ``ctx["cfgs"]`` (``configs.paper_mnist`` or ``paper_cifar``), on the
-    flat or the tree layout as the form says, with the launch counts set
-    to 0 just before; ``check`` goes to :func:`compare_with_cpu`.  With
-    ``against`` (a flat form of the same configuration), the form's
-    second round is also held against that form's round on the card
-    from the same state, flattened: events equal, ω at rtol 1e-5 / atol
+    flat or the tree layout and on one device or a client mesh of its
+    shards on the card, as the form says, with the launch counts set
+    to 0 just before; ``check`` goes to :func:`compare_with_cpu`, which
+    holds a sharded form against the same sharded round on CPU shards.
+    With ``against`` (a one-device form of the same configuration), the
+    form's second round is also held against that form's round on the
+    card from the same state (put together from the shards, flattened
+    where the layouts differ): events equal, ω at rtol 1e-5 / atol
     1e-7.  Returns (timing, counts)."""
     from repro_torch.convert import flat_state, state_from_numpy, \
         state_to_numpy
@@ -829,12 +963,17 @@ def drive(form, n_rounds, warmup, ctx, ops, expect, against=None, **check):
     f, cfg = cfgs.FORMS[form], cfgs.form_config(form)
     spec = f.spec(ctx["spec"])
     loss_fn = make_loss_fn(ctx["logits"])
-    state = f.init(cfg, ctx["params0"], spec=spec, device=dev)
+    placement = f.placement(dev)
+    state = f.init(cfg, ctx["params0"], spec=spec, **placement)
     round_fn = f.make_round(cfg, loss_fn, ctx["data"], spec=spec,
-                            device=dev)
+                            **placement)
 
-    def copy(s):  # the fused round updates its input in place
-        return state_from_numpy(state_to_numpy(s), device=dev)
+    def copy(s, **where):  # the fused round updates its input in place
+        return state_from_numpy(state_to_numpy(s), **(where or placement))
+
+    def omega_vec(s):  # ω of a state or a shard list, flat
+        w = (s if hasattr(s, "omega") else s[0]).omega
+        return w if isinstance(w, torch.Tensor) else ctx["spec"].flatten(w)
 
     # Reference: the second round from init_state (in the first, every
     # client sits at distance 0 from ω) on the card and on the CPU's
@@ -843,26 +982,30 @@ def drive(form, n_rounds, warmup, ctx, ops, expect, against=None, **check):
     after, m = round_fn(copy(before))
     cpu_round = f.make_round(cfg, loss_fn, {
         k: v.cpu() for k, v in ctx["data"].items()}, spec=spec,
-        device="cpu")
-    compare_with_cpu(cpu_round, before, after, m, f"form {form}", **check)
+        **f.placement("cpu"))
+    compare_with_cpu(cpu_round, before, after, m, f"form {form}",
+                     cpu_placement=f.placement("cpu"), **check)
     if against is not None:
         other = cfgs.FORMS[against]
-        flat_round = other.make_round(cfgs.form_config(against), loss_fn,
-                                      ctx["data"], spec=ctx["spec"],
-                                      device=dev)
-        flat_after, fm = flat_round(flat_state(copy(before), ctx["spec"]))
+        other_spec = other.spec(ctx["spec"])
+        other_round = other.make_round(cfgs.form_config(against), loss_fn,
+                                       ctx["data"], spec=other_spec,
+                                       device=dev)
+        single = copy(before, device=dev)
+        if other.layout != f.layout:
+            single = flat_state(single, ctx["spec"])
+        other_after, fm = other_round(single)
         if not torch.equal(fm.events, m.events):
             raise AssertionError(f"form {form}: events differ from form "
                                  f"{against}'s from the same state")
-        got = ctx["spec"].flatten(after.omega)
-        torch.testing.assert_close(got, flat_after.omega, rtol=1e-5,
-                                   atol=1e-7)
-        log(f"form {form}: round {int(before.round.item()) + 1} agrees "
-            f"with form {against}'s from the same state, flattened "
+        got, want = omega_vec(after), omega_vec(other_after)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+        log(f"form {form}: round {int(state_to_numpy(before).round) + 1} "
+            f"agrees with form {against}'s from the same state "
             f"(events equal, ω max_abs_err "
-            f"{float((got - flat_after.omega).abs().max()):.3e}, rtol 1e-5 "
-            "/ atol 1e-7 held)")
-        del flat_after, fm
+            f"{float((got - want).abs().max()):.3e}, rtol 1e-5 / atol "
+            "1e-7 held)")
+        del other_after, fm, single
     del before, after, m
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -875,8 +1018,7 @@ def drive(form, n_rounds, warmup, ctx, ops, expect, against=None, **check):
             raise AssertionError(f"form {form}: {name} launched "
                                  f"{counts[name]} times in {total} rounds, "
                                  f"expected {per_round * total}")
-    omega = state.omega if spec is not None else ctx["spec"].flatten(
-        state.omega)
+    omega = omega_vec(state)
     if omega.shape != (ctx["spec"].dim,) or not bool(
             torch.isfinite(omega).all()):
         raise AssertionError(f"form {form}: ω is not a finite "
@@ -957,6 +1099,24 @@ CIFAR_FORMS = (
               "admm_update": 0, "fused_gss": 1},
      {"update_tol": CNN_UPDATE_TOL}),
     ("CF-T", TREE, {"update_tol": CNN_UPDATE_TOL}),
+)
+# Phase 5e: the client-sharded forms, P shards of N = 100 on the card.
+# Per round: K1b once per shard (through K1c in ST), K3 once per shard
+# in the compact forms, K2b once per shard in the dense flat one; no
+# unsharded K1 or K2.  SB's and ST's second rounds are also held against
+# forms B and TB from the same state (per-shard capacity can defer
+# other clients in SA and SR, so those are held to the CPU alone).
+NO_SINGLE = {"trigger_sq_norms": 0, "admm_update": 0}
+SHARDED_FORMS = (
+    ("SA", dict(NO_SINGLE, trigger_sq_norms_sharded=2, fused_gss=2,
+                admm_update_sharded=0), {}),
+    ("SB", dict(NO_SINGLE, trigger_sq_norms_sharded=2, fused_gss=0,
+                admm_update_sharded=2), {"against": "B"}),
+    ("ST", dict(NO_SINGLE, trigger_sq_norms_pytree=2,
+                trigger_sq_norms_sharded=2, fused_gss=0,
+                admm_update_sharded=0), {"against": "TB"}),
+    ("SR", dict(NO_SINGLE, trigger_sq_norms_sharded=4, fused_gss=4,
+                admm_update_sharded=0), EXACT),
 )
 
 
@@ -1127,6 +1287,7 @@ def main() -> int:
     rows = check_kernels(dev, ops, n, d, 16)
     rows["trigger_sq_norms_pytree"] = check_pytree_kernel(
         dev, ops, {"mlp": params0, "cnn": cifar_params0})
+    rows.update(check_sharded_kernels(dev, ops, n, d))
     rows.update(check_model_kernels(dev, ops))
 
     ctx = dict(dev=dev, data=data, test=test, params0=params0, spec=spec,
@@ -1148,8 +1309,10 @@ def main() -> int:
                      cfgs=paper_cifar, logits=cnn_logits)
     check_conv_precision(cifar_ctx)
     forms_cf, counts_cf = drive_forms(cifar_ctx, ops, CIFAR_FORMS)
+    forms_s, counts_s = drive_forms(ctx, ops, SHARDED_FORMS)
     log(json.dumps({"forms": {"A": form_a, "B": form_b, **forms_c,
-                              **forms_t, **forms_cf}, "card": smi}))
+                              **forms_t, **forms_s, **forms_cf},
+                      "card": smi}))
 
     _, counts_slice = check_slice_against_cpu(dev, ops)
     torch.cuda.empty_cache()
@@ -1160,6 +1323,7 @@ def main() -> int:
     for name, r in rows.items():
         launches = (counts_a[name] + counts_b[name]
                     + counts_c.get(name, 0) + counts_t.get(name, 0)
+                    + counts_s.get(name, 0)
                     + counts_cf.get(name, 0) + counts_slice[name]
                     + counts_serve[name])
         if launches == 0:
@@ -1168,7 +1332,8 @@ def main() -> int:
         warm = f" (cold; warm {r['warm_ms']:.4f})" if "warm_ms" in r else ""
         log(f"{name}: launches {launches} (form A {counts_a[name]}, "
             f"form B {counts_b[name]}, forms C {counts_c.get(name, 0)}, "
-            f"forms TA/TB {counts_t.get(name, 0)}, forms CF-A/CF-T "
+            f"forms TA/TB {counts_t.get(name, 0)}, forms SA/SB/ST/SR "
+            f"{counts_s.get(name, 0)}, forms CF-A/CF-T "
             f"{counts_cf.get(name, 0)}, "
             f"fp32 group {counts_slice[name]}, "
             f"serve {counts_serve[name]}), "

@@ -12,6 +12,7 @@ from typing import Callable, NamedTuple
 from repro_torch.core.baselines import init_scaffold, make_scaffold_round
 from repro_torch.core.controller import ControllerConfig
 from repro_torch.core.fedback import FLConfig, init_state, make_round_fn
+from repro_torch.sharding import make_client_mesh
 
 N_CLIENTS = 100
 TARGET_ACCURACY = 0.90  # paper Tab. 1 threshold (central model ≈ 93%)
@@ -36,17 +37,27 @@ def fl_config(algorithm="fedback", participation=0.1, **kw) -> FLConfig:
 class Form(NamedTuple):
     """One round form: what it is, its ``fl_config`` keywords, its
     client-state layout (``"flat"``: pass ``spec=make_flat_spec(params0)``
-    to its builders; ``"tree"``: ``spec=None``), and the builders of its
-    state and its round."""
+    to its builders; ``"tree"``: ``spec=None``), the builders of its
+    state and its round, and its client shards (more than one: a client
+    mesh)."""
     what: str
     kw: dict
     layout: str = "flat"
     init: Callable = init_state
     make_round: Callable = make_round_fn
+    shards: int = 1
 
     def spec(self, flat_spec):
         """The ``spec=`` its builders take, given the params' FlatSpec."""
         return flat_spec if self.layout == "flat" else None
+
+    def placement(self, device) -> dict:
+        """The ``device=`` or, with shards, ``mesh=`` its builders take:
+        every shard on ``device`` (CUDA by default)."""
+        if self.shards == 1:
+            return {"device": device}
+        return {"mesh": make_client_mesh(
+            self.shards, None if device is None else [device])}
 
 
 # The round forms driven at this width and L̄ = 0.1 (``chip_smoke.py``,
@@ -73,6 +84,18 @@ FORMS = {
                dict(algorithm="fedback", compact=True), "tree"),
     "TB": Form("FedBack, tree layout, dense", dict(algorithm="fedback"),
                "tree"),
+    # The client-sharded round: P shards of one card (of P cards on a
+    # node with them), ⌈16/P⌉ slots a shard in the compact forms.
+    "SA": Form("FedBack, compact + fused, 2 client shards",
+               dict(algorithm="fedback", compact=True, fused_gss=True),
+               shards=2),
+    "SB": Form("FedBack, dense, 2 client shards", dict(algorithm="fedback"),
+               shards=2),
+    "ST": Form("FedBack, tree layout, dense, 2 client shards",
+               dict(algorithm="fedback"), "tree", shards=2),
+    "SR": Form("FedADMM, compact + fused, 4 client shards",
+               dict(algorithm="fedadmm", compact=True, fused_gss=True),
+               shards=4),
 }
 
 

@@ -10,9 +10,10 @@ go to ``device``: CUDA unless the caller passes another.
 * :func:`state_from_numpy` — a fetched JAX ``FLState`` → the port's
   ``FLState`` (θ/λ/z_prev/ω, controller, deferral queue, the rng key's
   two uint32 words, the round), in either layout: (N, D) matrices or
-  nested dicts of stacked leaves;
+  nested dicts of stacked leaves; with ``mesh=`` the shard list of a
+  client mesh;
 * :func:`state_to_numpy` — the other way, as the port's ``FLState``
-  with numpy leaves, for comparisons;
+  with numpy leaves, for comparisons (a shard list is put together);
 * :func:`flat_state` — a tree-layout state → the flat one, through a
   ``FlatSpec`` (the same numbers, for holding one layout against the
   other);
@@ -31,9 +32,11 @@ import torch
 
 from repro_torch.core.baselines import ScaffoldState
 from repro_torch.core.controller import ControllerState
-from repro_torch.core.state import DeferQueue, FLState
+from repro_torch.core.state import CLIENT_STACKED_FIELDS, \
+    CTRL_STACKED_FIELDS, DeferQueue, FLState
 from repro_torch.device import resolve_device
-from repro_torch.utils.pytree import tree_map
+from repro_torch.sharding.clients import check_divisible
+from repro_torch.utils.pytree import tree_leaves, tree_map
 
 
 def params_from_numpy(tree, device=None) -> dict:
@@ -114,11 +117,40 @@ def _tree_numpy(node):
     return tree_map(lambda t: t.detach().cpu().numpy(), node)
 
 
-def state_from_numpy(s, device=None) -> FLState:
+def state_from_numpy(s, device=None, mesh=None):
     """A JAX ``FLState`` with numpy-convertible leaves → the port's state
     on ``device``, fp32: the flat layout's (N, D) / (D,) arrays, or the
-    tree layout's nested dicts of them."""
-    device = resolve_device(device)
+    tree layout's nested dicts of them.
+
+    With ``mesh`` (a :class:`~repro_torch.sharding.ClientMesh`; no
+    ``device`` then) the shard list of ``init_state(..., mesh=mesh)``:
+    the leading client axis of θ, λ, z_prev, the deferral queue and the
+    controller's δ, load and event count (``CLIENT_STACKED_FIELDS``,
+    ``CTRL_STACKED_FIELDS``) is cut into P contiguous blocks, shard i's
+    on ``mesh.devices[i]``; ω, the key and the round counters are
+    copied to every shard.
+    """
+    if mesh is None:
+        return _state_on(s, resolve_device(device))
+    if device is not None:
+        raise ValueError("pass device= or mesh=, not both")
+    n = np.shape(s.ctrl.delta)[0]
+    check_divisible(n, mesh)
+    n_local = n // mesh.size
+
+    def rows(i):
+        def cut(x):
+            return np.asarray(x)[i * n_local:(i + 1) * n_local]
+        ctrl = s.ctrl._replace(**{f: cut(getattr(s.ctrl, f))
+                                  for f in CTRL_STACKED_FIELDS})
+        return s._replace(ctrl=ctrl, **{f: _fields_map(cut, getattr(s, f))
+                                        for f in CLIENT_STACKED_FIELDS})
+
+    return tuple(_state_on(rows(i), dev)
+                 for i, dev in enumerate(mesh.devices))
+
+
+def _state_on(s, device) -> FLState:
     return FLState(
         theta=_tree_t(s.theta, device, torch.float32),
         lam=_tree_t(s.lam, device, torch.float32),
@@ -136,8 +168,49 @@ def state_from_numpy(s, device=None) -> FLState:
     )
 
 
-def state_to_numpy(s: FLState) -> FLState:
-    """The port's state with numpy leaves (the rng as two uint32 words)."""
+def state_to_numpy(s) -> FLState:
+    """The port's state with numpy leaves (the rng as two uint32 words).
+    A client mesh's shard list comes back as one state: the stacked
+    fields concatenated in shard order, the replicated ones taken from
+    shard 0 after checking that every shard holds the same bits."""
+    if isinstance(s, FLState):
+        return _to_numpy(s)
+    shards = [_to_numpy(x) for x in s]
+    first = shards[0]
+    ctrl_rep = [f for f in ControllerState._fields
+                if f not in CTRL_STACKED_FIELDS]
+    for i, other in enumerate(shards[1:], 1):
+        for name, a, b in [("omega", first.omega, other.omega),
+                           ("rng", first.rng, other.rng),
+                           ("round", first.round, other.round)] + [
+                (f"ctrl.{f}", getattr(first.ctrl, f), getattr(other.ctrl, f))
+                for f in ctrl_rep]:
+            if any(x.tobytes() != y.tobytes() for x, y in zip(
+                    tree_leaves(a), tree_leaves(b), strict=True)):
+                raise ValueError(f"the shards' replicated {name} differ: "
+                                 f"shard {i} against shard 0")
+
+    def cat(*xs):
+        return np.concatenate(xs)
+
+    ctrl = first.ctrl._replace(**{f: cat(*(getattr(x.ctrl, f)
+                                           for x in shards))
+                                  for f in CTRL_STACKED_FIELDS})
+    return first._replace(ctrl=ctrl, **{
+        f: _fields_map(cat, *(getattr(x, f) for x in shards))
+        for f in CLIENT_STACKED_FIELDS})
+
+
+def _fields_map(fn, x, *rest):
+    """``tree_map`` that also maps over a NamedTuple's fields (the
+    deferral queue)."""
+    if isinstance(x, tuple):
+        return type(x)(*(_fields_map(fn, *f) for f in zip(x, *rest,
+                                                          strict=True)))
+    return tree_map(fn, x, *rest)
+
+
+def _to_numpy(s: FLState) -> FLState:
     def cpu(t):
         return t.detach().cpu().numpy()
 

@@ -17,8 +17,12 @@ Two places needed care to reproduce the reference exactly:
   within an ulp of an integer, so :func:`sum_in_xla_cpu_order` adds the
   loads in the order XLA's CPU backend does.
 
-Single device only: the mesh (``shard_map``) and ragged forms belong to
-later slices of the port.
+Under a client mesh (``core/fedback.py``, ``mesh=``) the block runs
+per shard, as the reference's ``shard_map``-ped block does: each shard
+plans, solves and commits its own clients with ⌈C/P⌉ slots
+(:func:`capacity_for` with ``n_shards``), its own deferral queue (a
+deferred client never migrates) and local row indices.  The ragged form
+belongs to a later slice of the port.
 """
 from __future__ import annotations
 
@@ -58,19 +62,33 @@ def init_queue(n_clients: int, device=None) -> DeferQueue:
 
 
 def capacity_for(n_clients: int, rate: float, slack: float,
-                 capacity: int | None = None) -> int:
-    """Static slot count C = ⌈slack·L̄·N⌉ (or the explicit budget),
-    clamped to [1, N]."""
+                 capacity: int | None = None, *, n_shards: int = 1) -> int:
+    """Static per-shard slot count C.
+
+    ``capacity`` (if given) is the global solver-row budget; otherwise
+    C_global = ⌈slack·L̄·N⌉.  The per-shard budget rounds up
+    (⌈C_global/n_shards⌉, so the shards together never lose the
+    remainder) and is clamped to [1, local client count].
+    """
     total = capacity if capacity is not None else math.ceil(
         slack * rate * n_clients)
-    return max(1, min(total, n_clients))
+    if n_clients % n_shards:
+        raise ValueError(
+            f"n_clients={n_clients} must be divisible by n_shards="
+            f"{n_shards} (equal-size client shards)")
+    n_local = n_clients // n_shards
+    return max(1, min(math.ceil(total / n_shards), n_local))
 
 
 def capacity_bounds(n_clients: int, rate: float, slack: float,
-                    capacity: int | None = None) -> tuple[int, int]:
-    """(C_min, C_max): the participation floor ⌈L̄·N⌉ and the slot count."""
-    c_max = capacity_for(n_clients, rate, slack, capacity)
-    c_min = max(1, min(math.ceil(rate * n_clients), c_max))
+                    capacity: int | None = None, *,
+                    n_shards: int = 1) -> tuple[int, int]:
+    """(C_min, C_max) per shard: the participation floor ⌈L̄·n_local⌉ and
+    the slot count."""
+    c_max = capacity_for(n_clients, rate, slack, capacity,
+                         n_shards=n_shards)
+    n_local = n_clients // n_shards
+    c_min = max(1, min(math.ceil(rate * n_local), c_max))
     return c_min, c_max
 
 

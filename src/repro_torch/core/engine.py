@@ -11,12 +11,20 @@ a leading axis N on every leaf and ω is the unstacked tree.  The flat
 layout is the one-leaf case — (N, D) client matrices and a (D,) ω.
 Each leaf takes the reference's operations in its order, so the
 algebra is bit-exact in fp32.
+
+The aggregations (:func:`consensus_mean`, :func:`participant_mean`,
+:func:`participant_mean_loss`) also take the per-shard trees of a
+client mesh (a list or tuple, one entry per shard): each shard reduces
+its own rows and :func:`all_sum` adds the partials in shard order on
+shard 0's device, the counterpart of the reference's all-reduce.  One
+device's tree is the one-shard case, with the same arithmetic.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.utils.pytree import rows_mask, tree_map, tree_where
+from repro_torch.utils.pytree import rows_mask, tree_leaves, tree_map, \
+    tree_where
 
 
 def dual_ascent(lam, theta, omega):
@@ -34,9 +42,27 @@ def gated_commit(events, proposed, current):
     return tree_where(events, proposed, current)
 
 
+def _shards(x) -> list:
+    """Per-shard trees as a list; one device's tree as a list of one."""
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def all_sum(parts):
+    """Σ of per-shard partials of one shape, added in shard order on
+    shard 0's device (copies between devices go device to device)."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p.to(total.device, non_blocking=True)
+    return total
+
+
 def consensus_mean(z_prev):
-    """ω = (1/N) Σ_i z_i^prev — stale rows included (Eq. 2.4)."""
-    return tree_map(lambda z: torch.mean(z, dim=0), z_prev)
+    """ω = (1/N) Σ_i z_i^prev — stale rows included (Eq. 2.4): per leaf,
+    each shard's sum over its rows, added over shards, over N."""
+    shards = _shards(z_prev)
+    n = sum(tree_leaves(z)[0].shape[0] for z in shards)
+    return tree_map(lambda *zs: all_sum([torch.sum(z, dim=0) for z in zs])
+                    / n, *shards)
 
 
 def participant_mean(per_client, events, fallback, num_events=None):
@@ -44,22 +70,25 @@ def participant_mean(per_client, events, fallback, num_events=None):
     per leaf, the masked sum in fp32 over max(count, 1), cast to the
     leaf's dtype; ``fallback`` (unstacked) where no client fired.  The
     count stays on the device (no host branch)."""
+    shards, masks = _shards(per_client), _shards(events)
     if num_events is None:
-        num_events = torch.sum(events.to(torch.int32))
+        num_events = all_sum([torch.sum(m.to(torch.int32)) for m in masks])
 
-    def avg(z, w):
-        acc = torch.promote_types(z.dtype, torch.float32)
-        total = torch.sum(torch.where(rows_mask(events, z), z,
-                                      torch.zeros((), dtype=z.dtype,
-                                                  device=z.device)
-                                      ).to(acc), dim=0)
+    def avg(w, *zs):
+        acc = torch.promote_types(zs[0].dtype, torch.float32)
+        total = all_sum([torch.sum(torch.where(
+            rows_mask(m, z), z, torch.zeros((), dtype=z.dtype,
+                                            device=z.device)).to(acc), dim=0)
+            for z, m in zip(zs, masks, strict=True)])
         mean = total / torch.clamp(num_events, min=1).to(acc)
-        return torch.where(num_events > 0, mean.to(z.dtype), w)
+        return torch.where(num_events > 0, mean.to(zs[0].dtype), w)
 
-    return tree_map(avg, per_client, fallback)
+    return tree_map(avg, fallback, *shards)
 
 
 def participant_mean_loss(losses, events):
     """Mean local train loss among this round's participants."""
-    ev = events.to(torch.float32)
-    return torch.sum(losses * ev) / torch.clamp(torch.sum(ev), min=1.0)
+    ev = [m.to(torch.float32) for m in _shards(events)]
+    total = all_sum([torch.sum(lo * e)
+                     for lo, e in zip(_shards(losses), ev, strict=True)])
+    return total / torch.clamp(all_sum([torch.sum(e) for e in ev]), min=1.0)

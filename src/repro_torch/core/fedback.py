@@ -62,10 +62,24 @@ products and convolutions run in full fp32: TF32 is switched off for
 cuBLAS and cuDNN where a round is built (``device.fp32_products``), as
 the reference's products run at fp32 on the CPU.
 
+**Client mesh** (``mesh=``, a :class:`~repro_torch.sharding.ClientMesh`
+of P devices, which may repeat): the reference's client-sharded round
+with one controller.  The state is a shard list, one ``FLState`` per
+shard (:func:`init_state`); every step above runs per shard on the
+shard's clients and device, K1b and K2b (``kernels.ops``' ``mesh=``
+paths) launching K1's and K2's kernels once per shard, and the compact
+form planning, deferring and committing per shard with ⌈C/P⌉ slots.
+The draws over all clients and the minibatch keys come from the
+replicated key over the global N, cut by shard; the reductions over
+clients add per-shard partials in shard order on shard 0's device
+(``core/engine.py``).  One device is the one-shard case of the same
+code.  The mesh needs no process group: one process drives every shard.
+
 What the JAX engine also offers and later slices port: stale-tolerant
 rounds, ragged clients, compressed consensus, host-offloaded state and
-the client mesh.  SCAFFOLD has its own round
-(:mod:`repro_torch.core.baselines`).
+the cross-pod program.  SCAFFOLD has its own round
+(:mod:`repro_torch.core.baselines`), without a mesh, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -78,13 +92,15 @@ from repro_torch import prng
 from repro_torch.device import fp32_products, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.optim.sgd import sgd_step
+from repro_torch.sharding.clients import ClientMesh, check_divisible, \
+    replicate_data, shard_client_data, shard_rows, unshard_rows
 from repro_torch.utils.flatstate import FlatSpec
 from repro_torch.utils.pytree import tree_broadcast_like, tree_map, \
     tree_zeros_like
 
 from .compact import capacity_bounds, init_queue, make_compact_block
 from .controller import ControllerConfig, init_controller
-from .engine import consensus_mean, dual_ascent, gated_commit, \
+from .engine import all_sum, consensus_mean, dual_ascent, gated_commit, \
     participant_mean, participant_mean_loss, prox_center
 from .selection import make_selection
 from .state import FLState, RoundMetrics
@@ -163,7 +179,11 @@ def _ctrl_cfg(cfg: FLConfig) -> ControllerConfig:
     return c
 
 
-def _check_supported(cfg: FLConfig) -> None:
+def _check_supported(cfg: FLConfig, mesh=None) -> None:
+    if mesh is not None and isinstance(_ctrl_cfg(cfg).target_rate,
+                                       torch.Tensor):
+        raise NotImplementedError("mesh= with a per-client target_rate is "
+                                  "not ported yet (M14b)")
     unported = {
         "max_staleness": cfg.max_staleness is not None,
         "consensus_compress": cfg.consensus_compress != "none",
@@ -176,20 +196,9 @@ def _check_supported(cfg: FLConfig) -> None:
         raise NotImplementedError(f"not ported yet: {settings}")
 
 
-def init_state(cfg: FLConfig, params0, *, spec: FlatSpec | None = None,
-               device=None) -> FLState:
-    """Alg. 2 initialization: θ_i = z⁰, λ_i = 0, z_i^prev = θ_i, ω = z⁰,
-    on ``device`` (CUDA by default).  With ``spec`` the flat layout:
-    (N, D) / (D,) fp32 tensors; without, the tree layout: the params
-    dict's leaves stacked N times.  θ, z_prev and ω are distinct
-    buffers."""
-    device = resolve_device(device)
-    _check_supported(cfg)
-    n = cfg.n_clients
-    if spec is not None:
-        w0 = spec.flatten(params0).to(device)
-    else:
-        w0 = tree_map(lambda x: torch.as_tensor(x).to(device), params0)
+def _init_shard(cfg: FLConfig, w0, n: int, device) -> FLState:
+    """The Alg. 2 state of ``n`` clients from ω⁰ = ``w0`` on ``device``."""
+    w0 = tree_map(lambda x: x.to(device), w0)
 
     def stacked(x):
         return x[None].repeat((n,) + (1,) * x.dim())
@@ -205,6 +214,33 @@ def init_state(cfg: FLConfig, params0, *, spec: FlatSpec | None = None,
         round=torch.zeros((), dtype=torch.int32, device=device),
         queue=init_queue(n, device=device),
     )
+
+
+def init_state(cfg: FLConfig, params0, *, spec: FlatSpec | None = None,
+               device=None, mesh: ClientMesh | None = None):
+    """Alg. 2 initialization: θ_i = z⁰, λ_i = 0, z_i^prev = θ_i, ω = z⁰,
+    on ``device`` (CUDA by default).  With ``spec`` the flat layout:
+    (N, D) / (D,) fp32 tensors; without, the tree layout: the params
+    dict's leaves stacked N times.  θ, z_prev and ω are distinct
+    buffers.
+
+    With ``mesh`` (a :class:`~repro_torch.sharding.ClientMesh`; no
+    ``device`` then) the shard list: a tuple of one ``FLState`` per
+    shard, shard i holding clients [i·N/P, (i+1)·N/P) on
+    ``mesh.devices[i]`` and its own copy of ω, the key and the round.
+    """
+    _check_supported(cfg, mesh)
+    if spec is not None:
+        w0 = spec.flatten(params0)
+    else:
+        w0 = tree_map(torch.as_tensor, params0)
+    if mesh is None:
+        return _init_shard(cfg, w0, cfg.n_clients, resolve_device(device))
+    if device is not None:
+        raise ValueError("pass device= or mesh=, not both")
+    check_divisible(cfg.n_clients, mesh)
+    return tuple(_init_shard(cfg, w0, cfg.n_clients // mesh.size, dev)
+                 for dev in mesh.devices)
 
 
 def _epoch_indices(keys: torch.Tensor, n_points: int, batch_size: int,
@@ -258,7 +294,8 @@ def _local_solve(loss_fn: Callable, spec: FlatSpec | None, theta0, center,
 
 
 def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
-                  spec: FlatSpec | None = None, device=None) -> Callable:
+                  spec: FlatSpec | None = None, device=None,
+                  mesh: ClientMesh | None = None) -> Callable:
     """Build ``round_fn(state) -> (state, RoundMetrics)``.
 
     loss_fn(params, x_batch, y_batch) -> scalar mean loss, on the params
@@ -268,17 +305,38 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
     given to :func:`init_state` (None: the tree layout).  With
     ``compact`` and ``fused_gss`` the round updates the state's
     θ/λ/z_prev in place.
+
+    With ``mesh`` (no ``device`` then) the round takes and returns the
+    shard list of ``init_state(..., mesh=mesh)`` and cuts the data the
+    same way.  Each shard runs its clients' part of the round on its own
+    device — K1b on its rows, its own plan, deferral queue and ⌈C/P⌉
+    slots with K3 on its rows in the compact form, K2b in the dense
+    form — from the replicated key, whose per-client minibatch keys
+    ``split(data_rng, N)`` are cut by shard.  The collectives add
+    per-shard partials in shard order on shard 0's device: ω (the one
+    result copied to every shard), the participants' mean, the event,
+    deferral and loss counts, and the realized capacity (the sum of the
+    shards' commit limits).  The metrics' (N,) vectors are gathered on
+    shard 0's device in shard order.
     """
-    device = resolve_device(device)
-    _check_supported(cfg)
-    fp32_products(device)
-    flat = spec is not None
+    _check_supported(cfg, mesh)
     n = cfg.n_clients
-    x = torch.as_tensor(data["x"], device=device)
-    y = torch.as_tensor(data["y"], device=device)
-    if x.shape[0] != n:
-        raise ValueError(f"data has {x.shape[0]} clients, cfg.n_clients={n}")
-    n_points = x.shape[1]
+    if mesh is None:
+        sharded, mesh = False, ClientMesh((resolve_device(device),))
+    elif device is not None:
+        raise ValueError("pass device= or mesh=, not both")
+    else:
+        sharded = True
+        check_divisible(n, mesh)
+    for dev in set(mesh.devices):
+        fp32_products(dev)
+    flat = spec is not None
+    n_local = n // mesh.size
+    x0 = torch.as_tensor(data["x"])
+    if x0.shape[0] != n:
+        raise ValueError(f"data has {x0.shape[0]} clients, cfg.n_clients={n}")
+    n_points = x0.shape[1]
+    shard_data = shard_client_data(mesh, {"x": x0, "y": data["y"]})
     is_admm = cfg.algorithm in ADMM_FAMILY
     if cfg.fused_gss and not (cfg.compact and is_admm and flat):
         raise ValueError(
@@ -301,7 +359,8 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
 
     if cfg.compact:
         c_min, cap = capacity_bounds(n, cfg.participation,
-                                     cfg.capacity_slack, cfg.capacity)
+                                     cfg.capacity_slack, cfg.capacity,
+                                     n_shards=mesh.size)
         block = make_compact_block(
             solver, epoch_fn, cap, warm_start=cfg.warm_start,
             is_admm=is_admm, c_min=c_min,
@@ -309,85 +368,129 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
             alpha=_ctrl_cfg(cfg).alpha, fused=cfg.fused_gss,
             use_admm_kernel=is_admm and flat)
 
-    def trigger(state):
-        if cfg.trigger_metric == "l2":
-            return torch.sqrt(ops.trigger_sq_norms_pytree(state.z_prev,
-                                                          state.omega))
-        return trigger_distances(state.omega, state.z_prev,
-                                 cfg.trigger_metric)
+    def trigger(shards):
+        if cfg.trigger_metric != "l2":
+            return [trigger_distances(s.omega, s.z_prev, cfg.trigger_metric)
+                    for s in shards]
+        if sharded:
+            sq = ops.trigger_sq_norms_pytree([s.z_prev for s in shards],
+                                             [s.omega for s in shards],
+                                             mesh=mesh)
+        else:
+            sq = [ops.trigger_sq_norms_pytree(shards[0].z_prev,
+                                              shards[0].omega)]
+        return [torch.sqrt(x) for x in sq]
 
-    def dense_client_update(state, data_rng):
-        """All-N solve; returns service proposals (θ_out, λ⁺, z)."""
-        with span("fedback/presolve"):
-            if is_admm and flat:
-                lam_new, center = ops.admm_update(state.theta, state.lam,
-                                                  state.omega, with_z=False)
-            elif is_admm:
-                lam_new = dual_ascent(state.lam, state.theta, state.omega)
-                center = prox_center(state.omega, lam_new)
-            else:
-                lam_new = state.lam
-                center = tree_broadcast_like(state.omega, n)
-            theta_init = (tree_broadcast_like(state.omega, n)
-                          if cfg.warm_start else state.theta)
+    def presolve(shards):
+        """(λ⁺, prox centers) per shard for the dense round."""
+        if is_admm and flat:
+            args = ([s.theta for s in shards], [s.lam for s in shards],
+                    [s.omega for s in shards])
+            if sharded:
+                return list(zip(*ops.admm_update(*args, with_z=False,
+                                                 mesh=mesh), strict=True))
+            return [ops.admm_update(*(a[0] for a in args), with_z=False)]
+        if is_admm:
+            return [(lam, prox_center(s.omega, lam)) for s, lam in (
+                (s, dual_ascent(s.lam, s.theta, s.omega)) for s in shards)]
+        return [(s.lam, tree_broadcast_like(s.omega, n_local))
+                for s in shards]
+
+    def dense_client_update(s, lam_new, center, sd, keys):
+        """All the shard's solves; returns service proposals (θ_out, λ⁺,
+        z, losses)."""
+        theta_init = (tree_broadcast_like(s.omega, n_local)
+                      if cfg.warm_start else s.theta)
         with span("fedback/minibatch_rng"):
-            idx = epoch_fn(prng.split(data_rng, n))
-        theta_out, losses = solver(theta_init, center, x, y, idx)
+            idx = epoch_fn(keys)
+        theta_out, losses = solver(theta_init, center, sd["x"], sd["y"], idx)
         z_new = (tree_map(torch.add, theta_out, lam_new) if is_admm
                  else theta_out)
         return theta_out, lam_new, z_new, losses
 
-    def round_fn(state: FLState):
+    def round_body(shards):
+        s0 = shards[0]
         with span("fedback/trigger_select"):
-            rng, sel_rng, data_rng = prng.split(state.rng, 3)
-            distances = trigger(state)
-            events, ctrl = select(sel_rng, state, distances)
+            rng, sel_rng, data_rng = prng.split(s0.rng, 3)
+            distances = trigger(shards)
+            events = select.decide_shards(sel_rng, shards, distances, mesh)
+            ctrls = [select.measure(s.ctrl, e)
+                     for s, e in zip(shards, events, strict=True)]
+        keys = shard_rows(prng.split(data_rng, n), mesh)
+        new, committed, losses, loss_mask = [], [], [], []
         if cfg.compact:
-            (theta, lam, z_prev, q_age, q_load, committed, losses,
-             loss_mask, limit) = block(
-                events, distances, state.queue.age, state.queue.load,
-                state.theta, state.lam, state.z_prev, state.omega, x, y,
-                prng.split(data_rng, n))
-            queue = state.queue._replace(age=q_age, load=q_load)
-            realized_capacity = limit
-            num_deferred = torch.sum((q_age > 0).to(torch.int32))
+            limits, deferred = [], []
+            for s, e, d, sd, k in zip(shards, events, distances, shard_data,
+                                      keys, strict=True):
+                (theta, lam, z_prev, q_age, q_load, done, ls, valid,
+                 limit) = block(e, d, s.queue.age, s.queue.load, s.theta,
+                                s.lam, s.z_prev, s.omega, sd["x"], sd["y"],
+                                k)
+                new.append((theta, lam, z_prev,
+                            s.queue._replace(age=q_age, load=q_load)))
+                committed.append(done)
+                losses.append(ls)
+                loss_mask.append(valid)
+                limits.append(limit)
+                deferred.append(torch.sum((q_age > 0).to(torch.int32)))
+            realized_capacity = all_sum(limits)
+            num_deferred = all_sum(deferred).to(torch.int32)
         else:
-            theta_p, lam_p, z_p, losses = dense_client_update(state,
-                                                              data_rng)
-            with span("fedback/commit"):
-                theta = gated_commit(events, theta_p, state.theta)
-                lam = gated_commit(events, lam_p, state.lam)
-                z_prev = gated_commit(events, z_p, state.z_prev)
+            with span("fedback/presolve"):
+                pre = presolve(shards)
+            for s, e, (lam_new, center), sd, k in zip(
+                    shards, events, pre, shard_data, keys, strict=True):
+                theta_p, lam_p, z_p, ls = dense_client_update(
+                    s, lam_new, center, sd, k)
+                with span("fedback/commit"):
+                    new.append((gated_commit(e, theta_p, s.theta),
+                                gated_commit(e, lam_p, s.lam),
+                                gated_commit(e, z_p, s.z_prev), s.queue))
+                losses.append(ls)
             committed = loss_mask = events
-            queue = state.queue
             realized_capacity = torch.full((), n, dtype=torch.int32,
-                                           device=device)
-            num_deferred = torch.zeros((), dtype=torch.int32, device=device)
-        num_events = torch.sum(events.to(torch.int32)).to(torch.int32)
+                                           device=s0.rng.device)
+            num_deferred = torch.zeros((), dtype=torch.int32,
+                                       device=s0.rng.device)
+        num_events = all_sum([torch.sum(e.to(torch.int32))
+                              for e in events]).to(torch.int32)
+        z_prev = [z for _, _, z, _ in new]
         with span("fedback/consensus"):
             if is_admm:
                 omega = consensus_mean(z_prev)
             else:  # the non-weighted mean over this round's uploads
                 omega = participant_mean(
-                    z_prev, committed, state.omega,
-                    num_events=torch.sum(committed.to(torch.int32)))
+                    z_prev, committed, s0.omega,
+                    num_events=all_sum([torch.sum(c.to(torch.int32))
+                                        for c in committed]))
         rate_floor = cfg.participation * n
         metrics = RoundMetrics(
-            events=events,
+            events=unshard_rows(events),
             num_events=num_events,
-            distances=distances,
-            delta=ctrl.delta,
-            load=ctrl.load,
+            distances=unshard_rows(distances),
+            delta=unshard_rows([c.delta for c in ctrls]),
+            load=unshard_rows([c.load for c in ctrls]),
             train_loss=participant_mean_loss(losses, loss_mask),
-            num_deferred=num_deferred.to(torch.int32),
+            num_deferred=num_deferred,
             realized_capacity=realized_capacity,
             realized_slack=(realized_capacity.to(torch.float32)
                             / (rate_floor if rate_floor > 0 else 1.0)),
-            committed=committed,
+            committed=unshard_rows(committed),
         )
-        new_state = FLState(theta=theta, lam=lam, z_prev=z_prev,
-                            omega=omega, ctrl=ctrl, rng=rng,
-                            round=state.round + 1, queue=queue)
+        replicas = zip(replicate_data(mesh, omega), replicate_data(mesh, rng),
+                       replicate_data(mesh, s0.round + 1), strict=True)
+        new_shards = tuple(
+            FLState(theta=theta, lam=lam, z_prev=z, omega=w, ctrl=ctrl,
+                    rng=key, round=rnd, queue=queue)
+            for (theta, lam, z, queue), ctrl, (w, key, rnd) in zip(
+                new, ctrls, replicas, strict=True))
+        return new_shards, metrics
+
+    if sharded:
+        return round_body
+
+    def round_fn(state: FLState):
+        (new_state,), metrics = round_body((state,))
         return new_state, metrics
 
     return round_fn
@@ -401,7 +504,9 @@ def make_eval_fn(loss_and_acc_fn: Callable, *,
     the tree layout's dict."""
     device = resolve_device(device)
 
-    def eval_fn(state: FLState, x, y):
+    def eval_fn(state, x, y):
+        if not hasattr(state, "omega"):  # a client mesh's shard list
+            state = state[0]
         omega = tree_map(lambda w: w.to(device), state.omega)
         params = omega if spec is None else spec.unflatten(omega)
         return loss_and_acc_fn(params, x.to(device), y.to(device))

@@ -13,6 +13,15 @@ The random draws come from the ``jax.random`` twin
 the reference's clients.  Everything runs on the device of the inputs;
 round-robin reads ``state.round`` there, without a host sync.
 
+Under a client mesh (:meth:`_SelectionBase.decide_shards`) the
+per-client strategies (fedback, full) decide on each shard's own rows;
+the draws over all clients (random, bernoulli, round robin) run once
+over the global N from the replicated key on shard 0's device, and the
+events are cut per shard — the reference keeps its permutation
+replicated and scatters the events, and its threefry draws do not
+depend on the sharding, so either way a client gets the unsharded
+event.
+
 The sweep runner's runtime controller overrides (``ctrl_overrides``)
 are refused until the sweeps are ported.
 """
@@ -24,6 +33,9 @@ import math
 import torch
 
 from repro_torch import prng
+
+from repro_torch.sharding.clients import ClientMesh, shard_rows, \
+    unshard_rows
 
 from .controller import ControllerConfig, ControllerState, controller_step
 from .trigger import evaluate_trigger
@@ -38,14 +50,35 @@ def _no_overrides(ctrl_overrides) -> None:
 class _SelectionBase:
     """``decide`` takes the engine's eligibility mask (None on the
     synchronous engine): the open-loop k-subset strategies draw their
-    picks among eligible clients; the others ignore it."""
+    picks among eligible clients; the others ignore it.  The strategies
+    that draw over all clients take ``n_clients``, the count they draw
+    over (by default the state's rows)."""
+
+    #: A client's event depends on its own rows alone.
+    per_client = False
 
     def _measure_cfg(self) -> ControllerConfig:
         raise NotImplementedError
 
     def decide(self, rng, state, distances, ctrl_overrides=None,
-               eligible=None):
+               eligible=None, n_clients=None):
         raise NotImplementedError
+
+    def decide_shards(self, rng, shards, distances, mesh: ClientMesh,
+                      eligible=None) -> tuple:
+        """Events per shard of a client mesh: ``shards`` the per-shard
+        states, ``distances`` (and ``eligible``, if given) the per-shard
+        (N/P,) vectors.  A per-client strategy decides on each shard; a
+        draw over all clients runs once over the global N on shard 0's
+        device (with the gathered mask) and is cut per shard."""
+        if self.per_client:
+            return tuple(self.decide(rng, s, d)
+                         for s, d in zip(shards, distances, strict=True))
+        n = sum(s.ctrl.delta.shape[0] for s in shards)
+        events = self.decide(rng, shards[0], None, eligible=(
+            None if eligible is None else unshard_rows(eligible)),
+            n_clients=n)
+        return shard_rows(events, mesh)
 
     def measure(self, ctrl: ControllerState, events,
                 ctrl_overrides=None) -> ControllerState:
@@ -85,12 +118,13 @@ def subset_size(rate: float, n: int) -> int:
 class FedBackSelection(_SelectionBase):
     controller: ControllerConfig
     metric: str = "l2"
+    per_client = True
 
     def _measure_cfg(self):
         return self.controller
 
     def decide(self, rng, state, distances, ctrl_overrides=None,
-               eligible=None):
+               eligible=None, n_clients=None):
         _no_overrides(ctrl_overrides)
         return evaluate_trigger(distances, state.ctrl.delta)
 
@@ -106,8 +140,8 @@ class RandomSelection(_SelectionBase):
         return ControllerConfig(K=0.0, target_rate=self.rate)
 
     def decide(self, rng, state, distances, ctrl_overrides=None,
-               eligible=None):
-        n = state.ctrl.delta.shape[0]
+               eligible=None, n_clients=None):
+        n = n_clients or state.ctrl.delta.shape[0]
         perm = prng.permutation(rng, n)
         rank = torch.empty((n,), dtype=torch.int32, device=perm.device)
         rank[perm] = torch.arange(n, dtype=torch.int32, device=perm.device)
@@ -125,19 +159,22 @@ class BernoulliSelection(_SelectionBase):
         return ControllerConfig(K=0.0, target_rate=self.rate)
 
     def decide(self, rng, state, distances, ctrl_overrides=None,
-               eligible=None):
-        return prng.bernoulli(rng, self.rate, (state.ctrl.delta.shape[0],))
+               eligible=None, n_clients=None):
+        return prng.bernoulli(rng, self.rate,
+                              (n_clients or state.ctrl.delta.shape[0],))
 
 
 @dataclasses.dataclass(frozen=True)
 class FullSelection(_SelectionBase):
     """δ ≡ 0 — every client, every round."""
 
+    per_client = True
+
     def _measure_cfg(self):
         return ControllerConfig(K=0.0, target_rate=1.0)
 
     def decide(self, rng, state, distances, ctrl_overrides=None,
-               eligible=None):
+               eligible=None, n_clients=None):
         return torch.ones_like(state.ctrl.delta, dtype=torch.bool)
 
 
@@ -151,8 +188,8 @@ class RoundRobinSelection(_SelectionBase):
         return ControllerConfig(K=0.0, target_rate=self.rate)
 
     def decide(self, rng, state, distances, ctrl_overrides=None,
-               eligible=None):
-        n = state.ctrl.delta.shape[0]
+               eligible=None, n_clients=None):
+        n = n_clients or state.ctrl.delta.shape[0]
         k = subset_size(self.rate, n)
         start = (state.round * k) % n
         cyclic = (torch.arange(n, dtype=torch.int32,

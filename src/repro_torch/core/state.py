@@ -10,6 +10,11 @@ compacted flat round with the fused commit updates θ/λ/z_prev **in
 place** (``kernels.fused_gss``), so a state passed to such a round
 must not be used afterwards as if unchanged; clone it first.
 
+Under a client mesh (``init_state(..., mesh=)``) the state is the shard
+list: one ``FLState`` per shard, holding its clients' rows of the
+:data:`CLIENT_STACKED_FIELDS` and :data:`CTRL_STACKED_FIELDS` on its
+device, and a copy of everything else (ω, the key, the round counters).
+
 Stale-tolerant pipelines (``InFlight``), compressed-consensus residuals
 and host-offloaded state belong to later slices of the port.
 """
@@ -20,6 +25,12 @@ from typing import NamedTuple
 import torch
 
 from .controller import ControllerState
+
+#: FLState fields whose leaves carry the leading (N, ...) client axis.
+CLIENT_STACKED_FIELDS = ("theta", "lam", "z_prev", "queue")
+
+#: ControllerState fields with a per-client (N,) vector.
+CTRL_STACKED_FIELDS = ("delta", "load", "event_count")
 
 
 class DeferQueue(NamedTuple):

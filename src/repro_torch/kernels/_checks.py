@@ -28,4 +28,22 @@ def check_f32(name: str, t: torch.Tensor, shape: tuple) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
+    """``t``'s device's current stream.  The plain C library launches on
+    the CUDA runtime's current device, so every launch also runs under
+    ``torch.cuda.device(t.device)``: a shard on another card than the
+    current one would otherwise get a stream of the wrong device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_shards(mesh, **shards) -> None:
+    """Each named argument of a sharded kernel is a sequence of one
+    tensor per shard of ``mesh``, shard i's on ``mesh.devices[i]``."""
+    for name, parts in shards.items():
+        if len(parts) != mesh.size:
+            raise ValueError(f"{name}: expected {mesh.size} shards, got "
+                             f"{len(parts)}")
+        for i, (t, dev) in enumerate(zip(parts, mesh.devices, strict=True)):
+            if t.device.type != dev.type or (
+                    dev.index is not None and t.device.index != dev.index):
+                raise ValueError(f"{name}: shard {i} lies on {t.device}, "
+                                 f"the mesh puts it on {dev}")

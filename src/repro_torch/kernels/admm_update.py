@@ -8,13 +8,19 @@ bodies ``_kernel3`` / ``_kernel2``).  The CUDA kernel
 elementwise pass with the reference's operation order, so its outputs
 are bit-identical to :func:`admm_update_ref`.  ``with_z=False`` (λ⁺ and
 the prox center only) is the dense round's pre-solve form.
+
+K2b, :func:`admm_update_sharded`, replaces
+``admm_update.py::admm_update_sharded`` (``shard_map`` of K2 over the
+``clients`` mesh axis): the same kernel launched once per shard of a
+client mesh on that shard's rows; elementwise, so bit-equal to K2 on
+those rows, and like K2 bound by the bytes of its rows.
 """
 from __future__ import annotations
 
 import torch
 
 from ._build import check_launch, load_library
-from ._checks import check_f32, is_cpu, stream_ptr
+from ._checks import check_f32, check_shards, is_cpu, stream_ptr
 
 
 def admm_update_hbm_bytes(rows: int, dim: int, *, with_z: bool = True,
@@ -34,14 +40,9 @@ def admm_update_ref(theta, lam, omega, *, with_z: bool = True):
     return lam_new, theta + lam_new, center
 
 
-def admm_update(theta, lam, omega, *, with_z: bool = True):
-    """θ, λ: (N, D) fp32; ω: (D,) fp32 → new (N, D) tensors.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (or raise).
-    """
-    if is_cpu(theta, lam, omega):
-        return admm_update_ref(theta, lam, omega, with_z=with_z)
+def _kernel(theta, lam, omega, with_z: bool):
+    """K2's kernel on one CUDA device: (its outputs, whether a launch was
+    made — none for an empty state).  The callers count."""
     n, d = theta.shape
     check_f32("theta", theta, (n, d))
     check_f32("lam", lam, (n, d))
@@ -49,14 +50,64 @@ def admm_update(theta, lam, omega, *, with_z: bool = True):
     lam_new = torch.empty_like(theta)
     center = torch.empty_like(theta)
     z = torch.empty_like(theta) if with_z else None
-    if n * d:
+    out = (lam_new, z, center) if with_z else (lam_new, center)
+    if not n * d:
+        return out, False
+    with torch.cuda.device(theta.device):
         rc = load_library().fb_admm_update(
             theta.data_ptr(), lam.data_ptr(), omega.data_ptr(),
             lam_new.data_ptr(), None if z is None else z.data_ptr(),
             center.data_ptr(), n, d, int(with_z), stream_ptr(theta))
-        check_launch("admm_update", rc)
-        admm_update.launches += 1
-    return (lam_new, z, center) if with_z else (lam_new, center)
+    check_launch("admm_update", rc)
+    return out, True
+
+
+def admm_update(theta, lam, omega, *, with_z: bool = True, mesh=None):
+    """θ, λ: (N, D) fp32; ω: (D,) fp32 → new (N, D) tensors.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (or raise).  With ``mesh`` the arguments are per shard and the call
+    is :func:`admm_update_sharded`'s.
+    """
+    if mesh is not None:
+        return admm_update_sharded(theta, lam, omega, mesh, with_z=with_z)
+    if is_cpu(theta, lam, omega):
+        return admm_update_ref(theta, lam, omega, with_z=with_z)
+    out, launched = _kernel(theta, lam, omega, with_z)
+    admm_update.launches += launched
+    return out
 
 
 admm_update.launches = 0
+
+
+def admm_update_sharded_ref(theta, lam, omega, *, with_z: bool = True):
+    """Plain version of K2b: K2's plain version on each shard, returned
+    as :func:`admm_update_sharded` returns."""
+    per = [admm_update_ref(t, la, w, with_z=with_z)
+           for t, la, w in zip(theta, lam, omega, strict=True)]
+    return tuple(list(x) for x in zip(*per, strict=True))
+
+
+def admm_update_sharded(theta, lam, omega, mesh, *, with_z: bool = True):
+    """K2 per shard of a client mesh: θ and λ the P per-shard (N/P, D)
+    fp32 blocks and ω the P copies of the (D,) fp32 vector, shard i's on
+    ``mesh.devices[i]`` → (λ⁺, z, c), or (λ⁺, c) without z, each a list
+    of P per-shard blocks.
+
+    One launch of K2's kernel per shard (the plain version for a shard
+    on the CPU); each launch counts here, not under K2.
+    """
+    check_shards(mesh, theta=theta, lam=lam, omega=omega)
+    per = []
+    for t, la, w in zip(theta, lam, omega, strict=True):
+        if is_cpu(t, la, w):
+            per.append(admm_update_ref(t, la, w, with_z=with_z))
+            continue
+        out, launched = _kernel(t, la, w, with_z)
+        admm_update_sharded.launches += launched
+        per.append(out)
+    return tuple(list(x) for x in zip(*per, strict=True))
+
+
+admm_update_sharded.launches = 0

@@ -252,11 +252,12 @@ def flash_attention(q, k, v, *, causal=True, window=0, layout="bhsd"):
                         for shp in tf32x3_scratch_shapes(b, kvh, s, hd))
     sq, sk, sv, so = (_bhs_strides(t.stride(), layout)
                       for t in (q, k, v, out))
-    rc = load_library().mk_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        *([t.data_ptr() for t in scratch] or [None, None]), *sq, *sk, *sv,
-        *so, b, h, kvh, s, hd, int(causal), int(window),
-        INSTANCES.index(instance), hd ** -0.5, stream_ptr(q))
+    with torch.cuda.device(q.device):
+        rc = load_library().mk_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *([t.data_ptr() for t in scratch] or [None, None]), *sq, *sk,
+            *sv, *so, b, h, kvh, s, hd, int(causal), int(window),
+            INSTANCES.index(instance), hd ** -0.5, stream_ptr(q))
     check_launch(f"flash_attention ({instance})", rc)
     flash_attention.launches += 1
     flash_attention.instance_launches[instance] += 1

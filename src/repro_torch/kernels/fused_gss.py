@@ -138,11 +138,12 @@ def fused_gss(idx, valid, solved, omega, theta, lam, z_prev=None, *,
         grid, tiles_per_slot, vec = check_kernel_args(
             c, d, _sm_count(theta.device),
             tuple(t.data_ptr() for t in (solved, omega) + state))
-        rc = load_library().fb_fused_gss(
-            idx.data_ptr(), valid.data_ptr(), solved.data_ptr(),
-            omega.data_ptr(), theta.data_ptr(), lam.data_ptr(),
-            z_prev.data_ptr() if with_z else None, c, n, d, grid,
-            tiles_per_slot, vec, int(with_z), stream_ptr(theta))
+        with torch.cuda.device(theta.device):
+            rc = load_library().fb_fused_gss(
+                idx.data_ptr(), valid.data_ptr(), solved.data_ptr(),
+                omega.data_ptr(), theta.data_ptr(), lam.data_ptr(),
+                z_prev.data_ptr() if with_z else None, c, n, d, grid,
+                tiles_per_slot, vec, int(with_z), stream_ptr(theta))
         check_launch("fused_gss", rc)
         fused_gss.launches += 1
     return state

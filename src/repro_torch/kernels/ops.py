@@ -9,11 +9,19 @@ instance, ``flash_attention.instance_launches``, too), so a run can
 show that its main path went through the kernels.
 ``trigger_sq_norms_pytree`` (K1c, the stacked-tree front end of K1)
 counts the K1 launches it makes on a concatenated tree; K1 counts them
-too.
+too.  The client mesh's kernels K1b (``trigger_sq_norms_sharded``) and
+K2b (``admm_update_sharded``) launch K1's and K2's kernels once per
+shard and count those launches as their own, not under K1 or K2;
+``admm_update`` and ``trigger_sq_norms_pytree`` take ``mesh=`` for them.
 """
 from __future__ import annotations
 
-from .admm_update import admm_update, admm_update_hbm_bytes  # noqa: F401
+from .admm_update import (  # noqa: F401
+    admm_update,
+    admm_update_hbm_bytes,
+    admm_update_sharded,
+    admm_update_sharded_ref,
+)
 from .flash_attention import (  # noqa: F401
     flash_attention,
     flash_attention_flops,
@@ -32,6 +40,8 @@ from .ssd_scan import ssd_scan, ssd_scan_hbm_bytes  # noqa: F401
 from .trigger_norms import (  # noqa: F401
     trigger_sq_norms,
     trigger_sq_norms_hbm_bytes,
+    trigger_sq_norms_sharded,
+    trigger_sq_norms_sharded_ref,
 )
 from .trigger_pytree import (  # noqa: F401
     trigger_sq_norms_pytree,
@@ -39,8 +49,10 @@ from .trigger_pytree import (  # noqa: F401
 )
 
 KERNELS = {"trigger_sq_norms": trigger_sq_norms,
+           "trigger_sq_norms_sharded": trigger_sq_norms_sharded,
            "trigger_sq_norms_pytree": trigger_sq_norms_pytree,
            "admm_update": admm_update,
+           "admm_update_sharded": admm_update_sharded,
            "fused_gss": fused_gss,
            "flash_attention": flash_attention,
            "ssd_scan": ssd_scan}

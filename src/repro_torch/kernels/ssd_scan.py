@@ -97,10 +97,11 @@ def ssd_scan(states: torch.Tensor, decays: torch.Tensor):
                          device=states.device)
     if h_prev.numel() == 0:
         return h_prev, h_last.zero_()
-    rc = load_library().mk_ssd_scan(
-        states.data_ptr(), decays.data_ptr(), h_prev.data_ptr(),
-        h_last.data_ptr(), b, c, h, p * n,
-        int(states.dtype == torch.bfloat16), stream_ptr(states))
+    with torch.cuda.device(states.device):
+        rc = load_library().mk_ssd_scan(
+            states.data_ptr(), decays.data_ptr(), h_prev.data_ptr(),
+            h_last.data_ptr(), b, c, h, p * n,
+            int(states.dtype == torch.bfloat16), stream_ptr(states))
     check_launch("ssd_scan", rc)
     ssd_scan.launches += 1
     return h_prev, h_last

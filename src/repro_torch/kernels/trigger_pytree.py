@@ -12,6 +12,12 @@ port does the same in PyTorch and hands the matrix to K1
   (bf16 leaves are cast here, before K1's fp32 check), the leaves are
   concatenated in sorted-key order, ω the same way, and K1 runs on the
   copy.  On CUDA tensors the wrapper counts that launch as its own.
+
+With ``mesh=`` (the reference's ``mesh=`` path, ``shard_map`` of K1)
+the arguments are per shard: each shard's tree goes through the same
+front end on its own device, then K1b (:func:`.trigger_sq_norms_sharded`)
+launches K1's kernel once per shard; a concatenating call counts one
+launch per CUDA shard here too.
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ import torch
 from repro_torch.utils.pytree import flatten, flatten_stacked, tree_leaves
 
 from ._checks import is_cpu
-from .trigger_norms import trigger_sq_norms, trigger_sq_norms_ref
+from .trigger_norms import trigger_sq_norms, trigger_sq_norms_ref, \
+    trigger_sq_norms_sharded
 
 
 def _is_flat(z_leaves) -> bool:
@@ -44,9 +51,20 @@ def trigger_sq_norms_pytree_ref(z_prev, omega) -> torch.Tensor:
     return trigger_sq_norms_ref(*pytree_operands(z_prev, omega))
 
 
-def trigger_sq_norms_pytree(z_prev, omega) -> torch.Tensor:
+def trigger_sq_norms_pytree(z_prev, omega, *, mesh=None):
     """Stacked tree (N, ...) and its unstacked ω → (N,) fp32 squared
-    distances ‖z_i − ω‖² through K1 (its plain version on CPU tensors)."""
+    distances ‖z_i − ω‖² through K1 (its plain version on CPU tensors).
+    With ``mesh``: the P per-shard stacked trees and the P copies of ω
+    → the P per-shard (N/P,) distances, through K1b."""
+    if mesh is not None:
+        operands = [pytree_operands(z, w)
+                    for z, w in zip(z_prev, omega, strict=True)]
+        out = trigger_sq_norms_sharded([z for z, _ in operands],
+                                       [w for _, w in operands], mesh)
+        if not _is_flat(tree_leaves(z_prev[0])):
+            trigger_sq_norms_pytree.launches += sum(
+                not is_cpu(*op) for op in operands)
+        return out
     z2d, w1d = pytree_operands(z_prev, omega)
     out = trigger_sq_norms(z2d, w1d)
     if not _is_flat(tree_leaves(z_prev)) and not is_cpu(z2d, w1d):

@@ -6,7 +6,8 @@ Builds the round at full width in one of the forms of
 ``configs.paper_mnist.FORMS`` (N=100, the 784-200-10 MLP, D=159,010:
 FedBack compacted with the fused commit, A, or dense, B; the paper's
 baselines C1–C6; SCAFFOLD, C7; FedBack on the tree layout, compacted,
-TA, or dense, TB) or ``configs.paper_cifar.FORMS`` (N=100, the CIFAR
+TA, or dense, TB; the client-sharded forms SA, SB, ST and SR, their
+shards all on ``--device``) or ``configs.paper_cifar.FORMS`` (N=100, the CIFAR
 CNN, D=196,426: FedBack compacted with the fused commit, CF-A, or on
 the tree layout, CF-T), on the paper grid's data and the reference's
 seeded weights (the module's ``workload()``), runs two warm-up rounds,
@@ -48,9 +49,9 @@ def build(form: str, device):
     data, _, params0, logits_fn = cfgs.workload(device=device)
     f = cfgs.FORMS[form]
     spec = f.spec(make_flat_spec(params0))
-    return (f.init(cfg, params0, spec=spec, device=device),
+    return (f.init(cfg, params0, spec=spec, **f.placement(device)),
             f.make_round(cfg, make_loss_fn(logits_fn), data, spec=spec,
-                         device=device))
+                         **f.placement(device)))
 
 
 def sync(device):

@@ -460,3 +460,172 @@ def test_trigger_pytree_kernel_reads_the_flat_matrix_in_place(dev):
     assert (ops.trigger_sq_norms_pytree.launches,
             ops.trigger_sq_norms.launches) == (before[0], before[1] + 1)
     assert torch.equal(got, ops.trigger_sq_norms(z, w))
+
+
+@pytest.mark.parametrize("p,n,d", [(2, 100, 159010), (4, 100, 159010),
+                                   (2, 14, 1001), (4, 12, 130)])
+def test_sharded_kernels_equal_the_unsharded_rows(dev, p, n, d):
+    """K1b and K2b on P shards of one card: each shard's rows bit-equal
+    to the unsharded K1 / K2 on the same rows (a row's sum depends on its
+    values and D alone), one launch per shard, counted as K1b / K2b."""
+    from repro_torch.sharding import make_client_mesh, replicate_data, \
+        shard_rows
+
+    rng = np.random.default_rng(p + n + d)
+    z, th, la = (_mk(rng, n, d).to(dev) for _ in range(3))
+    w = _mk(rng, d).to(dev)
+    mesh = make_client_mesh(p, [dev])
+    ws = replicate_data(mesh, w)
+    ops.reset_launch_counts()
+    got = ops.trigger_sq_norms_sharded(shard_rows(z, mesh), ws, mesh)
+    outs = ops.admm_update(shard_rows(th, mesh), shard_rows(la, mesh), ws,
+                           with_z=False, mesh=mesh)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["trigger_sq_norms_sharded"], counts["admm_update_sharded"],
+            counts["trigger_sq_norms"], counts["admm_update"]) == (p, p, 0, 0)
+    assert torch.equal(torch.cat(got), ops.trigger_sq_norms(z, w))
+    for part, whole in zip(outs, ops.admm_update(th, la, w, with_z=False),
+                           strict=True):
+        assert torch.equal(torch.cat(part), whole)
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_sharded_round_matches_the_cpu(dev, compact):
+    """One FedBack round on 2 shards of the card (K1b, and K2b dense or
+    K3 per shard compact) against the same sharded round on the CPU."""
+    from repro_torch.convert import state_from_numpy, state_to_numpy
+    from repro_torch.core import FLConfig, init_state, make_round_fn
+    from repro_torch.models import init_mlp, make_loss_fn
+    from repro_torch.prng import PRNGKey
+    from repro_torch.sharding import make_client_mesh
+    from repro_torch.utils import make_flat_spec
+
+    rng = np.random.default_rng(0)
+    n, n_pts = 16, 24
+    data = {"x": rng.random((n, n_pts, 32)).astype(np.float32),
+            "y": rng.integers(0, 4, (n, n_pts)).astype(np.int32)}
+    cfg = FLConfig(n_clients=n, participation=0.25, rho=0.01, lr=0.05,
+                   epochs=2, batch_size=8, compact=compact,
+                   fused_gss=compact)
+    params = init_mlp(PRNGKey(0, device="cpu"), 32, 16, 4, device="cpu")
+    spec = make_flat_spec(params)
+    cpu_mesh, gpu_mesh = make_client_mesh(2, ["cpu"]), make_client_mesh(2)
+    cpu_round = make_round_fn(cfg, make_loss_fn(), data, spec=spec,
+                              mesh=cpu_mesh)
+    gpu_round = make_round_fn(cfg, make_loss_fn(), data, spec=spec,
+                              mesh=gpu_mesh)
+    state, _ = cpu_round(init_state(cfg, params, spec=spec, mesh=cpu_mesh))
+    start = state_to_numpy(state)
+    want, wm = cpu_round(state_from_numpy(start, mesh=cpu_mesh))
+    ops.reset_launch_counts()
+    got, gm = gpu_round(state_from_numpy(start, mesh=gpu_mesh))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["trigger_sq_norms_sharded"] == 2
+    assert counts["fused_gss" if compact else "admm_update_sharded"] == 2
+    assert torch.equal(gm.events.cpu(), wm.events)
+    assert torch.equal(gm.committed.cpu(), wm.committed)
+    got, want = state_to_numpy(got), state_to_numpy(want)
+    for f in ("theta", "lam", "z_prev", "omega"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                   rtol=1e-4, atol=1e-6, err_msg=f)
+
+
+@pytest.fixture
+def cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    return min(torch.cuda.device_count(), 4)
+
+
+def test_sharded_kernels_on_separate_cards_equal_one_card(cards):
+    """K1b and K2b with one shard per card (``make_client_mesh(P)`` on a
+    node with P cards): each shard's result lies on its own card and is
+    bit-equal to K1 / K2 on the same rows on cuda:0."""
+    from repro_torch.sharding import make_client_mesh, replicate_data, \
+        shard_rows
+
+    n, d = 8 * cards, 159010
+    mesh = make_client_mesh(cards)
+    assert mesh.devices == tuple(torch.device("cuda", i)
+                                 for i in range(cards))
+    rng = np.random.default_rng(cards)
+    z, th, la = (_mk(rng, n, d).to("cuda:0") for _ in range(3))
+    w = _mk(rng, d).to("cuda:0")
+    ws = replicate_data(mesh, w)
+    ops.reset_launch_counts()
+    got = ops.trigger_sq_norms_sharded(shard_rows(z, mesh), ws, mesh)
+    outs = ops.admm_update(shard_rows(th, mesh), shard_rows(la, mesh), ws,
+                           with_z=False, mesh=mesh)
+    for i in range(cards):
+        torch.cuda.synchronize(i)
+    counts = ops.launch_counts()
+    assert (counts["trigger_sq_norms_sharded"],
+            counts["admm_update_sharded"]) == (cards, cards)
+    assert [t.device for t in got] == list(mesh.devices)
+    whole = ops.trigger_sq_norms(z, w)
+    for i, part in enumerate(got):
+        assert torch.equal(part.to("cuda:0"), whole[8 * i:8 * (i + 1)])
+    for parts, whole in zip(outs, ops.admm_update(th, la, w, with_z=False),
+                            strict=True):
+        assert torch.equal(torch.cat([p.to("cuda:0") for p in parts]),
+                           whole)
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_sharded_round_on_separate_cards_equals_one_card(cards, compact):
+    """Two FedBack rounds with one shard per card against the same
+    sharded round with every shard on cuda:0: the same bits (each shard
+    runs the same work, and the sums add in shard order on shard 0's
+    card), with no host sync in the second round."""
+    import warnings
+
+    from repro_torch.convert import state_from_numpy, state_to_numpy
+    from repro_torch.core import FLConfig, init_state, make_round_fn
+    from repro_torch.models import init_mlp, make_loss_fn
+    from repro_torch.prng import PRNGKey
+    from repro_torch.sharding import make_client_mesh
+    from repro_torch.utils import make_flat_spec
+
+    rng = np.random.default_rng(0)
+    n, n_pts = 8 * cards, 24
+    data = {"x": rng.random((n, n_pts, 32)).astype(np.float32),
+            "y": rng.integers(0, 4, (n, n_pts)).astype(np.int32)}
+    cfg = FLConfig(n_clients=n, participation=0.25, rho=0.01, lr=0.05,
+                   epochs=2, batch_size=8, compact=compact,
+                   fused_gss=compact)
+    params = init_mlp(PRNGKey(0, device="cpu"), 32, 16, 4, device="cpu")
+    spec = make_flat_spec(params)
+    results = []
+    for mesh in (make_client_mesh(cards, ["cuda:0"]),
+                 make_client_mesh(cards)):
+        round_fn = make_round_fn(cfg, make_loss_fn(), data, spec=spec,
+                                 mesh=mesh)
+        state, _ = round_fn(init_state(cfg, params, spec=spec, mesh=mesh))
+        for i in range(cards):
+            torch.cuda.synchronize(i)
+        ops.reset_launch_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            state, m = round_fn(state)
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = [str(w.message) for w in caught
+                 if "synchroniz" in str(w.message).lower()
+                 and "prototype" not in str(w.message)]
+        assert not syncs, syncs[:3]
+        counts = ops.launch_counts()
+        assert counts["trigger_sq_norms_sharded"] == cards
+        assert counts["fused_gss" if compact
+                      else "admm_update_sharded"] == cards
+        assert [s.theta.device for s in state] == list(mesh.devices)
+        results.append((m, state_to_numpy(state)))
+    (one_m, one), (many_m, many) = results
+    for f in ("events", "committed", "num_events", "realized_capacity"):
+        assert torch.equal(getattr(many_m, f), getattr(one_m, f)), f
+    for f in ("theta", "lam", "z_prev", "omega"):
+        np.testing.assert_array_equal(getattr(many, f), getattr(one, f),
+                                      err_msg=f)
+    assert state_from_numpy(many, mesh=make_client_mesh(cards))[-1] \
+        .theta.device == torch.device("cuda", cards - 1)

@@ -36,7 +36,8 @@ def test_package_has_the_slice_modules():
               "configs/zamba2_2_7b.py", "kernels/flash_attention.py",
               "kernels/ssd_scan.py", "models/layers.py", "models/ssm.py",
               "models/attention.py", "models/transformer.py",
-              "models/api.py", "launch/serve_lm.py"):
+              "models/api.py", "launch/serve_lm.py",
+              "sharding/clients.py"):
         assert m in names, m
     for src in ("fedback_kernels.cu", "model_kernels.cu"):
         assert (PKG / "csrc" / src).is_file(), src
@@ -56,7 +57,7 @@ def test_importing_the_port_leaves_jax_out():
             "ops, repro_torch.convert, repro_torch.configs.paper_mnist, "
             "repro_torch.configs.zamba2_2_7b, repro_torch.data, "
             "repro_torch.models, repro_torch.models.transformer, "
-            "repro_torch.launch.serve_lm; "
+            "repro_torch.launch.serve_lm, repro_torch.sharding; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
