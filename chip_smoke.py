@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port on one GPU: the FedBack round (slice 1),
 zamba2-2.7b serving (slice 2), the paper's baselines (slice 6), the
 tree client-state layout and the paper's CIFAR-10 workload (slice 7),
-and the client-sharded round (slice 8).
+the client-sharded round (slice 8), and K1's leaf-table kernel behind
+the tree trigger, the sharded trigger and bf16 trigger inputs (slice 9).
 
     python3 chip_smoke.py
 
@@ -34,15 +35,22 @@ non-zero):
    nvcc's -Xptxas -v lines for the K1, K3, K4 (bf16 and 3xTF32) and K5
    instances and, where cuobjdump is at hand, the count of HGMMA
    instructions in K4's hd = 80 instances (none in the 3xTF32 one
-   fails the run); K1c (``trigger_sq_norms_pytree``, the stacked-tree
-   front end of K1) against its plain version at rtol 1e-5 on the
+   fails the run); K1a (bf16 z and ω, and each alone, through K1's
+   leaf-table kernel) bit-equal to K1 on fp32 copies at (100, 159010)
+   and (7, 1001); K1c (``trigger_sq_norms_pytree``: one launch of the
+   leaf-table kernel over the stacked tree's leaves in place) on the
    MLP's 4 and the CNN's 12 leaves stacked for N = 100, and with the
-   MLP's fc1/w in bf16, timed cold at both (the row: the CNN's); K1b
-   and K2b (``trigger_sq_norms_sharded``, ``admm_update_sharded``: K1's
-   and K2's kernels launched once per shard of a client mesh) on P = 2
-   and 4 shards of (100, 159010) on the card, every shard's rows
-   bit-equal to the unsharded kernel's, each launch timed alone and
-   cold at its (N/P, D) shape (the rows: P = 2);
+   MLP's fc1/w in bf16 — one launch, K1 not launched, no leaf copied,
+   the leaf-table kernel the only CUDA kernel of the call
+   (torch.profiler), bit-equal to K1 on the concatenated fp32 copy and
+   within rtol 1e-5 of the plain version — timed cold at both (the row:
+   the CNN's); K1b and K2b (``trigger_sq_norms_sharded``: the card's
+   shards in one leaf-table launch; ``admm_update_sharded``: K2's
+   kernel once per shard) on P = 2 and 4 shards of (100, 159010) on the
+   card, every shard's rows bit-equal to the unsharded kernel's, K1b's
+   whole call timed cold at both P (the row: P = 4) and a lone launch
+   on one shard's rows beside it, K2b's launch alone at (N/P, D) (the
+   row: P = 2);
 4. form A at the paper-MNIST width (N=100 clients, the 784-200-10 MLP,
    D=159,010): compacted rounds with the fused commit, 1 warm-up and 5
    timed, asserting one trigger and one fused_gss launch per round and
@@ -64,7 +72,7 @@ non-zero):
 5c. the tree client-state layout at the paper-MNIST width, 1 warm-up
    and 3 timed rounds each, launches per round asserted, the second
    round held against the CPU's plain path as in 5b: TA compact and TB
-   dense (each: K1c and K1 once, neither K2 nor K3); TB's second round
+   dense (each: K1c once, neither K1, K2 nor K3); TB's second round
    also against form B's from the same state, flattened (events equal,
    ω at rtol 1e-5 / atol 1e-7);
 5d. the paper's CIFAR-10 workload at full width (N = 100, the CNN, D =
@@ -76,7 +84,7 @@ non-zero):
    weight gradients) at the CNN's three layer shapes; the same passes
    with cuDNN's TF32 on are printed beside.  Then 1 warm-up and 3 timed
    rounds each: CF-A flat, compact + fused (K1, K3) and CF-T tree,
-   compact (K1c, K1); the second round held against the CPU's plain
+   compact (K1c); the second round held against the CPU's plain
    path with events and the committed set equal and each state field
    within 1e-2 of the norm of the round's update (two values of a
    max-pool window, or a pre-activation and 0, within a rounding of
@@ -90,12 +98,13 @@ non-zero):
    timed rounds each under the sync debug mode, launches per round
    asserted, the second round held against the same sharded round on P
    CPU shards (as in 5b): SA FedBack compact + fused at P = 2, ⌈16/2⌉ =
-   8 slots a shard (K1b ×2, K3 ×2), SB FedBack dense at P = 2 (K1b ×2,
-   K2b ×2), ST FedBack on the tree layout, dense, at P = 2 (K1c → K1b
-   ×2), SR FedADMM compact + fused at P = 4, 4 slots a shard (K1b ×4,
-   K3 ×4); SB's and ST's second rounds also against forms B and TB from
-   the same state (events equal, ω at rtol 1e-5 / atol 1e-7, as TB
-   against B in 5c);
+   8 slots a shard (K1b ×1 for the card's shards, K3 ×2), SB FedBack
+   dense at P = 2 (K1b ×1, K2b ×2), ST FedBack on the tree layout,
+   dense, at P = 2 (K1c ×1), SR FedADMM compact + fused at P = 4, 4
+   slots a shard (K1b ×1, K3 ×4); in every form of 4–5e the trigger
+   copies no state leaf to read it; SB's and ST's second rounds also
+   against forms B and TB from the same state (events equal, ω at rtol
+   1e-5 / atol 1e-7, as TB against B in 5c);
 6. zamba2-2.7b at full width cut to one group (6 mamba layers and the
    shared block), fp32 with TF32 off: 1 request × 256 tokens, prefill
    and 4 greedy decode steps on the card (kernels) against the CPU's
@@ -212,6 +221,28 @@ def check_kernels(dev, ops, n, d, c):
             raise AssertionError(f"trigger_sq_norms: the same row at {label} "
                                  f"gives {other[0].item()!r}, at N = {n} "
                                  f"{got[0].item()!r}")
+    # K1a: bf16 z and ω (and each alone) take the leaf-table kernel,
+    # counted under K1, bit-equal to K1 on fp32 copies.
+    for nn_, dd in ((n, d), (7, 1001)):
+        z, w = mk(nn_, dd), mk(dd)
+        zb, wb = z.to(torch.bfloat16), w.to(torch.bfloat16)
+        for label, a, b in (("z and ω", zb, wb), ("z", zb, w),
+                            ("ω", z, wb)):
+            before = ops.trigger_sq_norms.launches
+            got = ops.trigger_sq_norms(a, b)
+            if ops.trigger_sq_norms.launches != before + 1:
+                raise AssertionError("trigger_sq_norms (bf16) did not "
+                                     "launch once")
+            if not torch.equal(got, ops.trigger_sq_norms(a.float(),
+                                                         b.float())):
+                raise AssertionError(f"trigger_sq_norms with {label} in "
+                                     f"bf16 at ({nn_}, {dd}) is not K1's "
+                                     "bits on fp32 copies")
+            torch.testing.assert_close(
+                got, ops.trigger_sq_norms_ref(a, b), rtol=1e-5, atol=0)
+    log(f"trigger_sq_norms, bf16 (K1a, the leaf-table kernel): z and ω, z "
+        f"alone and ω alone in bf16 at ({n}, {d}) and (7, 1001) bit-equal "
+        "to K1 on fp32 copies, rtol 1e-5 to the plain version held")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     timed = round_kernel_ms(ops, dev, gen)
@@ -319,16 +350,26 @@ def _stacked_leaves(params, n, gen):
             tree_map(lambda w: draw(tuple(w.shape), w), params))
 
 
+def _k1_on_the_concatenation(ops, z, w):
+    """K1's kernel on the fp32 matrix the reference's front end builds."""
+    from repro_torch.utils.pytree import flatten, flatten_stacked
+    return ops.trigger_sq_norms(flatten_stacked(z), flatten(w))
+
+
 def check_pytree_kernel(dev, ops, trees):
-    """Phase 3, slice 7: K1c (``trigger_sq_norms_pytree``: the stacked
-    tree's leaves concatenated in fp32, then K1) against its plain
-    version at the main path's leaf shapes — ``trees`` maps a workload's
+    """Phase 3, slices 7 and 9: K1c (``trigger_sq_norms_pytree``: one
+    launch of K1's leaf-table kernel over the stacked tree's leaves in
+    place) at the main path's leaf shapes — ``trees`` maps a workload's
     name to its params (the MLP's 4 leaves, the CNN's 12) — and at the
-    MLP's with fc1/w in bf16, rtol 1e-5; timed cold (the graph rotates
-    over input sets L2 cannot hold) at each workload's shape.  Returns
-    the kernels line's row (timed at the CNN's shapes, the larger)."""
+    MLP's with fc1/w in bf16: one launch, counted under K1c and not K1,
+    one CUDA kernel in the call (torch.profiler: no concatenation, no
+    cast), bit-equal to K1 on the concatenated fp32 copy, rtol 1e-5 to
+    the plain version; timed cold (the graph rotates over input sets L2
+    cannot hold) at each workload's shape.  Returns the kernels line's
+    row (timed at the CNN's shapes, the larger)."""
     from repro_torch.launch.time_kernels import (COLD_COPIES, cycle,
-                                                 device_ms, peak_bandwidth)
+                                                 device_ms, kernel_breakdown,
+                                                 peak_bandwidth)
     from repro_torch.utils.pytree import tree_size
 
     gen = torch.Generator(device=dev)
@@ -341,18 +382,37 @@ def check_pytree_kernel(dev, ops, trees):
         if bf16:
             z["fc1"]["w"] = z["fc1"]["w"].to(torch.bfloat16)
             w["fc1"]["w"] = w["fc1"]["w"].to(torch.bfloat16)
-        before = ops.trigger_sq_norms_pytree.launches
+        ops.reset_launch_counts()
         got = ops.trigger_sq_norms_pytree(z, w)
-        want = ops.trigger_sq_norms_pytree_ref(z, w)
         torch.cuda.synchronize()
-        if ops.trigger_sq_norms_pytree.launches != before + 1:
-            raise AssertionError("trigger_sq_norms_pytree did not launch K1")
+        counts = ops.launch_counts()
+        if (counts["trigger_sq_norms_pytree"], counts["trigger_sq_norms"],
+                ops.trigger_sq_norms_pytree.leaf_copies) != (1, 0, 0):
+            raise AssertionError("trigger_sq_norms_pytree launched "
+                                 f"{counts}, copied "
+                                 f"{ops.trigger_sq_norms_pytree.leaf_copies}"
+                                 " leaves; expected one table launch, no K1 "
+                                 "and no copy")
+        kernels = kernel_breakdown(lambda: ops.trigger_sq_norms_pytree(z, w),
+                                   calls=2)
+        if len(kernels) != 1 or "trigger_table_kernel" not in next(
+                iter(kernels)):
+            raise AssertionError("trigger_sq_norms_pytree ran the kernels "
+                                 f"{list(kernels)}, expected the leaf-table "
+                                 "kernel alone")
+        if not torch.equal(got, _k1_on_the_concatenation(ops, z, w)):
+            raise AssertionError(f"trigger_sq_norms_pytree at the {name}'s "
+                                 "leaves is not K1's bits on the "
+                                 "concatenation")
+        want = ops.trigger_sq_norms_pytree_ref(z, w)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
         err = max(err, float((got - want).abs().max()))
         label = f"{name}{' (fc1/w bf16)' if bf16 else ''}"
         log(f"trigger_sq_norms_pytree, the {label}'s leaves at N = 100 "
-            f"(D = {tree_size(w)}): max_abs_err "
-            f"{float((got - want).abs().max()):.3e} (rtol 1e-5 held)")
+            f"(D = {tree_size(w)}): one launch of the leaf-table kernel and "
+            "no other kernel, bit-equal to K1 on the concatenated fp32 "
+            f"copy; max_abs_err {float((got - want).abs().max()):.3e} to "
+            "the plain version (rtol 1e-5 held)")
         if bf16:
             continue
         sets = [(z, w)] + [_stacked_leaves(trees[name], 100, gen)
@@ -376,7 +436,6 @@ def check_pytree_kernel(dev, ops, trees):
     t_bytes = row["bound_ms"]
     t_ops = 3 * 100 * tree_size(trees["cnn"]) / PEAK_FP32_FLOPS * 1e3
     return dict(replaces="src/repro/kernels/ops.py:89",
-                source="src/repro_torch/kernels/trigger_pytree.py",
                 max_abs_err=err, ms=row["ms"], warm_ms=row["warm_ms"],
                 plain_ms=row["plain_ms"], library_ms=None,
                 bound_ms=None if t_bytes is None else max(t_bytes, t_ops),
@@ -385,17 +444,35 @@ def check_pytree_kernel(dev, ops, trees):
                 nbytes=row["nbytes"])
 
 
+def _bound(r, bw):
+    """Fill ``r``'s bound_ms / bound_by from its bytes and fp32 operations
+    (bound_ms None on a card the bandwidth table does not name)."""
+    t_bytes = r["nbytes"] / bw * 1e3 if bw else None
+    t_ops = r["nflop"] / PEAK_FP32_FLOPS * 1e3
+    r["bound_ms"] = None if t_bytes is None else max(t_bytes, t_ops)
+    r["bound_by"] = ("bytes" if t_bytes is None or t_bytes >= t_ops
+                     else "operations")
+    return r
+
+
+def _share(r):
+    return (f"{r['bound_ms'] / r['ms']:.1%} of it reached" if r["bound_ms"]
+            else "n/a")
+
+
 def check_sharded_kernels(dev, ops, n, d):
-    """Phase 3, slice 8: K1b and K2b — K1's and K2's kernels launched
-    once per shard of a client mesh — at the sharded forms' shapes, N =
-    100 rows of D in P = 2 and P = 4 shards on the card: each shard's
+    """Phase 3, slices 8 and 9: K1b and K2b at the sharded forms' shapes,
+    N = 100 rows of D in P = 2 and P = 4 shards on the card: each shard's
     results bit-equal to the unsharded kernel's on the same rows (and
-    K1b within rtol 1e-5 of its plain version), one launch per shard,
-    counted under K1b / K2b and not under K1 / K2.  Each launch is timed
-    alone, at the shape it sees (N/P rows), cold over input sets L2
-    cannot hold, beside one shard's plain version and, for K1b,
-    ``torch.cdist`` on one shard's rows.  Returns the kernels line's
-    rows (timed at P = 2, the shards of SA, SB, ST; P = 4, SR's, logged)."""
+    K1b within rtol 1e-5 of its plain version); K1b in one launch of the
+    leaf-table kernel for the card's P shards, K2b one launch of K2's
+    kernel per shard, counted under K1b / K2b and not under K1 / K2.
+    K1b's whole call is timed cold at both P (the N rows' bytes, as K1),
+    beside its plain version and ``torch.cdist`` on all the rows; a lone
+    launch on one shard's N/P rows is timed too (the table kernel with
+    one row block).  K2b's launch is timed alone at (N/P, D).  Returns
+    the kernels line's rows: K1b's whole call at P = 4 (SR's), K2b's
+    launch at P = 2 (SB's)."""
     from repro_torch.launch.time_kernels import (COLD_COPIES, cycle,
                                                  device_ms, peak_bandwidth)
     from repro_torch.sharding import make_client_mesh, replicate_data, \
@@ -407,6 +484,13 @@ def check_sharded_kernels(dev, ops, n, d):
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
+
+    def log_row(label, r):
+        lib = r["library_ms"]
+        log(f"  {label}: ms {r['ms']:.4f} (cold)  warm_ms {r['warm_ms']:.4f}"
+            f"  plain_ms {r['plain_ms']:.4f}  library_ms "
+            f"{'null' if lib is None else f'{lib:.4f}'}  bound_ms "
+            f"{r['bound_ms']} ({_share(r)})  bytes {r['nbytes']}")
 
     rows, err = {}, 0.0
     for p in (2, 4):
@@ -420,7 +504,7 @@ def check_sharded_kernels(dev, ops, n, d):
                 for with_z in (True, False)]
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        want = {"trigger_sq_norms_sharded": p, "admm_update_sharded": 2 * p,
+        want = {"trigger_sq_norms_sharded": 1, "admm_update_sharded": 2 * p,
                 "trigger_sq_norms": 0, "admm_update": 0}
         if {k: counts[k] for k in want} != want:
             raise AssertionError(f"K1b/K2b at P = {p} launched {counts}, "
@@ -441,15 +525,36 @@ def check_sharded_kernels(dev, ops, n, d):
                         f"admm_update_sharded(with_z={with_z}) at P = {p}: "
                         "a shard's rows differ from K2's bits")
         log(f"trigger_sq_norms_sharded, admm_update_sharded: P = {p} shards "
-            f"of ({n}, {d}) on one card, one launch per shard, every row "
-            "bit-equal to the unsharded kernel's (K2b with and without z); "
-            f"K1b within rtol 1e-5 of its plain version")
+            f"of ({n}, {d}) on one card, K1b in one launch, K2b one launch "
+            "per shard, every row bit-equal to the unsharded kernel's (K2b "
+            "with and without z); K1b within rtol 1e-5 of its plain version")
         del z, th, la, sq, outs, plain
+        # K1b's whole call on the card's P shards, cold.
+        sets = [(shard_rows(randn(n, d), mesh),
+                 replicate_data(mesh, randn(d))) for _ in range(COLD_COPIES)]
+        z0, w0 = sets[0]
+        whole = torch.cat(z0)
+        k1b = _bound(dict(
+            ms=device_ms(cycle([lambda s=s: ops.trigger_sq_norms_sharded(
+                s[0], s[1], mesh) for s in sets])),
+            warm_ms=device_ms(lambda: ops.trigger_sq_norms_sharded(
+                z0, w0, mesh)),
+            plain_ms=device_ms(lambda: ops.trigger_sq_norms_sharded_ref(
+                z0, w0), calls=PLAIN_CALLS),
+            library_ms=device_ms(lambda: torch.cdist(
+                whole, w0[0][None],
+                compute_mode="donot_use_mm_for_euclid_dist")),
+            nbytes=ops.trigger_sq_norms_hbm_bytes(n, d),  # one ω tensor
+            nflop=3 * n * d), bw)
+        log_row(f"trigger_sq_norms_sharded at P = {p}, the whole call (one "
+                f"launch over {p} shards of ({n_local}, {d}))", k1b)
+        del sets, z0, w0, whole
+        # A lone launch on one shard's rows, and K2b's launch.
         one = make_client_mesh(1, [dev])
         sets = [(randn(n_local, d), randn(n_local, d), randn(n_local, d),
                  randn(d)) for _ in range(COLD_COPIES)]
         z0, th0, la0, w0 = sets[0]
-        k1b = dict(
+        lone = _bound(dict(
             ms=device_ms(cycle([lambda s=s: ops.trigger_sq_norms_sharded(
                 [s[0]], [s[3]], one) for s in sets])),
             warm_ms=device_ms(lambda: ops.trigger_sq_norms_sharded(
@@ -459,8 +564,10 @@ def check_sharded_kernels(dev, ops, n, d):
             library_ms=device_ms(lambda: torch.cdist(
                 z0, w0[None], compute_mode="donot_use_mm_for_euclid_dist")),
             nbytes=ops.trigger_sq_norms_hbm_bytes(n_local, d),
-            nflop=3 * n_local * d)
-        k2b = dict(
+            nflop=3 * n_local * d), bw)
+        log_row(f"trigger_sq_norms_sharded, a lone launch on ({n_local}, "
+                f"{d})", lone)
+        k2b = _bound(dict(
             ms=device_ms(cycle([lambda s=s: ops.admm_update_sharded(
                 [s[1]], [s[2]], [s[3]], one, with_z=False) for s in sets])),
             warm_ms=device_ms(lambda: ops.admm_update_sharded(
@@ -469,29 +576,18 @@ def check_sharded_kernels(dev, ops, n, d):
                 [th0], [la0], [w0], with_z=False), calls=PLAIN_CALLS),
             library_ms=None,
             nbytes=ops.admm_update_hbm_bytes(n_local, d, with_z=False),
-            nflop=2 * n_local * d)
+            nflop=2 * n_local * d), bw)
+        log_row(f"admm_update_sharded at P = {p}, one launch on ({n_local}, "
+                f"{d})", k2b)
         del sets, z0, th0, la0, w0
-        for name, r, src in (
-                ("trigger_sq_norms_sharded", k1b,
-                 "src/repro/kernels/trigger_norms.py:74"),
-                ("admm_update_sharded", k2b,
-                 "src/repro/kernels/admm_update.py:100")):
-            t_bytes = r["nbytes"] / bw * 1e3 if bw else None
-            t_ops = r["nflop"] / PEAK_FP32_FLOPS * 1e3
-            r["bound_ms"] = None if t_bytes is None else max(t_bytes, t_ops)
-            r["bound_by"] = ("bytes" if t_bytes is None or t_bytes >= t_ops
-                             else "operations")
-            lib = r["library_ms"]
-            log(f"  {name} at P = {p}, one launch on ({n_local}, {d}): ms "
-                f"{r['ms']:.4f} (cold)  warm_ms {r['warm_ms']:.4f}  plain_ms "
-                f"{r['plain_ms']:.4f}  library_ms "
-                f"{'null' if lib is None else f'{lib:.4f}'}  bound_ms "
-                f"{r['bound_ms']} ("
-                + (f"{r['bound_ms'] / r['ms']:.1%} of it reached"
-                   if r["bound_ms"] else "n/a")
-                + f")  bytes {r['nbytes']}")
-            if p == 2:
-                rows[name] = dict(r, replaces=src, max_abs_err=0.0)
+        if p == 4:
+            rows["trigger_sq_norms_sharded"] = dict(
+                k1b, replaces="src/repro/kernels/trigger_norms.py:74",
+                max_abs_err=0.0)
+        if p == 2:
+            rows["admm_update_sharded"] = dict(
+                k2b, replaces="src/repro/kernels/admm_update.py:100",
+                max_abs_err=0.0)
     rows["trigger_sq_norms_sharded"]["max_abs_err"] = err
     return rows
 
@@ -681,15 +777,18 @@ def check_model_kernels(dev, ops):
 
 
 def kernel_facts(build):
-    """Print what was compiled for the redesigned K1, K3, K4 (bf16 and
-    3xTF32) and K5: nvcc's -Xptxas -v lines (registers, spills) for each
-    of their instances, and the count of HGMMA (wgmma) instructions in
-    K4's hd = 80 instances, from the library's SASS, where cuobjdump is
-    at hand; raises if the 3xTF32 hd = 80 instance has none."""
+    """Print what was compiled for the redesigned K1 (and its leaf-table
+    form), K3, K4 (bf16 and 3xTF32) and K5: nvcc's -Xptxas -v lines
+    (registers, spills) for each of their instances, and the count of
+    HGMMA (wgmma) instructions in K4's hd = 80 instances, from the
+    library's SASS, where cuobjdump is at hand; raises if the 3xTF32 hd
+    = 80 instance has none."""
     lines = build.build_log().splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" not in line or not any(
-                name in line for name in ("trigger_sq_norms", "fused_gss",
+                name in line for name in ("trigger_sq_norms",
+                                          "trigger_table_kernel",
+                                          "fused_gss",
                                           "flash_attention_tc_kernel",
                                           "flash_attention_tf32x3_kernel",
                                           "tf32x3_split_kernel",
@@ -1012,6 +1111,10 @@ def drive(form, n_rounds, warmup, ctx, ops, expect, against=None, **check):
     state, history, ms_round = timed_rounds(form, round_fn, state, warmup,
                                             n_rounds)
     counts = path_counts(ops)
+    if ops.trigger_sq_norms_pytree.leaf_copies:
+        raise AssertionError(f"form {form}: the trigger copied "
+                             f"{ops.trigger_sq_norms_pytree.leaf_copies} "
+                             "state leaves to read them")
     total = warmup + n_rounds
     for name, per_round in expect.items():
         if counts[name] != per_round * total:
@@ -1091,7 +1194,7 @@ BASELINE_FORMS = (
 # 8.8e-3 over 4 rounds of CF-A and CF-T with cuDNN on or off on an H100
 # (``launch/conv_precision.py --rounds 4``); a fault moves it by ~1.
 CNN_UPDATE_TOL = 1e-2
-TREE = {"trigger_sq_norms_pytree": 1, "trigger_sq_norms": 1,
+TREE = {"trigger_sq_norms_pytree": 1, "trigger_sq_norms": 0,
         "admm_update": 0, "fused_gss": 0}
 TREE_FORMS = (("TA", TREE, {}), ("TB", TREE, {"against": "B"}))
 CIFAR_FORMS = (
@@ -1101,21 +1204,22 @@ CIFAR_FORMS = (
     ("CF-T", TREE, {"update_tol": CNN_UPDATE_TOL}),
 )
 # Phase 5e: the client-sharded forms, P shards of N = 100 on the card.
-# Per round: K1b once per shard (through K1c in ST), K3 once per shard
-# in the compact forms, K2b once per shard in the dense flat one; no
-# unsharded K1 or K2.  SB's and ST's second rounds are also held against
+# Per round: K1b once for the card's shards in the flat forms, K1c once
+# for them in ST (the tree layout), K3 once per shard in the compact
+# forms, K2b once per shard in the dense flat one; no unsharded K1 or
+# K2.  SB's and ST's second rounds are also held against
 # forms B and TB from the same state (per-shard capacity can defer
 # other clients in SA and SR, so those are held to the CPU alone).
 NO_SINGLE = {"trigger_sq_norms": 0, "admm_update": 0}
 SHARDED_FORMS = (
-    ("SA", dict(NO_SINGLE, trigger_sq_norms_sharded=2, fused_gss=2,
+    ("SA", dict(NO_SINGLE, trigger_sq_norms_sharded=1, fused_gss=2,
                 admm_update_sharded=0), {}),
-    ("SB", dict(NO_SINGLE, trigger_sq_norms_sharded=2, fused_gss=0,
+    ("SB", dict(NO_SINGLE, trigger_sq_norms_sharded=1, fused_gss=0,
                 admm_update_sharded=2), {"against": "B"}),
-    ("ST", dict(NO_SINGLE, trigger_sq_norms_pytree=2,
-                trigger_sq_norms_sharded=2, fused_gss=0,
+    ("ST", dict(NO_SINGLE, trigger_sq_norms_pytree=1,
+                trigger_sq_norms_sharded=0, fused_gss=0,
                 admm_update_sharded=0), {"against": "TB"}),
-    ("SR", dict(NO_SINGLE, trigger_sq_norms_sharded=4, fused_gss=4,
+    ("SR", dict(NO_SINGLE, trigger_sq_norms_sharded=1, fused_gss=4,
                 admm_update_sharded=0), EXACT),
 )
 

@@ -25,8 +25,8 @@ too.)  One round, in order:
 
 1. trigger distances ‖ω − z_i^prev‖ (for the l2 metric K1
    ``trigger_sq_norms``, through its stacked-tree front end K1c
-   ``trigger_sq_norms_pytree``, which reads the flat matrix in place and
-   concatenates the tree's leaves), taken for every algorithm as the
+   ``trigger_sq_norms_pytree``, which reads the flat matrix, or a tree's
+   leaves, in place), taken for every algorithm as the
    reference does;
 2. the selection (its key is the round key's second split) and the
    controller step;

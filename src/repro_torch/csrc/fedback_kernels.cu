@@ -7,11 +7,12 @@
 // Every entry point launches on the stream it is given, allocates
 // nothing, and returns the launch's CUDA error code so the Python
 // wrapper can raise on a refused launch.  Tensors are fp32, row-major
-// and contiguous; the wrappers check that before passing pointers, and
-// compute each launch's geometry (K1's segments, K3's grid and tiles)
-// in Python, where the CPU tests check it.
+// and contiguous (the leaf-table form of K1 also reads bf16 leaves and
+// rows at any stride); the wrappers check that before passing pointers,
+// and compute each launch's geometry (K1's segments and leaf table, K3's
+// grid and tiles) in Python, where the CPU tests check it.
 //
-// All three kernels move bytes and do almost no arithmetic, so on an
+// All the kernels move bytes and do almost no arithmetic, so on an
 // H100 (3.35 TB/s HBM3, 67 TFLOP/s fp32) each is bound by memory
 // traffic; the byte counts below are what one call must move.  At the
 // paper-MNIST width (D = 159,010) a row is 636,040 bytes, 8 mod 16, so
@@ -25,6 +26,7 @@
 // their outputs are bit-identical to the plain PyTorch versions.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -118,12 +120,29 @@ __device__ __forceinline__ float add_squares(float acc, float4 a, float4 b) {
   return fmaf(t, t, acc);
 }
 
-// This thread's part of the groups [g0, g1) of one row.  A slot past g1
-// adds (0 - 0)^2 = +0 to a non-negative sum, which leaves it unchanged.
+// One row of K1's (n, d) matrix as the source of segment_partial's
+// groups: z at the row's own alignment (kVecZ), w at its (kVecW).
 template <int kVecZ, int kVecW>
-__device__ __forceinline__ float segment_partial(const float* __restrict__ zr,
-                                                 const float* __restrict__ w,
-                                                 int64_t g0, int64_t g1) {
+struct MatrixRow {
+  const float* __restrict__ zr;
+  const float* __restrict__ w;
+  __device__ __forceinline__ void group(int64_t g, float4& a, float4& b) {
+    a = load_z_group<kVecZ>(zr, g);
+    b = load_w_group<kVecW>(w, g);
+  }
+  __device__ __forceinline__ void element(int64_t j, float& a, float& b) {
+    a = zr[j];
+    b = __ldg(w + j);
+  }
+};
+
+// This thread's part of the groups [g0, g1) of one row, read through
+// `src` (K1's MatrixRow, or the leaf table's TableRow below): the order
+// of the sum is the same whatever the source.  A slot past g1 adds
+// (0 - 0)^2 = +0 to a non-negative sum, which leaves it unchanged.
+template <class Row>
+__device__ __forceinline__ float segment_partial(Row& src, int64_t g0,
+                                                 int64_t g1) {
   float acc[kTrigSteps];
 #pragma unroll
   for (int u = 0; u < kTrigSteps; ++u) acc[u] = 0.f;
@@ -133,8 +152,7 @@ __device__ __forceinline__ float segment_partial(const float* __restrict__ zr,
     for (int u = 0; u < kTrigSteps; ++u) {
       const int64_t gg = g + u * kThreads;
       if (gg < g1) {
-        a[u] = load_z_group<kVecZ>(zr, gg);
-        b[u] = load_w_group<kVecW>(w, gg);
+        src.group(gg, a[u], b[u]);
       } else {
         a[u] = b[u] = make_float4(0.f, 0.f, 0.f, 0.f);
       }
@@ -145,6 +163,46 @@ __device__ __forceinline__ float segment_partial(const float* __restrict__ zr,
     }
   }
   return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+}
+
+// The d mod 4 tail elements of a row, added to the last segment's sum.
+template <class Row>
+__device__ __forceinline__ float tail_partial(Row& src, int64_t d,
+                                              float acc) {
+  for (int64_t j = 4 * (d / 4) + threadIdx.x; j < d; j += kThreads) {
+    float a, b;
+    src.element(j, a, b);
+    const float t = a - b;
+    acc = fmaf(t, t, acc);
+  }
+  return acc;
+}
+
+// The block's sum of its threads' `acc`, then the cluster's sum of its
+// blocks' in rank order, written by rank 0 to *out.
+__device__ __forceinline__ void cluster_row_sum(float acc, float* out) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const unsigned nseg = cluster.num_blocks();
+  __shared__ float partial[kWarps];
+  __shared__ float seg_sum;
+  acc = warp_sum(acc);
+  if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float v = threadIdx.x < kWarps ? partial[threadIdx.x] : 0.f;
+    v = warp_sum(v);
+    if (threadIdx.x == 0) seg_sum = v;
+  }
+  cluster.sync();  // every segment's sum is in its block's shared memory
+  if (rank == 0 && threadIdx.x == 0) {
+    float v = 0.f;
+    for (unsigned r = 0; r < nseg; ++r) {
+      v += *cluster.map_shared_rank(&seg_sum, r);
+    }
+    *out = v;
+  }
+  cluster.sync();  // peers stay resident until rank 0 has read them
 }
 
 // Grid: N * S blocks in clusters of S (cluster r of the grid is row r).
@@ -165,38 +223,258 @@ trigger_sq_norms_kernel(const float* __restrict__ z,
   const uintptr_t addr = reinterpret_cast<uintptr_t>(zr);
   float acc;
   if ((addr & 15u) == 0) {
-    acc = segment_partial<4, kVecW>(zr, w, g0, g1);
+    MatrixRow<4, kVecW> src{zr, w};
+    acc = segment_partial(src, g0, g1);
   } else if ((addr & 7u) == 0) {
-    acc = segment_partial<2, kVecW>(zr, w, g0, g1);
+    MatrixRow<2, kVecW> src{zr, w};
+    acc = segment_partial(src, g0, g1);
   } else {
-    acc = segment_partial<1, kVecW>(zr, w, g0, g1);
+    MatrixRow<1, kVecW> src{zr, w};
+    acc = segment_partial(src, g0, g1);
   }
   if (rank == nseg - 1) {
-    for (int64_t j = 4 * ngroups + threadIdx.x; j < d; j += kThreads) {
-      const float t = zr[j] - __ldg(w + j);
-      acc = fmaf(t, t, acc);
-    }
+    MatrixRow<1, kVecW> src{zr, w};
+    acc = tail_partial(src, d, acc);
   }
+  cluster_row_sum(acc, out + row);
+}
 
-  __shared__ float partial[kWarps];
-  __shared__ float seg_sum;
-  acc = warp_sum(acc);
-  if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = acc;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    float v = threadIdx.x < kWarps ? partial[threadIdx.x] : 0.f;
-    v = warp_sum(v);
-    if (threadIdx.x == 0) seg_sum = v;
-  }
-  cluster.sync();  // every segment's sum is in its block's shared memory
-  if (rank == 0 && threadIdx.x == 0) {
-    float v = 0.f;
-    for (unsigned r = 0; r < nseg; ++r) {
-      v += *cluster.map_shared_rank(&seg_sum, r);
+// ---------------------------------------------------------------------
+// K1 on a leaf table: K1c (a stacked client tree, read leaf by leaf in
+// place), K1b (every shard of a client mesh that lies on one card, in
+// one launch) and K1a (a bf16 z or w).
+//
+// Replaces src/repro/kernels/ops.py::trigger_sq_norms_pytree (the
+// reference casts each leaf to fp32 and concatenates the leaves into
+// the (N, D) operand of K1 in XLA, outside its Pallas body) and
+// src/repro/kernels/trigger_norms.py::trigger_sq_norms_sharded (K1 under
+// shard_map, one launch per device on its rows).  Bound: every z and w
+// leaf read once at its own dtype, and the (N,) sums written: 79.4 MB
+// for the CIFAR CNN's 12 leaves at N = 100 (about 23.7 us at 3.35 TB/s);
+// the concatenation made the bytes cross HBM three times.
+//
+// Design: the launch's table lists the card's shards as row blocks (a
+// prefix of row counts; the output holds the rows in table order) and,
+// for each shard, the tree's leaves in sorted-key order: the z and w
+// leaf pointers, z's row stride, the leaf's columns [begin, end) in the
+// virtual row that the concatenation would build, and each one's dtype
+// (fp32 or bf16).  It travels by value in the kernel's parameters (a
+// __grid_constant__ struct, up to CUDA 12.1's 32,764 bytes on sm_70 and
+// above), so a launch needs no host-to-device copy and no host sync and
+// can be captured in a CUDA graph.  The grid, the segments (S, G) of
+// the virtual row and the mapping of threads to groups of 4 and to the
+// 4 accumulators are K1's, through the same segment_partial, tail_partial
+// and cluster_row_sum: only the load of a group differs.  A group
+// inside one leaf is one vector load per operand where its address
+// allows (fp32: 16 bytes, else two of 8; bf16: 8 bytes, else two of 4),
+// else four scalar loads; a group that straddles leaves takes each
+// element from its own leaf.  bf16 widens to fp32 exactly, so every
+// row's sum is bit-equal to K1's on the fp32 concatenation.  Each
+// thread keeps a cursor on the leaf of its current column: its columns
+// only grow (slot by slot, step by step, then the tail), so the cursor
+// only moves forward and reads the table when it enters a leaf, never
+// per byte.
+//
+// What bounds it: HBM bandwidth, as K1, less the residency the table
+// costs.  ptxas gives the kernel 58 registers a thread against K1's 32,
+// so an SM holds 4 of its blocks where it holds 8 of K1's: of the
+// N = 100 rows' 8-block clusters about 64 fit on the 132 SMs at a time
+// (a cluster stays within one of the 8 GPCs), where K1's all fit, and
+// the rest run as a second, partial wave (PERF.md §6).  Capping the
+// registers with __launch_bounds__ (5, 6 or 8 blocks an SM) made ptxas
+// spill the in-flight groups and ran slower on an H100, so the kernel
+// is left uncapped.
+struct TableLeaf {
+  const void* z;       // the leaf's row 0 of this shard
+  const void* w;       // the w leaf
+  int64_t z_row;       // elements between two rows of z
+  int64_t begin, end;  // its columns in the virtual row
+  int32_t z_bf16, w_bf16;
+};
+
+template <int kShards, int kEntries>
+struct TriggerTable {
+  float* out;
+  int64_t d, seg_groups;
+  int32_t n_shards, n_leaves;
+  int64_t row_start[kShards + 1];  // shard s owns rows [row_start[s], [s+1])
+  TableLeaf leaf[kEntries];        // shard s's leaf l at s * n_leaves + l
+};
+
+// The parameter space of one launch (CUDA 12.1+, sm_70+).
+constexpr size_t kMaxParamBytes = 32764;
+static_assert(sizeof(TableLeaf) == 48, "the wrapper packs 6 words a leaf");
+
+__device__ __forceinline__ float bf16_bits(uint32_t bits) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      static_cast<unsigned short>(bits & 0xffffu)));
+}
+
+// Two words of two bf16 each (the lower address in the low half).
+__device__ __forceinline__ float4 bf16x4(uint32_t lo, uint32_t hi) {
+  return make_float4(bf16_bits(lo), bf16_bits(lo >> 16), bf16_bits(hi),
+                     bf16_bits(hi >> 16));
+}
+
+// 4 consecutive elements at p, widened to fp32.  kReadOnly loads go
+// through the read-only cache (w, shared by every row).
+template <bool kReadOnly>
+__device__ __forceinline__ float4 load_quad(uintptr_t p, bool bf16) {
+  if (bf16) {
+    if ((p & 7u) == 0) {
+      const uint2* q = reinterpret_cast<const uint2*>(p);
+      const uint2 v = kReadOnly ? __ldg(q) : *q;
+      return bf16x4(v.x, v.y);
     }
-    out[row] = v;
+    if ((p & 3u) == 0) {
+      const unsigned* q = reinterpret_cast<const unsigned*>(p);
+      return kReadOnly ? bf16x4(__ldg(q), __ldg(q + 1)) : bf16x4(q[0], q[1]);
+    }
+    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+    uint32_t e[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) e[k] = kReadOnly ? __ldg(q + k) : q[k];
+    return make_float4(bf16_bits(e[0]), bf16_bits(e[1]), bf16_bits(e[2]),
+                       bf16_bits(e[3]));
   }
-  cluster.sync();  // peers stay resident until rank 0 has read them
+  if ((p & 15u) == 0) {
+    const float4* q = reinterpret_cast<const float4*>(p);
+    return kReadOnly ? __ldg(q) : *q;
+  }
+  if ((p & 7u) == 0) {
+    const float2* q = reinterpret_cast<const float2*>(p);
+    const float2 lo = kReadOnly ? __ldg(q) : q[0];
+    const float2 hi = kReadOnly ? __ldg(q + 1) : q[1];
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  const float* q = reinterpret_cast<const float*>(p);
+  return kReadOnly ? make_float4(__ldg(q), __ldg(q + 1), __ldg(q + 2),
+                                 __ldg(q + 3))
+                   : make_float4(q[0], q[1], q[2], q[3]);
+}
+
+template <bool kReadOnly>
+__device__ __forceinline__ float load_elem(uintptr_t p, bool bf16) {
+  if (bf16) {
+    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+    return bf16_bits(kReadOnly ? __ldg(q) : *q);
+  }
+  const float* q = reinterpret_cast<const float*>(p);
+  return kReadOnly ? __ldg(q) : *q;
+}
+
+// One row of one shard, read through the leaf table: column c of leaf l
+// lies at zb + c * (its element size) for z and wb + ... for w, the
+// bases shifted back by the leaf's first column when the cursor enters
+// it.
+struct TableRow {
+  const TableLeaf* leaves;  // this shard's, in the kernel's parameters
+  int64_t row;              // within the shard
+  int l;
+  int64_t end;
+  uintptr_t zb, wb;
+  bool zbf, wbf;
+
+  __device__ __forceinline__ TableRow(const TableLeaf* lv, int64_t r)
+      : leaves(lv), row(r), l(0) {
+    enter();
+  }
+  __device__ __forceinline__ void enter() {
+    const TableLeaf& e = leaves[l];
+    zbf = e.z_bf16 != 0;
+    wbf = e.w_bf16 != 0;
+    zb = reinterpret_cast<uintptr_t>(e.z) +
+         (row * e.z_row - e.begin) * (zbf ? 2 : 4);
+    wb = reinterpret_cast<uintptr_t>(e.w) - e.begin * (wbf ? 2 : 4);
+    end = e.end;
+  }
+  // Move the cursor to the leaf that holds column c (c < d; leaves of
+  // width 0 are passed over).
+  __device__ __forceinline__ void seek(int64_t c) {
+    while (c >= end) {
+      ++l;
+      enter();
+    }
+  }
+  __device__ __forceinline__ void element(int64_t j, float& a, float& b) {
+    seek(j);
+    a = load_elem<false>(zb + j * (zbf ? 2 : 4), zbf);
+    b = load_elem<true>(wb + j * (wbf ? 2 : 4), wbf);
+  }
+  __device__ __forceinline__ void group(int64_t g, float4& a, float4& b) {
+    const int64_t c = 4 * g;
+    seek(c);
+    if (c + 4 <= end) {
+      a = load_quad<false>(zb + c * (zbf ? 2 : 4), zbf);
+      b = load_quad<true>(wb + c * (wbf ? 2 : 4), wbf);
+      return;
+    }
+    element(c, a.x, b.x);
+    element(c + 1, a.y, b.y);
+    element(c + 2, a.z, b.z);
+    element(c + 3, a.w, b.w);
+  }
+};
+
+// Grid: (rows of the table) * S blocks in clusters of S, K1's geometry
+// over the virtual row of d columns.
+template <int kShards, int kEntries>
+__global__ void __launch_bounds__(kThreads)
+trigger_table_kernel(const __grid_constant__ TriggerTable<kShards, kEntries>
+                         t) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const unsigned nseg = cluster.num_blocks();
+  const int64_t row = blockIdx.x / nseg;
+  int s = 0;
+  while (row >= t.row_start[s + 1]) ++s;
+  TableRow src(t.leaf + s * t.n_leaves, row - t.row_start[s]);
+  const int64_t ngroups = t.d / 4;
+  const int64_t g0 = min(static_cast<int64_t>(rank) * t.seg_groups, ngroups);
+  const int64_t g1 = min(g0 + t.seg_groups, ngroups);
+  float acc = segment_partial(src, g0, g1);
+  if (rank == nseg - 1) acc = tail_partial(src, t.d, acc);
+  cluster_row_sum(acc, t.out + row);
+}
+
+template <int kShards, int kEntries>
+cudaError_t launch_table(const int64_t* rows, int n_shards,
+                         const int64_t* leaves, int n_leaves, int64_t d,
+                         int segs, int64_t seg_groups, float* out,
+                         cudaStream_t stream) {
+  static_assert(sizeof(TriggerTable<kShards, kEntries>) <= kMaxParamBytes,
+                "the table must fit the kernel's parameters");
+  TriggerTable<kShards, kEntries> t = {};
+  t.out = out;
+  t.d = d;
+  t.seg_groups = seg_groups;
+  t.n_shards = n_shards;
+  t.n_leaves = n_leaves;
+  for (int s = 0; s <= n_shards; ++s) t.row_start[s] = rows[s];
+  for (int i = 0; i < n_shards * n_leaves; ++i) {
+    const int64_t* e = leaves + 6 * i;
+    TableLeaf& x = t.leaf[i];
+    x.z = reinterpret_cast<const void*>(static_cast<uintptr_t>(e[0]));
+    x.w = reinterpret_cast<const void*>(static_cast<uintptr_t>(e[1]));
+    x.z_row = e[2];
+    x.begin = e[3];
+    x.end = e[4];
+    x.z_bf16 = static_cast<int32_t>(e[5] & 1);
+    x.w_bf16 = static_cast<int32_t>((e[5] >> 1) & 1);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows[n_shards] * segs));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(segs);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, trigger_table_kernel<kShards, kEntries>, t);
 }
 
 // ---------------------------------------------------------------------
@@ -428,6 +706,35 @@ int fb_trigger_sq_norms(const float* z, const float* w, float* out,
                                       out, d, seg_groups)
                  : cudaLaunchKernelEx(&cfg, trigger_sq_norms_kernel<1>, z, w,
                                       out, d, seg_groups);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The leaf table of one launch: `rows` the n_shards + 1 row offsets,
+// `leaves` n_shards * n_leaves entries of 6 int64 words (z, w, z's row
+// stride, begin, end, dtype bits: 1 z bf16, 2 w bf16), shard-major; the
+// smallest table instance that holds them is launched.  Returns
+// cudaErrorInvalidValue for a table larger than the largest instance
+// (the wrapper refuses it first).
+int fb_trigger_sq_norms_table(const int64_t* rows, int n_shards,
+                              const int64_t* leaves, int n_leaves,
+                              int64_t d, int segs, int64_t seg_groups,
+                              float* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int entries = n_shards * n_leaves;
+  cudaError_t err;
+  if (n_shards <= 4 && entries <= 16) {
+    err = launch_table<4, 16>(rows, n_shards, leaves, n_leaves, d, segs,
+                              seg_groups, out, s);
+  } else if (n_shards <= 16 && entries <= 64) {
+    err = launch_table<16, 64>(rows, n_shards, leaves, n_leaves, d, segs,
+                               seg_groups, out, s);
+  } else if (n_shards <= 64 && entries <= 640) {
+    err = launch_table<64, 640>(rows, n_shards, leaves, n_leaves, d, segs,
+                                seg_groups, out, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,10 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-Each source (``fedback_kernels.cu``: K1–K3; ``model_kernels.cu``: K4,
-K5) is compiled by its own ``nvcc -c``, all started together, and the
-objects are linked into one shared library with a plain C interface,
-loaded with ``ctypes`` — no PyTorch headers, so the build takes
-seconds.  It runs at first use, never at import: the CPU tests import
+Each source (``fedback_kernels.cu``: K1–K3 and K1's leaf-table form;
+``model_kernels.cu``: K4, K5) is compiled by its own ``nvcc -c``, all
+started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes`` — no PyTorch headers,
+so the build takes seconds.  It runs at first use, never at import: the CPU tests import
 every module on machines without ``nvcc``.  The library is cached under
 ``build/kernels/<hash>/`` at the root of the checkout, keyed by a hash
 of every source and the flags, so an edited source rebuilds and an
@@ -110,6 +110,8 @@ def load_library() -> ctypes.CDLL:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.fb_trigger_sq_norms.argtypes = [p, p, p, i64, i64, i32, i64,
                                             i32, p]
+        lib.fb_trigger_sq_norms_table.argtypes = [p, i32, p, i32, i64, i32,
+                                                  i64, p, p]
         lib.fb_admm_update.argtypes = [p, p, p, p, p, p, i64, i64, i32, p]
         lib.fb_fused_gss.argtypes = [p, p, p, p, p, p, p, i64, i64, i64,
                                      i32, i64, i32, i32, p]
@@ -117,7 +119,8 @@ def load_library() -> ctypes.CDLL:
                                            + [i32] * 3
                                            + [ctypes.c_float, p])
         lib.mk_ssd_scan.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, p]
-        for fn in (lib.fb_trigger_sq_norms, lib.fb_admm_update,
+        for fn in (lib.fb_trigger_sq_norms, lib.fb_trigger_sq_norms_table,
+                   lib.fb_admm_update,
                    lib.fb_fused_gss, lib.mk_flash_attention,
                    lib.mk_ssd_scan):
             fn.restype = ctypes.c_int

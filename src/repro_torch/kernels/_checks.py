@@ -17,9 +17,13 @@ def is_cpu(*tensors: torch.Tensor) -> bool:
                      f"CUDA device, got {[str(t.device) for t in tensors]}")
 
 
-def check_f32(name: str, t: torch.Tensor, shape: tuple) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+def check_f32(name: str, t: torch.Tensor, shape: tuple,
+              dtypes=(torch.float32,)) -> None:
+    """``t`` has ``shape``, one of ``dtypes`` (float32 alone unless the
+    kernel reads more) and is contiguous; raises otherwise."""
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{name}: expected {names}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")

@@ -7,12 +7,16 @@ wrapper counts its launches; :func:`launch_counts` reads the counts and
 :func:`reset_launch_counts` sets them to 0 (flash attention's counts by
 instance, ``flash_attention.instance_launches``, too), so a run can
 show that its main path went through the kernels.
-``trigger_sq_norms_pytree`` (K1c, the stacked-tree front end of K1)
-counts the K1 launches it makes on a concatenated tree; K1 counts them
-too.  The client mesh's kernels K1b (``trigger_sq_norms_sharded``) and
-K2b (``admm_update_sharded``) launch K1's and K2's kernels once per
-shard and count those launches as their own, not under K1 or K2;
-``admm_update`` and ``trigger_sq_norms_pytree`` take ``mesh=`` for them.
+K1's leaf-table kernel (``trigger_norms.table_kernel``) is launched by
+three wrappers, each counting its own launches: ``trigger_sq_norms``
+for a bf16 z or ω (K1a), ``trigger_sq_norms_sharded`` (K1b, once per
+device of a client mesh) and ``trigger_sq_norms_pytree`` (K1c, a
+stacked tree that is not the flat matrix, once per device with
+``mesh=``; its ``leaf_copies`` counts leaves that had to be made
+contiguous first, which :func:`reset_launch_counts` sets to 0 too).
+K2b (``admm_update_sharded``) launches K2's kernel once per shard and
+counts those launches, not K2; ``admm_update`` and
+``trigger_sq_norms_pytree`` take ``mesh=``.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from .trigger_norms import (  # noqa: F401
     trigger_sq_norms_hbm_bytes,
     trigger_sq_norms_sharded,
     trigger_sq_norms_sharded_ref,
+    trigger_table_args,
 )
 from .trigger_pytree import (  # noqa: F401
     trigger_sq_norms_pytree,
@@ -65,6 +70,7 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    trigger_sq_norms_pytree.leaf_copies = 0
     flash_attention.instance_launches = dict.fromkeys(
         flash_attention.instance_launches, 0)
 

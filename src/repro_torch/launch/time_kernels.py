@@ -19,6 +19,11 @@
 - How fp32 K4's device time splits between the kernels it launches
   (the 3xTF32 instance's pre-pass and main kernel), from torch.profiler
   (:func:`kernel_breakdown`).
+- The tree and sharded triggers, cold (:func:`trigger_forms_ms`): K1c
+  ``trigger_sq_norms_pytree`` on the MLP's 4 and the CNN's 12 leaves
+  stacked for N = 100, K1b ``trigger_sq_norms_sharded``'s whole call on
+  P = 2 and 4 shards of (100, 159010) on the card, and a lone call on
+  one (25, 159010) shard.
 
 ``chip_smoke.py`` times every kernel with :func:`device_ms`; this
 script applies the same measure to another checkout, so two commits are
@@ -147,6 +152,49 @@ def round_kernel_ms(ops, dev, gen) -> dict:
             for name, fns in calls.items()}
 
 
+# The paper models' leaves without the client axis: the MNIST MLP's and
+# the CIFAR CNN's (HWIO kernels).
+MLP_LEAVES = {"fc1": {"w": (784, 200), "b": (200,)},
+              "fc2": {"w": (200, 10), "b": (10,)}}
+CNN_LEAVES = {"conv1": {"w": (3, 3, 3, 32), "b": (32,)},
+              "conv2": {"w": (3, 3, 32, 64), "b": (64,)},
+              "conv3": {"w": (3, 3, 64, 64), "b": (64,)},
+              "fc1": {"w": (1024, 128), "b": (128,)},
+              "fc2": {"w": (128, 64), "b": (64,)},
+              "fc3": {"w": (64, 10), "b": (10,)}}
+
+
+def trigger_forms_ms(ops, dev, gen) -> dict:
+    """{name: cold device ms} of K1c on the MLP's and the CNN's leaves
+    stacked for N = 100, of K1b's whole call on P = 2 and 4 shards of
+    (100, 159010) on ``dev``, and of K1b on one (25, 159010) shard, each
+    rotating over ``COLD_COPIES`` input sets made from ``gen``."""
+    from repro_torch.sharding import make_client_mesh, replicate_data, \
+        shard_rows
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def tree(spec, *n):
+        return {k: {j: randn(*n, *shape) for j, shape in v.items()}
+                for k, v in spec.items()}
+
+    n, d = ROUND_N, ROUND_D
+    calls = {}
+    for name, spec in (("pytree_mlp", MLP_LEAVES), ("pytree_cnn", CNN_LEAVES)):
+        calls[name] = [functools.partial(ops.trigger_sq_norms_pytree,
+                                         tree(spec, n), tree(spec))
+                       for _ in range(COLD_COPIES)]
+    for p, rows in ((2, n), (4, n), (1, n // 4)):
+        mesh = make_client_mesh(p, [dev])
+        calls[f"sharded_p{p}_rows{rows}"] = [
+            functools.partial(ops.trigger_sq_norms_sharded,
+                              shard_rows(randn(rows, d), mesh),
+                              replicate_data(mesh, randn(d)), mesh)
+            for _ in range(COLD_COPIES)]
+    return {name: device_ms(cycle(fns)) for name, fns in calls.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", type=Path,
@@ -194,9 +242,11 @@ def main(argv=None) -> int:
     }
     fp32_kernels = kernel_breakdown(
         lambda: ops.flash_attention(q32, k32, v32, layout="bshd"))
+    triggers = trigger_forms_ms(ops, dev, gen)
     print(json.dumps({"src": str(src), "card": smi, "device_ms": ms,
                       "round_kernels": rounds,
-                      "flash_attention_fp32_kernels": fp32_kernels}),
+                      "flash_attention_fp32_kernels": fp32_kernels,
+                      "trigger_forms_ms": triggers}),
           flush=True)
     return 0
 

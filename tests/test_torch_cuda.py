@@ -429,25 +429,105 @@ MLP_LEAVES = {"fc1": {"w": (784, 200), "b": (200,)},
               "fc2": {"w": (200, 10), "b": (10,)}}
 
 
+def _to(tree, dev):
+    from repro_torch.utils.pytree import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def _k1_on_the_concatenation(z, w):
+    """K1's kernel on the fp32 matrix the reference's front end builds."""
+    from repro_torch.utils.pytree import flatten, flatten_stacked
+    return ops.trigger_sq_norms(flatten_stacked(z), flatten(w))
+
+
 @pytest.mark.parametrize("shapes,bf16", [
     (CNN_LEAVES, ()), (MLP_LEAVES, ()), (MLP_LEAVES, (("fc1", "w"),))],
     ids=["cnn", "mlp", "mlp_bf16_leaf"])
 def test_trigger_pytree_kernel(dev, shapes, bf16):
-    """K1c: the stacked tree's leaves concatenated in fp32, then one K1
-    launch, against the plain version (rtol 1e-5, as K1)."""
-    from repro_torch.utils.pytree import tree_map
-
+    """K1c: one launch of the leaf-table kernel over the stacked tree's
+    leaves in place (K1 not launched), bit-equal to K1 on the
+    concatenated fp32 copy, and within rtol 1e-5 of the plain version."""
     rng = np.random.default_rng(len(shapes))
     z, w = _stacked(rng, shapes, 100, bf16)
     want = ops.trigger_sq_norms_pytree_ref(z, w)
-    before = (ops.trigger_sq_norms_pytree.launches,
-              ops.trigger_sq_norms.launches)
-    got = ops.trigger_sq_norms_pytree(tree_map(lambda t: t.to(dev), z),
-                                      tree_map(lambda t: t.to(dev), w))
+    zd, wd = _to(z, dev), _to(w, dev)
+    ops.reset_launch_counts()
+    got = ops.trigger_sq_norms_pytree(zd, wd)
     torch.cuda.synchronize()
-    assert (ops.trigger_sq_norms_pytree.launches,
-            ops.trigger_sq_norms.launches) == (before[0] + 1, before[1] + 1)
+    counts = ops.launch_counts()
+    assert (counts["trigger_sq_norms_pytree"], counts["trigger_sq_norms"],
+            ops.trigger_sq_norms_pytree.leaf_copies) == (1, 0, 0)
+    assert torch.equal(got, _k1_on_the_concatenation(zd, wd))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0)
+
+
+# Leaf widths whose groups of 4 straddle leaves (1, 3, 5, 4097 columns),
+# one a bf16 leaf, and an ω leaf in bf16 beside an fp32 z leaf.
+ODD_LEAVES = {"a": {"w": (1,)}, "b": {"w": (3,)}, "c": {"w": (5,)},
+              "d": {"w": (4097,)}, "e": {"w": (2, 7)}}
+
+
+@pytest.mark.parametrize("n,bf16", [
+    (1, ()), (7, ()), (30, (("d", "w"),)), (30, (("c", "w"), ("e", "w")))])
+def test_trigger_table_straddling_odd_widths(dev, n, bf16):
+    rng = np.random.default_rng(n + len(bf16))
+    z, w = _stacked(rng, ODD_LEAVES, n, bf16)
+    w["b"]["w"] = w["b"]["w"].to(torch.bfloat16)  # ω bf16, z fp32
+    zd, wd = _to(z, dev), _to(w, dev)
+    got = ops.trigger_sq_norms_pytree(zd, wd)
+    assert torch.equal(got, _k1_on_the_concatenation(zd, wd))
+    torch.testing.assert_close(got.cpu(), ops.trigger_sq_norms_pytree_ref(
+        z, w), rtol=1e-5, atol=0)
+
+
+def test_trigger_table_reads_leaf_views_off_alignment(dev):
+    """Leaves that are views 4 bytes into their storage, and one whose
+    rows are padded (a column slice: unit inner stride, a longer row
+    stride), are read in place — no copy — with K1's bits."""
+    rng = np.random.default_rng(11)
+    z, w = _stacked(rng, MLP_LEAVES, 100)
+    zd, wd = _to(z, dev), _to(w, dev)
+    for layer, leaf in (("fc1", "w"), ("fc2", "b")):
+        x = zd[layer][leaf]
+        buf = torch.empty(x.numel() + 1, device=dev)
+        buf[1:] = x.reshape(-1)
+        zd[layer][leaf] = buf[1:].view(x.shape)
+        assert zd[layer][leaf].data_ptr() % 16 == 4
+    wide = torch.zeros(100, 204, device=dev)
+    wide[:, :200] = zd["fc1"]["b"]
+    zd["fc1"]["b"] = wide[:, :200]
+    ops.reset_launch_counts()
+    got = ops.trigger_sq_norms_pytree(zd, wd)
+    assert ops.trigger_sq_norms_pytree.leaf_copies == 0
+    assert torch.equal(got, _k1_on_the_concatenation(zd, wd))
+
+
+def test_trigger_table_copies_a_leaf_it_cannot_read_in_place(dev):
+    rng = np.random.default_rng(12)
+    z, w = _stacked(rng, MLP_LEAVES, 10)
+    zd, wd = _to(z, dev), _to(w, dev)
+    zd["fc1"]["w"] = zd["fc1"]["w"].transpose(1, 2).contiguous() \
+        .transpose(1, 2)  # same values, inner stride 200
+    ops.reset_launch_counts()
+    got = ops.trigger_sq_norms_pytree(zd, wd)
+    assert ops.trigger_sq_norms_pytree.leaf_copies == 1
+    assert torch.equal(got, _k1_on_the_concatenation(zd, wd))
+
+
+@pytest.mark.parametrize("n,d", [(100, 159010), (7, 1001), (1, 130)])
+def test_trigger_kernel_bf16(dev, n, d):
+    """K1a: bf16 z and ω (and each alone) take the leaf-table kernel,
+    counted under K1, bit-equal to K1 on fp32 copies."""
+    rng = np.random.default_rng(n + d)
+    z, w = _mk(rng, n, d).to(dev), _mk(rng, d).to(dev)
+    zb, wb = z.to(torch.bfloat16), w.to(torch.bfloat16)
+    for a, b in ((zb, wb), (zb, w), (z, wb)):
+        before = ops.trigger_sq_norms.launches
+        got = ops.trigger_sq_norms(a, b)
+        assert ops.trigger_sq_norms.launches == before + 1
+        assert torch.equal(got, ops.trigger_sq_norms(a.float(), b.float()))
+        torch.testing.assert_close(got.cpu(), ops.trigger_sq_norms_ref(
+            a.cpu(), b.cpu()), rtol=1e-5, atol=0)
 
 
 def test_trigger_pytree_kernel_reads_the_flat_matrix_in_place(dev):
@@ -467,7 +547,8 @@ def test_trigger_pytree_kernel_reads_the_flat_matrix_in_place(dev):
 def test_sharded_kernels_equal_the_unsharded_rows(dev, p, n, d):
     """K1b and K2b on P shards of one card: each shard's rows bit-equal
     to the unsharded K1 / K2 on the same rows (a row's sum depends on its
-    values and D alone), one launch per shard, counted as K1b / K2b."""
+    values and D alone); K1b in one launch for the card's P shards, K2b
+    one launch per shard, counted as K1b / K2b."""
     from repro_torch.sharding import make_client_mesh, replicate_data, \
         shard_rows
 
@@ -483,11 +564,34 @@ def test_sharded_kernels_equal_the_unsharded_rows(dev, p, n, d):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert (counts["trigger_sq_norms_sharded"], counts["admm_update_sharded"],
-            counts["trigger_sq_norms"], counts["admm_update"]) == (p, p, 0, 0)
+            counts["trigger_sq_norms"], counts["admm_update"]) == (1, p, 0, 0)
+    assert [t.shape for t in got] == [(n // p,)] * p
     assert torch.equal(torch.cat(got), ops.trigger_sq_norms(z, w))
     for part, whole in zip(outs, ops.admm_update(th, la, w, with_z=False),
                            strict=True):
         assert torch.equal(torch.cat(part), whole)
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_sharded_tree_kernel_one_launch_per_card(dev, p):
+    """K1c with ``mesh=``: the card's P shards × leaves in one table
+    launch, each shard's rows bit-equal to K1 on the whole tree's
+    concatenation."""
+    from repro_torch.sharding import make_client_mesh, replicate_data, \
+        shard_rows
+
+    rng = np.random.default_rng(p)
+    z, w = _stacked(rng, CNN_LEAVES, 100, (("fc2", "w"),))
+    zd, wd = _to(z, dev), _to(w, dev)
+    mesh = make_client_mesh(p, [dev])
+    ops.reset_launch_counts()
+    got = ops.trigger_sq_norms_pytree(shard_rows(zd, mesh),
+                                      replicate_data(mesh, wd), mesh=mesh)
+    counts = ops.launch_counts()
+    assert (counts["trigger_sq_norms_pytree"],
+            counts["trigger_sq_norms_sharded"],
+            counts["trigger_sq_norms"]) == (1, 0, 0)
+    assert torch.equal(torch.cat(got), _k1_on_the_concatenation(zd, wd))
 
 
 @pytest.mark.parametrize("compact", [False, True])
@@ -522,7 +626,8 @@ def test_sharded_round_matches_the_cpu(dev, compact):
     got, gm = gpu_round(state_from_numpy(start, mesh=gpu_mesh))
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    assert counts["trigger_sq_norms_sharded"] == 2
+    # one launch per card over its shards
+    assert counts["trigger_sq_norms_sharded"] == len(set(gpu_mesh.devices))
     assert counts["fused_gss" if compact else "admm_update_sharded"] == 2
     assert torch.equal(gm.events.cpu(), wm.events)
     assert torch.equal(gm.committed.cpu(), wm.committed)
@@ -616,7 +721,7 @@ def test_sharded_round_on_separate_cards_equals_one_card(cards, compact):
                  and "prototype" not in str(w.message)]
         assert not syncs, syncs[:3]
         counts = ops.launch_counts()
-        assert counts["trigger_sq_norms_sharded"] == cards
+        assert counts["trigger_sq_norms_sharded"] == len(set(mesh.devices))
         assert counts["fused_gss" if compact
                       else "admm_update_sharded"] == cards
         assert [s.theta.device for s in state] == list(mesh.devices)
