@@ -1,8 +1,10 @@
 """Drive the PyTorch/CUDA port on one GPU: the FedBack round (slice 1),
 zamba2-2.7b serving (slice 2), the paper's baselines (slice 6), the
 tree client-state layout and the paper's CIFAR-10 workload (slice 7),
-the client-sharded round (slice 8), and K1's leaf-table kernel behind
-the tree trigger, the sharded trigger and bf16 trigger inputs (slice 9).
+the client-sharded round (slice 8), K1's leaf-table kernel behind the
+tree trigger, the sharded trigger and bf16 trigger inputs (slice 9),
+and FL serving over arrival traces with stale-tolerant rounds (slice
+10).
 
     python3 chip_smoke.py
 
@@ -105,6 +107,25 @@ non-zero):
    copies no state leaf to read it; SB's and ST's second rounds also
    against forms B and TB from the same state (events equal, ω at rtol
    1e-5 / atol 1e-7, as TB against B in 5c);
+5f. FL serving at the paper-MNIST width: first one all-ones tick of
+   SVA's configuration at ``max_staleness=0`` against form A's round
+   from the same state (events equal, ω bit-equal); then the serve
+   forms of ``configs.paper_mnist.SERVE_FORMS`` — FedBack with
+   ``max_staleness=2`` (delays 0, 1, 2 round robin) over a 24-tick
+   trace at L̄ = 0.1: SVA compact + fused over a bursty trace (K1 ×1, K3
+   ×1 per tick), SVB dense over a Poisson trace (K1 ×1, K2 ×1), SVS as
+   SVA on 2 client shards of the card, 8 slots a shard (K1b ×1, K3 ×2).
+   Each: ticks 1 and 2, the first burst's second tick and the one after
+   it (clients landing, in flight and queued), each held against the
+   CPU's plain path from the same state
+   (events, ``committed``, the deferred, in-flight and landed counts,
+   countdowns, event ring and queue equal; state, ω and parked payloads
+   within 1e-4 of the larger of each element and its field's largest
+   magnitude); then 1 warm-up tick on a deep copy and the 24 ticks
+   through ``core.schedule.serve`` under the sync debug mode inside each
+   step, launches per tick asserted, the books balanced
+   (``conservation_ok``); ms/tick, p50/p99 admission→commit latency in
+   ticks and µs and commits/s printed;
 6. zamba2-2.7b at full width cut to one group (6 mamba layers and the
    shared block), fp32 with TF32 off: 1 request × 256 tokens, prefill
    and 4 greedy decode steps on the card (kernels) against the CPU's
@@ -123,8 +144,8 @@ non-zero):
 8. print the serve line, the kernels line (K4's bf16 instance as
    ``flash_attention``, launched in phase 7, and its 3xTF32 instance as
    ``flash_attention_fp32``, launched in phase 6; K1–K3's launches are
-   those of phases 4–5e, K1c's those of 5c–5e, K1b's and K2b's those of
-   5e), the card line and, last, the ok line.
+   those of phases 4–5f, K1c's those of 5c–5e, K1b's those of 5e–5f,
+   K2b's those of 5e), the card line and, last, the ok line.
 
 Exits non-zero without a result where no CUDA device is visible, or
 where the port's package is missing next to this script.
@@ -1286,6 +1307,222 @@ def drive_scaffold(ctx, ops, n_rounds, warmup):
     return dict(ms_per_round=ms_round, events=events, acc=acc, loss=loss)
 
 
+# Phase 5f: the serve forms of ``configs.paper_mnist.SERVE_FORMS`` — the
+# stale-tolerant round (max_staleness 2) over an arrival trace — with
+# their launches per tick.  The card-against-CPU check takes ticks 1 and
+# 2, the second tick of the bursty trace's first burst (ticks 0 and 1)
+# and the one after it: clients parked at ticks 0 and 1 land there,
+# others are still in flight, and the compact forms' queue holds the
+# burst; tick 1 brings fresh events too.
+SERVE_CHECK_TICKS = (1, 2)
+# The solve sums in another order on the card, so a state element that
+# cancels to near 0 is off by the rounding of its summands, not of
+# itself: one θ element of 6.4e-5 in SVA's tick 1 differed by 1.05e-6
+# (an H100 against the CPU), past rtol 1e-4 / atol 1e-6.  The check
+# takes 1e-4 of the larger of the element and its field's largest
+# magnitude.
+SERVE_RTOL = 1e-4
+SERVE_FORMS = (
+    ("SVA", {"trigger_sq_norms": 1, "fused_gss": 1, "admm_update": 0}),
+    ("SVB", {"trigger_sq_norms": 1, "admm_update": 1, "fused_gss": 0}),
+    ("SVS", dict(NO_SINGLE, trigger_sq_norms_sharded=1, fused_gss=2,
+                 admm_update_sharded=0)),
+)
+
+
+def compare_serve_tick(label, after, m, rm, ref, compact):
+    """The card's serve tick against the CPU's plain path from the same
+    state: events, ``committed``, the deferred, in-flight and landed
+    counts, the countdowns, the event ring and the queue equal (each
+    count non-zero, so the tick exercises the pipeline and the queue);
+    θ/λ/z_prev, ω and the parked payloads within ``SERVE_RTOL`` of the
+    larger of each element and its field's largest magnitude."""
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.utils.pytree import tree_leaves
+
+    for f in ("events", "committed"):
+        np.testing.assert_array_equal(getattr(m, f).cpu().numpy(),
+                                      getattr(rm, f).numpy(),
+                                      err_msg=f"{label} {f}")
+    counts = {f: int(getattr(m, f)) for f in ("num_deferred",
+                                                "num_inflight",
+                                                "num_landed")}
+    for f, v in counts.items():
+        if v != int(getattr(rm, f)):
+            raise AssertionError(f"{label}: {f} {v} on the card, "
+                                 f"{int(getattr(rm, f))} on the CPU")
+    if not (counts["num_inflight"] and counts["num_landed"]
+            and (counts["num_deferred"] or not compact)):
+        raise AssertionError(f"{label} does not exercise the pipeline "
+                             f"and queue: {counts}")
+    got, want = state_to_numpy(after), state_to_numpy(ref)
+    for f in ("ttl", "hist", "delay"):
+        np.testing.assert_array_equal(getattr(got.inflight, f),
+                                      getattr(want.inflight, f),
+                                      err_msg=f"{label} {f}")
+    np.testing.assert_array_equal(got.queue.age, want.queue.age)
+    fields = [(f, getattr(got, f), getattr(want, f))
+              for f in ("theta", "lam", "z_prev", "omega")]
+    fields += [(f"parked {f}", getattr(got.inflight, f),
+                getattr(want.inflight, f)) for f in ("theta", "lam", "z")]
+    worst = 0.0  # largest |card − CPU| / the field's largest magnitude
+    for f, g, w in fields:
+        for a, b in zip(tree_leaves(g), tree_leaves(w), strict=True):
+            worst = max(worst, float(np.abs(a - b).max())
+                        / max(float(np.abs(b).max()), 1e-30))
+            np.testing.assert_allclose(
+                a, b, rtol=SERVE_RTOL,
+                atol=SERVE_RTOL * float(np.abs(b).max()),
+                err_msg=f"{label} {f}")
+    log(f"{label} ({int(m.num_events)} events, "
+        f"{int(m.committed.sum())} committed, {counts}) agrees with the "
+        "CPU plain path (events, committed, counts, ttl, ring and queue "
+        f"equal; state and parked payloads within SERVE_RTOL, worst "
+        f"{worst:.2e} of a field's largest magnitude; ω max_abs_err "
+        f"{_max_abs_diff(got.omega, want.omega):.3e})")
+
+
+def sync_guarded(round_fn):
+    """The serve step under CUDA's sync debug mode ("warn"), switched on
+    for the step only: the serve loop's own read-back per tick stays
+    outside it."""
+    def step(state, arrivals):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            return round_fn(state, arrivals)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return step
+
+
+def drive_serve(form, expect, ctx, ops):
+    """One serve form at the paper-MNIST width: ticks 1 and 2 held
+    against the CPU's plain path (:func:`compare_serve_tick`),
+    then 1 warm-up tick on a deep copy and the trace's ticks through
+    ``core.schedule.serve`` with the launch counts set to 0 just before,
+    no host sync inside a step, ``expect`` launches per tick, balanced
+    books and a finite ω.  Returns (report, counts)."""
+    from repro_torch.configs import paper_mnist
+    from repro_torch.convert import state_from_numpy, state_to_numpy
+    from repro_torch.core.schedule import clone_state, make_trace, serve
+    from repro_torch.models import make_loss_fn
+
+    dev = ctx["dev"]
+    f, cfg = paper_mnist.SERVE_FORMS[form], paper_mnist.form_config(form)
+    spec, loss_fn = ctx["spec"], make_loss_fn(ctx["logits"])
+    state = f.init(cfg, ctx["params0"], spec=spec, **f.placement(dev))
+    round_fn = f.make_round(cfg, loss_fn, ctx["data"], spec=spec,
+                            arrivals_arg=True, **f.placement(dev))
+    trace = make_trace(f.trace)
+    rows = torch.from_numpy(trace).to(dev)
+
+    cpu_round = f.make_round(cfg, loss_fn, {
+        k: v.cpu() for k, v in ctx["data"].items()}, spec=spec,
+        arrivals_arg=True, **f.placement("cpu"))
+    s, events = clone_state(state), 0
+    for t in range(max(SERVE_CHECK_TICKS) + 1):
+        if t not in SERVE_CHECK_TICKS:
+            s, _ = round_fn(s, rows[t])
+            continue
+        before = state_to_numpy(clone_state(s))  # the step writes s
+        s, m = round_fn(s, rows[t])
+        ref, rm = cpu_round(state_from_numpy(before, **f.placement("cpu")),
+                            torch.from_numpy(trace[t]))
+        compare_serve_tick(f"form {form}: tick {t}", s, m, rm, ref,
+                           cfg.compact)
+        events += int(m.num_events)
+    if not events:
+        raise AssertionError(f"form {form}: no event in the checked ticks")
+    del s, before, m, ref, rm
+    torch.cuda.synchronize()
+
+    ops.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        state, report = serve(sync_guarded(round_fn), state, trace,
+                              warmup=True)
+    counts = path_counts(ops)
+    syncs = [str(w.message) for w in caught
+             if "synchroniz" in str(w.message).lower()
+             and "prototype" not in str(w.message)]
+    if syncs:
+        raise AssertionError(f"form {form}: {len(syncs)} host syncs inside "
+                             f"the serve steps, e.g. {syncs[:3]}")
+    ticks = trace.shape[0] + 1  # the warm-up tick launches too
+    for name, per_tick in expect.items():
+        if counts[name] != per_tick * ticks:
+            raise AssertionError(f"form {form}: {name} launched "
+                                 f"{counts[name]} times in {ticks} ticks, "
+                                 f"expected {per_tick * ticks}")
+    if not report.conservation_ok:
+        raise AssertionError(f"form {form}: the serve books do not "
+                             f"balance: {report.summary()}")
+    omega = (state if hasattr(state, "omega") else state[0]).omega
+    if omega.shape != (spec.dim,) or not bool(torch.isfinite(omega).all()):
+        raise AssertionError(f"form {form}: ω is not a finite "
+                             f"({spec.dim},) vector")
+    summary = report.summary()
+    ms_tick = report.wall_s / report.ticks * 1e3
+    out = dict(what=f.what, ms_per_tick=ms_tick,
+               p50_latency_ticks=summary["p50_latency_ticks"],
+               p99_latency_ticks=summary["p99_latency_ticks"],
+               p50_latency_us=summary["p50_latency_us"],
+               p99_latency_us=summary["p99_latency_us"],
+               commits_per_sec=summary["commits_per_sec"],
+               arrivals=report.arrivals_total,
+               admitted=report.admitted_total,
+               commits=report.commits_total, pending=report.pending_final)
+    log(f"form {form}: {ms_tick:.3f} ms/tick over {report.ticks} ticks "
+        f"(after 1 warm-up) on {ctx['smi']}; latency p50 / p99 "
+        f"{summary['p50_latency_ticks']:.1f} / "
+        f"{summary['p99_latency_ticks']:.1f} ticks, "
+        f"{summary['p50_latency_us']:.1f} / {summary['p99_latency_us']:.1f}"
+        f" µs; {summary['commits_per_sec']:.1f} commits/s; arrivals "
+        f"{report.arrivals_total}, admitted {report.admitted_total}, "
+        f"committed {report.commits_total}, pending {report.pending_final} "
+        f"(conservation ok); launches {counts}")
+    return out, counts
+
+
+def check_serve_sync_anchor(ctx):
+    """One all-ones tick of SVA's configuration at ``max_staleness=0``
+    against form A's round from the same state (its second, after one
+    round from ``init_state``): events equal, ω bit-equal."""
+    from repro_torch.configs import paper_mnist
+    from repro_torch.convert import state_from_numpy, state_to_numpy
+    from repro_torch.core import init_state, make_round_fn
+    from repro_torch.models import make_loss_fn
+
+    dev, spec = ctx["dev"], ctx["spec"]
+    loss_fn = make_loss_fn(ctx["logits"])
+    cfg_a = paper_mnist.form_config("A")
+    cfg_0 = dataclasses.replace(paper_mnist.form_config("SVA"),
+                                max_staleness=0)
+    round_a = make_round_fn(cfg_a, loss_fn, ctx["data"], spec=spec,
+                            device=dev)
+    step_0 = make_round_fn(cfg_0, loss_fn, ctx["data"], spec=spec,
+                           device=dev, arrivals_arg=True)
+    first, _ = round_a(init_state(cfg_a, ctx["params0"], spec=spec,
+                                  device=dev))
+    snapshot = state_to_numpy(first)
+    after_a, ma = round_a(state_from_numpy(snapshot, device=dev))
+    pipeline = init_state(cfg_0, ctx["params0"], spec=spec,
+                          device=dev).inflight
+    after_0, m0 = step_0(state_from_numpy(snapshot, device=dev)._replace(
+        inflight=pipeline), torch.ones(cfg_0.n_clients, dtype=torch.bool,
+                                       device=dev))
+    if not torch.equal(ma.events, m0.events):
+        raise AssertionError("SVA at max_staleness 0: events differ from "
+                             "form A's from the same state")
+    if not torch.equal(after_a.omega.view(torch.int32),
+                       after_0.omega.view(torch.int32)):
+        raise AssertionError("SVA at max_staleness 0: ω is not form A's "
+                             "bit for bit")
+    log(f"SVA at max_staleness 0, one all-ones tick: round "
+        f"{int(snapshot.round) + 1} of form A from the same state "
+        f"({int(ma.num_events)} events equal, ω bit-equal)")
+
+
 # Phase 5d's first check: the solve's batched convolutions against
 # float64.  cuDNN in fp32 read at most 6.2e-6 of the largest value on an
 # H100 (Winograd in the weight gradient; a cuBLAS GEMM of the unfolded
@@ -1417,6 +1654,13 @@ def main() -> int:
     log(json.dumps({"forms": {"A": form_a, "B": form_b, **forms_c,
                               **forms_t, **forms_s, **forms_cf},
                       "card": smi}))
+    check_serve_sync_anchor(ctx)
+    forms_sv, counts_sv = {}, {}
+    for form, expect in SERVE_FORMS:
+        forms_sv[form], counts = drive_serve(form, expect, ctx, ops)
+        for k, v in counts.items():
+            counts_sv[k] = counts_sv.get(k, 0) + v
+    log(json.dumps({"serve_forms": forms_sv, "card": smi}))
 
     _, counts_slice = check_slice_against_cpu(dev, ops)
     torch.cuda.empty_cache()
@@ -1427,7 +1671,7 @@ def main() -> int:
     for name, r in rows.items():
         launches = (counts_a[name] + counts_b[name]
                     + counts_c.get(name, 0) + counts_t.get(name, 0)
-                    + counts_s.get(name, 0)
+                    + counts_s.get(name, 0) + counts_sv.get(name, 0)
                     + counts_cf.get(name, 0) + counts_slice[name]
                     + counts_serve[name])
         if launches == 0:
@@ -1437,7 +1681,8 @@ def main() -> int:
         log(f"{name}: launches {launches} (form A {counts_a[name]}, "
             f"form B {counts_b[name]}, forms C {counts_c.get(name, 0)}, "
             f"forms TA/TB {counts_t.get(name, 0)}, forms SA/SB/ST/SR "
-            f"{counts_s.get(name, 0)}, forms CF-A/CF-T "
+            f"{counts_s.get(name, 0)}, serve forms SVA/SVB/SVS "
+            f"{counts_sv.get(name, 0)}, forms CF-A/CF-T "
             f"{counts_cf.get(name, 0)}, "
             f"fp32 group {counts_slice[name]}, "
             f"serve {counts_serve[name]}), "

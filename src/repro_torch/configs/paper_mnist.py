@@ -5,13 +5,16 @@ SGD lr 0.01 momentum 0.9, batch 42, 2 local epochs, K=2, α=0.9;
 ρ = μ = 0.01.  ``fl_config(algorithm)`` builds FedBack or any of the
 paper's baselines (``fedadmm``, ``fedavg``, ``fedprox``, ``admm``);
 ``workload()`` the data and starting weights the paper grid runs them
-on.
+on.  ``FORMS`` are the round forms driven at this width;
+``SERVE_FORMS`` the serve forms, each a stale-tolerant round with the
+arrival trace it serves.
 """
 from typing import Callable, NamedTuple
 
 from repro_torch.core.baselines import init_scaffold, make_scaffold_round
 from repro_torch.core.controller import ControllerConfig
 from repro_torch.core.fedback import FLConfig, init_state, make_round_fn
+from repro_torch.core.schedule import TraceConfig
 from repro_torch.sharding import make_client_mesh
 
 N_CLIENTS = 100
@@ -38,14 +41,16 @@ class Form(NamedTuple):
     """One round form: what it is, its ``fl_config`` keywords, its
     client-state layout (``"flat"``: pass ``spec=make_flat_spec(params0)``
     to its builders; ``"tree"``: ``spec=None``), the builders of its
-    state and its round, and its client shards (more than one: a client
-    mesh)."""
+    state and its round, its client shards (more than one: a client
+    mesh) and, for a serve form, the arrival trace it serves (build its
+    round with ``arrivals_arg=True``)."""
     what: str
     kw: dict
     layout: str = "flat"
     init: Callable = init_state
     make_round: Callable = make_round_fn
     shards: int = 1
+    trace: TraceConfig | None = None
 
     def spec(self, flat_spec):
         """The ``spec=`` its builders take, given the params' FlatSpec."""
@@ -99,9 +104,31 @@ FORMS = {
 }
 
 
+# The serve forms: FedBack under bounded staleness (S = 2, the
+# round-robin delays 0, 1, 2) over a client-arrival trace of 24 ticks
+# at L̄ = 0.1.  A bursty trace's burst brings ~90 arrivals against 16
+# slots, so the deferral queue and the delay line both run.
+BURSTY = TraceConfig(kind="bursty", n_clients=N_CLIENTS, ticks=24, rate=0.1,
+                     seed=0, burst_every=8, burst_len=2, burst_rate=0.9)
+SERVE_FORMS = {
+    "SVA": Form("FedBack serving, compact + fused, max_staleness 2, bursty",
+                dict(algorithm="fedback", compact=True, fused_gss=True,
+                     max_staleness=2), trace=BURSTY),
+    "SVB": Form("FedBack serving, dense, max_staleness 2, poisson",
+                dict(algorithm="fedback", max_staleness=2),
+                trace=TraceConfig(kind="poisson", n_clients=N_CLIENTS,
+                                  ticks=24, rate=0.1, seed=0)),
+    "SVS": Form("FedBack serving, compact + fused, max_staleness 2, "
+                "bursty, 2 client shards",
+                dict(algorithm="fedback", compact=True, fused_gss=True,
+                     max_staleness=2), shards=2, trace=BURSTY),
+}
+
+
 def form_config(form: str) -> FLConfig:
-    """The ``FLConfig`` of one of :data:`FORMS`, at L̄ = 0.1."""
-    return fl_config(**FORMS[form].kw)
+    """The ``FLConfig`` of one of :data:`FORMS` or :data:`SERVE_FORMS`,
+    at L̄ = 0.1."""
+    return fl_config(**{**FORMS, **SERVE_FORMS}[form].kw)
 
 
 def workload(seed: int = 0, device=None):

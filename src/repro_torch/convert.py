@@ -8,8 +8,9 @@ go to ``device``: CUDA unless the caller passes another.
   → the port's state dict (dotted keys, e.g. ``fc1.w``), which
   ``models.MLP.load_state_dict`` takes;
 * :func:`state_from_numpy` — a fetched JAX ``FLState`` → the port's
-  ``FLState`` (θ/λ/z_prev/ω, controller, deferral queue, the rng key's
-  two uint32 words, the round), in either layout: (N, D) matrices or
+  ``FLState`` (θ/λ/z_prev/ω, controller, deferral queue, the delay
+  pipeline where the state has one, the rng key's two uint32 words, the
+  round), in either layout: (N, D) matrices or
   nested dicts of stacked leaves; with ``mesh=`` the shard list of a
   client mesh;
 * :func:`state_to_numpy` — the other way, as the port's ``FLState``
@@ -33,7 +34,7 @@ import torch
 from repro_torch.core.baselines import ScaffoldState
 from repro_torch.core.controller import ControllerState
 from repro_torch.core.state import CLIENT_STACKED_FIELDS, \
-    CTRL_STACKED_FIELDS, DeferQueue, FLState
+    CTRL_STACKED_FIELDS, DeferQueue, FLState, InFlight
 from repro_torch.device import resolve_device
 from repro_torch.sharding.clients import check_divisible
 from repro_torch.utils.pytree import tree_leaves, tree_map
@@ -124,8 +125,8 @@ def state_from_numpy(s, device=None, mesh=None):
 
     With ``mesh`` (a :class:`~repro_torch.sharding.ClientMesh`; no
     ``device`` then) the shard list of ``init_state(..., mesh=mesh)``:
-    the leading client axis of θ, λ, z_prev, the deferral queue and the
-    controller's δ, load and event count (``CLIENT_STACKED_FIELDS``,
+    the leading client axis of θ, λ, z_prev, the deferral queue, the
+    delay pipeline and the controller's δ, load and event count (``CLIENT_STACKED_FIELDS``,
     ``CTRL_STACKED_FIELDS``) is cut into P contiguous blocks, shard i's
     on ``mesh.devices[i]``; ω, the key and the round counters are
     copied to every shard.
@@ -165,7 +166,19 @@ def _state_on(s, device) -> FLState:
         round=_t(s.round, device, torch.int32),
         queue=DeferQueue(age=_t(s.queue.age, device, torch.int32),
                          load=_t(s.queue.load, device, torch.float32)),
+        inflight=_inflight_on(getattr(s, "inflight", None), device),
     )
+
+
+def _inflight_on(fl, device):
+    if fl is None:
+        return None
+    return InFlight(delay=_t(fl.delay, device, torch.int32),
+                    ttl=_t(fl.ttl, device, torch.int32),
+                    theta=_tree_t(fl.theta, device, torch.float32),
+                    lam=_tree_t(fl.lam, device, torch.float32),
+                    z=_tree_t(fl.z, device, torch.float32),
+                    hist=_t(fl.hist, device, torch.bool))
 
 
 def state_to_numpy(s) -> FLState:
@@ -203,7 +216,9 @@ def state_to_numpy(s) -> FLState:
 
 def _fields_map(fn, x, *rest):
     """``tree_map`` that also maps over a NamedTuple's fields (the
-    deferral queue)."""
+    deferral queue, the delay pipeline); None stays None."""
+    if x is None:
+        return None
     if isinstance(x, tuple):
         return type(x)(*(_fields_map(fn, *f) for f in zip(x, *rest,
                                                           strict=True)))
@@ -219,17 +234,23 @@ def _to_numpy(s: FLState) -> FLState:
         z_prev=_tree_numpy(s.z_prev), omega=_tree_numpy(s.omega),
         ctrl=ControllerState(*(cpu(t) for t in s.ctrl)),
         rng=cpu(s.rng).astype(np.uint32), round=cpu(s.round),
-        queue=DeferQueue(*(cpu(t) for t in s.queue)))
+        queue=DeferQueue(*(cpu(t) for t in s.queue)),
+        inflight=_fields_map(cpu, s.inflight))
 
 
 def flat_state(s: FLState, spec) -> FLState:
     """A tree-layout state → the flat layout's, new (N, D) / (D,) fp32
     tensors on the same device (controller, queue, rng and round are
     shared, not copied)."""
+    fl = s.inflight
+    if fl is not None:
+        fl = fl._replace(theta=spec.flatten_stacked(fl.theta),
+                         lam=spec.flatten_stacked(fl.lam),
+                         z=spec.flatten_stacked(fl.z))
     return s._replace(theta=spec.flatten_stacked(s.theta),
                       lam=spec.flatten_stacked(s.lam),
                       z_prev=spec.flatten_stacked(s.z_prev),
-                      omega=spec.flatten(s.omega))
+                      omega=spec.flatten(s.omega), inflight=fl)
 
 
 def _rng_words(rng, device):

@@ -17,8 +17,10 @@ from .compact import (  # noqa: F401
 from .controller import (  # noqa: F401
     ControllerConfig,
     ControllerState,
+    clamp_target_rate,
     controller_step,
     demand_load_step,
+    feasible_rate,
     init_controller,
 )
 from .fedback import (  # noqa: F401
@@ -39,4 +41,14 @@ from .selection import (  # noqa: F401
     make_selection,
     subset_size,
 )
-from .state import DeferQueue, FLState, RoundMetrics  # noqa: F401
+from .schedule import (  # noqa: F401
+    TRACE_KINDS,
+    ServeReport,
+    TraceConfig,
+    make_trace,
+    run_trace,
+    serve,
+    sync_trace,
+)
+from .state import DeferQueue, FLState, InFlight, RoundMetrics, \
+    delay_schedule, init_inflight  # noqa: F401

@@ -21,8 +21,10 @@ Under a client mesh (``core/fedback.py``, ``mesh=``) the block runs
 per shard, as the reference's ``shard_map``-ped block does: each shard
 plans, solves and commits its own clients with ⌈C/P⌉ slots
 (:func:`capacity_for` with ``n_shards``), its own deferral queue (a
-deferred client never migrates) and local row indices.  The ragged form
-belongs to a later slice of the port.
+deferred client never migrates) and local row indices.  Under bounded
+staleness the plan takes the round's eligibility (nothing in flight):
+an ineligible client leaves the demand set.  The ragged form belongs to
+a later slice of the port.
 """
 from __future__ import annotations
 
@@ -203,18 +205,23 @@ def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
                        *, is_admm: bool, warm_start: bool,
                        c_min: int | None = None, adaptive: bool = False,
                        alpha: float = 0.9, fused: bool = False,
-                       use_admm_kernel: bool = False) -> Callable:
+                       use_admm_kernel: bool = False,
+                       keep_old_rows: bool = False) -> Callable:
     """Build the plan → gather → solve → commit block of one round.
 
     solver(theta0, center, x, y, idx) -> (theta, losses) over C rows;
     epoch_fn(keys) -> (C, steps, batch) minibatch indices.
 
-    Returns block(events, distances, age, qload, theta, lam, z_prev,
-    omega, x, y, keys) -> (θ', λ', z', age', qload', committed, losses,
-    slot_valid, limit).  The state is a stacked tree: the flat (N, D)
-    matrices or the tree layout's dicts.  The ADMM family's
-    block (``is_admm``): λ⁺ and the prox center before the solve, z = θ
-    + λ⁺ at the commit.  With ``fused`` (flat only) the post-solve
+    Returns block(events, distances, eligible, age, qload, theta, lam,
+    z_prev, omega, x, y, keys) -> (θ', λ', z', age', qload', committed,
+    losses, slot_valid, limit, old).  ``eligible`` (None: everyone) is
+    the stale-tolerant round's mask of clients with nothing in flight: a
+    client outside it leaves the demand set, whether it fired or is
+    queued.  The state outputs are service proposals, which the
+    stale-tolerant caller routes through its delay pipeline.  The state
+    is a stacked tree: the flat (N, D) matrices or the tree layout's
+    dicts.  The ADMM family's block (``is_admm``): λ⁺ and the prox
+    center before the solve, z = θ + λ⁺ at the commit.  With ``fused`` (flat only) the post-solve
     commit is one fused pass (``kernels.fused_gss``) that updates
     θ/λ/z_prev **in place**; otherwise new tensors are returned and the
     inputs are left as they were, λ⁺ and the center coming from
@@ -224,24 +231,32 @@ def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
     as in the reference).  The AVG family's block
     (FedAvg, FedProx) launches no state kernel: λ stays as it is (zero),
     the center is ω, and the commit scatters θ and z = θ.
+
+    ``old`` is None unless ``keep_old_rows`` (the fused commit under
+    staleness): then (plan idx, slot valid, (θ, λ, z_prev) rows at the
+    slots before the commit wrote them), which
+    ``engine.staleness_commit_slots`` puts back where a row parks.
     """
     from repro_torch.kernels import ops
 
     if fused and not is_admm:
         raise ValueError("fused commit is the ADMM dual algebra — "
                          "non-ADMM compaction has no λ/z streams to fuse")
+    if keep_old_rows and not fused:
+        raise ValueError("keep_old_rows serves the fused commit, which "
+                         "writes the state in place")
 
-    def block(events, distances, age, qload, theta, lam, z_prev, omega,
-              x, y, keys):
+    def block(events, distances, eligible, age, qload, theta, lam, z_prev,
+              omega, x, y, keys):
         with span("fedback/plan"):
             limit = (adaptive_limit(qload, c_min, capacity)
                      if adaptive else None)
             plan = compact_plan(events, distances, capacity, age=age,
-                                limit=limit)
+                                limit=limit, eligible=eligible)
             queue = queue_update(DeferQueue(age=age, load=qload), plan,
                                  alpha=alpha)
         with span("fedback/presolve"):
-            th_rows, lam_new_rows, center_rows = presolve(
+            th_rows, lam_rows, lam_new_rows, center_rows = presolve(
                 plan, theta, lam, omega)
             theta0_rows = (tree_broadcast_like(omega, capacity)
                            if warm_start else th_rows)
@@ -251,15 +266,21 @@ def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
             theta0_rows, center_rows, gather_rows(x, plan.idx),
             gather_rows(y, plan.idx), idx_b)
         with span("fedback/commit"):
+            old = None
+            if keep_old_rows:
+                old = (plan.idx, plan.valid,
+                       (th_rows, lam_rows, gather_rows(z_prev, plan.idx)))
             theta_new, lam_new, z_new = commit(
                 plan, th_out_rows, lam_new_rows, omega, theta, lam, z_prev)
         return (theta_new, lam_new, z_new, queue.age, queue.load,
-                plan.committed, losses, plan.valid, plan.limit)
+                plan.committed, losses, plan.valid, plan.limit, old)
 
     def presolve(plan, theta, lam, omega):
+        """The slots' θ and λ rows (copies), λ⁺ and the prox centers."""
         th_rows = gather_rows(theta, plan.idx)
         if not is_admm:
-            return th_rows, None, tree_broadcast_like(omega, capacity)
+            return th_rows, None, None, tree_broadcast_like(omega,
+                                                            capacity)
         lam_rows = gather_rows(lam, plan.idx)
         if use_admm_kernel and not fused:
             lam_new_rows, center_rows = ops.admm_update(
@@ -269,7 +290,7 @@ def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
             # pass stays plain torch (as in the reference).
             lam_new_rows = dual_ascent(lam_rows, th_rows, omega)
             center_rows = prox_center(omega, lam_new_rows)
-        return th_rows, lam_new_rows, center_rows
+        return th_rows, lam_rows, lam_new_rows, center_rows
 
     def commit(plan, th_out_rows, lam_new_rows, omega, theta, lam, z_prev):
         if fused:

@@ -5,7 +5,9 @@ Port of ``repro/core/controller.py``:
     low-pass      L_i^{k+1} = (1−α) L_i^k + α S_i^k          (Eq. 3.4)
     integral law  δ_i^{k+1} = δ_i^k + K (L_i^k − L̄_i)        (Eq. 3.3)
 
-over (N,) tensors, one ``controller_step`` for all clients.  The
+over (N,) tensors, one ``controller_step`` for all clients; under
+bounded staleness the target is clamped to the feasible rate 1/(1+δ_i)
+(:func:`clamp_target_rate`).  The
 operations are the reference's, in its order; the one known difference
 is that XLA's CPU backend contracts ``(1−α)·L + α·S`` into a single FMA
 while torch rounds the product first, so L (and the demand EMA) can
@@ -84,3 +86,22 @@ def demand_load_step(load: torch.Tensor, demand: torch.Tensor,
     """The Eq. 3.4 filter applied to solver-row demand (fired ∪ pending);
     the compacted round's adaptive capacity reads its sum."""
     return (1.0 - alpha) * load + alpha * demand.to(torch.float32)
+
+
+def feasible_rate(delay: torch.Tensor) -> torch.Tensor:
+    """The highest rate a client can reach under bounded staleness,
+    1/(1+δ_i): an in-flight client may not re-fire, so its events are at
+    least δ_i + 1 rounds apart.  1 where δ_i = 0."""
+    return 1.0 / (1.0 + delay.to(torch.float32))
+
+
+def clamp_target_rate(target_rate, delay: torch.Tensor) -> torch.Tensor:
+    """The stale-tolerant controller's anti-windup target, per client:
+    L̄_i ← min(L̄_i, 1/(1+δ_i)), an (N,) fp32 vector on the delays'
+    device (a scalar L̄ is rounded to fp32 first, as the reference's
+    ``jnp.asarray``).  With δ ≡ 0 it is L̄, bit for bit."""
+    target = _target(target_rate, delay.device)
+    if not isinstance(target, torch.Tensor):
+        target = torch.full(delay.shape, target, dtype=torch.float32,
+                            device=delay.device)
+    return torch.minimum(target, feasible_rate(delay))

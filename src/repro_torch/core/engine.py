@@ -12,6 +12,11 @@ layout is the one-leaf case — (N, D) client matrices and a (D,) ω.
 Each leaf takes the reference's operations in its order, so the
 algebra is bit-exact in fp32.
 
+Under bounded staleness (``max_staleness``) the commit goes through the
+delay pipeline below (:func:`staleness_masks`, :func:`staleness_commit`,
+the issued-event ring of :func:`record_issue` and
+:func:`measured_commits`), the reference's mask algebra.
+
 The aggregations (:func:`consensus_mean`, :func:`participant_mean`,
 :func:`participant_mean_loss`) also take the per-shard trees of a
 client mesh (a list or tuple, one entry per shard): each shard reduces
@@ -92,3 +97,71 @@ def participant_mean_loss(losses, events):
     total = all_sum([torch.sum(lo * e)
                      for lo, e in zip(_shards(losses), ev, strict=True)])
     return total / torch.clamp(all_sum([torch.sum(e) for e in ev]), min=1.0)
+
+
+# --- the stale-tolerant commit pipeline (bounded-staleness rounds) -----
+#
+# Service (the solve runs) and commit (the row lands in θ/λ/z_prev) come
+# apart: a solve serviced at round k lands at round k + δ_i.  All of it
+# is mask algebra over the client axis, on the card, with no value read
+# back; with δ ≡ 0, land and defer are never true and direct is the
+# serviced set, so the round is the synchronous one bit for bit.
+
+
+def staleness_masks(serviced, delay, ttl):
+    """One step of the pipeline: (land, direct, defer, new_ttl) —
+    payloads whose countdown ends this round (ttl = 1), serviced rows
+    with δ_i = 0 (commit now) and with δ_i > 0 (park, ttl = δ_i), and
+    the countdown after the round.  land and service are disjoint:
+    a serviced client had ttl = 0."""
+    land = ttl == 1
+    direct = serviced & (delay == 0)
+    defer = serviced & (delay > 0)
+    new_ttl = torch.where(defer, delay, torch.clamp(ttl - 1, min=0))
+    return land, direct, defer, new_ttl.to(torch.int32)
+
+
+def staleness_commit(current, proposed, parked, land, direct, defer):
+    """Route one proposed state field through the pipeline: (committed,
+    new_parked) — landing rows take the parked payload, δ = 0 service
+    the proposal, the rest keep ``current``; deferred service overwrites
+    its parked slot."""
+    committed = tree_where(land, parked, tree_where(direct, proposed,
+                                                    current))
+    return committed, tree_where(defer, proposed, parked)
+
+
+def staleness_commit_slots(live, parked, old_rows, idx, valid, land,
+                           defer):
+    """:func:`staleness_commit` for the compacted round's fused commit,
+    which has already written the C planned rows' proposals into the
+    flat ``live`` (N, D) matrix in place (``kernels.fused_gss``):
+    ``old_rows`` are those rows before it.  Per slot, a deferred row's
+    proposal goes to its parked slot and its old row comes back; then
+    the landing rows take their parked payload.  ``live`` and ``parked``
+    are updated in place, with the bits of :func:`staleness_commit`."""
+    rows = idx.long()
+    keep = (valid & defer[rows])[:, None]
+    new_rows = live[rows]
+    parked[rows] = torch.where(keep, new_rows, parked[rows])
+    live[rows] = torch.where(keep, old_rows, new_rows)
+    # land and defer are disjoint, so the parked rows read here are the
+    # payloads parked before this round.
+    torch.where(rows_mask(land, live), parked, live, out=live)
+    return live, parked
+
+
+def record_issue(hist, issued, rnd):
+    """Round ``rnd``'s issued events written into column rnd mod (S+1)
+    of the (N, S+1) ring; ``rnd`` is the round's () tensor, read on the
+    device."""
+    col = (rnd.to(torch.int64) % hist.shape[1]).reshape(1)
+    return hist.index_copy(1, col, issued[:, None])
+
+
+def measured_commits(hist, delay, rnd):
+    """The controller's commit-time measurement: client i's issue at
+    round k is measured at round k + δ_i, from column (rnd − δ_i) mod
+    (S+1) of the ring (rounds before δ_i read its all-False start)."""
+    col = (rnd.to(torch.int64) - delay.to(torch.int64)) % hist.shape[1]
+    return torch.gather(hist, 1, col[:, None])[:, 0]

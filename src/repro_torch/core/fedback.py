@@ -1,8 +1,9 @@
 """The FedBack round engine (paper Alg. 2), ported to PyTorch.
 
-Port of ``repro/core/fedback.py`` for the synchronous engine, on both
-client-state layouts of the reference: the **flat** layout (``spec=``
-a ``FlatSpec``: θ, λ, z_prev as (N, D) fp32 matrices, ω a (D,) vector)
+Port of ``repro/core/fedback.py``: the synchronous round and the
+stale-tolerant one, on both client-state layouts of the reference: the
+**flat** layout (``spec=`` a ``FlatSpec``: θ, λ, z_prev as (N, D) fp32
+matrices, ω a (D,) vector)
 and the **tree** layout (``spec=None``: nested dicts of stacked (N,
 ...) tensors with the model's keys, ω the unstacked dict).  Both run
 the same code: the algebra is written over trees
@@ -49,6 +50,24 @@ too.)  One round, in order:
 4. the consensus mean ω = (1/N) Σ z_i^prev for the ADMM family, the
    mean over the committed clients for the AVG family.
 
+**Stale-tolerant rounds** (``max_staleness=S``): a serviced solve lands
+in θ/λ/z_prev δ_i ≤ S rounds later (``FLState.inflight``, the delays of
+``state.delay_schedule``), while the consensus runs every round over
+the freshest rows.  A client with a solve in flight may not fire or be
+planned; the controller measures events when they land, through the
+issued-event ring, with its target clamped to 1/(1+δ_i).  The commit
+routes the proposals through the pipeline as the reference does — six
+full-width selects (``engine.staleness_commit``) — except after the
+fused commit, which has written the planned rows in place: there the
+rows that park get their old rows back, slot by slot
+(``engine.staleness_commit_slots``).  ``max_staleness=0`` is the
+synchronous round bit for bit.
+
+**Serving** (``arrivals_arg=True``): ``round_fn(state, arrivals)``
+takes the tick's (N,) bool arrival mask on the card; fresh events come
+only from arrived clients (the k-subset draws among them), queued
+demand is served whatever arrives (``core/schedule.py`` drives it).
+
 The kernels are reached through :mod:`repro_torch.kernels.ops`, whose
 wrappers launch the hand-written kernel for a CUDA tensor and run the
 plain version for a CPU one; the round has no other switch between
@@ -75,9 +94,9 @@ clients add per-shard partials in shard order on shard 0's device
 (``core/engine.py``).  One device is the one-shard case of the same
 code.  The mesh needs no process group: one process drives every shard.
 
-What the JAX engine also offers and later slices port: stale-tolerant
-rounds, ragged clients, compressed consensus, host-offloaded state and
-the cross-pod program.  SCAFFOLD has its own round
+What the JAX engine also offers and later slices port: ragged clients,
+compressed consensus, host-offloaded state, the sweeps' controller
+overrides and the cross-pod program.  SCAFFOLD has its own round
 (:mod:`repro_torch.core.baselines`), without a mesh, as in the
 reference.
 """
@@ -101,9 +120,12 @@ from repro_torch.utils.pytree import tree_broadcast_like, tree_map, \
 from .compact import capacity_bounds, init_queue, make_compact_block
 from .controller import ControllerConfig, init_controller
 from .engine import all_sum, consensus_mean, dual_ascent, gated_commit, \
-    participant_mean, participant_mean_loss, prox_center
+    measured_commits, participant_mean, participant_mean_loss, \
+    prox_center, record_issue, staleness_commit, staleness_commit_slots, \
+    staleness_masks
 from .selection import make_selection
-from .state import FLState, RoundMetrics
+from .state import FLState, InFlight, RoundMetrics, delay_schedule, \
+    init_inflight
 from .trigger import trigger_distances
 
 # Named ranges of the round for torch.profiler traces (a no-op costing
@@ -185,7 +207,6 @@ def _check_supported(cfg: FLConfig, mesh=None) -> None:
         raise NotImplementedError("mesh= with a per-client target_rate is "
                                   "not ported yet (M14b)")
     unported = {
-        "max_staleness": cfg.max_staleness is not None,
         "consensus_compress": cfg.consensus_compress != "none",
         "state_backend": cfg.state_backend != "device",
         "algorithm": cfg.algorithm not in ADMM_FAMILY + AVG_FAMILY,
@@ -196,14 +217,20 @@ def _check_supported(cfg: FLConfig, mesh=None) -> None:
         raise NotImplementedError(f"not ported yet: {settings}")
 
 
-def _init_shard(cfg: FLConfig, w0, n: int, device) -> FLState:
-    """The Alg. 2 state of ``n`` clients from ω⁰ = ``w0`` on ``device``."""
+def _init_shard(cfg: FLConfig, w0, n: int, device,
+                delay=None) -> FLState:
+    """The Alg. 2 state of ``n`` clients from ω⁰ = ``w0`` on ``device``;
+    with ``delay`` (their rows of the delay schedule) an empty delay
+    pipeline."""
     w0 = tree_map(lambda x: x.to(device), w0)
 
     def stacked(x):
         return x[None].repeat((n,) + (1,) * x.dim())
 
     theta = tree_map(stacked, w0)
+    inflight = None
+    if delay is not None:
+        inflight = init_inflight(theta, delay.to(device), cfg.max_staleness)
     return FLState(
         theta=theta,
         lam=tree_zeros_like(theta),
@@ -213,6 +240,7 @@ def _init_shard(cfg: FLConfig, w0, n: int, device) -> FLState:
         rng=prng.PRNGKey(cfg.seed, device=device),
         round=torch.zeros((), dtype=torch.int32, device=device),
         queue=init_queue(n, device=device),
+        inflight=inflight,
     )
 
 
@@ -228,19 +256,30 @@ def init_state(cfg: FLConfig, params0, *, spec: FlatSpec | None = None,
     ``device`` then) the shard list: a tuple of one ``FLState`` per
     shard, shard i holding clients [i·N/P, (i+1)·N/P) on
     ``mesh.devices[i]`` and its own copy of ω, the key and the round.
+
+    With ``cfg.max_staleness`` set, ``inflight`` is the empty delay
+    pipeline (``core/state.py``): the delays of ``delay_schedule(N, S,
+    kind=cfg.staleness_schedule, seed=cfg.seed)``, each shard its rows.
     """
     _check_supported(cfg, mesh)
     if spec is not None:
         w0 = spec.flatten(params0)
     else:
         w0 = tree_map(torch.as_tensor, params0)
-    if mesh is None:
-        return _init_shard(cfg, w0, cfg.n_clients, resolve_device(device))
-    if device is not None:
+    single = mesh is None
+    if single:
+        mesh = ClientMesh((resolve_device(device),))
+    elif device is not None:
         raise ValueError("pass device= or mesh=, not both")
     check_divisible(cfg.n_clients, mesh)
-    return tuple(_init_shard(cfg, w0, cfg.n_clients // mesh.size, dev)
-                 for dev in mesh.devices)
+    delays = (None,) * mesh.size
+    if cfg.max_staleness is not None:
+        delays = shard_rows(delay_schedule(
+            cfg.n_clients, cfg.max_staleness, kind=cfg.staleness_schedule,
+            seed=cfg.seed, device=mesh.devices[0]), mesh)
+    shards = tuple(_init_shard(cfg, w0, cfg.n_clients // mesh.size, dev, d)
+                   for dev, d in zip(mesh.devices, delays, strict=True))
+    return shards[0] if single else shards
 
 
 def _epoch_indices(keys: torch.Tensor, n_points: int, batch_size: int,
@@ -295,7 +334,8 @@ def _local_solve(loss_fn: Callable, spec: FlatSpec | None, theta0, center,
 
 def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
                   spec: FlatSpec | None = None, device=None,
-                  mesh: ClientMesh | None = None) -> Callable:
+                  mesh: ClientMesh | None = None,
+                  arrivals_arg: bool = False) -> Callable:
     """Build ``round_fn(state) -> (state, RoundMetrics)``.
 
     loss_fn(params, x_batch, y_batch) -> scalar mean loss, on the params
@@ -318,6 +358,13 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
     deferral and loss counts, and the realized capacity (the sum of the
     shards' commit limits).  The metrics' (N,) vectors are gathered on
     shard 0's device in shard order.
+
+    ``cfg.max_staleness`` makes the round stale-tolerant (the module
+    docstring); its pipeline rows stay on their shard's device, and each
+    shard clamps its controller with its own delays.  ``arrivals_arg``
+    builds ``round_fn(state, arrivals)`` (with ``mesh``, ``round_fn(
+    shards, arrivals)``, the (N,) mask cut by shard): the serve step;
+    with all-ones arrivals it is the plain round bit for bit.
     """
     _check_supported(cfg, mesh)
     n = cfg.n_clients
@@ -347,6 +394,7 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
     select = make_selection(cfg.selection_name(), rate=cfg.participation,
                             controller=_ctrl_cfg(cfg),
                             metric=cfg.trigger_metric)
+    async_mode = cfg.max_staleness is not None
 
     def solver(theta0, center, xs, ys, idx):
         with span("fedback/solve"):
@@ -366,7 +414,8 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
             is_admm=is_admm, c_min=c_min,
             adaptive=cfg.adaptive_capacity and cfg.capacity is None,
             alpha=_ctrl_cfg(cfg).alpha, fused=cfg.fused_gss,
-            use_admm_kernel=is_admm and flat)
+            use_admm_kernel=is_admm and flat,
+            keep_old_rows=async_mode and cfg.fused_gss)
 
     def trigger(shards):
         if cfg.trigger_metric != "l2":
@@ -408,53 +457,138 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
                  else theta_out)
         return theta_out, lam_new, z_new, losses
 
-    def round_body(shards):
+    def select_events(shards, distances, sel_rng, arrivals):
+        """(events, eligible, ctrls) per shard.  Under staleness a client
+        with a solve in flight is ineligible and the controller steps
+        later, on the commit-time events (ctrls None); with arrivals,
+        fresh events come from this tick's arrivals only (the k-subset
+        strategies draw among them) while the plan's eligibility is
+        left alone, so queued demand is served without re-arrival."""
+        if async_mode:
+            eligible = [s.inflight.ttl == 0 for s in shards]
+            admit = eligible if arrivals is None else [
+                e & a for e, a in zip(eligible, arrivals, strict=True)]
+        else:
+            eligible, admit = None, arrivals
+        events = select.decide_shards(sel_rng, shards, distances, mesh,
+                                      eligible=admit)
+        if admit is not None:
+            events = [e & a for e, a in zip(events, admit, strict=True)]
+        ctrls = None if async_mode else [
+            select.measure(s.ctrl, e) for s, e in zip(shards, events,
+                                                     strict=True)]
+        return events, eligible or [None] * len(shards), ctrls
+
+    def stale_commit(s, e, serviced, proposals, old):
+        """The bounded-staleness commit of one shard: the proposals
+        routed through its delay pipeline, the ring updated and the
+        controller stepped on the commit-time events.  ``old`` (the
+        fused commit's slots and their rows before it) routes the
+        in-place proposals row by row instead.  Returns (θ, λ, z_prev,
+        InFlight, ctrl, committed, landed)."""
+        fl = s.inflight
+        land, direct, defer, new_ttl = staleness_masks(serviced, fl.delay,
+                                                       fl.ttl)
+        current = (s.theta, s.lam, s.z_prev)
+        parked = (fl.theta, fl.lam, fl.z)
+        if old is None:
+            out = [staleness_commit(c, p, k, land, direct, defer)
+                   for c, p, k in zip(current, proposals, parked,
+                                      strict=True)]
+        else:
+            idx, valid, rows = old
+            out = [staleness_commit_slots(live, k, r, idx, valid, land,
+                                          defer)
+                   for live, k, r in zip(proposals, parked, rows,
+                                         strict=True)]
+        (theta, p_th), (lam, p_lam), (z, p_z) = out
+        hist = record_issue(fl.hist, e, s.round)
+        ctrl = select.measure(s.ctrl, measured_commits(hist, fl.delay,
+                                                       s.round),
+                              staleness_delay=fl.delay)
+        new_fl = InFlight(delay=fl.delay, ttl=new_ttl, theta=p_th,
+                          lam=p_lam, z=p_z, hist=hist)
+        return theta, lam, z, new_fl, ctrl, direct | land, land
+
+    def round_body(shards, arrivals=None):
         s0 = shards[0]
+        dev0 = s0.rng.device
         with span("fedback/trigger_select"):
             rng, sel_rng, data_rng = prng.split(s0.rng, 3)
             distances = trigger(shards)
-            events = select.decide_shards(sel_rng, shards, distances, mesh)
-            ctrls = [select.measure(s.ctrl, e)
-                     for s, e in zip(shards, events, strict=True)]
+            events, eligible, ctrls = select_events(shards, distances,
+                                                    sel_rng, arrivals)
         keys = shard_rows(prng.split(data_rng, n), mesh)
-        new, committed, losses, loss_mask = [], [], [], []
+        proposals, serviced, losses, loss_mask, queues, olds = \
+            [], [], [], [], [], []
+        zero = torch.zeros((), dtype=torch.int32, device=dev0)
         if cfg.compact:
             limits, deferred = [], []
-            for s, e, d, sd, k in zip(shards, events, distances, shard_data,
-                                      keys, strict=True):
+            for s, e, d, el, sd, k in zip(shards, events, distances,
+                                          eligible, shard_data, keys,
+                                          strict=True):
                 (theta, lam, z_prev, q_age, q_load, done, ls, valid,
-                 limit) = block(e, d, s.queue.age, s.queue.load, s.theta,
-                                s.lam, s.z_prev, s.omega, sd["x"], sd["y"],
-                                k)
-                new.append((theta, lam, z_prev,
-                            s.queue._replace(age=q_age, load=q_load)))
-                committed.append(done)
+                 limit, old) = block(e, d, el, s.queue.age, s.queue.load,
+                                     s.theta, s.lam, s.z_prev, s.omega,
+                                     sd["x"], sd["y"], k)
+                proposals.append((theta, lam, z_prev))
+                queues.append(s.queue._replace(age=q_age, load=q_load))
+                serviced.append(done)
                 losses.append(ls)
                 loss_mask.append(valid)
                 limits.append(limit)
+                olds.append(old)
                 deferred.append(torch.sum((q_age > 0).to(torch.int32)))
             realized_capacity = all_sum(limits)
             num_deferred = all_sum(deferred).to(torch.int32)
         else:
             with span("fedback/presolve"):
                 pre = presolve(shards)
-            for s, e, (lam_new, center), sd, k in zip(
-                    shards, events, pre, shard_data, keys, strict=True):
+            for s, (lam_new, center), sd, k in zip(shards, pre, shard_data,
+                                                   keys, strict=True):
                 theta_p, lam_p, z_p, ls = dense_client_update(
                     s, lam_new, center, sd, k)
-                with span("fedback/commit"):
+                proposals.append((theta_p, lam_p, z_p))
+                queues.append(s.queue)
+                losses.append(ls)
+                olds.append(None)
+            serviced = loss_mask = events
+            realized_capacity = torch.full((), n, dtype=torch.int32,
+                                           device=dev0)
+            num_deferred = zero
+        new, committed = [], []
+        num_inflight = num_landed = zero
+        with span("fedback/commit"):
+            if async_mode:
+                ctrls, inflight, ttls, landed = [], [], [], []
+                for s, e, done, prop, old in zip(shards, events, serviced,
+                                                 proposals, olds,
+                                                 strict=True):
+                    theta, lam, z, fl, ctrl, done, land = stale_commit(
+                        s, e, done, prop, old)
+                    new.append((theta, lam, z))
+                    inflight.append(fl)
+                    ctrls.append(ctrl)
+                    committed.append(done)
+                    ttls.append(torch.sum((fl.ttl > 0).to(torch.int32)))
+                    landed.append(torch.sum(land.to(torch.int32)))
+                num_inflight = all_sum(ttls).to(torch.int32)
+                num_landed = all_sum(landed).to(torch.int32)
+            elif cfg.compact:
+                new, committed = proposals, serviced
+                inflight = [s.inflight for s in shards]
+            else:
+                for s, e, (theta_p, lam_p, z_p) in zip(shards, events,
+                                                       proposals,
+                                                       strict=True):
                     new.append((gated_commit(e, theta_p, s.theta),
                                 gated_commit(e, lam_p, s.lam),
-                                gated_commit(e, z_p, s.z_prev), s.queue))
-                losses.append(ls)
-            committed = loss_mask = events
-            realized_capacity = torch.full((), n, dtype=torch.int32,
-                                           device=s0.rng.device)
-            num_deferred = torch.zeros((), dtype=torch.int32,
-                                       device=s0.rng.device)
+                                gated_commit(e, z_p, s.z_prev)))
+                committed = events
+                inflight = [s.inflight for s in shards]
         num_events = all_sum([torch.sum(e.to(torch.int32))
                               for e in events]).to(torch.int32)
-        z_prev = [z for _, _, z, _ in new]
+        z_prev = [z for _, _, z in new]
         with span("fedback/consensus"):
             if is_admm:
                 omega = consensus_mean(z_prev)
@@ -475,19 +609,31 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
             realized_capacity=realized_capacity,
             realized_slack=(realized_capacity.to(torch.float32)
                             / (rate_floor if rate_floor > 0 else 1.0)),
+            num_inflight=num_inflight,
+            num_landed=num_landed,
             committed=unshard_rows(committed),
         )
         replicas = zip(replicate_data(mesh, omega), replicate_data(mesh, rng),
                        replicate_data(mesh, s0.round + 1), strict=True)
         new_shards = tuple(
             FLState(theta=theta, lam=lam, z_prev=z, omega=w, ctrl=ctrl,
-                    rng=key, round=rnd, queue=queue)
-            for (theta, lam, z, queue), ctrl, (w, key, rnd) in zip(
-                new, ctrls, replicas, strict=True))
+                    rng=key, round=rnd, queue=queue, inflight=fl)
+            for (theta, lam, z), queue, fl, ctrl, (w, key, rnd) in zip(
+                new, queues, inflight, ctrls, replicas, strict=True))
         return new_shards, metrics
 
+    def serve_body(shards, arrivals):
+        return round_body(shards, shard_rows(torch.as_tensor(arrivals),
+                                             mesh))
+
     if sharded:
-        return round_body
+        return serve_body if arrivals_arg else round_body
+
+    if arrivals_arg:
+        def serve_step(state: FLState, arrivals):
+            (new_state,), metrics = serve_body((state,), arrivals)
+            return new_state, metrics
+        return serve_step
 
     def round_fn(state: FLState):
         (new_state,), metrics = round_body((state,))

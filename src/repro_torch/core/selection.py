@@ -37,7 +37,8 @@ from repro_torch import prng
 from repro_torch.sharding.clients import ClientMesh, shard_rows, \
     unshard_rows
 
-from .controller import ControllerConfig, ControllerState, controller_step
+from .controller import ControllerConfig, ControllerState, \
+    clamp_target_rate, controller_step
 from .trigger import evaluate_trigger
 
 
@@ -50,9 +51,13 @@ def _no_overrides(ctrl_overrides) -> None:
 class _SelectionBase:
     """``decide`` takes the engine's eligibility mask (None on the
     synchronous engine): the open-loop k-subset strategies draw their
-    picks among eligible clients; the others ignore it.  The strategies
-    that draw over all clients take ``n_clients``, the count they draw
-    over (by default the state's rows)."""
+    picks among eligible clients; the others ignore it (the engine masks
+    their events).  The strategies that draw over all clients take
+    ``n_clients``, the count they draw over (by default the state's
+    rows).  ``measure`` steps the controller on the events the server
+    observed: the round's own on the synchronous engine, the commit-time
+    ones under bounded staleness, where ``staleness_delay`` (the (N,)
+    delays) clamps the target to the feasible rate 1/(1+δ_i)."""
 
     #: A client's event depends on its own rows alone.
     per_client = False
@@ -72,18 +77,23 @@ class _SelectionBase:
         draw over all clients runs once over the global N on shard 0's
         device (with the gathered mask) and is cut per shard."""
         if self.per_client:
-            return tuple(self.decide(rng, s, d)
-                         for s, d in zip(shards, distances, strict=True))
+            return tuple(self.decide(rng, s, d, eligible=e) for s, d, e in
+                         zip(shards, distances, eligible or (None,) *
+                             len(shards), strict=True))
         n = sum(s.ctrl.delta.shape[0] for s in shards)
         events = self.decide(rng, shards[0], None, eligible=(
             None if eligible is None else unshard_rows(eligible)),
             n_clients=n)
         return shard_rows(events, mesh)
 
-    def measure(self, ctrl: ControllerState, events,
-                ctrl_overrides=None) -> ControllerState:
+    def measure(self, ctrl: ControllerState, events, ctrl_overrides=None,
+                *, staleness_delay=None) -> ControllerState:
         _no_overrides(ctrl_overrides)
-        return controller_step(ctrl, events, self._measure_cfg())
+        cfg = self._measure_cfg()
+        if staleness_delay is not None:
+            cfg = cfg._replace(target_rate=clamp_target_rate(
+                cfg.target_rate, staleness_delay))
+        return controller_step(ctrl, events, cfg)
 
     def __call__(self, rng, state, distances, ctrl_overrides=None):
         events = self.decide(rng, state, distances, ctrl_overrides)

@@ -15,8 +15,12 @@ list: one ``FLState`` per shard, holding its clients' rows of the
 :data:`CLIENT_STACKED_FIELDS` and :data:`CTRL_STACKED_FIELDS` on its
 device, and a copy of everything else (ω, the key, the round counters).
 
-Stale-tolerant pipelines (``InFlight``), compressed-consensus residuals
-and host-offloaded state belong to later slices of the port.
+With ``max_staleness`` set, ``FLState.inflight`` holds the
+stale-tolerant round's delay pipeline (:class:`InFlight`): per-client
+delays, countdowns, the parked θ/λ/z payloads in the state's layout and
+the issued-event ring; its fields are client-stacked, so a client mesh
+keeps each shard's rows on the shard's device.  Compressed-consensus
+residuals and host-offloaded state belong to later slices of the port.
 """
 from __future__ import annotations
 
@@ -24,10 +28,14 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import prng
+from repro_torch.device import resolve_device
+from repro_torch.utils.pytree import tree_zeros_like
+
 from .controller import ControllerState
 
 #: FLState fields whose leaves carry the leading (N, ...) client axis.
-CLIENT_STACKED_FIELDS = ("theta", "lam", "z_prev", "queue")
+CLIENT_STACKED_FIELDS = ("theta", "lam", "z_prev", "queue", "inflight")
 
 #: ControllerState fields with a per-client (N,) vector.
 CTRL_STACKED_FIELDS = ("delta", "load", "event_count")
@@ -40,6 +48,61 @@ class DeferQueue(NamedTuple):
     load: torch.Tensor  # (N,) fp32 — EMA of demand membership
 
 
+class InFlight(NamedTuple):
+    """Delay pipeline of the stale-tolerant round
+    (``repro/core/state.py::InFlight``): a solve serviced at round k
+    parks here and lands at round k + δ_i; a client with a solve in
+    flight may not fire again, so one slot per client suffices.  Every
+    field has the leading client axis."""
+
+    delay: torch.Tensor  # (N,) int32 — δ_i in [0, max_staleness], fixed
+    ttl: torch.Tensor  # (N,) int32 — rounds until the payload lands; 0 =
+    #                    nothing in flight (the client is eligible)
+    theta: object  # parked θ_i, the state's layout
+    lam: object  # parked λ_i^{k+1}
+    z: object  # parked z_i = θ_i + λ_i
+    hist: torch.Tensor  # (N, max_staleness+1) bool — issued-event ring:
+    #                     column k mod (S+1) holds round k's issues
+
+
+def delay_schedule(n_clients: int, max_staleness: int, *,
+                   kind: str = "roundrobin", seed: int = 0,
+                   device=None) -> torch.Tensor:
+    """The per-client delays δ_i ∈ [0, max_staleness], (N,) int32 on
+    ``device`` (CUDA unless another is passed): ``roundrobin`` cycles
+    0..S over the client index; ``uniform`` draws them from
+    ``fold_in(PRNGKey(seed), 0x5A1E)`` with ``randint``, bit-equal to
+    the reference's draw."""
+    if max_staleness < 0:
+        raise ValueError(f"max_staleness must be >= 0, got {max_staleness}")
+    device = resolve_device(device)
+    if kind == "roundrobin":
+        return (torch.arange(n_clients, dtype=torch.int32, device=device)
+                % (max_staleness + 1))
+    if kind == "uniform":
+        key = prng.fold_in(prng.PRNGKey(seed, device=device), 0x5A1E)
+        return prng.randint(key, (n_clients,), 0, max_staleness + 1)
+    raise ValueError(f"unknown delay schedule kind: {kind}")
+
+
+def init_inflight(template, delay: torch.Tensor,
+                  max_staleness: int) -> InFlight:
+    """An empty pipeline for the clients of ``delay`` (their rows of
+    :func:`delay_schedule`): nothing in flight, an all-False ring, and
+    zero payloads shaped like ``template`` (a client-stacked tree: the
+    flat (N, D) matrix or the tree layout's dict), on its device."""
+    n = delay.shape[0]
+    dev = delay.device
+    return InFlight(
+        delay=delay,
+        ttl=torch.zeros((n,), dtype=torch.int32, device=dev),
+        theta=tree_zeros_like(template),
+        lam=tree_zeros_like(template),
+        z=tree_zeros_like(template),
+        hist=torch.zeros((n, max_staleness + 1), dtype=torch.bool,
+                         device=dev))
+
+
 class FLState(NamedTuple):
     theta: object  # (N, D) fp32 or a stacked tree — local primal θ_i
     lam: object  # (N, D) fp32 or a stacked tree — dual variables λ_i
@@ -49,6 +112,8 @@ class FLState(NamedTuple):
     rng: torch.Tensor  # (2,) int64 — threefry key words (repro_torch.prng)
     round: torch.Tensor  # () int32
     queue: DeferQueue
+    inflight: InFlight | None = None  # the delay pipeline; None = the
+    #                                   synchronous round
 
 
 class RoundMetrics(NamedTuple):
@@ -61,4 +126,8 @@ class RoundMetrics(NamedTuple):
     num_deferred: torch.Tensor  # () int32 — queue length after the round
     realized_capacity: torch.Tensor  # () int32 — rows the round could commit
     realized_slack: torch.Tensor  # () fp32 — realized_capacity / (L̄·N)
+    num_inflight: torch.Tensor  # () int32 — solves in flight after the
+    #                             round (0 on the synchronous round)
+    num_landed: torch.Tensor  # () int32 — delayed solves that landed
     committed: torch.Tensor  # (N,) bool — rows committed this round
+    #                          (under staleness: δ = 0 service | landed)

@@ -22,6 +22,12 @@ then profiles ``--rounds`` rounds and prints, per round:
 * the kernels that took the most device time, and the port's own
   kernels (``kernels/ops.py``) wherever they rank.
 
+A serve form of ``configs.paper_mnist.SERVE_FORMS`` (SVA, SVB, SVS:
+FedBack with ``max_staleness=2`` over a 24-tick arrival trace) steps
+its trace's ticks instead of rounds: two warm-up ticks, then the next
+``--rounds`` ticks (by default the trace's other 22), each figure per
+tick.
+
 Runs on CUDA; ``--device cpu`` rehearses the script (host times only).
 """
 from __future__ import annotations
@@ -34,6 +40,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import paper_cifar, paper_mnist
+from repro_torch.core.schedule import make_trace
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import make_loss_fn
@@ -41,17 +48,27 @@ from repro_torch.utils import make_flat_spec
 
 # The configuration module of every form.
 CONFIGS = {form: m for m in (paper_mnist, paper_cifar) for form in m.FORMS}
+CONFIGS.update(dict.fromkeys(paper_mnist.SERVE_FORMS, paper_mnist))
+WARMUP = 2
 
 
 def build(form: str, device):
+    """(state, step): ``step(state) -> (state, metrics)`` is one round,
+    or for a serve form one tick of its trace, the ticks in order."""
     cfgs = CONFIGS[form]
     cfg = cfgs.form_config(form)
     data, _, params0, logits_fn = cfgs.workload(device=device)
-    f = cfgs.FORMS[form]
+    f = getattr(cfgs, "SERVE_FORMS", {}).get(form) or cfgs.FORMS[form]
     spec = f.spec(make_flat_spec(params0))
-    return (f.init(cfg, params0, spec=spec, **f.placement(device)),
-            f.make_round(cfg, make_loss_fn(logits_fn), data, spec=spec,
-                         **f.placement(device)))
+    state = f.init(cfg, params0, spec=spec, **f.placement(device))
+    round_fn = f.make_round(cfg, make_loss_fn(logits_fn), data, spec=spec,
+                            arrivals_arg=f.trace is not None,
+                            **f.placement(device))
+    if f.trace is None:
+        return state, round_fn
+    rows = torch.from_numpy(make_trace(f.trace)).to(device)
+    ticks = iter(range(rows.shape[0]))
+    return state, lambda s: round_fn(s, rows[next(ticks)])
 
 
 def sync(device):
@@ -59,9 +76,13 @@ def sync(device):
         torch.cuda.synchronize(device)
 
 
-def profile_rounds(form: str, rounds: int, device) -> str:
+def profile_rounds(form: str, rounds: int | None, device) -> str:
     state, round_fn = build(form, device)
-    for _ in range(2):
+    trace = paper_mnist.SERVE_FORMS[form].trace \
+        if form in paper_mnist.SERVE_FORMS else None
+    if rounds is None:
+        rounds = 3 if trace is None else trace.ticks - WARMUP
+    for _ in range(WARMUP):
         state, _ = round_fn(state)
     sync(device)
     acts = [ProfilerActivity.CPU]
@@ -86,13 +107,17 @@ def profile_rounds(form: str, rounds: int, device) -> str:
             ranges.setdefault(e.key, {})[side] = e
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / rounds
     launches = sum(e.count for e in kernels) / rounds
+    unit = "round" if trace is None else "tick"
     lines = [f"form {form} on {device}"
              + (f" ({torch.cuda.get_device_name(device)})"
-                if device.type == "cuda" else ""),
-             f"per round: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms,"
-             f" idle share {1 - busy_ms / wall_ms:.4f}, "
+                if device.type == "cuda" else "")
+             + ("" if trace is None else
+                f", ticks {WARMUP}..{WARMUP + rounds - 1} of its "
+                f"{trace.kind} trace"),
+             f"per {unit}: wall {wall_ms:.3f} ms, device busy "
+             f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}, "
              f"kernel launches {launches:.1f}",
-             "named ranges (per round): host ms; device ms of the kernels "
+             f"named ranges (per {unit}): host ms; device ms of the kernels "
              "they launched; their span on the device timeline"]
 
     def ms(e, attr):
@@ -105,7 +130,7 @@ def profile_rounds(form: str, rounds: int, device) -> str:
         lines.append(f"  {key:<24} {ms(host, 'cpu_time_total'):9.3f} "
                      f"{ms(host, 'device_time_total'):9.3f} "
                      f"{ms(dev, 'device_time_total'):9.3f}")
-    lines.append("kernels by device time (per round): ms, launches — the "
+    lines.append(f"kernels by device time (per {unit}): ms, launches — the "
                  "15 longest, then the port's own kernels ranked below")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     for i, e in enumerate(ranked):
@@ -119,7 +144,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--form", choices=tuple(CONFIGS),
                     action="append")
-    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--rounds", type=int, default=None,
+                    help="rounds (ticks of a serve form) to profile after "
+                         "two warm-ups; default 3, or the rest of a serve "
+                         "form's trace")
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
     device = resolve_device(args.device)

@@ -16,6 +16,10 @@ bit, with ``jax_threefry_partitionable=True`` (the default there):
 * ``permutation(key, n)`` is ``_shuffle``: ⌈3·ln n / ln(2³²−1)⌉ rounds
   of (``key, sub = split(key)``; stable sort of the values by
   ``random_bits(sub, n)``);
+* ``fold_in(key, d)`` hashes the one counter ``(0, d)``, and
+  ``randint`` combines two bit streams of ``split(key)`` modulo the
+  span, both bit-equal (the stale-tolerant round's ``uniform`` delay
+  schedule draws them);
 * ``uniform``, ``bernoulli`` and ``normal`` are ``jax.random``'s fp32
   draws from those bits (a shape's bits are those of its flattened
   length).  ``uniform`` and ``bernoulli`` are bit-equal; ``normal`` goes
@@ -94,6 +98,48 @@ def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.bits(key, (n,), uint32)`` as (..., n) int64."""
     b1, b2 = _hash_counters(key, n)
     return b1 ^ b2
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``: (..., 2) keys → (..., 2) keys.
+
+    jax hashes the seed words of the uint32 ``data``, (0, data), as one
+    counter pair, so the new key is the pair of threefry outputs at
+    counter ``data``.
+    """
+    data = int(data) & _MASK
+    counter = torch.tensor(data, dtype=torch.int64, device=key.device)
+    b1, b2 = threefry2x32(key[..., 0], key[..., 1],
+                          torch.zeros_like(counter), counter)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def randint(key: torch.Tensor, shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, int32)``:
+    (..., 2) keys → (..., *shape) int32, bit-equal.
+
+    As jax 0.9 does: two uint32 streams from ``split(key)``, high and
+    low, combined modulo the span with the multiplier 2³² mod span, so
+    the draw spans 64 bits (a span of 1 where maxval ≤ minval).
+    Bounds are Python ints within int32.
+    """
+    lo, hi = int(minval), int(maxval)
+    for v in (lo, hi):
+        if not -2 ** 31 <= v < 2 ** 31:
+            raise ValueError(f"randint bounds must be int32, got {v}")
+    shape = tuple(shape)
+    n = math.prod(shape)
+    keys = split(key)
+    higher = random_bits(keys[..., 0, :], n)
+    lower = random_bits(keys[..., 1, :], n)
+    span = (hi - lo) & _MASK if hi > lo else 1
+    multiplier = ((2 ** 16 % span) ** 2 & _MASK) % span
+    # uint32 arithmetic of jax's: each product and sum wraps mod 2³².
+    offset = ((higher % span) * multiplier & _MASK) + lower % span
+    offset = (offset & _MASK) % span
+    out = (lo + offset).to(torch.int32)
+    return out.reshape(*key.shape[:-1], *shape)
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

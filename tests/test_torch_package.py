@@ -165,7 +165,7 @@ def test_unported_features_are_refused():
     params0 = {"theta": torch.zeros(3)}
     spec = make_flat_spec(params0)
     for layout in (spec, None):
-        for kw in (dict(max_staleness=2), dict(consensus_compress="int8"),
+        for kw in (dict(consensus_compress="int8"),
                    dict(algorithm="scaffold"), dict(state_backend="host")):
             with pytest.raises(NotImplementedError):
                 init_state(FLConfig(n_clients=4, **kw), params0, spec=layout,
@@ -175,6 +175,11 @@ def test_unported_features_are_refused():
                        device="cpu")
     assert state.theta["theta"].shape == (4, 3)
     assert state.omega["theta"].shape == (3,)
+    # So is the stale-tolerant round: its delay pipeline, in either layout.
+    for layout in (spec, None):
+        state = init_state(FLConfig(n_clients=4, max_staleness=2), params0,
+                           spec=layout, device="cpu")
+        assert state.inflight.hist.shape == (4, 3)
 
 
 @pytest.mark.parametrize("builder", ["make_round_fn",

@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import ControllerConfig as JCtrl
 from repro.core import FLConfig as JFLConfig
@@ -99,27 +100,39 @@ def _assert_update_close(got, want, before, tol, err_msg=""):
 
 
 def _run_synced(jcfg, tcfg, jloss, tloss, jdata, tdata, jparams, tparams,
-                rounds, omega_tol=None, layout="flat", update_tol=None):
+                rounds, omega_tol=None, layout="flat", update_tol=None,
+                trace=None):
     """Step both packages from the JAX state for ``rounds`` rounds and
     compare as the module docstring says; ``omega_tol`` (rtol, atol)
     holds ω tighter as well.  ``layout="tree"`` runs both on the tree
     client-state layout (``spec=None``).  ``update_tol`` compares the
     state by :func:`_assert_update_close` instead of element by element
     (for models whose ReLU and max-pool kinks let one fp32 rounding
-    route a gradient elsewhere).  Returns counts of what the run saw."""
+    route a gradient elsewhere).  ``trace`` (a (rounds, N) bool array)
+    builds both rounds with ``arrivals_arg=True`` and hands round r
+    row r.  Under ``max_staleness`` the in-flight and landed counts,
+    the delays, countdowns and event ring must be equal too, and the
+    parked payloads agree as the state does.  Returns counts of what
+    the run saw."""
     jspec = tspec = None
     if layout == "flat":
         jspec = jax_make_flat_spec(jparams)
         tspec = make_flat_spec(tparams)
         assert jspec.dim == tspec.dim
+    serve = trace is not None
     jstate = jax_init_state(jcfg, jparams, spec=jspec)
-    jround = jax_make_round_fn(jcfg, jloss, jdata, spec=jspec)
-    tround = make_round_fn(tcfg, tloss, tdata, spec=tspec, device="cpu")
-    seen = {"events": 0, "deferred": 0, "flipped_rounds": 0}
+    jround = jax_make_round_fn(jcfg, jloss, jdata, spec=jspec,
+                               arrivals_arg=serve)
+    tround = make_round_fn(tcfg, tloss, tdata, spec=tspec, device="cpu",
+                           arrivals_arg=serve)
+    seen = {"events": 0, "deferred": 0, "flipped_rounds": 0, "landed": 0,
+            "inflight": 0}
     for r in range(rounds):
         before = jax.device_get(jstate)
-        tnew, tm = tround(state_from_numpy(before, device="cpu"))
-        jstate, jm = jround(jstate)
+        arrivals = () if not serve else (np.asarray(trace[r], bool),)
+        tnew, tm = tround(state_from_numpy(before, device="cpu"),
+                          *map(torch.from_numpy, arrivals))
+        jstate, jm = jround(jstate, *map(jnp.asarray, arrivals))
         want, wm = jax.device_get(jstate), jax.device_get(jm)
         got = state_to_numpy(tnew)
         dist, delta = np.asarray(wm.distances), np.asarray(before.ctrl.delta)
@@ -131,12 +144,15 @@ def _run_synced(jcfg, tcfg, jloss, tloss, jdata, tdata, jparams, tparams,
                                       err_msg=f"round {r}")
         seen["events"] += int(ev_j.sum())
         seen["deferred"] += int(wm.num_deferred)
+        seen["landed"] += int(wm.num_landed)
+        seen["inflight"] += int(wm.num_inflight)
         if (ev_t != ev_j).any():  # a margin client fell the other way
             seen["flipped_rounds"] += 1
             continue
         np.testing.assert_array_equal(tm.committed.numpy(),
                                       np.asarray(wm.committed))
-        for f in ("num_events", "num_deferred", "realized_capacity"):
+        for f in ("num_events", "num_deferred", "realized_capacity",
+                  "num_inflight", "num_landed"):
             assert int(getattr(tm, f)) == int(getattr(wm, f)), (r, f)
         assert got.ctrl.delta.tobytes() == np.asarray(
             want.ctrl.delta).tobytes(), r
@@ -160,6 +176,17 @@ def _run_synced(jcfg, tcfg, jloss, tloss, jdata, tdata, jparams, tparams,
         if omega_tol is not None:
             _assert_tree_close(got.omega, want.omega, rtol=omega_tol[0],
                                atol=omega_tol[1], err_msg=f"round {r} omega")
+        assert (got.inflight is None) == (want.inflight is None), r
+        if want.inflight is not None:
+            for f in ("delay", "ttl", "hist"):
+                np.testing.assert_array_equal(
+                    getattr(got.inflight, f),
+                    np.asarray(getattr(want.inflight, f)),
+                    err_msg=f"round {r} inflight.{f}")
+            for f in ("theta", "lam", "z"):
+                _assert_tree_close(getattr(got.inflight, f),
+                                   getattr(want.inflight, f), rtol=1e-4,
+                                   atol=1e-6, err_msg=f"round {r} parked {f}")
         np.testing.assert_array_equal(got.rng, np.asarray(want.rng))
         assert int(got.round) == int(want.round) == r + 1
     return seen

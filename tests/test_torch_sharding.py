@@ -337,9 +337,9 @@ def test_mesh_refusals():
         init_state(FLConfig(n_clients=N), params, mesh=_cpu_mesh(3))
     with pytest.raises(ValueError, match="divisible"):
         make_round_fn(FLConfig(n_clients=N), loss, data, mesh=_cpu_mesh(3))
-    for kw in (dict(max_staleness=1), dict(consensus_compress="int8")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            make_round_fn(FLConfig(n_clients=N, **kw), loss, data, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        make_round_fn(FLConfig(n_clients=N, consensus_compress="int8"), loss,
+                      data, mesh=mesh)
     per_client = FLConfig(n_clients=N, controller=ControllerConfig(
         target_rate=torch.full((N,), 0.2)))
     with pytest.raises(NotImplementedError, match="per-client"):
