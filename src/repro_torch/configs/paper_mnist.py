@@ -5,7 +5,8 @@ SGD lr 0.01 momentum 0.9, batch 42, 2 local epochs, K=2, α=0.9;
 ρ = μ = 0.01.  ``fl_config(algorithm)`` builds FedBack or any of the
 paper's baselines (``fedadmm``, ``fedavg``, ``fedprox``, ``admm``);
 ``workload()`` the data and starting weights the paper grid runs them
-on.  ``FORMS`` are the round forms driven at this width;
+on.  ``FORMS`` are the round forms driven at this width (QA–QS with the
+compressed consensus);
 ``SERVE_FORMS`` the serve forms, each a stale-tolerant round with the
 arrival trace it serves.
 """
@@ -101,6 +102,18 @@ FORMS = {
     "SR": Form("FedADMM, compact + fused, 4 client shards",
                dict(algorithm="fedadmm", compact=True, fused_gss=True),
                shards=4),
+    # Compressed consensus (error feedback, ``FLState.comm``): forms A,
+    # B, C3 and SA with the consensus sent as int8 or bf16.
+    "QA": Form("FedBack, compact + fused, int8 consensus",
+               dict(algorithm="fedback", compact=True, fused_gss=True,
+                    consensus_compress="int8")),
+    "QB": Form("FedBack, dense, bf16 consensus",
+               dict(algorithm="fedback", consensus_compress="bf16")),
+    "QC": Form("FedAvg, dense, int8 consensus",
+               dict(algorithm="fedavg", consensus_compress="int8")),
+    "QS": Form("FedBack, compact + fused, int8 consensus, 2 client shards",
+               dict(algorithm="fedback", compact=True, fused_gss=True,
+                    consensus_compress="int8"), shards=2),
 }
 
 

@@ -10,9 +10,9 @@ go to ``device``: CUDA unless the caller passes another.
 * :func:`state_from_numpy` — a fetched JAX ``FLState`` → the port's
   ``FLState`` (θ/λ/z_prev/ω, controller, deferral queue, the delay
   pipeline where the state has one, the rng key's two uint32 words, the
-  round), in either layout: (N, D) matrices or
-  nested dicts of stacked leaves; with ``mesh=`` the shard list of a
-  client mesh;
+  round, the compressed consensus's residual where the state has one),
+  in either layout: (N, D) matrices or nested dicts of stacked leaves;
+  with ``mesh=`` the shard list of a client mesh;
 * :func:`state_to_numpy` — the other way, as the port's ``FLState``
   with numpy leaves, for comparisons (a shard list is put together);
 * :func:`flat_state` — a tree-layout state → the flat one, through a
@@ -126,7 +126,8 @@ def state_from_numpy(s, device=None, mesh=None):
     With ``mesh`` (a :class:`~repro_torch.sharding.ClientMesh`; no
     ``device`` then) the shard list of ``init_state(..., mesh=mesh)``:
     the leading client axis of θ, λ, z_prev, the deferral queue, the
-    delay pipeline and the controller's δ, load and event count (``CLIENT_STACKED_FIELDS``,
+    delay pipeline, the EF residual and the controller's δ, load and
+    event count (``CLIENT_STACKED_FIELDS``,
     ``CTRL_STACKED_FIELDS``) is cut into P contiguous blocks, shard i's
     on ``mesh.devices[i]``; ω, the key and the round counters are
     copied to every shard.
@@ -167,6 +168,8 @@ def _state_on(s, device) -> FLState:
         queue=DeferQueue(age=_t(s.queue.age, device, torch.int32),
                          load=_t(s.queue.load, device, torch.float32)),
         inflight=_inflight_on(getattr(s, "inflight", None), device),
+        comm=_fields_map(lambda a: _t(a, device, torch.float32),
+                         getattr(s, "comm", None)),
     )
 
 
@@ -235,7 +238,8 @@ def _to_numpy(s: FLState) -> FLState:
         ctrl=ControllerState(*(cpu(t) for t in s.ctrl)),
         rng=cpu(s.rng).astype(np.uint32), round=cpu(s.round),
         queue=DeferQueue(*(cpu(t) for t in s.queue)),
-        inflight=_fields_map(cpu, s.inflight))
+        inflight=_fields_map(cpu, s.inflight),
+        comm=_fields_map(cpu, s.comm))
 
 
 def flat_state(s: FLState, spec) -> FLState:

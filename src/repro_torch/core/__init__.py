@@ -19,9 +19,12 @@ from .controller import (  # noqa: F401
     ControllerState,
     clamp_target_rate,
     controller_step,
+    delta_bounds,
     demand_load_step,
     feasible_rate,
     init_controller,
+    realized_rate,
+    tracking_error_bounds,
 )
 from .fedback import (  # noqa: F401
     ADMM_FAMILY,
@@ -50,5 +53,7 @@ from .schedule import (  # noqa: F401
     serve,
     sync_trace,
 )
+from .trigger import evaluate_trigger, trigger_distances, \
+    trigger_events  # noqa: F401
 from .state import DeferQueue, FLState, InFlight, RoundMetrics, \
     delay_schedule, init_inflight  # noqa: F401

@@ -95,22 +95,26 @@ def capacity_bounds(n_clients: int, rate: float, slack: float,
 
 
 def sum_in_xla_cpu_order(x: torch.Tensor, window: int = 32) -> torch.Tensor:
-    """fp32 sum of a 1-D tensor, adding in the order XLA's CPU backend
-    uses for ``jnp.sum``: vectors longer than 32 are zero-padded evenly
-    on both sides to a multiple of 32, each window of 32 is summed left
-    to right, and the window sums are reduced the same way.  Every add
-    is an elementwise fp32 add, so the result is the same on any device.
-    """
+    """fp32 sum over the leading axis, adding in the order XLA's CPU
+    backend uses for ``jnp.sum(x, axis=0)``: an axis longer than 32 is
+    zero-padded evenly on both sides to a multiple of 32, each window of
+    32 is summed first to last, and the window sums are reduced the
+    same way; trailing axes are summed independently, column by column
+    (the compressed consensus's column sum of an (N, D) matrix).  Every
+    add is an elementwise fp32 add, so the result is the same on any
+    device."""
+    rest = tuple(x.shape[1:])
     while x.shape[0] > window:
         m = -(-x.shape[0] // window)
         pad = m * window - x.shape[0]
-        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
-        cols = x.view(m, window)
-        acc = torch.zeros(m, dtype=x.dtype, device=x.device)
+        x = torch.nn.functional.pad(
+            x, (0, 0) * len(rest) + (pad // 2, pad - pad // 2))
+        cols = x.view((m, window) + rest)
+        acc = torch.zeros((m,) + rest, dtype=x.dtype, device=x.device)
         for j in range(window):
             acc = acc + cols[:, j]
         x = acc
-    acc = torch.zeros((), dtype=x.dtype, device=x.device)
+    acc = torch.zeros(rest, dtype=x.dtype, device=x.device)
     for j in range(x.shape[0]):
         acc = acc + x[j]
     return acc

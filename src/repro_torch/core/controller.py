@@ -105,3 +105,29 @@ def clamp_target_rate(target_rate, delay: torch.Tensor) -> torch.Tensor:
         target = torch.full(delay.shape, target, dtype=torch.float32,
                             device=delay.device)
     return torch.minimum(target, feasible_rate(delay))
+
+
+def delta_bounds(cfg: ControllerConfig,
+                 delta_plus: float) -> tuple[float, float]:
+    """Paper Lemma 1: (lower, upper) bounds on δ_i^k given a trigger
+    saturation level δ₊ (S(δ) = 0 for every δ ≥ δ₊)."""
+    K, a, d0 = cfg.K, cfg.alpha, cfg.delta0
+    lower = min(d0 - K / a, -K * (1 + a) / a)
+    upper = max(delta_plus + K * (1 + a) / a, d0 + K / a)
+    return lower, upper
+
+
+def tracking_error_bounds(cfg: ControllerConfig, delta_plus: float,
+                          horizon: int) -> tuple[float, float]:
+    """Paper Theorem 2: c1/T ≤ (1/T) Σ_k S^k − L̄ ≤ c2/T; returns
+    (c1/T, c2/T)."""
+    K, a, d0 = cfg.K, cfg.alpha, cfg.delta0
+    c1 = min(-2.0 / a, -d0 / K - (2.0 + a) / a)
+    c2 = max((delta_plus - d0) / K + (2.0 + a) / a, (2.0 + a) / a)
+    return c1 / horizon, c2 / horizon
+
+
+def realized_rate(state: ControllerState) -> torch.Tensor:
+    """Time-averaged participation rate (1/T) Σ_k S_i^k per client."""
+    t = torch.clamp(state.round, min=1).to(torch.float32)
+    return state.event_count.to(torch.float32) / t

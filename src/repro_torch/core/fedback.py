@@ -48,7 +48,11 @@ too.)  One round, in order:
    the AVG family (FedAvg, FedProx) skips the dual algebra and its
    kernels: λ stays zero, the center is ω and z = θ;
 4. the consensus mean ω = (1/N) Σ z_i^prev for the ADMM family, the
-   mean over the committed clients for the AVG family.
+   mean over the committed clients for the AVG family; with
+   ``consensus_compress`` ("bf16" or "int8", flat layout only) the
+   error-feedback compressed form of either (``core/compress.py``),
+   whose residual is ``FLState.comm``.  ``"none"`` is the exact fp32
+   program, with ``comm`` None.
 
 **Stale-tolerant rounds** (``max_staleness=S``): a serviced solve lands
 in θ/λ/z_prev δ_i ≤ S rounds later (``FLState.inflight``, the delays of
@@ -95,8 +99,8 @@ clients add per-shard partials in shard order on shard 0's device
 code.  The mesh needs no process group: one process drives every shard.
 
 What the JAX engine also offers and later slices port: ragged clients,
-compressed consensus, host-offloaded state, the sweeps' controller
-overrides and the cross-pod program.  SCAFFOLD has its own round
+host-offloaded state, the sweeps' controller overrides and the
+cross-pod program.  SCAFFOLD has its own round
 (:mod:`repro_torch.core.baselines`), without a mesh, as in the
 reference.
 """
@@ -118,6 +122,8 @@ from repro_torch.utils.pytree import tree_broadcast_like, tree_map, \
     tree_zeros_like
 
 from .compact import capacity_bounds, init_queue, make_compact_block
+from .compress import check_mode, ef_consensus, ef_participant_mean, \
+    init_residual
 from .controller import ControllerConfig, init_controller
 from .engine import all_sum, consensus_mean, dual_ascent, gated_commit, \
     measured_commits, participant_mean, participant_mean_loss, \
@@ -207,7 +213,6 @@ def _check_supported(cfg: FLConfig, mesh=None) -> None:
         raise NotImplementedError("mesh= with a per-client target_rate is "
                                   "not ported yet (M14b)")
     unported = {
-        "consensus_compress": cfg.consensus_compress != "none",
         "state_backend": cfg.state_backend != "device",
         "algorithm": cfg.algorithm not in ADMM_FAMILY + AVG_FAMILY,
     }
@@ -217,11 +222,22 @@ def _check_supported(cfg: FLConfig, mesh=None) -> None:
         raise NotImplementedError(f"not ported yet: {settings}")
 
 
+def _check_compress(cfg: FLConfig, flat: bool) -> str:
+    """The compression mode; compression needs the flat layout, whose
+    (N, D) matrix the residual shadows."""
+    mode = check_mode(cfg.consensus_compress)
+    if mode != "none" and not flat:
+        raise ValueError(
+            f"consensus_compress={mode!r} needs the flat (spec=) layout — "
+            "the EF residual is an (N, D) matrix over the flat state")
+    return mode
+
+
 def _init_shard(cfg: FLConfig, w0, n: int, device,
                 delay=None) -> FLState:
     """The Alg. 2 state of ``n`` clients from ω⁰ = ``w0`` on ``device``;
     with ``delay`` (their rows of the delay schedule) an empty delay
-    pipeline."""
+    pipeline; under compression a zero residual."""
     w0 = tree_map(lambda x: x.to(device), w0)
 
     def stacked(x):
@@ -241,6 +257,8 @@ def _init_shard(cfg: FLConfig, w0, n: int, device,
         round=torch.zeros((), dtype=torch.int32, device=device),
         queue=init_queue(n, device=device),
         inflight=inflight,
+        comm=(init_residual(n, w0.shape[-1], device=device)
+              if cfg.consensus_compress != "none" else None),
     )
 
 
@@ -260,8 +278,11 @@ def init_state(cfg: FLConfig, params0, *, spec: FlatSpec | None = None,
     With ``cfg.max_staleness`` set, ``inflight`` is the empty delay
     pipeline (``core/state.py``): the delays of ``delay_schedule(N, S,
     kind=cfg.staleness_schedule, seed=cfg.seed)``, each shard its rows.
+    With ``cfg.consensus_compress`` set, ``comm`` is the zero (N, D)
+    residual (each shard its rows); the tree layout is refused.
     """
     _check_supported(cfg, mesh)
+    _check_compress(cfg, spec is not None)
     if spec is not None:
         w0 = spec.flatten(params0)
     else:
@@ -378,6 +399,7 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
     for dev in set(mesh.devices):
         fp32_products(dev)
     flat = spec is not None
+    compress = _check_compress(cfg, flat)
     n_local = n // mesh.size
     x0 = torch.as_tensor(data["x"])
     if x0.shape[0] != n:
@@ -589,14 +611,23 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
         num_events = all_sum([torch.sum(e.to(torch.int32))
                               for e in events]).to(torch.int32)
         z_prev = [z for _, _, z in new]
+        comm = [s.comm for s in shards]
         with span("fedback/consensus"):
-            if is_admm:
+            num_committed = None if is_admm else all_sum(
+                [torch.sum(c.to(torch.int32)) for c in committed])
+            if compress != "none":
+                ef = dict(mode=compress, block=cfg.compress_block, mesh=mesh)
+                if is_admm:
+                    omega, comm = ef_consensus(z_prev, s0.omega, comm, **ef)
+                else:
+                    omega, comm = ef_participant_mean(
+                        z_prev, committed, s0.omega, comm, num_committed,
+                        **ef)
+            elif is_admm:
                 omega = consensus_mean(z_prev)
             else:  # the non-weighted mean over this round's uploads
-                omega = participant_mean(
-                    z_prev, committed, s0.omega,
-                    num_events=all_sum([torch.sum(c.to(torch.int32))
-                                        for c in committed]))
+                omega = participant_mean(z_prev, committed, s0.omega,
+                                         num_events=num_committed)
         rate_floor = cfg.participation * n
         metrics = RoundMetrics(
             events=unshard_rows(events),
@@ -617,9 +648,9 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
                        replicate_data(mesh, s0.round + 1), strict=True)
         new_shards = tuple(
             FLState(theta=theta, lam=lam, z_prev=z, omega=w, ctrl=ctrl,
-                    rng=key, round=rnd, queue=queue, inflight=fl)
-            for (theta, lam, z), queue, fl, ctrl, (w, key, rnd) in zip(
-                new, queues, inflight, ctrls, replicas, strict=True))
+                    rng=key, round=rnd, queue=queue, inflight=fl, comm=e)
+            for (theta, lam, z), queue, fl, ctrl, e, (w, key, rnd) in zip(
+                new, queues, inflight, ctrls, comm, replicas, strict=True))
         return new_shards, metrics
 
     def serve_body(shards, arrivals):

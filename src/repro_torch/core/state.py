@@ -19,8 +19,12 @@ With ``max_staleness`` set, ``FLState.inflight`` holds the
 stale-tolerant round's delay pipeline (:class:`InFlight`): per-client
 delays, countdowns, the parked θ/λ/z payloads in the state's layout and
 the issued-event ring; its fields are client-stacked, so a client mesh
-keeps each shard's rows on the shard's device.  Compressed-consensus
-residuals and host-offloaded state belong to later slices of the port.
+keeps each shard's rows on the shard's device.
+
+With ``consensus_compress`` set (flat layout only), ``FLState.comm``
+holds the compressed consensus's (N, D) fp32 error-feedback residual
+(``core/compress.py``), client-stacked like θ.  Host-offloaded state
+belongs to a later slice of the port.
 """
 from __future__ import annotations
 
@@ -35,7 +39,8 @@ from repro_torch.utils.pytree import tree_zeros_like
 from .controller import ControllerState
 
 #: FLState fields whose leaves carry the leading (N, ...) client axis.
-CLIENT_STACKED_FIELDS = ("theta", "lam", "z_prev", "queue", "inflight")
+CLIENT_STACKED_FIELDS = ("theta", "lam", "z_prev", "queue", "inflight",
+                         "comm")
 
 #: ControllerState fields with a per-client (N,) vector.
 CTRL_STACKED_FIELDS = ("delta", "load", "event_count")
@@ -114,6 +119,9 @@ class FLState(NamedTuple):
     queue: DeferQueue
     inflight: InFlight | None = None  # the delay pipeline; None = the
     #                                   synchronous round
+    comm: torch.Tensor | None = None  # (N, D) fp32 — the compressed
+    #                                   consensus's error-feedback residual;
+    #                                   None = the exact fp32 consensus
 
 
 class RoundMetrics(NamedTuple):

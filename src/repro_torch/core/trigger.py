@@ -40,3 +40,10 @@ def evaluate_trigger(distances: torch.Tensor,
                      delta: torch.Tensor) -> torch.Tensor:
     """S_i = 1 iff distance_i ≥ δ_i (a negative δ always fires)."""
     return distances >= delta
+
+
+def trigger_events(omega, z_prev, delta: torch.Tensor,
+                   metric: str = "l2") -> torch.Tensor:
+    """S_i = 1{‖ω − z_i^prev‖ ≥ δ_i}, the plain distances and the
+    trigger in one call."""
+    return evaluate_trigger(trigger_distances(omega, z_prev, metric), delta)

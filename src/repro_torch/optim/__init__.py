@@ -1,2 +1,3 @@
 """Local solver optimizers of the port."""
-from .sgd import sgd_step  # noqa: F401
+from .prox import prox_grad_fn, solve_prox  # noqa: F401
+from .sgd import SGDState, sgd_init, sgd_state_step, sgd_step  # noqa: F401

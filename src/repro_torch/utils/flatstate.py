@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Callable
 
 import torch
 
@@ -93,3 +94,17 @@ def make_flat_spec(template) -> FlatSpec:
     return FlatSpec(paths=tuple(p for p, _ in pairs), shapes=shapes,
                     dtypes=tuple(torch.as_tensor(x).dtype for _, x in pairs),
                     offsets=offsets, dim=sum(sizes))
+
+
+def flat_loss_fn(spec: FlatSpec, loss_fn: Callable) -> Callable:
+    """``loss_fn(params_tree, x, y)`` adapted to flat (D,) parameters."""
+    def flat_loss(vec, x, y):
+        return loss_fn(spec.unflatten(vec), x, y)
+
+    return flat_loss
+
+
+def flatten_problem(params0, loss_fn: Callable):
+    """One-call front end: (spec, flat params0, flat loss_fn)."""
+    spec = make_flat_spec(params0)
+    return spec, spec.flatten(params0), flat_loss_fn(spec, loss_fn)

@@ -1,6 +1,6 @@
 """Pytree helpers over nested dicts of tensors.
 
-Port of the parts of ``repro/utils/pytree.py`` the round uses.  A tree
+Port of ``repro/utils/pytree.py``.  A tree
 is a nested dict whose leaves are tensors; a bare tensor is a tree of
 one leaf, so the flat (N, D) layout runs through the same helpers as
 the tree layout.  Leaves come in sorted-key order at every level — the
@@ -84,3 +84,75 @@ def flatten_stacked(tree) -> torch.Tensor:
 def tree_size(tree) -> int:
     """Total number of scalars in the tree."""
     return sum(math.prod(x.shape) for x in tree_leaves(tree))
+
+
+# --- the reference's tree algebra (``repro/utils/pytree.py``) -------------
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(tree, c):
+    return tree_map(lambda x: x * c, tree)
+
+
+def tree_axpy(a, x, y):
+    """a·x + y, leaf by leaf."""
+    return tree_map(lambda xl, yl: a * xl + yl, x, y)
+
+
+def tree_dot(a, b) -> torch.Tensor:
+    """Global inner product over every leaf, each in fp32, added in leaf
+    order."""
+    total = torch.zeros((), dtype=torch.float32,
+                        device=tree_leaves(a)[0].device)
+    for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True):
+        total = total + torch.dot(x.to(torch.float32).reshape(-1),
+                                  y.to(torch.float32).reshape(-1))
+    return total
+
+
+def tree_sq_norm(tree) -> torch.Tensor:
+    total = torch.zeros((), dtype=torch.float32,
+                        device=tree_leaves(tree)[0].device)
+    for x in tree_leaves(tree):
+        x = x.to(torch.float32)
+        total = total + torch.sum(x * x)
+    return total
+
+
+def tree_norm(tree) -> torch.Tensor:
+    return torch.sqrt(tree_sq_norm(tree))
+
+
+def tree_stack(trees):
+    """A list of trees stacked along a new leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def tree_unstack(tree, n: int) -> list:
+    return [tree_index(tree, i) for i in range(n)]
+
+
+def tree_index(tree, i):
+    return tree_map(lambda x: x[i], tree)
+
+
+def tree_bytes(tree) -> int:
+    return sum(math.prod(x.shape) * x.element_size()
+               for x in tree_leaves(tree))
+
+
+def tree_cast(tree, dtype):
+    return tree_map(lambda x: x.to(dtype), tree)
+
+
+def tree_ravel(tree) -> torch.Tensor:
+    """Every leaf flattened into one (D,) fp32 vector, in leaf order."""
+    leaves = tree_leaves(tree)
+    return flatten(tree) if leaves else torch.zeros((0,))

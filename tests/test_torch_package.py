@@ -37,7 +37,8 @@ def test_package_has_the_slice_modules():
               "kernels/ssd_scan.py", "models/layers.py", "models/ssm.py",
               "models/attention.py", "models/transformer.py",
               "models/api.py", "launch/serve_lm.py",
-              "sharding/clients.py"):
+              "sharding/clients.py", "core/compress.py",
+              "checkpoint/store.py", "optim/prox.py", "launch/serve.py"):
         assert m in names, m
     for src in ("fedback_kernels.cu", "model_kernels.cu"):
         assert (PKG / "csrc" / src).is_file(), src
@@ -48,7 +49,8 @@ def test_package_has_the_slice_modules():
 def test_module_imports_no_jax_and_no_repro(path):
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro", "flax", "optax"), \
+        assert top not in ("jax", "jaxlib", "repro", "flax", "optax",
+                           "ml_dtypes"), \
             f"{path.name} imports {name}"
 
 
@@ -57,9 +59,12 @@ def test_importing_the_port_leaves_jax_out():
             "ops, repro_torch.convert, repro_torch.configs.paper_mnist, "
             "repro_torch.configs.zamba2_2_7b, repro_torch.data, "
             "repro_torch.models, repro_torch.models.transformer, "
-            "repro_torch.launch.serve_lm, repro_torch.sharding; "
+            "repro_torch.launch.serve_lm, repro_torch.sharding, "
+            "repro_torch.checkpoint, repro_torch.core.compress, "
+            "repro_torch.optim.prox, repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes')]; print(bad); "
+            "sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
@@ -165,11 +170,18 @@ def test_unported_features_are_refused():
     params0 = {"theta": torch.zeros(3)}
     spec = make_flat_spec(params0)
     for layout in (spec, None):
-        for kw in (dict(consensus_compress="int8"),
-                   dict(algorithm="scaffold"), dict(state_backend="host")):
+        for kw in (dict(algorithm="scaffold"), dict(state_backend="host")):
             with pytest.raises(NotImplementedError):
                 init_state(FLConfig(n_clients=4, **kw), params0, spec=layout,
                            device="cpu")
+    # Compressed consensus is ported on the flat layout (its residual);
+    # the tree layout refuses it as the reference does.
+    state = init_state(FLConfig(n_clients=4, consensus_compress="int8"),
+                       params0, spec=spec, device="cpu")
+    assert state.comm.shape == (4, 3)
+    with pytest.raises(ValueError, match="flat"):
+        init_state(FLConfig(n_clients=4, consensus_compress="int8"),
+                   params0, spec=None, device="cpu")
     # The tree layout (spec=None) is ported: stacked leaves, unstacked ω.
     state = init_state(FLConfig(n_clients=4), params0, spec=None,
                        device="cpu")

@@ -12,7 +12,13 @@ CPU, and is compared with the JAX round from the same state:
 * δ and the queue ages bit-equal, the loads within one ulp (see
   tests/test_torch_core.py for the FMA XLA contracts there);
 * θ, λ, z_prev and ω at rtol 1e-4 / atol 1e-6 (the local solve sums in
-  another order); distances at rtol 1e-6.
+  another order); distances at rtol 1e-6;
+* under compressed consensus, the EF residual ``comm`` by
+  :func:`_assert_comm_close`: rows that sent nothing keep it bit for
+  bit; the others within the solve's grade carried through δ = z − ω +
+  e, 1e-4 of the largest |z| plus 1e-6, and one quantization step more
+  where the two runs' δ fall on different codes (int8) or bf16 values;
+  such flips are counted.
 
 Three configurations: form A (compact, fused commit, trigger kernel),
 form B (dense flat, trigger + ADMM kernels) on a small MLP, and the
@@ -99,6 +105,34 @@ def _assert_update_close(got, want, before, tol, err_msg=""):
     assert norm(got, want) <= tol * update, (err_msg, norm(got, want), update)
 
 
+def _assert_comm_close(before, got, want, committed, mode, block,
+                       err_msg=""):
+    """The EF residual after one round from ``before`` (the module
+    docstring's grade); returns the number of coordinates whose level-1
+    code (int8) or bf16 value differs between the two runs."""
+    from repro_torch.core.compress import ef_codes
+
+    sent = np.ones(got.comm.shape[0], bool) if committed is None \
+        else np.asarray(committed)
+    np.testing.assert_array_equal(got.comm[~sent],
+                                  np.asarray(before.comm)[~sent], err_msg)
+    np.testing.assert_array_equal(np.asarray(want.comm)[~sent],
+                                  np.asarray(before.comm)[~sent], err_msg)
+    z_w = np.asarray(want.z_prev)
+    def t(a):  # a copy: the reference's arrays are read-only
+        return torch.tensor(np.asarray(a))
+
+    (c_g, _), (c_w, step) = (
+        (c["codes1"][0].numpy(), c["step1"][0].numpy()) for c in (
+            ef_codes(t(z), t(before.omega), t(before.comm), mode=mode,
+                     block=block) for z in (got.z_prev, z_w)))
+    flips = c_g != c_w
+    tol = 1e-4 * float(np.abs(z_w).max()) + 1e-6 + np.where(flips, step, 0.0)
+    gap = np.abs(got.comm - np.asarray(want.comm))
+    assert np.all(gap[sent] <= tol[sent]), (err_msg, float(gap.max()))
+    return int(flips[sent].sum())
+
+
 def _run_synced(jcfg, tcfg, jloss, tloss, jdata, tdata, jparams, tparams,
                 rounds, omega_tol=None, layout="flat", update_tol=None,
                 trace=None):
@@ -126,7 +160,7 @@ def _run_synced(jcfg, tcfg, jloss, tloss, jdata, tdata, jparams, tparams,
     tround = make_round_fn(tcfg, tloss, tdata, spec=tspec, device="cpu",
                            arrivals_arg=serve)
     seen = {"events": 0, "deferred": 0, "flipped_rounds": 0, "landed": 0,
-            "inflight": 0}
+            "inflight": 0, "code_flips": 0}
     for r in range(rounds):
         before = jax.device_get(jstate)
         arrivals = () if not serve else (np.asarray(trace[r], bool),)
@@ -187,6 +221,14 @@ def _run_synced(jcfg, tcfg, jloss, tloss, jdata, tdata, jparams, tparams,
                 _assert_tree_close(getattr(got.inflight, f),
                                    getattr(want.inflight, f), rtol=1e-4,
                                    atol=1e-6, err_msg=f"round {r} parked {f}")
+        assert (got.comm is None) == (want.comm is None), r
+        if want.comm is not None:
+            committed = (None if jcfg.algorithm in ("fedback", "fedadmm",
+                                                    "admm")
+                         else np.asarray(wm.committed))
+            seen["code_flips"] += _assert_comm_close(
+                before, got, want, committed, jcfg.consensus_compress,
+                jcfg.compress_block, err_msg=f"round {r} comm")
         np.testing.assert_array_equal(got.rng, np.asarray(want.rng))
         assert int(got.round) == int(want.round) == r + 1
     return seen

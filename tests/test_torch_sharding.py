@@ -338,7 +338,7 @@ def test_mesh_refusals():
     with pytest.raises(ValueError, match="divisible"):
         make_round_fn(FLConfig(n_clients=N), loss, data, mesh=_cpu_mesh(3))
     with pytest.raises(NotImplementedError, match="not ported"):
-        make_round_fn(FLConfig(n_clients=N, consensus_compress="int8"), loss,
+        make_round_fn(FLConfig(n_clients=N, state_backend="host"), loss,
                       data, mesh=mesh)
     per_client = FLConfig(n_clients=N, controller=ControllerConfig(
         target_rate=torch.full((N,), 0.2)))
