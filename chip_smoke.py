@@ -4,7 +4,8 @@ tree client-state layout and the paper's CIFAR-10 workload (slice 7),
 the client-sharded round (slice 8), K1's leaf-table kernel behind the
 tree trigger, the sharded trigger and bf16 trigger inputs (slice 9),
 FL serving over arrival traces with stale-tolerant rounds (slice 10),
-and compressed consensus with checkpoints (slice 11).
+compressed consensus with checkpoints (slice 11) and ragged clients on
+one pooled buffer (slice 12).
 
     python3 chip_smoke.py
 
@@ -153,6 +154,28 @@ non-zero):
    uninterrupted one, and QA's file loaded on the CPU's plain path,
    whose round 4 agrees with the card's as in 4–5; file size and save /
    load times printed;
+5h. ragged clients: first form A on its trimmed data pooled uniformly
+   (``pool_data`` of its 100 equal shards) against form A on the same
+   data stacked, 3 rounds from ``init_state``: events and ω bit for bit;
+   then the forms of ``RAGGED_FORMS``, each on its module's
+   ``pooled_workload()`` (Σnᵢ = 12,000 asserted, pool sizes and buckets
+   printed), 1 warm-up and 5 timed rounds for RA, 3 for the others,
+   launches per round asserted, no host sync, the second round held
+   against the CPU's plain path: RA (form A on the label-shard split
+   kept whole, 114–123 a client, 4 padded buckets: K1, K3), RB (form B
+   on it, 4 bucket solves: K1, K2), RS (RA on 2 client shards, the
+   clients reordered by ``balanced_permutation``: K1b, K3 ×2), each
+   element by element with 5g's ReLU-flip rule (at most one row, its
+   cause shown by a replay of its masked solve), and RC (CF-A on the
+   Dirichlet split kept whole, 33–255 a client, 48 SGD steps a slot:
+   K1, K3): its slots' solve over its first 4 SGD steps, card against
+   CPU, within CF-A's 1e-2 of its update, and its round within the
+   distance the CPU's own round moves when ω starts one ulp off (48
+   steps through ReLUs and max-pools amplify any rounding); their
+   ms/round printed
+   beside A's, B's, SA's and CF-A's.  Phase 5d's convolution check also
+   holds the ragged solve's form (each image alone under a second
+   ``vmap``) within 5e-5 of float64;
 6. zamba2-2.7b at full width cut to one group (6 mamba layers and the
    shared block), fp32 with TF32 off: 1 request × 256 tokens, prefill
    and 4 greedy decode steps on the card (kernels) against the CPU's
@@ -171,7 +194,7 @@ non-zero):
 8. print the serve line, the kernels line (K4's bf16 instance as
    ``flash_attention``, launched in phase 7, and its 3xTF32 instance as
    ``flash_attention_fp32``, launched in phase 6; K1–K3's launches are
-   those of phases 4–5g, K1c's those of 5c–5e, K1b's those of 5e–5g,
+   those of phases 4–5h, K1c's those of 5c–5e, K1b's those of 5e–5h,
    K2b's those of 5e), the card line and, last, the ok line.
 
 Exits non-zero without a result where no CUDA device is visible, or
@@ -1068,24 +1091,41 @@ def relu_flip_cause(ctx, cfg):
     unit, its smallest share and its rank among the 200 units."""
     from repro_torch import prng
     from repro_torch.convert import state_from_numpy
-    from repro_torch.core.engine import dual_ascent, prox_center
+    from repro_torch.core.engine import dual_ascent, masked_batch_loss, \
+        prox_center
     from repro_torch.core.fedback import _epoch_indices
     from repro_torch.launch.conv_precision import update_ratio
     from repro_torch.models import make_loss_fn
     from repro_torch.optim.sgd import sgd_step
 
-    spec = ctx["spec"]
-    grad = torch.func.grad(make_loss_fn(ctx["logits"]))
+    spec, ragged = ctx["spec"], ctx.get("ragged")
+    loss_fn = make_loss_fn(ctx["logits"])
+    grad = torch.func.grad(loss_fn)
+    masked_grad = torch.func.grad(
+        lambda p, xb, yb, w: masked_batch_loss(loss_fn, p, xb, yb, w))
     rho = cfg.local_rho()
+
+    def client_rows(row):
+        """The client's rows and the epoch length its solve drew at: its
+        shard, or on ragged clients its CSR slice of the pool and the
+        slots' max(nᵢ) (compact) or its bucket's capacity (dense)."""
+        if ragged is None:
+            x, y = ctx["data"]["x"][row], ctx["data"]["y"][row]
+            return x.cpu(), y.cpu(), x.shape[0]
+        rows = ragged.client_slice(row)
+        length = ragged.max_size if cfg.compact else next(
+            b.capacity for b in ragged.buckets if row in b.members)
+        return (ctx["data"]["x"][rows].cpu(), ctx["data"]["y"][rows].cpu(),
+                length)
 
     def cause(before, got, want, row):
         n = before.theta.shape[0]
         _, _, data_rng = prng.split(
             state_from_numpy(before, device="cpu").rng, 3)
-        x = ctx["data"]["x"][row].cpu()
-        y = ctx["data"]["y"][row].cpu()
+        x, y, length = client_rows(row)
+        size = x.shape[0]
         idx = _epoch_indices(prng.split(data_rng, n)[row:row + 1],
-                             x.shape[0], cfg.batch_size, cfg.epochs)[0]
+                             length, cfg.batch_size, cfg.epochs)[0]
         omega = torch.from_numpy(before.omega)
         lam = dual_ascent(torch.from_numpy(before.lam[row:row + 1]),
                           torch.from_numpy(before.theta[row:row + 1]), omega)
@@ -1095,12 +1135,20 @@ def relu_flip_cause(ctx, cfg):
         buf = torch.zeros_like(theta)
         share = []
         for step in range(idx.shape[0]):
+            # A ragged client's padding reads its last row with weight 0,
+            # and a step of all padding is skipped (the masked solve).
+            live = idx[step] < size
+            if not bool(live.any()):
+                continue
             p = spec.unflatten(theta)
-            xb, yb = x[idx[step]], y[idx[step]]
+            xb = x[torch.clamp(idx[step], max=size - 1)]
+            yb = y[torch.clamp(idx[step], max=size - 1)]
             w, b = p["fc1"]["w"], p["fc1"]["b"]
-            share.append(((xb @ w + b).abs()
-                          / (xb.abs() @ w.abs() + b.abs())).amin(dim=0))
-            g = spec.flatten(grad(p, xb, yb)) + rho * (theta - center)
+            share.append(((xb[live] @ w + b).abs()
+                          / (xb[live].abs() @ w.abs() + b.abs())).amin(dim=0))
+            g = spec.flatten(grad(p, xb, yb) if bool(live.all()) else
+                             masked_grad(p, xb, yb, live.to(torch.float32)))
+            g = g + rho * (theta - center)
             theta, buf = sgd_step(theta, g, buf, cfg.lr, cfg.momentum)
         share = torch.stack(share).amin(dim=0)
         off = spec.unflatten(torch.from_numpy(~np.isclose(
@@ -1129,10 +1177,83 @@ def relu_flip_cause(ctx, cfg):
     return cause
 
 
+def solve_horizon(ctx, cfg, steps):
+    """``check(before, m)`` for :func:`compare_with_cpu`'s ``horizon`` on
+    a compact ragged form: the masked solve of the checked round's
+    committed clients (their keys split from the state's rng as the
+    round splits them, λ⁺ and the prox centers from ``core.engine``,
+    warm start at ω, their CSR slices at the slots' max(nᵢ)) over its
+    first ``steps`` SGD steps, run on the card and on the CPU from the
+    same inputs.  Returns the θ gap over the θ update's norm."""
+    from repro_torch import prng
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.core.engine import dual_ascent, prox_center
+    from repro_torch.core.fedback import _epoch_indices, _masked_local_solve
+    from repro_torch.launch.conv_precision import update_ratio
+    from repro_torch.models import make_loss_fn
+
+    ragged = ctx["ragged"]
+    loss_fn = make_loss_fn(ctx["logits"])
+
+    def check(before, m):
+        rows = torch.from_numpy(np.nonzero(m.committed.cpu().numpy())[0])
+        _, _, data_rng = prng.split(
+            state_from_numpy(before, device="cpu").rng, 3)
+        keys = prng.split(data_rng, before.theta.shape[0])[rows]
+        idx = _epoch_indices(keys, ragged.max_size, cfg.batch_size,
+                             cfg.epochs)[:, :steps]
+        omega = torch.from_numpy(before.omega)
+        theta = torch.from_numpy(before.theta)[rows]
+        center = prox_center(omega, dual_ascent(
+            torch.from_numpy(before.lam)[rows], theta, omega))
+        theta0 = (omega.expand(len(rows), -1) if cfg.warm_start
+                  else theta).contiguous()
+        inputs = (theta0, center, ctx["data"]["x"].cpu(),
+                  ctx["data"]["y"].cpu(), ragged.offsets_array("cpu")[rows],
+                  ragged.sizes_array("cpu")[rows], idx)
+        out = [_masked_local_solve(
+            loss_fn, ctx["spec"], *(t.to(dev) for t in inputs),
+            rho=cfg.local_rho(), lr=cfg.lr, momentum=cfg.momentum)[0].cpu()
+            for dev in (ctx["dev"], torch.device("cpu"))]
+        return update_ratio(out[0].numpy(), out[1].numpy(), theta0.numpy())
+
+    return check
+
+
+def nudged_spread(round_fn_cpu, before, want, events, fields, placement,
+                  draws=4):
+    """How far the CPU's own round moves when it starts from ω one ulp
+    off (each element nudged up or down at random): per field, the
+    largest gap from ``want`` (the round from ``before``, whose events
+    were ``events``) over the round's update norm, over ``draws``
+    nudges that leave the events as they were."""
+    from repro_torch.convert import state_from_numpy, state_to_numpy
+    from repro_torch.launch.conv_precision import update_ratio
+
+    rng = np.random.default_rng(SEED)
+    spread = dict.fromkeys(fields, 0.0)
+    kept = 0
+    for _ in range(draws):
+        away = np.where(rng.random(before.omega.shape) < 0.5, -np.inf,
+                        np.inf).astype(np.float32)
+        start = before._replace(omega=np.nextafter(before.omega, away))
+        got, gm = round_fn_cpu(state_from_numpy(start, **placement))
+        if not torch.equal(gm.events, events):
+            continue
+        got = state_to_numpy(got)
+        kept += 1
+        for f in fields:
+            spread[f] = max(spread[f], update_ratio(
+                getattr(got, f), getattr(want, f), getattr(before, f)))
+    if not kept:
+        raise AssertionError("every nudge of ω moved the events")
+    return spread
+
+
 def compare_with_cpu(round_fn_cpu, state_before, state_after, m_after,
                      label, *, exact_events=False, omega_tol=None,
                      update_tol=None, cpu_placement=None, cfg=None,
-                     kink_rows=0, kink_cause=None):
+                     kink_rows=0, kink_cause=None, horizon=None):
     """One round from the same state on the CPU's plain path must agree
     with the card's: events (off a 1e-5 margin around δ, or everywhere
     with ``exact_events``: a random draw is integer math) and, when the
@@ -1153,7 +1274,14 @@ def compare_with_cpu(round_fn_cpu, state_before, state_after, m_after,
     rounding of 0 sends a client's later SGD steps down the other ReLU
     branch, which moved one hidden unit's 785 fc1 weights of one client
     by up to 8.7e-5 in QB's round 2 on an H100; every
-    other row is held element by element.  The round must commit a client, or the state
+    other row is held element by element.  ``horizon`` (with
+    ``update_tol``: RC, whose slots run 48 SGD steps through the CNN's
+    ReLUs and max-pools) is :func:`solve_horizon`'s check: the slots'
+    solve over its first steps, card against CPU, within ``update_tol``
+    of its update (CF-A's 4 steps' grade); the whole round's state is
+    then held within :func:`nudged_spread`, the distance the CPU's own
+    round moves when ω starts one ulp off (and at least
+    ``update_tol``).  The round must commit a client, or the state
     check would hold whatever the solve and the commit computed.  θ's
     largest gap is printed (ROADMAP W1)."""
     from repro_torch.convert import state_from_numpy, state_to_numpy
@@ -1192,18 +1320,37 @@ def compare_with_cpu(round_fn_cpu, state_before, state_after, m_after,
     if update_tol is not None:
         ratios = {f: update_ratio(getattr(got, f), getattr(want, f),
                                   getattr(before, f)) for f in fields}
-        if max(ratios.values()) > update_tol:
+        limits = dict.fromkeys(fields, update_tol)
+        held = ""
+        if horizon is not None:
+            steps = horizon(before, m_after)
+            if steps > update_tol:
+                raise AssertionError(f"{label}: the slots' solve over its "
+                                     f"first steps is off the CPU's by "
+                                     f"{steps:.2e} of its update, more "
+                                     f"than {update_tol}")
+            spread = nudged_spread(round_fn_cpu, before, want, rm.events,
+                                   fields, cpu_placement or {"device": "cpu"})
+            limits = {f: max(update_tol, spread[f]) for f in fields}
+            held = (f"the slots' solve over its first steps within "
+                    f"{steps:.2e} of its update; the CPU's own round from "
+                    "ω one ulp off moves "
+                    + ", ".join(f"{f} {r:.2e}" for f, r in spread.items())
+                    + "; ")
+        if any(ratios[f] > limits[f] for f in fields):
             raise AssertionError(f"{label}: state off the CPU's by "
                                  f"{ratios} of the round's update, more "
-                                 f"than {update_tol}")
-        held = (f"state within {update_tol} of the update's norm: "
-                + ", ".join(f"{f} {r:.2e}" for f, r in ratios.items())
+                                 f"than {limits}")
+        held += (f"state within {max(limits.values()):.2e} of the update's "
+                 "norm: "
+                 + ", ".join(f"{f} {r:.2e}" for f, r in ratios.items())
                 + "; largest element difference "
                 + ", ".join(f"{f} {_max_abs_diff(getattr(got, f), getattr(want, f)):.3e}"
                             for f in fields))
     else:
-        kinks, causes = _kink_rows(got, want, before, fields, kink_rows,
-                                   label, kink_cause)
+        kinks, causes = _kink_rows(got, want, before,
+                                   [f for f in fields if f != "omega"],
+                                   kink_rows, label, kink_cause)
         rest = np.ones(got.ctrl.delta.shape[0], bool)
         rest[kinks] = False
         for f in fields:
@@ -1383,8 +1530,10 @@ def check_ef_round(before, got, want, m_after, cfg, cpu_placement, label,
 
 
 def drive(form, n_rounds, warmup, ctx, ops, expect, against=None, **check):
-    """Run ``warmup`` + ``n_rounds`` rounds of one of the ``FORMS`` of
-    ``ctx["cfgs"]`` (``configs.paper_mnist`` or ``paper_cifar``), on the
+    """Run ``warmup`` + ``n_rounds`` rounds of one of the ``FORMS`` (or
+    ``RAGGED_FORMS``, on ``ctx["data"]`` pooled as ``ctx["ragged"]``
+    says) of ``ctx["cfgs"]`` (``configs.paper_mnist`` or
+    ``paper_cifar``), on the
     flat or the tree layout and on one device or a client mesh of its
     shards on the card, as the form says, with the launch counts set
     to 0 just before; ``check`` goes to :func:`compare_with_cpu`, which
@@ -1400,13 +1549,16 @@ def drive(form, n_rounds, warmup, ctx, ops, expect, against=None, **check):
     from repro_torch.models import make_loss_and_acc_fn, make_loss_fn
 
     dev, cfgs = ctx["dev"], ctx["cfgs"]
-    f, cfg = cfgs.FORMS[form], cfgs.form_config(form)
+    f = {**cfgs.FORMS, **cfgs.RAGGED_FORMS}[form]
+    cfg = cfgs.form_config(form)
     spec = f.spec(ctx["spec"])
     loss_fn = make_loss_fn(ctx["logits"])
     placement = f.placement(dev)
+    # A ragged form's data is a pool with its spec (``ctx["ragged"]``).
+    pooled = {"ragged": ctx["ragged"]} if ctx.get("ragged") else {}
     state = f.init(cfg, ctx["params0"], spec=spec, **placement)
     round_fn = f.make_round(cfg, loss_fn, ctx["data"], spec=spec,
-                            **placement)
+                            **placement, **pooled)
 
     def copy(s, **where):  # the fused round updates its input in place
         return state_from_numpy(state_to_numpy(s), **(where or placement))
@@ -1422,9 +1574,11 @@ def drive(form, n_rounds, warmup, ctx, ops, expect, against=None, **check):
     after, m = round_fn(copy(before))
     cpu_round = f.make_round(cfg, loss_fn, {
         k: v.cpu() for k, v in ctx["data"].items()}, spec=spec,
-        **f.placement("cpu"))
+        **f.placement("cpu"), **pooled)
     if check.get("kink_rows"):
         check = dict(check, kink_cause=relu_flip_cause(ctx, cfg))
+    if check.get("horizon"):
+        check = dict(check, horizon=solve_horizon(ctx, cfg, check["horizon"]))
     compare_with_cpu(cpu_round, before, after, m, f"form {form}",
                      cpu_placement=f.placement("cpu"), cfg=cfg, **check)
     if against is not None:
@@ -2107,17 +2261,119 @@ def check_checkpoints(ctx, ops):
 CONV_REL_TOL = 5e-5
 
 
+# Phase 5h: the ragged forms (``RAGGED_FORMS`` of ``configs.paper_mnist``
+# and ``paper_cifar``), each on its module's pooled workload, with its
+# timed rounds and launches per round.  RA, RB and RS are held element
+# by element, with 5g's rule for a client row that took another ReLU
+# branch (at most one, its cause shown).  RC's slots run 48 SGD steps
+# through the CNN's ReLUs and max-pools, over which a one-ulp change of
+# the start moves the CPU's own round by far more than 1e-2 of its
+# update (``nudged_spread`` prints how far): its solve is held over its
+# first 4 steps by CF-A's update-norm ratio, and its round within that
+# spread (``compare_with_cpu``'s ``horizon``).
+RAGGED_FORMS = (
+    ("RA", 5, {"trigger_sq_norms": 1, "fused_gss": 1, "admm_update": 0},
+     KINK),
+    ("RB", 3, {"trigger_sq_norms": 1, "admm_update": 1, "fused_gss": 0},
+     KINK),
+    ("RS", 3, dict(NO_SINGLE, trigger_sq_norms_sharded=1, fused_gss=2,
+                   admm_update_sharded=0), KINK),
+    ("RC", 3, {"trigger_sq_norms_pytree": 0, "trigger_sq_norms": 1,
+               "admm_update": 0, "fused_gss": 1},
+     {"update_tol": CNN_UPDATE_TOL, "horizon": 4}),
+)
+UNIFORM_POOL_ROUNDS = 3
+
+
+def check_uniform_pool_bits(ctx):
+    """Form A on the trimmed paper-MNIST data pooled uniformly
+    (``pool_data`` of its 100 equal shards) against form A on the same
+    data stacked, from ``init_state``, on the card: the events and ω
+    bit for bit in each of 3 rounds (a uniform spec takes the plain
+    solve, on each slot's block of the pool)."""
+    from repro_torch.configs import paper_mnist
+    from repro_torch.core import init_state, make_round_fn
+    from repro_torch.models import make_loss_fn
+    from repro_torch.utils.ragged import pool_data
+
+    dev, spec = ctx["dev"], ctx["spec"]
+    cfg = paper_mnist.form_config("A")
+    loss_fn = make_loss_fn(ctx["logits"])
+    x, y = ctx["data"]["x"].cpu(), ctx["data"]["y"].cpu()
+    pooled, ragged = pool_data(list(x), list(y), device=dev)
+    if not ragged.uniform or ragged.total != x.shape[0] * x.shape[1]:
+        raise AssertionError(f"the stacked data pooled as {ragged.sizes}")
+    rect = make_round_fn(cfg, loss_fn, ctx["data"], spec=spec, device=dev)
+    pool = make_round_fn(cfg, loss_fn, pooled, spec=spec, device=dev,
+                         ragged=ragged)
+    a = init_state(cfg, ctx["params0"], spec=spec, device=dev)
+    b = init_state(cfg, ctx["params0"], spec=spec, device=dev)
+    events = []
+    for r in range(UNIFORM_POOL_ROUNDS):
+        a, ma = rect(a)
+        b, mb = pool(b)
+        if not torch.equal(ma.events, mb.events) or not torch.equal(
+                a.omega.view(torch.int32), b.omega.view(torch.int32)):
+            raise AssertionError(f"form A on the uniform pool differs from "
+                                 f"form A in round {r + 1}")
+        events.append(int(ma.num_events))
+    log(f"form A on its data pooled uniformly ({ragged.total} rows, "
+        f"{x.shape[1]} a client): events and ω bit-equal to form A in "
+        f"each of {UNIFORM_POOL_ROUNDS} rounds (events {events})")
+
+
+def drive_ragged(ctx, cifar_ctx, ops):
+    """Phase 5h: the uniform pool's bits, then each form of
+    :data:`RAGGED_FORMS` through :func:`drive` on its pooled workload
+    (Σnᵢ = 12,000 asserted).  Returns (a report per form, the launch
+    counts summed over the forms)."""
+    from repro_torch.configs import paper_cifar, paper_mnist
+
+    check_uniform_pool_bits(ctx)
+    reports, total = {}, {}
+    for form, n_rounds, expect, check in RAGGED_FORMS:
+        base = cifar_ctx if form in paper_cifar.RAGGED_FORMS else ctx
+        cfgs = base["cfgs"]
+        f = cfgs.RAGGED_FORMS[form]
+        data, test, params0, _, ragged = cfgs.pooled_workload(
+            SEED, device=ctx["dev"], shards=f.shards)
+        if ragged.total != 12000:
+            raise AssertionError(f"form {form}: {ragged.total} pooled "
+                                 "examples, not 12,000")
+        pool = dict(sizes=[ragged.min_size, ragged.max_size],
+                    padding=ragged.padding,
+                    buckets=[[b.capacity, len(b.members), b.padded]
+                             for b in ragged.buckets])
+        log(f"form {form}: {ragged.total} examples pooled over "
+            f"{ragged.n_clients} clients of {ragged.min_size}–"
+            f"{ragged.max_size}, buckets (capacity, clients, padded) "
+            f"{pool['buckets']}")
+        report, counts = drive(form, n_rounds, 1, dict(
+            base, data=data, test=test, params0=params0, ragged=ragged),
+            ops, expect, **check)
+        reports[form] = dict(report, what=f.what, pool=pool)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        del data, test
+        torch.cuda.empty_cache()
+    return reports, total
+
+
 def check_conv_precision(ctx):
     """A round built for the card switches TF32 off (the flags are set on
     first), and then the CNN's convolutions (``models.mlp.conv3x3_same``),
     batched over a CIFAR round's slots by ``vmap`` as the solve batches
     them — forward, data and weight gradients at the three layers'
     shapes — lie within ``CONV_REL_TOL`` of float64 (max |error| / max
-    |value|).  The same passes with cuDNN's TF32 on are printed beside."""
+    |value|).  The same passes with cuDNN's TF32 on are printed beside.
+    So are the ragged solve's (phase 5h): each image convolved alone under
+    a second ``vmap`` (``conv_precision.per_example``), held to the same
+    limit."""
     from repro_torch.core.compact import capacity_bounds
     from repro_torch.launch.conv_precision import (cudnn_flags,
                                                    layer_inputs,
-                                                   pass_errors, worst)
+                                                   pass_errors, per_example,
+                                                   worst)
     from repro_torch.models import make_loss_fn
     from repro_torch.models.mlp import conv3x3_same
 
@@ -2136,16 +2392,23 @@ def check_conv_precision(ctx):
     errs = pass_errors(conv3x3_same, inputs)
     with cudnn_flags(allow_tf32=True):
         tf32 = pass_errors(conv3x3_same, inputs)
-    fmt = "; ".join(f"{layer} " + " ".join(f"{p} {e:.2e}" for p, e in
-                                            errs[layer].items())
-                    for layer in errs)
-    if worst(errs) > CONV_REL_TOL:
-        raise AssertionError(f"the solve's convolutions lie {fmt} off "
-                             f"float64, more than {CONV_REL_TOL}")
+    each = pass_errors(per_example(conv3x3_same), inputs)
+
+    def fmt(errs):
+        return "; ".join(f"{layer} " + " ".join(
+            f"{p} {e:.2e}" for p, e in errs[layer].items()) for layer in errs)
+
+    for label, e in (("", errs), (" image by image", each)):
+        if worst(e) > CONV_REL_TOL:
+            raise AssertionError(f"the solve's convolutions{label} lie "
+                                 f"{fmt(e)} off float64, more than "
+                                 f"{CONV_REL_TOL}")
     log(f"CNN convolutions, {slots} clients x {cfg.batch_size} images "
         f"batched by vmap, against float64 (max |error| / max |value|): "
-        f"{fmt}; worst {worst(errs):.2e} (limit {CONV_REL_TOL}); with "
-        f"cuDNN's TF32 on, worst {worst(tf32):.2e}")
+        f"{fmt(errs)}; worst {worst(errs):.2e} (limit {CONV_REL_TOL}); "
+        f"with cuDNN's TF32 on, worst {worst(tf32):.2e}; each image alone "
+        f"under a second vmap (the ragged solve): {fmt(each)}, worst "
+        f"{worst(each):.2e}")
 
 
 def main() -> int:
@@ -2252,6 +2515,15 @@ def main() -> int:
     log(json.dumps({"compressed_forms": forms_q, "ef_aggregation": ef_report,
                     "checkpoints": checkpoints, "card": smi}))
 
+    forms_r, counts_r = drive_ragged(ctx, cifar_ctx, ops)
+    beside = {"RA": ("A", form_a), "RB": ("B", form_b),
+              "RS": ("SA", forms_s["SA"]), "RC": ("CF-A", forms_cf["CF-A"])}
+    log("ragged forms, ms/round: " + "; ".join(
+        f"{r} {forms_r[r]['ms_per_round']:.3f} ({b} "
+        f"{v['ms_per_round']:.3f})" for r, (b, v) in beside.items())
+        + f" on {smi}")
+    log(json.dumps({"ragged_forms": forms_r, "card": smi}))
+
     _, counts_slice = check_slice_against_cpu(dev, ops)
     torch.cuda.empty_cache()
     serve_report, counts_serve = serve_full(dev, ops, smi)
@@ -2262,7 +2534,7 @@ def main() -> int:
         launches = (counts_a[name] + counts_b[name]
                     + counts_c.get(name, 0) + counts_t.get(name, 0)
                     + counts_s.get(name, 0) + counts_sv.get(name, 0)
-                    + counts_q.get(name, 0)
+                    + counts_q.get(name, 0) + counts_r.get(name, 0)
                     + counts_cf.get(name, 0) + counts_slice[name]
                     + counts_serve[name])
         if launches == 0:
@@ -2274,7 +2546,8 @@ def main() -> int:
             f"forms TA/TB {counts_t.get(name, 0)}, forms SA/SB/ST/SR "
             f"{counts_s.get(name, 0)}, serve forms SVA/SVB/SVS "
             f"{counts_sv.get(name, 0)}, forms QA/QB/QC/QS "
-            f"{counts_q.get(name, 0)}, forms CF-A/CF-T "
+            f"{counts_q.get(name, 0)}, forms RA/RB/RS/RC "
+            f"{counts_r.get(name, 0)}, forms CF-A/CF-T "
             f"{counts_cf.get(name, 0)}, "
             f"fp32 group {counts_slice[name]}, "
             f"serve {counts_serve[name]}), "

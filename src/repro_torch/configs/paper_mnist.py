@@ -8,7 +8,9 @@ paper's baselines (``fedadmm``, ``fedavg``, ``fedprox``, ``admm``);
 on.  ``FORMS`` are the round forms driven at this width (QA–QS with the
 compressed consensus);
 ``SERVE_FORMS`` the serve forms, each a stale-tolerant round with the
-arrival trace it serves.
+arrival trace it serves; ``RAGGED_FORMS`` the forms on ragged clients,
+whose data ``pooled_workload()`` builds: every client's shard whole in
+one pooled buffer (pass its spec as ``make_round_fn(..., ragged=)``).
 """
 from typing import Callable, NamedTuple
 
@@ -138,10 +140,25 @@ SERVE_FORMS = {
 }
 
 
+# The forms on ragged clients (``pooled_workload()``: the label-shard
+# split kept whole, 114–123 examples a client in 4 padded size
+# buckets): form A, form B, and form A on 2 client shards, the clients
+# reordered by ``sharding.balanced_permutation`` so that each shard
+# holds about half the rows.
+RAGGED_FORMS = {
+    "RA": Form("FedBack, compact + fused, ragged clients",
+               dict(algorithm="fedback", compact=True, fused_gss=True)),
+    "RB": Form("FedBack, dense, ragged clients", dict(algorithm="fedback")),
+    "RS": Form("FedBack, compact + fused, ragged clients, 2 client shards",
+               dict(algorithm="fedback", compact=True, fused_gss=True),
+               shards=2),
+}
+
+
 def form_config(form: str) -> FLConfig:
-    """The ``FLConfig`` of one of :data:`FORMS` or :data:`SERVE_FORMS`,
-    at L̄ = 0.1."""
-    return fl_config(**{**FORMS, **SERVE_FORMS}[form].kw)
+    """The ``FLConfig`` of one of :data:`FORMS`, :data:`SERVE_FORMS` or
+    :data:`RAGGED_FORMS`, at L̄ = 0.1."""
+    return fl_config(**{**FORMS, **SERVE_FORMS, **RAGGED_FORMS}[form].kw)
 
 
 def workload(seed: int = 0, device=None):
@@ -157,3 +174,43 @@ def workload(seed: int = 0, device=None):
                                   seed=seed, device=device)
     params0 = init_mlp(PRNGKey(seed, device=device), device=device)
     return data, test, params0, mlp_logits
+
+
+def pooled(ds, *, seed: int, device, shards: int = 1, **split):
+    """(data, test, ragged) of ``data.federated_pooled`` over
+    :data:`N_CLIENTS` clients on ``device``; with ``shards`` > 1 the
+    clients reordered by ``sharding.balanced_permutation`` (each
+    contiguous block of N/shards clients holds about Σnᵢ/shards rows)
+    and pooled again in that order."""
+    from repro_torch.data import federated_pooled
+    from repro_torch.device import resolve_device
+    from repro_torch.sharding import balanced_permutation
+    from repro_torch.utils.ragged import pool_data
+
+    device = resolve_device(device)
+    data, test, ragged, _ = federated_pooled(
+        ds, n_clients=N_CLIENTS, seed=seed, device="cpu", **split)
+    if shards > 1:
+        perm = balanced_permutation(ragged.sizes, shards)
+        data, ragged = pool_data(
+            *([data[k][ragged.client_slice(int(i))] for i in perm]
+              for k in ("x", "y")), max_buckets=len(ragged.buckets),
+            device="cpu")
+    return ({k: v.to(device) for k, v in data.items()},
+            {k: v.to(device) for k, v in test.items()}, ragged)
+
+
+def pooled_workload(seed: int = 0, device=None, shards: int = 1):
+    """(data, test, params0, logits_fn, ragged) of :func:`workload` with
+    every client's shard kept whole (12,000 examples pooled over the
+    100 clients, 114–123 each) instead of trimmed to the smallest;
+    ``shards`` as in :func:`pooled`."""
+    from repro_torch.data import make_synthetic_mnist
+    from repro_torch.models import init_mlp, mlp_logits
+    from repro_torch.prng import PRNGKey
+
+    data, test, ragged = pooled(make_synthetic_mnist(12000, 2000),
+                                seed=seed, device=device, shards=shards,
+                                scheme="label_shard")
+    params0 = init_mlp(PRNGKey(seed, device=device), device=device)
+    return data, test, params0, mlp_logits, ragged

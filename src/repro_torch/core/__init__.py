@@ -1,4 +1,10 @@
 """The FedBack round engine of the port (``repro/core``)."""
+from repro_torch.utils.ragged import (  # noqa: F401  (ragged shards)
+    RaggedSpec,
+    make_ragged_spec,
+    pool_data,
+    pool_rows,
+)
 from .baselines import (  # noqa: F401
     ScaffoldState,
     baseline_config,

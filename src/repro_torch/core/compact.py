@@ -23,8 +23,9 @@ plans, solves and commits its own clients with ⌈C/P⌉ slots
 (:func:`capacity_for` with ``n_shards``), its own deferral queue (a
 deferred client never migrates) and local row indices.  Under bounded
 staleness the plan takes the round's eligibility (nothing in flight):
-an ineligible client leaves the demand set.  The ragged form belongs to
-a later slice of the port.
+an ineligible client leaves the demand set.  With ragged clients
+(``ragged=``) each slot reads its client's CSR slice of the pooled
+data at the static max(nᵢ) epoch length.
 """
 from __future__ import annotations
 
@@ -192,6 +193,18 @@ def gather_rows(tree, idx: torch.Tensor):
     return tree_map(lambda x: x[i], tree)
 
 
+def gather_blocks(pool: torch.Tensor, offsets: torch.Tensor,
+                  length: int) -> torch.Tensor:
+    """The (C, length, ...) blocks of ``pool``'s rows starting at each of
+    the (C,) ``offsets``: a gather, so a block that ran past the pool's
+    end would fail on its index, never come back short (a ragged spec's
+    padding keeps every client's ``max(nᵢ)``-row block inside the
+    pool)."""
+    rows = offsets.long()[:, None] + torch.arange(length,
+                                                  device=offsets.device)
+    return pool[rows]
+
+
 def scatter_rows(current, rows, idx: torch.Tensor, valid: torch.Tensor):
     """A copy of ``current`` with slot rows written back where ``valid``
     (indices are distinct, so an invalid slot rewrites its own row)."""
@@ -210,7 +223,8 @@ def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
                        c_min: int | None = None, adaptive: bool = False,
                        alpha: float = 0.9, fused: bool = False,
                        use_admm_kernel: bool = False,
-                       keep_old_rows: bool = False) -> Callable:
+                       keep_old_rows: bool = False, ragged=None,
+                       masked_solver: Callable | None = None) -> Callable:
     """Build the plan → gather → solve → commit block of one round.
 
     solver(theta0, center, x, y, idx) -> (theta, losses) over C rows;
@@ -240,9 +254,21 @@ def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
     staleness): then (plan idx, slot valid, (θ, λ, z_prev) rows at the
     slots before the commit wrote them), which
     ``engine.staleness_commit_slots`` puts back where a row parks.
+
+    With ``ragged`` (a ``utils.ragged.RaggedSpec``) ``x``/``y`` are the
+    pooled buffers and the block takes two more inputs, ``offsets`` and
+    ``sizes`` (N,): the slots' clients' CSR slices.  A uniform spec
+    solves each slot's ``max(nᵢ)``-row block (:func:`gather_blocks`)
+    with ``solver``, which gives the rectangular block's bits; otherwise
+    ``masked_solver(theta0, center, x, y, offsets, sizes, idx)`` reads
+    the slots' rows of the pool in place, the values the reference's
+    ``max(nᵢ)``-row slices hold.
     """
     from repro_torch.kernels import ops
 
+    masked = ragged is not None and not ragged.uniform
+    if masked and masked_solver is None:
+        raise ValueError("non-uniform ragged compaction needs masked_solver")
     if fused and not is_admm:
         raise ValueError("fused commit is the ADMM dual algebra — "
                          "non-ADMM compaction has no λ/z streams to fuse")
@@ -251,7 +277,7 @@ def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
                          "writes the state in place")
 
     def block(events, distances, eligible, age, qload, theta, lam, z_prev,
-              omega, x, y, keys):
+              omega, x, y, keys, offsets=None, sizes=None):
         with span("fedback/plan"):
             limit = (adaptive_limit(qload, c_min, capacity)
                      if adaptive else None)
@@ -266,9 +292,20 @@ def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
                            if warm_start else th_rows)
         with span("fedback/minibatch_rng"):
             idx_b = epoch_fn(gather_rows(keys, plan.idx))
-        th_out_rows, losses = solver(
-            theta0_rows, center_rows, gather_rows(x, plan.idx),
-            gather_rows(y, plan.idx), idx_b)
+        if ragged is None:
+            th_out_rows, losses = solver(
+                theta0_rows, center_rows, gather_rows(x, plan.idx),
+                gather_rows(y, plan.idx), idx_b)
+        elif masked:
+            th_out_rows, losses = masked_solver(
+                theta0_rows, center_rows, x, y,
+                gather_rows(offsets, plan.idx),
+                gather_rows(sizes, plan.idx), idx_b)
+        else:
+            blocks = [gather_blocks(t, gather_rows(offsets, plan.idx),
+                                    ragged.max_size) for t in (x, y)]
+            th_out_rows, losses = solver(theta0_rows, center_rows, *blocks,
+                                         idx_b)
         with span("fedback/commit"):
             old = None
             if keep_old_rows:

@@ -15,7 +15,8 @@ algebra is bit-exact in fp32.
 Under bounded staleness (``max_staleness``) the commit goes through the
 delay pipeline below (:func:`staleness_masks`, :func:`staleness_commit`,
 the issued-event ring of :func:`record_issue` and
-:func:`measured_commits`), the reference's mask algebra.
+:func:`measured_commits`), the reference's mask algebra.  The ragged
+round's padded solves weight their loss by :func:`masked_batch_loss`.
 
 The aggregations (:func:`consensus_mean`, :func:`participant_mean`,
 :func:`participant_mean_loss`) also take the per-shard trees of a
@@ -89,6 +90,21 @@ def participant_mean(per_client, events, fallback, num_events=None):
         return torch.where(num_events > 0, mean.to(zs[0].dtype), w)
 
     return tree_map(avg, fallback, *shards)
+
+
+def masked_batch_loss(loss_fn, params, xb, yb, weights):
+    """Weighted mean of per-example losses from a batch-mean ``loss_fn``.
+
+    The ragged round pads a bucket's minibatches to its capacity, and
+    padding must add neither loss nor gradient.  ``loss_fn(params, x,
+    y)`` is a mean over its batch, so on singleton batches (``vmap``
+    over the batch axis) it gives the per-example losses, reduced here
+    as Σ per·w / max(Σ w, 1) under ``weights`` (0 = padding).  All-zero
+    weights give 0 (and a zero gradient)."""
+    per = torch.func.vmap(
+        lambda xe, ye: loss_fn(params, xe[None], ye[None]))(xb, yb)
+    return torch.sum(per * weights) / torch.clamp(torch.sum(weights),
+                                                  min=1.0)
 
 
 def participant_mean_loss(losses, events):

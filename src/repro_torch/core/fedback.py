@@ -98,11 +98,21 @@ clients add per-shard partials in shard order on shard 0's device
 (``core/engine.py``).  One device is the one-shard case of the same
 code.  The mesh needs no process group: one process drives every shard.
 
-What the JAX engine also offers and later slices port: ragged clients,
-host-offloaded state, the sweeps' controller overrides and the
-cross-pod program.  SCAFFOLD has its own round
-(:mod:`repro_torch.core.baselines`), without a mesh, as in the
-reference.
+**Ragged clients** (``ragged=``, a
+:class:`~repro_torch.utils.ragged.RaggedSpec`): the data is one pooled
+(Σnᵢ, ...) buffer and each client reads its CSR slice of it.  The dense
+round runs one batched solve per size bucket at the bucket's capacity
+(the padded buckets through :func:`_masked_local_solve`), and the
+compact round solves its slots at the static max(nᵢ) epoch length,
+masked unless every size is equal.  A uniform spec takes the plain
+solve and gives the rectangular round's bits.  Under ``mesh=`` the pool
+is copied to each shard's device and each shard solves its own
+clients' rows.
+
+What the JAX engine also offers and later slices port: host-offloaded
+state, the sweeps' controller overrides and the cross-pod program.
+SCAFFOLD has its own round (:mod:`repro_torch.core.baselines`), without
+a mesh, as in the reference.
 """
 from __future__ import annotations
 
@@ -119,16 +129,18 @@ from repro_torch.sharding.clients import ClientMesh, check_divisible, \
     replicate_data, shard_client_data, shard_rows, unshard_rows
 from repro_torch.utils.flatstate import FlatSpec
 from repro_torch.utils.pytree import tree_broadcast_like, tree_map, \
-    tree_zeros_like
+    tree_where, tree_zeros_like
+from repro_torch.utils.ragged import RaggedSpec
 
-from .compact import capacity_bounds, init_queue, make_compact_block
+from .compact import capacity_bounds, gather_blocks, gather_rows, \
+    init_queue, make_compact_block
 from .compress import check_mode, ef_consensus, ef_participant_mean, \
     init_residual
 from .controller import ControllerConfig, init_controller
 from .engine import all_sum, consensus_mean, dual_ascent, gated_commit, \
-    measured_commits, participant_mean, participant_mean_loss, \
-    prox_center, record_issue, staleness_commit, staleness_commit_slots, \
-    staleness_masks
+    masked_batch_loss, measured_commits, participant_mean, \
+    participant_mean_loss, prox_center, record_issue, staleness_commit, \
+    staleness_commit_slots, staleness_masks
 from .selection import make_selection
 from .state import FLState, InFlight, RoundMetrics, delay_schedule, \
     init_inflight
@@ -353,10 +365,57 @@ def _local_solve(loss_fn: Callable, spec: FlatSpec | None, theta0, center,
     return theta, torch.stack(losses, dim=1).mean(dim=1)
 
 
+def _masked_local_solve(loss_fn: Callable, spec: FlatSpec | None, theta0,
+                        center, x, y, offset, size, idx, *, rho: float,
+                        lr: float, momentum: float):
+    """:func:`_local_solve` over ragged clients' CSR slices of one pool.
+
+    x: (R, ...) and y: (R,) the pooled rows, shared by the C clients;
+    offset, size: (C,) each client's CSR slice; idx: (C, steps, batch)
+    virtual indices in [0, bucket capacity).  A virtual row at or past
+    the client's size is padding: it reads the client's last row (the
+    global row ``offset + min(idx, size − 1)`` stays inside its slice)
+    with weight 0 in :func:`engine.masked_batch_loss`, so neither the
+    loss nor the gradient sees it.  A step whose batch is all padding
+    leaves the client's θ, momentum buffer and reported loss as they
+    were (``torch.where`` per client row), and the mean loss is over the
+    live steps only.  With ``size`` equal to the capacity every weight
+    is 1 and no step is skipped.  Returns (the stacked solution, (C,)
+    mean loss).
+    """
+    vg = torch.func.vmap(torch.func.grad_and_value(
+        lambda p, xb, yb, w: masked_batch_loss(loss_fn, p, xb, yb, w)))
+    theta = tree_map(lambda t: t.contiguous().clone(), theta0)
+    buf = tree_zeros_like(theta)
+    offset = offset.long()[:, None]
+    size = size.long()[:, None]
+    losses, lives = [], []
+    for step in range(idx.shape[1]):
+        ib = idx[:, step]
+        weights = (ib < size).to(torch.float32)
+        live = torch.sum(weights, dim=1) > 0
+        rows = offset + torch.minimum(ib, size - 1)
+        params = theta if spec is None else spec.unflatten_stacked(theta)
+        grads, loss = vg(params, x[rows], y[rows], weights)
+        g = grads if spec is None else spec.flatten_stacked(grads)
+        if rho:
+            g = tree_map(lambda gl, p, c: gl + rho * (p - c), g, theta,
+                         center)
+        new_theta, new_buf = sgd_step(theta, g, buf, lr, momentum)
+        theta = tree_where(live, new_theta, theta)
+        buf = tree_where(live, new_buf, buf)
+        losses.append(loss)
+        lives.append(live.to(torch.float32))
+    losses, lives = torch.stack(losses, dim=1), torch.stack(lives, dim=1)
+    return theta, (torch.sum(losses * lives, dim=1)
+                   / torch.clamp(torch.sum(lives, dim=1), min=1.0))
+
+
 def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
                   spec: FlatSpec | None = None, device=None,
                   mesh: ClientMesh | None = None,
-                  arrivals_arg: bool = False) -> Callable:
+                  arrivals_arg: bool = False,
+                  ragged: RaggedSpec | None = None) -> Callable:
     """Build ``round_fn(state) -> (state, RoundMetrics)``.
 
     loss_fn(params, x_batch, y_batch) -> scalar mean loss, on the params
@@ -386,6 +445,13 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
     builds ``round_fn(state, arrivals)`` (with ``mesh``, ``round_fn(
     shards, arrivals)``, the (N,) mask cut by shard): the serve step;
     with all-ones arrivals it is the plain round bit for bit.
+
+    ``ragged`` (a :class:`~repro_torch.utils.ragged.RaggedSpec`): data
+    is the pooled {"x": (Σnᵢ + pad, ...), "y": (Σnᵢ + pad,)} buffer the
+    spec describes (``utils.ragged.pool_data``,
+    ``data.federated_pooled``); the module docstring says how it is
+    solved.  With ``mesh`` each shard's device gets a copy of the pool
+    and the offsets and sizes of its clients.
     """
     _check_supported(cfg, mesh)
     n = cfg.n_clients
@@ -402,10 +468,32 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
     compress = _check_compress(cfg, flat)
     n_local = n // mesh.size
     x0 = torch.as_tensor(data["x"])
-    if x0.shape[0] != n:
-        raise ValueError(f"data has {x0.shape[0]} clients, cfg.n_clients={n}")
-    n_points = x0.shape[1]
-    shard_data = shard_client_data(mesh, {"x": x0, "y": data["y"]})
+    if ragged is None:
+        if x0.shape[0] != n:
+            raise ValueError(f"data has {x0.shape[0]} clients, "
+                             f"cfg.n_clients={n}")
+        n_points = x0.shape[1]
+        shard_data = shard_client_data(mesh, {"x": x0, "y": data["y"]})
+        shard_csr, buckets = [{}] * mesh.size, [None] * mesh.size
+    else:
+        if ragged.n_clients != n:
+            raise ValueError(f"ragged spec describes {ragged.n_clients} "
+                             f"clients, cfg.n_clients={n}")
+        if x0.shape[0] != ragged.buffer_rows:
+            raise ValueError(f"pooled data has {x0.shape[0]} rows, the "
+                             f"ragged spec {ragged.buffer_rows}")
+        # The compact slots' epoch length; the dense round takes each
+        # bucket's capacity instead.
+        n_points = ragged.max_size
+        # The pool has no client axis: every shard's device gets a copy
+        # (one copy where shards share a device), and each shard the
+        # offsets and sizes of its clients, global rows of the pool.
+        shard_data = replicate_data(mesh, {"x": x0, "y": data["y"]})
+        shard_csr = shard_rows(
+            {"offsets": ragged.offsets_array(device=mesh.devices[0]),
+             "sizes": ragged.sizes_array(device=mesh.devices[0])}, mesh)
+        buckets = [_bucket_tables(ragged, i * n_local, n_local, dev)
+                   for i, dev in enumerate(mesh.devices)]
     is_admm = cfg.algorithm in ADMM_FAMILY
     if cfg.fused_gss and not (cfg.compact and is_admm and flat):
         raise ValueError(
@@ -424,6 +512,12 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
                                 rho=cfg.local_rho(), lr=cfg.lr,
                                 momentum=cfg.momentum)
 
+    def masked_solver(theta0, center, xs, ys, offsets, sizes, idx):
+        with span("fedback/solve"):
+            return _masked_local_solve(
+                loss_fn, spec, theta0, center, xs, ys, offsets, sizes, idx,
+                rho=cfg.local_rho(), lr=cfg.lr, momentum=cfg.momentum)
+
     def epoch_fn(keys):
         return _epoch_indices(keys, n_points, cfg.batch_size, cfg.epochs)
 
@@ -437,7 +531,8 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
             adaptive=cfg.adaptive_capacity and cfg.capacity is None,
             alpha=_ctrl_cfg(cfg).alpha, fused=cfg.fused_gss,
             use_admm_kernel=is_admm and flat,
-            keep_old_rows=async_mode and cfg.fused_gss)
+            keep_old_rows=async_mode and cfg.fused_gss, ragged=ragged,
+            masked_solver=masked_solver)
 
     def trigger(shards):
         if cfg.trigger_metric != "l2":
@@ -467,17 +562,50 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
         return [(s.lam, tree_broadcast_like(s.omega, n_local))
                 for s in shards]
 
-    def dense_client_update(s, lam_new, center, sd, keys):
+    def dense_client_update(s, lam_new, center, sd, keys, tables):
         """All the shard's solves; returns service proposals (θ_out, λ⁺,
-        z, losses)."""
+        z, losses).  With ``ragged`` one solve per size bucket
+        (``tables``: the shard's members of each bucket)."""
         theta_init = (tree_broadcast_like(s.omega, n_local)
                       if cfg.warm_start else s.theta)
-        with span("fedback/minibatch_rng"):
-            idx = epoch_fn(keys)
-        theta_out, losses = solver(theta_init, center, sd["x"], sd["y"], idx)
+        if ragged is None:
+            with span("fedback/minibatch_rng"):
+                idx = epoch_fn(keys)
+            theta_out, losses = solver(theta_init, center, sd["x"], sd["y"],
+                                       idx)
+        else:
+            theta_out, losses = ragged_dense_solve(theta_init, center, sd,
+                                                   keys, tables)
         z_new = (tree_map(torch.add, theta_out, lam_new) if is_admm
                  else theta_out)
         return theta_out, lam_new, z_new, losses
+
+    def ragged_dense_solve(theta_init, center, sd, keys, tables):
+        """One batched solve per size bucket over the pooled rows, each
+        at its bucket's capacity: the plain solve on the members' row
+        blocks where no member is padded, the masked one on the pool
+        otherwise; the rows are written back in client order (every
+        client is in one bucket)."""
+        theta_out = tree_map(torch.empty_like, theta_init)
+        losses = torch.empty((n_local,), dtype=torch.float32,
+                             device=keys.device)
+        for bucket, members, offsets, sizes in tables:
+            with span("fedback/minibatch_rng"):
+                idx = _epoch_indices(keys[members], bucket.capacity,
+                                     cfg.batch_size, cfg.epochs)
+            rows = (gather_rows(theta_init, members),
+                    gather_rows(center, members))
+            if bucket.padded:
+                th, ls = masked_solver(*rows, sd["x"], sd["y"], offsets,
+                                       sizes, idx)
+            else:
+                blocks = [gather_blocks(sd[k], offsets, bucket.capacity)
+                          for k in ("x", "y")]
+                th, ls = solver(*rows, *blocks, idx)
+            tree_map(lambda out, r: out.index_copy_(0, members, r),
+                     theta_out, th)
+            losses.index_copy_(0, members, ls)
+        return theta_out, losses
 
     def select_events(shards, distances, sel_rng, arrivals):
         """(events, eligible, ctrls) per shard.  Under staleness a client
@@ -546,13 +674,13 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
         zero = torch.zeros((), dtype=torch.int32, device=dev0)
         if cfg.compact:
             limits, deferred = [], []
-            for s, e, d, el, sd, k in zip(shards, events, distances,
-                                          eligible, shard_data, keys,
-                                          strict=True):
+            for s, e, d, el, sd, k, csr in zip(shards, events, distances,
+                                               eligible, shard_data, keys,
+                                               shard_csr, strict=True):
                 (theta, lam, z_prev, q_age, q_load, done, ls, valid,
                  limit, old) = block(e, d, el, s.queue.age, s.queue.load,
                                      s.theta, s.lam, s.z_prev, s.omega,
-                                     sd["x"], sd["y"], k)
+                                     sd["x"], sd["y"], k, **csr)
                 proposals.append((theta, lam, z_prev))
                 queues.append(s.queue._replace(age=q_age, load=q_load))
                 serviced.append(done)
@@ -566,10 +694,10 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
         else:
             with span("fedback/presolve"):
                 pre = presolve(shards)
-            for s, (lam_new, center), sd, k in zip(shards, pre, shard_data,
-                                                   keys, strict=True):
+            for s, (lam_new, center), sd, k, tables in zip(
+                    shards, pre, shard_data, keys, buckets, strict=True):
                 theta_p, lam_p, z_p, ls = dense_client_update(
-                    s, lam_new, center, sd, k)
+                    s, lam_new, center, sd, k, tables)
                 proposals.append((theta_p, lam_p, z_p))
                 queues.append(s.queue)
                 losses.append(ls)
@@ -671,6 +799,24 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
         return new_state, metrics
 
     return round_fn
+
+
+def _bucket_tables(ragged: RaggedSpec, first: int, n_local: int, device):
+    """The dense ragged round's per-bucket tables for the shard holding
+    clients [first, first + n_local): (bucket, the shard's members as
+    local rows, their offsets and sizes), int64 on ``device``, for each
+    bucket with a member there.  Built once, with the round."""
+    def put(v):
+        return torch.tensor(v, dtype=torch.int64, device=device)
+
+    tables = []
+    for bucket in ragged.buckets:
+        mine = [m for m in bucket.members if first <= m < first + n_local]
+        if mine:
+            tables.append((bucket, put([m - first for m in mine]),
+                           put([ragged.offsets[m] for m in mine]),
+                           put([ragged.sizes[m] for m in mine])))
+    return tables
 
 
 def make_eval_fn(loss_and_acc_fn: Callable, *,

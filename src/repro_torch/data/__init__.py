@@ -5,7 +5,8 @@ from .partition import (  # noqa: F401
     partition_dirichlet,
     partition_label_shard,
 )
-from .pipeline import federated_arrays, stack_trimmed  # noqa: F401
+from .pipeline import federated_arrays, federated_pooled, \
+    stack_trimmed  # noqa: F401
 from .synthetic import (  # noqa: F401
     Dataset,
     make_least_squares,

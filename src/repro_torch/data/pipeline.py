@@ -1,11 +1,18 @@
-"""Federated data glue: ragged shards → rectangular device tensors.
+"""Federated data glue: partitioned shards → device tensors.
 
-Port of ``repro/data/pipeline.py`` (``stack_trimmed`` and
-``federated_arrays`` with the label-shard, Dirichlet and iid schemes).
-``stack_trimmed`` keeps a random ``n_min``-subset of every client's
-shard with the same numpy draws as the JAX package, so both packages
-see identical ``(N, n_min, ...)`` client arrays.  The lossless pooled
-(ragged) layout is a later slice of the port.
+Port of ``repro/data/pipeline.py``, with the label-shard, Dirichlet and
+iid schemes, in its two layouts:
+
+* **pooled (lossless)** — :func:`federated_pooled` keeps every shard
+  whole in one pooled ``(Σnᵢ, ...)`` buffer described by a
+  :class:`~repro_torch.utils.ragged.RaggedSpec` (pass it to
+  ``make_round_fn`` as ``ragged=``); Σnᵢ is the dataset's size;
+* **rectangular (trimmed)** — :func:`federated_arrays` stacks equal-size
+  ``(N, n_min, ...)`` shards: ``stack_trimmed`` keeps a random
+  ``n_min``-subset of every client's shard and drops the rest.
+
+Both make the JAX package's numpy draws, so both packages see identical
+client data.
 """
 from __future__ import annotations
 
@@ -13,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.utils.ragged import pool_data
 
 from .partition import _finalize, partition_dirichlet, partition_label_shard
 from .synthetic import Dataset
@@ -69,3 +77,30 @@ def federated_arrays(ds: Dataset, *, n_clients: int,
 
     return ({"x": put(xs), "y": put(ys)},
             {"x": put(ds.x_test), "y": put(ds.y_test)})
+
+
+def federated_pooled(ds: Dataset, *, n_clients: int,
+                     scheme: str = "dirichlet", classes_per_client: int = 2,
+                     beta: float = 0.5, seed: int = 0, max_buckets: int = 4,
+                     device=None):
+    """The lossless pooled layout on ``device`` (CUDA by default).
+
+    Returns ``(data, test, spec, stats)``: data = {"x": (Σnᵢ + pad,
+    ...), "y": (Σnᵢ + pad,)}, every training example present once (Σnᵢ =
+    len(y_train)); test = {"x", "y"}; spec the
+    :class:`~repro_torch.utils.ragged.RaggedSpec` (``make_round_fn(...,
+    ragged=spec)``); stats the partition's ``PartitionStats`` (dropped
+    0).
+    """
+    device = resolve_device(device)
+    shards_x, shards_y, stats = _partition(
+        ds, n_clients=n_clients, scheme=scheme,
+        classes_per_client=classes_per_client, beta=beta, seed=seed)
+    data, spec = pool_data(shards_x, shards_y, max_buckets=max_buckets,
+                           device=device)
+    if spec.total != len(ds.y_train) or stats.dropped != 0:
+        raise AssertionError(f"pooled {spec.total} of {len(ds.y_train)} "
+                             f"examples, {stats.dropped} dropped")
+    test = {"x": torch.from_numpy(np.ascontiguousarray(ds.x_test)).to(device),
+            "y": torch.from_numpy(np.ascontiguousarray(ds.y_test)).to(device)}
+    return data, test, spec, stats

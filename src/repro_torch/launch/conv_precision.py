@@ -97,6 +97,15 @@ def batched_passes(conv):
     return torch.func.vmap(one)
 
 
+def per_example(conv):
+    """``conv`` on each image of its batch alone, batched by an inner
+    ``vmap`` (the ragged solve's masked loss evaluates the model on
+    singleton batches, ``core.engine.masked_batch_loss``)."""
+    def each(x, w):
+        return torch.func.vmap(lambda xe: conv(xe[None], w)[0])(x)
+    return each
+
+
 def pass_errors(conv, inputs) -> dict:
     """{"conv1": {"y": e, "gx": e, "gw": e}, ...}: max |error| / max
     |value| of ``conv``'s batched passes in fp32 against the same passes

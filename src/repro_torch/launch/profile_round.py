@@ -22,6 +22,12 @@ then profiles ``--rounds`` rounds and prints, per round:
 * the kernels that took the most device time, and the port's own
   kernels (``kernels/ops.py``) wherever they rank.
 
+A ragged form of ``configs.paper_mnist.RAGGED_FORMS`` (RA, RB, RS:
+forms A, B and SA on the label-shard split kept whole, 114–123 examples
+a client) or ``paper_cifar.RAGGED_FORMS`` (RC: CF-A on the Dirichlet
+split kept whole, 33–255 a client) runs on its module's
+``pooled_workload()`` with ``ragged=`` its spec.
+
 A serve form of ``configs.paper_mnist.SERVE_FORMS`` (SVA, SVB, SVS:
 FedBack with ``max_staleness=2`` over a 24-tick arrival trace) steps
 its trace's ticks instead of rounds: two warm-up ticks, then the next
@@ -49,6 +55,8 @@ from repro_torch.utils import make_flat_spec
 # The configuration module of every form.
 CONFIGS = {form: m for m in (paper_mnist, paper_cifar) for form in m.FORMS}
 CONFIGS.update(dict.fromkeys(paper_mnist.SERVE_FORMS, paper_mnist))
+CONFIGS.update({form: m for m in (paper_mnist, paper_cifar)
+                for form in m.RAGGED_FORMS})
 WARMUP = 2
 
 
@@ -57,13 +65,19 @@ def build(form: str, device):
     or for a serve form one tick of its trace, the ticks in order."""
     cfgs = CONFIGS[form]
     cfg = cfgs.form_config(form)
-    data, _, params0, logits_fn = cfgs.workload(device=device)
-    f = getattr(cfgs, "SERVE_FORMS", {}).get(form) or cfgs.FORMS[form]
+    extra = {}
+    if form in cfgs.RAGGED_FORMS:
+        f = cfgs.RAGGED_FORMS[form]
+        data, _, params0, logits_fn, extra["ragged"] = cfgs.pooled_workload(
+            device=device, shards=f.shards)
+    else:
+        f = getattr(cfgs, "SERVE_FORMS", {}).get(form) or cfgs.FORMS[form]
+        data, _, params0, logits_fn = cfgs.workload(device=device)
     spec = f.spec(make_flat_spec(params0))
     state = f.init(cfg, params0, spec=spec, **f.placement(device))
     round_fn = f.make_round(cfg, make_loss_fn(logits_fn), data, spec=spec,
                             arrivals_arg=f.trace is not None,
-                            **f.placement(device))
+                            **f.placement(device), **extra)
     if f.trace is None:
         return state, round_fn
     rows = torch.from_numpy(make_trace(f.trace)).to(device)

@@ -404,6 +404,54 @@ def test_baseline_round_matches_the_cpu(dev, algorithm, compact, expect):
                                    atol=1e-7)
 
 
+@pytest.mark.parametrize("compact,expect", [
+    (True, {"trigger_sq_norms": 1, "fused_gss": 1, "admm_update": 0}),
+    (False, {"trigger_sq_norms": 1, "fused_gss": 0, "admm_update": 1}),
+])
+def test_pooled_round_matches_the_cpu(dev, compact, expect):
+    """One FedBack round on ragged clients (16 clients of 9–24 pooled
+    rows in padded size buckets; compact + fused, or dense) on the card
+    against the same round on the CPU: launches as the rectangular
+    round's, events and the committed set equal, the state at rtol
+    1e-4."""
+    from repro_torch.convert import state_from_numpy, state_to_numpy
+    from repro_torch.core import FLConfig, init_state, make_round_fn
+    from repro_torch.models import init_mlp, make_loss_fn
+    from repro_torch.prng import PRNGKey
+    from repro_torch.utils import make_flat_spec, pool_data
+
+    rng = np.random.default_rng(0)
+    n = 16
+    sizes = rng.integers(9, 25, n)
+    data, ragged = pool_data(
+        [rng.random((s, 32)).astype(np.float32) for s in sizes],
+        [rng.integers(0, 4, s).astype(np.int32) for s in sizes],
+        device="cpu")
+    assert any(b.padded for b in ragged.buckets)
+    cfg = FLConfig(n_clients=n, participation=0.25, rho=0.01, lr=0.05,
+                   epochs=2, batch_size=8, compact=compact, fused_gss=compact)
+    params = init_mlp(PRNGKey(0, device="cpu"), 32, 16, 4, device="cpu")
+    spec = make_flat_spec(params)
+    cpu_round = make_round_fn(cfg, make_loss_fn(), data, spec=spec,
+                              device="cpu", ragged=ragged)
+    gpu_round = make_round_fn(cfg, make_loss_fn(), data, spec=spec,
+                              device=dev, ragged=ragged)
+    state, _ = cpu_round(init_state(cfg, params, spec=spec, device="cpu"))
+    start = state_to_numpy(state)
+    want, wm = cpu_round(state_from_numpy(start, device="cpu"))
+    ops.reset_launch_counts()
+    got, gm = gpu_round(state_from_numpy(start, device=dev))
+    torch.cuda.synchronize()
+    assert {k: ops.launch_counts()[k] for k in expect} == expect
+    assert torch.equal(gm.events.cpu(), wm.events)
+    assert torch.equal(gm.committed.cpu(), wm.committed)
+    assert int(wm.committed.sum()) > 0
+    got, want = state_to_numpy(got), state_to_numpy(want)
+    for f in ("theta", "lam", "z_prev", "omega"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                   rtol=1e-4, atol=1e-6, err_msg=f)
+
+
 def _stacked(rng, shapes, n, bf16=()):
     """A stacked tree (n, ...) and its ω of the given leaf shapes, the
     leaves named in ``bf16`` in bf16."""

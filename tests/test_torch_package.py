@@ -38,7 +38,8 @@ def test_package_has_the_slice_modules():
               "models/attention.py", "models/transformer.py",
               "models/api.py", "launch/serve_lm.py",
               "sharding/clients.py", "core/compress.py",
-              "checkpoint/store.py", "optim/prox.py", "launch/serve.py"):
+              "checkpoint/store.py", "optim/prox.py", "launch/serve.py",
+              "utils/ragged.py"):
         assert m in names, m
     for src in ("fedback_kernels.cu", "model_kernels.cu"):
         assert (PKG / "csrc" / src).is_file(), src

@@ -133,9 +133,19 @@ def _assert_comm_close(before, got, want, committed, mode, block,
     return int(flips[sent].sum())
 
 
+def _jax_ragged(spec):
+    """The reference's ``RaggedSpec`` with the fields of the port's."""
+    from repro.utils.ragged import RaggedBucket as JBucket
+    from repro.utils.ragged import RaggedSpec as JRagged
+
+    return JRagged(sizes=spec.sizes, offsets=spec.offsets, buckets=tuple(
+        JBucket(capacity=b.capacity, members=b.members, padded=b.padded)
+        for b in spec.buckets))
+
+
 def _run_synced(jcfg, tcfg, jloss, tloss, jdata, tdata, jparams, tparams,
                 rounds, omega_tol=None, layout="flat", update_tol=None,
-                trace=None):
+                trace=None, ragged=None):
     """Step both packages from the JAX state for ``rounds`` rounds and
     compare as the module docstring says; ``omega_tol`` (rtol, atol)
     holds ω tighter as well.  ``layout="tree"`` runs both on the tree
@@ -144,10 +154,12 @@ def _run_synced(jcfg, tcfg, jloss, tloss, jdata, tdata, jparams, tparams,
     (for models whose ReLU and max-pool kinks let one fp32 rounding
     route a gradient elsewhere).  ``trace`` (a (rounds, N) bool array)
     builds both rounds with ``arrivals_arg=True`` and hands round r
-    row r.  Under ``max_staleness`` the in-flight and landed counts,
-    the delays, countdowns and event ring must be equal too, and the
-    parked payloads agree as the state does.  Returns counts of what
-    the run saw."""
+    row r.  ``ragged`` (the port's ``RaggedSpec``, with the data pooled)
+    runs both on ragged clients, the reference with the same spec.
+    Under ``max_staleness`` the in-flight and landed counts, the delays,
+    countdowns and event ring must be equal too, and the parked
+    payloads agree as the state does.  Returns counts of what the run
+    saw."""
     jspec = tspec = None
     if layout == "flat":
         jspec = jax_make_flat_spec(jparams)
@@ -155,10 +167,11 @@ def _run_synced(jcfg, tcfg, jloss, tloss, jdata, tdata, jparams, tparams,
         assert jspec.dim == tspec.dim
     serve = trace is not None
     jstate = jax_init_state(jcfg, jparams, spec=jspec)
-    jround = jax_make_round_fn(jcfg, jloss, jdata, spec=jspec,
-                               arrivals_arg=serve)
+    jround = jax_make_round_fn(
+        jcfg, jloss, jdata, spec=jspec, arrivals_arg=serve,
+        ragged=None if ragged is None else _jax_ragged(ragged))
     tround = make_round_fn(tcfg, tloss, tdata, spec=tspec, device="cpu",
-                           arrivals_arg=serve)
+                           arrivals_arg=serve, ragged=ragged)
     seen = {"events": 0, "deferred": 0, "flipped_rounds": 0, "landed": 0,
             "inflight": 0, "code_flips": 0}
     for r in range(rounds):

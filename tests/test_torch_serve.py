@@ -6,8 +6,8 @@ the port against the reference's.
 * The all-ones trace: the serve step gives the port's synchronous round
   bit for bit (events and ω) — dense, compact with deferral, adaptive,
   compact + fused, compact with staleness, FedAvg — as
-  tests/test_serve.py holds the reference (its ragged leg is not
-  ported).
+  tests/test_serve.py holds the reference (its ragged leg is in
+  tests/test_torch_ragged.py).
 * The bursty golden configuration (N = 64, 30 ticks, bursts of 3 every
   10) state-synced against live JAX through the serve step
   (``_run_synced(trace=)``), and with the fused commit and
