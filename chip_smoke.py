@@ -4,8 +4,9 @@ tree client-state layout and the paper's CIFAR-10 workload (slice 7),
 the client-sharded round (slice 8), K1's leaf-table kernel behind the
 tree trigger, the sharded trigger and bf16 trigger inputs (slice 9),
 FL serving over arrival traces with stale-tolerant rounds (slice 10),
-compressed consensus with checkpoints (slice 11) and ragged clients on
-one pooled buffer (slice 12).
+compressed consensus with checkpoints (slice 11), ragged clients on
+one pooled buffer (slice 12), and seed × gain sweeps with the
+host-offloaded client state (slice 13).
 
     python3 chip_smoke.py
 
@@ -87,7 +88,9 @@ non-zero):
    weight gradients) at the CNN's three layer shapes; the same passes
    with cuDNN's TF32 on are printed beside.  Then 1 warm-up and 3 timed
    rounds each: CF-A flat, compact + fused (K1, K3) and CF-T tree,
-   compact (K1c); the second round held against the CPU's plain
+   compact (K1c); the second round repeated from its state on the card
+   bit for bit (cuDNN's algorithms made deterministic where the round
+   is built), and held against the CPU's plain
    path with events and the committed set equal and each state field
    within 1e-2 of the norm of the round's update (two values of a
    max-pool window, or a pre-activation and 0, within a rounding of
@@ -168,7 +171,8 @@ non-zero):
    element by element with 5g's ReLU-flip rule (at most one row, its
    cause shown by a replay of its masked solve), and RC (CF-A on the
    Dirichlet split kept whole, 33–255 a client, 48 SGD steps a slot:
-   K1, K3): its slots' solve over its first 4 SGD steps, card against
+   K1, K3; its round 2 repeated bit for bit, as 5d's): its slots'
+   solve over its first 4 SGD steps, card against
    CPU, within CF-A's 1e-2 of its update, and its round within the
    distance the CPU's own round moves when ω starts one ulp off (48
    steps through ReLUs and max-pools amplify any rounding); their
@@ -176,7 +180,29 @@ non-zero):
    beside A's, B's, SA's and CF-A's.  Phase 5d's convolution check also
    holds the ragged solve's form (each image alone under a second
    ``vmap``) within 5e-5 of float64;
-6. zamba2-2.7b at full width cut to one group (6 mamba layers and the
+5i. sweeps (``launch/sweep.py``): WA, form A's configuration over seeds
+   0–3 × K 2.0, 0.5 (8 runs stacked, 1.53 GB of θ/λ/z_prev), and WB,
+   form B's over seeds 0–1 × L̄ 0.1, 0.2 (4 runs), 3 rounds each under
+   the sync debug mode, launches asserted (K1 and K3, K1 and K2, once
+   per run a round); every run's metrics each round and final state
+   bit-equal to the run stepped alone by ``make_round_fn`` with its
+   seed, K and L̄ in its config; in WA the realized rate differs
+   between the gains; ms per sweep round printed beside A's and B's;
+5j. the host-offloaded state (``core/hoststate.py``): HA (form A with
+   ``state_backend="host"``) at ``stream_tiles`` 2 and 4, HS (A with
+   ``max_staleness=2``), HQ (QA) and HR (RA, on the pooled workload),
+   4 rounds each from ``init_state`` beside the device form of the same
+   config: every ``RoundMetrics`` field each round (``train_loss``
+   included) and the final state (θ, λ, z_prev, ω, the residual, the
+   park buffers, the vectors) bit-equal; launches asserted (K1 once a
+   round and once more in the first, K3 once a round on the working
+   set); the bytes each leg moved equal to ``planned_bytes``; the live
+   device memory after the rounds within 8·C·D·4 +
+   ``device_state_bytes()`` + the data + 1 MiB; HQ's checkpoint after
+   round 2, saved from host memory, resumed on the device backend and
+   its round 4 bit-equal to the host's; ms/round beside the device
+   form's, bytes a round, device and host state bytes, and the copy
+   stream's busy ms and overlap share (CUDA events) printed;6. zamba2-2.7b at full width cut to one group (6 mamba layers and the
    shared block), fp32 with TF32 off: 1 request × 256 tokens, prefill
    and 4 greedy decode steps on the card (kernels) against the CPU's
    plain path on the same weights — logits at rtol/atol 1e-3, the
@@ -194,7 +220,7 @@ non-zero):
 8. print the serve line, the kernels line (K4's bf16 instance as
    ``flash_attention``, launched in phase 7, and its 3xTF32 instance as
    ``flash_attention_fp32``, launched in phase 6; K1–K3's launches are
-   those of phases 4–5h, K1c's those of 5c–5e, K1b's those of 5e–5h,
+   those of phases 4–5j, K1c's those of 5c–5e, K1b's those of 5e–5h,
    K2b's those of 5e), the card line and, last, the ok line.
 
 Exits non-zero without a result where no CUDA device is visible, or
@@ -1572,6 +1598,16 @@ def drive(form, n_rounds, warmup, ctx, ops, expect, against=None, **check):
     # plain path, from copies, before the counted run.
     before, _ = round_fn(copy(state))
     after, m = round_fn(copy(before))
+    if "update_tol" in check:
+        # The CNN's forms: cuDNN's algorithms are deterministic
+        # (``device.fp32_products``), so the round repeats bit for bit.
+        again, _ = round_fn(copy(before))
+        if not _state_bytes_equal(again, after):
+            raise AssertionError(f"form {form}: round 2 from one state "
+                                 "differs between two calls on the card")
+        del again
+        log(f"form {form}: round 2 from one state repeats bit for bit on "
+            "the card")
     cpu_round = f.make_round(cfg, loss_fn, {
         k: v.cpu() for k, v in ctx["data"].items()}, spec=spec,
         **f.placement("cpu"), **pooled)
@@ -2359,6 +2395,278 @@ def drive_ragged(ctx, cifar_ctx, ops):
     return reports, total
 
 
+# Phase 5i: the sweep forms of ``configs.paper_mnist.SWEEP_FORMS`` — form
+# A's configuration over seeds 0–3 × K 2.0, 0.5 (WA) and form B's over
+# seeds 0–1 × L̄ 0.1, 0.2 (WB), 3 rounds through ``launch/sweep.py`` —
+# with their launches per run and round.
+SWEEP_ROUNDS = 3
+SWEEP_FORMS = (
+    ("WA", {"trigger_sq_norms": 1, "fused_gss": 1, "admm_update": 0}),
+    ("WB", {"trigger_sq_norms": 1, "admm_update": 1, "fused_gss": 0}),
+)
+
+
+def _assert_metrics_equal(label, got, want):
+    for f in want._fields:
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"{label}: RoundMetrics.{f} differs")
+
+
+def drive_sweep(form, expect, ctx, ops):
+    """One sweep form: its rounds under the sync debug mode with the
+    launch counts set to 0 just before, then every run stepped alone by
+    ``make_round_fn`` with its seed, K and L̄ in its config (another L̄
+    than the plan's as a 0-d target) — each round's metrics and the
+    final state bit-equal to the sweep's.  Returns (report, counts)."""
+    from repro_torch.configs import paper_mnist
+    from repro_torch.core import init_state, make_round_fn
+    from repro_torch.launch.sweep import SweepGrid, _run, init_sweep, \
+        make_sweep_fn
+    from repro_torch.models import make_loss_fn
+
+    dev, spec, params0 = ctx["dev"], ctx["spec"], ctx["params0"]
+    f, cfg = paper_mnist.SWEEP_FORMS[form], paper_mnist.form_config(form)
+    loss_fn = make_loss_fn(ctx["logits"])
+    states, overrides, runs = init_sweep(cfg, params0, SweepGrid(**f.sweep),
+                                         spec=spec, device=dev)
+    sweep_fn = make_sweep_fn(cfg, loss_fn, ctx["data"], rounds=SWEEP_ROUNDS,
+                             spec=spec, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        states, hist = sweep_fn(states, overrides)
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ms_round = (time.perf_counter() - t0) / SWEEP_ROUNDS * 1e3
+    syncs = [str(w.message) for w in caught
+             if "synchroniz" in str(w.message).lower()
+             and "prototype" not in str(w.message)]
+    if syncs:
+        raise AssertionError(f"form {form}: {len(syncs)} host syncs inside "
+                             f"the sweep, e.g. {syncs[:3]}")
+    counts = path_counts(ops)
+    for name, per_run in expect.items():
+        want = per_run * len(runs) * SWEEP_ROUNDS
+        if counts[name] != want:
+            raise AssertionError(f"form {form}: {name} launched "
+                                 f"{counts[name]} times, expected {want}")
+    for r, (seed, k, t) in enumerate(runs):
+        ctrl = cfg.controller._replace(K=k)
+        if t != cfg.participation:
+            ctrl = ctrl._replace(target_rate=torch.tensor(t, device=dev))
+        rcfg = dataclasses.replace(cfg, seed=seed, controller=ctrl)
+        state = init_state(rcfg, params0, spec=spec, device=dev)
+        round_fn = make_round_fn(rcfg, loss_fn, ctx["data"], spec=spec,
+                                 device=dev)
+        for i in range(SWEEP_ROUNDS):
+            state, m = round_fn(state)
+            _assert_metrics_equal(f"form {form} run {r} round {i}",
+                                  type(hist)(*(x[i, r] for x in hist)), m)
+        if not _state_bytes_equal(_run(states, r), state):
+            raise AssertionError(f"form {form}: run {r}'s final state is "
+                                 "not the run's alone bit for bit")
+        del state, round_fn
+    rates = hist.events.to(torch.float32).mean(dim=(0, 2)).tolist()
+    by_gain = {}
+    for (_, k, _), rate in zip(runs, rates, strict=True):
+        by_gain.setdefault(k, []).append(rate)
+    by_gain = {k: sum(v) / len(v) for k, v in by_gain.items()}
+    if len(by_gain) > 1 and len(set(by_gain.values())) == 1:
+        raise AssertionError(f"form {form}: the realized rate is the same "
+                             f"for every gain: {by_gain}")
+    log(f"form {form}: {len(runs)} runs {runs}, {ms_round:.3f} ms per sweep "
+        f"round ({ms_round / len(runs):.3f} a run) over {SWEEP_ROUNDS} "
+        f"rounds on {ctx['smi']}; every run's metrics and final state "
+        f"bit-equal to the run alone; realized rate by run {rates}, by "
+        f"gain {by_gain}; launches {counts}")
+    del states, hist
+    torch.cuda.empty_cache()
+    return dict(ms_per_round=ms_round, runs=[list(r) for r in runs],
+                rates=rates, rate_by_gain=by_gain,
+                what=f.what), counts
+
+
+# Phase 5j: the host-offloaded forms of ``configs.paper_mnist.HOST_FORMS``
+# (HA at stream_tiles 2 and 4, HS, HQ, HR), 4 rounds each from
+# ``init_state`` beside their device form from the same config: every
+# metric each round and the final state bit-equal.  Per round K1 once
+# (the aggregate leg's trigger; twice in the first round, whose
+# distances start empty) and K3 once (the fused commit on the (C, D)
+# working set).
+HOST_ROUNDS = 4
+HOST_EXPECT = {"trigger_sq_norms": 1, "fused_gss": 1, "admm_update": 0}
+HOST_RUNS = (("HA", 2), ("HA", 4), ("HS", 2), ("HQ", 2), ("HR", 2))
+
+
+def _timed(round_fn, state, rounds):
+    """(state, metrics by round, ms per round after the first)."""
+    history, times = [], []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = round_fn(state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        history.append(m)
+    return state, history, sum(times[1:]) / (rounds - 1) * 1e3
+
+
+def drive_host(form, tiles, ctx, ops, device_ref=None):
+    """One host form at ``stream_tiles`` = ``tiles``: its rounds with the
+    launch counts set to 0 just before, the bytes each leg moved against
+    ``round_fn.planned_bytes``, the live device memory after the rounds
+    against 8·C·D·4 + ``device_state_bytes()`` + the data + 1 MiB, then
+    the device form of the same config (or ``device_ref``, its earlier
+    run) — metrics each round and the final state bit-equal.  HQ also
+    saves a checkpoint after round 2 from host memory, resumes it on the
+    device backend and holds round 4 to the host's bit for bit.
+    Returns (report, counts, the device form's run)."""
+    import gc
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import paper_mnist
+    from repro_torch.core import init_state, make_round_fn
+    from repro_torch.models import make_loss_fn
+
+    dev, spec = ctx["dev"], ctx["spec"]
+    f = paper_mnist.HOST_FORMS[form]
+    hcfg = dataclasses.replace(paper_mnist.form_config(form),
+                               stream_tiles=tiles)
+    dcfg = dataclasses.replace(hcfg, state_backend="device")
+    data, params0, extra = ctx["data"], ctx["params0"], {}
+    if f.pooled:
+        data, _, params0, _, extra["ragged"] = paper_mnist.pooled_workload(
+            SEED, device=dev)
+    loss_fn = make_loss_fn(ctx["logits"])
+    label = f"form {form} (stream_tiles {tiles})"
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = init_state(hcfg, params0, spec=spec, device=dev)
+    round_fn = make_round_fn(hcfg, loss_fn, data, spec=spec, device=dev,
+                             **extra)
+    ops.reset_launch_counts()
+    ckpt = None
+    if form == "HQ":
+        state, head, _ = _timed(round_fn, state, 2)
+        ckpt = save_checkpoint(str(ROOT / "build" / "chip_smoke_checkpoints"),
+                               2, state, prefix=form)
+        state, tail, ms_host = _timed(round_fn, state, HOST_ROUNDS - 2)
+        history = head + tail
+    else:
+        state, history, ms_host = _timed(round_fn, state, HOST_ROUNDS)
+    torch.cuda.synchronize()
+    counts = path_counts(ops)
+    live = torch.cuda.memory_allocated() - base
+    for name, per_round in HOST_EXPECT.items():
+        want = per_round * HOST_ROUNDS + (name == "trigger_sq_norms")
+        if counts[name] != want:
+            raise AssertionError(f"{label}: {name} launched {counts[name]} "
+                                 f"times in {HOST_ROUNDS} rounds, expected "
+                                 f"{want}")
+    planned, stats = round_fn.planned_bytes, round_fn.stats
+    n, d = hcfg.n_clients, spec.dim
+    want_bytes = {
+        "h2d_row_bytes": HOST_ROUNDS * planned["row_stream_h2d"],
+        "d2h_row_bytes": HOST_ROUNDS * planned["row_stream_d2h"],
+        "h2d_full_bytes": HOST_ROUNDS * planned["server_pass_h2d"]
+        + n * d * 4,  # the first round's trigger pass
+        "d2h_full_bytes": HOST_ROUNDS * planned["server_pass_d2h"],
+        "d2h_plan_bytes": HOST_ROUNDS * planned["plan_d2h"]}
+    for k, v in want_bytes.items():
+        if stats[k] != v:
+            raise AssertionError(f"{label}: {k} {stats[k]}, planned {v}")
+    cap = round_fn.static_info["capacity"]
+    data_bytes = sum(v.numel() * v.element_size() for v in data.values())
+    bound = (8 * cap * d * 4 + state.device_state_bytes() + data_bytes
+             + (1 << 20))
+    if live > bound:
+        raise AssertionError(f"{label}: {live} live device bytes after the "
+                             f"rounds, bound {bound}")
+
+    if device_ref is None:
+        dstate = init_state(dcfg, params0, spec=spec, device=dev)
+        dround = make_round_fn(dcfg, loss_fn, data, spec=spec, device=dev,
+                               **extra)
+        dstate, dhist, ms_dev = _timed(dround, dstate, HOST_ROUNDS)
+        device_ref = (dstate, dhist, ms_dev)
+    dstate, dhist, ms_dev = device_ref
+    for i, (a, b) in enumerate(zip(history, dhist, strict=True)):
+        _assert_metrics_equal(f"{label} round {i + 1}", a, b)
+    if not _state_bytes_equal(state, dstate):
+        raise AssertionError(f"{label}: the final state is not the device "
+                             "form's bit for bit")
+    if ckpt is not None:
+        resumed = load_checkpoint(ckpt, init_state(dcfg, params0, spec=spec,
+                                                   device=dev))
+        dround = make_round_fn(dcfg, loss_fn, data, spec=spec, device=dev)
+        for i in (2, 3):
+            resumed, m = dround(resumed)
+            _assert_metrics_equal(f"{label}: round {i + 1} resumed on the "
+                                  "device backend", m, history[i])
+        if not _state_bytes_equal(resumed, state):
+            raise AssertionError(f"{label}: round 4 from the host checkpoint "
+                                 "on the device backend is not the host's")
+        Path(ckpt).unlink()
+        log(f"{label}: checkpoint after round 2 saved from host memory "
+            "and resumed on the device backend; rounds 3 and 4 bit-equal "
+            "to the host's")
+    per = {k: stats[k] / HOST_ROUNDS for k in (
+        "h2d_row_bytes", "d2h_row_bytes", "d2h_full_bytes",
+        "d2h_plan_bytes")}
+    per["h2d_full_bytes"] = planned["server_pass_h2d"]
+    copy_ms = stats["h2d_ms"] + stats["d2h_ms"]
+    report = dict(
+        ms_per_round=ms_host, device_form_ms_per_round=ms_dev,
+        bytes_per_round=per, planned_bytes=planned,
+        device_state_bytes=state.device_state_bytes(),
+        host_state_bytes=state.host_state_bytes(), live_device_bytes=live,
+        live_bound=bound, copy_ms_per_round=copy_ms / HOST_ROUNDS,
+        overlap_share=stats["overlap_ms"] / copy_ms if copy_ms else None,
+        legs_ms_per_round={k[:-2]: stats[k] / HOST_ROUNDS * 1e3 for k in (
+            "plan_s", "h2d_s", "solve_s", "d2h_s", "scatter_s", "agg_s")},
+        events=[int(m.num_events) for m in history], what=f.what)
+    log(f"{label}: {ms_host:.3f} ms/round (rounds 2-{HOST_ROUNDS}; its "
+        f"device form {ms_dev:.3f}) on {ctx['smi']}; every metric of "
+        f"{HOST_ROUNDS} rounds and the final state bit-equal to the device "
+        f"form's; bytes a round {per}; device_state_bytes "
+        f"{report['device_state_bytes']} (host {report['host_state_bytes']})"
+        f"; live device bytes after the rounds {live} (bound {bound}); copy "
+        f"stream {report['copy_ms_per_round']:.3f} ms a round, overlap share "
+        f"{report['overlap_share']}; legs (host ms a round) "
+        f"{report['legs_ms_per_round']}; launches {counts}")
+    del state, round_fn
+    torch.cuda.empty_cache()
+    return report, counts, device_ref
+
+
+def drive_sweeps_and_hosts(ctx, ops):
+    """Phases 5i and 5j.  Returns (sweep reports, host reports, the
+    launch counts summed over both)."""
+    total, sweeps, hosts = {}, {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    for form, expect in SWEEP_FORMS:
+        sweeps[form], counts = drive_sweep(form, expect, ctx, ops)
+        add(counts)
+    device_runs = {}
+    for form, tiles in HOST_RUNS:
+        hosts[f"{form}/{tiles}"], counts, device_runs[form] = drive_host(
+            form, tiles, ctx, ops, device_runs.get(form))
+        add(counts)
+    directory = ROOT / "build" / "chip_smoke_checkpoints"
+    if directory.is_dir() and not any(directory.iterdir()):
+        directory.rmdir()
+    return sweeps, hosts, total
+
+
 def check_conv_precision(ctx):
     """A round built for the card switches TF32 off (the flags are set on
     first), and then the CNN's convolutions (``models.mlp.conv3x3_same``),
@@ -2524,6 +2832,21 @@ def main() -> int:
         + f" on {smi}")
     log(json.dumps({"ragged_forms": forms_r, "card": smi}))
 
+    forms_w, forms_h, counts_wh = drive_sweeps_and_hosts(ctx, ops)
+    beside = {"WA": ("A", form_a), "WB": ("B", form_b)}
+    log("sweep forms, ms per sweep round: " + "; ".join(
+        f"{w} {forms_w[w]['ms_per_round']:.3f} over "
+        f"{len(forms_w[w]['runs'])} runs ({b} {r['ms_per_round']:.3f} a "
+        f"round)" for w, (b, r) in beside.items()) + f" on {smi}")
+    log("host forms, ms/round: " + "; ".join(
+        f"{h} {r['ms_per_round']:.3f} (its device form "
+        f"{r['device_form_ms_per_round']:.3f})" for h, r in forms_h.items())
+        + f"; A {form_a['ms_per_round']:.3f}, QA "
+        f"{forms_q['QA']['ms_per_round']:.3f}, RA "
+        f"{forms_r['RA']['ms_per_round']:.3f} earlier in the run on {smi}")
+    log(json.dumps({"sweep_forms": forms_w, "host_forms": forms_h,
+                    "card": smi}))
+
     _, counts_slice = check_slice_against_cpu(dev, ops)
     torch.cuda.empty_cache()
     serve_report, counts_serve = serve_full(dev, ops, smi)
@@ -2535,6 +2858,7 @@ def main() -> int:
                     + counts_c.get(name, 0) + counts_t.get(name, 0)
                     + counts_s.get(name, 0) + counts_sv.get(name, 0)
                     + counts_q.get(name, 0) + counts_r.get(name, 0)
+                    + counts_wh.get(name, 0)
                     + counts_cf.get(name, 0) + counts_slice[name]
                     + counts_serve[name])
         if launches == 0:
@@ -2547,7 +2871,8 @@ def main() -> int:
             f"{counts_s.get(name, 0)}, serve forms SVA/SVB/SVS "
             f"{counts_sv.get(name, 0)}, forms QA/QB/QC/QS "
             f"{counts_q.get(name, 0)}, forms RA/RB/RS/RC "
-            f"{counts_r.get(name, 0)}, forms CF-A/CF-T "
+            f"{counts_r.get(name, 0)}, forms WA/WB/HA/HS/HQ/HR "
+            f"{counts_wh.get(name, 0)}, forms CF-A/CF-T "
             f"{counts_cf.get(name, 0)}, "
             f"fp32 group {counts_slice[name]}, "
             f"serve {counts_serve[name]}), "

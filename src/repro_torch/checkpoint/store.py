@@ -22,7 +22,11 @@ sidecar); on reading, ``V2`` or ``int16`` bytes whose sidecar says
 ``bfloat16`` come back as ``torch.bfloat16``.  A client mesh's shard
 list is written unsharded (``convert.state_to_numpy``) and, given a
 sharded template, read back into its shards
-(``convert.state_from_numpy(mesh=)``).
+(``convert.state_from_numpy(mesh=)``).  A host-offloaded state
+(``core.state.HostState``) is written as its
+``to_checkpoint_tree()``, the matrices straight from host memory, so it
+resumes on the device backend and the reverse; given a ``HostState``
+template, the file comes back as a ``HostState``.
 
 :func:`load_checkpoint` refuses what the reference refuses: another
 treedef (naming both strings), a missing leaf (``KeyError``), another
@@ -123,7 +127,9 @@ def _to_array(path, leaf) -> tuple[np.ndarray, str]:
 
 def _host_form(tree):
     """A client mesh's shard list → the unsharded state (numpy leaves);
-    anything else as it is."""
+    a ``HostState`` → its checkpoint tree; anything else as it is."""
+    if hasattr(tree, "to_checkpoint_tree"):
+        return tree.to_checkpoint_tree()
     if _is_shard_list(tree):
         from repro_torch.convert import state_to_numpy
 
@@ -228,8 +234,9 @@ def _rebuild(template, leaves, prefix=()):
 def load_checkpoint(path: str, like):
     """Read the checkpoint at ``path`` into the structure of ``like`` (a
     template: an ``FLState``, a client mesh's shard list, a
-    ``ScaffoldState`` or a dict of tensors or arrays), each leaf cast to
-    the template leaf's dtype within its kind and placed on its device."""
+    ``HostState``, a ``ScaffoldState`` or a dict of tensors or arrays),
+    each leaf cast to the template leaf's dtype within its kind and
+    placed on its device (a ``HostState``'s matrices in host memory)."""
     with np.load(path) as zf:
         stored_treedef = (_read_blob(zf["__treedef__"])
                           if "__treedef__" in zf.files else None)
@@ -257,6 +264,10 @@ def load_checkpoint(path: str, like):
                              f"{arr.shape} vs {shape}")
         out[leaf_path] = _restore(key, leaf_path, arr, stored, leaf)
     restored = _rebuild(template, out)
+    if hasattr(like, "to_checkpoint_tree"):
+        from repro_torch.core.hoststate import _host_state_of
+
+        return _host_state_of(restored, like.omega.device)
     if sharded:
         from repro_torch.convert import state_from_numpy
         from repro_torch.sharding import ClientMesh

@@ -10,7 +10,11 @@ compressed consensus);
 ``SERVE_FORMS`` the serve forms, each a stale-tolerant round with the
 arrival trace it serves; ``RAGGED_FORMS`` the forms on ragged clients,
 whose data ``pooled_workload()`` builds: every client's shard whole in
-one pooled buffer (pass its spec as ``make_round_fn(..., ragged=)``).
+one pooled buffer (pass its spec as ``make_round_fn(..., ragged=)``);
+``SWEEP_FORMS`` the sweep forms, each a round form stepped over a grid
+of seeds, gains and target rates (``launch/sweep.py``); ``HOST_FORMS``
+round forms with the client matrices in host memory
+(``state_backend="host"``).
 """
 from typing import Callable, NamedTuple
 
@@ -45,8 +49,11 @@ class Form(NamedTuple):
     client-state layout (``"flat"``: pass ``spec=make_flat_spec(params0)``
     to its builders; ``"tree"``: ``spec=None``), the builders of its
     state and its round, its client shards (more than one: a client
-    mesh) and, for a serve form, the arrival trace it serves (build its
-    round with ``arrivals_arg=True``)."""
+    mesh), for a serve form the arrival trace it serves (build its round
+    with ``arrivals_arg=True``), for a sweep form its grid (the
+    ``launch.sweep.SweepGrid`` keywords) and whether its data is the
+    pooled workload's (``pooled``; a form of :data:`RAGGED_FORMS` always
+    is)."""
     what: str
     kw: dict
     layout: str = "flat"
@@ -54,6 +61,8 @@ class Form(NamedTuple):
     make_round: Callable = make_round_fn
     shards: int = 1
     trace: TraceConfig | None = None
+    sweep: dict | None = None
+    pooled: bool = False
 
     def spec(self, flat_spec):
         """The ``spec=`` its builders take, given the params' FlatSpec."""
@@ -155,10 +164,44 @@ RAGGED_FORMS = {
 }
 
 
+# The sweep forms: forms A and B over a grid of runs, each run its own
+# seed, gain K and target L̄ through the round's runtime controller
+# overrides (``launch/sweep.py``).
+SWEEP_FORMS = {
+    "WA": Form("FedBack sweep, compact + fused, seeds 0-3 x K 2.0, 0.5",
+               dict(FORMS["A"].kw),
+               sweep=dict(seeds=(0, 1, 2, 3), gains=(2.0, 0.5))),
+    "WB": Form("FedBack sweep, dense, seeds 0-1 x target 0.1, 0.2",
+               dict(FORMS["B"].kw),
+               sweep=dict(seeds=(0, 1), target_rates=(0.1, 0.2))),
+}
+
+
+# The host-offloaded forms (``core/hoststate.py``): the (N, D) client
+# matrices in pinned host memory, the C planned rows streamed through
+# the card each round.  Each is a device form with
+# ``state_backend="host"``: A, A under ``max_staleness=2``, QA and RA
+# (on the pooled workload).
+HOST_FORMS = {
+    "HA": Form("FedBack, compact + fused, host-offloaded state",
+               dict(FORMS["A"].kw, state_backend="host")),
+    "HS": Form("FedBack, compact + fused, max_staleness 2, host-offloaded "
+               "state", dict(FORMS["A"].kw, max_staleness=2,
+                             state_backend="host")),
+    "HQ": Form("FedBack, compact + fused, int8 consensus, host-offloaded "
+               "state", dict(FORMS["QA"].kw, state_backend="host")),
+    "HR": Form("FedBack, compact + fused, ragged clients, host-offloaded "
+               "state", dict(RAGGED_FORMS["RA"].kw, state_backend="host"),
+               pooled=True),
+}
+
+
 def form_config(form: str) -> FLConfig:
-    """The ``FLConfig`` of one of :data:`FORMS`, :data:`SERVE_FORMS` or
-    :data:`RAGGED_FORMS`, at L̄ = 0.1."""
-    return fl_config(**{**FORMS, **SERVE_FORMS, **RAGGED_FORMS}[form].kw)
+    """The ``FLConfig`` of one of :data:`FORMS`, :data:`SERVE_FORMS`,
+    :data:`RAGGED_FORMS`, :data:`SWEEP_FORMS` or :data:`HOST_FORMS`, at
+    L̄ = 0.1."""
+    return fl_config(**{**FORMS, **SERVE_FORMS, **RAGGED_FORMS,
+                        **SWEEP_FORMS, **HOST_FORMS}[form].kw)
 
 
 def workload(seed: int = 0, device=None):

@@ -12,9 +12,15 @@ go to ``device``: CUDA unless the caller passes another.
   pipeline where the state has one, the rng key's two uint32 words, the
   round, the compressed consensus's residual where the state has one),
   in either layout: (N, D) matrices or nested dicts of stacked leaves;
-  with ``mesh=`` the shard list of a client mesh;
+  with ``mesh=`` the shard list of a client mesh; with ``runs=True`` a
+  sweep's state stacked over runs (``launch/sweep.py``: a leading
+  (R, ...) axis on every leaf, the client axis second);
 * :func:`state_to_numpy` — the other way, as the port's ``FLState``
-  with numpy leaves, for comparisons (a shard list is put together);
+  with numpy leaves, for comparisons (a shard list is put together, a
+  ``HostState`` read through its checkpoint tree);
+* :func:`host_state_from_numpy` — the JAX package's ``HostState`` (or
+  its checkpoint tree) → the port's ``HostState``, the matrices in host
+  memory;
 * :func:`flat_state` — a tree-layout state → the flat one, through a
   ``FlatSpec`` (the same numbers, for holding one layout against the
   other);
@@ -118,7 +124,7 @@ def _tree_numpy(node):
     return tree_map(lambda t: t.detach().cpu().numpy(), node)
 
 
-def state_from_numpy(s, device=None, mesh=None):
+def state_from_numpy(s, device=None, mesh=None, *, runs: bool = False):
     """A JAX ``FLState`` with numpy-convertible leaves → the port's state
     on ``device``, fp32: the flat layout's (N, D) / (D,) arrays, or the
     tree layout's nested dicts of them.
@@ -131,18 +137,24 @@ def state_from_numpy(s, device=None, mesh=None):
     ``CTRL_STACKED_FIELDS``) is cut into P contiguous blocks, shard i's
     on ``mesh.devices[i]``; ω, the key and the round counters are
     copied to every shard.
+
+    With ``runs`` the state is a sweep's, stacked over runs: the client
+    axis is the second of each stacked field, and shard i holds (R, N/P,
+    ...) blocks.
     """
     if mesh is None:
         return _state_on(s, resolve_device(device))
     if device is not None:
         raise ValueError("pass device= or mesh=, not both")
-    n = np.shape(s.ctrl.delta)[0]
+    axis = int(runs)
+    n = np.shape(s.ctrl.delta)[axis]
     check_divisible(n, mesh)
     n_local = n // mesh.size
 
     def rows(i):
         def cut(x):
-            return np.asarray(x)[i * n_local:(i + 1) * n_local]
+            return np.take(np.asarray(x), np.arange(
+                i * n_local, (i + 1) * n_local), axis=axis)
         ctrl = s.ctrl._replace(**{f: cut(getattr(s.ctrl, f))
                                   for f in CTRL_STACKED_FIELDS})
         return s._replace(ctrl=ctrl, **{f: _fields_map(cut, getattr(s, f))
@@ -184,11 +196,15 @@ def _inflight_on(fl, device):
                     hist=_t(fl.hist, device, torch.bool))
 
 
-def state_to_numpy(s) -> FLState:
+def state_to_numpy(s, *, runs: bool = False) -> FLState:
     """The port's state with numpy leaves (the rng as two uint32 words).
     A client mesh's shard list comes back as one state: the stacked
-    fields concatenated in shard order, the replicated ones taken from
-    shard 0 after checking that every shard holds the same bits."""
+    fields concatenated in shard order (on the second axis of a sweep's
+    state, ``runs=True``), the replicated ones taken from shard 0 after
+    checking that every shard holds the same bits.  A ``HostState``
+    comes back as its checkpoint tree's leaves."""
+    if hasattr(s, "to_checkpoint_tree"):
+        s = s.to_checkpoint_tree()
     if isinstance(s, FLState):
         return _to_numpy(s)
     shards = [_to_numpy(x) for x in s]
@@ -207,7 +223,7 @@ def state_to_numpy(s) -> FLState:
                                  f"shard {i} against shard 0")
 
     def cat(*xs):
-        return np.concatenate(xs)
+        return np.concatenate(xs, axis=int(runs))
 
     ctrl = first.ctrl._replace(**{f: cat(*(getattr(x.ctrl, f)
                                            for x in shards))
@@ -240,6 +256,18 @@ def _to_numpy(s: FLState) -> FLState:
         queue=DeferQueue(*(cpu(t) for t in s.queue)),
         inflight=_fields_map(cpu, s.inflight),
         comm=_fields_map(cpu, s.comm))
+
+
+def host_state_from_numpy(s, device=None):
+    """The JAX package's ``HostState`` (numpy matrices, device vectors),
+    or an ``FLState``-shaped tree of its leaves, → the port's
+    ``HostState``: the matrices in host memory (pinned for a CUDA
+    ``device``), the vectors on ``device`` (CUDA unless another is
+    passed), ``distances`` None (the next round computes it)."""
+    from repro_torch.core.hoststate import _host_state_of
+
+    tree = s.to_checkpoint_tree() if hasattr(s, "to_checkpoint_tree") else s
+    return _host_state_of(tree, resolve_device(device))
 
 
 def flat_state(s: FLState, spec) -> FLState:

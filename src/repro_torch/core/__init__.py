@@ -41,6 +41,12 @@ from .fedback import (  # noqa: F401
     make_round_fn,
     run_rounds,
 )
+from .hoststate import (  # noqa: F401
+    host_state_from_tree,
+    host_state_to_device,
+    init_host_state,
+    make_host_round_fn,
+)
 from .selection import (  # noqa: F401
     BernoulliSelection,
     FedBackSelection,
@@ -61,5 +67,5 @@ from .schedule import (  # noqa: F401
 )
 from .trigger import evaluate_trigger, trigger_distances, \
     trigger_events  # noqa: F401
-from .state import DeferQueue, FLState, InFlight, RoundMetrics, \
-    delay_schedule, init_inflight  # noqa: F401
+from .state import DeferQueue, FLState, HostState, InFlight, \
+    RoundMetrics, delay_schedule, init_inflight  # noqa: F401

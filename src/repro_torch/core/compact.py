@@ -263,6 +263,17 @@ def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
     ``masked_solver(theta0, center, x, y, offsets, sizes, idx)`` reads
     the slots' rows of the pool in place, the values the reference's
     ``max(nᵢ)``-row slices hold.
+
+    The block's steps after the plan are also its attributes, so that
+    the host-offloaded round (``core/hoststate.py``) runs them on the
+    (C, D) rows it streams in, at the same width and in the same
+    operations: ``block.plan(events, distances, eligible, age, qload)``
+    (the plan and the queue after it), ``block.slot_inputs(idx, x, y,
+    keys_rows, offsets, sizes)`` (the slots' minibatch draws and data),
+    ``block.presolve(th_rows, lam_rows, omega)`` (λ⁺, the centers and
+    the starting rows), ``block.solve(theta0_rows, center_rows,
+    inputs)`` and ``block.commit(idx, valid, th_out_rows, lam_new_rows,
+    omega, theta, lam, z_prev)``.
     """
     from repro_torch.kernels import ops
 
@@ -276,76 +287,89 @@ def make_compact_block(solver: Callable, epoch_fn: Callable, capacity: int,
         raise ValueError("keep_old_rows serves the fused commit, which "
                          "writes the state in place")
 
-    def block(events, distances, eligible, age, qload, theta, lam, z_prev,
-              omega, x, y, keys, offsets=None, sizes=None):
+    def plan_step(events, distances, eligible, age, qload):
         with span("fedback/plan"):
             limit = (adaptive_limit(qload, c_min, capacity)
                      if adaptive else None)
             plan = compact_plan(events, distances, capacity, age=age,
                                 limit=limit, eligible=eligible)
-            queue = queue_update(DeferQueue(age=age, load=qload), plan,
-                                 alpha=alpha)
-        with span("fedback/presolve"):
-            th_rows, lam_rows, lam_new_rows, center_rows = presolve(
-                plan, theta, lam, omega)
-            theta0_rows = (tree_broadcast_like(omega, capacity)
-                           if warm_start else th_rows)
-        with span("fedback/minibatch_rng"):
-            idx_b = epoch_fn(gather_rows(keys, plan.idx))
-        if ragged is None:
-            th_out_rows, losses = solver(
-                theta0_rows, center_rows, gather_rows(x, plan.idx),
-                gather_rows(y, plan.idx), idx_b)
-        elif masked:
-            th_out_rows, losses = masked_solver(
-                theta0_rows, center_rows, x, y,
-                gather_rows(offsets, plan.idx),
-                gather_rows(sizes, plan.idx), idx_b)
-        else:
-            blocks = [gather_blocks(t, gather_rows(offsets, plan.idx),
-                                    ragged.max_size) for t in (x, y)]
-            th_out_rows, losses = solver(theta0_rows, center_rows, *blocks,
-                                         idx_b)
+            return plan, queue_update(DeferQueue(age=age, load=qload), plan,
+                                      alpha=alpha)
+
+    def block(events, distances, eligible, age, qload, theta, lam, z_prev,
+              omega, x, y, keys, offsets=None, sizes=None):
+        plan, queue = plan_step(events, distances, eligible, age, qload)
+        th_rows = gather_rows(theta, plan.idx)
+        lam_rows = gather_rows(lam, plan.idx) if is_admm else None
+        lam_new_rows, center_rows, theta0_rows = presolve(th_rows, lam_rows,
+                                                          omega)
+        th_out_rows, losses = solve(theta0_rows, center_rows, slot_inputs(
+            plan.idx, x, y, gather_rows(keys, plan.idx), offsets, sizes))
         with span("fedback/commit"):
             old = None
             if keep_old_rows:
                 old = (plan.idx, plan.valid,
                        (th_rows, lam_rows, gather_rows(z_prev, plan.idx)))
             theta_new, lam_new, z_new = commit(
-                plan, th_out_rows, lam_new_rows, omega, theta, lam, z_prev)
+                plan.idx, plan.valid, th_out_rows, lam_new_rows, omega,
+                theta, lam, z_prev)
         return (theta_new, lam_new, z_new, queue.age, queue.load,
                 plan.committed, losses, plan.valid, plan.limit, old)
 
-    def presolve(plan, theta, lam, omega):
-        """The slots' θ and λ rows (copies), λ⁺ and the prox centers."""
-        th_rows = gather_rows(theta, plan.idx)
-        if not is_admm:
-            return th_rows, None, None, tree_broadcast_like(omega,
-                                                            capacity)
-        lam_rows = gather_rows(lam, plan.idx)
-        if use_admm_kernel and not fused:
-            lam_new_rows, center_rows = ops.admm_update(
-                th_rows, lam_rows, omega, with_z=False)
-        else:
-            # The fused commit re-derives λ⁺ itself, so the pre-solve
-            # pass stays plain torch (as in the reference).
-            lam_new_rows = dual_ascent(lam_rows, th_rows, omega)
-            center_rows = prox_center(omega, lam_new_rows)
-        return th_rows, lam_rows, lam_new_rows, center_rows
+    def presolve(th_rows, lam_rows, omega):
+        """(λ⁺, the prox centers, the solve's starting rows) of the
+        slots' θ and λ rows; λ⁺ None outside the ADMM family."""
+        with span("fedback/presolve"):
+            if not is_admm:
+                lam_new_rows = None
+                center_rows = tree_broadcast_like(omega, capacity)
+            elif use_admm_kernel and not fused:
+                lam_new_rows, center_rows = ops.admm_update(
+                    th_rows, lam_rows, omega, with_z=False)
+            else:
+                # The fused commit re-derives λ⁺ itself, so the pre-solve
+                # pass stays plain torch (as in the reference).
+                lam_new_rows = dual_ascent(lam_rows, th_rows, omega)
+                center_rows = prox_center(omega, lam_new_rows)
+            theta0_rows = (tree_broadcast_like(omega, capacity)
+                           if warm_start else th_rows)
+        return lam_new_rows, center_rows, theta0_rows
 
-    def commit(plan, th_out_rows, lam_new_rows, omega, theta, lam, z_prev):
+    def slot_inputs(idx, x, y, keys_rows, offsets=None, sizes=None):
+        """The slots' minibatch indices and the data their solve reads."""
+        with span("fedback/minibatch_rng"):
+            idx_b = epoch_fn(keys_rows)
+        if ragged is None:
+            return idx_b, (gather_rows(x, idx), gather_rows(y, idx))
+        if masked:
+            return idx_b, (x, y, gather_rows(offsets, idx),
+                           gather_rows(sizes, idx))
+        return idx_b, tuple(gather_blocks(t, gather_rows(offsets, idx),
+                                          ragged.max_size) for t in (x, y))
+
+    def solve(theta0_rows, center_rows, inputs):
+        idx_b, data = inputs
+        if masked:
+            return masked_solver(theta0_rows, center_rows, *data, idx_b)
+        return solver(theta0_rows, center_rows, *data, idx_b)
+
+    def commit(idx, valid, th_out_rows, lam_new_rows, omega, theta, lam,
+               z_prev):
         if fused:
-            return ops.fused_gss(plan.idx, plan.valid,
-                                 th_out_rows.contiguous(), omega, theta, lam,
-                                 z_prev, with_z=True)
-        theta_new = scatter_rows(theta, th_out_rows, plan.idx, plan.valid)
+            return ops.fused_gss(idx, valid, th_out_rows.contiguous(), omega,
+                                 theta, lam, z_prev, with_z=True)
+        theta_new = scatter_rows(theta, th_out_rows, idx, valid)
         if not is_admm:
-            return theta_new, lam, scatter_rows(z_prev, th_out_rows,
-                                                plan.idx, plan.valid)
-        lam_new = scatter_rows(lam, lam_new_rows, plan.idx, plan.valid)
+            return theta_new, lam, scatter_rows(z_prev, th_out_rows, idx,
+                                                valid)
+        lam_new = scatter_rows(lam, lam_new_rows, idx, valid)
         z_new = scatter_rows(z_prev, tree_map(torch.add, th_out_rows,
-                                              lam_new_rows),
-                             plan.idx, plan.valid)
+                                              lam_new_rows), idx, valid)
         return theta_new, lam_new, z_new
 
+    block.plan = plan_step
+    block.slot_inputs = slot_inputs
+    block.presolve = presolve
+    block.solve = solve
+    block.commit = commit
     return block

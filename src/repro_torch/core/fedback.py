@@ -109,10 +109,21 @@ solve and gives the rectangular round's bits.  Under ``mesh=`` the pool
 is copied to each shard's device and each shard solves its own
 clients' rows.
 
-What the JAX engine also offers and later slices port: host-offloaded
-state, the sweeps' controller overrides and the cross-pod program.
-SCAFFOLD has its own round (:mod:`repro_torch.core.baselines`), without
-a mesh, as in the reference.
+**Sweeps** (``ctrl_arg=True``): ``round_fn(state, ctrl_overrides)``
+takes runtime controller overrides, ``{"K": k, "target_rate": r}`` as
+0-d fp32 tensors on the state's device, which reach the controller's
+step alone (``FedBackSelection.measure``); the plan's capacity and rate
+floor stay on ``cfg.participation``.  :mod:`repro_torch.launch.sweep`
+steps one such round over a grid of seeds, gains and target rates.
+
+**Host-offloaded state** (``state_backend="host"``): :func:`init_state`
+and :func:`make_round_fn` hand over to :mod:`repro_torch.core.hoststate`,
+whose round keeps the (N, D) client matrices in host memory and streams
+the C planned rows through the card.
+
+What the JAX engine also offers and a later slice ports: the cross-pod
+program.  SCAFFOLD has its own round (:mod:`repro_torch.core.baselines`),
+without a mesh, as in the reference.
 """
 from __future__ import annotations
 
@@ -224,14 +235,16 @@ def _check_supported(cfg: FLConfig, mesh=None) -> None:
                                        torch.Tensor):
         raise NotImplementedError("mesh= with a per-client target_rate is "
                                   "not ported yet (M14b)")
-    unported = {
-        "state_backend": cfg.state_backend != "device",
-        "algorithm": cfg.algorithm not in ADMM_FAMILY + AVG_FAMILY,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        settings = ", ".join(f"{k}={getattr(cfg, k)!r}" for k in bad)
-        raise NotImplementedError(f"not ported yet: {settings}")
+    if cfg.algorithm not in ADMM_FAMILY + AVG_FAMILY:
+        raise NotImplementedError(
+            f"not ported yet: algorithm={cfg.algorithm!r}")
+
+
+def _backend(cfg: FLConfig) -> str:
+    if cfg.state_backend not in ("device", "host"):
+        raise ValueError(f"unknown state_backend: {cfg.state_backend!r} "
+                         "(expected 'device' or 'host')")
+    return cfg.state_backend
 
 
 def _check_compress(cfg: FLConfig, flat: bool) -> str:
@@ -292,7 +305,16 @@ def init_state(cfg: FLConfig, params0, *, spec: FlatSpec | None = None,
     kind=cfg.staleness_schedule, seed=cfg.seed)``, each shard its rows.
     With ``cfg.consensus_compress`` set, ``comm`` is the zero (N, D)
     residual (each shard its rows); the tree layout is refused.
+
+    With ``cfg.state_backend="host"`` the host-offloaded state of
+    :func:`repro_torch.core.hoststate.init_host_state` (no ``mesh``).
     """
+    if _backend(cfg) == "host":
+        from .hoststate import init_host_state
+        if mesh is not None:
+            raise ValueError("state_backend='host' is a single-host "
+                             "backend (mesh must be None)")
+        return init_host_state(cfg, params0, spec=spec, device=device)
     _check_supported(cfg, mesh)
     _check_compress(cfg, spec is not None)
     if spec is not None:
@@ -411,10 +433,54 @@ def _masked_local_solve(loss_fn: Callable, spec: FlatSpec | None, theta0,
                    / torch.clamp(torch.sum(lives, dim=1), min=1.0))
 
 
+def _solvers(cfg: FLConfig, loss_fn: Callable, spec: FlatSpec | None,
+             n_points: int):
+    """(solver, masked_solver, epoch_fn) of the round's local solves:
+    :func:`_local_solve` and :func:`_masked_local_solve` with the
+    config's ρ, learning rate and momentum, and the minibatch indices of
+    ``epochs`` passes over ``n_points``."""
+    def solver(theta0, center, xs, ys, idx):
+        with span("fedback/solve"):
+            return _local_solve(loss_fn, spec, theta0, center, xs, ys, idx,
+                                rho=cfg.local_rho(), lr=cfg.lr,
+                                momentum=cfg.momentum)
+
+    def masked_solver(theta0, center, xs, ys, offsets, sizes, idx):
+        with span("fedback/solve"):
+            return _masked_local_solve(
+                loss_fn, spec, theta0, center, xs, ys, offsets, sizes, idx,
+                rho=cfg.local_rho(), lr=cfg.lr, momentum=cfg.momentum)
+
+    def epoch_fn(keys):
+        return _epoch_indices(keys, n_points, cfg.batch_size, cfg.epochs)
+
+    return solver, masked_solver, epoch_fn
+
+
+def _compact_block(cfg: FLConfig, solvers, n_shards: int, flat: bool,
+                   ragged: RaggedSpec | None, *, keep_old_rows: bool):
+    """The compact round's plan → solve → commit block
+    (``compact.make_compact_block``) of one shard of ``n_shards``, with
+    ``solvers`` those of :func:`_solvers`; its C is ``block.capacity``."""
+    solver, masked_solver, epoch_fn = solvers
+    is_admm = cfg.algorithm in ADMM_FAMILY
+    c_min, cap = capacity_bounds(cfg.n_clients, cfg.participation,
+                                 cfg.capacity_slack, cfg.capacity,
+                                 n_shards=n_shards)
+    block = make_compact_block(
+        solver, epoch_fn, cap, warm_start=cfg.warm_start, is_admm=is_admm,
+        c_min=c_min, adaptive=cfg.adaptive_capacity and cfg.capacity is None,
+        alpha=_ctrl_cfg(cfg).alpha, fused=cfg.fused_gss,
+        use_admm_kernel=is_admm and flat, keep_old_rows=keep_old_rows,
+        ragged=ragged, masked_solver=masked_solver)
+    block.capacity, block.c_min = cap, c_min
+    return block
+
+
 def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
                   spec: FlatSpec | None = None, device=None,
                   mesh: ClientMesh | None = None,
-                  arrivals_arg: bool = False,
+                  ctrl_arg: bool = False, arrivals_arg: bool = False,
                   ragged: RaggedSpec | None = None) -> Callable:
     """Build ``round_fn(state) -> (state, RoundMetrics)``.
 
@@ -445,6 +511,13 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
     builds ``round_fn(state, arrivals)`` (with ``mesh``, ``round_fn(
     shards, arrivals)``, the (N,) mask cut by shard): the serve step;
     with all-ones arrivals it is the plain round bit for bit.
+    ``ctrl_arg`` builds ``round_fn(state, ctrl_overrides)`` (with
+    ``arrivals_arg`` too, ``round_fn(state, ctrl_overrides, arrivals)``):
+    ``ctrl_overrides`` is a dict of 0-d fp32 tensors (``"K"``,
+    ``"target_rate"``) that replace the controller's gain and target in
+    its step, where the round's shards take a copy on their device;
+    ``{"K": k}`` gives the bits of a round built with
+    ``ControllerConfig(K=k)``.
 
     ``ragged`` (a :class:`~repro_torch.utils.ragged.RaggedSpec`): data
     is the pooled {"x": (Σnᵢ + pad, ...), "y": (Σnᵢ + pad,)} buffer the
@@ -452,7 +525,17 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
     ``data.federated_pooled``); the module docstring says how it is
     solved.  With ``mesh`` each shard's device gets a copy of the pool
     and the offsets and sizes of its clients.
+
+    With ``cfg.state_backend="host"`` the round of
+    :func:`repro_torch.core.hoststate.make_host_round_fn`, which takes
+    the :class:`~repro_torch.core.state.HostState` of :func:`init_state`.
     """
+    if _backend(cfg) == "host":
+        from .hoststate import make_host_round_fn
+        return make_host_round_fn(cfg, loss_fn, data, spec=spec,
+                                  device=device, mesh=mesh,
+                                  ctrl_arg=ctrl_arg,
+                                  arrivals_arg=arrivals_arg, ragged=ragged)
     _check_supported(cfg, mesh)
     n = cfg.n_clients
     if mesh is None:
@@ -505,34 +588,11 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
                             controller=_ctrl_cfg(cfg),
                             metric=cfg.trigger_metric)
     async_mode = cfg.max_staleness is not None
-
-    def solver(theta0, center, xs, ys, idx):
-        with span("fedback/solve"):
-            return _local_solve(loss_fn, spec, theta0, center, xs, ys, idx,
-                                rho=cfg.local_rho(), lr=cfg.lr,
-                                momentum=cfg.momentum)
-
-    def masked_solver(theta0, center, xs, ys, offsets, sizes, idx):
-        with span("fedback/solve"):
-            return _masked_local_solve(
-                loss_fn, spec, theta0, center, xs, ys, offsets, sizes, idx,
-                rho=cfg.local_rho(), lr=cfg.lr, momentum=cfg.momentum)
-
-    def epoch_fn(keys):
-        return _epoch_indices(keys, n_points, cfg.batch_size, cfg.epochs)
-
+    solver, masked_solver, epoch_fn = _solvers(cfg, loss_fn, spec, n_points)
     if cfg.compact:
-        c_min, cap = capacity_bounds(n, cfg.participation,
-                                     cfg.capacity_slack, cfg.capacity,
-                                     n_shards=mesh.size)
-        block = make_compact_block(
-            solver, epoch_fn, cap, warm_start=cfg.warm_start,
-            is_admm=is_admm, c_min=c_min,
-            adaptive=cfg.adaptive_capacity and cfg.capacity is None,
-            alpha=_ctrl_cfg(cfg).alpha, fused=cfg.fused_gss,
-            use_admm_kernel=is_admm and flat,
-            keep_old_rows=async_mode and cfg.fused_gss, ragged=ragged,
-            masked_solver=masked_solver)
+        block = _compact_block(cfg, (solver, masked_solver, epoch_fn),
+                               mesh.size, flat, ragged,
+                               keep_old_rows=async_mode and cfg.fused_gss)
 
     def trigger(shards):
         if cfg.trigger_metric != "l2":
@@ -607,7 +667,14 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
             losses.index_copy_(0, members, ls)
         return theta_out, losses
 
-    def select_events(shards, distances, sel_rng, arrivals):
+    def overrides_on(ctrl_overrides, shards):
+        """The overrides per shard, each on its shard's device."""
+        if not ctrl_overrides:
+            return [None] * len(shards)
+        return [{k: v.to(s.rng.device, non_blocking=True)
+                 for k, v in ctrl_overrides.items()} for s in shards]
+
+    def select_events(shards, distances, sel_rng, arrivals, overrides):
         """(events, eligible, ctrls) per shard.  Under staleness a client
         with a solve in flight is ineligible and the controller steps
         later, on the commit-time events (ctrls None); with arrivals,
@@ -625,11 +692,11 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
         if admit is not None:
             events = [e & a for e, a in zip(events, admit, strict=True)]
         ctrls = None if async_mode else [
-            select.measure(s.ctrl, e) for s, e in zip(shards, events,
-                                                     strict=True)]
+            select.measure(s.ctrl, e, o) for s, e, o in zip(
+                shards, events, overrides, strict=True)]
         return events, eligible or [None] * len(shards), ctrls
 
-    def stale_commit(s, e, serviced, proposals, old):
+    def stale_commit(s, e, serviced, proposals, old, overrides):
         """The bounded-staleness commit of one shard: the proposals
         routed through its delay pipeline, the ring updated and the
         controller stepped on the commit-time events.  ``old`` (the
@@ -655,19 +722,21 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
         hist = record_issue(fl.hist, e, s.round)
         ctrl = select.measure(s.ctrl, measured_commits(hist, fl.delay,
                                                        s.round),
-                              staleness_delay=fl.delay)
+                              overrides, staleness_delay=fl.delay)
         new_fl = InFlight(delay=fl.delay, ttl=new_ttl, theta=p_th,
                           lam=p_lam, z=p_z, hist=hist)
         return theta, lam, z, new_fl, ctrl, direct | land, land
 
-    def round_body(shards, arrivals=None):
+    def round_body(shards, ctrl_overrides=None, arrivals=None):
         s0 = shards[0]
         dev0 = s0.rng.device
+        overrides = overrides_on(ctrl_overrides, shards)
         with span("fedback/trigger_select"):
             rng, sel_rng, data_rng = prng.split(s0.rng, 3)
             distances = trigger(shards)
             events, eligible, ctrls = select_events(shards, distances,
-                                                    sel_rng, arrivals)
+                                                    sel_rng, arrivals,
+                                                    overrides)
         keys = shard_rows(prng.split(data_rng, n), mesh)
         proposals, serviced, losses, loss_mask, queues, olds = \
             [], [], [], [], [], []
@@ -711,11 +780,11 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
         with span("fedback/commit"):
             if async_mode:
                 ctrls, inflight, ttls, landed = [], [], [], []
-                for s, e, done, prop, old in zip(shards, events, serviced,
-                                                 proposals, olds,
-                                                 strict=True):
+                for s, e, done, prop, old, o in zip(
+                        shards, events, serviced, proposals, olds,
+                        overrides, strict=True):
                     theta, lam, z, fl, ctrl, done, land = stale_commit(
-                        s, e, done, prop, old)
+                        s, e, done, prop, old, o)
                     new.append((theta, lam, z))
                     inflight.append(fl)
                     ctrls.append(ctrl)
@@ -781,23 +850,26 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
                 new, queues, inflight, ctrls, comm, replicas, strict=True))
         return new_shards, metrics
 
-    def serve_body(shards, arrivals):
-        return round_body(shards, shard_rows(torch.as_tensor(arrivals),
-                                             mesh))
-
-    if sharded:
-        return serve_body if arrivals_arg else round_body
-
-    if arrivals_arg:
-        def serve_step(state: FLState, arrivals):
-            (new_state,), metrics = serve_body((state,), arrivals)
-            return new_state, metrics
-        return serve_step
-
-    def round_fn(state: FLState):
-        (new_state,), metrics = round_body((state,))
+    def body(state, ctrl_overrides=None, arrivals=None):
+        if arrivals is not None:
+            arrivals = shard_rows(torch.as_tensor(arrivals), mesh)
+        if sharded:
+            return round_body(state, ctrl_overrides, arrivals)
+        (new_state,), metrics = round_body((state,), ctrl_overrides,
+                                           arrivals)
         return new_state, metrics
 
+    if ctrl_arg and arrivals_arg:
+        return body
+    if ctrl_arg:
+        def round_fn(state, ctrl_overrides):
+            return body(state, ctrl_overrides)
+    elif arrivals_arg:
+        def round_fn(state, arrivals):
+            return body(state, None, arrivals)
+    else:
+        def round_fn(state):
+            return body(state)
     return round_fn
 
 
@@ -837,10 +909,13 @@ def make_eval_fn(loss_and_acc_fn: Callable, *,
     return eval_fn
 
 
-def run_rounds(round_fn: Callable, state: FLState, num_rounds: int):
-    """Run ``num_rounds`` rounds; metrics stacked along a leading axis.
+def run_rounds(round_fn: Callable, state, num_rounds: int):
+    """Run ``num_rounds`` rounds from ``state`` (an ``FLState``, a client
+    mesh's shard list or a ``HostState``); metrics stacked along a
+    leading axis.
 
-    Nothing is read back to the host inside the loop.
+    Nothing is read back to the host inside the loop (the host backend's
+    round reads its plan back itself).
     """
     history = []
     for _ in range(num_rounds):

@@ -22,8 +22,15 @@ replicated and scatters the events, and its threefry draws do not
 depend on the sharding, so either way a client gets the unsharded
 event.
 
-The sweep runner's runtime controller overrides (``ctrl_overrides``)
-are refused until the sweeps are ported.
+Every strategy takes an optional ``ctrl_overrides`` dict of runtime
+controller overrides (``{"K": k, "target_rate": r}``, 0-d fp32 tensors
+on the state's device), which is how the sweep runner
+(:mod:`repro_torch.launch.sweep`) steps one round function over a grid
+of gains and target rates.  FedBack's controller takes them in
+``measure``; the strategies whose controller is inert (random,
+bernoulli, full, round robin) ignore them, as in the reference.  Under
+bounded staleness the feasible-rate clamp applies to the overridden
+target.
 """
 from __future__ import annotations
 
@@ -42,12 +49,6 @@ from .controller import ControllerConfig, ControllerState, \
 from .trigger import evaluate_trigger
 
 
-def _no_overrides(ctrl_overrides) -> None:
-    if ctrl_overrides:
-        raise NotImplementedError("ctrl_overrides (the one-program sweeps) "
-                                  "are not ported yet")
-
-
 class _SelectionBase:
     """``decide`` takes the engine's eligibility mask (None on the
     synchronous engine): the open-loop k-subset strategies draw their
@@ -62,7 +63,7 @@ class _SelectionBase:
     #: A client's event depends on its own rows alone.
     per_client = False
 
-    def _measure_cfg(self) -> ControllerConfig:
+    def _measure_cfg(self, ctrl_overrides) -> ControllerConfig:
         raise NotImplementedError
 
     def decide(self, rng, state, distances, ctrl_overrides=None,
@@ -88,8 +89,7 @@ class _SelectionBase:
 
     def measure(self, ctrl: ControllerState, events, ctrl_overrides=None,
                 *, staleness_delay=None) -> ControllerState:
-        _no_overrides(ctrl_overrides)
-        cfg = self._measure_cfg()
+        cfg = self._measure_cfg(ctrl_overrides)
         if staleness_delay is not None:
             cfg = cfg._replace(target_rate=clamp_target_rate(
                 cfg.target_rate, staleness_delay))
@@ -130,12 +130,12 @@ class FedBackSelection(_SelectionBase):
     metric: str = "l2"
     per_client = True
 
-    def _measure_cfg(self):
-        return self.controller
+    def _measure_cfg(self, ctrl_overrides):
+        return (self.controller if not ctrl_overrides
+                else self.controller._replace(**ctrl_overrides))
 
     def decide(self, rng, state, distances, ctrl_overrides=None,
                eligible=None, n_clients=None):
-        _no_overrides(ctrl_overrides)
         return evaluate_trigger(distances, state.ctrl.delta)
 
 
@@ -146,7 +146,7 @@ class RandomSelection(_SelectionBase):
 
     rate: float
 
-    def _measure_cfg(self):
+    def _measure_cfg(self, ctrl_overrides):
         return ControllerConfig(K=0.0, target_rate=self.rate)
 
     def decide(self, rng, state, distances, ctrl_overrides=None,
@@ -165,7 +165,7 @@ class BernoulliSelection(_SelectionBase):
 
     rate: float
 
-    def _measure_cfg(self):
+    def _measure_cfg(self, ctrl_overrides):
         return ControllerConfig(K=0.0, target_rate=self.rate)
 
     def decide(self, rng, state, distances, ctrl_overrides=None,
@@ -180,7 +180,7 @@ class FullSelection(_SelectionBase):
 
     per_client = True
 
-    def _measure_cfg(self):
+    def _measure_cfg(self, ctrl_overrides):
         return ControllerConfig(K=0.0, target_rate=1.0)
 
     def decide(self, rng, state, distances, ctrl_overrides=None,
@@ -194,7 +194,7 @@ class RoundRobinSelection(_SelectionBase):
 
     rate: float
 
-    def _measure_cfg(self):
+    def _measure_cfg(self, ctrl_overrides):
         return ControllerConfig(K=0.0, target_rate=self.rate)
 
     def decide(self, rng, state, distances, ctrl_overrides=None,

@@ -23,11 +23,15 @@ keeps each shard's rows on the shard's device.
 
 With ``consensus_compress`` set (flat layout only), ``FLState.comm``
 holds the compressed consensus's (N, D) fp32 error-feedback residual
-(``core/compress.py``), client-stacked like θ.  Host-offloaded state
-belongs to a later slice of the port.
+(``core/compress.py``), client-stacked like θ.
+
+With ``state_backend="host"`` the round's state is a :class:`HostState`
+(``core/hoststate.py``): the (N, D) matrices in host memory, the
+vectors on the card.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -122,6 +126,71 @@ class FLState(NamedTuple):
     comm: torch.Tensor | None = None  # (N, D) fp32 — the compressed
     #                                   consensus's error-feedback residual;
     #                                   None = the exact fp32 consensus
+
+
+@dataclasses.dataclass
+class HostState:
+    """Host-offloaded client state (``FLConfig.state_backend="host"``;
+    ``repro/core/state.py::HostState``).
+
+    θ, λ, z_prev, the EF residual ``comm`` and the parked in-flight
+    θ/λ/z payloads are (N, D) fp32 **host** tensors, pinned when the
+    round's device is CUDA (``pin_memory`` needs CUDA, so on the CPU
+    they are plain CPU tensors and the same code runs); ω, the
+    controller, queue and pipeline vectors, the key and ``distances``
+    live on the device.  The round (``core/hoststate.py``) copies the
+    planned rows out of the host matrices and writes its results back
+    into them in place, so this is a mutable dataclass and not part of
+    the ``FLState`` tuple.
+
+    ``distances`` caches the next round's trigger distances ‖ω − z_i‖,
+    computed by the round's one full-width pass together with the
+    consensus; None after an init or a restore (the next round computes
+    them first).  It is derived state and never checkpointed.
+    """
+
+    theta: torch.Tensor  # (N, D) fp32, host
+    lam: torch.Tensor  # (N, D) fp32, host
+    z_prev: torch.Tensor  # (N, D) fp32, host
+    omega: torch.Tensor  # (D,) fp32, device
+    ctrl: ControllerState  # (N,) vectors, device
+    rng: torch.Tensor
+    round: torch.Tensor  # () int32
+    queue: DeferQueue  # (N,) vectors, device
+    distances: torch.Tensor | None = None  # (N,) fp32, device
+    inflight: InFlight | None = None  # delay/ttl/hist on the device, the
+    #                                   parked θ/λ/z payloads on the host
+    comm: torch.Tensor | None = None  # (N, D) fp32, host
+
+    def to_checkpoint_tree(self) -> FLState:
+        """An ``FLState`` with the same leaves, the matrices still host
+        tensors (no device round-trip); its structure is a device
+        state's of the same config, so checkpoints resume across the
+        backends.  ``distances`` is left out."""
+        return FLState(theta=self.theta, lam=self.lam, z_prev=self.z_prev,
+                       omega=self.omega, ctrl=self.ctrl, rng=self.rng,
+                       round=self.round, queue=self.queue,
+                       inflight=self.inflight, comm=self.comm)
+
+    def device_state_bytes(self) -> int:
+        """Bytes of the state that stays on the device between rounds:
+        ω and the O(N) vectors (no (N, D) matrix)."""
+        fl = self.inflight
+        parts = [self.omega, self.rng, self.round, self.distances,
+                 *self.ctrl, *self.queue]
+        if fl is not None:
+            parts += [fl.delay, fl.ttl, fl.hist]
+        return sum(t.numel() * t.element_size() for t in parts
+                   if t is not None)
+
+    def host_state_bytes(self) -> int:
+        """Bytes of the host-resident (N, D) matrices."""
+        mats = [self.theta, self.lam, self.z_prev, self.comm]
+        if self.inflight is not None:
+            mats += [self.inflight.theta, self.inflight.lam,
+                     self.inflight.z]
+        return sum(m.numel() * m.element_size() for m in mats
+                   if m is not None)
 
 
 class RoundMetrics(NamedTuple):

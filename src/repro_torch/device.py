@@ -27,7 +27,14 @@ def resolve_device(device=None) -> torch.device:
 def fp32_products(device: torch.device) -> None:
     """On CUDA, switch TF32 off for cuBLAS matrix products and cuDNN
     convolutions, so a solve's products run in full fp32 as the
-    reference's do on the CPU (cuDNN's default is TF32, ~1e-3 off)."""
+    reference's do on the CPU (cuDNN's default is TF32, ~1e-3 off), and
+    make cuDNN pick deterministic algorithms: its default ones for the
+    CNN's grouped convolutions give another round on each call (two
+    calls of the ragged CIFAR round from one state differed on an
+    H100), and the port's runs must repeat bit for bit (a sweep against
+    its runs alone, a resumed run against the uninterrupted one, the
+    host backend against the device backend)."""
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True

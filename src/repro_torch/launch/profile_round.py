@@ -34,6 +34,16 @@ its trace's ticks instead of rounds: two warm-up ticks, then the next
 ``--rounds`` ticks (by default the trace's other 22), each figure per
 tick.
 
+A sweep form of ``configs.paper_mnist.SWEEP_FORMS`` (WA: form A over
+seeds 0–3 × K 2.0, 0.5; WB: form B over seeds 0–1 × L̄ 0.1, 0.2) steps
+all its runs each round (``launch/sweep.py``), each figure per sweep
+round.  A host form of ``configs.paper_mnist.HOST_FORMS`` (HA, HS, HQ,
+HR: the client matrices in host memory, ``core/hoststate.py``) also
+prints its legs' host ms per round, its bytes per round each way, and
+its copies' ms and the share of them that overlapped work on the
+compute stream (CUDA events, ``round_fn.stats``); its device busy time
+includes the copies.
+
 Runs on CUDA; ``--device cpu`` rehearses the script (host times only).
 """
 from __future__ import annotations
@@ -49,6 +59,7 @@ from repro_torch.configs import paper_cifar, paper_mnist
 from repro_torch.core.schedule import make_trace
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.launch.sweep import SweepGrid, init_sweep, make_sweep_fn
 from repro_torch.models import make_loss_fn
 from repro_torch.utils import make_flat_spec
 
@@ -57,23 +68,39 @@ CONFIGS = {form: m for m in (paper_mnist, paper_cifar) for form in m.FORMS}
 CONFIGS.update(dict.fromkeys(paper_mnist.SERVE_FORMS, paper_mnist))
 CONFIGS.update({form: m for m in (paper_mnist, paper_cifar)
                 for form in m.RAGGED_FORMS})
+CONFIGS.update(dict.fromkeys((*paper_mnist.SWEEP_FORMS,
+                              *paper_mnist.HOST_FORMS), paper_mnist))
 WARMUP = 2
+
+
+def _form(cfgs, form):
+    for table in ("FORMS", "SERVE_FORMS", "RAGGED_FORMS", "SWEEP_FORMS",
+                  "HOST_FORMS"):
+        if form in getattr(cfgs, table, {}):
+            return getattr(cfgs, table)[form]
+    raise KeyError(form)
 
 
 def build(form: str, device):
     """(state, step): ``step(state) -> (state, metrics)`` is one round,
-    or for a serve form one tick of its trace, the ticks in order."""
+    for a serve form one tick of its trace, the ticks in order, and for
+    a sweep form one round of every run."""
     cfgs = CONFIGS[form]
     cfg = cfgs.form_config(form)
+    f = _form(cfgs, form)
     extra = {}
-    if form in cfgs.RAGGED_FORMS:
-        f = cfgs.RAGGED_FORMS[form]
+    if form in cfgs.RAGGED_FORMS or f.pooled:
         data, _, params0, logits_fn, extra["ragged"] = cfgs.pooled_workload(
             device=device, shards=f.shards)
     else:
-        f = getattr(cfgs, "SERVE_FORMS", {}).get(form) or cfgs.FORMS[form]
         data, _, params0, logits_fn = cfgs.workload(device=device)
     spec = f.spec(make_flat_spec(params0))
+    if f.sweep is not None:
+        states, overrides, _ = init_sweep(cfg, params0, SweepGrid(**f.sweep),
+                                          spec=spec, device=device)
+        sweep_fn = make_sweep_fn(cfg, make_loss_fn(logits_fn), data,
+                                 rounds=1, spec=spec, device=device)
+        return states, lambda s: sweep_fn(s, overrides)
     state = f.init(cfg, params0, spec=spec, **f.placement(device))
     round_fn = f.make_round(cfg, make_loss_fn(logits_fn), data, spec=spec,
                             arrivals_arg=f.trace is not None,
@@ -90,8 +117,28 @@ def sync(device):
         torch.cuda.synchronize(device)
 
 
+def host_legs(stats: dict, before: dict, rounds: int) -> list[str]:
+    """A host form's legs per round from its ``round_fn.stats``."""
+    per = {k: (v - before[k]) / rounds for k, v in stats.items()}
+    copy_ms = per["h2d_ms"] + per["d2h_ms"]
+    return [
+        "host legs (per round, host ms): plan "
+        f"{per['plan_s'] * 1e3:.3f}, rows up {per['h2d_s'] * 1e3:.3f}, "
+        f"solve {per['solve_s'] * 1e3:.3f}, rows down "
+        f"{per['d2h_s'] * 1e3:.3f}, scatter {per['scatter_s'] * 1e3:.3f}, "
+        f"aggregate {per['agg_s'] * 1e3:.3f}",
+        f"bytes per round: rows up {per['h2d_row_bytes']:.0f}, rows down "
+        f"{per['d2h_row_bytes']:.0f}, server pass up "
+        f"{per['h2d_full_bytes']:.0f}, down {per['d2h_full_bytes']:.0f}, "
+        f"plan down {per['d2h_plan_bytes']:.0f}",
+        f"copies: {copy_ms:.3f} ms per round, overlap share "
+        + (f"{per['overlap_ms'] / copy_ms:.4f}" if copy_ms else
+           "not measured")]
+
+
 def profile_rounds(form: str, rounds: int | None, device) -> str:
     state, round_fn = build(form, device)
+    stats = getattr(round_fn, "stats", None)
     trace = paper_mnist.SERVE_FORMS[form].trace \
         if form in paper_mnist.SERVE_FORMS else None
     if rounds is None:
@@ -102,12 +149,14 @@ def profile_rounds(form: str, rounds: int | None, device) -> str:
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
+    before = dict(stats or {})
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(rounds):
             state, _ = round_fn(state)
         sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
+    after = dict(stats or {})
     events = prof.key_averages()
     # Device-side events: kernels, plus the device-side copies of the
     # named ranges (their spans on the device timeline, gaps included),
@@ -122,6 +171,8 @@ def profile_rounds(form: str, rounds: int | None, device) -> str:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / rounds
     launches = sum(e.count for e in kernels) / rounds
     unit = "round" if trace is None else "tick"
+    if form in paper_mnist.SWEEP_FORMS:
+        unit = "sweep round"
     lines = [f"form {form} on {device}"
              + (f" ({torch.cuda.get_device_name(device)})"
                 if device.type == "cuda" else "")
@@ -133,6 +184,8 @@ def profile_rounds(form: str, rounds: int | None, device) -> str:
              f"kernel launches {launches:.1f}",
              f"named ranges (per {unit}): host ms; device ms of the kernels "
              "they launched; their span on the device timeline"]
+    if stats is not None:
+        lines[2:2] = host_legs(after, before, rounds)
 
     def ms(e, attr):
         return 0.0 if e is None else getattr(e, attr) / 1e3 / rounds

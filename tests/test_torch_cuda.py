@@ -685,6 +685,112 @@ def test_sharded_round_matches_the_cpu(dev, compact):
                                    rtol=1e-4, atol=1e-6, err_msg=f)
 
 
+def _mlp_problem(n=16, n_pts=24):
+    from repro_torch.models import init_mlp
+    from repro_torch.prng import PRNGKey
+    from repro_torch.utils import make_flat_spec
+
+    rng = np.random.default_rng(0)
+    data = {"x": torch.from_numpy(rng.random((n, n_pts, 32)).astype(
+        np.float32)), "y": torch.from_numpy(rng.integers(
+            0, 4, (n, n_pts)).astype(np.int32))}
+    params = init_mlp(PRNGKey(0, device="cpu"), 32, 16, 4, device="cpu")
+    return data, params, make_flat_spec(params)
+
+
+def _states_equal(a, b):
+    from repro_torch.convert import state_to_numpy
+
+    a, b = state_to_numpy(a), state_to_numpy(b)
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if isinstance(x, tuple):
+            assert all(np.array_equal(u, v) for u, v in zip(x, y,
+                                                            strict=True)), f
+        elif x is not None:
+            assert np.array_equal(x, y), f
+
+
+@pytest.mark.parametrize("kw", [dict(fused_gss=True),
+                                dict(fused_gss=True, max_staleness=2),
+                                dict(consensus_compress="int8")])
+def test_host_backend_matches_the_device_backend(dev, kw):
+    """The host-offloaded round on the card (pinned matrices, the copy
+    stream) against the device round of the same config, 4 rounds:
+    every metric and the final state bit for bit; bytes as planned; the
+    live device memory after the rounds within the working set's bound
+    (the reference's tests/test_hoststate.py::
+    test_live_device_memory_stays_o_cd)."""
+    import dataclasses
+
+    from repro_torch.core import FLConfig, init_state, make_round_fn
+    from repro_torch.models import make_loss_fn
+
+    data, params, spec = _mlp_problem()
+    data = {k: v.to(dev) for k, v in data.items()}
+    cfg = FLConfig(n_clients=16, participation=0.25, rho=0.01, lr=0.05,
+                   epochs=2, batch_size=8, compact=True, **kw)
+    hcfg = dataclasses.replace(cfg, state_backend="host")
+    # The device form first: the process's one-time allocations (cuBLAS's
+    # workspace) are made before the live-memory baseline.
+    state = init_state(cfg, params, spec=spec)
+    dround = make_round_fn(cfg, make_loss_fn(), data, spec=spec)
+    dhist = []
+    for _ in range(4):
+        state, dm = dround(state)
+        dhist.append(dm)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    host = init_state(hcfg, params, spec=spec)
+    assert host.theta.is_pinned() and host.omega.device.type == "cuda"
+    hround = make_round_fn(hcfg, make_loss_fn(), data, spec=spec)
+    hist = []
+    for _ in range(4):
+        host, m = hround(host)
+        hist.append(m)
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated() - base
+    d = spec.dim
+    bound = (8 * hround.static_info["capacity"] * d * 4
+             + host.device_state_bytes() + (1 << 20))
+    assert live <= bound, (live, bound)
+    assert hround.stats["h2d_row_bytes"] == 4 * hround.planned_bytes[
+        "row_stream_h2d"]
+    assert hround.stats["h2d_ms"] > 0 and hround.stats["d2h_ms"] > 0
+    for m, dm in zip(hist, dhist, strict=True):
+        for f in dm._fields:
+            assert torch.equal(getattr(m, f), getattr(dm, f)), f
+    _states_equal(host, state)
+
+
+def test_sweep_matches_its_runs_alone(dev):
+    """A 2 × 2 sweep (seeds × gains) of the compact fused round on the
+    card (odd runs' ω off 16 bytes in the stacked (R, D) tensor) against
+    each run stepped alone: metrics and final state bit for bit."""
+    import dataclasses
+
+    from repro_torch.core import FLConfig, init_state, make_round_fn
+    from repro_torch.launch.sweep import _run, run_sweep
+    from repro_torch.models import make_loss_fn
+
+    data, params, spec = _mlp_problem()
+    data = {k: v.to(dev) for k, v in data.items()}
+    cfg = FLConfig(n_clients=16, participation=0.25, rho=0.01, lr=0.05,
+                   epochs=2, batch_size=8, compact=True, fused_gss=True)
+    runs, final, hist = run_sweep(cfg, make_loss_fn(), data, params,
+                                  rounds=3, seeds=(0, 1), gains=(2.0, 0.5),
+                                  spec=spec)
+    for r, (seed, k, _) in enumerate(runs):
+        rcfg = dataclasses.replace(cfg, seed=seed,
+                                   controller=cfg.controller._replace(K=k))
+        state = init_state(rcfg, params, spec=spec)
+        round_fn = make_round_fn(rcfg, make_loss_fn(), data, spec=spec)
+        for i in range(3):
+            state, m = round_fn(state)
+            for f in m._fields:
+                assert torch.equal(getattr(hist, f)[i, r], getattr(m, f))
+        _states_equal(_run(final, r), state)
+
 @pytest.fixture
 def cards():
     if torch.cuda.device_count() < 2:

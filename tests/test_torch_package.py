@@ -39,7 +39,7 @@ def test_package_has_the_slice_modules():
               "models/api.py", "launch/serve_lm.py",
               "sharding/clients.py", "core/compress.py",
               "checkpoint/store.py", "optim/prox.py", "launch/serve.py",
-              "utils/ragged.py"):
+              "utils/ragged.py", "core/hoststate.py", "launch/sweep.py"):
         assert m in names, m
     for src in ("fedback_kernels.cu", "model_kernels.cu"):
         assert (PKG / "csrc" / src).is_file(), src
@@ -62,7 +62,8 @@ def test_importing_the_port_leaves_jax_out():
             "repro_torch.models, repro_torch.models.transformer, "
             "repro_torch.launch.serve_lm, repro_torch.sharding, "
             "repro_torch.checkpoint, repro_torch.core.compress, "
-            "repro_torch.optim.prox, repro_torch.launch.serve; "
+            "repro_torch.optim.prox, repro_torch.launch.serve, "
+            "repro_torch.core.hoststate, repro_torch.launch.sweep; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'ml_dtypes')]; print(bad); "
             "sys.exit(bool(bad))")
@@ -171,10 +172,22 @@ def test_unported_features_are_refused():
     params0 = {"theta": torch.zeros(3)}
     spec = make_flat_spec(params0)
     for layout in (spec, None):
-        for kw in (dict(algorithm="scaffold"), dict(state_backend="host")):
-            with pytest.raises(NotImplementedError):
-                init_state(FLConfig(n_clients=4, **kw), params0, spec=layout,
-                           device="cpu")
+        with pytest.raises(NotImplementedError):
+            init_state(FLConfig(n_clients=4, algorithm="scaffold"), params0,
+                       spec=layout, device="cpu")
+    # The host-offloaded state is ported: compact rounds on the flat
+    # layout; the tree layout and the dense round are refused as the
+    # reference refuses them.
+    host = init_state(FLConfig(n_clients=4, state_backend="host",
+                               compact=True), params0, spec=spec,
+                      device="cpu")
+    assert host.theta.shape == (4, 3) and host.distances is None
+    with pytest.raises(ValueError, match="flat"):
+        init_state(FLConfig(n_clients=4, state_backend="host", compact=True),
+                   params0, spec=None, device="cpu")
+    with pytest.raises(ValueError, match="compact"):
+        init_state(FLConfig(n_clients=4, state_backend="host"), params0,
+                   spec=spec, device="cpu")
     # Compressed consensus is ported on the flat layout (its residual);
     # the tree layout refuses it as the reference does.
     state = init_state(FLConfig(n_clients=4, consensus_compress="int8"),
@@ -200,9 +213,10 @@ def test_unported_features_are_refused():
 def test_rounds_built_for_cuda_turn_tf32_off(builder, monkeypatch):
     """A round hands its device to ``device.fp32_products``, which on a
     CUDA device switches TF32 off for cuBLAS and cuDNN (the CNN's
-    convolutions), so the solve runs in full fp32 as on the CPU.  The
-    round is built on the CPU, so the test reads the same on any
-    machine."""
+    convolutions), so the solve runs in full fp32 as on the CPU, and
+    makes cuDNN's algorithms deterministic, so a round repeats bit for
+    bit.  The round is built on the CPU, so the test reads the same on
+    any machine."""
     from repro_torch import device as device_mod
     from repro_torch.core import FLConfig, baselines, fedback
 
@@ -215,12 +229,15 @@ def test_rounds_built_for_cuda_turn_tf32_off(builder, monkeypatch):
     assert seen == [torch.device("cpu")]
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
     device_mod.fp32_products(torch.device("cpu"))
     assert torch.backends.cuda.matmul.allow_tf32
     assert torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cudnn.deterministic
     device_mod.fp32_products(torch.device("cuda"))
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+    assert torch.backends.cudnn.deterministic
 
 
 def test_unported_model_paths_raise():

@@ -107,7 +107,21 @@ def test_round_robin_cycles_through_all_clients():
 
 
 def test_ctrl_overrides_are_refused():
-    sel = make_selection("fedback", rate=0.1, controller=ControllerConfig())
+    """Runtime overrides are taken now (the sweeps are ported): FedBack's
+    step with {"K": k} gives the bits of a controller configured with
+    K = k, and an open-loop selection ignores them."""
+    ctrl = ControllerConfig(K=2.0, alpha=0.9, target_rate=0.1)
     _, ts = _states(4, 0, 0)
-    with pytest.raises(NotImplementedError, match="ctrl_overrides"):
-        sel(torch.tensor([0, 0]), ts, torch.zeros(4), {"K": 1.0})
+    ts = ts._replace(ctrl=ts.ctrl._replace(load=torch.tensor(
+        [0.0, 0.3, 0.7, 1.0])))
+    ev = torch.tensor([True, False, True, False])
+    got = make_selection("fedback", rate=0.1, controller=ctrl).measure(
+        ts.ctrl, ev, {"K": torch.tensor(0.2), "target_rate":
+                      torch.tensor(0.3)})
+    want = make_selection("fedback", rate=0.1, controller=ctrl._replace(
+        K=0.2, target_rate=0.3)).measure(ts.ctrl, ev)
+    assert torch.equal(got.delta, want.delta)
+    assert torch.equal(got.load, want.load)
+    rnd = make_selection("random", rate=0.5, controller=ctrl)
+    assert torch.equal(rnd.measure(ts.ctrl, ev, {"K": torch.tensor(9.0)}).delta,
+                       rnd.measure(ts.ctrl, ev).delta)

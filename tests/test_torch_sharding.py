@@ -337,7 +337,7 @@ def test_mesh_refusals():
         init_state(FLConfig(n_clients=N), params, mesh=_cpu_mesh(3))
     with pytest.raises(ValueError, match="divisible"):
         make_round_fn(FLConfig(n_clients=N), loss, data, mesh=_cpu_mesh(3))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="single-host"):
         make_round_fn(FLConfig(n_clients=N, state_backend="host"), loss,
                       data, mesh=mesh)
     per_client = FLConfig(n_clients=N, controller=ControllerConfig(
