@@ -5,8 +5,9 @@ the client-sharded round (slice 8), K1's leaf-table kernel behind the
 tree trigger, the sharded trigger and bf16 trigger inputs (slice 9),
 FL serving over arrival traces with stale-tolerant rounds (slice 10),
 compressed consensus with checkpoints (slice 11), ragged clients on
-one pooled buffer (slice 12), and seed × gain sweeps with the
-host-offloaded client state (slice 13).
+one pooled buffer (slice 12), seed × gain sweeps with the
+host-offloaded client state (slice 13), and the static-invariant
+checker (slice 14).
 
     python3 chip_smoke.py
 
@@ -202,7 +203,28 @@ non-zero):
    round 2, saved from host memory, resumed on the device backend and
    its round 4 bit-equal to the host's; ms/round beside the device
    form's, bytes a round, device and host state bytes, and the copy
-   stream's busy ms and overlap share (CUDA events) printed;6. zamba2-2.7b at full width cut to one group (6 mamba layers and the
+   stream's busy ms and overlap share (CUDA events) printed;
+5k. the static-invariant checker (``repro_torch.analysis``) with the
+   kernels: its fast matrix (the toy legs, 2-shard legs on two shards of
+   the card), every rule passing or skipping as on the CPU, the AST
+   lint clean, the signature and transfer-guard checks passing (the
+   guard under the sync debug mode's "error"), and the report gating
+   clean against the committed CPU baseline
+   (``src/repro_torch/analysis/baseline_fast_cpu.json``: the same
+   kernel calls and bytes between shards); then forms A, B, HA and one
+   SVA tick (bursty trace) at the paper-MNIST width, 2 rounds each (1
+   for SVA) after a warm-up, through the same rules: kernel calls as
+   phases 4–5j assert, each leg's CUDA kernels in the profiler's trace
+   its wrappers' launches, no sync op (HA: its plan read-back only), no
+   float64 op, no stray (N, D) sweep, A's θ/λ/z_prev written in place
+   with no (N, D) block allocated, and A's ``max_memory_allocated`` over
+   a round less its start within its own terms (13 (C, D) fp32 blocks
+   + the C slots' data + 1 MiB; one stray (N, D) block exceeds it),
+   printed beside B's and one (N, D) fp32 matrix; one line per leg
+   with its facts and the card, and the fast matrix's toy-shape
+   launches on a line of their own (only the paper-width forms'
+   launches join the kernels line);
+6. zamba2-2.7b at full width cut to one group (6 mamba layers and the
    shared block), fp32 with TF32 off: 1 request × 256 tokens, prefill
    and 4 greedy decode steps on the card (kernels) against the CPU's
    plain path on the same weights — logits at rtol/atol 1e-3, the
@@ -220,8 +242,10 @@ non-zero):
 8. print the serve line, the kernels line (K4's bf16 instance as
    ``flash_attention``, launched in phase 7, and its 3xTF32 instance as
    ``flash_attention_fp32``, launched in phase 6; K1–K3's launches are
-   those of phases 4–5j, K1c's those of 5c–5e, K1b's those of 5e–5h,
-   K2b's those of 5e), the card line and, last, the ok line.
+   those of phases 4–5k (5k: its paper-width forms), K1c's those of
+   5c–5e, K1b's those of 5e–5h, K2b's those of 5e), the card line and,
+   last, the ok
+   line.
 
 Exits non-zero without a result where no CUDA device is visible, or
 where the port's package is missing next to this script.
@@ -2130,6 +2154,7 @@ def check_ef_aggregation(ctx):
     from repro_torch.core.compress import ef_consensus, ef_participant_mean
     from repro_torch.launch.time_kernels import device_ms, peak_bandwidth
     from repro_torch.sharding import make_client_mesh, shard_rows
+    from repro_torch.utils.spans import is_span
 
     dev, d = ctx["dev"], ctx["spec"].dim
     n = 100
@@ -2181,7 +2206,7 @@ def check_ef_aggregation(ctx):
             fn()
             torch.cuda.synchronize()
         launches = sum(e.count for e in prof.key_averages()
-                       if e.device_time_total > 0)
+                       if e.device_time_total > 0 and not is_span(e.key))
         report[mode] = {"ms": device_ms(fn, calls=5), "launches": launches}
     x = torch.from_numpy(host["z"]).to(dev)
     report["column_sum_ms"] = device_ms(lambda: sum_in_xla_cpu_order(x),
@@ -2667,6 +2692,144 @@ def drive_sweeps_and_hosts(ctx, ops):
     return sweeps, hosts, total
 
 
+# Phase 5k's paper-width forms: the checker's key (the policy the rules
+# hold the round to) and the rounds recorded after one warm-up.
+CHECKER_FORMS = (("A", ("compact", "flat", "sync", "uniform", 1), 2),
+                 ("B", ("dense", "flat", "sync", "uniform", 1), 2),
+                 ("HA", ("compact", "flat", "sync", "uniform", 1, "none",
+                         "host"), 2),
+                 ("SVA", ("compact", "flat", "serve", "uniform", 1), 1))
+CHECKER_BASELINE = "src/repro_torch/analysis/baseline_fast_cpu.json"
+# (C, D) fp32 blocks form A's round may hold at once beyond its slots'
+# data (the solve's θ, momentum, stacked and flat gradients, prox term,
+# new θ and momentum, the slots' λ and z_prev): 11.3 at the peak
+# measured on the H100 (PERF.md), 13 allowed.  One stray (N, D) block
+# is N/C = 6.25 of them at C = 16.
+CHECKER_SOLVE_BLOCKS = 13
+
+
+def _leg_facts(res) -> str:
+    """One line of a checked leg's facts from its rule results."""
+    m = {name: r["metrics"] for name, r in res.items()}
+    calls = m["fused-admm-pass"]
+    facts = [f"calls {calls['kernel_calls']}"]
+    if "cuda_kernels" in calls:
+        facts.append(f"CUDA kernels {calls['cuda_kernels']}")
+    sw = m["no-full-width-sweeps"]
+    if "full_width_sweeps" in sw:
+        facts.append(f"(N, D) sweeps {sw['full_width_sweeps']}/"
+                     f"{sw['budget']}")
+    dn = m["donated-state-aliases"]
+    if "fields" in dn:
+        written = "/".join(dn["fields"][f]
+                           for f in ("theta", "lam", "z_prev"))
+        facts.append(f"state blocks allocated {dn['state_allocations']}/"
+                     f"{dn['budget']}, θ/λ/z_prev {written}")
+    if "peak_bytes" in dn:
+        facts.append(f"peak {dn['peak_bytes']} B")
+    cb = m["collective-budget"]
+    if "total_bytes" in cb:
+        facts.append(f"bytes between shards {cb['total_bytes']}/"
+                     f"{cb['budget_bytes']}")
+    ht = m["host-transfer-budget"]
+    facts.append(f"syncs {ht['syncs']} (plan read-backs "
+                 f"{ht['plan_readbacks']}, sync debug mode "
+                 f"{ht.get('cuda_syncs')})")
+    if "planned_row_stream_bytes" in ht:
+        facts.append(f"row stream {ht['planned_row_stream_bytes']}/"
+                     f"{ht['row_stream_budget']} B")
+    facts.append(f"float64 ops (D6) {m['no-f64-ops']['d6_fma_f64_ops']}")
+    return ", ".join(facts)
+
+
+def check_static_invariants(ctx, ops):
+    """Phase 5k (see the module docstring).  Returns (report, the
+    launch counts of the phase)."""
+    from repro_torch.analysis import cli
+    from repro_torch.analysis.artifacts import ConfigKey, record_artifact
+    from repro_torch.analysis.rules import evaluate
+    from repro_torch.configs import paper_mnist
+    from repro_torch.core.schedule import make_trace
+    from repro_torch.models import make_loss_fn
+
+    dev, smi, spec = ctx["dev"], ctx["smi"], ctx["spec"]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = cli.run_matrix("fast", device=dev, log=log)
+    base = json.loads((ROOT / CHECKER_BASELINE).read_text())
+    failures = (cli.report_failures(report)
+                + cli.compare_to_baseline(base, report))
+    if failures:
+        raise AssertionError(f"checker, fast matrix on the card: {failures}")
+    for name, res in report["configs"].items():
+        log(f"5k {name}: {_leg_facts(res)}")
+    log(f"5k fast matrix: {len(report['configs'])} legs pass on the card "
+        f"and gate clean against the CPU baseline in "
+        f"{time.perf_counter() - t0:.2f} s on {smi}")
+    toy = {k: v for k, v in ops.launch_counts().items() if v}
+    log(f"5k fast matrix launches (toy shapes, not on the kernels line): "
+        f"{toy}")
+
+    # Only the paper-width forms' launches join the kernels line.
+    ops.reset_launch_counts()
+
+    loss_fn = make_loss_fn(ctx["logits"])
+    forms = {**paper_mnist.FORMS, **paper_mnist.HOST_FORMS,
+             **paper_mnist.SERVE_FORMS}
+    nd_bytes = paper_mnist.N_CLIENTS * spec.dim * 4
+    facts, capacity = {}, {}
+    for form, key, rounds in CHECKER_FORMS:
+        key = ConfigKey(*key)
+        f, cfg = forms[form], paper_mnist.form_config(form)
+        serve = f.trace is not None
+        extra, round_args = {}, None
+        if serve:
+            rows = torch.from_numpy(make_trace(f.trace)).to(dev)
+            extra = {"arrivals_arg": True}
+
+            def round_args(i, rows=rows):
+                return (rows[i],)
+        state = f.init(cfg, ctx["params0"], spec=spec, device=dev)
+        round_fn = f.make_round(cfg, loss_fn, ctx["data"], spec=spec,
+                                device=dev, **extra)
+        art = record_artifact(key, cfg, round_fn, state, device=dev,
+                              spec=spec, params0=ctx["params0"],
+                              rounds=rounds, round_args=round_args)
+        res = {r.rule: r.to_json() for r in evaluate(art)}
+        bad = {k: r["violations"] for k, r in res.items()
+               if r["status"] == "fail"}
+        if bad:
+            raise AssertionError(f"checker, form {form}: {bad}")
+        facts[form] = {k: r["metrics"] for k, r in res.items()}
+        capacity[form] = art.capacity
+        log(f"5k form {form} ({f.what}, N = {cfg.n_clients}, D = "
+            f"{spec.dim}): {_leg_facts(res)} on {smi}")
+        del art, state, round_fn
+        torch.cuda.empty_cache()
+    peak_a, peak_b = (facts[k]["donated-state-aliases"]["peak_bytes"]
+                      for k in ("A", "B"))
+    # A's round at its own terms: C slots' client data, the (C, D) fp32
+    # blocks of CHECKER_SOLVE_BLOCKS and 1 MiB.
+    c = capacity["A"]
+    slot_data = c * sum(t[0].numel() * t.element_size()
+                        for t in ctx["data"].values())
+    limit_a = CHECKER_SOLVE_BLOCKS * c * spec.dim * 4 + slot_data + 2**20
+    log(f"5k max_memory_allocated over a round less its start: form A "
+        f"{peak_a} B (limit {limit_a} B: {CHECKER_SOLVE_BLOCKS} (C, D) "
+        f"blocks at C = {c} + {slot_data} B of slot data + 1 MiB), form B "
+        f"{peak_b} B = {peak_a / nd_bytes:.3f}, {limit_a / nd_bytes:.3f} "
+        f"and {peak_b / nd_bytes:.3f} of one (N, D) fp32 matrix "
+        f"({nd_bytes} B) on {smi}")
+    if not peak_a <= limit_a:
+        raise AssertionError(f"form A's round peaks at {peak_a} B, over "
+                             f"its own terms' {limit_a} B")
+    counts = path_counts(ops)
+    return {"fast_matrix": {k: {r: v["status"] for r, v in res.items()}
+                            for k, res in report["configs"].items()},
+            "exec": {k: v["status"] for k, v in report["exec"].items()},
+            "forms": facts}, counts
+
+
 def check_conv_precision(ctx):
     """A round built for the card switches TF32 off (the flags are set on
     first), and then the CNN's convolutions (``models.mlp.conv3x3_same``),
@@ -2847,6 +3010,9 @@ def main() -> int:
     log(json.dumps({"sweep_forms": forms_w, "host_forms": forms_h,
                     "card": smi}))
 
+    checker, counts_k = check_static_invariants(ctx, ops)
+    log(json.dumps({"checker": checker, "card": smi}))
+
     _, counts_slice = check_slice_against_cpu(dev, ops)
     torch.cuda.empty_cache()
     serve_report, counts_serve = serve_full(dev, ops, smi)
@@ -2858,7 +3024,7 @@ def main() -> int:
                     + counts_c.get(name, 0) + counts_t.get(name, 0)
                     + counts_s.get(name, 0) + counts_sv.get(name, 0)
                     + counts_q.get(name, 0) + counts_r.get(name, 0)
-                    + counts_wh.get(name, 0)
+                    + counts_wh.get(name, 0) + counts_k.get(name, 0)
                     + counts_cf.get(name, 0) + counts_slice[name]
                     + counts_serve[name])
         if launches == 0:
@@ -2872,7 +3038,8 @@ def main() -> int:
             f"{counts_sv.get(name, 0)}, forms QA/QB/QC/QS "
             f"{counts_q.get(name, 0)}, forms RA/RB/RS/RC "
             f"{counts_r.get(name, 0)}, forms WA/WB/HA/HS/HQ/HR "
-            f"{counts_wh.get(name, 0)}, forms CF-A/CF-T "
+            f"{counts_wh.get(name, 0)}, checker forms A/B/HA/SVA (5k) "
+            f"{counts_k.get(name, 0)}, forms CF-A/CF-T "
             f"{counts_cf.get(name, 0)}, "
             f"fp32 group {counts_slice[name]}, "
             f"serve {counts_serve[name]}), "

@@ -37,12 +37,11 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.utils.pytree import rows_mask, tree_broadcast_like, \
     tree_map
+from repro_torch.utils.spans import span
 
 from .controller import demand_load_step
 from .engine import dual_ascent, prox_center
 from .state import DeferQueue
-
-span = torch.profiler.record_function  # named ranges for profiler traces
 
 
 class CompactPlan(NamedTuple):

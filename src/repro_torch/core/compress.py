@@ -48,6 +48,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.clients import collectives
+from repro_torch.utils.spans import span
 
 from .compact import sum_in_xla_cpu_order
 from .engine import all_sum
@@ -93,15 +95,17 @@ def _unblocked(xb: torch.Tensor, dim: int) -> torch.Tensor:
 
 def _recip(n) -> float:
     """fp32(1/n), the constant XLA multiplies by for ``/ n``."""
-    return float(np.float32(1.0) / np.float32(n))
+    return float(np.float32(1.0) / np.float32(n))  # tracecheck: ok — n static
 
 
 def _fma(a, b, c) -> torch.Tensor:
     """fp32 a·b + c rounded once (XLA's contraction): the product of
-    two fp32 values is exact in float64."""
-    a = a.double() if isinstance(a, torch.Tensor) else a
-    b = b.double() if isinstance(b, torch.Tensor) else b
-    return (a * b + c.double()).to(torch.float32)
+    two fp32 values is exact in float64 (in the span ``compress/fma``,
+    the float64 ops the static-invariant checker allows, ROADMAP D6)."""
+    with span("compress/fma"):
+        a = a.double() if isinstance(a, torch.Tensor) else a
+        b = b.double() if isinstance(b, torch.Tensor) else b
+        return (a * b + c.double()).to(torch.float32)
 
 
 def _codes(xb: torch.Tensor, scale: torch.Tensor, clip: int):
@@ -208,11 +212,13 @@ def _wire_int8_codes(partials, block: int):
     pbs = [_blocked(p, block) for p in partials]
     dev0 = pbs[0].device
     gmax = pbs[0].abs().amax(dim=-1)
-    for pb in pbs[1:]:
-        gmax = torch.maximum(gmax, pb.abs().amax(dim=-1).to(
-            dev0, non_blocking=True))
+    maxima = [pb.abs().amax(dim=-1) for pb in pbs[1:]]
+    collectives.add("all-gather", maxima)
+    for m in maxima:
+        gmax = torch.maximum(gmax, m.to(dev0, non_blocking=True))
     clip = INT8_CLIP // len(partials)
     scale = gmax * _recip(clip)
+    collectives.add("broadcast", [scale] * (len(pbs) - 1))
     codes = [_codes(pb, scale.to(pb.device, non_blocking=True), clip)[0]
              for pb in pbs]
     return pbs, codes, scale
@@ -226,6 +232,7 @@ def _wire_int8(partials, block: int):
     dim = partials[0].shape[-1]
     pbs, codes, scale = _wire_int8_codes(partials, block)
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    collectives.add("broadcast", [safe] * (len(pbs) - 1))
     werrs = [_unblocked(_fma(-c, safe.to(pb.device, non_blocking=True)[
         ..., None], pb), dim) for pb, c in zip(pbs, codes, strict=True)]
     total = all_sum([c.to(torch.int8) for c in codes]).to(
@@ -243,6 +250,7 @@ def _wire_bf16(partials):
     if len(sent) == 1:
         return sent[0].to(torch.float32), werrs
     dev0 = sent[0].device
+    collectives.add("all-gather", sent[1:])
     vals = torch.stack([s.to(dev0, non_blocking=True) for s in sent])
     return sum_in_xla_cpu_order(vals.to(torch.float32)), werrs
 
@@ -252,6 +260,7 @@ def _level1_shards(zs, omega, resids, masks, mode: str, block: int):
     the wire error, 1/m or m per shard, the level-1 (codes, scales) or
     None per shard)."""
     parts, resid1s, m_locs, quants = [], [], [], []
+    collectives.add("broadcast", [omega] * (len(zs) - 1))
     for i, (z, e) in enumerate(zip(zs, resids, strict=True)):
         delta = z - omega.to(z.device, non_blocking=True)[None] + e
         d, r1, quant = _level1(delta, mode, block)

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -58,11 +59,12 @@ def init_controller(n_clients: int, cfg: ControllerConfig,
 
 def _target(rate, device):
     """L̄ as the fp32 value the reference uses: a Python scalar stays a
-    scalar (rounded to fp32 on the host, so no host→device copy — and no
-    stream sync — happens per round); a tensor moves to ``device``."""
+    scalar, rounded to fp32 on the host without a tensor (no host→device
+    copy and no scalar read-back happen per round); a tensor moves to
+    ``device``."""
     if isinstance(rate, torch.Tensor):
         return rate.to(device=device, dtype=torch.float32)
-    return torch.tensor(float(rate), dtype=torch.float32).item()
+    return float(np.float32(rate))  # tracecheck: ok — a host scalar
 
 
 def controller_step(state: ControllerState, events: torch.Tensor,

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.sharding.clients import collectives
 from repro_torch.utils.pytree import rows_mask, tree_leaves, tree_map, \
     tree_where
 
@@ -56,6 +57,7 @@ def _shards(x) -> list:
 def all_sum(parts):
     """Σ of per-shard partials of one shape, added in shard order on
     shard 0's device (copies between devices go device to device)."""
+    collectives.add("all-reduce", parts[1:])
     total = parts[0]
     for p in parts[1:]:
         total = total + p.to(total.device, non_blocking=True)

@@ -137,11 +137,12 @@ from repro_torch.device import fp32_products, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.optim.sgd import sgd_step
 from repro_torch.sharding.clients import ClientMesh, check_divisible, \
-    replicate_data, shard_client_data, shard_rows, unshard_rows
+    collectives, replicate_data, shard_client_data, shard_rows, unshard_rows
 from repro_torch.utils.flatstate import FlatSpec
 from repro_torch.utils.pytree import tree_broadcast_like, tree_map, \
     tree_where, tree_zeros_like
 from repro_torch.utils.ragged import RaggedSpec
+from repro_torch.utils.spans import span
 
 from .compact import capacity_bounds, gather_blocks, gather_rows, \
     init_queue, make_compact_block
@@ -156,10 +157,6 @@ from .selection import make_selection
 from .state import FLState, InFlight, RoundMetrics, delay_schedule, \
     init_inflight
 from .trigger import trigger_distances
-
-# Named ranges of the round for torch.profiler traces (a no-op costing
-# about a microsecond per range when no profiler is running).
-span = torch.profiler.record_function
 
 ADMM_FAMILY = ("fedback", "fedadmm", "admm")
 AVG_FAMILY = ("fedavg", "fedprox")
@@ -481,7 +478,8 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
                   spec: FlatSpec | None = None, device=None,
                   mesh: ClientMesh | None = None,
                   ctrl_arg: bool = False, arrivals_arg: bool = False,
-                  ragged: RaggedSpec | None = None) -> Callable:
+                  ragged: RaggedSpec | None = None,
+                  body_transform: Callable | None = None) -> Callable:
     """Build ``round_fn(state) -> (state, RoundMetrics)``.
 
     loss_fn(params, x_batch, y_batch) -> scalar mean loss, on the params
@@ -529,13 +527,22 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
     With ``cfg.state_backend="host"`` the round of
     :func:`repro_torch.core.hoststate.make_host_round_fn`, which takes
     the :class:`~repro_torch.core.state.HostState` of :func:`init_state`.
+
+    ``body_transform`` (the reference's mutation hook, which
+    :mod:`repro_torch.analysis` seeds its self-tests through) is for the
+    host backend, where it wraps the round's solve leg; a device round
+    is wrapped by its caller, so there it raises ``ValueError``.
     """
     if _backend(cfg) == "host":
         from .hoststate import make_host_round_fn
         return make_host_round_fn(cfg, loss_fn, data, spec=spec,
                                   device=device, mesh=mesh,
                                   ctrl_arg=ctrl_arg,
-                                  arrivals_arg=arrivals_arg, ragged=ragged)
+                                  arrivals_arg=arrivals_arg, ragged=ragged,
+                                  body_transform=body_transform)
+    if body_transform is not None:
+        raise ValueError("body_transform wraps the host backend's solve "
+                         "leg; wrap a device round where it is called")
     _check_supported(cfg, mesh)
     n = cfg.n_clients
     if mesh is None:
@@ -671,6 +678,7 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
         """The overrides per shard, each on its shard's device."""
         if not ctrl_overrides:
             return [None] * len(shards)
+        collectives.add("broadcast", [ctrl_overrides] * (len(shards) - 1))
         return [{k: v.to(s.rng.device, non_blocking=True)
                  for k, v in ctrl_overrides.items()} for s in shards]
 
@@ -860,8 +868,8 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
         return new_state, metrics
 
     if ctrl_arg and arrivals_arg:
-        return body
-    if ctrl_arg:
+        round_fn = body
+    elif ctrl_arg:
         def round_fn(state, ctrl_overrides):
             return body(state, ctrl_overrides)
     elif arrivals_arg:

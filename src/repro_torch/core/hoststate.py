@@ -61,6 +61,7 @@ from repro_torch.device import fp32_products, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.sharding.clients import ClientMesh
 from repro_torch.utils.flatstate import FlatSpec
+from repro_torch.utils.spans import span
 
 from .compress import check_mode, ef_consensus, ef_participant_mean
 from .controller import ControllerState, init_controller
@@ -68,7 +69,7 @@ from .compact import gather_rows, init_queue
 from .engine import all_sum, consensus_mean, measured_commits, \
     participant_mean, participant_mean_loss, record_issue, staleness_masks
 from .fedback import ADMM_FAMILY, _check_supported, _compact_block, \
-    _ctrl_cfg, _solvers, span
+    _ctrl_cfg, _solvers
 from .selection import make_selection
 from .state import DeferQueue, FLState, HostState, InFlight, \
     RoundMetrics, delay_schedule
@@ -211,7 +212,8 @@ def _tile_spans(capacity: int, tiles: int) -> tuple[tuple[int, int], ...]:
 
 def make_host_round_fn(cfg, loss_fn, data, *, spec: FlatSpec | None = None,
                        device=None, mesh=None, ctrl_arg: bool = False,
-                       arrivals_arg: bool = False, ragged=None):
+                       arrivals_arg: bool = False, ragged=None,
+                       body_transform=None):
     """Build ``round_fn(HostState) -> (HostState, RoundMetrics)``, the
     device backend's compact round (``make_round_fn`` with the same
     config) bit for bit, with the client matrices on the host.
@@ -224,6 +226,12 @@ def make_host_round_fn(cfg, loss_fn, data, *, spec: FlatSpec | None = None,
     events around its copies and its windows of work on the compute
     stream, and ``stats`` sums the copies' ms (``h2d_ms``, ``d2h_ms``)
     and the ms of them that overlapped such a window (``overlap_ms``).
+
+    The legs run in spans ``hoststate/plan`` (its read-back of the plan
+    in ``hoststate/readback``), ``hoststate/solve``, ``hoststate/host``
+    (the row writes into host memory) and ``hoststate/aggregate``;
+    ``body_transform`` wraps the solve leg, ``solve_leg(state, plan,
+    clock) -> losses`` (the reference wraps its solve program).
     """
     _require(mesh is None, "is a single-host backend (mesh must be None "
              "— shard the device backend instead)")
@@ -364,15 +372,16 @@ def make_host_round_fn(cfg, loss_fn, data, *, spec: FlatSpec | None = None,
                 hist, fl.delay, state.round), staleness_delay=fl.delay)
             out.update(ctrl=ctrl, committed=direct | land, land=land,
                        fl=fl._replace(ttl=new_ttl, hist=hist))
-        idx = plan.idx.cpu()
-        valid = plan.valid.cpu()
-        stats["d2h_plan_bytes"] += idx.numel() * 4 + valid.numel()
-        out.update(idx_host=idx.long(), valid_host=valid)
-        if fl is not None:
-            out["land_host"] = out["land"].cpu()
-            stats["d2h_plan_bytes"] += n
-            if not delay_host:
-                delay_host.append(fl.delay.cpu())
+        with span("hoststate/readback"):
+            idx = plan.idx.cpu()
+            valid = plan.valid.cpu()
+            stats["d2h_plan_bytes"] += idx.numel() * 4 + valid.numel()
+            out.update(idx_host=idx.long(), valid_host=valid)
+            if fl is not None:
+                out["land_host"] = out["land"].cpu()
+                stats["d2h_plan_bytes"] += n
+                if not delay_host:
+                    delay_host.append(fl.delay.cpu())
         return out
 
     def solve_leg(state, p, clock):
@@ -493,6 +502,8 @@ def make_host_round_fn(cfg, loss_fn, data, *, spec: FlatSpec | None = None,
         stats["agg_s"] += time.perf_counter() - t0
         return omega, distances
 
+    solve = solve_leg if body_transform is None else body_transform(solve_leg)
+
     def round_fn(state: HostState):
         if state.distances is None:
             # After an init or a restore: one trigger pass first.
@@ -500,11 +511,15 @@ def make_host_round_fn(cfg, loss_fn, data, *, spec: FlatSpec | None = None,
                 state.omega, upload(state.z_prev)))
         clock = _Clock()
         t0 = time.perf_counter()
-        p = plan_leg(state)
+        with span("hoststate/plan"):
+            p = plan_leg(state)
         stats["plan_s"] += time.perf_counter() - t0
-        losses = solve_leg(state, p, clock)
-        scatter_leg(state, p)
-        omega, distances = aggregate_leg(state, p)
+        with span("hoststate/solve"):
+            losses = solve(state, p, clock)
+        with span("hoststate/host"):
+            scatter_leg(state, p)
+        with span("hoststate/aggregate"):
+            omega, distances = aggregate_leg(state, p)
         clock.read()
         plan, queue, fl = p["plan"], p["queue"], p["fl"]
         zero = torch.zeros((), dtype=torch.int32, device=device)

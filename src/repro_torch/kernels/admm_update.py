@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.utils.spans import kernel_wrapper
+
 from ._build import check_launch, load_library
 from ._checks import check_f32, check_shards, is_cpu, stream_ptr
 
@@ -62,6 +64,7 @@ def _kernel(theta, lam, omega, with_z: bool):
     return out, True
 
 
+@kernel_wrapper("admm_update")
 def admm_update(theta, lam, omega, *, with_z: bool = True, mesh=None):
     """θ, λ: (N, D) fp32; ω: (D,) fp32 → new (N, D) tensors.
 
@@ -89,6 +92,7 @@ def admm_update_sharded_ref(theta, lam, omega, *, with_z: bool = True):
     return tuple(list(x) for x in zip(*per, strict=True))
 
 
+@kernel_wrapper("admm_update_sharded")
 def admm_update_sharded(theta, lam, omega, mesh, *, with_z: bool = True):
     """K2 per shard of a client mesh: θ and λ the P per-shard (N/P, D)
     fp32 blocks and ω the P copies of the (D,) fp32 vector, shard i's on

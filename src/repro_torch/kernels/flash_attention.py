@@ -57,6 +57,8 @@ import math
 
 import torch
 
+from repro_torch.utils.spans import kernel_wrapper
+
 from ._build import check_launch, load_library
 from ._checks import is_cpu, stream_ptr
 
@@ -225,6 +227,7 @@ def _bhs_strides(st, layout):
                                                            st[1])
 
 
+@kernel_wrapper("flash_attention")
 def flash_attention(q, k, v, *, causal=True, window=0, layout="bhsd"):
     """Causal or sliding-window GQA attention; see the module note.
 

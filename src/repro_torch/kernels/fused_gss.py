@@ -28,6 +28,8 @@ import functools
 
 import torch
 
+from repro_torch.utils.spans import kernel_wrapper
+
 from ._build import check_launch, load_library
 from ._checks import check_f32, is_cpu, stream_ptr
 
@@ -106,6 +108,7 @@ def fused_gss_ref(idx, valid, solved, omega, theta, lam, z_prev=None, *,
     return theta, lam, z_prev
 
 
+@kernel_wrapper("fused_gss")
 def fused_gss(idx, valid, solved, omega, theta, lam, z_prev=None, *,
               with_z: bool = True):
     """idx: (C,) int32 distinct rows; valid: (C,) bool; solved: (C, D);

@@ -17,6 +17,13 @@ contiguous first, which :func:`reset_launch_counts` sets to 0 too).
 K2b (``admm_update_sharded``) launches K2's kernel once per shard and
 counts those launches, not K2; ``admm_update`` and
 ``trigger_sq_norms_pytree`` take ``mesh=``.
+
+Each wrapper is also counted where it runs its plain version
+(``utils/spans.py::kernel_wrapper``): ``calls`` ticks on both paths,
+inside a ``kernel/<name>`` span, and a wrapper that hands its work to
+another (the pytree front end on a flat matrix, ``mesh=``) leaves the
+count to the innermost.  :func:`call_counts` reads them, and
+:func:`reset_launch_counts` sets them to 0 with the launches.
 """
 from __future__ import annotations
 
@@ -67,9 +74,14 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def call_counts() -> dict[str, int]:
+    return {name: fn.calls for name, fn in KERNELS.items()}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        fn.calls = 0
     trigger_sq_norms_pytree.leaf_copies = 0
     flash_attention.instance_launches = dict.fromkeys(
         flash_attention.instance_launches, 0)

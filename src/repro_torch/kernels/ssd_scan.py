@@ -31,6 +31,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.utils.spans import kernel_wrapper
+
 from ._build import check_launch, load_library
 from ._checks import is_cpu, stream_ptr
 
@@ -79,6 +81,7 @@ def check_kernel_args(states_shape, states_dtype, decays_shape,
     return b, c, h, p, n
 
 
+@kernel_wrapper("ssd_scan")
 def ssd_scan(states: torch.Tensor, decays: torch.Tensor):
     """states: (B, C, H, P, N) fp32 or bf16; decays: (B, C, H) fp32 →
     (h_prev (B, C, H, P, N) in the states' dtype, h_last (B, H, P, N)

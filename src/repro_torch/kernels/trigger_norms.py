@@ -38,6 +38,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.utils.spans import kernel_wrapper
+
 from ._build import check_launch, load_library
 from ._checks import check_f32, check_shards, is_cpu, stream_ptr
 
@@ -259,6 +261,7 @@ def _table_operands(name, z_prev, omega):
     return [z_prev], [omega]
 
 
+@kernel_wrapper("trigger_sq_norms")
 def trigger_sq_norms(z_prev: torch.Tensor,
                      omega: torch.Tensor) -> torch.Tensor:
     """(N, D), (D,) → (N,) fp32 squared distances; z and ω fp32 or bf16.
@@ -289,6 +292,7 @@ def trigger_sq_norms_sharded_ref(z_prev, omega) -> list[torch.Tensor]:
             for z, w in zip(z_prev, omega, strict=True)]
 
 
+@kernel_wrapper("trigger_sq_norms_sharded")
 def trigger_sq_norms_sharded(z_prev, omega, mesh) -> list[torch.Tensor]:
     """K1 per shard of a client mesh: ``z_prev`` the P per-shard (N/P, D)
     blocks and ``omega`` the P copies of the (D,) ω (fp32 or bf16),

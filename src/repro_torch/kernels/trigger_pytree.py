@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.utils.pytree import flatten, flatten_stacked, tree_leaves
+from repro_torch.utils.spans import kernel_wrapper
 
 from ._checks import check_shards, is_cpu
 from .trigger_norms import (group_by_device, leaf_view, table_kernel,
@@ -98,6 +99,7 @@ def trigger_sq_norms_pytree_ref(z_prev, omega) -> torch.Tensor:
     return trigger_sq_norms_ref(*pytree_operands(z_prev, omega))
 
 
+@kernel_wrapper("trigger_sq_norms_pytree")
 def trigger_sq_norms_pytree(z_prev, omega, *, mesh=None):
     """Stacked tree (N, ...) and its unstacked ω → (N,) fp32 squared
     distances ‖z_i − ω‖², leaves fp32 or bf16 (their plain version on CPU

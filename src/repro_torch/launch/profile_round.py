@@ -62,6 +62,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch.sweep import SweepGrid, init_sweep, make_sweep_fn
 from repro_torch.models import make_loss_fn
 from repro_torch.utils import make_flat_spec
+from repro_torch.utils.spans import is_span
 
 # The configuration module of every form.
 CONFIGS = {form: m for m in (paper_mnist, paper_cifar) for form in m.FORMS}
@@ -162,7 +163,7 @@ def profile_rounds(form: str, rounds: int | None, device) -> str:
     # named ranges (their spans on the device timeline, gaps included),
     # which are reported as ranges and not summed as busy time.
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not e.key.startswith("fedback/")]
+               and not is_span(e.key)]
     ranges = {}
     for e in events:
         if e.key.startswith("fedback/"):

@@ -30,6 +30,7 @@ from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.serve_lm import make_prompts
 from repro_torch.models import build_model
+from repro_torch.utils.spans import is_span
 
 # Kernel-name fragments by kind; the first match wins.
 KINDS = (("K4 flash_attention", ("flash_attention_kernel",
@@ -62,7 +63,7 @@ def profile_phase(label, fn, reps, device) -> list[str]:
         sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA and not is_span(e.key)]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
     launches = sum(e.count for e in kernels) / reps
     lines = [f"{label} (per call, {reps} calls): wall {wall_ms:.3f} ms, "

@@ -107,8 +107,14 @@ def cycle(calls):
 def kernel_breakdown(fn, calls: int = 10) -> dict:
     """{CUDA kernel name: device ms per call of ``fn``}, from
     torch.profiler over ``calls`` calls after one warm-up: how a call
-    that launches more than one kernel splits its time."""
+    that launches more than one kernel splits its time (the device-side
+    copies of the port's spans left out)."""
     from torch.profiler import ProfilerActivity, profile
+    try:
+        from repro_torch.utils.spans import is_span
+    except ImportError:  # an earlier tree (``--src``) has no spans
+        def is_span(key):
+            return False
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -116,7 +122,8 @@ def kernel_breakdown(fn, calls: int = 10) -> dict:
             fn()
         torch.cuda.synchronize()
     return {e.key: e.device_time_total / 1e3 / calls
-            for e in prof.key_averages() if e.device_time_total > 0}
+            for e in prof.key_averages()
+            if e.device_time_total > 0 and not is_span(e.key)}
 
 
 def round_kernel_ms(ops, dev, gen) -> dict:

@@ -20,6 +20,9 @@ instead of shardings:
 No process group is involved: the round's collectives are plain sums of
 per-shard partials in shard order on shard 0's device
 (``core/engine.py``), and copies between cards go device to device.
+Each copy between shards is reported to :data:`collectives`' listeners,
+which count the bytes it moves off a shard's device: the logical count,
+the same on a mesh of CPU shards as on shards of one card or of several.
 ``constrain_clients`` has no counterpart: the placement is explicit.
 """
 from __future__ import annotations
@@ -33,6 +36,32 @@ from repro_torch.device import default_device
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
 CLIENT_AXIS = "clients"
+
+class CollectiveCounter:
+    """Copies between shards: each of ``listeners`` is called with
+    (kind, tensor) per copy, ``kind`` named after the reference's
+    collectives — ``"all-reduce"`` (sums of partials,
+    ``engine.all_sum``), ``"broadcast"`` (shard 0's value copied to the
+    others), ``"all-gather"`` (blocks brought to shard 0),
+    ``"scatter"`` (blocks cut from shard 0's value).  The op log of
+    :mod:`repro_torch.analysis` listens."""
+
+    def __init__(self):
+        self.listeners: list = []
+
+    def add(self, kind: str, trees) -> None:
+        """Tell the listeners of one copy of each tensor in ``trees``
+        (trees of them)."""
+        if not self.listeners:
+            return
+        for tree in trees:
+            for t in tree_leaves(tree):
+                for fn in self.listeners:
+                    fn(kind, t)
+
+
+#: The process's reporter of copies between shards.
+collectives = CollectiveCounter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,7 +123,9 @@ def shard_rows(tree, mesh: ClientMesh) -> tuple:
         return tree_map(lambda x: x[i * n_local:(i + 1) * n_local].to(
             mesh.devices[i], non_blocking=True, copy=True), tree)
 
-    return tuple(block(i) for i in range(mesh.size))
+    blocks = tuple(block(i) for i in range(mesh.size))
+    collectives.add("scatter", blocks[1:])
+    return blocks
 
 
 def unshard_rows(shards):
@@ -105,6 +136,7 @@ def unshard_rows(shards):
     if len(shards) == 1:
         return shards[0]
     dev = tree_leaves(shards[0])[0].device
+    collectives.add("all-gather", shards[1:])
     return tree_map(lambda *xs: torch.cat(
         [x.to(dev, non_blocking=True) for x in xs]), *shards)
 
@@ -118,8 +150,10 @@ def shard_client_data(mesh: ClientMesh, data) -> tuple:
 def replicate_data(mesh: ClientMesh, data) -> tuple:
     """One copy of ``data`` (a tensor or a tree) per shard, on the
     shard's device; where it already lies there, the tensor itself."""
-    return tuple(tree_map(lambda x: torch.as_tensor(x).to(
+    copies = tuple(tree_map(lambda x: torch.as_tensor(x).to(
         dev, non_blocking=True), data) for dev in mesh.devices)
+    collectives.add("broadcast", copies[1:])
+    return copies
 
 
 def balanced_permutation(sizes, n_shards: int) -> np.ndarray:

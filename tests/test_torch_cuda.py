@@ -888,3 +888,47 @@ def test_sharded_round_on_separate_cards_equals_one_card(cards, compact):
                                       err_msg=f)
     assert state_from_numpy(many, mesh=make_client_mesh(cards))[-1] \
         .theta.device == torch.device("cuda", cards - 1)
+
+
+def test_checker_fast_matrix_passes_on_the_card(dev):
+    """The static-invariant checker's fast matrix with the kernels: every
+    rule passes or skips as on the CPU, no round syncs, and each leg's
+    CUDA kernels in the profiler's trace are its wrappers' launches."""
+    from repro_torch.analysis.artifacts import FAST_MATRIX, build_artifact
+    from repro_torch.analysis.retrace import run_transfer_guard_check
+    from repro_torch.analysis.rules import evaluate
+
+    for key in FAST_MATRIX:
+        art = build_artifact(key, device=dev)
+        res = {r.rule: r for r in evaluate(art)}
+        for r in res.values():
+            assert r.status != "fail", (key.name, r.rule, r.violations)
+        kp = res["fused-admm-pass"].metrics
+        assert kp["kernel_calls"] == kp["expected"], key.name
+        assert sum(kp["cuda_kernels"].values()) == \
+            sum(kp["launches"].values()) > 0, key.name
+        assert res["host-transfer-budget"].metrics["cuda_syncs"] == (
+            0 if key.backend == "device" else
+            res["host-transfer-budget"].metrics["plan_readbacks"])
+    guard = run_transfer_guard_check(device=dev)
+    assert guard.status == "pass", guard.violations
+
+
+def test_checker_catches_a_sync_on_the_card(dev):
+    """A read-back inside a round raises under the sync debug mode's
+    "error" and is counted by the op log."""
+    from repro_torch.analysis.artifacts import ConfigKey, build_artifact
+    from repro_torch.analysis.rules import evaluate
+
+    def read_back(round_fn):
+        def wrapped(state, *args):
+            state.ctrl.delta.sum().item()
+            return round_fn(state, *args)
+        return wrapped
+
+    art = build_artifact(ConfigKey("compact", "flat", "sync", "uniform", 1),
+                         device=dev, body_transform=read_back)
+    res = {r.rule: r for r in evaluate(art)}
+    assert sorted(r for r, v in res.items() if v.status == "fail") == \
+        ["host-transfer-budget"]
+    assert res["host-transfer-budget"].metrics["cuda_syncs"] == 1

@@ -39,7 +39,12 @@ def test_package_has_the_slice_modules():
               "models/api.py", "launch/serve_lm.py",
               "sharding/clients.py", "core/compress.py",
               "checkpoint/store.py", "optim/prox.py", "launch/serve.py",
-              "utils/ragged.py", "core/hoststate.py", "launch/sweep.py"):
+              "utils/ragged.py", "core/hoststate.py", "launch/sweep.py",
+              "utils/spans.py", "analysis/__init__.py",
+              "analysis/__main__.py", "analysis/oplog.py",
+              "analysis/artifacts.py", "analysis/rules.py",
+              "analysis/retrace.py", "analysis/astlint.py",
+              "analysis/cli.py"):
         assert m in names, m
     for src in ("fedback_kernels.cu", "model_kernels.cu"):
         assert (PKG / "csrc" / src).is_file(), src
