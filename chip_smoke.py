@@ -6,8 +6,9 @@ tree trigger, the sharded trigger and bf16 trigger inputs (slice 9),
 FL serving over arrival traces with stale-tolerant rounds (slice 10),
 compressed consensus with checkpoints (slice 11), ragged clients on
 one pooled buffer (slice 12), seed × gain sweeps with the
-host-offloaded client state (slice 13), and the static-invariant
-checker (slice 14).
+host-offloaded client state (slice 13), the static-invariant checker
+(slice 14), and granite-3-2b: the dense family, its training loss, the
+cross-pod FedBack engine and dense serving (slice 15).
 
     python3 chip_smoke.py
 
@@ -239,9 +240,34 @@ non-zero):
    against decode of tₙ after prefill(t₀..tₙ₋₁) on the card, within
    8% of the largest logit (bf16 activations through 54 layers; the
    two paths round at different places);
+7a. granite-3-2b at 2 layers and every published width (d_model 2048,
+   GQA 32:8 at head_dim 64, d_ff 8192, vocab 49155 padded to 49408),
+   fp32: two cross-pod rounds (``core/crosspod.py``; P = 2 pods, 2 local
+   steps of 2 × 64 tokens, K 0.05, α 0.9, L̄ 0.5, ρ 1e-3, lr 5e-3) on
+   the card, each held against the same round on the CPU from the card's
+   state before it: events equal, δ within one ulp, distances at rtol
+   1e-5, θ/λ/z_prev at the solve grade (rtol 1e-4 / atol 1e-6, held on
+   the card), ``train_loss`` at rtol 1e-5; no kernel launches (the
+   distances stay plain, the attention is the differentiable blockwise
+   path);
+7b. granite-3-2b at full size, bf16, seed 0's init, both pods on the
+   card: 5 rounds of 2 local steps of 4 × 512 tokens, the second under
+   torch.profiler (the card's activity: device busy ms, launches, idle
+   share, the longest kernels); round 0 fires both pods, every state leaf finite,
+   z_prev = θ + λ bit for bit on every pod that fired; ms/round and
+   ``max_memory_allocated`` printed beside the card;
+7c. granite-3-2b serving: one 2-layer fp32 group against the CPU as in
+   phase 6 (2 launches of K4's 3xTF32 instance), then full size in
+   bf16 through ``serve`` as in phase 7, 40 K4 launches a prefill
+   (GQA 32:8 at head_dim 64), none in decode, prefill against decode
+   within 8% of the largest logit;
 8. print the serve line, the kernels line (K4's bf16 instance as
-   ``flash_attention``, launched in phase 7, and its 3xTF32 instance as
-   ``flash_attention_fp32``, launched in phase 6; K1–K3's launches are
+   ``flash_attention``, launched in phase 7, and at granite's GQA shape
+   as ``flash_attention_gqa``, launched in phase 7c — phase 3 holds that
+   shape, (4, 2048, 32:8, 64), against the plain version at 2e-2 and
+   times it beside ``scaled_dot_product_attention`` —, and its 3xTF32
+   instance as ``flash_attention_fp32``, launched in phases 6 and 7c;
+   K1–K3's launches are
    those of phases 4–5k (5k: its paper-width forms), K1c's those of
    5c–5e, K1b's those of 5e–5h, K2b's those of 5e), the card line and,
    last, the ok
@@ -252,10 +278,10 @@ where the port's package is missing next to this script.
 """
 from __future__ import annotations
 
-import copy
 import dataclasses
 import json
 import math
+import statistics
 import warnings
 import subprocess
 import sys
@@ -838,6 +864,33 @@ def check_model_kernels(dev, ops):
                                  enable_gqa=True)),
         nbytes=ops.flash_attention_hbm_bytes(b, h, h, s, hd, 4),
         nflop=3 * nflop, peak_flops=peak_for(PEAK_TF32_FLOPS, name))
+    # K4 at granite-3-2b's prefill shape: GQA 32:8 at head_dim 64, bf16,
+    # the (B, S, H, hd) layout (phase 7c's 40 launches a prefill).
+    gh, gkv, ghd = 32, 8, 64
+    gq = randn(b, s, gh, ghd, dtype=torch.bfloat16)
+    gk, gv = (randn(b, s, gkv, ghd, dtype=torch.bfloat16) for _ in range(2))
+    got = ops.flash_attention(gq, gk, gv, layout="bshd")
+    want = ops.flash_attention_ref(gq, gk, gv, layout="bshd")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    err_gqa = float((got.float() - want.float()).abs().max())
+    log(f"flash_attention bf16 ({b}, {s}, {gh}:{gkv}, {ghd}) GQA causal, "
+        f"(B, S, H, hd): max_abs_err {err_gqa:.3e} (rtol/atol 2e-2 held)")
+    gqt, gkt, gvt = (t.transpose(1, 2).contiguous() for t in (gq, gk, gv))
+    rows["flash_attention_gqa"] = dict(
+        replaces="src/repro/kernels/flash_attention.py:112",
+        source=MODEL_SRC, max_abs_err=err_gqa,
+        ms=device_ms(lambda: ops.flash_attention(gq, gk, gv, layout="bshd")),
+        plain_ms=device_ms(lambda: ops.flash_attention_ref(
+            gq, gk, gv, layout="bshd"), calls=PLAIN_CALLS),
+        library_ms=device_ms(lambda: torch.nn.functional.
+                             scaled_dot_product_attention(
+                                 gqt, gkt, gvt, is_causal=True,
+                                 enable_gqa=True)),
+        nbytes=ops.flash_attention_hbm_bytes(b, gh, gkv, s, ghd, 2),
+        nflop=ops.flash_attention_flops(b, gh, s, ghd), peak_flops=peak)
+    del gq, gk, gv, gqt, gkt, gvt, got, want
     off = [randn(b * s * h * hd + 1)[1:].view(b, s, h, hd) for _ in range(3)]
     for t, src in zip(off, (q, k, v), strict=True):
         t.copy_(src)
@@ -948,13 +1001,16 @@ def kernel_facts(build):
             raise AssertionError(f"{label}: no HGMMA instruction in the SASS")
 
 
-def path_counts(ops):
+def path_counts(ops, bf16_row="flash_attention"):
     """The launch counts of a phase by row of the kernels line: K4's
-    bf16 (tensor-core) instance as ``flash_attention``, its 3xTF32 one
-    as ``flash_attention_fp32`` (the SIMT instance is on no path)."""
+    bf16 (tensor-core) instance as ``bf16_row`` (``flash_attention``,
+    zamba2's shape, or ``flash_attention_gqa``, granite's), its 3xTF32
+    one as ``flash_attention_fp32`` (the SIMT instance is on no
+    path)."""
     counts = ops.launch_counts()
     by = ops.flash_attention.instance_launches
-    counts["flash_attention"] = by["bf16_tc"]
+    counts["flash_attention"] = counts["flash_attention_gqa"] = 0
+    counts[bf16_row] = by["bf16_tc"]
     counts["flash_attention_fp32"] = by["tf32x3"]
     return counts
 
@@ -972,18 +1028,17 @@ def _greedy(model, params, tokens, steps):
     return out_logits, torch.cat(out_tok, 1)
 
 
-def check_slice_against_cpu(dev, ops):
-    """Phase 6: one full-width group, fp32, card (kernels) against the
-    CPU's plain path on the same weights."""
-    from repro_torch.configs import get_config
+def check_slice_against_cpu(dev, ops, cfg, expect):
+    """Phases 6 and 7c: one full-width group in fp32, card (kernels)
+    against the CPU's plain path on the same weights; ``expect`` the
+    launches of the prefill by row of the kernels line."""
     from repro_torch.launch.serve_lm import make_prompts
     from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_map
 
-    cfg = dataclasses.replace(get_config("zamba2-2.7b"),
-                              num_layers=6, dtype="float32")
     model = build_model(cfg)
     params = model.init(SEED, device=dev)
-    params_cpu = copy.deepcopy(params).cpu()
+    params_cpu = tree_map(lambda x: x.cpu(), params)
     tokens = make_prompts(cfg, 1, SLICE_TOKENS, SEED, dev)
     ops.reset_launch_counts()
     got_logits, got_tok = _greedy(model, params, tokens, SLICE_DECODE)
@@ -991,37 +1046,37 @@ def check_slice_against_cpu(dev, ops):
     counts = path_counts(ops)
     want_logits, want_tok = _greedy(model, params_cpu, tokens.cpu(),
                                     SLICE_DECODE)
-    if counts["flash_attention_fp32"] != 1 or counts["ssd_scan"] != 6 or \
-            counts["flash_attention"] != 0:
+    if any(counts[k] != n for k, n in expect.items()):
         raise AssertionError(f"one-group prefill launched {counts}, "
-                             "expected 1 flash_attention on the 3xTF32 "
-                             "instance and 6 ssd_scan")
+                             f"expected {expect}")
     np.testing.assert_array_equal(got_tok.cpu().numpy(), want_tok.numpy(),
                                   err_msg="greedy tokens differ")
     err = 0.0
     for g, w in zip(got_logits, want_logits, strict=True):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-3)
         err = max(err, float((g.cpu() - w).abs().max()))
-    log(f"slice (zamba2-2.7b width, 1 group, fp32, 1 × {SLICE_TOKENS} "
-        f"tokens + {SLICE_DECODE} decode steps): card agrees with the CPU "
-        f"plain path (logits max_abs_err {err:.3e}, rtol/atol 1e-3 held; "
-        f"tokens {got_tok.cpu().tolist()[0]} equal); launches {counts}")
+    log(f"slice ({cfg.name} width, {cfg.num_layers} layers, fp32, 1 × "
+        f"{SLICE_TOKENS} tokens + {SLICE_DECODE} decode steps): card agrees "
+        f"with the CPU plain path (logits max_abs_err {err:.3e}, rtol/atol "
+        f"1e-3 held; tokens {got_tok.cpu().tolist()[0]} equal); launches "
+        f"{counts}")
     return dict(max_abs_err=err, tokens=got_tok.cpu().tolist()[0]), counts
 
 
-def serve_full(dev, ops, smi):
-    """Phase 7: zamba2-2.7b at full width and depth, bf16."""
-    from repro_torch.configs import get_config
+def serve_full(dev, ops, smi, cfg, expect, bf16_row="flash_attention"):
+    """Phases 7 and 7c: a model at full width and depth, bf16, 4
+    requests × 2048 prompt tokens, 32 new; ``expect`` the prefill's
+    launches by kernel (none in decode)."""
     from repro_torch.launch.serve_lm import make_prompts, serve
     from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_leaves
 
-    cfg = get_config("zamba2-2.7b")
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(SEED, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    log(f"init {cfg.name}: {sum(p.numel() for p in params.parameters())} "
+    log(f"init {cfg.name}: {sum(p.numel() for p in tree_leaves(params))} "
         f"parameters drawn on the card by the jax.random twin in "
         f"{init_s:.2f} s")
     ops.reset_launch_counts()
@@ -1029,12 +1084,10 @@ def serve_full(dev, ops, smi):
                    new_tokens=SERVE_NEW, seed=SEED, device=dev,
                    params=params)
     torch.cuda.synchronize()
-    counts = path_counts(ops)
+    counts = path_counts(ops, bf16_row)
     per = report["launches"]
-    ng = cfg.num_layers // cfg.attn_every
-    for phase, want in (("prefill", {"flash_attention": ng,
-                                     "ssd_scan": cfg.num_layers}),
-                        ("decode", {"flash_attention": 0, "ssd_scan": 0})):
+    for phase, want in (("prefill", expect),
+                        ("decode", dict.fromkeys(expect, 0))):
         for kname, n in want.items():
             if per[phase][kname] != n:
                 raise AssertionError(f"{phase} launched {kname} "
@@ -2882,6 +2935,236 @@ def check_conv_precision(ctx):
         f"{worst(each):.2e}")
 
 
+# Phases 7a–7c (slice 15): granite-3-2b, the dense family.  The cross-pod
+# round of ``core/crosspod.py`` (the reference's test and example
+# settings: K 0.05, α 0.9, L̄ 0.5, ρ 1e-3, lr 5e-3, 2 local steps, P = 2)
+# runs no hand-written kernel (its distances stay plain, its attention
+# is the differentiable blockwise path); the dense prefill launches K4
+# once a layer.
+GRANITE = "granite-3-2b"
+GRANITE_CP = dict(n_pods=2, rho=1e-3, lr=5e-3, local_steps=2)
+GRANITE_CTRL = dict(K=0.05, alpha=0.9, target_rate=0.5)
+GRANITE_A = dict(layers=2, batch=2, seq=64, rounds=2)  # (a), fp32
+# (b), bf16, full size; one round (the second) under torch.profiler
+GRANITE_B = dict(batch=4, seq=512, rounds=5, profiled=1)
+# The solve grade (ROADMAP): two SGD steps from the same state, cuBLAS
+# in fp32 against the CPU's matmuls.
+SOLVE_TOL = dict(rtol=1e-4, atol=1e-6)
+
+
+def _granite_round(cfg):
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.core.crosspod import CrossPodConfig, \
+        make_cross_pod_round
+    from repro_torch.models import build_model
+
+    cp = CrossPodConfig(controller=ControllerConfig(**GRANITE_CTRL),
+                        **GRANITE_CP)
+    model = build_model(cfg)
+    return cp, model, make_cross_pod_round(cp, model.loss)
+
+
+def _granite_batches(cfg, cp, batch, seq):
+    """Next-token batches (pods, local_steps, batch, seq), made with
+    numpy from the seed as the reference's launcher makes them."""
+    rng = np.random.default_rng(SEED)
+    while True:
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (cp.n_pods, cp.local_steps, batch, seq + 1)))
+        yield {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+
+
+def _cross_pod_to(state, device):
+    """A copy of a ``CrossPodState`` on ``device`` (the round writes its
+    input's rows in place)."""
+    from repro_torch.utils.pytree import tree_map
+
+    def move(t):
+        return tree_map(lambda x: x.to(device, copy=True), t)
+
+    return state._replace(theta=move(state.theta), lam=move(state.lam),
+                          z_prev=move(state.z_prev),
+                          ctrl=type(state.ctrl)(*(move(x)
+                                                  for x in state.ctrl)),
+                          rng=move(state.rng), round=move(state.round))
+
+
+def check_granite_crosspod_against_cpu(dev, ops):
+    """Phase 7a: granite at 2 layers and every published width, fp32,
+    two cross-pod rounds on the card, each held against the same round
+    on the CPU from the card's state before it: events equal, δ within
+    one ulp, distances at rtol 1e-5, θ/λ/z_prev at the solve grade,
+    ``train_loss`` at rtol 1e-5.  No kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.crosspod import init_cross_pod_state
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = dataclasses.replace(get_config(GRANITE),
+                              num_layers=GRANITE_A["layers"],
+                              dtype="float32")
+    cp, model, round_fn = _granite_round(cfg)
+    state = init_cross_pod_state(
+        cp, model.init(SEED, device=dev), device=dev)
+    batches = _granite_batches(cfg, cp, GRANITE_A["batch"],
+                               GRANITE_A["seq"])
+    ops.reset_launch_counts()
+    report = []
+    for r in range(GRANITE_A["rounds"]):
+        batch = next(batches)
+        t0 = time.perf_counter()
+        before = _cross_pod_to(state, "cpu")
+        copy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state, m = round_fn(state, batch)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want, wm = round_fn(before, batch)
+        cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        label = f"7a round {r}"
+        np.testing.assert_array_equal(m.events.cpu().numpy(),
+                                      wm.events.numpy(), err_msg=label)
+        torch.testing.assert_close(m.distances.cpu(), wm.distances,
+                                   rtol=1e-5, atol=1e-7)
+        delta, wdelta = m.delta.cpu(), wm.delta
+        scale = torch.maximum(torch.maximum(delta.abs(), wdelta.abs()),
+                              before.ctrl.delta.abs())
+        if not bool(((delta - wdelta).abs() <= scale * 2.0 ** -23).all()):
+            raise AssertionError(f"{label}: δ {delta} against {wdelta}")
+        torch.testing.assert_close(m.train_loss.cpu(), wm.train_loss,
+                                   rtol=1e-5, atol=0)
+        gap = 0.0  # held on the card: the CPU's leaves copied there
+        for f in ("theta", "lam", "z_prev"):
+            for g, w in zip(tree_leaves(getattr(state, f)),
+                            tree_leaves(getattr(want, f)), strict=True):
+                w = w.to(dev)
+                diff = (g - w).abs()
+                if bool((diff > SOLVE_TOL["atol"]
+                         + SOLVE_TOL["rtol"] * w.abs()).any()):
+                    raise AssertionError(
+                        f"{label}: {f} off rtol 1e-4 / atol 1e-6 of the "
+                        f"CPU's, max |Δ| {float(diff.max()):.3e}")
+                gap = max(gap, float(diff.max()))
+                del w, diff
+        check_s = time.perf_counter() - t0
+        report.append(dict(events=m.events.tolist(),
+                           train_loss=float(m.train_loss), max_abs_err=gap,
+                           card_ms=card_ms, cpu_s=cpu_s))
+        log(f"{label}: events {m.events.tolist()} equal, train_loss "
+            f"{float(m.train_loss):.6f} (CPU {float(wm.train_loss):.6f}), "
+            f"state max_abs_err {gap:.3e} (rtol 1e-4 / atol 1e-6 held); "
+            f"card {card_ms:.1f} ms, CPU {cpu_s:.1f} s, the state's copy to "
+            f"the CPU {copy_s:.1f} s, the check {check_s:.1f} s")
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"7a launched {ops.launch_counts()}")
+    return report
+
+
+def _round_profile(prof, wall_ms) -> dict:
+    """A profiled round's device busy time (the kernels' durations, one
+    stream), kernel launches, idle share and longest kernels."""
+    from repro_torch.utils.spans import is_span
+
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda
+               and not is_span(e.key)]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(
+        wall_ms=wall_ms, device_busy_ms=busy,
+        idle_share=1 - busy / wall_ms,
+        launches=sum(e.count for e in kernels),
+        top_kernels_ms={e.key[:60]: e.self_device_time_total / 1e3
+                        for e in top})
+
+
+def drive_granite_full(dev, smi):
+    """Phase 7b: granite-3-2b at full size in bf16 from seed 0's init,
+    P = 2 pods on the card, 2 local steps of 4 × 512 tokens, 5 rounds:
+    round 0 fires both pods, every state leaf finite, z_prev = θ + λ bit
+    for bit on every pod that has fired; ms/round and the peak device
+    memory printed beside the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.crosspod import init_cross_pod_state
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = get_config(GRANITE)
+    cp, model, round_fn = _granite_round(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params0 = model.init(SEED, device=dev)
+    state = init_cross_pod_state(cp, params0, device=dev)
+    del params0
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    state_bytes = sum(x.numel() * x.element_size() for f in
+                      ("theta", "lam", "z_prev")
+                      for x in tree_leaves(getattr(state, f)))
+    n_params = sum(x[0].numel() for x in tree_leaves(state.theta))
+    torch.cuda.reset_peak_memory_stats(dev)
+    batches = _granite_batches(cfg, cp, GRANITE_B["batch"], GRANITE_B["seq"])
+    ms, events, losses, fired = [], [], [], set()
+    for r in range(GRANITE_B["rounds"]):
+        batch = next(batches)
+        prof = None
+        if r == GRANITE_B["profiled"]:
+            # The card's activity only: with the host's ops too, reading
+            # back a round's ~200k events took ~40 s on an H100's host.
+            prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        state, m = round_fn(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            profiled = _round_profile(prof, ms[-1])
+        events.append(m.events.tolist())
+        losses.append(float(m.train_loss))
+        fired |= {i for i, e in enumerate(events[-1]) if e}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if events[0] != [True] * cp.n_pods:
+        raise AssertionError(f"7b: round 0 fired {events[0]}")
+    for f in ("theta", "lam", "z_prev"):
+        for x in tree_leaves(getattr(state, f)):
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"7b: {f} holds a value not finite")
+    for t, l, z in zip(tree_leaves(state.theta), tree_leaves(state.lam),
+                       tree_leaves(state.z_prev), strict=True):
+        for j in fired:
+            if not torch.equal(z[j], t[j] + l[j]):
+                raise AssertionError(f"7b: pod {j}'s z_prev is not θ + λ")
+    both = [t for i, (t, e) in enumerate(zip(ms, events, strict=True))
+            if all(e) and i != GRANITE_B["profiled"]]
+    report = dict(
+        arch=cfg.name, params=n_params, dtype=cfg.dtype, pods=cp.n_pods,
+        local_steps=cp.local_steps, tokens_per_step=GRANITE_B["batch"]
+        * GRANITE_B["seq"], rounds=GRANITE_B["rounds"], events=events,
+        train_loss=losses, ms_per_round=ms,
+        ms_per_round_both_fired=statistics.median(both) if both else None,
+        profiled_round=dict(profiled, index=GRANITE_B["profiled"]),
+        init_s=init_s, state_bytes=state_bytes, peak_memory_bytes=peak,
+        card=smi)
+    log(f"7b {cfg.name} cross-pod, bf16, {n_params} parameters a replica, "
+        f"P = {cp.n_pods}, {cp.local_steps} local steps of "
+        f"{GRANITE_B['batch']} × {GRANITE_B['seq']} tokens: events {events}, "
+        f"train_loss {losses}; ms/round {[round(x, 1) for x in ms]} (round "
+        f"{GRANITE_B['profiled']} under torch.profiler; median of the "
+        f"others that fired both pods {report['ms_per_round_both_fired']}); "
+        f"state {state_bytes / 1e9:.2f} GB, peak {peak / 1e9:.2f} GB "
+        f"({peak / 2**30:.2f} GiB) of the card's memory; init "
+        f"{init_s:.2f} s; on {smi}")
+    log(f"7b profiled round {GRANITE_B['profiled']} (events "
+        f"{events[GRANITE_B['profiled']]}): {profiled}")
+    del state
+    torch.cuda.empty_cache()
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2892,7 +3175,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
-    from repro_torch.configs import paper_cifar, paper_mnist
+    from repro_torch.configs import get_config, paper_cifar, paper_mnist
     from repro_torch.core import make_eval_fn
     from repro_torch.kernels import _build, ops
     from repro_torch.models import make_loss_and_acc_fn
@@ -3013,10 +3296,41 @@ def main() -> int:
     checker, counts_k = check_static_invariants(ctx, ops)
     log(json.dumps({"checker": checker, "card": smi}))
 
-    _, counts_slice = check_slice_against_cpu(dev, ops)
+    zamba = get_config("zamba2-2.7b")
+    _, counts_slice = check_slice_against_cpu(
+        dev, ops, dataclasses.replace(zamba, num_layers=6, dtype="float32"),
+        {"flash_attention_fp32": 1, "ssd_scan": 6, "flash_attention": 0})
     torch.cuda.empty_cache()
-    serve_report, counts_serve = serve_full(dev, ops, smi)
+    serve_report, counts_serve = serve_full(
+        dev, ops, smi, zamba, {"flash_attention": zamba.num_layers
+                               // zamba.attn_every,
+                               "ssd_scan": zamba.num_layers})
     log(json.dumps({"serve": serve_report}))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    granite = get_config(GRANITE)
+    granite_a = check_granite_crosspod_against_cpu(dev, ops)
+    log(f"phase 7a took {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    granite_b = drive_granite_full(dev, smi)
+    log(f"phase 7b took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    _, counts_gslice = check_slice_against_cpu(
+        dev, ops, dataclasses.replace(granite, num_layers=GRANITE_A["layers"],
+                                      dtype="float32"),
+        {"flash_attention_fp32": GRANITE_A["layers"], "ssd_scan": 0,
+         "flash_attention": 0})
+    torch.cuda.empty_cache()
+    granite_serve, counts_gserve = serve_full(
+        dev, ops, smi, granite, {"flash_attention": granite.num_layers,
+                                 "ssd_scan": 0},
+        bf16_row="flash_attention_gqa")
+    log(json.dumps({"granite": {"crosspod_vs_cpu": granite_a,
+                                "crosspod_full": granite_b,
+                                "serve": granite_serve}}))
+    log(f"phase 7c took {time.perf_counter() - t1:.1f} s; phases 7a–7c "
+        f"{time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, r in rows.items():
@@ -3026,7 +3340,8 @@ def main() -> int:
                     + counts_q.get(name, 0) + counts_r.get(name, 0)
                     + counts_wh.get(name, 0) + counts_k.get(name, 0)
                     + counts_cf.get(name, 0) + counts_slice[name]
-                    + counts_serve[name])
+                    + counts_serve[name] + counts_gslice[name]
+                    + counts_gserve[name])
         if launches == 0:
             raise AssertionError(f"{name} was never launched on the path")
         lib = r["library_ms"]
@@ -3042,7 +3357,8 @@ def main() -> int:
             f"{counts_k.get(name, 0)}, forms CF-A/CF-T "
             f"{counts_cf.get(name, 0)}, "
             f"fp32 group {counts_slice[name]}, "
-            f"serve {counts_serve[name]}), "
+            f"serve {counts_serve[name]}, granite fp32 group "
+            f"{counts_gslice[name]}, granite serve {counts_gserve[name]}), "
             f"max_abs_err {r['max_abs_err']:.3e}, "
             f"ms {r['ms']:.4f}{warm}, plain_ms {r['plain_ms']:.4f}, "
             f"library_ms {'null' if lib is None else f'{lib:.4f}'}, bound_ms "

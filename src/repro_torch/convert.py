@@ -27,10 +27,19 @@ go to ``device``: CUDA unless the caller passes another.
 * :func:`scaffold_state_from_numpy` / :func:`scaffold_state_to_numpy` —
   a fetched JAX ``ScaffoldState`` (pytrees of the params' shape) ⇄ the
   port's, flat through a ``FlatSpec`` or kept as trees without one;
-* :func:`lm_params_from_numpy` — the model zoo's hybrid parameter tree
-  (stacked (L, ...) layers) → the port's parameter module (one module
-  per layer, the shared block, JAX's (n_in, n_out) weight layout kept);
-* :func:`lm_cache_from_numpy` — a hybrid serving cache → the port's.
+* :func:`lm_params_from_numpy` — the model zoo's dense or hybrid
+  parameter tree → the port's (the same layout: stacked (L, ...)
+  layers, JAX's (n_in, n_out) weights);
+* :func:`lm_cache_from_numpy` — a dense or hybrid serving cache → the
+  port's;
+* :func:`cross_pod_state_from_numpy` / :func:`cross_pod_state_to_numpy`
+  — a fetched JAX ``CrossPodState`` ⇄ the port's (pod-stacked trees in
+  the reference's layout; with ``mesh=`` a shard list).
+
+bf16 arrays (JAX hands them over as ``ml_dtypes`` arrays, which this
+module reads through their bits without importing that package) become
+bf16 tensors; going back, bf16 leaves come out as fp32 arrays, which
+hold every bf16 value exactly.
 """
 from __future__ import annotations
 
@@ -64,38 +73,91 @@ def params_from_numpy(tree, device=None) -> dict:
     return out
 
 
-def lm_params_from_numpy(tree, cfg, device=None):
-    """The JAX package's hybrid params (numpy leaves) → the port's
-    ``ParamTree``: the stacked leading L axis of ``layers`` is split
-    into one module per layer, ``shared`` maps to the shared block, and
-    every other leaf keeps its shape and dtype."""
-    from repro_torch.models.transformer import check_family, hybrid_params
+def lm_params_from_numpy(tree, cfg, device=None) -> dict:
+    """The JAX package's dense or hybrid params (numpy leaves) → the
+    port's: the same nested dict, every leaf a tensor of its shape and
+    dtype, ``layers`` stacked along L."""
+    from repro_torch.models.transformer import check_family
 
     check_family(cfg)
-    device = resolve_device(device)
-
-    def to_torch(node, index=None):
-        if isinstance(node, dict):
-            return {k: to_torch(v, index) for k, v in node.items()}
-        a = np.asarray(node)
-        return _t(a if index is None else a[index], device)
-
-    top = {k: to_torch(v) for k, v in tree.items() if k != "layers"}
-    n = np.asarray(tree["layers"]["ln"]).shape[0]
+    n = np.asarray(tree_leaves(tree["layers"])[0]).shape[0]
     if n != cfg.num_layers:
         raise ValueError(f"the tree has {n} layers, the config "
                          f"{cfg.num_layers}")
-    return hybrid_params(top, [to_torch(tree["layers"], i)
-                               for i in range(n)])
+    return _tree_t(tree, resolve_device(device))
 
 
 def lm_cache_from_numpy(cache, device=None) -> dict:
-    """A hybrid serving cache with numpy leaves → the port's cache
-    (same stacked layout; ``pos`` as a host int)."""
+    """A dense or hybrid serving cache with numpy leaves → the port's
+    cache (same stacked layout; ``pos`` as a host int)."""
     device = resolve_device(device)
-    return {"layers": {k: _t(v, device) for k, v in cache["layers"].items()},
-            "k": _t(cache["k"], device), "v": _t(cache["v"], device),
-            "pos": int(np.asarray(cache["pos"]))}
+    out = {"k": _t(cache["k"], device), "v": _t(cache["v"], device),
+           "pos": int(np.asarray(cache["pos"]))}
+    if "layers" in cache:
+        out["layers"] = {k: _t(v, device)
+                         for k, v in cache["layers"].items()}
+    return out
+
+
+def cross_pod_state_from_numpy(s, device=None, mesh=None):
+    """A JAX ``CrossPodState`` with numpy-convertible leaves → the
+    port's ``CrossPodState`` on ``device``: θ, λ, z_prev as pod-stacked
+    (P, ...) trees of the leaves' dtypes, the controller, the rng key's
+    two words and the round.  With ``mesh`` (a ``ClientMesh`` over the
+    pods) the shard list: shard i holds pods [i·P/S, (i+1)·P/S) on
+    ``mesh.devices[i]`` and its own copy of the key and the round."""
+    from repro_torch.core.crosspod import CrossPodState
+    from repro_torch.sharding.clients import shard_rows
+
+    def on(dev):
+        return CrossPodState(
+            theta=_tree_t(s.theta, dev), lam=_tree_t(s.lam, dev),
+            z_prev=_tree_t(s.z_prev, dev),
+            ctrl=ControllerState(*(_t(getattr(s.ctrl, f), dev)
+                                   for f in ControllerState._fields)),
+            rng=_rng_words(s.rng, dev), round=_t(s.round, dev))
+
+    if mesh is None:
+        return on(resolve_device(device))
+    if device is not None:
+        raise ValueError("pass device= or mesh=, not both")
+    whole = on(torch.device("cpu"))
+    rows = shard_rows({"theta": whole.theta, "lam": whole.lam,
+                       "z_prev": whole.z_prev,
+                       "ctrl": {f: getattr(whole.ctrl, f)
+                                for f in CTRL_STACKED_FIELDS}}, mesh)
+    return tuple(
+        CrossPodState(theta=r["theta"], lam=r["lam"], z_prev=r["z_prev"],
+                      ctrl=whole.ctrl._replace(**{
+                          f: r["ctrl"][f] if f in CTRL_STACKED_FIELDS
+                          else getattr(whole.ctrl, f).to(dev)
+                          for f in ControllerState._fields}),
+                      rng=whole.rng.to(dev), round=whole.round.to(dev))
+        for r, dev in zip(rows, mesh.devices, strict=True))
+
+
+def cross_pod_state_to_numpy(s):
+    """The port's ``CrossPodState`` (or a shard list of them, put back
+    together in shard order) with numpy leaves; bf16 leaves as fp32."""
+    from repro_torch.core.crosspod import CrossPodState
+    from repro_torch.sharding.clients import unshard_rows
+
+    if isinstance(s, (list, tuple)) and not isinstance(s, CrossPodState):
+        shards = tuple(s)
+        s = shards[0]._replace(
+            theta=unshard_rows([x.theta for x in shards]),
+            lam=unshard_rows([x.lam for x in shards]),
+            z_prev=unshard_rows([x.z_prev for x in shards]),
+            ctrl=shards[0].ctrl._replace(**{
+                f: unshard_rows([getattr(x.ctrl, f) for x in shards])
+                for f in CTRL_STACKED_FIELDS}))
+    return CrossPodState(
+        theta=_tree_numpy(s.theta), lam=_tree_numpy(s.lam),
+        z_prev=_tree_numpy(s.z_prev),
+        ctrl=ControllerState(*(_tree_numpy(getattr(s.ctrl, f))
+                               for f in ControllerState._fields)),
+        rng=s.rng.cpu().numpy().astype(np.uint32),
+        round=s.round.cpu().numpy())
 
 
 def nest_params(state_dict: dict) -> dict:
@@ -111,7 +173,11 @@ def nest_params(state_dict: dict) -> dict:
 
 
 def _t(a, device, dtype=None):
-    t = torch.from_numpy(np.array(a))
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16, read by its bits
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
@@ -121,7 +187,11 @@ def _tree_t(node, device, dtype=None):
 
 
 def _tree_numpy(node):
-    return tree_map(lambda t: t.detach().cpu().numpy(), node)
+    def arr(t):
+        t = t.detach().cpu()
+        return (t.to(torch.float32) if t.dtype == torch.bfloat16
+                else t).numpy()
+    return tree_map(arr, node)
 
 
 def state_from_numpy(s, device=None, mesh=None, *, runs: bool = False):

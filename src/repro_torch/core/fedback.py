@@ -97,6 +97,9 @@ replicated key over the global N, cut by shard; the reductions over
 clients add per-shard partials in shard order on shard 0's device
 (``core/engine.py``).  One device is the one-shard case of the same
 code.  The mesh needs no process group: one process drives every shard.
+A per-client (N,) target L̄ reaches each shard's controller as its rows
+(:func:`_shard_selections`), clamped under ``max_staleness`` by the
+shard's own delays.
 
 **Ragged clients** (``ragged=``, a
 :class:`~repro_torch.utils.ragged.RaggedSpec`): the data is one pooled
@@ -121,9 +124,9 @@ and :func:`make_round_fn` hand over to :mod:`repro_torch.core.hoststate`,
 whose round keeps the (N, D) client matrices in host memory and streams
 the C planned rows through the card.
 
-What the JAX engine also offers and a later slice ports: the cross-pod
-program.  SCAFFOLD has its own round (:mod:`repro_torch.core.baselines`),
-without a mesh, as in the reference.
+The cross-pod program over a zoo model is :mod:`repro_torch.core.crosspod`.
+SCAFFOLD has its own round (:mod:`repro_torch.core.baselines`), without
+a mesh, as in the reference.
 """
 from __future__ import annotations
 
@@ -137,7 +140,8 @@ from repro_torch.device import fp32_products, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.optim.sgd import sgd_step
 from repro_torch.sharding.clients import ClientMesh, check_divisible, \
-    collectives, replicate_data, shard_client_data, shard_rows, unshard_rows
+    collectives, replicate_data, shard_client_data, shard_rows, \
+    shard_targets, unshard_rows
 from repro_torch.utils.flatstate import FlatSpec
 from repro_torch.utils.pytree import tree_broadcast_like, tree_map, \
     tree_where, tree_zeros_like
@@ -227,11 +231,18 @@ def _ctrl_cfg(cfg: FLConfig) -> ControllerConfig:
     return c
 
 
-def _check_supported(cfg: FLConfig, mesh=None) -> None:
-    if mesh is not None and isinstance(_ctrl_cfg(cfg).target_rate,
-                                       torch.Tensor):
-        raise NotImplementedError("mesh= with a per-client target_rate is "
-                                  "not ported yet (M14b)")
+def _shard_selections(cfg: FLConfig, mesh: ClientMesh) -> list:
+    """One selection per shard of ``mesh``, each with its shard's L̄
+    (``sharding.clients.shard_targets``); under ``max_staleness`` each
+    shard's ``measure`` clamps its rows by its own delays."""
+    ctrl = _ctrl_cfg(cfg)
+    return [make_selection(cfg.selection_name(), rate=cfg.participation,
+                           controller=ctrl._replace(target_rate=t),
+                           metric=cfg.trigger_metric)
+            for t in shard_targets(ctrl.target_rate, mesh)]
+
+
+def _check_supported(cfg: FLConfig) -> None:
     if cfg.algorithm not in ADMM_FAMILY + AVG_FAMILY:
         raise NotImplementedError(
             f"not ported yet: algorithm={cfg.algorithm!r}")
@@ -312,7 +323,7 @@ def init_state(cfg: FLConfig, params0, *, spec: FlatSpec | None = None,
             raise ValueError("state_backend='host' is a single-host "
                              "backend (mesh must be None)")
         return init_host_state(cfg, params0, spec=spec, device=device)
-    _check_supported(cfg, mesh)
+    _check_supported(cfg)
     _check_compress(cfg, spec is not None)
     if spec is not None:
         w0 = spec.flatten(params0)
@@ -543,7 +554,7 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
     if body_transform is not None:
         raise ValueError("body_transform wraps the host backend's solve "
                          "leg; wrap a device round where it is called")
-    _check_supported(cfg, mesh)
+    _check_supported(cfg)
     n = cfg.n_clients
     if mesh is None:
         sharded, mesh = False, ClientMesh((resolve_device(device),))
@@ -591,9 +602,8 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
             "algorithm and the flat (spec=) layout — got "
             f"compact={cfg.compact}, algorithm={cfg.algorithm!r}, "
             f"flat={flat}")
-    select = make_selection(cfg.selection_name(), rate=cfg.participation,
-                            controller=_ctrl_cfg(cfg),
-                            metric=cfg.trigger_metric)
+    selects = _shard_selections(cfg, mesh)
+    select = selects[0]  # decides for every shard (its L̄ is not read)
     async_mode = cfg.max_staleness is not None
     solver, masked_solver, epoch_fn = _solvers(cfg, loss_fn, spec, n_points)
     if cfg.compact:
@@ -700,11 +710,11 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
         if admit is not None:
             events = [e & a for e, a in zip(events, admit, strict=True)]
         ctrls = None if async_mode else [
-            select.measure(s.ctrl, e, o) for s, e, o in zip(
-                shards, events, overrides, strict=True)]
+            sel.measure(s.ctrl, e, o) for sel, s, e, o in zip(
+                selects, shards, events, overrides, strict=True)]
         return events, eligible or [None] * len(shards), ctrls
 
-    def stale_commit(s, e, serviced, proposals, old, overrides):
+    def stale_commit(sel, s, e, serviced, proposals, old, overrides):
         """The bounded-staleness commit of one shard: the proposals
         routed through its delay pipeline, the ring updated and the
         controller stepped on the commit-time events.  ``old`` (the
@@ -728,7 +738,7 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
                                          strict=True)]
         (theta, p_th), (lam, p_lam), (z, p_z) = out
         hist = record_issue(fl.hist, e, s.round)
-        ctrl = select.measure(s.ctrl, measured_commits(hist, fl.delay,
+        ctrl = sel.measure(s.ctrl, measured_commits(hist, fl.delay,
                                                        s.round),
                               overrides, staleness_delay=fl.delay)
         new_fl = InFlight(delay=fl.delay, ttl=new_ttl, theta=p_th,
@@ -788,11 +798,11 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, data: dict, *,
         with span("fedback/commit"):
             if async_mode:
                 ctrls, inflight, ttls, landed = [], [], [], []
-                for s, e, done, prop, old, o in zip(
-                        shards, events, serviced, proposals, olds,
+                for sel, s, e, done, prop, old, o in zip(
+                        selects, shards, events, serviced, proposals, olds,
                         overrides, strict=True):
                     theta, lam, z, fl, ctrl, done, land = stale_commit(
-                        s, e, done, prop, old, o)
+                        sel, s, e, done, prop, old, o)
                     new.append((theta, lam, z))
                     inflight.append(fl)
                     ctrls.append(ctrl)

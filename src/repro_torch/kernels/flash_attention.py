@@ -232,8 +232,15 @@ def flash_attention(q, k, v, *, causal=True, window=0, layout="bhsd"):
     """Causal or sliding-window GQA attention; see the module note.
 
     CPU tensors take the plain version; CUDA tensors launch the instance
-    that :func:`kernel_instance` names (or raise).
+    that :func:`kernel_instance` names (or raise).  The kernel has no
+    backward, so an input that requires grad is refused on both paths:
+    a differentiable caller takes ``models.attention.blockwise_attention``
+    by name.
     """
+    if any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("flash_attention has no backward: q, k, v must not "
+                         "require grad (the training loss takes "
+                         "models.attention.blockwise_attention)")
     if is_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    layout=layout)

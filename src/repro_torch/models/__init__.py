@@ -1,6 +1,8 @@
 """Models of the port: the paper's MNIST MLP and CIFAR-10 CNN, and the
-model zoo's hybrid family (Zamba2) for serving."""
-from .api import Model, build_model, param_count  # noqa: F401
+model zoo's dense (granite: served and trained) and hybrid (Zamba2:
+served) families."""
+from .api import Model, abstract_cache, abstract_params, build_model, \
+    input_specs, param_count  # noqa: F401
 from .mlp import (  # noqa: F401
     MLP,
     cnn_logits,

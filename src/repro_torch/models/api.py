@@ -1,25 +1,37 @@
 """Public model API (``repro/models/api.py``): ``build_model(cfg)``
-returns a ``Model`` bundle of functions — init, prefill, decode_step,
-init_cache — over the port's parameter modules.
+returns a ``Model`` bundle of functions — init, loss, prefill,
+decode_step, init_cache — over the JAX package's parameter layout
+(nested dicts of tensors, the layers stacked along L), and
+:func:`input_specs` / :func:`abstract_params` / :func:`abstract_cache`
+give a workload's inputs, parameters and cache as tensors on the meta
+device (shapes and dtypes, no storage), the counterpart of the
+reference's ``ShapeDtypeStruct`` stand-ins.
 
-Only the serving path of the hybrid family is ported (ROADMAP M17): no
-``loss`` (training), and no ``input_specs`` / abstract helpers (the
-dry-run's).  ``init`` and ``init_cache`` run on CUDA unless the caller
-passes ``device=``; without CUDA they raise.
+``loss`` is the dense family's (the hybrid family's raises, ROADMAP
+M17b).
+``init`` and ``init_cache`` run on CUDA unless the caller passes
+``device=``; without CUDA they raise.  Tokens and labels are int64
+(torch's index dtype; the reference's are int32).
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import torch
+
 from repro_torch.configs.model_config import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.utils.pytree import tree_leaves
 
 from . import transformer as tf
+
+META = torch.device("meta")
 
 
 class Model(NamedTuple):
     config: ModelConfig
     init: Callable  # (seed, device=None) -> params
+    loss: Callable  # (params, batch) -> scalar
     prefill: Callable  # (params, batch, max_seq) -> (logits, cache)
     decode_step: Callable  # (params, token, cache) -> (logits, cache)
     init_cache: Callable  # (batch, max_seq, device=None) -> cache
@@ -31,6 +43,7 @@ def build_model(cfg: ModelConfig) -> Model:
         config=cfg,
         init=lambda seed=0, device=None: tf.init_params(
             cfg, seed, device=resolve_device(device)),
+        loss=lambda params, batch: tf.loss_fn(cfg, params, batch),
         prefill=lambda params, batch, max_seq=None: tf.prefill(
             cfg, params, batch, max_seq),
         decode_step=lambda params, token, cache: tf.decode_step(
@@ -40,7 +53,32 @@ def build_model(cfg: ModelConfig) -> Model:
     )
 
 
+def input_specs(cfg: ModelConfig, *, mode: str, batch: int, seq: int):
+    """The batch of a train / prefill / decode step as meta tensors:
+    ``{"tokens", "labels"}`` (B, S), ``{"tokens"}`` (B, S) or
+    ``{"token"}`` (B, 1), int64."""
+    def tok(*shape):
+        return torch.empty(shape, dtype=torch.int64, device=META)
+
+    if mode == "train":
+        return {"tokens": tok(batch, seq), "labels": tok(batch, seq)}
+    if mode == "prefill":
+        return {"tokens": tok(batch, seq)}
+    if mode == "decode":
+        return {"token": tok(batch, 1)}
+    raise ValueError(mode)
+
+
+def abstract_params(model: Model):
+    """The parameter tree on the meta device (no allocation)."""
+    return tf.init_params(model.config, device=META)
+
+
+def abstract_cache(model: Model, batch: int, max_seq: int):
+    return tf.init_cache(model.config, batch, max_seq, device=META)
+
+
 def param_count(cfg: ModelConfig) -> int:
     """Parameters of the model, counted from shapes (no allocation)."""
-    params = tf.init_params(cfg, device="meta")
-    return sum(p.numel() for p in params.parameters())
+    return sum(p.numel() for p in tree_leaves(
+        tf.init_params(cfg, device=META)))

@@ -1,9 +1,14 @@
-"""GQA attention: flash-kernel prefill + cached decode
-(``repro/models/attention.py``).
+"""GQA attention: flash-kernel prefill, blockwise training attention
+and cached decode (``repro/models/attention.py``).
 
 Prefill (causal, positions 0..S−1, optional sliding window) goes through
 ``kernels.ops.flash_attention`` (K4) on the model's (B, S, H, hd)
-layout.  Decode is one query against the cache: the plain einsum /
+layout.  The training loss calls :func:`blockwise_attention` by name
+(``attention_forward(..., blockwise=True)``): the reference's plain,
+differentiable online-softmax scan over KV blocks, the path its
+``jax.value_and_grad`` goes through; autograd differentiates it here.
+K4 has no backward, and its wrapper refuses an input that requires
+grad.  Decode is one query against the cache: the plain einsum /
 softmax of the JAX package's ``attention_decode``, which computes it
 outside any Pallas kernel too, including the ring-buffer positions
 under a window.
@@ -13,9 +18,10 @@ the parameter dtype and casts the probabilities to v's dtype before the
 PV product; the Pallas kernel and K4 keep both in fp32.  In fp32 (the
 parity tests) the two agree; in bf16 the port follows the kernel.
 
-Only the masks the served models use are ported: ``mask_mode``
-"prefix" (PaliGemma) and "bidir" (HuBERT) raise ``NotImplementedError``
-(ROADMAP M17).
+K4 takes the masks the served models use: ``mask_mode`` "prefix"
+(PaliGemma) and "bidir" (HuBERT) raise ``NotImplementedError`` on the
+prefill path (ROADMAP M17b); :func:`_allowed` and the blockwise path
+have all four masks, as the reference.
 """
 from __future__ import annotations
 
@@ -51,18 +57,97 @@ def check_mask_mode(mask_mode: str) -> None:
         raise ValueError(mask_mode)
 
 
+def _allowed(q_pos, kv_pos, *, mask_mode, window, prefix_len):
+    """Boolean mask (…, Sq, Skv) from position indices."""
+    q = q_pos[..., :, None]
+    k = kv_pos[..., None, :]
+    if mask_mode == "bidir":
+        ok = torch.ones(torch.broadcast_shapes(q.shape, k.shape),
+                        dtype=torch.bool, device=q.device)
+    elif mask_mode == "causal":
+        ok = k <= q
+    elif mask_mode == "prefix":
+        ok = (k <= q) | (k < prefix_len)
+    else:
+        raise ValueError(mask_mode)
+    if window:
+        ok = ok & (k > q - window)
+    return ok
+
+
+def blockwise_attention(q, k, v, *, q_positions, kv_positions, kv_valid=None,
+                        mask_mode="causal", window=0, prefix_len=0,
+                        kv_block=512):
+    """Online-softmax attention over KV blocks, plain and differentiable.
+
+    q: (B, Sq, H, hd); k, v: (B, Skv, Kv, hd); positions: (Sq,) /
+    (Skv,).  Returns (B, Sq, H, hd) in q's dtype.  The reference's
+    arithmetic: q scaled by hd^−½ in its dtype, the scores and the PV
+    product accumulated in fp32 (bf16 operands are widened, so each
+    product is exact as in ``preferred_element_type``), P cast to v's
+    dtype before PV, m/l/acc carried in fp32 over the blocks in order,
+    l floored at 1e-30.  Every block is visited and masked, as in the
+    reference (no block is skipped)."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    if kv_valid is None:
+        kv_valid = torch.ones((skv,), dtype=torch.bool, device=q.device)
+    nb = -(-skv // kv_block)
+    pad = nb * kv_block - skv
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = torch.nn.functional.pad(kv_positions, (0, pad))
+        kv_valid = torch.nn.functional.pad(kv_valid, (0, pad))
+    qg = (q * hd ** -0.5).reshape(b, sq, kvh, g, hd).to(torch.float32)
+    m = torch.full((b, sq, kvh, g), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, sq, kvh, g), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, kvh, g, hd), dtype=torch.float32,
+                      device=q.device)
+    for i in range(nb):
+        blk = slice(i * kv_block, (i + 1) * kv_block)
+        kblk, vblk = k[:, blk], v[:, blk]
+        s = torch.einsum("bskgh,btkh->bskgt", qg, kblk.to(torch.float32))
+        ok = _allowed(q_positions, kv_positions[blk], mask_mode=mask_mode,
+                      window=window, prefix_len=prefix_len) & \
+            kv_valid[blk][None, :]
+        s = torch.where(ok[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bskgt,btkh->bskgh", p.to(vblk.dtype).to(torch.float32),
+            vblk.to(torch.float32))
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
 def attention_forward(p, x, *, positions, rope_theta, num_heads, num_kv_heads,
-                      head_dim, mask_mode="causal", window=0, return_kv=False):
-    """Self-attention over x: (B, S, d) at positions 0..S−1."""
-    check_mask_mode(mask_mode)
+                      head_dim, mask_mode="causal", window=0, prefix_len=0,
+                      return_kv=False, blockwise=False, kv_block=512):
+    """Self-attention over x: (B, S, d) at positions 0..S−1: K4 for
+    serving, or with ``blockwise=True`` (the training loss)
+    :func:`blockwise_attention` in blocks of min(``kv_block``, S)."""
+    if not blockwise:
+        check_mask_mode(mask_mode)
     b, s, d = x.shape
     q = (x @ p["wq"]).reshape(b, s, num_heads, head_dim)
     k = (x @ p["wk"]).reshape(b, s, num_kv_heads, head_dim)
     v = (x @ p["wv"]).reshape(b, s, num_kv_heads, head_dim)
     q = apply_rope(q, positions[None, :], rope_theta)
     k = apply_rope(k, positions[None, :], rope_theta)
-    out = ops.flash_attention(q, k, v, causal=True, window=window,
-                              layout="bshd")
+    if blockwise:
+        out = blockwise_attention(
+            q, k, v, q_positions=positions, kv_positions=positions,
+            mask_mode=mask_mode, window=window, prefix_len=prefix_len,
+            kv_block=min(kv_block, s))
+    else:
+        out = ops.flash_attention(q, k, v, causal=True, window=window,
+                                  layout="bshd")
     y = out.reshape(b, s, num_heads * head_dim) @ p["wo"]
     return (y, (k, v)) if return_kv else y
 

@@ -1,9 +1,12 @@
 """Shared transformer building blocks (``repro/models/layers.py``).
 
 Functions over plain tensors; parameters are nested dicts of tensors
-(or the :class:`ParamTree` modules built from them) in the JAX
-package's layout: a dense weight is (n_in, n_out) and applies as
-``x @ w``.
+in the JAX package's layout: a dense weight is (n_in, n_out) and
+applies as ``x @ w``.
+
+The LM loss (:func:`cross_entropy_logits`, :func:`chunked_lm_loss`) is
+plain differentiable torch: no Pallas kernel has a VJP, so autograd
+through the plain path is the twin of ``jax.value_and_grad``.
 
 Init follows the JAX package's key tree with the ``jax.random`` twin
 (:mod:`repro_torch.prng`): each init takes a key (two uint32 words),
@@ -17,29 +20,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng
-
-
-class ParamTree(nn.Module):
-    """A nested dict of tensors as a module: leaves become parameters
-    (no gradient: the port serves, it does not train yet), sub-dicts
-    become sub-modules, and ``tree["key"]`` reads either, so the
-    functional code below takes a ``ParamTree`` or a plain dict alike.
-    State-dict keys are the JAX tree's paths joined by dots."""
-
-    def __init__(self, tree: dict):
-        super().__init__()
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                self.add_module(k, ParamTree(v))
-            else:
-                self.register_parameter(
-                    k, nn.Parameter(v, requires_grad=False))
-
-    def __getitem__(self, key):
-        return getattr(self, key)
 
 
 def scaled_normal(key, shape, scale, dtype, device) -> torch.Tensor:
@@ -104,3 +87,58 @@ def apply_rope(x, positions, theta=1e4):
 def embed_init(key, vocab, d_model, dtype, device):
     return scaled_normal(key, (vocab, d_model), 1.0 / d_model ** 0.5, dtype,
                          device)
+
+
+def _token_log_likelihood(logits, labels, ignore_index, valid_vocab):
+    """(Σ log p(label) over valid positions, their count): fp32 logits,
+    the padded columns (index ≥ ``valid_vocab``) at −1e30 before the
+    softmax, positions whose label is ``ignore_index`` left out."""
+    logits = logits.to(torch.float32)
+    if valid_vocab and valid_vocab < logits.shape[-1]:
+        col = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(col < valid_vocab, logits, -1e30)
+    logp = torch.log_softmax(logits, dim=-1)
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0).to(torch.int64)
+    ll = torch.take_along_dim(logp, safe[..., None], dim=-1)[..., 0]
+    return torch.sum(torch.where(valid, ll, 0.0)), torch.sum(valid)
+
+
+def cross_entropy_logits(logits, labels, ignore_index=-100,
+                         valid_vocab: int = 0):
+    """Token cross-entropy, the mean over positions whose label is not
+    ``ignore_index``; logits in fp32, and with ``valid_vocab`` > 0 the
+    padded vocabulary columns masked to −1e30 before the softmax (the
+    embedding and the head are padded to a multiple of 256)."""
+    total, n = _token_log_likelihood(logits, labels, ignore_index,
+                                     valid_vocab)
+    return -total / torch.clamp(n, min=1)
+
+
+def chunked_lm_loss(hidden, embed_out, labels, chunk: int = 0,
+                    ignore_index=-100, valid_vocab: int = 0):
+    """LM head + cross-entropy, chunked over the sequence axis.
+
+    hidden: (B, S, d); embed_out: (d, V).  With ``chunk`` > 0 and S >
+    ``chunk`` the (B, c, V) fp32 logits of one chunk at a time are made
+    and recomputed in backward (``torch.utils.checkpoint``, as the
+    reference's ``jax.checkpoint``), so the whole (B, S, V) logits are
+    never held; the chunks' sums and counts are added in order."""
+    s = hidden.shape[1]
+    if not chunk or s <= chunk:
+        return cross_entropy_logits(hidden @ embed_out, labels,
+                                    ignore_index, valid_vocab)
+
+    def chunk_loss(hc, yc):
+        total, n = _token_log_likelihood(hc @ embed_out, yc, ignore_index,
+                                         valid_vocab)
+        return -total, n
+
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    tok_sum = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for i in range(0, s, chunk):
+        li, ti = checkpoint(chunk_loss, hidden[:, i:i + chunk],
+                            labels[:, i:i + chunk], use_reentrant=False)
+        loss_sum = loss_sum + li
+        tok_sum = tok_sum + ti
+    return loss_sum / torch.clamp(tok_sum, min=1)

@@ -1,36 +1,46 @@
-"""The hybrid family's stack (``repro/models/transformer.py``): a
-Mamba-2 backbone plus ONE shared attention+MLP block applied after every
-``attn_every`` mamba layers (Zamba2's shared-block design: the same
-parameters are re-applied at each group's depth).
+"""The model zoo's stacks (``repro/models/transformer.py``), two
+families so far:
 
-Parameters are a :class:`~repro_torch.models.layers.ParamTree` whose
-paths mirror the JAX tree's, with the JAX package's stacked (L, ...)
-layer axis split into ``layers`` — an ``nn.ModuleList`` with one
-module per mamba layer.  Layer i belongs to group i // attn_every.
-The JAX package's ``constrain_batch`` is a sharding hint and has no
-counterpart on one device.
+  dense   — [GQA attn + SwiGLU] × L                 (granite)
+  hybrid  — Mamba-2 backbone + ONE shared attn+MLP block applied after
+            every ``attn_every`` mamba layers (Zamba2's shared-block
+            design: the same parameters are re-applied at each group's
+            depth)
 
-Serving only: prefill (K4 and K5 through the attention and SSM modules)
-and single-token decode.  The other families (dense, moe, ssm, vlm,
-audio), the training loss and the MoE block raise
-``NotImplementedError`` (ROADMAP M17).
+Parameters are the JAX tree's layout: a nested dict of tensors whose
+``layers`` leaves are stacked along a leading L axis (for the hybrid,
+layer i belongs to group i // attn_every).  Serving and training take
+the same tree; each layer reads views of its rows.  The JAX package's
+``constrain_batch`` is a sharding hint and has no counterpart on one
+device.
 
-The cache mirrors the JAX package's: ``layers.ssm`` (L, B, H, P, N)
-fp32, ``layers.conv`` (L, B, K−1, conv_dim), ``k``/``v``
-(L/attn_every, B, S_cache, KvH, hd), and ``pos``, the next position,
-kept as a host int so decode never reads it back from the card.
-Decode updates the cache tensors in place.
+Serving (both families): prefill (K4 through the attention module, K5
+through the SSM module) and single-token decode.  Training (dense
+only): :func:`forward_hidden` and :func:`loss_fn`, the attention
+through ``blockwise_attention`` (plain and differentiable), each layer
+recomputed in backward under ``cfg.remat`` (``torch.utils.checkpoint``
+over groups of ``cfg.remat_group`` layers, as the reference's
+``jax.checkpoint`` of its scan body).  The hybrid family's loss and the
+other families (moe, ssm, vlm, audio) raise ``NotImplementedError``
+(ROADMAP M17b).
+
+The caches mirror the JAX package's: dense ``k``/``v`` (L, B, S_cache,
+KvH, hd); hybrid ``layers.ssm`` (L, B, H, P, N) fp32, ``layers.conv``
+(L, B, K−1, conv_dim), ``k``/``v`` (L/attn_every, B, S_cache, KvH, hd);
+and ``pos``, the next position, kept as a host int so decode never
+reads it back from the card.  Decode updates the cache tensors in
+place.
 """
 from __future__ import annotations
 
 import torch
-from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng
 
 from .attention import attention_decode, attention_forward, attention_init
 from .layers import (
-    ParamTree,
+    chunked_lm_loss,
     dense_init,
     embed_init,
     rmsnorm,
@@ -39,16 +49,29 @@ from .layers import (
     swiglu_init,
 )
 from .ssm import ssm_cache_init, ssm_decode_step, ssm_forward, ssm_init
+from repro_torch.utils.pytree import tree_leaves, tree_map
+
+
+FAMILIES = ("dense", "hybrid")
 
 
 def check_family(cfg) -> None:
-    if cfg.family != "hybrid":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to "
-            "repro_torch yet (ROADMAP M17); the port serves the hybrid "
-            "family")
+            "repro_torch yet (ROADMAP M17b); the port has the dense and "
+            "hybrid families")
     if cfg.num_experts:
-        raise NotImplementedError("MoE blocks are not ported (ROADMAP M17)")
+        raise NotImplementedError("MoE blocks are not ported (ROADMAP M17b)")
+
+
+def check_loss(cfg) -> None:
+    check_family(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the {cfg.family} family's training loss ({cfg.name}) is not "
+            "ported to repro_torch yet (ROADMAP M17b); the port trains the "
+            "dense family")
 
 
 # ----------------------------------------------------------------------
@@ -68,14 +91,16 @@ def _attn_block_init(key, cfg, device):
     }
 
 
-def _attn_block_apply(cfg, p, h, positions, *, window):
-    """The shared block in prefill → (h, its (k, v) for the cache)."""
+def _attn_block_apply(cfg, p, h, positions, *, window, blockwise=False):
+    """One attention+MLP block → (h, its (k, v) for the cache): K4 in
+    serving, ``blockwise_attention`` with ``blockwise=True`` (the
+    training loss)."""
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
     att, kv = attention_forward(
         p["attn"], x, positions=positions, rope_theta=cfg.rope_theta,
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
         head_dim=cfg.head_dim, mask_mode="causal", window=window,
-        return_kv=True)
+        return_kv=True, blockwise=blockwise, kv_block=cfg.kv_block)
     h = h + att
     x = rmsnorm(h, p["ln2"], cfg.norm_eps)
     return h + swiglu(p["mlp"], x), kv
@@ -128,16 +153,18 @@ def _ssm_block_decode(cfg, p, h, cache):
 # ----------------------------------------------------------------------
 
 
-def init_params(cfg, seed: int = 0, *, device) -> ParamTree:
-    """The hybrid's parameters of the JAX package's
-    ``init_params(PRNGKey(seed), cfg)``, drawn on ``device`` by the
-    ``jax.random`` twin along the reference's key tree (on
-    ``device="meta"``: shapes only).  The reference draws the layer stack
-    as one ``vmap`` over per-layer keys; here each layer, and each leaf,
-    is drawn on its own, which gives the same values and bounds the
-    draws' temporaries by the largest leaf."""
+def init_params(cfg, seed: int = 0, *, device) -> dict:
+    """The parameters of the JAX package's ``init_params(PRNGKey(seed),
+    cfg)``, in its layout, drawn on ``device`` by the ``jax.random``
+    twin along the reference's key tree (on ``device="meta"``: shapes
+    only): keys[0] the embedding, keys[1] the head, keys[2] split over
+    the layers as ``stacked_init`` splits it, keys[5] the hybrid's
+    shared block.  The reference draws the layer stack as one ``vmap``
+    over per-layer keys; here each layer is drawn on its own and written
+    into its row of the stacked leaves, which gives the same values and
+    bounds the draws' temporaries by one layer."""
     check_family(cfg)
-    if cfg.num_layers % cfg.attn_every:
+    if cfg.family == "hybrid" and cfg.num_layers % cfg.attn_every:
         raise ValueError(f"{cfg.num_layers} layers do not split into groups "
                          f"of {cfg.attn_every}")
     device = torch.device(device)
@@ -149,19 +176,83 @@ def init_params(cfg, seed: int = 0, *, device) -> ParamTree:
                             device),
         "lm_head": dense_init(keys[1], cfg.d_model, cfg.vocab_padded, dt,
                               device),
-        "shared": _attn_block_init(keys[5], cfg, device),
     }
-    layers = [_ssm_block_init(k, cfg, device)
-              for k in prng.split(keys[2], cfg.num_layers)]
-    return hybrid_params(tree, layers)
+    block = _attn_block_init if cfg.family == "dense" else _ssm_block_init
+    if cfg.family == "hybrid":
+        tree["shared"] = _attn_block_init(keys[5], cfg, device)
+    stacked = None
+    for i, k in enumerate(prng.split(keys[2], cfg.num_layers)):
+        lp = block(k, cfg, device)
+        if stacked is None:
+            stacked = tree_map(
+                lambda x: x.new_empty((cfg.num_layers,) + x.shape), lp)
+        if device.type != "meta":
+            for dst, src in zip(tree_leaves(stacked), tree_leaves(lp),
+                                strict=True):
+                dst[i] = src
+    tree["layers"] = stacked
+    return tree
 
 
-def hybrid_params(tree: dict, layers: list) -> ParamTree:
-    """Top-level tensors (embed, lm_head, final_ln, shared block) and one
-    dict per mamba layer → the port's parameter module."""
-    params = ParamTree(tree)
-    params.layers = nn.ModuleList(ParamTree(lp) for lp in layers)
-    return params
+def _layers(params, n: int) -> list:
+    """The per-layer parameter trees: views of row i of each stacked
+    (L, ...) leaf (one backward node per leaf gathers the layers'
+    gradients)."""
+    split = tree_map(lambda x: x.unbind(0), params["layers"])
+    return [tree_map(lambda parts, i=i: parts[i], split) for i in range(n)]
+
+
+# ----------------------------------------------------------------------
+# training: the dense family's forward and loss
+# ----------------------------------------------------------------------
+
+
+def _stack_attn(cfg, params, h, positions):
+    """The dense stack in training: each block's attention through
+    ``blockwise_attention``; under ``cfg.remat`` each group of
+    ``cfg.remat_group`` layers (1 where it does not divide L) is
+    recomputed in backward."""
+    layers = _layers(params, cfg.num_layers)
+    g = cfg.remat_group if cfg.num_layers % max(cfg.remat_group, 1) == 0 \
+        else 1
+    g = max(g, 1)
+
+    def group(hh, *lps):
+        for lp in lps:
+            hh, _ = _attn_block_apply(cfg, lp, hh, positions,
+                                      window=cfg.sliding_window,
+                                      blockwise=True)
+        return hh
+
+    for i in range(0, cfg.num_layers, g):
+        lps = layers[i:i + g]
+        if cfg.remat:
+            h = checkpoint(group, h, *lps, use_reentrant=False)
+        else:
+            h = group(h, *lps)
+    return h
+
+
+def forward_hidden(cfg, params, batch):
+    """Embed the tokens and run the dense stack → final hidden states
+    (B, S, d) (the reference's ``aux`` is 0 without MoE)."""
+    check_loss(cfg)
+    # ``embedding``: its backward adds the rows in a fixed order, where
+    # indexing's backward (an accumulating ``index_put_``) does not on
+    # the CPU, and a round must repeat bit for bit.
+    h = torch.nn.functional.embedding(batch["tokens"], params["embed"])
+    positions = torch.arange(h.shape[1], device=h.device)
+    return _stack_attn(cfg, params, h, positions)
+
+
+def loss_fn(cfg, params, batch):
+    """Next-token cross-entropy of the dense family: ``batch`` holds
+    ``tokens`` and ``labels`` (B, S); the head's padded vocabulary
+    columns are masked, the sequence chunked by ``cfg.loss_chunk``."""
+    h = forward_hidden(cfg, params, batch)
+    h = rmsnorm(h, params["final_ln"], cfg.norm_eps)
+    return chunked_lm_loss(h, params["lm_head"], batch["labels"],
+                           cfg.loss_chunk, valid_vocab=cfg.vocab_size)
 
 
 # ----------------------------------------------------------------------
@@ -172,18 +263,22 @@ def hybrid_params(tree: dict, layers: list) -> ParamTree:
 def init_cache(cfg, batch_size, max_seq, dtype=None, *, device):
     check_family(cfg)
     dtype = dtype or cfg.param_dtype
-    ng = cfg.num_layers // cfg.attn_every
-    one = ssm_cache_init(batch_size, cfg.d_model, dtype=dtype, device=device,
-                         **_ssm_kw(cfg))
     s = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
-    kv = (ng, batch_size, s, cfg.num_kv_heads, cfg.head_dim)
-    return {
-        "layers": {k: torch.zeros((cfg.num_layers,) + x.shape, dtype=x.dtype,
-                                  device=device) for k, x in one.items()},
+    n_kv = (cfg.num_layers if cfg.family == "dense"
+            else cfg.num_layers // cfg.attn_every)
+    kv = (n_kv, batch_size, s, cfg.num_kv_heads, cfg.head_dim)
+    cache = {
         "k": torch.zeros(kv, dtype=dtype, device=device),
         "v": torch.zeros(kv, dtype=dtype, device=device),
         "pos": 0,
     }
+    if cfg.family == "hybrid":
+        one = ssm_cache_init(batch_size, cfg.d_model, dtype=dtype,
+                             device=device, **_ssm_kw(cfg))
+        cache["layers"] = {
+            k: torch.zeros((cfg.num_layers,) + x.shape, dtype=x.dtype,
+                           device=device) for k, x in one.items()}
+    return cache
 
 
 def _groups(cfg):
@@ -201,20 +296,32 @@ def prefill(cfg, params, batch, max_seq=None):
     max_seq = max_seq or s
     h = params["embed"][tokens]
     positions = torch.arange(s, device=h.device)
-    ssm_states, conv_tails, ks, vs = [], [], [], []
-    for group in _groups(cfg):
-        for i in group:
-            h, st, tail = _ssm_block_apply(cfg, params.layers[i], h)
-            ssm_states.append(st)
-            conv_tails.append(tail)
-        h, (k, v) = _attn_block_apply(cfg, params["shared"], h, positions,
-                                      window=cfg.sliding_window)
-        ks.append(k)
-        vs.append(v)
-    kvc = _fit_kv_cache(cfg, torch.stack(ks), torch.stack(vs), max_seq, s)
-    cache = {"layers": {"ssm": torch.stack(ssm_states),
-                        "conv": torch.stack(conv_tails)},
-             "k": kvc["k"], "v": kvc["v"], "pos": s}
+    layers = _layers(params, cfg.num_layers)
+    ks, vs = [], []
+    if cfg.family == "dense":
+        for lp in layers:
+            h, (k, v) = _attn_block_apply(cfg, lp, h, positions,
+                                          window=cfg.sliding_window)
+            ks.append(k)
+            vs.append(v)
+        cache = _fit_kv_cache(cfg, torch.stack(ks), torch.stack(vs),
+                              max_seq, s)
+    else:
+        ssm_states, conv_tails = [], []
+        for group in _groups(cfg):
+            for i in group:
+                h, st, tail = _ssm_block_apply(cfg, layers[i], h)
+                ssm_states.append(st)
+                conv_tails.append(tail)
+            h, (k, v) = _attn_block_apply(cfg, params["shared"], h,
+                                          positions,
+                                          window=cfg.sliding_window)
+            ks.append(k)
+            vs.append(v)
+        cache = _fit_kv_cache(cfg, torch.stack(ks), torch.stack(vs),
+                              max_seq, s)
+        cache["layers"] = {"ssm": torch.stack(ssm_states),
+                           "conv": torch.stack(conv_tails)}
     h = rmsnorm(h[:, -1:], params["final_ln"], cfg.norm_eps)
     logits = (h @ params["lm_head"]).to(torch.float32)
     return logits[..., :cfg.vocab_size], cache
@@ -231,7 +338,8 @@ def _conv_tail(cfg, lp, x):
 
 
 def _fit_kv_cache(cfg, ks, vs, max_seq, s):
-    """Pad/crop prefill KV (G, B, S, Kv, hd) into the serving cache."""
+    """Pad/crop prefill KV (L or G, B, S, Kv, hd) into the serving
+    cache."""
     window = cfg.sliding_window
     size = min(max_seq, window) if window else max_seq
     if window and s > size:
@@ -253,17 +361,24 @@ def decode_step(cfg, params, token, cache):
     check_family(cfg)
     h = params["embed"][token]
     pos = cache["pos"]
-    lc = cache["layers"]
-    for gi, group in enumerate(_groups(cfg)):
-        for i in group:
-            h, new = _ssm_block_decode(
-                cfg, params.layers[i], h,
-                {"conv": lc["conv"][i], "ssm": lc["ssm"][i]})
-            lc["conv"][i] = new["conv"]
-            lc["ssm"][i] = new["ssm"]
-        h, _ = _attn_block_decode(cfg, params["shared"], h,
-                                  (cache["k"][gi], cache["v"][gi]), pos,
-                                  window=cfg.sliding_window)
+    layers = _layers(params, cfg.num_layers)
+    if cfg.family == "dense":
+        for i, lp in enumerate(layers):
+            h, _ = _attn_block_decode(cfg, lp, h,
+                                      (cache["k"][i], cache["v"][i]), pos,
+                                      window=cfg.sliding_window)
+    else:
+        lc = cache["layers"]
+        for gi, group in enumerate(_groups(cfg)):
+            for i in group:
+                h, new = _ssm_block_decode(
+                    cfg, layers[i], h,
+                    {"conv": lc["conv"][i], "ssm": lc["ssm"][i]})
+                lc["conv"][i] = new["conv"]
+                lc["ssm"][i] = new["ssm"]
+            h, _ = _attn_block_decode(cfg, params["shared"], h,
+                                      (cache["k"][gi], cache["v"][gi]), pos,
+                                      window=cfg.sliding_window)
     cache["pos"] = pos + 1
     h = rmsnorm(h, params["final_ln"], cfg.norm_eps)
     logits = (h @ params["lm_head"]).to(torch.float32)

@@ -156,6 +156,18 @@ def replicate_data(mesh: ClientMesh, data) -> tuple:
     return copies
 
 
+def shard_targets(target_rate, mesh) -> tuple:
+    """The controller's L̄ for each shard of ``mesh``: an (N,) per-client
+    target cut into the shards' rows, as the reference's controller
+    reads the rows of its sharded state; a 0-d one copied to each
+    shard's device; a Python scalar as it is."""
+    if not isinstance(target_rate, torch.Tensor):
+        return (target_rate,) * mesh.size
+    if target_rate.dim():
+        return shard_rows(target_rate, mesh)
+    return replicate_data(mesh, target_rate)
+
+
 def balanced_permutation(sizes, n_shards: int) -> np.ndarray:
     """Client order that balances total data *rows* across mesh shards.
 

@@ -535,15 +535,19 @@ def run_mesh_reference(tmp_path, cases, base, rounds):
         return pickle.load(f)
 
 
-def check_sharded_case(p, kw, steps, base):
+def check_sharded_case(p, kw, steps, base, ctrl=None):
     """Step the port's sharded round from each of the reference's states
     and compare: events, ``committed`` and the counts equal; the queue,
     delays, countdowns and ring equal; the loads within one ulp and δ
     within one ulp of its operands (D1); the state and parked payloads
-    at rtol 1e-4 / atol 1e-6, ω at rtol 1e-6 / atol 1e-7.  Returns the
-    landed, in-flight and event totals."""
-    cfg = FLConfig(controller=ControllerConfig(**MESH_CTRL), **dict(base,
-                                                                    **kw))
+    at rtol 1e-4 / atol 1e-6, ω at rtol 1e-6 / atol 1e-7.  ``ctrl``
+    (default ``MESH_CTRL``) may give a per-client ``target_rate`` as a
+    list.  Returns the landed, in-flight and event totals."""
+    ctrl = dict(ctrl or MESH_CTRL)
+    if isinstance(ctrl.get("target_rate"), list):
+        ctrl["target_rate"] = torch.tensor(ctrl["target_rate"],
+                                           dtype=torch.float32)
+    cfg = FLConfig(controller=ControllerConfig(**ctrl), **dict(base, **kw))
     data, params, loss = make_least_squares(N_MESH, 8, 5, device="cpu")
     spec = make_flat_spec(params)
     mesh = make_client_mesh(p, ["cpu"])

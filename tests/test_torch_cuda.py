@@ -234,7 +234,8 @@ def test_flash_attention_kernel_model_layout(dev):
 @pytest.mark.parametrize("b,h,kvh,s,window,causal,layout", [
     (2, 4, 4, 1000, 0, True, "bshd"), (2, 8, 2, 300, 100, True, "bhsd"),
     (1, 4, 1, 2000, 0, True, "bshd"), (1, 2, 2, 64, 0, True, "bhsd"),
-    (1, 2, 1, 129, 16, True, "bshd"), (1, 4, 2, 200, 50, False, "bhsd")])
+    (1, 2, 1, 129, 16, True, "bshd"), (1, 4, 2, 200, 50, False, "bhsd"),
+    (4, 32, 8, 2048, 0, True, "bshd")])  # granite-3-2b's GQA 32:8
 def test_flash_attention_bf16_tensor_core_kernel(dev, hd, b, h, kvh, s,
                                                  window, causal, layout):
     rng = np.random.default_rng(s + hd)
@@ -932,3 +933,111 @@ def test_checker_catches_a_sync_on_the_card(dev):
     assert sorted(r for r, v in res.items() if v.status == "fail") == \
         ["host-transfer-budget"]
     assert res["host-transfer-budget"].metrics["cuda_syncs"] == 1
+
+
+def _granite(**kw):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("granite-3-2b").reduced(), **kw)
+
+
+def test_dense_prefill_matches_the_cpu(dev):
+    """The dense family's prefill and decode on the card (K4's 3xTF32
+    instance, once a layer) against the CPU's plain path on the same
+    weights: GQA 4:1 at head_dim 64, fp32, logits at rtol/atol 1e-3."""
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _granite(num_heads=8, num_kv_heads=2, head_dim=64)
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    params_cpu = tree_map(lambda x: x.cpu(), params)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 200)))
+    ops.reset_launch_counts()
+    got, cache = model.prefill(params, {"tokens": tokens.to(dev)}, 208)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.instance_launches["tf32x3"] == cfg.num_layers
+    want, cache_cpu = model.prefill(params_cpu, {"tokens": tokens}, 208)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+    tok = want[:, -1].argmax(-1)[:, None]
+    got, _ = model.decode_step(params, tok.to(dev), cache)
+    want, _ = model.decode_step(params_cpu, tok, cache_cpu)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+def test_crosspod_round_matches_the_cpu(dev):
+    """Two cross-pod rounds of the reduced granite on the card against
+    the same rounds on the CPU from the card's state: events equal, the
+    state at the solve grade (rtol 1e-4 / atol 1e-6)."""
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.core.crosspod import CrossPodConfig, \
+        init_cross_pod_state, make_cross_pod_round
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _granite()
+    model = build_model(cfg)
+    cp = CrossPodConfig(n_pods=2, rho=1e-3, lr=5e-3, local_steps=2,
+                        controller=ControllerConfig(K=0.05, alpha=0.9,
+                                                    target_rate=0.5))
+    round_fn = make_cross_pod_round(cp, model.loss)
+    state = init_cross_pod_state(
+        cp, model.init(0, device=dev), device=dev)
+    rng = np.random.default_rng(0)
+    for _ in range(2):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (2, 2, 8, 33)))
+        batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+        before = state._replace(**{
+            f: tree_map(lambda x: x.cpu(), getattr(state, f))
+            for f in ("theta", "lam", "z_prev")},
+            ctrl=type(state.ctrl)(*(x.cpu() for x in state.ctrl)),
+            rng=state.rng.cpu(), round=state.round.cpu())
+        state, m = round_fn(state, batch)
+        want, wm = round_fn(before, batch)
+        assert torch.equal(m.events.cpu(), wm.events)
+        for f in ("theta", "lam", "z_prev"):
+            for g, w in zip(tree_leaves(getattr(state, f)),
+                            tree_leaves(getattr(want, f)), strict=True):
+                torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(m.train_loss.cpu(), wm.train_loss,
+                                   rtol=1e-5, atol=0)
+
+
+def test_adam_sqrt_is_correctly_rounded_on_the_card(dev):
+    """AdamW takes its fp32 square root directly on the card, where the
+    CPU takes it in float64 (``optim/adam.py::_sqrt``): torch's CUDA
+    ``sqrt`` equals the correctly rounded root bit for bit on 2²² fp32
+    values drawn over every finite positive bit pattern, and three
+    AdamW steps on the card give the CPU's moments bit for bit and its
+    weights at rtol 1e-6 (``pow`` in the bias correction may differ by
+    an ulp between the two)."""
+    from repro_torch.optim.adam import adam_init, adam_step
+    from repro_torch.utils.pytree import tree_map
+
+    rng = np.random.default_rng(0)
+    bits = rng.integers(1, 0x7F800000, 1 << 22, dtype=np.uint32)
+    x = torch.from_numpy(bits.view(np.float32))
+    want = torch.sqrt(x.to(torch.float64)).to(torch.float32)
+    assert torch.equal(torch.sqrt(x.to(dev)).cpu(), want)
+    params = {"w": _mk(rng, 257, 129), "b": _mk(rng, 129)}
+    on = {"cpu": (params, adam_init(params)),
+          "card": (tree_map(lambda t: t.to(dev), params),
+                   adam_init(tree_map(lambda t: t.to(dev), params)))}
+    for _ in range(3):
+        grads = {"w": _mk(rng, 257, 129), "b": _mk(rng, 129)}
+        for k, (p, opt) in on.items():
+            g = grads if k == "cpu" else tree_map(lambda t: t.to(dev), grads)
+            on[k] = adam_step(p, g, opt, 1e-3, weight_decay=0.1)
+    (p_cpu, o_cpu), (p_card, o_card) = on["cpu"], on["card"]
+    for f in ("mu", "nu"):
+        for k in ("w", "b"):
+            assert torch.equal(getattr(o_card, f)[k].cpu(),
+                               getattr(o_cpu, f)[k]), (f, k)
+    for k in ("w", "b"):
+        torch.testing.assert_close(p_card[k].cpu(), p_cpu[k], rtol=1e-6,
+                                   atol=0)

@@ -149,24 +149,17 @@ def test_init_draws_the_jax_packages_shapes_and_scales():
         jax.random.PRNGKey(0))
     jflat = {"/".join(str(getattr(k, "key", k)) for k in path): leaf
              for path, leaf in jax.tree_util.tree_flatten_with_path(jtree)[0]}
-    got = dict(params.named_parameters())
-    assert len(got) == sum(1 for k in jflat if not k.startswith("layers")) \
-        + cfg.num_layers * sum(1 for k in jflat if k.startswith("layers"))
+    got = _flat_paths(params)
+    assert set(got) == set(jflat)
     for key, leaf in jflat.items():
-        if key.startswith("layers/"):
-            t = got["layers.0." + key[len("layers/"):].replace("/", ".")]
-            shape = leaf.shape[1:]
-        else:
-            t = got[key.replace("/", ".")]
-            shape = leaf.shape
-        assert tuple(t.shape) == tuple(shape), key
+        t = got[key]
+        assert tuple(t.shape) == tuple(leaf.shape), key
         assert str(t.dtype).split(".")[-1] == str(leaf.dtype), key
-        want = np.asarray(leaf)[0] if key.startswith("layers/") else leaf
-        assert _ulps(_np(t), want) <= (1 if key.endswith(
+        assert _ulps(_np(t), leaf) <= (1 if key.endswith(
             ("A_log", "dt_bias")) else 4), key
     # the deterministic SSM parameters (see test_ssm_fixed_params)
     for name in ("A_log", "D", "dt_bias"):
-        assert _ulps(_np(params.layers[1]["ssm"][name]),
+        assert _ulps(_np(params["layers"]["ssm"][name][1]),
                      jtree["layers"]["ssm"][name][1]) <= 1, name
 
 
@@ -187,6 +180,12 @@ def _ssm_params(d_model=64, seed=0):
     p["norm_g"] = 1 + rng.normal(size=p["norm_g"].shape).astype(
         np.float32) * .1
     return p
+
+
+def _flat_paths(tree):
+    """A nested dict → {"a/b/c": leaf}, the JAX tree's paths."""
+    return {"/".join(str(getattr(k, "key", k)) for k in path): leaf
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
 def _ulps(a, b):
@@ -367,9 +366,9 @@ def _cache_close(got, want):
 
 def test_converted_params_mirror_the_jax_tree(slice_setup):
     params, jparams = slice_setup["params"], slice_setup["jparams"]
-    assert len(params.layers) == 4
+    assert params["layers"]["ssm"]["in_proj"].shape[0] == 4
     np.testing.assert_array_equal(
-        _np(params.layers[2]["ssm"]["in_proj"]),
+        _np(params["layers"]["ssm"]["in_proj"][2]),
         np.asarray(jparams["layers"]["ssm"]["in_proj"][2]))
     np.testing.assert_array_equal(_np(params["shared"]["attn"]["wq"]),
                                   np.asarray(jparams["shared"]["attn"]["wq"]))
@@ -445,15 +444,14 @@ def test_greedy_generation_matches_jax(slice_setup):
 
 def test_other_families_raise():
     from repro_torch.configs.model_config import ModelConfig
-    with pytest.raises(NotImplementedError, match="M17"):
-        get_config("granite-3-2b")
+    assert get_config("granite-3-2b").family == "dense"
     with pytest.raises(NotImplementedError, match="M17"):
         get_config("mamba2-2.7b")
-    dense = ModelConfig(name="d", family="dense", num_layers=2, d_model=8,
-                        num_heads=2, num_kv_heads=2, head_dim=4, d_ff=16,
-                        vocab_size=32)
+    moe = ModelConfig(name="m", family="moe", num_layers=2, d_model=8,
+                      num_heads=2, num_kv_heads=2, head_dim=4, d_ff=16,
+                      vocab_size=32, num_experts=4, top_k=2)
     with pytest.raises(NotImplementedError, match="M17"):
-        build_model(dense)
+        build_model(moe)
     with pytest.raises(KeyError):
         get_config("no-such-model")
 

@@ -340,10 +340,13 @@ def test_mesh_refusals():
     with pytest.raises(ValueError, match="single-host"):
         make_round_fn(FLConfig(n_clients=N, state_backend="host"), loss,
                       data, mesh=mesh)
+    # A per-client target is no longer refused: each shard takes its
+    # rows (tests/test_torch_mesh_targets.py holds it against JAX).
     per_client = FLConfig(n_clients=N, controller=ControllerConfig(
         target_rate=torch.full((N,), 0.2)))
-    with pytest.raises(NotImplementedError, match="per-client"):
-        init_state(per_client, params, mesh=mesh)
+    shards = init_state(per_client, params, mesh=mesh)
+    _, m = make_round_fn(per_client, loss, data, mesh=mesh)(shards)
+    assert tuple(m.delta.shape) == (N,)
 
 
 def test_eval_fn_reads_a_shard_list_and_any_state_with_omega():

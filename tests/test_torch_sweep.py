@@ -184,9 +184,7 @@ def test_sweep_is_bit_equal_to_the_runs_alone(setting):
             [data["y"][i][:s] for i, s in enumerate(sizes)], device="cpu")
     where = ({"mesh": make_client_mesh(2, ["cpu"])} if layout == "mesh"
              else {"device": "cpu"})
-    # A client mesh refuses a tensor target (ROADMAP M14b): its runs
-    # alone take the config's L̄.
-    rates = (0.5,) if layout == "mesh" else (0.5, 0.25)
+    rates = (0.5, 0.25)
     cfg, rounds = _cfg(**kw), 5
     runs, final, hist = sweep.run_sweep(
         cfg, loss, data, params0, rounds=rounds, seeds=(0, 3),
