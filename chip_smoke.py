@@ -7,8 +7,11 @@ FL serving over arrival traces with stale-tolerant rounds (slice 10),
 compressed consensus with checkpoints (slice 11), ragged clients on
 one pooled buffer (slice 12), seed × gain sweeps with the
 host-offloaded client state (slice 13), the static-invariant checker
-(slice 14), and granite-3-2b: the dense family, its training loss, the
-cross-pod FedBack engine and dense serving (slice 15).
+(slice 14), granite-3-2b: the dense family, its training loss, the
+cross-pod FedBack engine and dense serving (slice 15), and the
+SSM-bearing families: zamba2-2.7b's training loss through the cross-pod
+engine, mamba2-2.7b served and trained, phi3-medium-14b served (slice
+16).
 
     python3 chip_smoke.py
 
@@ -261,13 +264,36 @@ non-zero):
    bf16 through ``serve`` as in phase 7, 40 K4 launches a prefill
    (GQA 32:8 at head_dim 64), none in decode, prefill against decode
    within 8% of the largest logit;
-8. print the serve line, the kernels line (K4's bf16 instance as
-   ``flash_attention``, launched in phase 7, and at granite's GQA shape
-   as ``flash_attention_gqa``, launched in phase 7c — phase 3 holds that
-   shape, (4, 2048, 32:8, 64), against the plain version at 2e-2 and
-   times it beside ``scaled_dot_product_attention`` —, and its 3xTF32
-   instance as ``flash_attention_fp32``, launched in phases 6 and 7c;
-   K1–K3's launches are
+8a. zamba2-2.7b at every published width cut to one group (6 mamba
+   layers and the shared block), fp32: two cross-pod rounds on the
+   card at 7a's settings, each held against the same round on the CPU
+   as in 7a (the hybrid stack's gradient on the card: the SSD's scan
+   through ``ssd_scan_ref``, no kernel launched);
+8b. zamba2-2.7b at full size, bf16, both pods on the card: 2 rounds of
+   2 local steps of 4 × 512 tokens, the second profiled, checked and
+   printed as 7b (peak memory beside the card's, ms for rounds that
+   fire both pods and none);
+8c. mamba2-2.7b: a 2-layer fp32 slice against the CPU as in phase 6 (2
+   K5 launches in its prefill), then full size in bf16 through
+   ``serve`` as in phase 7, 64 K5 launches a prefill at states (4, 32,
+   80, 64, 128), none in decode;
+8d. mamba2-2.7b cut to 2 layers, fp32: the training loss and its
+   gradients on 2 × 64 tokens, card against CPU at the solve grade, then
+   one cross-pod round held against the CPU as in 7a;
+8e. phi3-medium-14b at full size, bf16 (its init drawn on the card,
+   timed): 4 × 2048 prompt tokens, 4 new, 40 K4 launches a prefill at
+   (4, 2048, 40:10, 128), none in decode, prefill against decode as in
+   phase 7; each of 7a–8e prints its seconds;
+9. print the serve line, the kernels line (K4's bf16 instance as
+   ``flash_attention``, launched in phase 7, at granite's GQA shape
+   as ``flash_attention_gqa``, launched in phase 7c, and at phi3's as
+   ``flash_attention_phi3``, launched in phase 8e — phase 3 holds both
+   shapes, (4, 2048, 32:8, 64) and (4, 2048, 40:10, 128), against the
+   plain version at 2e-2 and times them beside
+   ``scaled_dot_product_attention`` —, its 3xTF32 instance as
+   ``flash_attention_fp32``, launched in phases 6 and 7c, and K5 at
+   mamba2's shape as ``ssd_scan_mamba2``, launched in phase 8c and held
+   bit for bit by phase 3; K1–K3's launches are
    those of phases 4–5k (5k: its paper-width forms), K1c's those of
    5c–5e, K1b's those of 5e–5h, K2b's those of 5e), the card line and,
    last, the ok
@@ -891,6 +917,33 @@ def check_model_kernels(dev, ops):
         nbytes=ops.flash_attention_hbm_bytes(b, gh, gkv, s, ghd, 2),
         nflop=ops.flash_attention_flops(b, gh, s, ghd), peak_flops=peak)
     del gq, gk, gv, gqt, gkt, gvt, got, want
+    # K4 at phi3-medium-14b's prefill shape: GQA 40:10 at head_dim 128,
+    # bf16, the (B, S, H, hd) layout (phase 8e's 40 launches a prefill).
+    ph, pkv, phd = 40, 10, 128
+    pq = randn(b, s, ph, phd, dtype=torch.bfloat16)
+    pk, pv = (randn(b, s, pkv, phd, dtype=torch.bfloat16) for _ in range(2))
+    got = ops.flash_attention(pq, pk, pv, layout="bshd")
+    want = ops.flash_attention_ref(pq, pk, pv, layout="bshd")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    err_phi3 = float((got.float() - want.float()).abs().max())
+    log(f"flash_attention bf16 ({b}, {s}, {ph}:{pkv}, {phd}) GQA causal, "
+        f"(B, S, H, hd): max_abs_err {err_phi3:.3e} (rtol/atol 2e-2 held)")
+    pqt, pkt, pvt = (t.transpose(1, 2).contiguous() for t in (pq, pk, pv))
+    rows["flash_attention_phi3"] = dict(
+        replaces="src/repro/kernels/flash_attention.py:112",
+        source=MODEL_SRC, max_abs_err=err_phi3,
+        ms=device_ms(lambda: ops.flash_attention(pq, pk, pv, layout="bshd")),
+        plain_ms=device_ms(lambda: ops.flash_attention_ref(
+            pq, pk, pv, layout="bshd"), calls=PLAIN_CALLS),
+        library_ms=device_ms(lambda: torch.nn.functional.
+                             scaled_dot_product_attention(
+                                 pqt, pkt, pvt, is_causal=True,
+                                 enable_gqa=True)),
+        nbytes=ops.flash_attention_hbm_bytes(b, ph, pkv, s, phd, 2),
+        nflop=ops.flash_attention_flops(b, ph, s, phd), peak_flops=peak)
+    del pq, pk, pv, pqt, pkt, pvt, got, want
     off = [randn(b * s * h * hd + 1)[1:].view(b, s, h, hd) for _ in range(3)]
     for t, src in zip(off, (q, k, v), strict=True):
         t.copy_(src)
@@ -926,6 +979,24 @@ def check_model_kernels(dev, ops):
         # No single PyTorch call computes an exclusive linear recurrence
         # with a per-step decay (cumsum/cumprod do not), so there is no
         # library yardstick.
+        library_ms=None, nbytes=ops.ssd_scan_hbm_bytes(*shape),
+        nflop=2 * math.prod(shape), peak_flops=PEAK_FP32_FLOPS)
+    # K5 at mamba2-2.7b's prefill shape: ssm_state 128, a plane twice
+    # zamba2's (phase 8c's 64 launches a prefill), bit-exact.
+    shape = (SERVE_BATCH, SERVE_PROMPT // 64, 80, 64, 128)
+    st = randn(*shape, dtype=torch.bfloat16)
+    dec = torch.rand(shape[:3], generator=gen, device=dev)
+    got, want = ops.ssd_scan(st, dec), ops.ssd_scan_ref(st, dec)
+    for g, w in zip(got, want, strict=True):
+        if not torch.equal(g, w):
+            raise AssertionError(f"ssd_scan bf16 {shape} is not bit-exact")
+    log(f"ssd_scan: bit-exact, bf16 states at {shape} (mamba2-2.7b)")
+    del got, want
+    rows["ssd_scan_mamba2"] = dict(
+        replaces="src/repro/kernels/ssd_scan.py:55", source=MODEL_SRC,
+        max_abs_err=0.0, ms=device_ms(lambda: ops.ssd_scan(st, dec)),
+        plain_ms=device_ms(lambda: ops.ssd_scan_ref(st, dec),
+                           calls=PLAIN_CALLS),
         library_ms=None, nbytes=ops.ssd_scan_hbm_bytes(*shape),
         nflop=2 * math.prod(shape), peak_flops=PEAK_FP32_FLOPS)
 
@@ -1001,17 +1072,25 @@ def kernel_facts(build):
             raise AssertionError(f"{label}: no HGMMA instruction in the SASS")
 
 
-def path_counts(ops, bf16_row="flash_attention"):
+# Rows of the kernels line that hold one kernel at one model's shape.
+SHAPE_ROWS = ("flash_attention", "flash_attention_gqa",
+              "flash_attention_phi3", "ssd_scan", "ssd_scan_mamba2")
+
+
+def path_counts(ops, bf16_row="flash_attention", ssd_row="ssd_scan"):
     """The launch counts of a phase by row of the kernels line: K4's
     bf16 (tensor-core) instance as ``bf16_row`` (``flash_attention``,
-    zamba2's shape, or ``flash_attention_gqa``, granite's), its 3xTF32
-    one as ``flash_attention_fp32`` (the SIMT instance is on no
-    path)."""
+    zamba2's shape, ``flash_attention_gqa``, granite's, or
+    ``flash_attention_phi3``), its 3xTF32 one as
+    ``flash_attention_fp32`` (the SIMT instance is on no path), K5 as
+    ``ssd_row`` (``ssd_scan``, zamba2's shape, or ``ssd_scan_mamba2``)."""
     counts = ops.launch_counts()
     by = ops.flash_attention.instance_launches
-    counts["flash_attention"] = counts["flash_attention_gqa"] = 0
+    ssd = counts["ssd_scan"]
+    counts.update(dict.fromkeys(SHAPE_ROWS, 0))
     counts[bf16_row] = by["bf16_tc"]
     counts["flash_attention_fp32"] = by["tf32x3"]
+    counts[ssd_row] = ssd
     return counts
 
 
@@ -1028,8 +1107,8 @@ def _greedy(model, params, tokens, steps):
     return out_logits, torch.cat(out_tok, 1)
 
 
-def check_slice_against_cpu(dev, ops, cfg, expect):
-    """Phases 6 and 7c: one full-width group in fp32, card (kernels)
+def check_slice_against_cpu(dev, ops, cfg, expect, ssd_row="ssd_scan"):
+    """Phases 6, 7c and 8c: one full-width group in fp32, card (kernels)
     against the CPU's plain path on the same weights; ``expect`` the
     launches of the prefill by row of the kernels line."""
     from repro_torch.launch.serve_lm import make_prompts
@@ -1043,7 +1122,7 @@ def check_slice_against_cpu(dev, ops, cfg, expect):
     ops.reset_launch_counts()
     got_logits, got_tok = _greedy(model, params, tokens, SLICE_DECODE)
     torch.cuda.synchronize()
-    counts = path_counts(ops)
+    counts = path_counts(ops, ssd_row=ssd_row)
     want_logits, want_tok = _greedy(model, params_cpu, tokens.cpu(),
                                     SLICE_DECODE)
     if any(counts[k] != n for k, n in expect.items()):
@@ -1063,10 +1142,11 @@ def check_slice_against_cpu(dev, ops, cfg, expect):
     return dict(max_abs_err=err, tokens=got_tok.cpu().tolist()[0]), counts
 
 
-def serve_full(dev, ops, smi, cfg, expect, bf16_row="flash_attention"):
-    """Phases 7 and 7c: a model at full width and depth, bf16, 4
-    requests × 2048 prompt tokens, 32 new; ``expect`` the prefill's
-    launches by kernel (none in decode)."""
+def serve_full(dev, ops, smi, cfg, expect, bf16_row="flash_attention",
+               ssd_row="ssd_scan", new_tokens=SERVE_NEW):
+    """Phases 7, 7c, 8c and 8e: a model at full width and depth, bf16, 4
+    requests × 2048 prompt tokens, ``new_tokens`` new; ``expect`` the
+    prefill's launches by kernel (none in decode)."""
     from repro_torch.launch.serve_lm import make_prompts, serve
     from repro_torch.models import build_model
     from repro_torch.utils.pytree import tree_leaves
@@ -1081,10 +1161,10 @@ def serve_full(dev, ops, smi, cfg, expect, bf16_row="flash_attention"):
         f"{init_s:.2f} s")
     ops.reset_launch_counts()
     report = serve(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
-                   new_tokens=SERVE_NEW, seed=SEED, device=dev,
+                   new_tokens=new_tokens, seed=SEED, device=dev,
                    params=params)
     torch.cuda.synchronize()
-    counts = path_counts(ops, bf16_row)
+    counts = path_counts(ops, bf16_row, ssd_row)
     per = report["launches"]
     for phase, want in (("prefill", expect),
                         ("decode", dict.fromkeys(expect, 0))):
@@ -1094,7 +1174,7 @@ def serve_full(dev, ops, smi, cfg, expect, bf16_row="flash_attention"):
                                      f"{per[phase][kname]} times, expected "
                                      f"{n}")
     tokens = np.asarray(report.pop("tokens"))
-    if tokens.shape != (SERVE_BATCH, SERVE_NEW) or tokens.min() < 0 or \
+    if tokens.shape != (SERVE_BATCH, new_tokens) or tokens.min() < 0 or \
             tokens.max() >= cfg.vocab_size:
         raise AssertionError(f"serve returned tokens of shape "
                              f"{tokens.shape} in [{tokens.min()}, "
@@ -2939,32 +3019,43 @@ def check_conv_precision(ctx):
 # round of ``core/crosspod.py`` (the reference's test and example
 # settings: K 0.05, α 0.9, L̄ 0.5, ρ 1e-3, lr 5e-3, 2 local steps, P = 2)
 # runs no hand-written kernel (its distances stay plain, its attention
-# is the differentiable blockwise path); the dense prefill launches K4
-# once a layer.
+# is the differentiable blockwise path, its SSD scan ``ssd_scan_ref``);
+# the dense prefill launches K4 once a layer.
 GRANITE = "granite-3-2b"
-GRANITE_CP = dict(n_pods=2, rho=1e-3, lr=5e-3, local_steps=2)
-GRANITE_CTRL = dict(K=0.05, alpha=0.9, target_rate=0.5)
+CROSSPOD_CP = dict(n_pods=2, rho=1e-3, lr=5e-3, local_steps=2)
+CROSSPOD_CTRL = dict(K=0.05, alpha=0.9, target_rate=0.5)
 GRANITE_A = dict(layers=2, batch=2, seq=64, rounds=2)  # (a), fp32
 # (b), bf16, full size; one round (the second) under torch.profiler
 GRANITE_B = dict(batch=4, seq=512, rounds=5, profiled=1)
+# Phases 8a–8e (slice 16): the SSM-bearing families and phi3.  (a) zamba2
+# cut to one group (6 mamba layers and the shared block), fp32, against
+# the CPU; (b) zamba2 at full size, bf16; (d) mamba2 cut to 2 layers,
+# fp32, against the CPU; (e) phi3's new tokens.  8a–8e took 238.5 s on
+# an H100 with 3 rounds in (a) and (b) and 8 new tokens in (e): each is
+# cut to keep the script near half its time limit.
+ZAMBA, MAMBA, PHI3 = "zamba2-2.7b", "mamba2-2.7b", "phi3-medium-14b"
+ZAMBA_A = dict(layers=6, batch=2, seq=64, rounds=2)
+ZAMBA_B = dict(batch=4, seq=512, rounds=2, profiled=1)
+MAMBA_D = dict(layers=2, batch=2, seq=64, rounds=1)
+PHI3_NEW = 4
 # The solve grade (ROADMAP): two SGD steps from the same state, cuBLAS
-# in fp32 against the CPU's matmuls.
+# in fp32 against the CPU's matmuls.  Gradients are held to it too.
 SOLVE_TOL = dict(rtol=1e-4, atol=1e-6)
 
 
-def _granite_round(cfg):
+def _crosspod_round(cfg):
     from repro_torch.core.controller import ControllerConfig
     from repro_torch.core.crosspod import CrossPodConfig, \
         make_cross_pod_round
     from repro_torch.models import build_model
 
-    cp = CrossPodConfig(controller=ControllerConfig(**GRANITE_CTRL),
-                        **GRANITE_CP)
+    cp = CrossPodConfig(controller=ControllerConfig(**CROSSPOD_CTRL),
+                        **CROSSPOD_CP)
     model = build_model(cfg)
     return cp, model, make_cross_pod_round(cp, model.loss)
 
 
-def _granite_batches(cfg, cp, batch, seq):
+def _crosspod_batches(cfg, cp, batch, seq):
     """Next-token batches (pods, local_steps, batch, seq), made with
     numpy from the seed as the reference's launcher makes them."""
     rng = np.random.default_rng(SEED)
@@ -2989,27 +3080,39 @@ def _cross_pod_to(state, device):
                           rng=move(state.rng), round=move(state.round))
 
 
-def check_granite_crosspod_against_cpu(dev, ops):
-    """Phase 7a: granite at 2 layers and every published width, fp32,
-    two cross-pod rounds on the card, each held against the same round
-    on the CPU from the card's state before it: events equal, δ within
-    one ulp, distances at rtol 1e-5, θ/λ/z_prev at the solve grade,
-    ``train_loss`` at rtol 1e-5.  No kernel launches."""
-    from repro_torch.configs import get_config
+def _held_on_card(dev, got, want, label, what):
+    """Each leaf of ``got`` (on the card) within the solve grade of the
+    CPU's ``want``, compared on the card; returns the largest |Δ|."""
+    gap = 0.0
+    for g, w in zip(got, want, strict=True):
+        w = w.to(dev)
+        diff = (g - w).abs()
+        if bool((diff > SOLVE_TOL["atol"]
+                 + SOLVE_TOL["rtol"] * w.abs()).any()):
+            raise AssertionError(
+                f"{label}: {what} off rtol 1e-4 / atol 1e-6 of the CPU's, "
+                f"max |Δ| {float(diff.max()):.3e}")
+        gap = max(gap, float(diff.max()))
+        del w, diff
+    return gap
+
+
+def check_crosspod_against_cpu(dev, ops, cfg, spec, label):
+    """Phases 7a, 8a and 8d: ``spec["rounds"]`` cross-pod rounds of
+    ``cfg`` (fp32, cut in depth) on the card, each held against the same
+    round on the CPU from the card's state before it: events equal, δ
+    within one ulp, distances at rtol 1e-5, θ/λ/z_prev at the solve
+    grade, ``train_loss`` at rtol 1e-5.  No kernel launches."""
     from repro_torch.core.crosspod import init_cross_pod_state
     from repro_torch.utils.pytree import tree_leaves
 
-    cfg = dataclasses.replace(get_config(GRANITE),
-                              num_layers=GRANITE_A["layers"],
-                              dtype="float32")
-    cp, model, round_fn = _granite_round(cfg)
+    cp, model, round_fn = _crosspod_round(cfg)
     state = init_cross_pod_state(
         cp, model.init(SEED, device=dev), device=dev)
-    batches = _granite_batches(cfg, cp, GRANITE_A["batch"],
-                               GRANITE_A["seq"])
+    batches = _crosspod_batches(cfg, cp, spec["batch"], spec["seq"])
     ops.reset_launch_counts()
     report = []
-    for r in range(GRANITE_A["rounds"]):
+    for r in range(spec["rounds"]):
         batch = next(batches)
         t0 = time.perf_counter()
         before = _cross_pod_to(state, "cpu")
@@ -3022,43 +3125,74 @@ def check_granite_crosspod_against_cpu(dev, ops):
         want, wm = round_fn(before, batch)
         cpu_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        label = f"7a round {r}"
+        where = f"{label} round {r}"
         np.testing.assert_array_equal(m.events.cpu().numpy(),
-                                      wm.events.numpy(), err_msg=label)
+                                      wm.events.numpy(), err_msg=where)
         torch.testing.assert_close(m.distances.cpu(), wm.distances,
                                    rtol=1e-5, atol=1e-7)
         delta, wdelta = m.delta.cpu(), wm.delta
         scale = torch.maximum(torch.maximum(delta.abs(), wdelta.abs()),
                               before.ctrl.delta.abs())
         if not bool(((delta - wdelta).abs() <= scale * 2.0 ** -23).all()):
-            raise AssertionError(f"{label}: δ {delta} against {wdelta}")
+            raise AssertionError(f"{where}: δ {delta} against {wdelta}")
         torch.testing.assert_close(m.train_loss.cpu(), wm.train_loss,
                                    rtol=1e-5, atol=0)
-        gap = 0.0  # held on the card: the CPU's leaves copied there
-        for f in ("theta", "lam", "z_prev"):
-            for g, w in zip(tree_leaves(getattr(state, f)),
-                            tree_leaves(getattr(want, f)), strict=True):
-                w = w.to(dev)
-                diff = (g - w).abs()
-                if bool((diff > SOLVE_TOL["atol"]
-                         + SOLVE_TOL["rtol"] * w.abs()).any()):
-                    raise AssertionError(
-                        f"{label}: {f} off rtol 1e-4 / atol 1e-6 of the "
-                        f"CPU's, max |Δ| {float(diff.max()):.3e}")
-                gap = max(gap, float(diff.max()))
-                del w, diff
+        # held on the card: the CPU's leaves copied there
+        gap = max(_held_on_card(dev, tree_leaves(getattr(state, f)),
+                                tree_leaves(getattr(want, f)), where, f)
+                  for f in ("theta", "lam", "z_prev"))
         check_s = time.perf_counter() - t0
         report.append(dict(events=m.events.tolist(),
                            train_loss=float(m.train_loss), max_abs_err=gap,
                            card_ms=card_ms, cpu_s=cpu_s))
-        log(f"{label}: events {m.events.tolist()} equal, train_loss "
+        log(f"{where} ({cfg.name}, {cfg.num_layers} layers, fp32): events "
+            f"{m.events.tolist()} equal, train_loss "
             f"{float(m.train_loss):.6f} (CPU {float(wm.train_loss):.6f}), "
             f"state max_abs_err {gap:.3e} (rtol 1e-4 / atol 1e-6 held); "
             f"card {card_ms:.1f} ms, CPU {cpu_s:.1f} s, the state's copy to "
             f"the CPU {copy_s:.1f} s, the check {check_s:.1f} s")
     if any(ops.launch_counts().values()):
-        raise AssertionError(f"7a launched {ops.launch_counts()}")
+        raise AssertionError(f"{label} launched {ops.launch_counts()}")
     return report
+
+
+def check_loss_grads_against_cpu(dev, ops, cfg, spec, label):
+    """Phase 8d: the training loss and its gradients on the card against
+    the CPU's on the same weights and batch: the loss at rtol 1e-5,
+    every gradient at the solve grade; no kernel launches (the SSD's
+    scan is ``ssd_scan_ref``, which autograd differentiates)."""
+    from repro_torch.launch.serve_lm import make_prompts
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    model = build_model(cfg)
+    params = model.init(SEED, device=dev)
+    params_cpu = tree_map(lambda x: x.cpu(), params)
+    toks = make_prompts(cfg, spec["batch"], spec["seq"] + 1, SEED, "cpu")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    leaves = [x.requires_grad_(True) for x in tree_leaves(params)]
+    loss = model.loss(params, {k: v.to(dev) for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"{label} launched {ops.launch_counts()}")
+    t0 = time.perf_counter()
+    wleaves = [x.requires_grad_(True) for x in tree_leaves(params_cpu)]
+    want = model.loss(params_cpu, batch)
+    wgrads = torch.autograd.grad(want, wleaves)
+    cpu_s = time.perf_counter() - t0
+    loss, want = loss.detach(), want.detach()
+    torch.testing.assert_close(loss.cpu(), want, rtol=1e-5, atol=0)
+    gap = _held_on_card(dev, grads, wgrads, label, "gradients")
+    log(f"{label} ({cfg.name}, {cfg.num_layers} layers, fp32, "
+        f"{spec['batch']} × {spec['seq']} tokens): loss {float(loss):.6f} "
+        f"(CPU {float(want):.6f}), {len(grads)} gradients max_abs_err "
+        f"{gap:.3e} (rtol 1e-4 / atol 1e-6 held); card {card_ms:.1f} ms, "
+        f"CPU {cpu_s:.1f} s")
+    return dict(loss=float(loss), max_abs_err=gap, card_ms=card_ms)
 
 
 def _round_profile(prof, wall_ms) -> dict:
@@ -3079,18 +3213,17 @@ def _round_profile(prof, wall_ms) -> dict:
                         for e in top})
 
 
-def drive_granite_full(dev, smi):
-    """Phase 7b: granite-3-2b at full size in bf16 from seed 0's init,
-    P = 2 pods on the card, 2 local steps of 4 × 512 tokens, 5 rounds:
-    round 0 fires both pods, every state leaf finite, z_prev = θ + λ bit
-    for bit on every pod that has fired; ms/round and the peak device
-    memory printed beside the card."""
-    from repro_torch.configs import get_config
+def drive_crosspod_full(dev, smi, cfg, spec, label):
+    """Phases 7b and 8b: ``cfg`` at full size in bf16 from seed 0's init,
+    P = 2 pods on the card, 2 local steps of ``spec``'s tokens,
+    ``spec["rounds"]`` rounds, one under torch.profiler: round 0 fires
+    both pods, every state leaf finite, z_prev = θ + λ bit for bit on
+    every pod that has fired; ms/round and the peak device memory
+    printed beside the card."""
     from repro_torch.core.crosspod import init_cross_pod_state
     from repro_torch.utils.pytree import tree_leaves
 
-    cfg = get_config(GRANITE)
-    cp, model, round_fn = _granite_round(cfg)
+    cp, model, round_fn = _crosspod_round(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -3105,12 +3238,12 @@ def drive_granite_full(dev, smi):
                       for x in tree_leaves(getattr(state, f)))
     n_params = sum(x[0].numel() for x in tree_leaves(state.theta))
     torch.cuda.reset_peak_memory_stats(dev)
-    batches = _granite_batches(cfg, cp, GRANITE_B["batch"], GRANITE_B["seq"])
+    batches = _crosspod_batches(cfg, cp, spec["batch"], spec["seq"])
     ms, events, losses, fired = [], [], [], set()
-    for r in range(GRANITE_B["rounds"]):
+    for r in range(spec["rounds"]):
         batch = next(batches)
         prof = None
-        if r == GRANITE_B["profiled"]:
+        if r == spec["profiled"]:
             # The card's activity only: with the host's ops too, reading
             # back a round's ~200k events took ~40 s on an H100's host.
             prof = torch.profiler.profile(
@@ -3128,38 +3261,46 @@ def drive_granite_full(dev, smi):
         fired |= {i for i, e in enumerate(events[-1]) if e}
     peak = torch.cuda.max_memory_allocated(dev)
     if events[0] != [True] * cp.n_pods:
-        raise AssertionError(f"7b: round 0 fired {events[0]}")
+        raise AssertionError(f"{label}: round 0 fired {events[0]}")
     for f in ("theta", "lam", "z_prev"):
         for x in tree_leaves(getattr(state, f)):
             if not bool(torch.isfinite(x).all()):
-                raise AssertionError(f"7b: {f} holds a value not finite")
-    for t, l, z in zip(tree_leaves(state.theta), tree_leaves(state.lam),
-                       tree_leaves(state.z_prev), strict=True):
+                raise AssertionError(f"{label}: {f} holds a value not "
+                                     "finite")
+    for t, lm, z in zip(tree_leaves(state.theta), tree_leaves(state.lam),
+                        tree_leaves(state.z_prev), strict=True):
         for j in fired:
-            if not torch.equal(z[j], t[j] + l[j]):
-                raise AssertionError(f"7b: pod {j}'s z_prev is not θ + λ")
-    both = [t for i, (t, e) in enumerate(zip(ms, events, strict=True))
-            if all(e) and i != GRANITE_B["profiled"]]
+            if not torch.equal(z[j], t[j] + lm[j]):
+                raise AssertionError(f"{label}: pod {j}'s z_prev is not "
+                                     "θ + λ")
+    unprofiled = [(t, e) for i, (t, e) in enumerate(zip(ms, events,
+                                                        strict=True))
+                  if i != spec["profiled"]]
+    both = [t for t, e in unprofiled if all(e)]
+    none = [t for t, e in unprofiled if not any(e)]
     report = dict(
         arch=cfg.name, params=n_params, dtype=cfg.dtype, pods=cp.n_pods,
-        local_steps=cp.local_steps, tokens_per_step=GRANITE_B["batch"]
-        * GRANITE_B["seq"], rounds=GRANITE_B["rounds"], events=events,
+        local_steps=cp.local_steps, tokens_per_step=spec["batch"]
+        * spec["seq"], rounds=spec["rounds"], events=events,
         train_loss=losses, ms_per_round=ms,
         ms_per_round_both_fired=statistics.median(both) if both else None,
-        profiled_round=dict(profiled, index=GRANITE_B["profiled"]),
+        ms_per_round_none_fired=statistics.median(none) if none else None,
+        profiled_round=dict(profiled, index=spec["profiled"]),
         init_s=init_s, state_bytes=state_bytes, peak_memory_bytes=peak,
         card=smi)
-    log(f"7b {cfg.name} cross-pod, bf16, {n_params} parameters a replica, "
-        f"P = {cp.n_pods}, {cp.local_steps} local steps of "
-        f"{GRANITE_B['batch']} × {GRANITE_B['seq']} tokens: events {events}, "
+    log(f"{label} {cfg.name} cross-pod, bf16, {n_params} parameters a "
+        f"replica, P = {cp.n_pods}, {cp.local_steps} local steps of "
+        f"{spec['batch']} × {spec['seq']} tokens: events {events}, "
         f"train_loss {losses}; ms/round {[round(x, 1) for x in ms]} (round "
-        f"{GRANITE_B['profiled']} under torch.profiler; median of the "
-        f"others that fired both pods {report['ms_per_round_both_fired']}); "
-        f"state {state_bytes / 1e9:.2f} GB, peak {peak / 1e9:.2f} GB "
-        f"({peak / 2**30:.2f} GiB) of the card's memory; init "
-        f"{init_s:.2f} s; on {smi}")
-    log(f"7b profiled round {GRANITE_B['profiled']} (events "
-        f"{events[GRANITE_B['profiled']]}): {profiled}")
+        f"{spec['profiled']} under torch.profiler; median of the others "
+        f"that fired both pods {report['ms_per_round_both_fired']}, none "
+        f"{report['ms_per_round_none_fired']}); state "
+        f"{state_bytes / 1e9:.2f} GB, peak {peak / 1e9:.2f} GB "
+        f"({peak / 2**30:.2f} GiB) of the card's "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.2f} "
+        f"GB; init {init_s:.2f} s; on {smi}")
+    log(f"{label} profiled round {spec['profiled']} (events "
+        f"{events[spec['profiled']]}): {profiled}")
     del state
     torch.cuda.empty_cache()
     return report
@@ -3310,10 +3451,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     granite = get_config(GRANITE)
-    granite_a = check_granite_crosspod_against_cpu(dev, ops)
+    granite_a = check_crosspod_against_cpu(
+        dev, ops, dataclasses.replace(granite, num_layers=GRANITE_A["layers"],
+                                      dtype="float32"), GRANITE_A, "7a")
     log(f"phase 7a took {time.perf_counter() - t0:.1f} s")
     t1 = time.perf_counter()
-    granite_b = drive_granite_full(dev, smi)
+    granite_b = drive_crosspod_full(dev, smi, granite, GRANITE_B, "7b")
     log(f"phase 7b took {time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
     _, counts_gslice = check_slice_against_cpu(
@@ -3332,6 +3475,51 @@ def main() -> int:
     log(f"phase 7c took {time.perf_counter() - t1:.1f} s; phases 7a–7c "
         f"{time.perf_counter() - t0:.1f} s")
 
+    t0 = t1 = time.perf_counter()
+    zamba_a = check_crosspod_against_cpu(
+        dev, ops, dataclasses.replace(zamba, num_layers=ZAMBA_A["layers"],
+                                      dtype="float32"), ZAMBA_A, "8a")
+    log(f"phase 8a took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    zamba_b = drive_crosspod_full(dev, smi, zamba, ZAMBA_B, "8b")
+    log(f"phase 8b took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    mamba = get_config(MAMBA)
+    mamba_slice = dataclasses.replace(mamba, num_layers=MAMBA_D["layers"],
+                                      dtype="float32")
+    _, counts_mslice = check_slice_against_cpu(
+        dev, ops, mamba_slice, {"ssd_scan_mamba2": MAMBA_D["layers"],
+                                "ssd_scan": 0, "flash_attention_fp32": 0},
+        ssd_row="ssd_scan_mamba2")
+    torch.cuda.empty_cache()
+    mamba_serve, counts_mserve = serve_full(
+        dev, ops, smi, mamba, {"ssd_scan": mamba.num_layers,
+                               "flash_attention": 0},
+        ssd_row="ssd_scan_mamba2")
+    torch.cuda.empty_cache()
+    log(f"phase 8c took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    mamba_d = dict(
+        loss_grads=check_loss_grads_against_cpu(dev, ops, mamba_slice,
+                                                MAMBA_D, "8d loss"),
+        crosspod=check_crosspod_against_cpu(dev, ops, mamba_slice, MAMBA_D,
+                                            "8d"))
+    torch.cuda.empty_cache()
+    log(f"phase 8d took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    phi3 = get_config(PHI3)
+    phi3_serve, counts_pserve = serve_full(
+        dev, ops, smi, phi3, {"flash_attention": phi3.num_layers,
+                              "ssd_scan": 0},
+        bf16_row="flash_attention_phi3", new_tokens=PHI3_NEW)
+    torch.cuda.empty_cache()
+    log(f"phase 8e took {time.perf_counter() - t1:.1f} s; phases 8a–8e "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"zamba2": {"crosspod_vs_cpu": zamba_a,
+                               "crosspod_full": zamba_b},
+                    "mamba2": {"serve": mamba_serve, **mamba_d},
+                    "phi3": {"serve": phi3_serve}}))
+
     kernels = []
     for name, r in rows.items():
         launches = (counts_a[name] + counts_b[name]
@@ -3341,7 +3529,8 @@ def main() -> int:
                     + counts_wh.get(name, 0) + counts_k.get(name, 0)
                     + counts_cf.get(name, 0) + counts_slice[name]
                     + counts_serve[name] + counts_gslice[name]
-                    + counts_gserve[name])
+                    + counts_gserve[name] + counts_mslice[name]
+                    + counts_mserve[name] + counts_pserve[name])
         if launches == 0:
             raise AssertionError(f"{name} was never launched on the path")
         lib = r["library_ms"]
@@ -3358,7 +3547,9 @@ def main() -> int:
             f"{counts_cf.get(name, 0)}, "
             f"fp32 group {counts_slice[name]}, "
             f"serve {counts_serve[name]}, granite fp32 group "
-            f"{counts_gslice[name]}, granite serve {counts_gserve[name]}), "
+            f"{counts_gslice[name]}, granite serve {counts_gserve[name]}, "
+            f"mamba2 fp32 slice {counts_mslice[name]}, mamba2 serve "
+            f"{counts_mserve[name]}, phi3 serve {counts_pserve[name]}), "
             f"max_abs_err {r['max_abs_err']:.3e}, "
             f"ms {r['ms']:.4f}{warm}, plain_ms {r['plain_ms']:.4f}, "
             f"library_ms {'null' if lib is None else f'{lib:.4f}'}, bound_ms "

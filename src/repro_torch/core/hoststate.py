@@ -490,7 +490,19 @@ def make_host_round_fn(cfg, loss_fn, data, *, spec: FlatSpec | None = None,
                     omega, resid = ef_participant_mean(
                         z, committed, state.omega, resid, num_committed,
                         **ef)
-                comm.copy_(resid[0])
+                if cuda:
+                    # Down to pinned host memory on the copy stream, as the
+                    # solve leg's results, then one event wait: a blocking
+                    # copy_ would synchronize the round with the host.
+                    copy_stream.wait_stream(
+                        torch.cuda.current_stream(device))
+                    with torch.cuda.stream(copy_stream):
+                        comm.copy_(resid[0], non_blocking=True)
+                    copied = torch.cuda.Event()
+                    copied.record(copy_stream)
+                    copied.synchronize()
+                else:
+                    comm.copy_(resid[0])
                 stats["d2h_full_bytes"] += comm.numel() * 4
             elif is_admm:
                 omega = consensus_mean(z)

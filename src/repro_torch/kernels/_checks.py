@@ -51,3 +51,26 @@ def check_shards(mesh, **shards) -> None:
                     dev.index is not None and t.device.index != dev.index):
                 raise ValueError(f"{name}: shard {i} lies on {t.device}, "
                                  f"the mesh puts it on {dev}")
+
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _tensors(v)
+
+
+def refuse_grad(name: str, *operands,
+                detail: str = "its inputs must not require grad") -> None:
+    """Raise ``ValueError`` when any operand (a tensor, or a dict, list
+    or tuple of them, nested) requires grad.  No kernel has a backward,
+    and the kernel path builds no autograd node: a differentiable caller
+    takes the plain version by name.  Every wrapper calls this first, so
+    the CPU path refuses what the card's would."""
+    if any(t.requires_grad for x in operands for t in _tensors(x)):
+        raise ValueError(f"{name} has no backward: {detail}")

@@ -22,7 +22,8 @@ import torch
 from repro_torch.utils.spans import kernel_wrapper
 
 from ._build import check_launch, load_library
-from ._checks import check_f32, check_shards, is_cpu, stream_ptr
+from ._checks import check_f32, check_shards, is_cpu, refuse_grad, \
+    stream_ptr
 
 
 def admm_update_hbm_bytes(rows: int, dim: int, *, with_z: bool = True,
@@ -72,6 +73,7 @@ def admm_update(theta, lam, omega, *, with_z: bool = True, mesh=None):
     (or raise).  With ``mesh`` the arguments are per shard and the call
     is :func:`admm_update_sharded`'s.
     """
+    refuse_grad("admm_update", theta, lam, omega)
     if mesh is not None:
         return admm_update_sharded(theta, lam, omega, mesh, with_z=with_z)
     if is_cpu(theta, lam, omega):
@@ -102,6 +104,7 @@ def admm_update_sharded(theta, lam, omega, mesh, *, with_z: bool = True):
     One launch of K2's kernel per shard (the plain version for a shard
     on the CPU); each launch counts here, not under K2.
     """
+    refuse_grad("admm_update_sharded", theta, lam, omega)
     check_shards(mesh, theta=theta, lam=lam, omega=omega)
     per = []
     for t, la, w in zip(theta, lam, omega, strict=True):

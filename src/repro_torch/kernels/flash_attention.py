@@ -60,7 +60,7 @@ import torch
 from repro_torch.utils.spans import kernel_wrapper
 
 from ._build import check_launch, load_library
-from ._checks import is_cpu, stream_ptr
+from ._checks import is_cpu, refuse_grad, stream_ptr
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128  # the kernels are instantiated for hd/16 = 1 .. 8
@@ -237,10 +237,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, layout="bhsd"):
     a differentiable caller takes ``models.attention.blockwise_attention``
     by name.
     """
-    if any(t.requires_grad for t in (q, k, v)):
-        raise ValueError("flash_attention has no backward: q, k, v must not "
-                         "require grad (the training loss takes "
-                         "models.attention.blockwise_attention)")
+    refuse_grad("flash_attention", q, k, v,
+                detail="q, k, v must not require grad (the training loss "
+                "takes models.attention.blockwise_attention)")
     if is_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    layout=layout)

@@ -31,7 +31,7 @@ import torch
 from repro_torch.utils.spans import kernel_wrapper
 
 from ._build import check_launch, load_library
-from ._checks import check_f32, is_cpu, stream_ptr
+from ._checks import check_f32, is_cpu, refuse_grad, stream_ptr
 
 
 TILE_COLS = 1024  # columns of a tile: 4 for each of the kernel's 256 threads
@@ -117,6 +117,7 @@ def fused_gss(idx, valid, solved, omega, theta, lam, z_prev=None, *,
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (or raise).  Returns (θ, λ, z_prev), or (θ, λ) without z.
     """
+    refuse_grad("fused_gss", idx, valid, solved, omega, theta, lam, z_prev)
     if with_z and z_prev is None:
         raise ValueError("with_z=True needs z_prev")
     state = (theta, lam) + ((z_prev,) if with_z else ())

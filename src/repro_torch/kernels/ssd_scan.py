@@ -34,7 +34,7 @@ import torch
 from repro_torch.utils.spans import kernel_wrapper
 
 from ._build import check_launch, load_library
-from ._checks import is_cpu, stream_ptr
+from ._checks import is_cpu, refuse_grad, stream_ptr
 
 STATE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -88,8 +88,13 @@ def ssd_scan(states: torch.Tensor, decays: torch.Tensor):
     fp32).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (or raise).
+    (or raise).  The kernel has no backward, so an input that requires
+    grad is refused on both paths: the training loss takes
+    :func:`ssd_scan_ref` by name (``models.ssm.ssd_chunked(scan=)``).
     """
+    refuse_grad("ssd_scan", states, decays,
+                detail="states and decays must not require grad (the "
+                "training loss takes kernels.ssd_scan.ssd_scan_ref)")
     if is_cpu(states, decays):
         return ssd_scan_ref(states, decays)
     b, c, h, p, n = check_kernel_args(

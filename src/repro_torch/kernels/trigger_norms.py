@@ -41,7 +41,8 @@ import torch
 from repro_torch.utils.spans import kernel_wrapper
 
 from ._build import check_launch, load_library
-from ._checks import check_f32, check_shards, is_cpu, stream_ptr
+from ._checks import check_f32, check_shards, is_cpu, refuse_grad, \
+    stream_ptr
 
 
 MAX_SEGMENTS = 8  # a thread-block cluster's portable maximum size
@@ -270,6 +271,7 @@ def trigger_sq_norms(z_prev: torch.Tensor,
     (or raise): K1's for fp32 z and ω, else (K1a) its leaf-table form on
     one leaf, whose bits are K1's on fp32 copies.
     """
+    refuse_grad("trigger_sq_norms", z_prev, omega)
     if is_cpu(z_prev, omega):
         return trigger_sq_norms_ref(z_prev, omega)
     if z_prev.dtype == omega.dtype == torch.float32:
@@ -304,6 +306,7 @@ def trigger_sq_norms_sharded(z_prev, omega, mesh) -> list[torch.Tensor]:
     version for the shards on the CPU); each launch counts here, not
     under K1.
     """
+    refuse_grad("trigger_sq_norms_sharded", z_prev, omega)
     check_shards(mesh, z_prev=z_prev, omega=omega)
     out = [None] * mesh.size
     for dev, idx in group_by_device(z_prev).items():

@@ -34,7 +34,7 @@ import torch
 from repro_torch.utils.pytree import flatten, flatten_stacked, tree_leaves
 from repro_torch.utils.spans import kernel_wrapper
 
-from ._checks import check_shards, is_cpu
+from ._checks import check_shards, is_cpu, refuse_grad
 from .trigger_norms import (group_by_device, leaf_view, table_kernel,
                             trigger_sq_norms, trigger_sq_norms_ref,
                             trigger_sq_norms_sharded)
@@ -105,6 +105,7 @@ def trigger_sq_norms_pytree(z_prev, omega, *, mesh=None):
     distances ‖z_i − ω‖², leaves fp32 or bf16 (their plain version on CPU
     tensors).  With ``mesh``: the P per-shard stacked trees and the P
     copies of ω → the P per-shard (N/P,) distances."""
+    refuse_grad("trigger_sq_norms_pytree", z_prev, omega)
     if mesh is not None:
         firsts = [tree_leaves(z)[0] for z in z_prev]
         check_shards(mesh, z_prev=firsts,

@@ -16,6 +16,10 @@
   fresh tensors: SIMT before the 3xTF32 instance existed, 3xTF32
   since), with ``scaled_dot_product_attention`` in fp32 beside it; and
   K5 ``ssd_scan`` at states (4, 32, 80, 64, 64) bf16.
+- The other model shapes: K4 at phi3-medium-14b's prefill, (4, 2048,
+  40:10, 128) bf16 causal (GQA, g = 4), beside
+  ``scaled_dot_product_attention(..., enable_gqa=True)``, and K5 at
+  mamba2-2.7b's, states (4, 32, 80, 64, 128) bf16.
 - How fp32 K4's device time splits between the kernels it launches
   (the 3xTF32 instance's pre-pass and main kernel), from torch.profiler
   (:func:`kernel_breakdown`).
@@ -233,6 +237,13 @@ def main(argv=None) -> int:
     states = torch.randn((4, 32, 80, 64, 64), generator=gen,
                          device=dev).to(torch.bfloat16)
     decays = torch.rand((4, 32, 80), generator=gen, device=dev)
+    pq = torch.randn((4, 2048, 40, 128), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    pk, pv = (torch.randn((4, 2048, 10, 128), generator=gen,
+                          device=dev).to(torch.bfloat16) for _ in range(2))
+    pqt, pkt, pvt = (t.transpose(1, 2).contiguous() for t in (pq, pk, pv))
+    states128 = torch.randn((4, 32, 80, 64, 128), generator=gen,
+                            device=dev).to(torch.bfloat16)
     rounds = round_kernel_ms(ops, dev, gen)
     ms = {
         "flash_attention": device_ms(
@@ -246,6 +257,13 @@ def main(argv=None) -> int:
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt32, kt32, vt32, is_causal=True, enable_gqa=True)),
         "ssd_scan": device_ms(lambda: ops.ssd_scan(states, decays)),
+        "flash_attention_phi3": device_ms(
+            lambda: ops.flash_attention(pq, pk, pv, layout="bshd")),
+        "scaled_dot_product_attention_phi3": device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                pqt, pkt, pvt, is_causal=True, enable_gqa=True)),
+        "ssd_scan_mamba2": device_ms(lambda: ops.ssd_scan(states128,
+                                                          decays)),
     }
     fp32_kernels = kernel_breakdown(
         lambda: ops.flash_attention(q32, k32, v32, layout="bshd"))

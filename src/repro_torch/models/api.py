@@ -7,8 +7,9 @@ give a workload's inputs, parameters and cache as tensors on the meta
 device (shapes and dtypes, no storage), the counterpart of the
 reference's ``ShapeDtypeStruct`` stand-ins.
 
-``loss`` is the dense family's (the hybrid family's raises, ROADMAP
-M17b).
+``loss`` is the next-token loss of every ported family (dense, ssm,
+hybrid) on its plain differentiable path; the moe, vlm and audio
+families raise (ROADMAP M17b).
 ``init`` and ``init_cache`` run on CUDA unless the caller passes
 ``device=``; without CUDA they raise.  Tokens and labels are int64
 (torch's index dtype; the reference's are int32).

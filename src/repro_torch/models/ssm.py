@@ -7,10 +7,14 @@
              y_t = C_t · h_t + D ⊙ x_t           (scalar-per-head A < 0)
   gate     : y ← RMSNorm(y · silu(z)); out_proj: d_in → d
 
-Prefill runs the chunked SSD algorithm: the intra-chunk terms are plain
-torch einsums (XLA computes them outside Pallas in the JAX package) and
-the inter-chunk scan is one ``kernels.ops.ssd_scan`` call (K5).  Decode
-is the O(1) recurrence with a (conv ring, ssm state) cache.
+Prefill and training run the chunked SSD algorithm: the intra-chunk
+terms are plain torch einsums (XLA computes them outside Pallas in the
+JAX package) and the inter-chunk scan is the one function named by
+``scan=``: ``kernels.ops.ssd_scan`` (K5) in prefill, the default, and
+the plain, differentiable ``kernels.ssd_scan.ssd_scan_ref`` in the
+training loss (the reference's training SSD is a ``lax.scan``; K5 has no
+backward and refuses an input that requires grad).  Decode is the O(1)
+recurrence with a (conv ring, ssm state) cache.
 """
 from __future__ import annotations
 
@@ -107,11 +111,15 @@ def _causal_conv(xbc, w, b):
     return F.silu(out + b)
 
 
-def ssd_chunked(x, dt, a_log, bmat, cmat, *, chunk, intra_dtype=None):
+def ssd_chunked(x, dt, a_log, bmat, cmat, *, chunk, intra_dtype=None,
+                scan=ops.ssd_scan):
     """Chunked SSD core.
 
     x: (B, S, H, P); dt: (B, S, H); bmat/cmat: (B, S, N).
     Returns y: (B, S, H, P) fp32 and the final state (B, H, P, N) fp32.
+    ``scan(states, decays) -> (h_prev, h_last)`` is the inter-chunk
+    scan: K5 (``ops.ssd_scan``) or its plain version ``ssd_scan_ref``,
+    which autograd differentiates.
 
     Precision policy as in the JAX package: the large tensors (x, B, C,
     the 5-D decay kernel, chunk states) in the input dtype
@@ -154,14 +162,14 @@ def ssd_chunked(x, dt, a_log, bmat, cmat, *, chunk, intra_dtype=None):
     xdt = xc * dtc[..., None].to(wide)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", m, xdt).to(f32)
 
-    # --- chunk states + inter-chunk scan (K5) ---------------------------
+    # --- chunk states + inter-chunk scan (``scan``) ---------------------
     # The three-operand einsums are written as two steps each, in an
     # order that never forms a (B, nc, Q, H, P, N) intermediate.
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum).to(wide)
     states = torch.einsum("bcjhp,bcjn->bchpn",
                           xdt * decay_to_end[..., None], bc)
     chunk_decay = torch.exp(cum[:, :, -1, :]).contiguous()  # (B, nc, H)
-    h_prevs, h_last = ops.ssd_scan(states.to(wide).contiguous(), chunk_decay)
+    h_prevs, h_last = scan(states.to(wide).contiguous(), chunk_decay)
 
     y_inter = (torch.einsum("bcin,bchpn->bcihp", cc, h_prevs)
                * torch.exp(cum).to(wide)[..., None]).to(f32)
@@ -170,8 +178,10 @@ def ssd_chunked(x, dt, a_log, bmat, cmat, *, chunk, intra_dtype=None):
 
 
 def ssm_forward(params, hidden, *, expand, ssm_state, head_dim, conv_kernel,
-                chunk, return_state=False, intra_dtype=None):
-    """Full Mamba-2 mixer. hidden: (B, S, d)."""
+                chunk, return_state=False, intra_dtype=None,
+                scan=ops.ssd_scan):
+    """Full Mamba-2 mixer. hidden: (B, S, d); ``scan`` as in
+    :func:`ssd_chunked`."""
     b, s, d = hidden.shape
     d_inner, n_heads, conv_dim = ssm_dims(d, expand, ssm_state, head_dim)
     zxbcdt = hidden @ params["in_proj"]
@@ -184,7 +194,7 @@ def ssm_forward(params, hidden, *, expand, ssm_state, head_dim, conv_kernel,
     dt = softplus(dt.to(torch.float32) + params["dt_bias"])  # (B, S, H)
     xh = x.reshape(b, s, n_heads, head_dim)
     y, h_last = ssd_chunked(xh, dt, params["A_log"], bmat, cmat, chunk=chunk,
-                            intra_dtype=intra_dtype)
+                            intra_dtype=intra_dtype, scan=scan)
     y = y.to(hidden.dtype) + (params["D"].to(hidden.dtype)
                               [None, None, :, None] * xh)
     y = y.reshape(b, s, d_inner)

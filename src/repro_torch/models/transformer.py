@@ -1,7 +1,9 @@
-"""The model zoo's stacks (``repro/models/transformer.py``), two
+"""The model zoo's stacks (``repro/models/transformer.py``), three
 families so far:
 
-  dense   — [GQA attn + SwiGLU] × L                 (granite)
+  dense   — [GQA attn + SwiGLU] × L                 (granite, phi3,
+                                                     deepseek)
+  ssm     — [Mamba-2 mixer] × L                     (mamba2)
   hybrid  — Mamba-2 backbone + ONE shared attn+MLP block applied after
             every ``attn_every`` mamba layers (Zamba2's shared-block
             design: the same parameters are re-applied at each group's
@@ -14,22 +16,26 @@ the same tree; each layer reads views of its rows.  The JAX package's
 ``constrain_batch`` is a sharding hint and has no counterpart on one
 device.
 
-Serving (both families): prefill (K4 through the attention module, K5
-through the SSM module) and single-token decode.  Training (dense
-only): :func:`forward_hidden` and :func:`loss_fn`, the attention
-through ``blockwise_attention`` (plain and differentiable), each layer
-recomputed in backward under ``cfg.remat`` (``torch.utils.checkpoint``
-over groups of ``cfg.remat_group`` layers, as the reference's
-``jax.checkpoint`` of its scan body).  The hybrid family's loss and the
-other families (moe, ssm, vlm, audio) raise ``NotImplementedError``
-(ROADMAP M17b).
+Serving (every family): prefill (K4 through the attention module, K5
+through the SSM module) and single-token decode.  Training:
+:func:`forward_hidden` and :func:`loss_fn`, on the plain differentiable
+paths the reference's ``jax.value_and_grad`` goes through — the
+attention through ``blockwise_attention``, the SSD's inter-chunk scan
+through ``ssd_scan_ref`` (K4 and K5 have no backward) — with the
+mamba layers' intra-chunk terms in ``cfg.ssd_intra_dtype``, which
+prefill ignores as the reference's does.  Under ``cfg.remat`` each
+group is recomputed in backward (``torch.utils.checkpoint``, as the
+reference's ``jax.checkpoint`` of its scan body): ``cfg.remat_group``
+layers in the dense and ssm stacks, one group of ``attn_every`` mamba
+layers and the shared block in the hybrid.  The other families (moe,
+vlm, audio) raise ``NotImplementedError`` (ROADMAP M17b).
 
 The caches mirror the JAX package's: dense ``k``/``v`` (L, B, S_cache,
-KvH, hd); hybrid ``layers.ssm`` (L, B, H, P, N) fp32, ``layers.conv``
-(L, B, K−1, conv_dim), ``k``/``v`` (L/attn_every, B, S_cache, KvH, hd);
-and ``pos``, the next position, kept as a host int so decode never
-reads it back from the card.  Decode updates the cache tensors in
-place.
+KvH, hd); ssm ``layers.ssm`` (L, B, H, P, N) fp32 and ``layers.conv``
+(L, B, K−1, conv_dim); hybrid both, its ``k``/``v`` (L/attn_every, B,
+S_cache, KvH, hd); and ``pos``, the next position, kept as a host int
+so decode never reads it back from the card.  Decode updates the cache
+tensors in place.
 """
 from __future__ import annotations
 
@@ -49,29 +55,21 @@ from .layers import (
     swiglu_init,
 )
 from .ssm import ssm_cache_init, ssm_decode_step, ssm_forward, ssm_init
+from repro_torch.kernels.ssd_scan import ssd_scan_ref
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
 
-FAMILIES = ("dense", "hybrid")
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to "
-            "repro_torch yet (ROADMAP M17b); the port has the dense and "
-            "hybrid families")
+            "repro_torch yet (ROADMAP M17b); the port has the "
+            f"{', '.join(FAMILIES)} families")
     if cfg.num_experts:
         raise NotImplementedError("MoE blocks are not ported (ROADMAP M17b)")
-
-
-def check_loss(cfg) -> None:
-    check_family(cfg)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the {cfg.family} family's training loss ({cfg.name}) is not "
-            "ported to repro_torch yet (ROADMAP M17b); the port trains the "
-            "dense family")
 
 
 # ----------------------------------------------------------------------
@@ -135,10 +133,24 @@ def _intra_dtype(cfg):
 
 
 def _ssm_block_apply(cfg, p, h):
-    """One mamba layer in prefill → (h, final ssm state, conv tail)."""
+    """One mamba layer in training: the intra-chunk terms in
+    ``cfg.ssd_intra_dtype`` and the inter-chunk scan through the plain
+    ``ssd_scan_ref``, which autograd differentiates (the reference's
+    ``_ssm_block_apply``)."""
+    x = rmsnorm(h, p["ln"], cfg.norm_eps)
+    return h + ssm_forward(p["ssm"], x, chunk=cfg.chunk,
+                           intra_dtype=_intra_dtype(cfg), scan=ssd_scan_ref,
+                           **_ssm_kw(cfg))
+
+
+def _ssm_block_prefill(cfg, p, h):
+    """One mamba layer in prefill → (h, final ssm state, conv tail): K5,
+    the intra-chunk terms in the input dtype whatever
+    ``cfg.ssd_intra_dtype`` says (the reference's prefill calls
+    ``ssm_forward`` without it)."""
     x = rmsnorm(h, p["ln"], cfg.norm_eps)
     y, st = ssm_forward(p["ssm"], x, chunk=cfg.chunk, return_state=True,
-                        intra_dtype=_intra_dtype(cfg), **_ssm_kw(cfg))
+                        **_ssm_kw(cfg))
     return h + y, st, _conv_tail(cfg, p, x)
 
 
@@ -186,10 +198,11 @@ def init_params(cfg, seed: int = 0, *, device) -> dict:
         if stacked is None:
             stacked = tree_map(
                 lambda x: x.new_empty((cfg.num_layers,) + x.shape), lp)
-        if device.type != "meta":
-            for dst, src in zip(tree_leaves(stacked), tree_leaves(lp),
-                                strict=True):
-                dst[i] = src
+        if device.type == "meta":
+            break  # shapes only: one layer gives the stack's
+        for dst, src in zip(tree_leaves(stacked), tree_leaves(lp),
+                            strict=True):
+            dst[i] = src
     tree["layers"] = stacked
     return tree
 
@@ -203,50 +216,92 @@ def _layers(params, n: int) -> list:
 
 
 # ----------------------------------------------------------------------
-# training: the dense family's forward and loss
+# training: forward and loss
 # ----------------------------------------------------------------------
+
+
+def _run_groups(cfg, h, groups, body):
+    """``h = body(h, *group)`` for each group of per-layer trees; under
+    ``cfg.remat`` each group is recomputed in backward (the reference's
+    ``jax.checkpoint`` of its scan body)."""
+    for grp in groups:
+        h = (checkpoint(body, h, *grp, use_reentrant=False) if cfg.remat
+             else body(h, *grp))
+    return h
+
+
+def _remat_groups(cfg, layers):
+    """The layers in groups of ``cfg.remat_group`` (1 where it does not
+    divide L), as the reference's ``_group``."""
+    g = cfg.remat_group if cfg.num_layers % max(cfg.remat_group, 1) == 0 \
+        else 1
+    g = max(g, 1)
+    return [layers[i:i + g] for i in range(0, cfg.num_layers, g)]
 
 
 def _stack_attn(cfg, params, h, positions):
     """The dense stack in training: each block's attention through
-    ``blockwise_attention``; under ``cfg.remat`` each group of
-    ``cfg.remat_group`` layers (1 where it does not divide L) is
-    recomputed in backward."""
-    layers = _layers(params, cfg.num_layers)
-    g = cfg.remat_group if cfg.num_layers % max(cfg.remat_group, 1) == 0 \
-        else 1
-    g = max(g, 1)
-
-    def group(hh, *lps):
+    ``blockwise_attention``."""
+    def body(hh, *lps):
         for lp in lps:
             hh, _ = _attn_block_apply(cfg, lp, hh, positions,
                                       window=cfg.sliding_window,
                                       blockwise=True)
         return hh
 
-    for i in range(0, cfg.num_layers, g):
-        lps = layers[i:i + g]
-        if cfg.remat:
-            h = checkpoint(group, h, *lps, use_reentrant=False)
-        else:
-            h = group(h, *lps)
-    return h
+    return _run_groups(cfg, h, _remat_groups(
+        cfg, _layers(params, cfg.num_layers)), body)
+
+
+def _stack_ssm(cfg, params, h):
+    """The ssm stack in training (the reference's ``_stack_ssm``)."""
+    def body(hh, *lps):
+        for lp in lps:
+            hh = _ssm_block_apply(cfg, lp, hh)
+        return hh
+
+    return _run_groups(cfg, h, _remat_groups(
+        cfg, _layers(params, cfg.num_layers)), body)
+
+
+def _stack_hybrid(cfg, params, h, positions):
+    """The hybrid stack in training (the reference's ``_stack_hybrid``):
+    per group, ``attn_every`` mamba layers, then the shared block with
+    its attention through ``blockwise_attention``; under ``cfg.remat``
+    one group is the recomputed unit.  The shared block's leaves are
+    used once per group, and autograd adds their gradients."""
+    layers = _layers(params, cfg.num_layers)
+    shared = params["shared"]
+
+    def body(hh, *lps):
+        for lp in lps:
+            hh = _ssm_block_apply(cfg, lp, hh)
+        hh, _ = _attn_block_apply(cfg, shared, hh, positions,
+                                  window=cfg.sliding_window, blockwise=True)
+        return hh
+
+    return _run_groups(cfg, h, [[layers[i] for i in g]
+                                for g in _groups(cfg)], body)
 
 
 def forward_hidden(cfg, params, batch):
-    """Embed the tokens and run the dense stack → final hidden states
-    (B, S, d) (the reference's ``aux`` is 0 without MoE)."""
-    check_loss(cfg)
+    """Embed the tokens and run the stack → final hidden states (B, S, d)
+    (the reference's ``aux`` is 0 without MoE)."""
+    check_family(cfg)
     # ``embedding``: its backward adds the rows in a fixed order, where
     # indexing's backward (an accumulating ``index_put_``) does not on
     # the CPU, and a round must repeat bit for bit.
     h = torch.nn.functional.embedding(batch["tokens"], params["embed"])
     positions = torch.arange(h.shape[1], device=h.device)
+    if cfg.family == "ssm":
+        return _stack_ssm(cfg, params, h)
+    if cfg.family == "hybrid":
+        return _stack_hybrid(cfg, params, h, positions)
     return _stack_attn(cfg, params, h, positions)
 
 
 def loss_fn(cfg, params, batch):
-    """Next-token cross-entropy of the dense family: ``batch`` holds
+    """Next-token cross-entropy: ``batch`` holds
     ``tokens`` and ``labels`` (B, S); the head's padded vocabulary
     columns are masked, the sequence chunked by ``cfg.loss_chunk``."""
     h = forward_hidden(cfg, params, batch)
@@ -263,21 +318,22 @@ def loss_fn(cfg, params, batch):
 def init_cache(cfg, batch_size, max_seq, dtype=None, *, device):
     check_family(cfg)
     dtype = dtype or cfg.param_dtype
-    s = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
-    n_kv = (cfg.num_layers if cfg.family == "dense"
-            else cfg.num_layers // cfg.attn_every)
-    kv = (n_kv, batch_size, s, cfg.num_kv_heads, cfg.head_dim)
-    cache = {
-        "k": torch.zeros(kv, dtype=dtype, device=device),
-        "v": torch.zeros(kv, dtype=dtype, device=device),
-        "pos": 0,
-    }
-    if cfg.family == "hybrid":
+    cache = {}
+    if cfg.family != "ssm":
+        s = (min(max_seq, cfg.sliding_window) if cfg.sliding_window
+             else max_seq)
+        n_kv = (cfg.num_layers if cfg.family == "dense"
+                else cfg.num_layers // cfg.attn_every)
+        kv = (n_kv, batch_size, s, cfg.num_kv_heads, cfg.head_dim)
+        cache["k"] = torch.zeros(kv, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(kv, dtype=dtype, device=device)
+    if cfg.family != "dense":
         one = ssm_cache_init(batch_size, cfg.d_model, dtype=dtype,
                              device=device, **_ssm_kw(cfg))
         cache["layers"] = {
             k: torch.zeros((cfg.num_layers,) + x.shape, dtype=x.dtype,
                            device=device) for k, x in one.items()}
+    cache["pos"] = 0
     return cache
 
 
@@ -297,29 +353,35 @@ def prefill(cfg, params, batch, max_seq=None):
     h = params["embed"][tokens]
     positions = torch.arange(s, device=h.device)
     layers = _layers(params, cfg.num_layers)
-    ks, vs = [], []
+    ks, vs, ssm_states, conv_tails = [], [], [], []
+
+    def mamba(hh, lp):
+        hh, st, tail = _ssm_block_prefill(cfg, lp, hh)
+        ssm_states.append(st)
+        conv_tails.append(tail)
+        return hh
+
+    def attn(hh, lp):
+        hh, (k, v) = _attn_block_apply(cfg, lp, hh, positions,
+                                       window=cfg.sliding_window)
+        ks.append(k)
+        vs.append(v)
+        return hh
+
     if cfg.family == "dense":
         for lp in layers:
-            h, (k, v) = _attn_block_apply(cfg, lp, h, positions,
-                                          window=cfg.sliding_window)
-            ks.append(k)
-            vs.append(v)
-        cache = _fit_kv_cache(cfg, torch.stack(ks), torch.stack(vs),
-                              max_seq, s)
+            h = attn(h, lp)
+    elif cfg.family == "ssm":
+        for lp in layers:
+            h = mamba(h, lp)
     else:
-        ssm_states, conv_tails = [], []
         for group in _groups(cfg):
             for i in group:
-                h, st, tail = _ssm_block_apply(cfg, layers[i], h)
-                ssm_states.append(st)
-                conv_tails.append(tail)
-            h, (k, v) = _attn_block_apply(cfg, params["shared"], h,
-                                          positions,
-                                          window=cfg.sliding_window)
-            ks.append(k)
-            vs.append(v)
-        cache = _fit_kv_cache(cfg, torch.stack(ks), torch.stack(vs),
-                              max_seq, s)
+                h = mamba(h, layers[i])
+            h = attn(h, params["shared"])
+    cache = (_fit_kv_cache(cfg, torch.stack(ks), torch.stack(vs), max_seq, s)
+             if ks else {"pos": s})
+    if ssm_states:
         cache["layers"] = {"ssm": torch.stack(ssm_states),
                            "conv": torch.stack(conv_tails)}
     h = rmsnorm(h[:, -1:], params["final_ln"], cfg.norm_eps)
@@ -362,23 +424,33 @@ def decode_step(cfg, params, token, cache):
     h = params["embed"][token]
     pos = cache["pos"]
     layers = _layers(params, cfg.num_layers)
+
+    def mamba(hh, i):
+        lc = cache["layers"]
+        hh, new = _ssm_block_decode(cfg, layers[i], hh,
+                                    {"conv": lc["conv"][i],
+                                     "ssm": lc["ssm"][i]})
+        lc["conv"][i] = new["conv"]
+        lc["ssm"][i] = new["ssm"]
+        return hh
+
+    def attn(hh, lp, j):
+        hh, _ = _attn_block_decode(cfg, lp, hh,
+                                   (cache["k"][j], cache["v"][j]), pos,
+                                   window=cfg.sliding_window)
+        return hh
+
     if cfg.family == "dense":
         for i, lp in enumerate(layers):
-            h, _ = _attn_block_decode(cfg, lp, h,
-                                      (cache["k"][i], cache["v"][i]), pos,
-                                      window=cfg.sliding_window)
+            h = attn(h, lp, i)
+    elif cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            h = mamba(h, i)
     else:
-        lc = cache["layers"]
         for gi, group in enumerate(_groups(cfg)):
             for i in group:
-                h, new = _ssm_block_decode(
-                    cfg, layers[i], h,
-                    {"conv": lc["conv"][i], "ssm": lc["ssm"][i]})
-                lc["conv"][i] = new["conv"]
-                lc["ssm"][i] = new["ssm"]
-            h, _ = _attn_block_decode(cfg, params["shared"], h,
-                                      (cache["k"][gi], cache["v"][gi]), pos,
-                                      window=cfg.sliding_window)
+                h = mamba(h, i)
+            h = attn(h, params["shared"], gi)
     cache["pos"] = pos + 1
     h = rmsnorm(h, params["final_ln"], cfg.norm_eps)
     logits = (h @ params["lm_head"]).to(torch.float32)

@@ -915,6 +915,25 @@ def test_checker_fast_matrix_passes_on_the_card(dev):
     assert guard.status == "pass", guard.violations
 
 
+def test_checker_host_legs_pass_on_the_card(dev):
+    """The full matrix's host-backend legs through the checker on the
+    card (ROADMAP F4): the int8 legs' residual goes down to host memory
+    on the copy stream with one event wait, so no round syncs beyond
+    its plan read-back, as on the plain and uncompressed legs."""
+    from repro_torch.analysis.artifacts import FULL_MATRIX, build_artifact
+    from repro_torch.analysis.rules import evaluate
+
+    legs = [k for k in FULL_MATRIX if k.backend == "host"]
+    assert sum("int8" in k.name for k in legs) == 2
+    for key in legs:
+        res = {r.rule: r for r in evaluate(build_artifact(key, device=dev))}
+        for r in res.values():
+            assert r.status != "fail", (key.name, r.rule, r.violations)
+        m = res["host-transfer-budget"].metrics
+        assert m["syncs"] == 0 and m["cuda_syncs"] == m["plan_readbacks"], \
+            (key.name, m)
+
+
 def test_checker_catches_a_sync_on_the_card(dev):
     """A read-back inside a round raises under the sync debug mode's
     "error" and is counted by the op log."""
@@ -1041,3 +1060,52 @@ def test_adam_sqrt_is_correctly_rounded_on_the_card(dev):
     for k in ("w", "b"):
         torch.testing.assert_close(p_card[k].cpu(), p_cpu[k], rtol=1e-6,
                                    atol=0)
+
+
+@pytest.mark.parametrize("name", list(ops.KERNELS))
+def test_kernel_wrappers_refuse_grad_on_the_card(dev, name):
+    """ROADMAP F3: each wrapper launches its kernel on the operands as
+    they are and refuses each one made to require grad, launching
+    nothing (the CPU's cases of tests/test_torch_refuse_grad.py)."""
+    from test_torch_refuse_grad import check_refusals
+
+    before = ops.launch_counts()[name]
+    check_refusals(dev, name)
+    assert ops.launch_counts()[name] > before
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_ssm_loss_grads_match_the_cpu(dev, arch):
+    """The ssm and hybrid training losses and their gradients on the card
+    against the CPU's on the same weights, fp32, 2 × 64 tokens (8
+    chunks of 8, so the inter-chunk scan carries most of the state):
+    loss at rtol 1e-5, gradients at rtol 1e-4 / atol 1e-6.  The SSD
+    runs ``ssd_scan_ref`` by name; had it reached K5, whose kernel path
+    builds no autograd node, the inter-chunk term's gradient would be
+    lost on the card only."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).reduced(), remat=True)
+    model = build_model(cfg)
+    params_cpu = tree_map(lambda x: x.requires_grad_(True),
+                          model.init(0, device="cpu"))
+    params = tree_map(lambda x: x.detach().to(dev).requires_grad_(True),
+                      params_cpu)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 65)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    ops.reset_launch_counts()
+    loss = model.loss(params, {k: v.to(dev) for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    torch.cuda.synchronize()
+    assert not any(ops.launch_counts().values())
+    want = model.loss(params_cpu, batch)
+    wgrads = torch.autograd.grad(want, tree_leaves(params_cpu))
+    torch.testing.assert_close(loss.cpu(), want.detach(), rtol=1e-5, atol=0)
+    for g, w in zip(grads, wgrads, strict=True):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-6)

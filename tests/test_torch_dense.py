@@ -276,10 +276,23 @@ def test_loss_and_grads_match_jax(setup, remat, loss_chunk):
     assert float(same) == float(got.detach())
 
 
-def test_hybrid_loss_is_refused():
-    cfg = get_config("zamba2-2.7b").reduced()
+@pytest.mark.parametrize("family", ["moe", "vlm", "audio"])
+def test_unported_families_are_refused(family):
+    """The families still to port (ROADMAP M17b-4, M17b-5) raise where
+    a model is built (``check_family``), and their attention masks where
+    attention runs (``check_mask_mode``)."""
+    from repro_torch.models.attention import check_mask_mode
+    from repro_torch.models.transformer import check_family
+
+    cfg = dataclasses.replace(get_config(ARCH).reduced(), family=family,
+                              num_experts=4 if family == "moe" else 0)
     with pytest.raises(NotImplementedError, match="M17b"):
-        build_model(cfg).loss({}, {})
+        check_family(cfg)
+    with pytest.raises(NotImplementedError, match="M17b"):
+        build_model(cfg)
+    if family != "moe":
+        with pytest.raises(NotImplementedError, match="M17"):
+            check_mask_mode("prefix" if family == "vlm" else "bidir")
 
 
 # ----------------------------------------------------------------------

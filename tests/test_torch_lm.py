@@ -445,8 +445,9 @@ def test_greedy_generation_matches_jax(slice_setup):
 def test_other_families_raise():
     from repro_torch.configs.model_config import ModelConfig
     assert get_config("granite-3-2b").family == "dense"
+    assert get_config("mamba2-2.7b").family == "ssm"
     with pytest.raises(NotImplementedError, match="M17"):
-        get_config("mamba2-2.7b")
+        get_config("mixtral-8x7b")
     moe = ModelConfig(name="m", family="moe", num_layers=2, d_model=8,
                       num_heads=2, num_kv_heads=2, head_dim=4, d_ff=16,
                       vocab_size=32, num_experts=4, top_k=2)
