@@ -11,7 +11,9 @@ host-offloaded client state (slice 13), the static-invariant checker
 cross-pod FedBack engine and dense serving (slice 15), and the
 SSM-bearing families: zamba2-2.7b's training loss through the cross-pod
 engine, mamba2-2.7b served and trained, phi3-medium-14b served (slice
-16).
+16), and the last three families: moonshot-v1-16b-a3b (MoE) served at
+full size and trained, mixtral-8x7b reduced, paligemma-3b (prefix-LM
+vlm) served and hubert-xlarge (audio encoder) trained (slice 17).
 
     python3 chip_smoke.py
 
@@ -283,15 +285,49 @@ non-zero):
 8e. phi3-medium-14b at full size, bf16 (its init drawn on the card,
    timed): 4 × 2048 prompt tokens, 4 new, 40 K4 launches a prefill at
    (4, 2048, 40:10, 128), none in decode, prefill against decode as in
-   phase 7; each of 7a–8e prints its seconds;
-9. print the serve line, the kernels line (K4's bf16 instance as
+   phase 7;
+9a. moonshot-v1-16b-a3b at every published width (d_model 2048, 64
+   experts top-6 of d_ff 1408, vocab 163,840) cut to 1 layer, fp32 with
+   TF32 off: greedy serving against the CPU as in phase 6 (1 launch of
+   K4's 3xTF32 instance), the tokens whose k-th and (k+1)-th router
+   probabilities lie within 1e-5 counted, the loss and its gradients on
+   2 × 64 tokens against the CPU at the solve grade and twice bit for
+   bit on the card, and one cross-pod round (1 local step) held
+   against the CPU as in 7a;
+9b. moonshot at full size (48 layers, 28.1 B parameters), bf16: 4 ×
+   2048 prompt tokens, 4 new, through ``serve``, 48 K4 launches a
+   prefill at (4, 2048, 16:16, 128), none in decode; the share of rows
+   dropped at its capacity factor 1.25; prefill against decode within
+   8% of the largest logit on a drop-free copy (capacity factor 64) of
+   the same weights at 1 × 256 tokens (prefill's per-group count drops
+   the latest tokens first, decode never drops);
+9c. mixtral-8x7b ``.reduced()`` (a window of 16): prefill and decode
+   against the CPU as in phase 6 (2 launches of K4's 3xTF32 instance
+   with the window), and ``moe_apply`` on the card against its CPU run
+   at the cases of tests/test_torch_moe.py: ids and keep masks equal,
+   out and aux at rtol 1e-5, gradients at the solve grade and repeated
+   bit for bit;
+9d. paligemma-3b: 2 layers at full width, fp32, 256 patches + 256
+   text tokens, greedy against the CPU (logits and tokens; no K4
+   launch: the prefix mask goes through ``blockwise_attention``); then
+   full size in bf16 through ``serve``, 4 × (256 patches + 512 text
+   tokens), 4 new, 0 K4 launches asserted, prefill against decode on a
+   cache sized for the prefix, and a decode past a cache sized without
+   it refused (ROADMAP D11);
+9e. hubert-xlarge: 2 layers at full width, fp32, the loss and its
+   gradients on 2 × 64 frames against the CPU at the solve grade; then
+   full size in bf16: the loss, its gradients and one SGD step on 4 ×
+   1024 frames, finite, the parameters moved, no kernel launched; each
+   of 7a–9e prints its seconds;
+10. print the serve line, the kernels line (K4's bf16 instance as
    ``flash_attention``, launched in phase 7, at granite's GQA shape
    as ``flash_attention_gqa``, launched in phase 7c, and at phi3's as
-   ``flash_attention_phi3``, launched in phase 8e — phase 3 holds both
-   shapes, (4, 2048, 32:8, 64) and (4, 2048, 40:10, 128), against the
-   plain version at 2e-2 and times them beside
-   ``scaled_dot_product_attention`` —, its 3xTF32 instance as
-   ``flash_attention_fp32``, launched in phases 6 and 7c, and K5 at
+   ``flash_attention_phi3``, launched in phase 8e, and at moonshot's as
+   ``flash_attention_moonshot``, launched in phase 9b — phase 3 holds
+   the three shapes, (4, 2048, 32:8, 64), (4, 2048, 40:10, 128) and (4,
+   2048, 16:16, 128), against the plain version at 2e-2 and times them
+   beside ``scaled_dot_product_attention`` —, its 3xTF32 instance as
+   ``flash_attention_fp32``, launched in phases 6, 7c, 9a and 9c, and K5 at
    mamba2's shape as ``ssd_scan_mamba2``, launched in phase 8c and held
    bit for bit by phase 3; K1–K3's launches are
    those of phases 4–5k (5k: its paper-width forms), K1c's those of
@@ -304,6 +340,7 @@ where the port's package is missing next to this script.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -944,6 +981,33 @@ def check_model_kernels(dev, ops):
         nbytes=ops.flash_attention_hbm_bytes(b, ph, pkv, s, phd, 2),
         nflop=ops.flash_attention_flops(b, ph, s, phd), peak_flops=peak)
     del pq, pk, pv, pqt, pkt, pvt, got, want
+    # K4 at moonshot-v1-16b-a3b's prefill shape: MHA 16:16 at head_dim
+    # 128, bf16, the (B, S, H, hd) layout (phase 9b's 48 launches a
+    # prefill).
+    mh, mhd = 16, 128
+    mq, mk, mv = (randn(b, s, mh, mhd, dtype=torch.bfloat16)
+                  for _ in range(3))
+    got = ops.flash_attention(mq, mk, mv, layout="bshd")
+    want = ops.flash_attention_ref(mq, mk, mv, layout="bshd")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    err_moon = float((got.float() - want.float()).abs().max())
+    log(f"flash_attention bf16 ({b}, {s}, {mh}:{mh}, {mhd}) MHA causal, "
+        f"(B, S, H, hd): max_abs_err {err_moon:.3e} (rtol/atol 2e-2 held)")
+    mqt, mkt, mvt = (t.transpose(1, 2).contiguous() for t in (mq, mk, mv))
+    rows["flash_attention_moonshot"] = dict(
+        replaces="src/repro/kernels/flash_attention.py:112",
+        source=MODEL_SRC, max_abs_err=err_moon,
+        ms=device_ms(lambda: ops.flash_attention(mq, mk, mv, layout="bshd")),
+        plain_ms=device_ms(lambda: ops.flash_attention_ref(
+            mq, mk, mv, layout="bshd"), calls=PLAIN_CALLS),
+        library_ms=device_ms(lambda: torch.nn.functional.
+                             scaled_dot_product_attention(
+                                 mqt, mkt, mvt, is_causal=True)),
+        nbytes=ops.flash_attention_hbm_bytes(b, mh, mh, s, mhd, 2),
+        nflop=ops.flash_attention_flops(b, mh, s, mhd), peak_flops=peak)
+    del mq, mk, mv, mqt, mkt, mvt, got, want
     off = [randn(b * s * h * hd + 1)[1:].view(b, s, h, hd) for _ in range(3)]
     for t, src in zip(off, (q, k, v), strict=True):
         t.copy_(src)
@@ -1074,14 +1138,16 @@ def kernel_facts(build):
 
 # Rows of the kernels line that hold one kernel at one model's shape.
 SHAPE_ROWS = ("flash_attention", "flash_attention_gqa",
-              "flash_attention_phi3", "ssd_scan", "ssd_scan_mamba2")
+              "flash_attention_phi3", "flash_attention_moonshot",
+              "ssd_scan", "ssd_scan_mamba2")
 
 
 def path_counts(ops, bf16_row="flash_attention", ssd_row="ssd_scan"):
     """The launch counts of a phase by row of the kernels line: K4's
     bf16 (tensor-core) instance as ``bf16_row`` (``flash_attention``,
-    zamba2's shape, ``flash_attention_gqa``, granite's, or
-    ``flash_attention_phi3``), its 3xTF32 one as
+    zamba2's shape, ``flash_attention_gqa``, granite's,
+    ``flash_attention_phi3`` or ``flash_attention_moonshot``), its
+    3xTF32 one as
     ``flash_attention_fp32`` (the SIMT instance is on no path), K5 as
     ``ssd_row`` (``ssd_scan``, zamba2's shape, or ``ssd_scan_mamba2``)."""
     counts = ops.launch_counts()
@@ -1094,11 +1160,15 @@ def path_counts(ops, bf16_row="flash_attention", ssd_row="ssd_scan"):
     return counts
 
 
-def _greedy(model, params, tokens, steps):
-    """Prefill + ``steps`` greedy decode steps → (logits per step,
-    tokens (B, steps + 1))."""
-    logits, cache = model.prefill(params, {"tokens": tokens},
-                                  tokens.shape[1] + steps)
+def _greedy(model, params, request, steps):
+    """Prefill ``request`` (``serve_lm.make_request``'s batch) into a
+    cache with room for ``steps`` more (and the vlm's prefix), then
+    ``steps`` greedy decode steps → (logits per step, tokens (B, steps +
+    1))."""
+    from repro_torch.launch.serve_lm import cache_len
+
+    logits, cache = model.prefill(params, request, cache_len(
+        model.config, request["tokens"].shape[1], steps))
     out_logits, out_tok = [logits], [logits[:, -1].argmax(-1)[:, None]]
     for _ in range(steps):
         logits, cache = model.decode_step(params, out_tok[-1], cache)
@@ -1107,27 +1177,33 @@ def _greedy(model, params, tokens, steps):
     return out_logits, torch.cat(out_tok, 1)
 
 
-def check_slice_against_cpu(dev, ops, cfg, expect, ssd_row="ssd_scan"):
-    """Phases 6, 7c and 8c: one full-width group in fp32, card (kernels)
-    against the CPU's plain path on the same weights; ``expect`` the
-    launches of the prefill by row of the kernels line."""
-    from repro_torch.launch.serve_lm import make_prompts
+def check_slice_against_cpu(dev, ops, cfg, expect, ssd_row="ssd_scan",
+                            k4_total=None):
+    """Phases 6, 7c, 8c, 9a, 9c and 9d: one full-width group in fp32,
+    card (kernels) against the CPU's plain path on the same weights (a
+    vlm's request carries its patches); ``expect`` the launches of the
+    prefill by row of the kernels line, ``k4_total`` (where given) K4's
+    launches over all its instances."""
+    from repro_torch.launch.serve_lm import make_request
     from repro_torch.models import build_model
     from repro_torch.utils.pytree import tree_map
 
     model = build_model(cfg)
     params = model.init(SEED, device=dev)
     params_cpu = tree_map(lambda x: x.cpu(), params)
-    tokens = make_prompts(cfg, 1, SLICE_TOKENS, SEED, dev)
+    request = make_request(cfg, 1, SLICE_TOKENS, SEED, dev)
     ops.reset_launch_counts()
-    got_logits, got_tok = _greedy(model, params, tokens, SLICE_DECODE)
+    got_logits, got_tok = _greedy(model, params, request, SLICE_DECODE)
     torch.cuda.synchronize()
     counts = path_counts(ops, ssd_row=ssd_row)
-    want_logits, want_tok = _greedy(model, params_cpu, tokens.cpu(),
-                                    SLICE_DECODE)
-    if any(counts[k] != n for k, n in expect.items()):
-        raise AssertionError(f"one-group prefill launched {counts}, "
-                             f"expected {expect}")
+    k4 = ops.flash_attention.launches
+    want_logits, want_tok = _greedy(
+        model, params_cpu, {k: v.cpu() for k, v in request.items()},
+        SLICE_DECODE)
+    if any(counts[k] != n for k, n in expect.items()) or (
+            k4_total is not None and k4 != k4_total):
+        raise AssertionError(f"one-group prefill launched {counts} (K4 "
+                             f"{k4} in all), expected {expect}")
     np.testing.assert_array_equal(got_tok.cpu().numpy(), want_tok.numpy(),
                                   err_msg="greedy tokens differ")
     err = 0.0
@@ -1143,11 +1219,16 @@ def check_slice_against_cpu(dev, ops, cfg, expect, ssd_row="ssd_scan"):
 
 
 def serve_full(dev, ops, smi, cfg, expect, bf16_row="flash_attention",
-               ssd_row="ssd_scan", new_tokens=SERVE_NEW):
-    """Phases 7, 7c, 8c and 8e: a model at full width and depth, bf16, 4
-    requests × 2048 prompt tokens, ``new_tokens`` new; ``expect`` the
-    prefill's launches by kernel (none in decode)."""
-    from repro_torch.launch.serve_lm import make_prompts, serve
+               ssd_row="ssd_scan", new_tokens=SERVE_NEW,
+               prompt_len=SERVE_PROMPT, check=None, after=None):
+    """Phases 7, 7c, 8c, 8e, 9b and 9d: a model at full width and depth,
+    bf16, 4 requests × ``prompt_len`` prompt tokens (and a vlm's patches),
+    ``new_tokens`` new; ``expect`` the prefill's launches by kernel (none
+    in decode).  Then prefill against decode on ``check`` = (a config of
+    the same weights, batch, prompt length), by default the served one;
+    ``after(model, params)`` adds its dict to the report while the
+    weights are on the card."""
+    from repro_torch.launch.serve_lm import cache_len, make_request, serve
     from repro_torch.models import build_model
     from repro_torch.utils.pytree import tree_leaves
 
@@ -1160,7 +1241,7 @@ def serve_full(dev, ops, smi, cfg, expect, bf16_row="flash_attention",
         f"parameters drawn on the card by the jax.random twin in "
         f"{init_s:.2f} s")
     ops.reset_launch_counts()
-    report = serve(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+    report = serve(cfg, batch=SERVE_BATCH, prompt_len=prompt_len,
                    new_tokens=new_tokens, seed=SEED, device=dev,
                    params=params)
     torch.cuda.synchronize()
@@ -1180,15 +1261,19 @@ def serve_full(dev, ops, smi, cfg, expect, bf16_row="flash_attention",
                              f"{tokens.shape} in [{tokens.min()}, "
                              f"{tokens.max()}]")
     # prefill(t0..tn) against decode of tn after prefill(t0..tn-1)
-    prompts = make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT, SEED, dev)
-    full, _ = model.prefill(params, {"tokens": prompts}, SERVE_PROMPT)
-    _, cache = model.prefill(params, {"tokens": prompts[:, :-1]},
-                             SERVE_PROMPT)
-    dec, _ = model.decode_step(params, prompts[:, -1:], cache)
-    if full.shape != (SERVE_BATCH, 1, cfg.vocab_size) or not bool(
+    ccfg, cb, cs = check or (cfg, SERVE_BATCH, prompt_len)
+    cmodel = build_model(ccfg)
+    request = make_request(ccfg, cb, cs, SEED, dev)
+    room = cache_len(ccfg, cs, 0)
+    full, _ = cmodel.prefill(params, request, room)
+    _, cache = cmodel.prefill(params, dict(
+        request, tokens=request["tokens"][:, :-1]), room)
+    dec, _ = cmodel.decode_step(params, request["tokens"][:, -1:], cache)
+    del cache
+    if full.shape != (cb, 1, cfg.vocab_size) or not bool(
             torch.isfinite(full).all() and torch.isfinite(dec).all()):
         raise AssertionError("prefill/decode logits are not finite "
-                             f"{(SERVE_BATCH, 1, cfg.vocab_size)}")
+                             f"{(cb, 1, cfg.vocab_size)}")
     diff = (full - dec).abs().amax(dim=(1, 2))
     scale = full.abs().amax(dim=(1, 2))
     rel = (diff / scale).cpu().tolist()
@@ -1197,14 +1282,18 @@ def serve_full(dev, ops, smi, cfg, expect, bf16_row="flash_attention",
                              f"max |logit| = {rel} > {CONSISTENCY_REL}")
     report.update(
         card=smi, init_s=init_s, tokens_request0=tokens[0].tolist(),
-        consistency_rel=rel,
+        consistency_rel=rel, consistency_on=dict(
+            capacity_factor=ccfg.capacity_factor, batch=cb, prompt_len=cs),
         argmax_equal=(full.argmax(-1) == dec.argmax(-1)).flatten().tolist(),
         launches_total=counts)
+    if after is not None:
+        report.update(after(model, params))
     log(f"serve {cfg.name}: prefill {report['prefill_ms']:.1f} ms, decode "
         f"{report['decode_ms_per_step']:.2f} ms/step "
         f"({report['decode_tok_per_s']:.1f} tok/s), peak "
         f"{report['peak_memory_bytes'] / 2**30:.2f} GiB; prefill/decode "
-        f"consistency {rel} (limit {CONSISTENCY_REL}); launches {counts}")
+        f"consistency {rel} on {cb} × {cs} (limit {CONSISTENCY_REL}); "
+        f"launches {counts}; on {smi}")
     return report, counts
 
 
@@ -3043,14 +3132,14 @@ PHI3_NEW = 4
 SOLVE_TOL = dict(rtol=1e-4, atol=1e-6)
 
 
-def _crosspod_round(cfg):
+def _crosspod_round(cfg, **overrides):
     from repro_torch.core.controller import ControllerConfig
     from repro_torch.core.crosspod import CrossPodConfig, \
         make_cross_pod_round
     from repro_torch.models import build_model
 
     cp = CrossPodConfig(controller=ControllerConfig(**CROSSPOD_CTRL),
-                        **CROSSPOD_CP)
+                        **dict(CROSSPOD_CP, **overrides))
     model = build_model(cfg)
     return cp, model, make_cross_pod_round(cp, model.loss)
 
@@ -3102,11 +3191,14 @@ def check_crosspod_against_cpu(dev, ops, cfg, spec, label):
     ``cfg`` (fp32, cut in depth) on the card, each held against the same
     round on the CPU from the card's state before it: events equal, δ
     within one ulp, distances at rtol 1e-5, θ/λ/z_prev at the solve
-    grade, ``train_loss`` at rtol 1e-5.  No kernel launches."""
+    grade, ``train_loss`` at rtol 1e-5.  No kernel launches.
+    ``spec["local_steps"]``, where given, replaces the settings' 2."""
     from repro_torch.core.crosspod import init_cross_pod_state
     from repro_torch.utils.pytree import tree_leaves
 
-    cp, model, round_fn = _crosspod_round(cfg)
+    cp, model, round_fn = _crosspod_round(
+        cfg, local_steps=spec.get("local_steps",
+                                  CROSSPOD_CP["local_steps"]))
     state = init_cross_pod_state(
         cp, model.init(SEED, device=dev), device=dev)
     batches = _crosspod_batches(cfg, cp, spec["batch"], spec["seq"])
@@ -3156,27 +3248,58 @@ def check_crosspod_against_cpu(dev, ops, cfg, spec, label):
     return report
 
 
-def check_loss_grads_against_cpu(dev, ops, cfg, spec, label):
-    """Phase 8d: the training loss and its gradients on the card against
-    the CPU's on the same weights and batch: the loss at rtol 1e-5,
-    every gradient at the solve grade; no kernel launches (the SSD's
-    scan is ``ssd_scan_ref``, which autograd differentiates)."""
-    from repro_torch.launch.serve_lm import make_prompts
+def _train_batch(cfg, batch, seq):
+    """A training batch on the CPU, made with numpy from the seed:
+    next-token pairs, or the audio family's frames (normal × 0.3) with
+    their labels."""
+    from repro_torch.launch.serve_lm import make_request
+
+    if cfg.family == "audio":
+        rng = np.random.default_rng(SEED)
+        return {"features": torch.from_numpy(rng.normal(
+                    size=(batch, seq, cfg.frontend_dim)) * 0.3).float(),
+                "labels": torch.from_numpy(rng.integers(
+                    0, cfg.vocab_size, (batch, seq)))}
+    toks = make_request(cfg, batch, seq + 1, SEED, "cpu")["tokens"]
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def check_loss_grads_against_cpu(dev, ops, cfg, spec, label, repeat=False):
+    """Phases 8d, 9a and 9e: the training loss and its gradients on the
+    card against the CPU's on the same weights and batch: the loss at
+    rtol 1e-5, every gradient at the solve grade; no kernel launches (the
+    SSD's scan is ``ssd_scan_ref``, which autograd differentiates, the
+    attention ``blockwise_attention``); with ``repeat`` the card's
+    gradients computed twice, bit for bit."""
     from repro_torch.models import build_model
     from repro_torch.utils.pytree import tree_leaves, tree_map
 
     model = build_model(cfg)
     params = model.init(SEED, device=dev)
     params_cpu = tree_map(lambda x: x.cpu(), params)
-    toks = make_prompts(cfg, spec["batch"], spec["seq"] + 1, SEED, "cpu")
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    batch = _train_batch(cfg, spec["batch"], spec["seq"])
+    on_card = {k: v.to(dev) for k, v in batch.items()}
     ops.reset_launch_counts()
+
+    def card_grads():
+        leaves = [x.detach().requires_grad_(True)
+                  for x in tree_leaves(params)]
+        it = iter(leaves)
+        loss = model.loss(tree_map(lambda _: next(it), params), on_card)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
     t0 = time.perf_counter()
-    leaves = [x.requires_grad_(True) for x in tree_leaves(params)]
-    loss = model.loss(params, {k: v.to(dev) for k, v in batch.items()})
-    grads = torch.autograd.grad(loss, leaves)
+    loss, grads = card_grads()
     torch.cuda.synchronize()
     card_ms = (time.perf_counter() - t0) * 1e3
+    if repeat:
+        again_loss, again = card_grads()
+        if not (torch.equal(again_loss, loss) and all(
+                torch.equal(a, g) for a, g in zip(again, grads,
+                                                  strict=True))):
+            raise AssertionError(f"{label}: the gradients on the card do "
+                                 "not repeat bit for bit")
+        del again
     if any(ops.launch_counts().values()):
         raise AssertionError(f"{label} launched {ops.launch_counts()}")
     t0 = time.perf_counter()
@@ -3184,15 +3307,18 @@ def check_loss_grads_against_cpu(dev, ops, cfg, spec, label):
     want = model.loss(params_cpu, batch)
     wgrads = torch.autograd.grad(want, wleaves)
     cpu_s = time.perf_counter() - t0
-    loss, want = loss.detach(), want.detach()
+    want = want.detach()
     torch.testing.assert_close(loss.cpu(), want, rtol=1e-5, atol=0)
     gap = _held_on_card(dev, grads, wgrads, label, "gradients")
     log(f"{label} ({cfg.name}, {cfg.num_layers} layers, fp32, "
-        f"{spec['batch']} × {spec['seq']} tokens): loss {float(loss):.6f} "
-        f"(CPU {float(want):.6f}), {len(grads)} gradients max_abs_err "
-        f"{gap:.3e} (rtol 1e-4 / atol 1e-6 held); card {card_ms:.1f} ms, "
-        f"CPU {cpu_s:.1f} s")
-    return dict(loss=float(loss), max_abs_err=gap, card_ms=card_ms)
+        f"{spec['batch']} × {spec['seq']} "
+        f"{'frames' if cfg.family == 'audio' else 'tokens'}): loss "
+        f"{float(loss):.6f} (CPU {float(want):.6f}), {len(grads)} gradients "
+        f"max_abs_err {gap:.3e} (rtol 1e-4 / atol 1e-6 held)"
+        f"{'; repeated bit for bit on the card' if repeat else ''}; card "
+        f"{card_ms:.1f} ms, CPU {cpu_s:.1f} s")
+    return dict(loss=float(loss), max_abs_err=gap, card_ms=card_ms,
+                repeated_bit_equal=repeat)
 
 
 def _round_profile(prof, wall_ms) -> dict:
@@ -3304,6 +3430,292 @@ def drive_crosspod_full(dev, smi, cfg, spec, label):
     del state
     torch.cuda.empty_cache()
     return report
+
+
+# Phases 9a–9e (slice 17): the MoE, vlm and audio families.  (a)
+# moonshot cut to 1 layer at every published width, fp32, against the
+# CPU (its cross-pod round takes 1 local step: with 2 the CPU's round
+# took 56.0 s and 9a 103.2 s on an H100's host); (b) moonshot at full size, bf16, its prefill/decode consistency
+# on a drop-free copy of the same weights (capacity factor 64: prefill's
+# per-group count drops the latest tokens, decode never drops; at 4 ×
+# 2048 the drop-free buffers would take ~13 GB a layer, so 1 × 256);
+# (c) mixtral .reduced() (a window of 16); (d) paligemma: 2 layers fp32
+# against the CPU, then full size in bf16 on 512 text tokens after its
+# 256 patches; (e) hubert: 2 layers fp32, then full size in bf16.
+MOONSHOT, MIXTRAL = "moonshot-v1-16b-a3b", "mixtral-8x7b"
+PALIGEMMA, HUBERT = "paligemma-3b", "hubert-xlarge"
+MOON_A = dict(layers=1, batch=2, seq=64, rounds=1, local_steps=1)
+MOON_NEW, MOON_CHECK = 4, (1, 256)
+DROP_FREE_CF = 64.0
+PALI_LAYERS, PALI_PROMPT, PALI_NEW = 2, 512, 4
+HUBERT_A = dict(layers=2, batch=2, seq=64)
+HUBERT_B = dict(batch=4, seq=1024, lr=1e-2)
+ROUTER_MARGIN = 1e-5
+# The MoE layer's card checks (phase 9c), weights from ``moe_init``:
+# (seed, d, d_ff, experts, top_k, batch, seq, capacity factor, rigged
+# router): drops at 64 experts top-6, decode's S = 1, and the rigged
+# router of tests/test_models.py (every token to expert 0, 1–3 tied).
+MOE_UNITS = ((2, 32, 16, 64, 6, 2, 40, 1.25, False),
+             (3, 16, 32, 8, 2, 4, 1, 1.25, False),
+             (0, 8, 16, 4, 2, 2, 16, 1.0, True))
+
+
+@contextlib.contextmanager
+def moe_plans():
+    """Record the routing (``moe.routing``: probs, expert ids, keep
+    mask, capacity) and the router's input ``x`` of every MoE layer the
+    model runs, one dict a layer call."""
+    from repro_torch.models import moe, transformer
+
+    plans, apply = [], transformer.moe_apply
+
+    def recorded(p, x, *, top_k, capacity_factor, **kw):
+        plans.append(dict(moe.routing(p, x, top_k, capacity_factor), x=x))
+        return apply(p, x, top_k=top_k, capacity_factor=capacity_factor,
+                     **kw)
+
+    transformer.moe_apply = recorded
+    try:
+        yield plans
+    finally:
+        transformer.moe_apply = apply
+
+
+def router_margins(plans, top_k):
+    """Tokens (over the recorded layers) whose k-th and (k+1)-th router
+    probabilities lie within ``ROUTER_MARGIN`` (where the card and the
+    CPU may pick different experts), of how many; and the smallest
+    margin."""
+    near, total, least = 0, 0, math.inf
+    for plan in plans:
+        top = torch.sort(plan["probs"], dim=-1, descending=True).values
+        gap = top[..., top_k - 1] - top[..., top_k]
+        near += int((gap < ROUTER_MARGIN).sum())
+        total += gap.numel()
+        least = min(least, float(gap.min()))
+    return dict(near_ties=near, tokens=total, least_margin=least)
+
+
+def check_moe_slice(dev, ops, cfg):
+    """Phase 9a: moonshot at every published width cut to 1 layer, fp32:
+    greedy serving against the CPU (1 launch of K4's 3xTF32 instance),
+    the router's near ties counted on the prefill, the loss and its
+    gradients against the CPU and twice bit for bit on the card, one
+    cross-pod round against the CPU."""
+    from repro_torch.launch.serve_lm import make_request
+    from repro_torch.models import build_model
+
+    cut = dataclasses.replace(cfg, num_layers=MOON_A["layers"],
+                              dtype="float32")
+    slice_report, counts = check_slice_against_cpu(
+        dev, ops, cut, {"flash_attention_fp32": 1, "flash_attention": 0,
+                        "ssd_scan": 0})
+    model = build_model(cut)
+    params = model.init(SEED, device=dev)
+    with moe_plans() as plans:
+        model.prefill(params, make_request(cut, 1, SLICE_TOKENS, SEED, dev))
+    margins = router_margins(plans, cut.top_k)
+    del params, plans
+    torch.cuda.empty_cache()
+    log(f"9a router: {margins['near_ties']} of {margins['tokens']} prefill "
+        f"tokens with a k-th/(k+1)-th probability margin under "
+        f"{ROUTER_MARGIN} (least {margins['least_margin']:.3e}); TF32 off")
+    loss = check_loss_grads_against_cpu(dev, ops, cut, MOON_A, "9a loss",
+                                        repeat=True)
+    torch.cuda.empty_cache()
+    crosspod = check_crosspod_against_cpu(dev, ops, cut, MOON_A, "9a")
+    torch.cuda.empty_cache()
+    return dict(slice=slice_report, router=margins, loss_grads=loss,
+                crosspod=crosspod), counts
+
+
+def _mean_cosine(x):
+    """Mean over a batch of ‖mean_t x_t/‖x_t‖‖²: the mean cosine of a
+    sequence's vectors to each other (self-pairs included; 1/S for
+    independent directions, 1 for one shared direction)."""
+    u = x.float() / x.float().norm(dim=-1, keepdim=True)
+    return float((u.mean(1) ** 2).sum(-1).mean())
+
+
+def moe_drop_share(cfg, dev):
+    """``serve_full``'s ``after`` for phase 9b: one more prefill of the
+    served requests with the routing recorded → the share of the rows
+    (token × k) dropped at the config's capacity factor, in all and a
+    layer, beside each layer's router inputs' mean cosine; and two
+    figures for layer 0's shape: random ids (uniform routing) and its
+    router on the embedding alone (before attention adds to it)."""
+    from repro_torch.launch.serve_lm import make_request
+    from repro_torch.models import moe
+    from repro_torch.models.layers import rmsnorm
+
+    def after(model, params):
+        tokens = make_request(cfg, SERVE_BATCH, SERVE_PROMPT, SEED,
+                              dev)["tokens"]
+        with moe_plans() as plans:
+            model.prefill(params, {"tokens": tokens})
+            rows = plans[0]["keep"].numel()
+            per_layer = [1 - int(p["keep"].sum()) / rows for p in plans]
+            cosine = [_mean_cosine(p["x"]) for p in plans]
+            del plans[:]
+        share = sum(per_layer) / len(per_layer)
+        lay = params["layers"]
+        emb = rmsnorm(params["embed"][tokens], lay["ln2"][0], cfg.norm_eps)
+        alone = moe.routing({"router": lay["moe"]["router"][0]}, emb,
+                            cfg.top_k, cfg.capacity_factor)
+        e, cap = cfg.num_experts, alone["cap"]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        ids = torch.rand(tokens.shape + (e,), generator=gen,
+                         device=dev).argsort(-1)[..., :cfg.top_k]
+        uniform = 1 - float(moe.dispatch_plan(ids, e, cap)[2]
+                            .float().mean())
+        embedding = 1 - float(alone["keep"].float().mean())
+        log(f"9b drops at capacity factor {cfg.capacity_factor} (capacity "
+            f"{cap} rows an expert and group): {share:.4%} of "
+            f"{rows * len(per_layer)} rows over {len(per_layer)} layers, "
+            f"the worst layer {max(per_layer):.4%}; layer 0's shape with "
+            f"uniform random ids {uniform:.4%}, its router on the "
+            f"embedding alone {embedding:.4%} (router input mean cosine "
+            f"{_mean_cosine(emb):.4f})")
+        log("9b drops a layer: " + " ".join(f"{x:.4f}" for x in per_layer))
+        log("9b router input mean cosine a layer: "
+            + " ".join(f"{x:.4f}" for x in cosine))
+        return dict(drop_share=share, drop_share_worst_layer=max(per_layer),
+                    drop_share_by_layer=per_layer,
+                    router_input_cosine_by_layer=cosine,
+                    drop_share_uniform_ids=uniform,
+                    drop_share_layer0_embedding_alone=embedding,
+                    capacity=cap, rows=rows * len(per_layer))
+
+    return after
+
+
+def check_moe_units(dev):
+    """Phase 9c: ``moe_apply`` on the card against its plain CPU run on
+    the same inputs, at ``MOE_UNITS`` (drops at 64 experts top-6,
+    decode's S = 1, the tied router): expert ids and keep
+    mask equal, out and aux at rtol 1e-5 (fp32, TF32 off); the
+    gradients (Σ out² + 0.01·aux) at the solve grade, and twice bit for
+    bit on the card."""
+    from repro_torch import prng
+    from repro_torch.models import moe
+
+    worst = 0.0
+    for seed, d, f, e, k, b, s, cf, rigged in MOE_UNITS:
+        p = moe.moe_init(prng.PRNGKey(seed, "cpu"), d, f, e, torch.float32,
+                         "cpu")
+        x = torch.from_numpy(np.random.default_rng(seed).normal(
+            size=(b, s, d))).float()
+        if rigged:
+            p["router"] = torch.zeros_like(p["router"])
+            p["router"][:, 0] = 10.0
+            x = x.abs() + 0.1
+
+        def run(p, x):
+            leaves = {n: v.clone().requires_grad_(True)
+                      for n, v in p.items()}
+            out, aux = moe.moe_apply(leaves, x, top_k=k, capacity_factor=cf)
+            grads = torch.autograd.grad(torch.sum(out ** 2) + 0.01 * aux,
+                                        list(leaves.values()))
+            return (out.detach(), aux.detach(),
+                    moe.routing(p, x, k, cf), grads)
+
+        want = run(p, x)
+        pc = {n: v.to(dev) for n, v in p.items()}
+        got, again = run(pc, x.to(dev)), run(pc, x.to(dev))
+        where = f"9c moe_apply (E {e}, k {k}, S {s}, cf {cf})"
+        for key in ("eids", "keep"):
+            if not torch.equal(got[2][key].cpu(), want[2][key]):
+                raise AssertionError(f"{where}: {key} differ")
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5,
+                                   atol=1e-6)
+        torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=0)
+        for g, a, w in zip(got[3], again[3], want[3], strict=True):
+            if not torch.equal(g, a):
+                raise AssertionError(f"{where}: gradients do not repeat")
+            torch.testing.assert_close(g.cpu(), w, **SOLVE_TOL)
+        worst = max(worst, float((got[0].cpu() - want[0]).abs().max()))
+    log(f"9c moe_apply: {len(MOE_UNITS)} cases, card against the CPU: ids "
+        f"and keep masks equal, out max_abs_err {worst:.3e} (rtol 1e-5 "
+        "held), aux at rtol 1e-5, gradients at the solve grade and "
+        "repeated bit for bit")
+    return dict(cases=len(MOE_UNITS), out_max_abs_err=worst)
+
+
+def d11_refusal(cfg, dev):
+    """``serve_full``'s ``after`` for phase 9d: a vlm prefill with the
+    reference's default ``max_seq`` (the text's length) leaves no room
+    for decode; the port's decode must refuse it (ROADMAP D11)."""
+    from repro_torch.launch.serve_lm import make_request
+
+    def after(model, params):
+        req = make_request(cfg, 1, 16, SEED, dev)
+        _, cache = model.prefill(params, req)
+        try:
+            model.decode_step(params, req["tokens"][:, -1:], cache)
+        except ValueError as err:
+            log(f"9d D11 refused as it should be: {err}")
+            return dict(d11_refused=str(err))
+        raise AssertionError("9d: decode past a cache sized without the "
+                             "prefix was not refused")
+
+    return after
+
+
+def train_step_full(dev, ops, smi, cfg, spec, label):
+    """Phase 9e: a model at full size in bf16 (its init drawn on the
+    card): the loss on ``spec``'s batch, its gradients, one SGD step
+    (momentum 0.9 from zero), the loss again — finite, the parameters
+    moved, no kernel launched; ms and peak memory beside the card."""
+    from repro_torch.models import build_model
+    from repro_torch.optim.sgd import sgd_step
+    from repro_torch.utils.pytree import tree_leaves, tree_map, \
+        tree_zeros_like
+
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {k: v.to(dev) for k, v in _train_batch(
+        cfg, spec["batch"], spec["seq"]).items()}
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+    it = iter(leaves)
+    loss = model.loss(tree_map(lambda _: next(it), params), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    it = iter(grads)
+    new, _ = sgd_step(params, tree_map(lambda _: next(it), params),
+                      tree_zeros_like(params), spec["lr"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    with torch.no_grad():
+        after = model.loss(new, batch)
+    loss, after = float(loss.detach()), float(after)
+    moved = sum(not torch.equal(a, b) for a, b in zip(
+        tree_leaves(params), tree_leaves(new), strict=True))
+    if not (math.isfinite(loss) and math.isfinite(after)) or after == loss \
+            or not moved or not all(bool(torch.isfinite(x).all())
+                                    for x in tree_leaves(new)):
+        raise AssertionError(f"{label}: loss {loss} → {after}, {moved} "
+                             "leaves moved")
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"{label} launched {ops.launch_counts()}")
+    n = sum(x.numel() for x in tree_leaves(params))
+    log(f"{label} {cfg.name} train step, bf16, {n} parameters, "
+        f"{spec['batch']} × {spec['seq']} frames: loss {loss:.6f} → "
+        f"{after:.6f} after one SGD step (lr {spec['lr']}), {moved} of "
+        f"{len(leaves)} leaves moved; loss + grads + step {step_ms:.1f} ms, "
+        f"peak {peak / 1e9:.2f} GB; init {init_s:.2f} s; on {smi}")
+    del params, new, grads, leaves
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, params=n, loss=loss, loss_after=after,
+                leaves_moved=moved, step_ms=step_ms, peak_memory_bytes=peak,
+                init_s=init_s, card=smi)
 
 
 def main() -> int:
@@ -3520,6 +3932,56 @@ def main() -> int:
                     "mamba2": {"serve": mamba_serve, **mamba_d},
                     "phi3": {"serve": phi3_serve}}))
 
+    t0 = t1 = time.perf_counter()
+    moonshot = get_config(MOONSHOT)
+    moon_a, counts_moon_a = check_moe_slice(dev, ops, moonshot)
+    log(f"phase 9a took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    moon_serve, counts_moon = serve_full(
+        dev, ops, smi, moonshot,
+        {"flash_attention": moonshot.num_layers, "ssd_scan": 0},
+        bf16_row="flash_attention_moonshot", new_tokens=MOON_NEW,
+        check=(dataclasses.replace(moonshot, capacity_factor=DROP_FREE_CF),
+               *MOON_CHECK), after=moe_drop_share(moonshot, dev))
+    torch.cuda.empty_cache()
+    log(f"phase 9b took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    mixtral = get_config(MIXTRAL).reduced()
+    mix_slice, counts_mix = check_slice_against_cpu(
+        dev, ops, mixtral, {"flash_attention_fp32": mixtral.num_layers,
+                            "flash_attention": 0, "ssd_scan": 0})
+    mix_units = check_moe_units(dev)
+    log(f"phase 9c took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    pali = get_config(PALIGEMMA)
+    pali_slice, counts_pslice = check_slice_against_cpu(
+        dev, ops, dataclasses.replace(pali, num_layers=PALI_LAYERS,
+                                      dtype="float32"),
+        {"flash_attention_fp32": 0, "flash_attention": 0, "ssd_scan": 0},
+        k4_total=0)
+    torch.cuda.empty_cache()
+    pali_serve, counts_pali = serve_full(
+        dev, ops, smi, pali, {"flash_attention": 0, "ssd_scan": 0},
+        new_tokens=PALI_NEW, prompt_len=PALI_PROMPT,
+        after=d11_refusal(pali, dev))
+    torch.cuda.empty_cache()
+    log(f"phase 9d took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    hubert = get_config(HUBERT)
+    hub_a = check_loss_grads_against_cpu(
+        dev, ops, dataclasses.replace(hubert, num_layers=HUBERT_A["layers"],
+                                      dtype="float32"), HUBERT_A, "9e loss")
+    torch.cuda.empty_cache()
+    hub_b = train_step_full(dev, ops, smi, hubert, HUBERT_B, "9e")
+    log(f"phase 9e took {time.perf_counter() - t1:.1f} s; phases 9a–9e "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"moonshot": {"fp32_cut": moon_a, "serve": moon_serve},
+                    "mixtral_reduced": {"slice": mix_slice,
+                                        "moe_units": mix_units},
+                    "paligemma": {"slice": pali_slice, "serve": pali_serve},
+                    "hubert": {"loss_grads": hub_a, "train_step": hub_b},
+                    "card": smi}))
+
     kernels = []
     for name, r in rows.items():
         launches = (counts_a[name] + counts_b[name]
@@ -3530,7 +3992,10 @@ def main() -> int:
                     + counts_cf.get(name, 0) + counts_slice[name]
                     + counts_serve[name] + counts_gslice[name]
                     + counts_gserve[name] + counts_mslice[name]
-                    + counts_mserve[name] + counts_pserve[name])
+                    + counts_mserve[name] + counts_pserve[name]
+                    + counts_moon_a[name] + counts_moon[name]
+                    + counts_mix[name] + counts_pslice[name]
+                    + counts_pali[name])
         if launches == 0:
             raise AssertionError(f"{name} was never launched on the path")
         lib = r["library_ms"]
@@ -3549,7 +4014,11 @@ def main() -> int:
             f"serve {counts_serve[name]}, granite fp32 group "
             f"{counts_gslice[name]}, granite serve {counts_gserve[name]}, "
             f"mamba2 fp32 slice {counts_mslice[name]}, mamba2 serve "
-            f"{counts_mserve[name]}, phi3 serve {counts_pserve[name]}), "
+            f"{counts_mserve[name]}, phi3 serve {counts_pserve[name]}, "
+            f"moonshot fp32 cut {counts_moon_a[name]}, moonshot serve "
+            f"{counts_moon[name]}, mixtral reduced {counts_mix[name]}, "
+            f"paligemma fp32 cut {counts_pslice[name]}, paligemma serve "
+            f"{counts_pali[name]}), "
             f"max_abs_err {r['max_abs_err']:.3e}, "
             f"ms {r['ms']:.4f}{warm}, plain_ms {r['plain_ms']:.4f}, "
             f"library_ms {'null' if lib is None else f'{lib:.4f}'}, bound_ms "

@@ -27,11 +27,11 @@ go to ``device``: CUDA unless the caller passes another.
 * :func:`scaffold_state_from_numpy` / :func:`scaffold_state_to_numpy` —
   a fetched JAX ``ScaffoldState`` (pytrees of the params' shape) ⇄ the
   port's, flat through a ``FlatSpec`` or kept as trees without one;
-* :func:`lm_params_from_numpy` — the model zoo's dense, ssm or hybrid
-  parameter tree → the port's (the same layout: stacked (L, ...)
-  layers, JAX's (n_in, n_out) weights);
-* :func:`lm_cache_from_numpy` — a dense, ssm or hybrid serving cache → the
-  port's;
+* :func:`lm_params_from_numpy` — the model zoo's parameter tree, of any
+  family, → the port's (the same layout: stacked (L, ...) layers, JAX's
+  (n_in, n_out) weights);
+* :func:`lm_cache_from_numpy` — a serving cache (K/V and/or SSM states)
+  → the port's;
 * :func:`cross_pod_state_from_numpy` / :func:`cross_pod_state_to_numpy`
   — a fetched JAX ``CrossPodState`` ⇄ the port's (pod-stacked trees in
   the reference's layout; with ``mesh=`` a shard list).
@@ -74,9 +74,9 @@ def params_from_numpy(tree, device=None) -> dict:
 
 
 def lm_params_from_numpy(tree, cfg, device=None) -> dict:
-    """The JAX package's dense, ssm or hybrid params (numpy leaves) → the
-    port's: the same nested dict, every leaf a tensor of its shape and
-    dtype, ``layers`` stacked along L."""
+    """The JAX package's params of any family (numpy leaves) → the port's:
+    the same nested dict, every leaf a tensor of its shape and dtype,
+    ``layers`` stacked along L."""
     from repro_torch.models.transformer import check_family
 
     check_family(cfg)
@@ -88,9 +88,9 @@ def lm_params_from_numpy(tree, cfg, device=None) -> dict:
 
 
 def lm_cache_from_numpy(cache, device=None) -> dict:
-    """A dense, ssm or hybrid serving cache with numpy leaves → the
-    port's cache (same stacked layout; ``pos`` as a host int).  An ssm
-    cache has no ``k``/``v``, a dense one no ``layers``."""
+    """A serving cache with numpy leaves → the port's cache (same stacked
+    layout; ``pos`` as a host int).  An ssm cache has no ``k``/``v``, a
+    dense, moe or vlm one no ``layers``."""
     device = resolve_device(device)
     out = {k: _t(cache[k], device) for k in ("k", "v") if k in cache}
     out["pos"] = int(np.asarray(cache["pos"]))

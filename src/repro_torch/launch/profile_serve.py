@@ -28,7 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
-from repro_torch.launch.serve_lm import make_prompts
+from repro_torch.launch.serve_lm import make_request
 from repro_torch.models import build_model
 from repro_torch.utils.spans import is_span
 
@@ -99,8 +99,8 @@ def main(argv=None):
         cfg = cfg.reduced()
     model = build_model(cfg)
     params = model.init(args.seed, device=device)
-    tokens = make_prompts(cfg, args.batch, args.prompt_len, args.seed,
-                          device)
+    tokens = make_request(cfg, args.batch, args.prompt_len, args.seed,
+                          device)["tokens"]
     max_seq = args.prompt_len + args.decode_steps + 1
 
     def prefill():

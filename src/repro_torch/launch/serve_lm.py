@@ -9,7 +9,13 @@ JAX package's weights for ``--seed``), makes the prompts from a seeded numpy gen
 warms prefill and decode up off the clock, then times one prefill and
 ``new_tokens − 1`` decode steps (the first new token falls out of
 prefill) and prints prefill ms, decode ms per step, tok/s and the
-kernels' launch counts.  On a machine without a card:
+kernels' launch counts.  A vlm request (``--arch paligemma-3b``)
+carries its ``prefix_tokens`` patch embeddings, drawn as the
+reference's launcher draws them (normal × 0.2 in the parameter dtype,
+from the prompts' generator), and its cache counts them (prefix +
+prompt + new positions).  The audio encoder (hubert-xlarge) has no
+decode path: the launcher exits for it, as the reference's does.  On a
+machine without a card:
 
     PYTHONPATH=src python -m repro_torch.launch.serve_lm \\
         --arch zamba2-2.7b --reduced --device cpu
@@ -31,10 +37,29 @@ from repro_torch.kernels import ops
 from repro_torch.models import build_model, param_count
 
 
-def make_prompts(cfg, batch: int, prompt_len: int, seed: int, device):
+def make_request(cfg, batch: int, prompt_len: int, seed: int, device):
+    """The prefill batch: ``tokens`` (B, prompt_len) from a numpy
+    generator seeded with ``seed``, and for the vlm ``patches`` (B,
+    prefix_tokens, frontend_dim), normal × 0.2 from the same generator
+    after the tokens, in the parameter dtype."""
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
-    return torch.from_numpy(tokens).to(device)
+    out = {"tokens": torch.from_numpy(tokens).to(device)}
+    if cfg.family == "vlm":
+        patches = rng.normal(size=(batch, cfg.prefix_tokens,
+                                   cfg.frontend_dim)) * 0.2
+        out["patches"] = torch.from_numpy(patches).to(
+            device=device, dtype=cfg.param_dtype)
+    return out
+
+
+def cache_len(cfg, prompt_len: int, new_tokens: int) -> int:
+    """Positions a request's cache holds: its prompt, its new tokens
+    and, for the vlm, its prefix (ROADMAP D11: the reference's launcher
+    leaves the prefix out, and its decode overwrites the last prompt
+    position)."""
+    return cfg.prefix_tokens * (cfg.family == "vlm") + prompt_len \
+        + new_tokens
 
 
 def _sync(device):
@@ -42,15 +67,16 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def generate(model, params, tokens, new_tokens: int):
-    """Greedy: prefill, then ``new_tokens − 1`` decode steps.  Returns
-    (generated tokens (B, new_tokens), prefill logits, per-phase host
-    times in ms and the kernels' launches in each phase)."""
-    device = tokens.device
-    max_seq = tokens.shape[1] + new_tokens
+def generate(model, params, request, new_tokens: int):
+    """Greedy: prefill ``request`` (``make_request``'s batch), then
+    ``new_tokens − 1`` decode steps.  Returns (generated tokens (B,
+    new_tokens), prefill logits, per-phase host times in ms and the
+    kernels' launches in each phase)."""
+    device = request["tokens"].device
+    max_seq = cache_len(model.config, request["tokens"].shape[1], new_tokens)
     c0 = ops.launch_counts()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": tokens}, max_seq)
+    logits, cache = model.prefill(params, request, max_seq)
     tok = logits[:, -1].argmax(-1)[:, None]
     _sync(device)
     t1 = time.perf_counter()
@@ -75,17 +101,19 @@ def serve(cfg, *, batch: int, prompt_len: int, new_tokens: int, seed: int,
           device=None, params=None) -> dict:
     """Build (unless ``params`` is given), warm up, and time one
     generation; returns the report (and the tokens under "tokens")."""
+    if not cfg.supports_decode:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode path")
     device = resolve_device(device)
     model = build_model(cfg)
     if params is None:
         params = model.init(seed, device=device)
-    tokens = make_prompts(cfg, batch, prompt_len, seed, device)
+    request = make_request(cfg, batch, prompt_len, seed, device)
     # Warm-up off the clock: the kernels' first launch builds and loads
     # the library, and cuBLAS picks its algorithms.
-    generate(model, params, tokens, min(new_tokens, 2))
+    generate(model, params, request, min(new_tokens, 2))
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    generated, _, report = generate(model, params, tokens, new_tokens)
+    generated, _, report = generate(model, params, request, new_tokens)
     n = batch * (new_tokens - 1)
     report.update(
         arch=cfg.name, params=param_count(cfg), batch=batch,
@@ -117,6 +145,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if not cfg.supports_decode:
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode path")
     print(f"serving {cfg.name} ({param_count(cfg) / 1e6:.1f}M params) on "
           f"{resolve_device(args.device)}")
     report = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,

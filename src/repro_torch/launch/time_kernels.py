@@ -17,9 +17,10 @@
   since), with ``scaled_dot_product_attention`` in fp32 beside it; and
   K5 ``ssd_scan`` at states (4, 32, 80, 64, 64) bf16.
 - The other model shapes: K4 at phi3-medium-14b's prefill, (4, 2048,
-  40:10, 128) bf16 causal (GQA, g = 4), beside
-  ``scaled_dot_product_attention(..., enable_gqa=True)``, and K5 at
-  mamba2-2.7b's, states (4, 32, 80, 64, 128) bf16.
+  40:10, 128) bf16 causal (GQA, g = 4), and at
+  moonshot-v1-16b-a3b's, (4, 2048, 16:16, 128) bf16 causal (MHA, g =
+  1), each beside ``scaled_dot_product_attention(..., enable_gqa=True)``,
+  and K5 at mamba2-2.7b's, states (4, 32, 80, 64, 128) bf16.
 - How fp32 K4's device time splits between the kernels it launches
   (the 3xTF32 instance's pre-pass and main kernel), from torch.profiler
   (:func:`kernel_breakdown`).
@@ -244,6 +245,10 @@ def main(argv=None) -> int:
     pqt, pkt, pvt = (t.transpose(1, 2).contiguous() for t in (pq, pk, pv))
     states128 = torch.randn((4, 32, 80, 64, 128), generator=gen,
                             device=dev).to(torch.bfloat16)
+    mq, mk, mv = (torch.randn((4, 2048, 16, 128), generator=gen,
+                              device=dev).to(torch.bfloat16)
+                  for _ in range(3))
+    mqt, mkt, mvt = (t.transpose(1, 2).contiguous() for t in (mq, mk, mv))
     rounds = round_kernel_ms(ops, dev, gen)
     ms = {
         "flash_attention": device_ms(
@@ -264,6 +269,11 @@ def main(argv=None) -> int:
                 pqt, pkt, pvt, is_causal=True, enable_gqa=True)),
         "ssd_scan_mamba2": device_ms(lambda: ops.ssd_scan(states128,
                                                           decays)),
+        "flash_attention_moonshot": device_ms(
+            lambda: ops.flash_attention(mq, mk, mv, layout="bshd")),
+        "scaled_dot_product_attention_moonshot": device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                mqt, mkt, mvt, is_causal=True, enable_gqa=True)),
     }
     fp32_kernels = kernel_breakdown(
         lambda: ops.flash_attention(q32, k32, v32, layout="bshd"))

@@ -10,7 +10,8 @@ Two engines:
   (``core/crosspod.py``) over a zoo model (``--arch``; ``--reduced``
   cuts it as the reference does): one silo per pod, each training its
   own replica on synthetic next-token batches made with numpy from seed
-  0, ω the mean over the pods.
+  0, ω the mean over the pods (the token families: dense, moe, ssm,
+  hybrid; the vlm and audio families take embeddings and are refused).
 
 The flags and printed lines are the reference's, except that
 ``--host-devices`` (forced host devices) becomes ``--device`` (``cuda``,
@@ -96,6 +97,12 @@ def _crosspod(args, device):
         print(f"mesh: {{'pod': {pods}, 'device': '{device}'}}")
 
     cfg = get_config(args.arch)
+    if cfg.family in ("vlm", "audio"):
+        # The reference's launcher fails here with a KeyError in the loss.
+        what = "patch embeddings" if cfg.family == "vlm" else \
+            "frame embeddings in place of tokens"
+        raise SystemExit(f"--engine crosspod trains on next-token batches; "
+                         f"{cfg.name} ({cfg.family}) takes {what}")
     if args.reduced:
         cfg = cfg.reduced(num_layers=2, d_model=128, vocab_size=512,
                           remat=False)

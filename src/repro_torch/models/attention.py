@@ -1,9 +1,15 @@
 """GQA attention: flash-kernel prefill, blockwise training attention
 and cached decode (``repro/models/attention.py``).
 
-Prefill (causal, positions 0..S−1, optional sliding window) goes through
-``kernels.ops.flash_attention`` (K4) on the model's (B, S, H, hd)
-layout.  The training loss calls :func:`blockwise_attention` by name
+Prefill under the causal mask (positions 0..S−1, optional sliding
+window) goes through ``kernels.ops.flash_attention`` (K4) on the
+model's (B, S, H, hd) layout.  The prefix-LM mask (PaliGemma's
+serving) goes through :func:`blockwise_attention`, the reference's own
+path: neither K4 nor the Pallas kernel has a prefix mode, so a vlm
+prefill launches no kernel.  The bidirectional mask (HuBERT) is
+reached only by the audio family's loss, which has no serving path; it
+too goes through :func:`blockwise_attention` wherever it is asked for.
+The training loss calls :func:`blockwise_attention` by name
 (``attention_forward(..., blockwise=True)``): the reference's plain,
 differentiable online-softmax scan over KV blocks, the path its
 ``jax.value_and_grad`` goes through; autograd differentiates it here.
@@ -18,10 +24,9 @@ the parameter dtype and casts the probabilities to v's dtype before the
 PV product; the Pallas kernel and K4 keep both in fp32.  In fp32 (the
 parity tests) the two agree; in bf16 the port follows the kernel.
 
-K4 takes the masks the served models use: ``mask_mode`` "prefix"
-(PaliGemma) and "bidir" (HuBERT) raise ``NotImplementedError`` on the
-prefill path (ROADMAP M17b); :func:`_allowed` and the blockwise path
-have all four masks, as the reference.
+:func:`_allowed` and the blockwise path have the reference's four
+masks (causal, causal with a window, prefix, bidir); any other
+``mask_mode`` raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -48,13 +53,13 @@ def attention_init(key, d_model, num_heads, num_kv_heads, head_dim, dtype,
     }
 
 
+MASK_MODES = ("causal", "prefix", "bidir")
+
+
 def check_mask_mode(mask_mode: str) -> None:
-    if mask_mode in ("prefix", "bidir"):
-        raise NotImplementedError(
-            f"mask_mode {mask_mode!r} is not ported to repro_torch yet "
-            "(ROADMAP M17); the port serves causal attention")
-    if mask_mode != "causal":
-        raise ValueError(mask_mode)
+    if mask_mode not in MASK_MODES:
+        raise ValueError(f"unknown mask_mode {mask_mode!r}; the masks are "
+                         f"{', '.join(MASK_MODES)}")
 
 
 def _allowed(q_pos, kv_pos, *, mask_mode, window, prefix_len):
@@ -130,10 +135,12 @@ def attention_forward(p, x, *, positions, rope_theta, num_heads, num_kv_heads,
                       head_dim, mask_mode="causal", window=0, prefix_len=0,
                       return_kv=False, blockwise=False, kv_block=512):
     """Self-attention over x: (B, S, d) at positions 0..S−1: K4 for
-    serving, or with ``blockwise=True`` (the training loss)
-    :func:`blockwise_attention` in blocks of min(``kv_block``, S)."""
-    if not blockwise:
-        check_mask_mode(mask_mode)
+    serving under the causal mask; :func:`blockwise_attention` in blocks
+    of min(``kv_block``, S) under the prefix and bidir masks (no kernel
+    has them) and, with ``blockwise=True``, under every mask (the
+    training loss)."""
+    check_mask_mode(mask_mode)
+    blockwise = blockwise or mask_mode != "causal"
     b, s, d = x.shape
     q = (x @ p["wq"]).reshape(b, s, num_heads, head_dim)
     k = (x @ p["wk"]).reshape(b, s, num_kv_heads, head_dim)

@@ -1,13 +1,19 @@
-"""The model zoo's stacks (``repro/models/transformer.py``), three
-families so far:
+"""The model zoo's stacks (``repro/models/transformer.py``), its six
+families:
 
   dense   — [GQA attn + SwiGLU] × L                 (granite, phi3,
                                                      deepseek)
+  moe     — [GQA attn + top-k MoE] × L              (mixtral, qwen3,
+                                                     moonshot)
   ssm     — [Mamba-2 mixer] × L                     (mamba2)
   hybrid  — Mamba-2 backbone + ONE shared attn+MLP block applied after
             every ``attn_every`` mamba layers (Zamba2's shared-block
             design: the same parameters are re-applied at each group's
             depth)
+  vlm     — dense decoder over projected patch embeddings and the
+            text, prefix-LM masked over the patches (PaliGemma)
+  audio   — bidirectional encoder over projected frame embeddings
+            (HuBERT; no embedding, no decode)
 
 Parameters are the JAX tree's layout: a nested dict of tensors whose
 ``layers`` leaves are stacked along a leading L axis (for the hybrid,
@@ -16,8 +22,10 @@ the same tree; each layer reads views of its rows.  The JAX package's
 ``constrain_batch`` is a sharding hint and has no counterpart on one
 device.
 
-Serving (every family): prefill (K4 through the attention module, K5
-through the SSM module) and single-token decode.  Training:
+Serving (every family but audio): prefill (K4 through the attention
+module for the causal masks, K5 through the SSM module; the vlm's
+prefix mask through ``blockwise_attention``, as neither K4 nor the
+Pallas kernel has it) and single-token decode.  Training:
 :func:`forward_hidden` and :func:`loss_fn`, on the plain differentiable
 paths the reference's ``jax.value_and_grad`` goes through — the
 attention through ``blockwise_attention``, the SSD's inter-chunk scan
@@ -26,16 +34,20 @@ mamba layers' intra-chunk terms in ``cfg.ssd_intra_dtype``, which
 prefill ignores as the reference's does.  Under ``cfg.remat`` each
 group is recomputed in backward (``torch.utils.checkpoint``, as the
 reference's ``jax.checkpoint`` of its scan body): ``cfg.remat_group``
-layers in the dense and ssm stacks, one group of ``attn_every`` mamba
-layers and the shared block in the hybrid.  The other families (moe,
-vlm, audio) raise ``NotImplementedError`` (ROADMAP M17b).
+layers in the attention and ssm stacks, one group of ``attn_every``
+mamba layers and the shared block in the hybrid.  The MoE blocks' load
+balance loss is summed over the layers and added to the loss times
+``cfg.aux_coef``; the vlm's loss covers the text positions only.
 
-The caches mirror the JAX package's: dense ``k``/``v`` (L, B, S_cache,
-KvH, hd); ssm ``layers.ssm`` (L, B, H, P, N) fp32 and ``layers.conv``
-(L, B, K−1, conv_dim); hybrid both, its ``k``/``v`` (L/attn_every, B,
-S_cache, KvH, hd); and ``pos``, the next position, kept as a host int
+The caches mirror the JAX package's: dense, moe and vlm ``k``/``v``
+(L, B, S_cache, KvH, hd); ssm ``layers.ssm`` (L, B, H, P, N) fp32 and
+``layers.conv`` (L, B, K−1, conv_dim); hybrid both, its ``k``/``v``
+(L/attn_every, B, S_cache, KvH, hd); and ``pos``, the next position,
+kept as a host int
 so decode never reads it back from the card.  Decode updates the cache
-tensors in place.
+tensors in place, and refuses a position past the end of a cache without
+a window (the reference clamps the write onto the last slot: ROADMAP
+D11, which a vlm cache sized for the text alone meets).
 """
 from __future__ import annotations
 
@@ -54,22 +66,21 @@ from .layers import (
     swiglu,
     swiglu_init,
 )
+from .moe import moe_apply, moe_init
 from .ssm import ssm_cache_init, ssm_decode_step, ssm_forward, ssm_init
 from repro_torch.kernels.ssd_scan import ssd_scan_ref
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+ATTN_STACK = ("dense", "moe", "vlm", "audio")  # [attn + MLP or MoE] × L
+NO_DECODE = "encoder-only architectures have no decode path"
 
 
 def check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported to "
-            "repro_torch yet (ROADMAP M17b); the port has the "
-            f"{', '.join(FAMILIES)} families")
-    if cfg.num_experts:
-        raise NotImplementedError("MoE blocks are not ported (ROADMAP M17b)")
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name}); "
+                         f"the families are {', '.join(FAMILIES)}")
 
 
 # ----------------------------------------------------------------------
@@ -80,28 +91,48 @@ def check_family(cfg) -> None:
 def _attn_block_init(key, cfg, device):
     dt = cfg.param_dtype
     k1, k2 = prng.split(key)
-    return {
+    p = {
         "ln1": rmsnorm_init(cfg.d_model, dt, device),
         "attn": attention_init(k1, cfg.d_model, cfg.num_heads,
                                cfg.num_kv_heads, cfg.head_dim, dt, device),
         "ln2": rmsnorm_init(cfg.d_model, dt, device),
-        "mlp": swiglu_init(k2, cfg.d_model, cfg.d_ff, dt, device),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe_init(k2, cfg.d_model, cfg.d_ff, cfg.num_experts, dt,
+                            device)
+    else:
+        p["mlp"] = swiglu_init(k2, cfg.d_model, cfg.d_ff, dt, device)
+    return p
 
 
-def _attn_block_apply(cfg, p, h, positions, *, window, blockwise=False):
-    """One attention+MLP block → (h, its (k, v) for the cache): K4 in
-    serving, ``blockwise_attention`` with ``blockwise=True`` (the
-    training loss)."""
+def _ffn(cfg, p, x, return_aux=True):
+    """The block's MLP or MoE → (y, aux fp32 0-d; 0 without MoE)."""
+    if "moe" in p:
+        return moe_apply(p["moe"], x, top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor,
+                         return_aux=return_aux)
+    return swiglu(p["mlp"], x), torch.zeros((), dtype=torch.float32,
+                                            device=x.device)
+
+
+def _attn_block_apply(cfg, p, h, positions, *, window, mask_mode="causal",
+                      prefix_len=0, blockwise=False):
+    """One attention+MLP (or MoE) block → (h, aux, its (k, v) for the
+    cache): the causal mask through K4 in serving, the prefix mask
+    through ``blockwise_attention`` (no kernel has it), and with
+    ``blockwise=True`` (the training loss) every mask through
+    ``blockwise_attention``."""
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
     att, kv = attention_forward(
         p["attn"], x, positions=positions, rope_theta=cfg.rope_theta,
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-        head_dim=cfg.head_dim, mask_mode="causal", window=window,
-        return_kv=True, blockwise=blockwise, kv_block=cfg.kv_block)
+        head_dim=cfg.head_dim, mask_mode=mask_mode, prefix_len=prefix_len,
+        window=window, return_kv=True, blockwise=blockwise,
+        kv_block=cfg.kv_block)
     h = h + att
     x = rmsnorm(h, p["ln2"], cfg.norm_eps)
-    return h + swiglu(p["mlp"], x), kv
+    y, aux = _ffn(cfg, p, x)
+    return h + y, aux, kv
 
 
 def _attn_block_decode(cfg, p, h, kv_cache, pos, *, window):
@@ -112,7 +143,8 @@ def _attn_block_decode(cfg, p, h, kv_cache, pos, *, window):
         head_dim=cfg.head_dim, window=window)
     h = h + att
     x = rmsnorm(h, p["ln2"], cfg.norm_eps)
-    return h + swiglu(p["mlp"], x), kv_cache
+    y, _ = _ffn(cfg, p, x, return_aux=False)
+    return h + y, kv_cache
 
 
 def _ssm_kw(cfg):
@@ -169,12 +201,14 @@ def init_params(cfg, seed: int = 0, *, device) -> dict:
     """The parameters of the JAX package's ``init_params(PRNGKey(seed),
     cfg)``, in its layout, drawn on ``device`` by the ``jax.random``
     twin along the reference's key tree (on ``device="meta"``: shapes
-    only): keys[0] the embedding, keys[1] the head, keys[2] split over
-    the layers as ``stacked_init`` splits it, keys[5] the hybrid's
-    shared block.  The reference draws the layer stack as one ``vmap``
-    over per-layer keys; here each layer is drawn on its own and written
-    into its row of the stacked leaves, which gives the same values and
-    bounds the draws' temporaries by one layer."""
+    only): keys[0] the embedding (none in the audio family, whose
+    frames come through ``frontend_proj`` from keys[3]), keys[1] the
+    head, keys[2] split over the layers as ``stacked_init`` splits it,
+    keys[4] the vlm's ``patch_proj``, keys[5] the hybrid's shared block.
+    The reference draws the layer stack as one ``vmap`` over per-layer
+    keys; here each layer is drawn on its own and written into its row
+    of the stacked leaves, which gives the same values and bounds the
+    draws' temporaries by one layer."""
     check_family(cfg)
     if cfg.family == "hybrid" and cfg.num_layers % cfg.attn_every:
         raise ValueError(f"{cfg.num_layers} layers do not split into groups "
@@ -182,14 +216,20 @@ def init_params(cfg, seed: int = 0, *, device) -> dict:
     device = torch.device(device)
     keys = prng.split(prng.PRNGKey(seed, device=device), 8)
     dt = cfg.param_dtype
-    tree = {
-        "final_ln": rmsnorm_init(cfg.d_model, dt, device),
-        "embed": embed_init(keys[0], cfg.vocab_padded, cfg.d_model, dt,
-                            device),
-        "lm_head": dense_init(keys[1], cfg.d_model, cfg.vocab_padded, dt,
-                              device),
-    }
-    block = _attn_block_init if cfg.family == "dense" else _ssm_block_init
+    tree = {"final_ln": rmsnorm_init(cfg.d_model, dt, device)}
+    if cfg.family == "audio":
+        tree["frontend_proj"] = dense_init(keys[3], cfg.frontend_dim,
+                                           cfg.d_model, dt, device)
+    else:
+        tree["embed"] = embed_init(keys[0], cfg.vocab_padded, cfg.d_model,
+                                   dt, device)
+    tree["lm_head"] = dense_init(keys[1], cfg.d_model, cfg.vocab_padded, dt,
+                                 device)
+    if cfg.family == "vlm":
+        tree["patch_proj"] = dense_init(keys[4], cfg.frontend_dim,
+                                        cfg.d_model, dt, device)
+    block = (_attn_block_init if cfg.family in ATTN_STACK
+             else _ssm_block_init)
     if cfg.family == "hybrid":
         tree["shared"] = _attn_block_init(keys[5], cfg, device)
     stacked = None
@@ -220,14 +260,15 @@ def _layers(params, n: int) -> list:
 # ----------------------------------------------------------------------
 
 
-def _run_groups(cfg, h, groups, body):
-    """``h = body(h, *group)`` for each group of per-layer trees; under
-    ``cfg.remat`` each group is recomputed in backward (the reference's
+def _run_groups(cfg, state, groups, body):
+    """``state = body(state, *group)`` for each group of per-layer trees,
+    ``state`` a tuple of tensors ((h,) or (h, aux)); under ``cfg.remat``
+    each group is recomputed in backward (the reference's
     ``jax.checkpoint`` of its scan body)."""
     for grp in groups:
-        h = (checkpoint(body, h, *grp, use_reentrant=False) if cfg.remat
-             else body(h, *grp))
-    return h
+        state = (checkpoint(body, state, *grp, use_reentrant=False)
+                 if cfg.remat else body(state, *grp))
+    return state
 
 
 def _remat_groups(cfg, layers):
@@ -239,29 +280,36 @@ def _remat_groups(cfg, layers):
     return [layers[i:i + g] for i in range(0, cfg.num_layers, g)]
 
 
-def _stack_attn(cfg, params, h, positions):
-    """The dense stack in training: each block's attention through
-    ``blockwise_attention``."""
-    def body(hh, *lps):
+def _stack_attn(cfg, params, h, positions, *, mask_mode="causal",
+                prefix_len=0):
+    """The attention stack in training (dense, moe, vlm, audio): each
+    block's attention through ``blockwise_attention`` under
+    ``mask_mode``; → (h, the blocks' aux summed)."""
+    def body(state, *lps):
+        hh, aux = state
         for lp in lps:
-            hh, _ = _attn_block_apply(cfg, lp, hh, positions,
-                                      window=cfg.sliding_window,
-                                      blockwise=True)
-        return hh
+            hh, a, _ = _attn_block_apply(
+                cfg, lp, hh, positions, window=cfg.sliding_window,
+                mask_mode=mask_mode, prefix_len=prefix_len, blockwise=True)
+            aux = aux + a
+        return hh, aux
 
-    return _run_groups(cfg, h, _remat_groups(
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return _run_groups(cfg, (h, aux), _remat_groups(
         cfg, _layers(params, cfg.num_layers)), body)
 
 
 def _stack_ssm(cfg, params, h):
     """The ssm stack in training (the reference's ``_stack_ssm``)."""
-    def body(hh, *lps):
+    def body(state, *lps):
+        (hh,) = state
         for lp in lps:
             hh = _ssm_block_apply(cfg, lp, hh)
-        return hh
+        return (hh,)
 
-    return _run_groups(cfg, h, _remat_groups(
+    (h,) = _run_groups(cfg, (h,), _remat_groups(
         cfg, _layers(params, cfg.num_layers)), body)
+    return h
 
 
 def _stack_hybrid(cfg, params, h, positions):
@@ -273,41 +321,67 @@ def _stack_hybrid(cfg, params, h, positions):
     layers = _layers(params, cfg.num_layers)
     shared = params["shared"]
 
-    def body(hh, *lps):
+    def body(state, *lps):
+        (hh,) = state
         for lp in lps:
             hh = _ssm_block_apply(cfg, lp, hh)
-        hh, _ = _attn_block_apply(cfg, shared, hh, positions,
-                                  window=cfg.sliding_window, blockwise=True)
-        return hh
+        hh, _, _ = _attn_block_apply(cfg, shared, hh, positions,
+                                     window=cfg.sliding_window,
+                                     blockwise=True)
+        return (hh,)
 
-    return _run_groups(cfg, h, [[layers[i] for i in g]
-                                for g in _groups(cfg)], body)
+    (h,) = _run_groups(cfg, (h,), [[layers[i] for i in g]
+                                   for g in _groups(cfg)], body)
+    return h
 
 
-def forward_hidden(cfg, params, batch):
-    """Embed the tokens and run the stack → final hidden states (B, S, d)
-    (the reference's ``aux`` is 0 without MoE)."""
-    check_family(cfg)
+def _embed(params, tokens):
     # ``embedding``: its backward adds the rows in a fixed order, where
     # indexing's backward (an accumulating ``index_put_``) does not on
     # the CPU, and a round must repeat bit for bit.
-    h = torch.nn.functional.embedding(batch["tokens"], params["embed"])
+    return torch.nn.functional.embedding(tokens, params["embed"])
+
+
+def forward_hidden(cfg, params, batch):
+    """Embed the inputs and run the stack → (final hidden states (B, S,
+    d), the MoE blocks' aux summed; 0 without MoE): ``batch`` holds
+    ``tokens``, and for the vlm ``patches`` (B, P, frontend_dim) too,
+    projected and put before the text; the audio family takes
+    ``features`` (B, S, frontend_dim) in place of tokens."""
+    check_family(cfg)
+    if cfg.family == "audio":
+        h = batch["features"].to(cfg.param_dtype) @ params["frontend_proj"]
+        positions = torch.arange(h.shape[1], device=h.device)
+        return _stack_attn(cfg, params, h, positions, mask_mode="bidir")
+    h = _embed(params, batch["tokens"])
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(cfg.param_dtype) @ params["patch_proj"]
+        h = torch.cat([patches, h], dim=1)
+        positions = torch.arange(h.shape[1], device=h.device)
+        return _stack_attn(cfg, params, h, positions, mask_mode="prefix",
+                           prefix_len=cfg.prefix_tokens)
     positions = torch.arange(h.shape[1], device=h.device)
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family == "ssm":
-        return _stack_ssm(cfg, params, h)
+        return _stack_ssm(cfg, params, h), zero
     if cfg.family == "hybrid":
-        return _stack_hybrid(cfg, params, h, positions)
+        return _stack_hybrid(cfg, params, h, positions), zero
     return _stack_attn(cfg, params, h, positions)
 
 
 def loss_fn(cfg, params, batch):
-    """Next-token cross-entropy: ``batch`` holds
-    ``tokens`` and ``labels`` (B, S); the head's padded vocabulary
-    columns are masked, the sequence chunked by ``cfg.loss_chunk``."""
-    h = forward_hidden(cfg, params, batch)
+    """The training loss: next-token cross-entropy (masked prediction
+    for the audio family, the text positions only for the vlm) over
+    ``batch["labels"]``, the head's padded vocabulary columns masked,
+    the sequence chunked by ``cfg.loss_chunk``, plus ``cfg.aux_coef``
+    times the MoE blocks' load-balance loss."""
+    h, aux = forward_hidden(cfg, params, batch)
     h = rmsnorm(h, params["final_ln"], cfg.norm_eps)
-    return chunked_lm_loss(h, params["lm_head"], batch["labels"],
-                           cfg.loss_chunk, valid_vocab=cfg.vocab_size)
+    if cfg.family == "vlm":
+        h = h[:, cfg.prefix_tokens:]  # loss only over text positions
+    ce = chunked_lm_loss(h, params["lm_head"], batch["labels"],
+                         cfg.loss_chunk, valid_vocab=cfg.vocab_size)
+    return ce + cfg.aux_coef * aux
 
 
 # ----------------------------------------------------------------------
@@ -315,19 +389,29 @@ def loss_fn(cfg, params, batch):
 # ----------------------------------------------------------------------
 
 
+def check_decodes(cfg) -> None:
+    """The audio family is an encoder: it has no cache, prefill or
+    decode (the reference raises the same ``ValueError``)."""
+    check_family(cfg)
+    if cfg.family == "audio":
+        raise ValueError(NO_DECODE)
+
+
 def init_cache(cfg, batch_size, max_seq, dtype=None, *, device):
     check_family(cfg)
+    if cfg.family == "audio":
+        raise ValueError(f"no cache for family {cfg.family}")
     dtype = dtype or cfg.param_dtype
     cache = {}
     if cfg.family != "ssm":
         s = (min(max_seq, cfg.sliding_window) if cfg.sliding_window
              else max_seq)
-        n_kv = (cfg.num_layers if cfg.family == "dense"
-                else cfg.num_layers // cfg.attn_every)
+        n_kv = (cfg.num_layers // cfg.attn_every if cfg.family == "hybrid"
+                else cfg.num_layers)
         kv = (n_kv, batch_size, s, cfg.num_kv_heads, cfg.head_dim)
         cache["k"] = torch.zeros(kv, dtype=dtype, device=device)
         cache["v"] = torch.zeros(kv, dtype=dtype, device=device)
-    if cfg.family != "dense":
+    if cfg.family in ("ssm", "hybrid"):
         one = ssm_cache_init(batch_size, cfg.d_model, dtype=dtype,
                              device=device, **_ssm_kw(cfg))
         cache["layers"] = {
@@ -345,12 +429,23 @@ def _groups(cfg):
 @torch.no_grad()
 def prefill(cfg, params, batch, max_seq=None):
     """Process a prompt; returns (last-token logits (B, 1, V) fp32, the
-    filled cache)."""
-    check_family(cfg)
+    filled cache).  The vlm's ``batch`` holds ``patches`` too: they are
+    projected and put before the text, prefix-masked, and count in the
+    cache's positions; ``max_seq`` defaults to the text's length, as the
+    reference's does, and a cache without a window then holds prefix +
+    text positions and no room for decode (D11: size it for the
+    prefix)."""
+    check_decodes(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     max_seq = max_seq or s
     h = params["embed"][tokens]
+    mask = {}
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(cfg.param_dtype) @ params["patch_proj"]
+        h = torch.cat([patches, h], dim=1)
+        s = h.shape[1]
+        mask = dict(mask_mode="prefix", prefix_len=cfg.prefix_tokens)
     positions = torch.arange(s, device=h.device)
     layers = _layers(params, cfg.num_layers)
     ks, vs, ssm_states, conv_tails = [], [], [], []
@@ -362,13 +457,13 @@ def prefill(cfg, params, batch, max_seq=None):
         return hh
 
     def attn(hh, lp):
-        hh, (k, v) = _attn_block_apply(cfg, lp, hh, positions,
-                                       window=cfg.sliding_window)
+        hh, _, (k, v) = _attn_block_apply(cfg, lp, hh, positions,
+                                          window=cfg.sliding_window, **mask)
         ks.append(k)
         vs.append(v)
         return hh
 
-    if cfg.family == "dense":
+    if cfg.family in ATTN_STACK:
         for lp in layers:
             h = attn(h, lp)
     elif cfg.family == "ssm":
@@ -419,10 +514,19 @@ def _fit_kv_cache(cfg, ks, vs, max_seq, s):
 @torch.no_grad()
 def decode_step(cfg, params, token, cache):
     """One token (B, 1) given a filled cache → (logits (B, 1, V) fp32,
-    the cache, updated in place with ``pos`` advanced)."""
-    check_family(cfg)
-    h = params["embed"][token]
+    the cache, updated in place with ``pos`` advanced).  Without a
+    window, a position past the cache's end raises ``ValueError``."""
+    check_decodes(cfg)
     pos = cache["pos"]
+    if "k" in cache and not cfg.sliding_window and \
+            pos >= cache["k"].shape[2]:
+        raise ValueError(
+            f"decode at position {pos} of a cache of {cache['k'].shape[2]} "
+            "positions: the cache has no room for decode"
+            + (f"; it was sized without the {cfg.prefix_tokens} prefix "
+               "tokens (prefill's max_seq must count them: prefix + "
+               "prompt + new tokens)" if cfg.family == "vlm" else ""))
+    h = params["embed"][token]
     layers = _layers(params, cfg.num_layers)
 
     def mamba(hh, i):
@@ -440,7 +544,7 @@ def decode_step(cfg, params, token, cache):
                                    window=cfg.sliding_window)
         return hh
 
-    if cfg.family == "dense":
+    if cfg.family in ATTN_STACK:
         for i, lp in enumerate(layers):
             h = attn(h, lp, i)
     elif cfg.family == "ssm":

@@ -53,6 +53,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import build_model
 from repro_torch.sharding import make_client_mesh
 from repro_torch.utils.pytree import tree_leaves
+from torch_threads import _one_torch_thread  # noqa: F401
 
 ARCH = "granite-3-2b"
 ROUNDS, STEPS, B, S = 10, 2, 8, 32
@@ -98,7 +99,7 @@ def _reference_run(p, rounds, dtype="float32", targets=None):
     jcfg, _, jcp, _ = _configs(p, dtype, targets)
     jmodel = jax_build_model(jcfg)
     round_fn = jax.jit(jax_make_round(jcp, jmodel.loss))
-    state = jax_init_state(jcp, jmodel.init(jax.random.PRNGKey(0)))
+    state = jax_init_state(jcp, jax.jit(jmodel.init)(jax.random.PRNGKey(0)))
     steps = []
     for jb, tb in _batches(p, rounds, jcfg.vocab_size):
         before = jax.device_get(state)

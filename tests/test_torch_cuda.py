@@ -1109,3 +1109,68 @@ def test_ssm_loss_grads_match_the_cpu(dev, arch):
     torch.testing.assert_close(loss.cpu(), want.detach(), rtol=1e-5, atol=0)
     for g, w in zip(grads, wgrads, strict=True):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "moonshot-v1-16b-a3b"])
+def test_moe_prefill_matches_the_cpu(dev, arch):
+    """The MoE family's prefill and decode on the card against the CPU's
+    plain path on the same weights, reduced, fp32 (TF32 off, so the fp32
+    router picks the CPU's experts): 2 × 40 tokens (past mixtral's
+    window of 16), K4's 3xTF32 instance once a layer, the routing (ids
+    and keep mask of every layer) equal, logits at rtol/atol 1e-3, then
+    two greedy decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, moe, transformer
+    from repro_torch.utils.pytree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced(capacity_factor=1.25)
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    params_cpu = tree_map(lambda x: x.cpu(), params)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)))
+    plans, apply = [], transformer.moe_apply
+
+    def recorded(p, x, *, top_k, capacity_factor, **kw):
+        plans.append(moe.routing(p, x, top_k, capacity_factor))
+        return apply(p, x, top_k=top_k, capacity_factor=capacity_factor,
+                     **kw)
+
+    ops.reset_launch_counts()
+    transformer.moe_apply = recorded
+    try:
+        got, cache = model.prefill(params, {"tokens": tokens.to(dev)}, 44)
+        torch.cuda.synchronize()
+        assert ops.flash_attention.instance_launches["tf32x3"] == \
+            cfg.num_layers
+        want, cache_cpu = model.prefill(params_cpu, {"tokens": tokens}, 44)
+    finally:
+        transformer.moe_apply = apply
+    n = cfg.num_layers
+    for g, w in zip(plans[:n], plans[n:], strict=True):
+        assert torch.equal(g["eids"].cpu(), w["eids"])
+        assert torch.equal(g["keep"].cpu(), w["keep"])
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+    for _ in range(2):
+        tok = want[:, -1].argmax(-1)[:, None]
+        got, cache = model.decode_step(params, tok.to(dev), cache)
+        want, cache_cpu = model.decode_step(params_cpu, tok, cache_cpu)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+def test_flash_attention_at_moonshot_shape(dev):
+    """K4's bf16 instance at moonshot-v1-16b-a3b's prefill shape, (4,
+    2048, 16:16, 128) causal in the model's (B, S, H, hd) layout, one
+    launch, against its plain version at rtol/atol 2e-2."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    q, k, v = (torch.randn((4, 2048, 16, 128), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, layout="bshd")
+    torch.cuda.synchronize()
+    assert ops.flash_attention.instance_launches["bf16_tc"] == 1
+    want = ops.flash_attention_ref(q, k, v, layout="bshd")
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)

@@ -51,6 +51,7 @@ from repro_torch.optim import adam_init, adam_step, constant, cosine_decay, \
 from repro_torch.utils.pytree import tree_leaves, tree_map
 from test_torch_init import SCALED_ULPS
 from test_torch_prng_dists import ulps
+from torch_threads import _one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -84,7 +85,7 @@ def setup():
     weights, and the port's model on those weights."""
     jcfg, cfg = jax_get_config(ARCH).reduced(), get_config(ARCH).reduced()
     jmodel, model = jax_build_model(jcfg), build_model(cfg)
-    jparams = jmodel.init(jax.random.PRNGKey(0))
+    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
     params = lm_params_from_numpy(jax.device_get(jparams), cfg,
                                   device="cpu")
     return jcfg, cfg, jmodel, model, jparams, params
@@ -170,10 +171,10 @@ def test_chunked_lm_loss_and_grads(chunk, s):
     w = (rng.normal(size=(d, v)) * 0.3).astype(np.float32)
     y = rng.integers(0, valid, (b, s)).astype(np.int32)
     y[0, :5] = -100  # ignored positions
-    want, (jgh, jgw) = jax.value_and_grad(
+    want, (jgh, jgw) = jax.jit(jax.value_and_grad(
         lambda h, w: jlayers.chunked_lm_loss(h, w, jnp.asarray(y), chunk,
                                              valid_vocab=valid),
-        argnums=(0, 1))(jnp.asarray(h), jnp.asarray(w))
+        argnums=(0, 1)))(jnp.asarray(h), jnp.asarray(w))
     th, tw = _t(h, True), _t(w, True)
     got = layers.chunked_lm_loss(th, tw, _t(y).long(), chunk,
                                  valid_vocab=valid)
@@ -222,8 +223,8 @@ def test_blockwise_attention_and_grads(mask_mode, window, prefix_len,
             kv_positions=jnp.asarray(pos), **kw)
         return jnp.sum(out * cot), out
 
-    (_, want), jgrads = jax.value_and_grad(jf, argnums=(0, 1, 2),
-                                           has_aux=True)(
+    (_, want), jgrads = jax.jit(jax.value_and_grad(
+        jf, argnums=(0, 1, 2), has_aux=True))(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     tq, tk, tv = (_t(x, True) for x in (q, k, v))
     got = attention.blockwise_attention(
@@ -252,23 +253,37 @@ def test_flash_attention_refuses_inputs_that_require_grad():
 # ----------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("remat,loss_chunk", [(False, 0), (True, 8),
-                                              (True, 0)])
-def test_loss_and_grads_match_jax(setup, remat, loss_chunk):
-    jcfg, cfg, _, _, jparams, params = setup
-    jcfg = dataclasses.replace(jcfg, remat=remat, loss_chunk=loss_chunk)
-    cfg = dataclasses.replace(cfg, remat=remat, loss_chunk=loss_chunk)
+@pytest.fixture(scope="module")
+def loss_refs(setup):
+    """The reference's loss and gradients on 3 × 20 tokens, jitted, per
+    ``loss_chunk`` (remat off: remat recomputes the same values, so one
+    reference serves both remat settings)."""
+    jcfg, cfg, _, _, jparams, _ = setup
     tok, lab = _batch(cfg, 3, 20, seed=7)
     jb = {"tokens": jnp.asarray(tok, jnp.int32),
           "labels": jnp.asarray(lab, jnp.int32)}
-    want, jgrads = jax.value_and_grad(jax_build_model(jcfg).loss)(jparams,
-                                                                  jb)
+    out = {}
+    for chunk in (0, 8):
+        jmodel = jax_build_model(dataclasses.replace(jcfg, remat=False,
+                                                     loss_chunk=chunk))
+        want, jgrads = jax.jit(jax.value_and_grad(jmodel.loss))(jparams, jb)
+        out[chunk] = (np.asarray(want), _jleaves(jgrads))
+    return tok, lab, out
+
+
+@pytest.mark.parametrize("remat,loss_chunk", [(False, 0), (True, 8),
+                                              (True, 0)])
+def test_loss_and_grads_match_jax(setup, loss_refs, remat, loss_chunk):
+    _, cfg, _, _, _, params = setup
+    cfg = dataclasses.replace(cfg, remat=remat, loss_chunk=loss_chunk)
+    tok, lab, refs = loss_refs
+    want, jgrads = refs[loss_chunk]
     tparams = tree_map(lambda x: x.clone().requires_grad_(True), params)
     got = build_model(cfg).loss(tparams, {"tokens": torch.from_numpy(tok),
                                           "labels": torch.from_numpy(lab)})
     grads = torch.autograd.grad(got, tree_leaves(tparams))
-    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
-    for g, w in zip(grads, _jleaves(jgrads), strict=True):
+    np.testing.assert_allclose(_np(got), want, **TOL)
+    for g, w in zip(grads, jgrads, strict=True):
         np.testing.assert_allclose(_np(g), w, **GRAD_TOL)
     # The parameter module gives the same loss as its stacked dict.
     same = build_model(cfg).loss(params, {"tokens": torch.from_numpy(tok),
@@ -278,21 +293,43 @@ def test_loss_and_grads_match_jax(setup, remat, loss_chunk):
 
 @pytest.mark.parametrize("family", ["moe", "vlm", "audio"])
 def test_unported_families_are_refused(family):
-    """The families still to port (ROADMAP M17b-4, M17b-5) raise where
-    a model is built (``check_family``), and their attention masks where
-    attention runs (``check_mask_mode``)."""
+    """The three families ported last build (``check_family`` passes),
+    and what the port still refuses raises ``ValueError``: an unknown
+    family or attention mask, a decode past the end of a vlm cache sized
+    without its prefix (ROADMAP D11), and serving the audio encoder."""
     from repro_torch.models.attention import check_mask_mode
     from repro_torch.models.transformer import check_family
 
+    extra = {"moe": dict(num_experts=4, top_k=2),
+             "vlm": dict(prefix_tokens=4, frontend_dim=32),
+             "audio": dict(frontend_dim=32, encoder_only=True)}[family]
     cfg = dataclasses.replace(get_config(ARCH).reduced(), family=family,
-                              num_experts=4 if family == "moe" else 0)
-    with pytest.raises(NotImplementedError, match="M17b"):
-        check_family(cfg)
-    with pytest.raises(NotImplementedError, match="M17b"):
-        build_model(cfg)
-    if family != "moe":
-        with pytest.raises(NotImplementedError, match="M17"):
-            check_mask_mode("prefix" if family == "vlm" else "bidir")
+                              **extra)
+    check_family(cfg)
+    model = build_model(cfg)
+    with pytest.raises(ValueError, match="unknown family"):
+        check_family(dataclasses.replace(cfg, family=family + "-x"))
+    with pytest.raises(ValueError, match="mask_mode"):
+        check_mask_mode(family)
+    if family == "moe":
+        assert set(abstract_params(model)["layers"]["moe"]) == {
+            "router", "w_gate", "w_up", "w_down"}
+        return
+    params = model.init(0, device="cpu")
+    if family == "audio":
+        with pytest.raises(ValueError, match="encoder-only"):
+            model.prefill(params, {"tokens": torch.zeros((1, 4),
+                                                         dtype=torch.int64)})
+        with pytest.raises(ValueError, match="no cache"):
+            model.init_cache(1, 8, device="cpu")
+        return
+    batch = {"tokens": torch.zeros((1, 5), dtype=torch.int64),
+             "patches": torch.zeros((1, 4, 32))}
+    _, cache = model.prefill(params, batch)  # max_seq: the text's 5
+    assert cache["k"].shape[2] == cache["pos"] == 9
+    with pytest.raises(ValueError, match="prefix"):
+        model.decode_step(params, torch.zeros((1, 1), dtype=torch.int64),
+                          cache)
 
 
 # ----------------------------------------------------------------------

@@ -14,6 +14,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.models.api import build_model as jax_build_model
@@ -22,6 +23,7 @@ from repro_torch import prng
 from repro_torch.configs import get_config
 from repro_torch.models import build_model, init_mlp
 from test_torch_prng_dists import NORMAL_ULPS, ulps
+from torch_threads import _one_torch_thread  # noqa: F401
 
 SCALED_ULPS = NORMAL_ULPS + 1
 

@@ -34,6 +34,7 @@ from repro_torch.convert import lm_cache_from_numpy, lm_params_from_numpy
 from repro_torch.kernels import ops
 from repro_torch.models import attention, build_model, layers, param_count, \
     ssm
+from torch_threads import _one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 
@@ -305,11 +306,24 @@ def test_attention_forward(window):
 
 @pytest.mark.parametrize("mode", ["prefix", "bidir"])
 def test_attention_masks_not_ported_raise(mode):
-    p = _tree_t(_att_params())
-    with pytest.raises(NotImplementedError, match="M17"):
-        attention.attention_forward(p, torch.zeros(1, 4, 64),
+    """The prefix and bidir masks have no kernel: serving takes
+    ``blockwise_attention`` for them (the reference's path, no launch)
+    and gives its values; a name that is not a mask raises."""
+    p = _att_params()
+    x = np.random.default_rng(5).normal(size=(2, 11, 64)).astype(np.float32)
+    want = jattn.attention_forward(
+        p, jnp.asarray(x), positions=jnp.arange(11), mask_mode=mode,
+        prefix_len=4, kv_block=8, **ATT_KW)
+    ops.reset_launch_counts()
+    got = attention.attention_forward(
+        _tree_t(p), _t(x), positions=torch.arange(11), mask_mode=mode,
+        prefix_len=4, kv_block=8, **ATT_KW)
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+    _close(got, want)
+    with pytest.raises(ValueError, match="mask_mode"):
+        attention.attention_forward(_tree_t(p), torch.zeros(1, 4, 64),
                                     positions=torch.arange(4),
-                                    mask_mode=mode, **ATT_KW)
+                                    mask_mode=mode + "-lm", **ATT_KW)
 
 
 @pytest.mark.parametrize("window,s_max,pos", [
@@ -344,7 +358,7 @@ def slice_setup():
     jcfg = jax_get_config("zamba2-2.7b").reduced()
     cfg = get_config("zamba2-2.7b").reduced()
     jmodel = jax_build_model(jcfg)
-    jparams = jmodel.init(jax.random.PRNGKey(0))
+    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
     params = lm_params_from_numpy(jax.device_get(jparams), cfg,
                                   device="cpu")
     return dict(cfg=cfg, jcfg=jcfg, jmodel=jmodel, jparams=jparams,
@@ -443,16 +457,21 @@ def test_greedy_generation_matches_jax(slice_setup):
 
 
 def test_other_families_raise():
+    """Every family of the reference builds; an unknown family or
+    architecture raises."""
     from repro_torch.configs.model_config import ModelConfig
     assert get_config("granite-3-2b").family == "dense"
     assert get_config("mamba2-2.7b").family == "ssm"
-    with pytest.raises(NotImplementedError, match="M17"):
-        get_config("mixtral-8x7b")
+    assert get_config("mixtral-8x7b").family == "moe"
     moe = ModelConfig(name="m", family="moe", num_layers=2, d_model=8,
                       num_heads=2, num_kv_heads=2, head_dim=4, d_ff=16,
                       vocab_size=32, num_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="M17"):
-        build_model(moe)
+    params = build_model(moe).init(0, device="cpu")
+    assert tuple(params["layers"]["moe"]["w_gate"].shape) == (2, 4, 8, 16)
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(ModelConfig(name="x", family="encdec", num_layers=2,
+                                d_model=8, num_heads=2, num_kv_heads=2,
+                                head_dim=4, d_ff=16, vocab_size=32))
     with pytest.raises(KeyError):
         get_config("no-such-model")
 

@@ -113,18 +113,16 @@ BUILDERS = ("params_from_numpy", "state_from_numpy", "init_mlp", "MLP",
             "lm_init_cache", "serve")
 
 
-@pytest.mark.parametrize("entry", BUILDERS)
-def test_default_device_of_builders_raises_without_cuda(entry, monkeypatch):
-    """Weights, converted state and the state's parts are made on CUDA
-    unless the caller asks for another device; without CUDA they raise
-    rather than land on the CPU."""
+@pytest.fixture(scope="module")
+def builder_inputs():
+    """What the builders take, made once on the CPU: a fetched FL state,
+    reduced zamba2's config, model and seed-0 tree, a hybrid cache."""
     import numpy as np
 
-    from repro_torch import convert, prng
+    from repro_torch import convert
     from repro_torch.configs import get_config
-    from repro_torch.core import FLConfig, compact, controller, init_state
-    from repro_torch.launch.serve_lm import serve
-    from repro_torch.models import MLP, build_model, init_mlp
+    from repro_torch.core import FLConfig, init_state
+    from repro_torch.models import build_model
     from repro_torch.utils import make_flat_spec
     from repro_torch.utils.pytree import tree_map
 
@@ -134,13 +132,29 @@ def test_default_device_of_builders_raises_without_cuda(entry, monkeypatch):
         device="cpu"))
     lm_cfg = get_config("zamba2-2.7b").reduced()
     lm = build_model(lm_cfg)
-    lm_params = lm.init(0, device="cpu")
-    lm_tree = tree_map(lambda t: t.numpy(), lm_params)
+    lm_tree = tree_map(lambda t: t.numpy(), lm.init(0, device="cpu"))
     cache_np = {"layers": {"ssm": np.zeros((4, 1, 2, 2, 2), np.float32),
                            "conv": np.zeros((4, 1, 3, 8), np.float32)},
                 "k": np.zeros((2, 1, 4, 2, 8), np.float32),
                 "v": np.zeros((2, 1, 4, 2, 8), np.float32), "pos": 4}
     assert convert.lm_params_from_numpy(lm_tree, lm_cfg, device="cpu")
+    return state_np, lm_cfg, lm, lm_tree, cache_np
+
+
+@pytest.mark.parametrize("entry", BUILDERS)
+def test_default_device_of_builders_raises_without_cuda(entry, monkeypatch,
+                                                        builder_inputs):
+    """Weights, converted state and the state's parts are made on CUDA
+    unless the caller asks for another device; without CUDA they raise
+    rather than land on the CPU."""
+    import numpy as np
+
+    from repro_torch import convert, prng
+    from repro_torch.core import compact, controller
+    from repro_torch.launch.serve_lm import serve
+    from repro_torch.models import MLP, init_mlp
+
+    state_np, lm_cfg, lm, lm_tree, cache_np = builder_inputs
     calls = {
         "params_from_numpy": lambda: convert.params_from_numpy(
             {"fc1": {"w": np.zeros((2, 3), np.float32)}}),
@@ -241,28 +255,35 @@ def test_rounds_built_for_cuda_turn_tf32_off(builder, monkeypatch):
 
 
 def test_unported_model_paths_raise():
-    """Other architectures and families, and the prefix/bidir masks,
-    refuse with NotImplementedError (ROADMAP M17)."""
+    """Every architecture of the reference resolves and builds, with no
+    ``NotImplementedError`` left for a family, a config or a mask; what
+    the port refuses raises as the reference does: an unknown
+    architecture (``KeyError``), an unknown family or mask
+    (``ValueError``), and serving the audio encoder (``ValueError``)."""
     import dataclasses
 
-    from repro_torch.configs import get_config
-    from repro_torch.models import attention, build_model
+    from repro_torch.configs import ARCHITECTURES, get_config
+    from repro_torch.models import abstract_params, attention, build_model
 
-    for arch in ("qwen3_moe_235b_a22b", "mixtral-8x7b", "paligemma-3b",
-                 "hubert-xlarge"):
-        with pytest.raises(NotImplementedError, match="M17"):
+    for arch in ARCHITECTURES:
+        assert abstract_params(build_model(get_config(arch)))["layers"]
+    for arch in ("qwen3-moe-236b", "mixtral", "paligemma-2b", "hubert"):
+        with pytest.raises(KeyError):
             get_config(arch)
     cfg = get_config("zamba2-2.7b").reduced()
-    for family in ("moe", "vlm", "audio"):
-        with pytest.raises(NotImplementedError, match="M17"):
+    for family in ("moe-dense", "vision", "speech"):
+        with pytest.raises(ValueError, match="unknown family"):
             build_model(dataclasses.replace(cfg, family=family))
     p = {k: torch.zeros(8, 8) for k in ("wq", "wk", "wv", "wo")}
-    for mode in ("prefix", "bidir"):
-        with pytest.raises(NotImplementedError, match="M17"):
+    for mode in ("prefix-lm", "bidirectional"):
+        with pytest.raises(ValueError, match="mask_mode"):
             attention.attention_forward(
                 p, torch.zeros(1, 3, 8), positions=torch.arange(3),
                 rope_theta=1e4, num_heads=2, num_kv_heads=2, head_dim=4,
                 mask_mode=mode)
+    audio = build_model(get_config("hubert-xlarge").reduced())
+    with pytest.raises(ValueError, match="no cache"):
+        audio.init_cache(1, 8, device="cpu")
 
 
 def test_kernel_build_is_lazy():

@@ -54,6 +54,7 @@ from repro_torch.utils.pytree import tree_leaves, tree_map
 from test_torch_crosspod import STATE_TOL, _within_ulp
 from test_torch_init import SCALED_ULPS
 from test_torch_prng_dists import ulps
+from torch_threads import _one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -89,7 +90,7 @@ def _setup(arch, **overrides):
     jcfg = jax_get_config(arch).reduced(**overrides)
     cfg = get_config(arch).reduced(**overrides)
     jmodel, model = jax_build_model(jcfg), build_model(cfg)
-    jparams = jmodel.init(jax.random.PRNGKey(0))
+    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
     params = lm_params_from_numpy(jax.device_get(jparams), cfg,
                                   device="cpu")
     return jcfg, cfg, jmodel, model, jparams, params
@@ -213,24 +214,40 @@ def test_ssd_chunked_grads_through_the_plain_scan(s):
         ssm.ssd_chunked(*args, chunk=q)
 
 
+LOSS_KW = dict(loss_chunk=8)
+
+
+@pytest.fixture(scope="module")
+def loss_refs(setups):
+    """Per family: a batch of 2 × 20 tokens and the reference's loss and
+    gradients on it (jitted, remat off: remat recomputes the same
+    values, so one reference serves every remat setting)."""
+    out = {}
+    for arch, (jcfg, cfg, _, _, jparams, _) in setups.items():
+        tok, lab = _batch(cfg, 2, 20, seed=7)
+        jb = {"tokens": jnp.asarray(tok, jnp.int32),
+              "labels": jnp.asarray(lab, jnp.int32)}
+        jmodel = jax_build_model(dataclasses.replace(jcfg, remat=False,
+                                                     **LOSS_KW))
+        want, jgrads = jax.jit(jax.value_and_grad(jmodel.loss))(jparams, jb)
+        out[arch] = (tok, lab, np.asarray(want), jax.device_get(jgrads))
+    return out
+
+
 @pytest.mark.parametrize("arch,remat,remat_group", [
     (HYBRID, False, 1), (HYBRID, True, 1), (SSM, False, 1),
     (SSM, True, 1), (SSM, True, 2)])
-def test_loss_and_grads_match_jax(setups, arch, remat, remat_group):
-    jcfg, cfg, _, _, jparams, params = setups[arch]
-    kw = dict(remat=remat, remat_group=remat_group, loss_chunk=8)
-    jcfg, cfg = dataclasses.replace(jcfg, **kw), dataclasses.replace(cfg,
-                                                                     **kw)
-    tok, lab = _batch(cfg, 2, 20, seed=7)
-    jb = {"tokens": jnp.asarray(tok, jnp.int32),
-          "labels": jnp.asarray(lab, jnp.int32)}
-    want, jgrads = jax.value_and_grad(jax_build_model(jcfg).loss)(jparams,
-                                                                  jb)
+def test_loss_and_grads_match_jax(setups, loss_refs, arch, remat,
+                                  remat_group):
+    _, cfg, _, _, _, params = setups[arch]
+    cfg = dataclasses.replace(cfg, remat=remat, remat_group=remat_group,
+                              **LOSS_KW)
+    tok, lab, want, jgrads = loss_refs[arch]
     tparams = tree_map(lambda x: x.clone().requires_grad_(True), params)
     got = build_model(cfg).loss(tparams, {"tokens": torch.from_numpy(tok),
                                           "labels": torch.from_numpy(lab)})
     grads = torch.autograd.grad(got, tree_leaves(tparams))
-    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+    np.testing.assert_allclose(_np(got), want, **TOL)
     paths = jax.tree_util.tree_flatten_with_path(jgrads)[0]
     for g, (path, w) in zip(grads, paths, strict=True):
         np.testing.assert_allclose(_np(g), np.asarray(w),
@@ -274,7 +291,7 @@ def test_prefill_ignores_ssd_intra_dtype_and_training_honours_it(arch):
     # The training loss: the setting changes its arithmetic.
     assert float(got["default"][2]) != float(got["forced"][2])
     # The reference's prefill is invariant too.
-    jparams = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
+    jparams = jax.jit(jax_build_model(jcfg).init)(jax.random.PRNGKey(0))
     jgot = [jax.jit(jax_build_model(c).prefill)(
         jparams, {"tokens": jnp.asarray(tok, jnp.int32)})[0]
         for c in (jcfg, dataclasses.replace(jcfg, **forced))]
@@ -337,7 +354,7 @@ CTRL = dict(K=0.05, alpha=0.9, target_rate=0.5)
 
 
 @pytest.mark.parametrize("arch", [HYBRID, SSM])
-def test_cross_pod_rounds_match_jax_state_synced(arch):
+def test_cross_pod_rounds_match_jax_state_synced(setups, arch):
     """Two rounds at P = 2 from the reference's seed-0 state (the first
     fires both pods, the second is decided by the controller), each from
     the reference's state before it, on 2 × 16 tokens a step."""
@@ -347,7 +364,7 @@ def test_cross_pod_rounds_match_jax_state_synced(arch):
     cp = CrossPodConfig(n_pods=2, controller=ControllerConfig(**CTRL), **CP)
     jmodel = jax_build_model(jcfg)
     jround = jax.jit(jax_make_round(jcp, jmodel.loss))
-    jstate = jax_init_state(jcp, jmodel.init(jax.random.PRNGKey(0)))
+    jstate = jax_init_state(jcp, setups[arch][4])  # the seed-0 weights
     round_fn = make_cross_pod_round(cp, build_model(cfg).loss)
     rng = np.random.default_rng(0)
     for r in range(2):
@@ -399,8 +416,9 @@ def test_train_launcher_runs_mamba2_reduced(capsys):
 def test_dense_config_loss_and_prefill_match_jax(arch):
     jcfg, cfg, jmodel, model, jparams, params = _setup(arch)
     tok, lab = _batch(cfg, 2, 12, seed=1)
-    want = jmodel.loss(jparams, {"tokens": jnp.asarray(tok, jnp.int32),
-                                 "labels": jnp.asarray(lab, jnp.int32)})
+    want = jax.jit(jmodel.loss)(jparams, {
+        "tokens": jnp.asarray(tok, jnp.int32),
+        "labels": jnp.asarray(lab, jnp.int32)})
     got = model.loss(params, {"tokens": torch.from_numpy(tok),
                               "labels": torch.from_numpy(lab)})
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
@@ -429,7 +447,7 @@ def test_bf16_cross_pod_round_matches_jax():
                             **CP)
     cp = CrossPodConfig(n_pods=2, controller=ControllerConfig(**CTRL), **CP)
     jmodel = jax_build_model(jcfg)
-    before = jax_init_state(jcp, jmodel.init(jax.random.PRNGKey(0)))
+    before = jax_init_state(jcp, jax.jit(jmodel.init)(jax.random.PRNGKey(0)))
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                              (2, CP["local_steps"], 2, 17))
     jstate, wm = jax.jit(jax_make_round(jcp, jmodel.loss))(before, {
