@@ -13,7 +13,10 @@ SSM-bearing families: zamba2-2.7b's training loss through the cross-pod
 engine, mamba2-2.7b served and trained, phi3-medium-14b served (slice
 16), and the last three families: moonshot-v1-16b-a3b (MoE) served at
 full size and trained, mixtral-8x7b reduced, paligemma-3b (prefix-LM
-vlm) served and hubert-xlarge (audio encoder) trained (slice 17).
+vlm) served and hubert-xlarge (audio encoder) trained (slice 17), and
+the last slice: K2 and K3 on bf16, the H100 roofline model, the
+one-card dry-run of every architecture × shape, the example twins and
+the paper's claims (slice 18).
 
     python3 chip_smoke.py
 
@@ -319,7 +322,37 @@ non-zero):
    full size in bf16: the loss, its gradients and one SGD step on 4 ×
    1024 frames, finite, the parameters moved, no kernel launched; each
    of 7a–9e prints its seconds;
-10. print the serve line, the kernels line (K4's bf16 instance as
+10a. K2a and K3a, the bf16 instances of K2 and K3 (slice 18): the
+   public API (``ops.admm_update`` without z, ``ops.fused_gss`` with C =
+   16 slots, 14 valid) on bf16 operands at (100, 159010), counts set to
+   0 before and read after, one launch each (the kernels line's
+   ``admm_update_bf16`` and ``fused_gss_bf16`` rows); then bit-equal to
+   their plain versions at the reference test's shapes (4, 64), (8,
+   1024), (5, 2049), at (100, 159010) and (3, 7), with and without z
+   and 2 bytes off their storage, K2b on 2 and 4 shards, K3a with slots
+   invalid, at an odd D and 2 bytes off; timed cold and warm as K2 and
+   K3 are, bounds from their bytes at 2 an element;
+10b. the roofline model's rates (``launch/roofline.py``) resolve for
+   this card's name, printed with its H100 SXM constants beside the
+   ``nvidia-smi`` name and power limit;
+10c. the full one-card dry-run, ``python -m repro_torch.launch.dryrun
+   --arch all --shape all --mesh both`` on the host's cores (6
+   processes, started before 10a and waited for after 10e): exit 0, 80
+   records under ``build/dryrun/``, none in error, each ``ok``
+   record's summarize line printed;
+10d. each example twin (``examples/*_torch.py``) at a short setting on
+   the card — quickstart 20 rounds, federated_image's four algorithms
+   for 3 rounds and FedBack's round-2 checkpoint resumed to the straight
+   run's round-3 accuracy bit for bit, serve_lm as its defaults
+   (8 × 64 prompt tokens, 32 new), sharded_sweep (8 shards of the card,
+   events equal to one device's) with a 20-round sweep,
+   fedback_transformer 6 rounds;
+10e. tests/test_system.py's FedBack and FedADMM at N = 16 over 90
+   rounds on the card: FedBack's accuracy above 0.85, its rate in
+   [0.15, 0.45], round 0 firing all 16, 0.93 reached; the events to
+   0.93 of both and their ratio (the claim: at most 1.2) and the final
+   accuracies printed; 10a–10e print their seconds;
+11. print the serve line, the kernels line (K4's bf16 instance as
    ``flash_attention``, launched in phase 7, at granite's GQA shape
    as ``flash_attention_gqa``, launched in phase 7c, and at phi3's as
    ``flash_attention_phi3``, launched in phase 8e, and at moonshot's as
@@ -331,7 +364,8 @@ non-zero):
    mamba2's shape as ``ssd_scan_mamba2``, launched in phase 8c and held
    bit for bit by phase 3; K1–K3's launches are
    those of phases 4–5k (5k: its paper-width forms), K1c's those of
-   5c–5e, K1b's those of 5e–5h, K2b's those of 5e), the card line and,
+   5c–5e, K1b's those of 5e–5h, K2b's those of 5e, K2a's and K3a's
+   those of 10a), the card line and,
    last, the ok
    line.
 
@@ -356,14 +390,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-# Dense bf16 tensor-core peak by card name (NVIDIA data sheets).
-PEAK_BF16_FLOPS = (("H100 NVL", 835e12), ("H100 PCIe", 756e12),
-                   ("H100", 989e12), ("H200", 989e12))
-# Dense TF32 tensor-core peak by card name (NVIDIA data sheets): the
-# rate of the 3xTF32 fp32 instance of K4, which does three products.
-PEAK_TF32_FLOPS = (("H100 NVL", 417.5e12), ("H100 PCIe", 378e12),
-                   ("H100", 494.7e12), ("H200", 494.7e12))
-PEAK_FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
 CUDA_SRC = "src/repro_torch/csrc/fedback_kernels.cu"
 MODEL_SRC = "src/repro_torch/csrc/model_kernels.cu"
 # zamba2-2.7b serving: the main path of slice 2.
@@ -387,6 +413,7 @@ def check_kernels(dev, ops, n, d, c):
     round finds its rows, so that ``ms`` and the HBM bound describe the
     same traffic) and warm (``warm_ms``, one set of inputs, the measure
     of earlier records; K3's 36 MB then sits in L2)."""
+    from repro_torch.launch.roofline import PEAK_FP32_FLOPS
     from repro_torch.launch.time_kernels import (device_ms, peak_bandwidth,
                                                  round_kernel_ms)
     rng = np.random.default_rng(SEED)
@@ -532,7 +559,7 @@ def check_kernels(dev, ops, n, d, c):
         r.update(ms=timed[name]["cold"], warm_ms=timed[name]["warm"],
                  nbytes=timed[name]["bytes"])
         t_bytes = r["nbytes"] / bw * 1e3 if bw else None
-        t_ops = r["nflop"] / 67e12 * 1e3  # fp32 outside the tensor cores
+        t_ops = r["nflop"] / PEAK_FP32_FLOPS * 1e3
         r["bound_ms"] = None if t_bytes is None else max(t_bytes, t_ops)
         r["bound_by"] = ("bytes" if t_bytes is None or t_bytes >= t_ops
                          else "operations")
@@ -580,6 +607,7 @@ def check_pytree_kernel(dev, ops, trees):
     from repro_torch.launch.time_kernels import (COLD_COPIES, cycle,
                                                  device_ms, kernel_breakdown,
                                                  peak_bandwidth)
+    from repro_torch.launch.roofline import PEAK_FP32_FLOPS
     from repro_torch.utils.pytree import tree_size
 
     gen = torch.Generator(device=dev)
@@ -658,6 +686,7 @@ def _bound(r, bw):
     """Fill ``r``'s bound_ms / bound_by from its bytes and fp32 operations
     (bound_ms None on a card the bandwidth table does not name)."""
     t_bytes = r["nbytes"] / bw * 1e3 if bw else None
+    from repro_torch.launch.roofline import PEAK_FP32_FLOPS
     t_ops = r["nflop"] / PEAK_FP32_FLOPS * 1e3
     r["bound_ms"] = None if t_bytes is None else max(t_bytes, t_ops)
     r["bound_by"] = ("bytes" if t_bytes is None or t_bytes >= t_ops
@@ -807,8 +836,9 @@ def check_model_kernels(dev, ops):
     K5 against their plain versions at the serve shapes; returns rows
     of the kernels line.  Also times K4's SIMT instance on the same
     fp32 inputs, 4 bytes off their storage, for a log line."""
-    from repro_torch.launch.time_kernels import (device_ms, peak_bandwidth,
-                                                 peak_for)
+    from repro_torch.launch.roofline import PEAK_BF16_FLOPS, \
+        PEAK_FP32_FLOPS, PEAK_TF32_FLOPS_BY_CARD, peak_for
+    from repro_torch.launch.time_kernels import device_ms, peak_bandwidth
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     name = torch.cuda.get_device_name(0)
@@ -926,7 +956,7 @@ def check_model_kernels(dev, ops):
                                  qt, kt, vt, is_causal=True,
                                  enable_gqa=True)),
         nbytes=ops.flash_attention_hbm_bytes(b, h, h, s, hd, 4),
-        nflop=3 * nflop, peak_flops=peak_for(PEAK_TF32_FLOPS, name))
+        nflop=3 * nflop, peak_flops=peak_for(PEAK_TF32_FLOPS_BY_CARD, name))
     # K4 at granite-3-2b's prefill shape: GQA 32:8 at head_dim 64, bf16,
     # the (B, S, H, hd) layout (phase 7c's 40 launches a prefill).
     gh, gkv, ghd = 32, 8, 64
@@ -1098,6 +1128,7 @@ def kernel_facts(build):
                 name in line for name in ("trigger_sq_norms",
                                           "trigger_table_kernel",
                                           "fused_gss",
+                                          "admm_update_bf16",
                                           "flash_attention_tc_kernel",
                                           "flash_attention_tf32x3_kernel",
                                           "tf32x3_split_kernel",
@@ -3718,6 +3749,347 @@ def train_step_full(dev, ops, smi, cfg, spec, label):
                 init_s=init_s, card=smi)
 
 
+# ---------------------------------------------------------------------
+# Phase 10: the last slice — K2a/K3a (bf16), the roofline tables, the
+# one-card dry-run, the example twins and the paper's claims.
+# ---------------------------------------------------------------------
+
+# The reference test's bf16 shapes (tests/test_kernels.py:59).
+BF16_REF_SHAPES = ((4, 64), (8, 1024), (5, 2049))
+DRYRUN_JOBS = 6  # of the machine's 8 cores: two left to drive the card
+EXAMPLE_RUNS = (
+    ("quickstart", ["--rounds", "20"]),
+    ("federated_image", ["--algorithm", "all", "--rounds", "3"]),
+    ("serve_lm", []),
+    ("sharded_sweep", ["--sweep-rounds", "20"]),
+    ("fedback_transformer", ["--rounds", "6"]),
+)
+
+
+def check_bf16_kernels(dev, ops):
+    """Phase 10a: K2a and K3a.  First the path: the public API
+    (``ops.admm_update`` without z as the dense round calls it, and
+    ``ops.fused_gss`` with C = 16 slots, 14 valid) on bf16 operands at
+    the round's width, (100, 159010), counts set to 0 just before and
+    read just after: one K2 and one K3 launch, each bf16 operand taken by
+    the kernel (nothing gives way to the plain version).  Then each held
+    bit for bit against its plain version: K2a at the reference test's
+    shapes and at (100, 159010), with and without z, and on a θ 2 bytes
+    off its storage (the element-by-element instance); K2b on 2 and 4
+    shards of (100, 159010), every shard's rows K2a's; K3a with and
+    without z at (100, 16, 159010) with the first and last slots
+    invalid, at an odd D and on a θ 2 bytes off its storage, over the
+    whole state.  Timed as the fp32 rows are (cold over input sets L2
+    cannot hold, and warm), bounds from their bytes at 2 an element.
+    Returns (the kernels line's rows, the path's counts by row)."""
+    from repro_torch.launch.roofline import PEAK_FP32_FLOPS
+    from repro_torch.launch.time_kernels import (ROUND_C, ROUND_D, ROUND_N,
+                                                 ROUND_VALID, device_ms,
+                                                 peak_bandwidth,
+                                                 round_kernel_ms)
+    from repro_torch.sharding import make_client_mesh, replicate_data, \
+        shard_rows
+
+    rng = np.random.default_rng(SEED)
+    bf16 = torch.bfloat16
+    n, d, c = ROUND_N, ROUND_D, ROUND_C
+
+    def mk(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(dev).to(bf16)
+
+    def plan(nn_, cc, invalid=()):
+        idx = torch.from_numpy(rng.permutation(nn_)[:cc].astype(
+            np.int32)).to(dev)
+        valid = torch.ones(cc, dtype=torch.bool, device=dev)
+        valid[list(invalid)] = False
+        return idx, valid
+
+    def off_by_one(t):  # the same values 2 bytes into a new storage
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    def same(label, got, want):
+        for g, x in zip(got, want, strict=True):
+            if g.dtype != bf16 or not torch.equal(g, x):
+                raise AssertionError(f"{label} is not bit-equal to its "
+                                     "plain version")
+
+    # The path: the public API on bf16, counted.
+    th, la, w, zp, solved = mk(n, d), mk(n, d), mk(d), mk(n, d), mk(c, d)
+    idx, valid = plan(n, c, range(ROUND_VALID, c))
+    state = [t.clone() for t in (th, la, zp)]
+    ops.reset_launch_counts()
+    path_k2 = ops.admm_update(th, la, w, with_z=False)
+    ops.fused_gss(idx, valid, solved, w, *state)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if {k: counts[k] for k in ("admm_update", "fused_gss")} != {
+            "admm_update": 1, "fused_gss": 1}:
+        raise AssertionError(f"the bf16 path launched {counts}, expected "
+                             "one admm_update and one fused_gss")
+    path = {"admm_update_bf16": counts["admm_update"],
+            "fused_gss_bf16": counts["fused_gss"]}
+    same("admm_update (bf16, the path)", path_k2,
+         ops.admm_update_ref(th, la, w, with_z=False))
+    same("fused_gss (bf16, the path)", state, ops.fused_gss_ref(
+        idx, valid, solved, w, th.clone(), la.clone(), zp.clone()))
+
+    # K2a held.
+    for with_z in (True, False):
+        for nn_, dd in BF16_REF_SHAPES + ((n, d), (3, 7)):
+            a, b, ww = mk(nn_, dd), mk(nn_, dd), mk(dd)
+            want = ops.admm_update_ref(a, b, ww, with_z=with_z)
+            same(f"admm_update(with_z={with_z}) bf16 at ({nn_}, {dd})",
+                 ops.admm_update(a, b, ww, with_z=with_z), want)
+            if nn_ * dd > 8:
+                same(f"admm_update(with_z={with_z}) bf16 at ({nn_}, {dd}), "
+                     "θ 2 bytes off", ops.admm_update(
+                         off_by_one(a), b, ww, with_z=with_z), want)
+    # K2b on bf16 shards.
+    for p in (2, 4):
+        mesh = make_client_mesh(p, [dev])
+        before = ops.admm_update_sharded.launches
+        for with_z in (True, False):
+            parts = ops.admm_update(shard_rows(th, mesh),
+                                    shard_rows(la, mesh),
+                                    replicate_data(mesh, w), with_z=with_z,
+                                    mesh=mesh)
+            same(f"admm_update_sharded(with_z={with_z}) bf16 at P = {p}",
+                 [torch.cat(x) for x in parts],
+                 ops.admm_update(th, la, w, with_z=with_z))
+        if ops.admm_update_sharded.launches != before + 2 * p:
+            raise AssertionError(f"K2b bf16 at P = {p}: not one launch "
+                                 "per shard")
+    # K3a held over the whole state.
+    for with_z in (True, False):
+        for nn_, cc, dd, invalid, shift in (
+                (n, c, d, (0, c - 1), False), (n, 7, d + 1, (3,), False),
+                (12, 4, 2050, (1,), True)):
+            st = [mk(nn_, dd) for _ in range(3)]
+            s, ww = mk(cc, dd), mk(dd)
+            ii, vv = plan(nn_, cc, invalid)
+            want = ops.fused_gss_ref(ii, vv, s, ww,
+                                     *[t.clone() for t in st],
+                                     with_z=with_z)
+            got = [t.clone() for t in st]
+            if shift:
+                got[0] = off_by_one(got[0])
+            same(f"fused_gss(with_z={with_z}) bf16 at ({nn_}, {cc}, {dd})"
+                 + (", θ 2 bytes off" if shift else ""),
+                 ops.fused_gss(ii, vv, s, ww, *got, with_z=with_z), want)
+    log("admm_update, admm_update_sharded, fused_gss in bf16 (K2a, K2b, "
+        "K3a): the path launched K2 and K3 once each on bf16 operands; "
+        f"bit-equal to the plain versions at {list(BF16_REF_SHAPES)}, "
+        f"({n}, {d}) and (3, 7) with and without z and 2 bytes off, K2b "
+        f"on 2 and 4 shards, K3a at ({n}, {c}, {d}) with slots 0 and "
+        f"{c - 1} invalid, at D = {d + 1} and 2 bytes off")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    timed = round_kernel_ms(ops, dev, gen, dtype=bf16)
+    bw = peak_bandwidth(torch.cuda.get_device_name(0))
+    rows = {
+        "admm_update_bf16": dict(
+            replaces="src/repro/kernels/admm_update.py:88",
+            plain_ms=device_ms(lambda: ops.admm_update_ref(
+                th, la, w, with_z=False), calls=PLAIN_CALLS),
+            nflop=2 * n * d),
+        "fused_gss_bf16": dict(
+            replaces="src/repro/kernels/fused_gss.py:148",
+            plain_ms=device_ms(lambda: ops.fused_gss_ref(
+                idx, valid, solved, w, *state), calls=PLAIN_CALLS),
+            nflop=3 * ROUND_VALID * d)}
+    for name, r in rows.items():
+        r.update(max_abs_err=0.0, library_ms=None, ms=timed[name]["cold"],
+                 warm_ms=timed[name]["warm"], nbytes=timed[name]["bytes"])
+        t_bytes = r["nbytes"] / bw * 1e3 if bw else None
+        t_ops = r["nflop"] / PEAK_FP32_FLOPS * 1e3
+        r["bound_ms"] = None if t_bytes is None else max(t_bytes, t_ops)
+        r["bound_by"] = ("bytes" if t_bytes is None or t_bytes >= t_ops
+                         else "operations")
+        log(f"  {name}: ms {r['ms']:.4f} (cold)  warm_ms "
+            f"{r['warm_ms']:.4f}  plain_ms {r['plain_ms']:.4f}  "
+            f"library_ms null  bound_ms {r['bound_ms']} ({_share(r)}, "
+            f"{r['bound_ms'] / r['warm_ms']:.1%} warm)  bytes "
+            f"{r['nbytes']}")
+    return rows, path
+
+
+def check_roofline_tables(smi):
+    """Phase 10b: the roofline model's by-card rates resolve for this
+    card's name (none None); its H100 SXM constants printed beside the
+    card's name and power limit."""
+    from repro_torch.launch import roofline
+
+    name = torch.cuda.get_device_name(0)
+    peaks = roofline.card_peaks(name)
+    missing = [k for k, v in peaks.items() if v is None]
+    if missing:
+        raise AssertionError(f"the roofline tables do not name {name!r}: "
+                             f"{missing}")
+    log(f"roofline: {name}: " + ", ".join(
+        f"{k} {v:.4g}" for k, v in peaks.items()) + f"; the model's "
+        f"constants PEAK_FLOPS {roofline.PEAK_FLOPS:.4g}, PEAK_TF32_FLOPS "
+        f"{roofline.PEAK_TF32_FLOPS:.4g}, PEAK_FP32_FLOPS "
+        f"{roofline.PEAK_FP32_FLOPS:.4g}, HBM_BW {roofline.HBM_BW:.4g}, "
+        f"LINK_BW {roofline.LINK_BW:.4g}, PCIE_BW {roofline.PCIE_BW:.4g} "
+        f"(H100 SXM data sheet) on {smi}")
+    return peaks
+
+
+def start_dryrun_sweep(out_dir):
+    """Phase 10c, started: the full one-card dry-run (``--arch all
+    --shape all --mesh both``) in a process of its own on the host's
+    cores (it counts on the meta device and touches no card), its
+    records under ``out_dir``."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "all",
+         "--shape", "all", "--mesh", "both", "--card",
+         torch.cuda.get_device_name(0), "--jobs", str(DRYRUN_JOBS),
+         "--out", str(out_dir)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def finish_dryrun_sweep(proc, out_dir, t0):
+    """Phase 10c, finished: the sweep's exit code 0, its summarize lines
+    printed, one record per architecture × shape × mesh and no error
+    record."""
+    out, _ = proc.communicate(timeout=600)
+    for line in out.splitlines():
+        log(f"dryrun: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the dry-run sweep exited {proc.returncode}")
+    records = [json.loads(p.read_text()) for p in sorted(
+        Path(out_dir).glob("*.json"))]
+    status = [r["status"] for r in records]
+    if len(records) != 80 or "error" in status:
+        raise AssertionError(f"the dry-run wrote {len(records)} records, "
+                             f"{status.count('error')} of them errors")
+    log(f"phase 10c: {status.count('ok')} records counted, "
+        f"{status.count('skipped')} skipped (the reference's reasons), "
+        f"none in error, in {time.perf_counter() - t0:.1f} s")
+    return {"ok": status.count("ok"), "skipped": status.count("skipped")}
+
+
+def _load_example(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def drive_examples():
+    """Phase 10d: each example twin's ``main`` at a short setting on the
+    card (no ``--device``: CUDA), its report checked: the quickstart's
+    rate, the four algorithms of the federated-image example with a
+    checkpoint of FedBack's round 2 resumed to its round-3 accuracy bit
+    for bit, the served tokens, the sharded round's events equal to the
+    single device's and the sweep's rates, the cross-pod rounds'
+    finite losses."""
+    import shutil
+
+    reports = {}
+    for name, argv in EXAMPLE_RUNS:
+        t0 = time.perf_counter()
+        rep = _load_example(name).main(argv)
+        reports[name] = rep
+        log(f"phase 10d: examples/{name}_torch.py {' '.join(argv)}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    if not 0 < reports["quickstart"]["rate"] <= 1:
+        raise AssertionError("quickstart: no participation")
+    fi = reports["federated_image"]
+    if [r["algorithm"] for r in fi] != ["fedback", "fedadmm", "fedavg",
+                                        "fedprox"]:
+        raise AssertionError("federated_image: not the four algorithms")
+    ck = ROOT / "build" / "chip_smoke_examples"
+    shutil.rmtree(ck, ignore_errors=True)
+    mod = _load_example("federated_image")
+    mod.main(["--rounds", "2", "--ckpt-dir", str(ck), "--ckpt-every", "1"])
+    resumed = mod.main(["--rounds", "3", "--ckpt-dir", str(ck)])[0]
+    shutil.rmtree(ck, ignore_errors=True)
+    if resumed["start"] != 2 or resumed["accuracy"] != fi[0]["accuracy"]:
+        raise AssertionError(f"federated_image: resumed from round "
+                             f"{resumed['start']} to accuracy "
+                             f"{resumed['accuracy']}, the straight run "
+                             f"{fi[0]['accuracy']}")
+    sv = reports["serve_lm"]
+    if len(sv["tokens"]) != 8 or not sv["device"].startswith("cuda"):
+        raise AssertionError("serve_lm: not 8 requests on the card")
+    if not reports["sharded_sweep"]["events_equal"]:
+        raise AssertionError("sharded_sweep: the mesh's events differ")
+    if not all(math.isfinite(x)
+               for x in reports["fedback_transformer"]["losses"]):
+        raise AssertionError("fedback_transformer: a loss is not finite")
+    log("phase 10d: federated_image's FedBack resumed from its round-2 "
+        "checkpoint reached the straight run's round-3 accuracy "
+        f"{resumed['accuracy']!r} bit for bit; sharded_sweep's events "
+        f"equal (max |Δω| {reports['sharded_sweep']['omega_gap']:.2e})")
+    return {name: {k: v for k, v in (rep if isinstance(rep, dict) else
+                                     {"runs": rep}).items()
+                   if k != "tokens"}
+            for name, rep in reports.items()}
+
+
+def check_system_claims(dev):
+    """Phase 10e: tests/test_system.py's FedBack against FedADMM on the
+    card, its configuration (``paper_mnist.ci_fl_config``: N = 16, 3360 /
+    800 synthetic MNIST in label shards, L̄ = 0.25, 90 rounds, the tree
+    layout): FedBack's accuracy above 0.85, its realized rate in [0.15,
+    0.45], round 0 firing all 16, and its events to 0.93 printed beside
+    FedADMM's with the final accuracies."""
+    from repro_torch import prng
+    from repro_torch.configs import paper_mnist
+    from repro_torch.core import events_to_accuracy, init_state, \
+        make_eval_fn, make_round_fn, realized_rate, run_evaluated
+    from repro_torch.data import federated_arrays, make_synthetic_mnist
+    from repro_torch.models import init_mlp, make_loss_and_acc_fn, \
+        make_loss_fn
+
+    n, target = paper_mnist.CI_CLIENTS, paper_mnist.CI_TARGET
+    ds = make_synthetic_mnist(*paper_mnist.CI_SAMPLES)
+    data, test = federated_arrays(ds, n_clients=n, scheme="label_shard",
+                                  device=dev)
+    params0 = init_mlp(prng.PRNGKey(0, device=dev), device=dev)
+    eval_fn = make_eval_fn(make_loss_and_acc_fn(), device=dev)
+    out = {}
+    for alg in ("fedback", "fedadmm"):
+        t0 = time.perf_counter()
+        cfg = paper_mnist.ci_fl_config(alg)
+        state = init_state(cfg, params0, device=dev)
+        round_fn = make_round_fn(cfg, make_loss_fn(), data, device=dev)
+        state, events, accs, _ = run_evaluated(
+            round_fn, eval_fn, state, paper_mnist.CI_ROUNDS, test)
+        out[alg] = dict(final_accuracy=accs[-1],
+                        events_to_target=events_to_accuracy(events, accs,
+                                                            target),
+                        events=sum(events), first_round=events[0],
+                        rate=float(realized_rate(state.ctrl).mean()),
+                        seconds=time.perf_counter() - t0)
+    fb = out["fedback"]
+    if not (fb["final_accuracy"] > 0.85 and 0.15 <= fb["rate"] <= 0.45
+            and fb["first_round"] == n
+            and fb["events_to_target"] is not None):
+        raise AssertionError(f"the paper's claims on the card: {out}")
+    ratio = (fb["events_to_target"] / out["fedadmm"]["events_to_target"]
+             if out["fedadmm"]["events_to_target"] else None)
+    log(f"phase 10e: events to {target}: FedBack "
+        f"{fb['events_to_target']}, FedADMM "
+        f"{out['fedadmm']['events_to_target']} (ratio {ratio}, the claim "
+        f"≤ 1.2); final accuracy FedBack {fb['final_accuracy']:.4f}, "
+        f"FedADMM {out['fedadmm']['final_accuracy']:.4f}; FedBack's rate "
+        f"{fb['rate']:.3f}")
+    out["events_ratio"] = ratio
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3981,44 +4353,80 @@ def main() -> int:
                     "paligemma": {"slice": pali_slice, "serve": pali_serve},
                     "hubert": {"loss_grads": hub_a, "train_step": hub_b},
                     "card": smi}))
+    torch.cuda.empty_cache()
+
+    t0 = t1 = time.perf_counter()
+    dry_dir = ROOT / "build" / "dryrun"
+    if dry_dir.is_dir():
+        for old_rec in dry_dir.glob("*.json"):
+            old_rec.unlink()
+    sweep_proc = start_dryrun_sweep(dry_dir)
+    try:
+        bf16_rows, counts_bf16 = check_bf16_kernels(dev, ops)
+        rows.update(bf16_rows)
+        log(f"phase 10a took {time.perf_counter() - t1:.1f} s")
+        peaks = check_roofline_tables(smi)
+        t1 = time.perf_counter()
+        examples = drive_examples()
+        log(f"phase 10d took {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        claims = check_system_claims(dev)
+        log(f"phase 10e took {time.perf_counter() - t1:.1f} s")
+        dryrun_report = finish_dryrun_sweep(sweep_proc, dry_dir, t0)
+    finally:
+        if sweep_proc.poll() is None:
+            sweep_proc.kill()
+            sweep_proc.wait()
+    log(f"phases 10a–10e {time.perf_counter() - t0:.1f} s (10c beside the "
+        "others, on the host's cores)")
+    log(json.dumps({"roofline": peaks, "dryrun": dryrun_report,
+                    "examples": examples, "system_claims": claims,
+                    "card": smi}))
 
     kernels = []
     for name, r in rows.items():
-        launches = (counts_a[name] + counts_b[name]
-                    + counts_c.get(name, 0) + counts_t.get(name, 0)
-                    + counts_s.get(name, 0) + counts_sv.get(name, 0)
-                    + counts_q.get(name, 0) + counts_r.get(name, 0)
-                    + counts_wh.get(name, 0) + counts_k.get(name, 0)
-                    + counts_cf.get(name, 0) + counts_slice[name]
-                    + counts_serve[name] + counts_gslice[name]
-                    + counts_gserve[name] + counts_mslice[name]
-                    + counts_mserve[name] + counts_pserve[name]
-                    + counts_moon_a[name] + counts_moon[name]
-                    + counts_mix[name] + counts_pslice[name]
-                    + counts_pali[name])
+        if name in counts_bf16:  # the bf16 rows: 10a's path alone
+            launches = counts_bf16[name]
+            where = f"bf16 path (10a) {launches}"
+        else:
+            launches = (counts_a[name] + counts_b[name]
+                        + counts_c.get(name, 0) + counts_t.get(name, 0)
+                        + counts_s.get(name, 0) + counts_sv.get(name, 0)
+                        + counts_q.get(name, 0) + counts_r.get(name, 0)
+                        + counts_wh.get(name, 0) + counts_k.get(name, 0)
+                        + counts_cf.get(name, 0) + counts_slice[name]
+                        + counts_serve[name] + counts_gslice[name]
+                        + counts_gserve[name] + counts_mslice[name]
+                        + counts_mserve[name] + counts_pserve[name]
+                        + counts_moon_a[name] + counts_moon[name]
+                        + counts_mix[name] + counts_pslice[name]
+                        + counts_pali[name])
+            where = (
+                f"form A {counts_a[name]}, "
+                f"form B {counts_b[name]}, forms C {counts_c.get(name, 0)}, "
+                f"forms TA/TB {counts_t.get(name, 0)}, forms SA/SB/ST/SR "
+                f"{counts_s.get(name, 0)}, serve forms SVA/SVB/SVS "
+                f"{counts_sv.get(name, 0)}, forms QA/QB/QC/QS "
+                f"{counts_q.get(name, 0)}, forms RA/RB/RS/RC "
+                f"{counts_r.get(name, 0)}, forms WA/WB/HA/HS/HQ/HR "
+                f"{counts_wh.get(name, 0)}, checker forms A/B/HA/SVA (5k) "
+                f"{counts_k.get(name, 0)}, forms CF-A/CF-T "
+                f"{counts_cf.get(name, 0)}, "
+                f"fp32 group {counts_slice[name]}, "
+                f"serve {counts_serve[name]}, granite fp32 group "
+                f"{counts_gslice[name]}, granite serve "
+                f"{counts_gserve[name]}, mamba2 fp32 slice "
+                f"{counts_mslice[name]}, mamba2 serve "
+                f"{counts_mserve[name]}, phi3 serve {counts_pserve[name]}, "
+                f"moonshot fp32 cut {counts_moon_a[name]}, moonshot serve "
+                f"{counts_moon[name]}, mixtral reduced {counts_mix[name]}, "
+                f"paligemma fp32 cut {counts_pslice[name]}, paligemma serve "
+                f"{counts_pali[name]}")
         if launches == 0:
             raise AssertionError(f"{name} was never launched on the path")
         lib = r["library_ms"]
         warm = f" (cold; warm {r['warm_ms']:.4f})" if "warm_ms" in r else ""
-        log(f"{name}: launches {launches} (form A {counts_a[name]}, "
-            f"form B {counts_b[name]}, forms C {counts_c.get(name, 0)}, "
-            f"forms TA/TB {counts_t.get(name, 0)}, forms SA/SB/ST/SR "
-            f"{counts_s.get(name, 0)}, serve forms SVA/SVB/SVS "
-            f"{counts_sv.get(name, 0)}, forms QA/QB/QC/QS "
-            f"{counts_q.get(name, 0)}, forms RA/RB/RS/RC "
-            f"{counts_r.get(name, 0)}, forms WA/WB/HA/HS/HQ/HR "
-            f"{counts_wh.get(name, 0)}, checker forms A/B/HA/SVA (5k) "
-            f"{counts_k.get(name, 0)}, forms CF-A/CF-T "
-            f"{counts_cf.get(name, 0)}, "
-            f"fp32 group {counts_slice[name]}, "
-            f"serve {counts_serve[name]}, granite fp32 group "
-            f"{counts_gslice[name]}, granite serve {counts_gserve[name]}, "
-            f"mamba2 fp32 slice {counts_mslice[name]}, mamba2 serve "
-            f"{counts_mserve[name]}, phi3 serve {counts_pserve[name]}, "
-            f"moonshot fp32 cut {counts_moon_a[name]}, moonshot serve "
-            f"{counts_moon[name]}, mixtral reduced {counts_mix[name]}, "
-            f"paligemma fp32 cut {counts_pslice[name]}, paligemma serve "
-            f"{counts_pali[name]}), "
+        log(f"{name}: launches {launches} ({where}), "
             f"max_abs_err {r['max_abs_err']:.3e}, "
             f"ms {r['ms']:.4f}{warm}, plain_ms {r['plain_ms']:.4f}, "
             f"library_ms {'null' if lib is None else f'{lib:.4f}'}, bound_ms "

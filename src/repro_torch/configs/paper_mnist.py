@@ -14,7 +14,9 @@ one pooled buffer (pass its spec as ``make_round_fn(..., ragged=)``);
 ``SWEEP_FORMS`` the sweep forms, each a round form stepped over a grid
 of seeds, gains and target rates (``launch/sweep.py``); ``HOST_FORMS``
 round forms with the client matrices in host memory
-(``state_backend="host"``).
+(``state_backend="host"``).  ``ci_fl_config()`` and ``CI_*`` are the
+experiment at CI scale, the configuration of the paper's claims in
+``tests/test_system.py``.
 """
 from typing import Callable, NamedTuple
 
@@ -42,6 +44,16 @@ def fl_config(algorithm="fedback", participation=0.1, **kw) -> FLConfig:
         controller=ControllerConfig(K=2.0, alpha=0.9),
         **kw,
     )
+
+
+# The experiment at CI scale: 16 clients over 3360 / 800 synthetic
+# examples in label shards, L̄ = 0.25, seed 1, 90 rounds evaluated every
+# 10 (``core.run_evaluated``), and the accuracy the claims read events to.
+CI_CLIENTS, CI_SAMPLES, CI_ROUNDS, CI_TARGET = 16, (3360, 800), 90, 0.93
+
+
+def ci_fl_config(algorithm="fedback") -> FLConfig:
+    return fl_config(algorithm, 0.25, n_clients=CI_CLIENTS, seed=1)
 
 
 class Form(NamedTuple):

@@ -36,9 +36,11 @@ from .fedback import (  # noqa: F401
     ADMM_FAMILY,
     AVG_FAMILY,
     FLConfig,
+    events_to_accuracy,
     init_state,
     make_eval_fn,
     make_round_fn,
+    run_evaluated,
     run_rounds,
 )
 from .hoststate import (  # noqa: F401

@@ -168,14 +168,21 @@ def _distances(z_prev, omega) -> torch.Tensor:
 
 
 def make_cross_pod_round(cfg: CrossPodConfig, loss_fn: Callable, *,
-                         mesh: ClientMesh | None = None):
+                         mesh: ClientMesh | None = None,
+                         every_pod_fires: bool = False):
     """Build ``round_fn(state, batch) -> (state, metrics)``.
 
     ``loss_fn(params, batch) -> scalar`` over one pod's tree; ``batch``
     is a tree of tensors with leading axes (P, local_steps, ...), moved
     to each pod's device.  With ``mesh`` the round takes and returns the
     shard list of ``init_cross_pod_state(..., mesh=mesh)``.  The state's
-    θ, λ and z_prev are updated in place (see the module note)."""
+    θ, λ and z_prev are updated in place (see the module note).
+
+    ``every_pod_fires`` solves and commits every pod without reading the
+    events back: the one-card dry-run (``launch/dryrun.py``) counts a
+    round on the meta device, where nothing can be read, and so counts
+    its most work.  The metrics still carry the events the trigger
+    computed."""
     sharded = mesh is not None
     if sharded:
         check_divisible(cfg.n_pods, mesh)
@@ -227,7 +234,8 @@ def make_cross_pod_round(cfg: CrossPodConfig, loss_fn: Callable, *,
             ctrls = [controller_step(s.ctrl, e, c) for s, e, c in
                      zip(shards, events, ctrl_cfgs, strict=True)]
         batches = shard_rows(batch, pod_mesh)
-        fired = unshard_rows(events).tolist()  # the round's one host read
+        fired = ([True] * cfg.n_pods if every_pod_fires
+                 else unshard_rows(events).tolist())  # the one host read
         losses, pod = [], 0
         for s, w, e, b in zip(shards, omegas, events, batches, strict=True):
             ls = torch.zeros(e.shape, dtype=torch.float32, device=e.device)

@@ -943,3 +943,39 @@ def run_rounds(round_fn: Callable, state, num_rounds: int):
         return state, None
     return state, RoundMetrics(*(torch.stack(f) for f in zip(*history,
                                                               strict=True)))
+
+
+def run_evaluated(round_fn: Callable, eval_fn: Callable, state,
+                  num_rounds: int, test: dict, *, every: int = 10,
+                  extra: tuple = ()):
+    """Run ``num_rounds`` rounds from ``state``, reading back each round's
+    participation events, and the test accuracy (``eval_fn``'s second
+    output on ``test["x"]``, ``test["y"]``) after rounds 0, ``every``,
+    2·``every``, ... and the last, and after each round in ``extra``.
+
+    Returns (state, events per round, the accuracies at those rounds in
+    order, {round: accuracy} for ``extra``).
+    """
+    events, accs, extra_accs = [], [], {}
+    for k in range(num_rounds):
+        state, m = round_fn(state)
+        events.append(int(m.num_events))
+        scheduled = k % every == 0 or k == num_rounds - 1
+        if scheduled or k in extra:
+            acc = float(eval_fn(state, test["x"], test["y"])[1])
+            if k in extra:
+                extra_accs[k] = acc
+            if scheduled:
+                accs.append(acc)
+    return state, events, accs, extra_accs
+
+
+def events_to_accuracy(events: list, accs: list, target: float, *,
+                       every: int = 10):
+    """The participation events of the rounds up to and including the
+    first of :func:`run_evaluated`'s evaluations (``every`` rounds apart)
+    whose accuracy reaches ``target``; None if none does."""
+    for i, acc in enumerate(accs):
+        if acc >= target:
+            return sum(events[:min(i * every, len(events) - 1) + 1])
+    return None

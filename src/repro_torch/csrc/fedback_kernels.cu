@@ -8,7 +8,9 @@
 // nothing, and returns the launch's CUDA error code so the Python
 // wrapper can raise on a refused launch.  Tensors are fp32, row-major
 // and contiguous (the leaf-table form of K1 also reads bf16 leaves and
-// rows at any stride); the wrappers check that before passing pointers,
+// rows at any stride, and K2 and K3 have bf16 instances, K2a and K3a,
+// whose operands are all bf16); the wrappers check that before passing
+// pointers,
 // and compute each launch's geometry (K1's segments and leaf table, K3's
 // grid and tiles) in Python, where the CPU tests check it.
 //
@@ -489,25 +491,202 @@ cudaError_t launch_table(const int64_t* rows, int n_shards,
 // Design: a grid-stride pass over the N*D elements with w at j % D, the
 // z stream a template flag, and the reference's operation order.  The
 // index type is 32-bit when N*D fits, which keeps the per-element
-// modulo cheap.
-template <bool kWithZ, typename Index>
+// modulo cheap.  The kernel is templated on the element type E (F32,
+// BF16 below).
+//
+// K2a, the bf16 instance: where every base is 16-byte aligned (the
+// wrapper decides) admm_update_bf16x8_kernel takes 8 consecutive
+// elements of the flat (N, D) arrays as one 16-byte load or store per
+// stream, the last total % 8 elements one by one; w is read element by
+// element at (i + k) % D, a 2-byte read through the read-only cache (at
+// D = 159,010 a row is 4 mod 16 bytes, so a group of 8 may straddle two
+// rows).  Elsewhere admm_update_kernel<BF16> takes one element at a
+// time.  Bound: the same streams at 2 bytes an element, 127 MB for the
+// dense form at N=100, D=159,010 (about 38 us).
+//
+// bf16 arithmetic as the reference's bf16 arrays do it: each add or
+// subtract is taken in fp32 on the widened operands and rounded to bf16
+// (round to nearest even) before the next uses it.  A sum or difference
+// of two bf16 values taken in fp32 and rounded to bf16 is the correctly
+// rounded bf16 result (24 >= 2*8 + 2 bits), so
+//   lam+ = rn(rn(lam + theta) - w) ; z = rn(theta + lam+) ;
+//   c = rn(w - lam+)
+// is bit-equal to the plain version's bf16 ops.  __fadd_rn/__fsub_rn
+// keep nvcc from contracting anything (there is no multiply to fuse
+// with, but the intent is stated).
+__device__ __forceinline__ unsigned short bf16_rn(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return bf16_bits(bf16_rn(x));
+}
+
+// The element types of K2 and K3.  Both compute in fp32; F32 stores what
+// it computes, BF16 (bf16 kept as its 16 bits) rounds to bf16 after
+// every add or subtract (`rnd`).  A pair (K3's kVec 2) is a float2 or one
+// 32-bit word of two bf16.
+struct F32 {
+  using T = float;
+  using T2 = float2;
+  static __device__ __forceinline__ float get(float x) { return x; }
+  static __device__ __forceinline__ float put(float x) { return x; }
+  static __device__ __forceinline__ float rnd(float x) { return x; }
+  static __device__ __forceinline__ void get2(float2 v, float& a,
+                                              float& b) {
+    a = v.x;
+    b = v.y;
+  }
+  static __device__ __forceinline__ float2 put2(float a, float b) {
+    return make_float2(a, b);
+  }
+};
+
+struct BF16 {
+  using T = unsigned short;
+  using T2 = unsigned int;
+  static __device__ __forceinline__ float get(unsigned short x) {
+    return bf16_bits(x);
+  }
+  static __device__ __forceinline__ unsigned short put(float x) {
+    return bf16_rn(x);
+  }
+  static __device__ __forceinline__ float rnd(float x) {
+    return bf16_round(x);
+  }
+  static __device__ __forceinline__ void get2(unsigned int v, float& a,
+                                              float& b) {
+    a = bf16_bits(v);
+    b = bf16_bits(v >> 16);
+  }
+  static __device__ __forceinline__ unsigned int put2(float a, float b) {
+    return static_cast<unsigned int>(bf16_rn(a)) |
+           (static_cast<unsigned int>(bf16_rn(b)) << 16);
+  }
+};
+
+// lam+ = rnd(rnd(lam + theta) - w), exactly E's value (K2 and K3).
+template <typename E>
+__device__ __forceinline__ float lam_plus(float l, float t, float wj) {
+  return E::rnd(__fsub_rn(E::rnd(__fadd_rn(l, t)), wj));
+}
+
+// One element of K2: lam+ stored, z = theta + lam+ and c = w - lam+
+// rounded by their stores.
+template <typename E, bool kWithZ, typename Index>
+__device__ __forceinline__ void admm_element(
+    const typename E::T* __restrict__ th, const typename E::T* __restrict__ la,
+    const typename E::T* __restrict__ w, typename E::T* __restrict__ lam_out,
+    typename E::T* __restrict__ z_out, typename E::T* __restrict__ c_out,
+    Index i, Index d) {
+  const float t = E::get(th[i]);
+  const float wj = E::get(__ldg(w + i % d));
+  const float lam_new = lam_plus<E>(E::get(la[i]), t, wj);
+  lam_out[i] = E::put(lam_new);
+  if (kWithZ) z_out[i] = E::put(__fadd_rn(t, lam_new));
+  c_out[i] = E::put(__fsub_rn(wj, lam_new));
+}
+
+template <typename E, bool kWithZ, typename Index>
 __global__ void __launch_bounds__(kThreads)
-admm_update_kernel(const float* __restrict__ th,
-                   const float* __restrict__ la,
-                   const float* __restrict__ w,
-                   float* __restrict__ lam_out,
-                   float* __restrict__ z_out,
-                   float* __restrict__ c_out, Index total, Index d) {
+admm_update_kernel(const typename E::T* __restrict__ th,
+                   const typename E::T* __restrict__ la,
+                   const typename E::T* __restrict__ w,
+                   typename E::T* __restrict__ lam_out,
+                   typename E::T* __restrict__ z_out,
+                   typename E::T* __restrict__ c_out, Index total, Index d) {
   const Index stride = static_cast<Index>(gridDim.x) * kThreads;
   for (Index i = static_cast<Index>(blockIdx.x) * kThreads + threadIdx.x;
        i < total; i += stride) {
-    const float t = th[i];
-    const float wj = __ldg(w + i % d);
-    const float lam_new = (la[i] + t) - wj;
-    lam_out[i] = lam_new;
-    if (kWithZ) z_out[i] = t + lam_new;
-    c_out[i] = wj - lam_new;
+    admm_element<E, kWithZ>(th, la, w, lam_out, z_out, c_out, i, d);
   }
+}
+
+// Eight bf16 in one 16-byte word, the lower address in the low half.
+__device__ __forceinline__ void unpack8(uint4 v, float (&x)[8]) {
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    x[2 * j] = bf16_bits(u[j]);
+    x[2 * j + 1] = bf16_bits(u[j] >> 16);
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&x)[8]) {
+  uint32_t u[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    u[j] = static_cast<uint32_t>(bf16_rn(x[2 * j])) |
+           (static_cast<uint32_t>(bf16_rn(x[2 * j + 1])) << 16);
+  }
+  return make_uint4(u[0], u[1], u[2], u[3]);
+}
+
+// K2a's 16-byte form: groups of 8 elements as uint4 (every base 16-byte
+// aligned), the last total % 8 elements as admm_element<BF16>.
+template <bool kWithZ>
+__global__ void __launch_bounds__(kThreads)
+admm_update_bf16x8_kernel(const unsigned short* __restrict__ th,
+                          const unsigned short* __restrict__ la,
+                          const unsigned short* __restrict__ w,
+                          unsigned short* __restrict__ lam_out,
+                          unsigned short* __restrict__ z_out,
+                          unsigned short* __restrict__ c_out, int64_t total,
+                          int64_t d) {
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t groups = total / 8;
+  for (int64_t g = tid; g < groups; g += stride) {
+    const int64_t i0 = g * 8;
+    float t[8], l[8], lo[8], zo[8], co[8];
+    unpack8(*reinterpret_cast<const uint4*>(th + i0), t);
+    unpack8(*reinterpret_cast<const uint4*>(la + i0), l);
+    int64_t col = i0 % d;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float wj = bf16_bits(__ldg(w + col));
+      lo[k] = lam_plus<BF16>(l[k], t[k], wj);
+      zo[k] = __fadd_rn(t[k], lo[k]);  // z and c rounded by pack8
+      co[k] = __fsub_rn(wj, lo[k]);
+      if (++col == d) col = 0;
+    }
+    *reinterpret_cast<uint4*>(lam_out + i0) = pack8(lo);
+    if (kWithZ) *reinterpret_cast<uint4*>(z_out + i0) = pack8(zo);
+    *reinterpret_cast<uint4*>(c_out + i0) = pack8(co);
+  }
+  const int64_t i = groups * 8 + tid;  // the tail, fewer than 8
+  if (i < total) {
+    admm_element<BF16, kWithZ>(th, la, w, lam_out, z_out, c_out, i, d);
+  }
+}
+
+// K2's four instances of element type E: with or without z, a 32-bit
+// index where N*D fits.
+template <typename E>
+int launch_admm_update(const typename E::T* th, const typename E::T* la,
+                       const typename E::T* w, typename E::T* lam_out,
+                       typename E::T* z_out, typename E::T* c_out,
+                       int64_t total, int64_t d, int grid, int with_z,
+                       cudaStream_t s) {
+  if (total < (int64_t{1} << 31)) {
+    const uint32_t t32 = static_cast<uint32_t>(total);
+    const uint32_t d32 = static_cast<uint32_t>(d);
+    if (with_z) {
+      admm_update_kernel<E, true, uint32_t><<<grid, kThreads, 0, s>>>(
+          th, la, w, lam_out, z_out, c_out, t32, d32);
+    } else {
+      admm_update_kernel<E, false, uint32_t><<<grid, kThreads, 0, s>>>(
+          th, la, w, lam_out, z_out, c_out, t32, d32);
+    }
+  } else if (with_z) {
+    admm_update_kernel<E, true, int64_t><<<grid, kThreads, 0, s>>>(
+        th, la, w, lam_out, z_out, c_out, total, d);
+  } else {
+    admm_update_kernel<E, false, int64_t><<<grid, kThreads, 0, s>>>(
+        th, la, w, lam_out, z_out, c_out, total, d);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------
@@ -545,49 +724,56 @@ admm_update_kernel(const float* __restrict__ th,
 // take streaming hints (plain accesses timed the same on the
 // H100).  Plan indices are distinct, so no two threads write one
 // element.
+//
+// K3a, the bf16 instance (E = BF16): the same tiles and grid over bf16
+// arrays, a pair of columns a 4-byte word where D is even and every
+// base is 4-byte aligned (at D = 159,010 a bf16 row is 4 mod 16 bytes,
+// so no wider access fits every row), each add or subtract rounded to
+// bf16 as in K2a.  Bound: 6*V*D*2 + 2*D bytes, 27.0 MB at the width
+// above (about 8.1 us).
 constexpr int kGssColsPerThread = 4;
 constexpr int kGssTileCols = kGssColsPerThread * kThreads;  // 1024
 constexpr int kGssTilesPerStep = 2;
 
 enum Access { kPlain, kStream, kReadOnly };
 
-template <Access kAcc>
-__device__ __forceinline__ float2 load2(const float* p) {
-  const float2* q = reinterpret_cast<const float2*>(p);
-  if (kAcc == kStream) return __ldcs(q);
-  if (kAcc == kReadOnly) return __ldg(q);
-  return *q;
-}
-
-template <Access kAcc>
-__device__ __forceinline__ float load1(const float* p) {
+template <Access kAcc, typename X>
+__device__ __forceinline__ X ld(const X* p) {
   if (kAcc == kStream) return __ldcs(p);
   if (kAcc == kReadOnly) return __ldg(p);
   return *p;
 }
 
+template <bool kStreaming, typename X>
+__device__ __forceinline__ void st(X* p, X x) {
+  if (kStreaming) {
+    __stcs(p, x);
+  } else {
+    *p = x;
+  }
+}
+
 // Column of this thread's k-th element (k < 4) in the tile at column
-// j0: float2 pairs 2*(u*256 + t) for u = 0, 1, or scalars u*256 + t.
+// j0: pairs 2*(u*256 + t) for u = 0, 1, or single elements u*256 + t.
 template <int kVec>
 __device__ __forceinline__ int64_t gss_col(int64_t j0, int k) {
   return kVec == 2 ? j0 + 2 * ((k >> 1) * kThreads + threadIdx.x) + (k & 1)
                    : j0 + k * kThreads + threadIdx.x;
 }
 
-template <int kVec, Access kAcc>
-__device__ __forceinline__ void load_tile(const float* row, int64_t j0,
-                                          int64_t d, bool on,
+template <typename E, int kVec, Access kAcc>
+__device__ __forceinline__ void load_tile(const typename E::T* row,
+                                          int64_t j0, int64_t d, bool on,
                                           float (&v)[kGssColsPerThread]) {
 #pragma unroll
   for (int k = 0; k < kGssColsPerThread; k += kVec) {
     const int64_t j = gss_col<kVec>(j0, k);
     if (on && j < d) {
       if (kVec == 2) {
-        const float2 x = load2<kAcc>(row + j);
-        v[k] = x.x;
-        v[k + 1] = x.y;
+        E::get2(ld<kAcc>(reinterpret_cast<const typename E::T2*>(row + j)),
+                v[k], v[k + 1]);
       } else {
-        v[k] = load1<kAcc>(row + j);
+        v[k] = E::get(ld<kAcc>(row + j));
       }
     } else {
       v[k] = 0.f;
@@ -596,39 +782,34 @@ __device__ __forceinline__ void load_tile(const float* row, int64_t j0,
   }
 }
 
-template <int kVec, bool kStreaming>
+template <typename E, int kVec, bool kStreaming>
 __device__ __forceinline__ void store_tile(
-    float* row, int64_t j0, int64_t d, bool on,
+    typename E::T* row, int64_t j0, int64_t d, bool on,
     const float (&v)[kGssColsPerThread]) {
 #pragma unroll
   for (int k = 0; k < kGssColsPerThread; k += kVec) {
     const int64_t j = gss_col<kVec>(j0, k);
     if (on && j < d) {
       if (kVec == 2) {
-        float2* q = reinterpret_cast<float2*>(row + j);
-        const float2 x = make_float2(v[k], v[k + 1]);
-        if (kStreaming) {
-          __stcs(q, x);
-        } else {
-          *q = x;
-        }
-      } else if (kStreaming) {
-        __stcs(row + j, v[k]);
+        st<kStreaming>(reinterpret_cast<typename E::T2*>(row + j),
+                       E::put2(v[k], v[k + 1]));
       } else {
-        row[j] = v[k];
+        st<kStreaming>(row + j, E::put(v[k]));
       }
     }
   }
 }
 
-template <bool kWithZ, int kVec>
+template <typename E, bool kWithZ, int kVec>
 __global__ void __launch_bounds__(kThreads)
 fused_gss_kernel(const int32_t* __restrict__ idx,
                  const bool* __restrict__ valid,
-                 const float* __restrict__ solved,
-                 const float* __restrict__ w, float* __restrict__ th,
-                 float* __restrict__ la, float* __restrict__ z, int64_t c,
-                 int64_t n, int64_t d, int64_t tiles_per_slot) {
+                 const typename E::T* __restrict__ solved,
+                 const typename E::T* __restrict__ w,
+                 typename E::T* __restrict__ th,
+                 typename E::T* __restrict__ la,
+                 typename E::T* __restrict__ z, int64_t c, int64_t n,
+                 int64_t d, int64_t tiles_per_slot) {
   constexpr int S = kGssTilesPerStep;
   const int64_t tiles = c * tiles_per_slot;
   const int64_t grid = gridDim.x;
@@ -651,25 +832,55 @@ fused_gss_kernel(const int32_t* __restrict__ idx,
         }
       }
       if (!on[i]) row[i] = 0;
-      load_tile<kVec, kPlain>(th + row[i] * d, j0[i], d, on[i], thv[i]);
-      load_tile<kVec, kPlain>(la + row[i] * d, j0[i], d, on[i], lav[i]);
-      load_tile<kVec, kStream>(solved + slot[i] * d, j0[i], d, on[i], sv[i]);
-      load_tile<kVec, kReadOnly>(w, j0[i], d, on[i], wv[i]);
+      load_tile<E, kVec, kPlain>(th + row[i] * d, j0[i], d, on[i], thv[i]);
+      load_tile<E, kVec, kPlain>(la + row[i] * d, j0[i], d, on[i], lav[i]);
+      load_tile<E, kVec, kStream>(solved + slot[i] * d, j0[i], d, on[i],
+                                  sv[i]);
+      load_tile<E, kVec, kReadOnly>(w, j0[i], d, on[i], wv[i]);
     }
 #pragma unroll
     for (int i = 0; i < S; ++i) {
       float zv[kGssColsPerThread];
 #pragma unroll
       for (int k = 0; k < kGssColsPerThread; ++k) {
-        const float lam_new = (lav[i][k] + thv[i][k]) - wv[i][k];
+        const float lam_new = lam_plus<E>(lav[i][k], thv[i][k], wv[i][k]);
         lav[i][k] = lam_new;
-        zv[k] = sv[i][k] + lam_new;
+        zv[k] = __fadd_rn(sv[i][k], lam_new);  // rounded by the store
       }
-      store_tile<kVec, false>(th + row[i] * d, j0[i], d, on[i], sv[i]);
-      store_tile<kVec, false>(la + row[i] * d, j0[i], d, on[i], lav[i]);
-      if (kWithZ) store_tile<kVec, true>(z + row[i] * d, j0[i], d, on[i], zv);
+      store_tile<E, kVec, false>(th + row[i] * d, j0[i], d, on[i], sv[i]);
+      store_tile<E, kVec, false>(la + row[i] * d, j0[i], d, on[i], lav[i]);
+      if (kWithZ) {
+        store_tile<E, kVec, true>(z + row[i] * d, j0[i], d, on[i], zv);
+      }
     }
   }
+}
+
+// K3's four instances of element type E: with or without z, pairs or
+// single elements.
+template <typename E>
+int launch_fused_gss(const int32_t* idx, const bool* valid,
+                     const typename E::T* solved, const typename E::T* w,
+                     typename E::T* th, typename E::T* la, typename E::T* z,
+                     int64_t c, int64_t n, int64_t d, int grid,
+                     int64_t tiles_per_slot, int vec, int with_z,
+                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned g = static_cast<unsigned>(grid);
+  if (with_z && vec == 2) {
+    fused_gss_kernel<E, true, 2><<<g, kThreads, 0, s>>>(
+        idx, valid, solved, w, th, la, z, c, n, d, tiles_per_slot);
+  } else if (with_z) {
+    fused_gss_kernel<E, true, 1><<<g, kThreads, 0, s>>>(
+        idx, valid, solved, w, th, la, z, c, n, d, tiles_per_slot);
+  } else if (vec == 2) {
+    fused_gss_kernel<E, false, 2><<<g, kThreads, 0, s>>>(
+        idx, valid, solved, w, th, la, z, c, n, d, tiles_per_slot);
+  } else {
+    fused_gss_kernel<E, false, 1><<<g, kThreads, 0, s>>>(
+        idx, valid, solved, w, th, la, z, c, n, d, tiles_per_slot);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 int grid_for(int64_t total) {
@@ -743,26 +954,9 @@ int fb_admm_update(const float* th, const float* la, const float* w,
                    float* lam_out, float* z_out, float* c_out, int64_t n,
                    int64_t d, int with_z, void* stream) {
   const int64_t total = n * d;
-  const int grid = grid_for(total);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (total < (int64_t{1} << 31)) {
-    const uint32_t t32 = static_cast<uint32_t>(total);
-    const uint32_t d32 = static_cast<uint32_t>(d);
-    if (with_z) {
-      admm_update_kernel<true, uint32_t><<<grid, kThreads, 0, s>>>(
-          th, la, w, lam_out, z_out, c_out, t32, d32);
-    } else {
-      admm_update_kernel<false, uint32_t><<<grid, kThreads, 0, s>>>(
-          th, la, w, lam_out, z_out, c_out, t32, d32);
-    }
-  } else if (with_z) {
-    admm_update_kernel<true, int64_t><<<grid, kThreads, 0, s>>>(
-        th, la, w, lam_out, z_out, c_out, total, d);
-  } else {
-    admm_update_kernel<false, int64_t><<<grid, kThreads, 0, s>>>(
-        th, la, w, lam_out, z_out, c_out, total, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_admm_update<F32>(th, la, w, lam_out, z_out, c_out, total, d,
+                                 grid_for(total), with_z,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // `grid` blocks stride over c * tiles_per_slot tiles of 1024 columns;
@@ -771,22 +965,44 @@ int fb_fused_gss(const int32_t* idx, const bool* valid, const float* solved,
                  const float* w, float* th, float* la, float* z, int64_t c,
                  int64_t n, int64_t d, int grid, int64_t tiles_per_slot,
                  int vec, int with_z, void* stream) {
+  return launch_fused_gss<F32>(idx, valid, solved, w, th, la, z, c, n, d,
+                               grid, tiles_per_slot, vec, with_z, stream);
+}
+
+// K2a: bf16 arrays (as their 16 bits); vec 8 (admm_update_bf16x8_kernel)
+// where every base is 16-byte aligned, else 1 (admm_update_kernel<BF16>).
+int fb_admm_update_bf16(const unsigned short* th, const unsigned short* la,
+                        const unsigned short* w, unsigned short* lam_out,
+                        unsigned short* z_out, unsigned short* c_out,
+                        int64_t n, int64_t d, int with_z, int vec,
+                        void* stream) {
+  const int64_t total = n * d;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned g = static_cast<unsigned>(grid);
-  if (with_z && vec == 2) {
-    fused_gss_kernel<true, 2><<<g, kThreads, 0, s>>>(
-        idx, valid, solved, w, th, la, z, c, n, d, tiles_per_slot);
-  } else if (with_z) {
-    fused_gss_kernel<true, 1><<<g, kThreads, 0, s>>>(
-        idx, valid, solved, w, th, la, z, c, n, d, tiles_per_slot);
-  } else if (vec == 2) {
-    fused_gss_kernel<false, 2><<<g, kThreads, 0, s>>>(
-        idx, valid, solved, w, th, la, z, c, n, d, tiles_per_slot);
+  if (vec != 8) {
+    return launch_admm_update<BF16>(th, la, w, lam_out, z_out, c_out, total,
+                                    d, grid_for(total), with_z, s);
+  }
+  const int grid = grid_for((total + 7) / 8);
+  if (with_z) {
+    admm_update_bf16x8_kernel<true><<<grid, kThreads, 0, s>>>(
+        th, la, w, lam_out, z_out, c_out, total, d);
   } else {
-    fused_gss_kernel<false, 1><<<g, kThreads, 0, s>>>(
-        idx, valid, solved, w, th, la, z, c, n, d, tiles_per_slot);
+    admm_update_bf16x8_kernel<false><<<grid, kThreads, 0, s>>>(
+        th, la, w, lam_out, z_out, c_out, total, d);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K3a: as fb_fused_gss on bf16 arrays; vec 2 (a 32-bit word of two bf16)
+// where d is even and every base is 4-byte aligned, else 1.
+int fb_fused_gss_bf16(const int32_t* idx, const bool* valid,
+                      const unsigned short* solved, const unsigned short* w,
+                      unsigned short* th, unsigned short* la,
+                      unsigned short* z, int64_t c, int64_t n, int64_t d,
+                      int grid, int64_t tiles_per_slot, int vec, int with_z,
+                      void* stream) {
+  return launch_fused_gss<BF16>(idx, valid, solved, w, th, la, z, c, n, d,
+                                grid, tiles_per_slot, vec, with_z, stream);
 }
 
 }  // extern "C"

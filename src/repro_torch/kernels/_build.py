@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-Each source (``fedback_kernels.cu``: K1–K3 and K1's leaf-table form;
+Each source (``fedback_kernels.cu``: K1–K3, K1's leaf-table form and
+K2's and K3's bf16 instances;
 ``model_kernels.cu``: K4, K5) is compiled by its own ``nvcc -c``, all
 started together, and the objects are linked into one shared library
 with a plain C interface, loaded with ``ctypes`` — no PyTorch headers,
@@ -115,13 +116,17 @@ def load_library() -> ctypes.CDLL:
         lib.fb_admm_update.argtypes = [p, p, p, p, p, p, i64, i64, i32, p]
         lib.fb_fused_gss.argtypes = [p, p, p, p, p, p, p, i64, i64, i64,
                                      i32, i64, i32, i32, p]
+        lib.fb_admm_update_bf16.argtypes = [p, p, p, p, p, p, i64, i64,
+                                            i32, i32, p]
+        lib.fb_fused_gss_bf16.argtypes = lib.fb_fused_gss.argtypes
         lib.mk_flash_attention.argtypes = ([p] * 6 + [i64] * 12 + [i64] * 5
                                            + [i32] * 3
                                            + [ctypes.c_float, p])
         lib.mk_ssd_scan.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, p]
         for fn in (lib.fb_trigger_sq_norms, lib.fb_trigger_sq_norms_table,
-                   lib.fb_admm_update,
-                   lib.fb_fused_gss, lib.mk_flash_attention,
+                   lib.fb_admm_update, lib.fb_admm_update_bf16,
+                   lib.fb_fused_gss, lib.fb_fused_gss_bf16,
+                   lib.mk_flash_attention,
                    lib.mk_ssd_scan):
             fn.restype = ctypes.c_int
         _lib = lib

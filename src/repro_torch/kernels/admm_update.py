@@ -9,6 +9,15 @@ elementwise pass with the reference's operation order, so its outputs
 are bit-identical to :func:`admm_update_ref`.  ``with_z=False`` (λ⁺ and
 the prox center only) is the dense round's pre-solve form.
 
+K2a: θ, λ and ω all bf16 take the kernel's bf16 instance
+(``admm_update_kernel<BF16>``), which rounds to bf16 after every add or
+subtract, in the reference's order — λ⁺ = rn(rn(λ + θ) − ω), z =
+rn(θ + λ⁺), c = rn(ω − λ⁺) — as the plain version's bf16 ops do, so it
+too is bit-identical to :func:`admm_update_ref`.  Its streams move as
+16-byte words of 8 elements where every base is 16-byte aligned
+(:func:`bf16_vector_width`; ``admm_update_bf16x8_kernel``), else
+element by element.
+
 K2b, :func:`admm_update_sharded`, replaces
 ``admm_update.py::admm_update_sharded`` (``shard_map`` of K2 over the
 ``clients`` mesh axis): the same kernel launched once per shard of a
@@ -24,6 +33,8 @@ from repro_torch.utils.spans import kernel_wrapper
 from ._build import check_launch, load_library
 from ._checks import check_f32, check_shards, is_cpu, refuse_grad, \
     stream_ptr
+
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def admm_update_hbm_bytes(rows: int, dim: int, *, with_z: bool = True,
@@ -43,31 +54,47 @@ def admm_update_ref(theta, lam, omega, *, with_z: bool = True):
     return lam_new, theta + lam_new, center
 
 
+def bf16_vector_width(ptrs) -> int:
+    """K2a's access width for the bf16 arrays at ``ptrs`` (θ, λ and the
+    outputs): 8 elements (16 bytes) where every base is 16-byte aligned,
+    else 1.  It needs no card."""
+    return 8 if all(p % 16 == 0 for p in ptrs) else 1
+
+
 def _kernel(theta, lam, omega, with_z: bool):
-    """K2's kernel on one CUDA device: (its outputs, whether a launch was
-    made — none for an empty state).  The callers count."""
+    """K2's kernel on one CUDA device — the fp32 instance, or K2a's for
+    bf16 operands: (its outputs, whether a launch was made — none for an
+    empty state).  The callers count."""
     n, d = theta.shape
-    check_f32("theta", theta, (n, d))
-    check_f32("lam", lam, (n, d))
-    check_f32("omega", omega, (d,))
+    check_f32("theta", theta, (n, d), DTYPES)
+    check_f32("lam", lam, (n, d), (theta.dtype,))
+    check_f32("omega", omega, (d,), (theta.dtype,))
     lam_new = torch.empty_like(theta)
     center = torch.empty_like(theta)
     z = torch.empty_like(theta) if with_z else None
     out = (lam_new, z, center) if with_z else (lam_new, center)
     if not n * d:
         return out, False
+    ptrs = [t.data_ptr() for t in (theta, lam, lam_new, center)
+            + ((z,) if with_z else ())]
     with torch.cuda.device(theta.device):
-        rc = load_library().fb_admm_update(
-            theta.data_ptr(), lam.data_ptr(), omega.data_ptr(),
-            lam_new.data_ptr(), None if z is None else z.data_ptr(),
-            center.data_ptr(), n, d, int(with_z), stream_ptr(theta))
+        lib = load_library()
+        args = (theta.data_ptr(), lam.data_ptr(), omega.data_ptr(),
+                lam_new.data_ptr(), None if z is None else z.data_ptr(),
+                center.data_ptr(), n, d, int(with_z))
+        if theta.dtype == torch.bfloat16:
+            rc = lib.fb_admm_update_bf16(*args, bf16_vector_width(ptrs),
+                                         stream_ptr(theta))
+        else:
+            rc = lib.fb_admm_update(*args, stream_ptr(theta))
     check_launch("admm_update", rc)
     return out, True
 
 
 @kernel_wrapper("admm_update")
 def admm_update(theta, lam, omega, *, with_z: bool = True, mesh=None):
-    """θ, λ: (N, D) fp32; ω: (D,) fp32 → new (N, D) tensors.
+    """θ, λ: (N, D); ω: (D,), all fp32 or all bf16 → new (N, D)
+    tensors in that dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (or raise).  With ``mesh`` the arguments are per shard and the call
@@ -97,7 +124,8 @@ def admm_update_sharded_ref(theta, lam, omega, *, with_z: bool = True):
 @kernel_wrapper("admm_update_sharded")
 def admm_update_sharded(theta, lam, omega, mesh, *, with_z: bool = True):
     """K2 per shard of a client mesh: θ and λ the P per-shard (N/P, D)
-    fp32 blocks and ω the P copies of the (D,) fp32 vector, shard i's on
+    blocks and ω the P copies of the (D,) vector (all fp32 or all bf16:
+    a bf16 shard takes K2a), shard i's on
     ``mesh.devices[i]`` → (λ⁺, z, c), or (λ⁺, c) without z, each a list
     of P per-shard blocks.
 

@@ -21,6 +21,13 @@ slot's index and mask itself and skipping an invalid slot; rows move as
 float2 where D is even and every base is 8-byte aligned
 (:func:`check_kernel_args`), else as scalars.  See the source note for
 its bound.
+
+K3a: every operand but the plan in bf16 takes the kernel's bf16
+instance, which rounds to bf16 after every add or subtract in the
+reference's order — λ⁺ = rn(rn(λ[r] + θ[r]) − ω), z_prev[r] ←
+rn(solved[i] + λ⁺) — as the plain version's bf16 ops do, so it is
+bit-identical to :func:`fused_gss_ref`; its pairs are 4-byte words,
+taken where D is even and every base is 4-byte aligned.
 """
 from __future__ import annotations
 
@@ -32,6 +39,8 @@ from repro_torch.utils.spans import kernel_wrapper
 
 from ._build import check_launch, load_library
 from ._checks import check_f32, is_cpu, refuse_grad, stream_ptr
+
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 TILE_COLS = 1024  # columns of a tile: 4 for each of the kernel's 256 threads
@@ -57,16 +66,18 @@ def fused_gss_geometry(c: int, d: int, sms: int) -> tuple[int, int]:
     return min(c * tiles_per_slot, sms * BLOCKS_PER_SM), tiles_per_slot
 
 
-def check_kernel_args(c: int, d: int, sms: int,
-                      ptrs: tuple[int, ...]) -> tuple[int, int, int]:
+def check_kernel_args(c: int, d: int, sms: int, ptrs: tuple[int, ...],
+                      elem_bytes: int = 4) -> tuple[int, int, int]:
     """The launch of the CUDA kernel for C slots of rows of ``d``
-    elements on a card of ``sms`` SMs, with its fp32 arrays (solved, ω,
-    θ, λ and z_prev if present) at ``ptrs``: (grid, T, vector width —
-    2 where d is even and every base is 8-byte aligned, so every row
-    is, else 1).  Raises ValueError on what it does not take.  It needs
-    no card."""
+    elements on a card of ``sms`` SMs, with its arrays of
+    ``elem_bytes``-byte elements (4: fp32, 2: bf16; solved, ω, θ, λ and
+    z_prev if present) at ``ptrs``: (grid, T, vector width — 2 where d
+    is even and every base is aligned to a pair, 2·``elem_bytes`` bytes,
+    so every row is, else 1).  Raises ValueError on what it does not
+    take.  It needs no card."""
     grid, tiles_per_slot = fused_gss_geometry(c, d, sms)
-    vec = 2 if d % 2 == 0 and all(p % 8 == 0 for p in ptrs) else 1
+    pair = 2 * elem_bytes
+    vec = 2 if d % 2 == 0 and all(p % pair == 0 for p in ptrs) else 1
     return grid, tiles_per_slot, vec
 
 
@@ -112,7 +123,8 @@ def fused_gss_ref(idx, valid, solved, omega, theta, lam, z_prev=None, *,
 def fused_gss(idx, valid, solved, omega, theta, lam, z_prev=None, *,
               with_z: bool = True):
     """idx: (C,) int32 distinct rows; valid: (C,) bool; solved: (C, D);
-    ω: (D,); θ/λ/z_prev: (N, D) fp32, updated in place.
+    ω: (D,); θ/λ/z_prev: (N, D), updated in place; solved, ω and the
+    state all fp32 or all bf16.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (or raise).  Returns (θ, λ, z_prev), or (θ, λ) without z.
@@ -134,16 +146,21 @@ def fused_gss(idx, valid, solved, omega, theta, lam, z_prev=None, *,
                         f"{tuple(valid.shape)}")
     if not (idx.is_contiguous() and valid.is_contiguous()):
         raise ValueError("idx and valid must be contiguous")
-    check_f32("solved", solved, (c, d))
-    check_f32("omega", omega, (d,))
-    for name, t in zip(("theta", "lam", "z_prev"), state, strict=False):
-        check_f32(name, t, (n, d))
+    check_f32("theta", theta, (n, d), DTYPES)
+    check_f32("solved", solved, (c, d), (theta.dtype,))
+    check_f32("omega", omega, (d,), (theta.dtype,))
+    for name, t in zip(("lam", "z_prev"), state[1:], strict=False):
+        check_f32(name, t, (n, d), (theta.dtype,))
     if c and d:
+        bf16 = theta.dtype == torch.bfloat16
         grid, tiles_per_slot, vec = check_kernel_args(
             c, d, _sm_count(theta.device),
-            tuple(t.data_ptr() for t in (solved, omega) + state))
+            tuple(t.data_ptr() for t in (solved, omega) + state),
+            elem_bytes=theta.element_size())
         with torch.cuda.device(theta.device):
-            rc = load_library().fb_fused_gss(
+            lib = load_library()
+            launch = lib.fb_fused_gss_bf16 if bf16 else lib.fb_fused_gss
+            rc = launch(
                 idx.data_ptr(), valid.data_ptr(), solved.data_ptr(),
                 omega.data_ptr(), theta.data_ptr(), lam.data_ptr(),
                 z_prev.data_ptr() if with_z else None, c, n, d, grid,

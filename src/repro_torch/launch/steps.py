@@ -12,7 +12,11 @@ Every step is the paper's computation at its scope:
   pod (``core/crosspod.py``): trigger norms, controller, gated local
   updates and the consensus mean over the pods;
 * :func:`make_prefill_step` / :func:`make_decode_step` — the serving
-  paths with a KV cache (K4 in prefill).
+  paths with a KV cache (K4 in prefill);
+* :func:`make_encode_step` — the audio encoder's serving pass, which
+  has no prefill or cache: frames through the bidirectional stack to
+  per-frame logits (the port's own; the reference's prefill raises for
+  the encoder, and so does its dry-run of ``prefill_32k``).
 
 Each builder returns ``(step, abstract_args)``: the step function and
 its arguments as tensors on the meta device (shapes and dtypes, no
@@ -32,6 +36,8 @@ from repro_torch.core.crosspod import CrossPodConfig, CrossPodState, \
     make_cross_pod_round
 from repro_torch.models.api import META, Model, abstract_cache, \
     abstract_params, input_specs
+from repro_torch.models.layers import rmsnorm
+from repro_torch.models.transformer import forward_hidden
 from repro_torch.optim.adam import adam_init, adam_step
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
@@ -86,16 +92,19 @@ def make_train_step(model: Model, *, batch: int, seq: int,
 def make_cross_pod_step(model: Model, *, batch: int, seq: int,
                         n_pods: int = 2, local_steps: int = 2,
                         rho: float = DEFAULT_RHO, lr: float = DEFAULT_LR,
-                        target_rate: float = 0.5):
+                        target_rate: float = 0.5,
+                        every_pod_fires: bool = False):
     """A full FedBack round across pods on one device: ``(round_fn,
     (state_abs, batch_abs))``, the batch (pods, local_steps, batch //
-    (pods · local_steps), seq)."""
+    (pods · local_steps), seq); ``every_pod_fires`` as in
+    ``make_cross_pod_round`` (the meta-device count)."""
     cfg = model.config
     cp = CrossPodConfig(
         n_pods=n_pods, rho=rho, lr=lr, local_steps=local_steps,
         controller=ControllerConfig(K=0.5, alpha=0.9,
                                     target_rate=target_rate))
-    round_fn = make_cross_pod_round(cp, model.loss)
+    round_fn = make_cross_pod_round(cp, model.loss,
+                                    every_pod_fires=every_pod_fires)
     per_step = batch // (n_pods * local_steps)
     if per_step < 1:
         raise ValueError(f"batch {batch} is smaller than {n_pods} pods × "
@@ -144,3 +153,24 @@ def make_decode_step(model: Model, *, batch: int, seq: int):
         return model.decode_step(params, token, cache)
 
     return decode_step, (p_abs, tok_abs, cache_abs)
+
+
+def make_encode_step(model: Model, *, batch: int, seq: int):
+    """``encode_step(params, features) -> logits`` (B, S, V) of the audio
+    family over ``seq`` frames (``forward_hidden``, the final norm and
+    the head, no gradient); abstract (params, features)."""
+    cfg = model.config
+    if cfg.family != "audio":
+        raise ValueError(f"{cfg.name} is not an encoder: serve it with "
+                         "make_prefill_step")
+    p_abs = abstract_params(model)
+    f_abs = input_specs(cfg, mode="train", batch=batch,
+                        seq=seq)["features"]
+
+    @torch.no_grad()
+    def encode_step(params, features):
+        h, _ = forward_hidden(cfg, params, {"features": features})
+        return rmsnorm(h, params["final_ln"], cfg.norm_eps) \
+            @ params["lm_head"]
+
+    return encode_step, (p_abs, f_abs)

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import importlib.util
 import itertools
 import json
 import statistics
@@ -54,25 +55,26 @@ from pathlib import Path
 
 import torch
 
-# Peak HBM bandwidth by card name (NVIDIA data sheets), for bound_ms.
-PEAK_BYTES_PER_S = (("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
-                    ("H100", 3.35e12), ("H200", 4.8e12))
+
+def _load_roofline():
+    """``roofline.py`` beside this file, loaded by its path: the peak
+    tables come from this tree even when ``--src`` times an earlier one
+    (which may have no ``launch/roofline.py``)."""
+    path = Path(__file__).resolve().with_name("roofline.py")
+    spec = importlib.util.spec_from_file_location("_time_kernels_roofline",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# Peak HBM bandwidth by card name, for bound_ms.
+peak_bandwidth = _load_roofline().peak_bandwidth
 # The FedBack round at the paper-MNIST width: clients, D, slots, valid.
 ROUND_N, ROUND_D, ROUND_C, ROUND_VALID = 100, 159010, 16, 14
 # Input sets the cold measure rotates over: 4 × K3's 36 MB footprint
 # (4 × 64 MB for K1) between two calls on one set, beyond the 50 MB L2.
 COLD_COPIES = 4
-
-
-def peak_for(table, name: str):
-    for key, value in table:
-        if key in name:
-            return value
-    return None
-
-
-def peak_bandwidth(name: str):
-    return peak_for(PEAK_BYTES_PER_S, name)
 
 
 def device_ms(fn, calls: int = 20, reps: int = 7) -> float:
@@ -131,32 +133,42 @@ def kernel_breakdown(fn, calls: int = 10) -> dict:
             if e.device_time_total > 0 and not is_span(e.key)}
 
 
-def round_kernel_ms(ops, dev, gen) -> dict:
+def round_kernel_ms(ops, dev, gen, dtype=torch.float32) -> dict:
     """{name: {"warm", "cold", "bytes", "bound_ms"}} for K1, K2 and K3 at
     the round's shapes, over ``COLD_COPIES`` sets of inputs made from
-    ``gen`` (bound_ms None on a card the table does not name)."""
+    ``gen`` (bound_ms None on a card the table does not name); with
+    ``dtype=torch.bfloat16``, K2a and K3a (``admm_update_bf16``,
+    ``fused_gss_bf16``) at the same shapes, their bytes at 2 an
+    element."""
     n, d, c = ROUND_N, ROUND_D, ROUND_C
+    bf16 = dtype == torch.bfloat16
+    eb = 2 if bf16 else 4
+    sfx = "_bf16" if bf16 else ""
 
     def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    calls = {"trigger_sq_norms": [], "admm_update": [], "fused_gss": []}
+    calls = {} if bf16 else {"trigger_sq_norms": []}
+    calls.update({f"admm_update{sfx}": [], f"fused_gss{sfx}": []})
     valid = torch.arange(c, device=dev) < ROUND_VALID
     for _ in range(COLD_COPIES):
         z, w = randn(n, d), randn(d)
-        calls["trigger_sq_norms"].append(
-            functools.partial(ops.trigger_sq_norms, z, w))
+        if not bf16:
+            calls["trigger_sq_norms"].append(
+                functools.partial(ops.trigger_sq_norms, z, w))
         th, la = randn(n, d), randn(n, d)
-        calls["admm_update"].append(
+        calls[f"admm_update{sfx}"].append(
             functools.partial(ops.admm_update, th, la, w, with_z=False))
         idx = torch.randperm(n, generator=gen, device=dev)[:c].to(
             torch.int32)
         state = (randn(n, d), randn(n, d), randn(n, d))
-        calls["fused_gss"].append(functools.partial(
+        calls[f"fused_gss{sfx}"].append(functools.partial(
             ops.fused_gss, idx, valid, randn(c, d), w, *state))
     nbytes = {"trigger_sq_norms": ops.trigger_sq_norms_hbm_bytes(n, d),
-              "admm_update": ops.admm_update_hbm_bytes(n, d, with_z=False),
-              "fused_gss": ops.fused_gss_hbm_bytes(ROUND_VALID, d) + 5 * c}
+              f"admm_update{sfx}": ops.admm_update_hbm_bytes(
+                  n, d, with_z=False, dtype_bytes=eb),
+              f"fused_gss{sfx}": ops.fused_gss_hbm_bytes(
+                  ROUND_VALID, d, dtype_bytes=eb) + 5 * c}
     bw = peak_bandwidth(torch.cuda.get_device_name(dev))
     return {name: dict(warm=device_ms(fns[0]), cold=device_ms(cycle(fns)),
                        bytes=nbytes[name],

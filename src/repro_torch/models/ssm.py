@@ -10,7 +10,9 @@
 Prefill and training run the chunked SSD algorithm: the intra-chunk
 terms are plain torch einsums (XLA computes them outside Pallas in the
 JAX package) and the inter-chunk scan is the one function named by
-``scan=``: ``kernels.ops.ssd_scan`` (K5) in prefill, the default, and
+``scan=``: ``kernels.ops.ssd_scan`` (K5) in prefill, the default
+(looked up when the layer runs, so the dry-run's meta-device stand-in
+takes its place: ``launch/dryrun.py``), and
 the plain, differentiable ``kernels.ssd_scan.ssd_scan_ref`` in the
 training loss (the reference's training SSD is a ``lax.scan``; K5 has no
 backward and refuses an input that requires grad).  Decode is the O(1)
@@ -112,14 +114,14 @@ def _causal_conv(xbc, w, b):
 
 
 def ssd_chunked(x, dt, a_log, bmat, cmat, *, chunk, intra_dtype=None,
-                scan=ops.ssd_scan):
+                scan=None):
     """Chunked SSD core.
 
     x: (B, S, H, P); dt: (B, S, H); bmat/cmat: (B, S, N).
     Returns y: (B, S, H, P) fp32 and the final state (B, H, P, N) fp32.
     ``scan(states, decays) -> (h_prev, h_last)`` is the inter-chunk
-    scan: K5 (``ops.ssd_scan``) or its plain version ``ssd_scan_ref``,
-    which autograd differentiates.
+    scan: K5 (``ops.ssd_scan``, for ``None``) or its plain version
+    ``ssd_scan_ref``, which autograd differentiates.
 
     Precision policy as in the JAX package: the large tensors (x, B, C,
     the 5-D decay kernel, chunk states) in the input dtype
@@ -169,7 +171,8 @@ def ssd_chunked(x, dt, a_log, bmat, cmat, *, chunk, intra_dtype=None,
     states = torch.einsum("bcjhp,bcjn->bchpn",
                           xdt * decay_to_end[..., None], bc)
     chunk_decay = torch.exp(cum[:, :, -1, :]).contiguous()  # (B, nc, H)
-    h_prevs, h_last = scan(states.to(wide).contiguous(), chunk_decay)
+    h_prevs, h_last = (scan or ops.ssd_scan)(states.to(wide).contiguous(),
+                                             chunk_decay)
 
     y_inter = (torch.einsum("bcin,bchpn->bcihp", cc, h_prevs)
                * torch.exp(cum).to(wide)[..., None]).to(f32)
@@ -179,7 +182,7 @@ def ssd_chunked(x, dt, a_log, bmat, cmat, *, chunk, intra_dtype=None,
 
 def ssm_forward(params, hidden, *, expand, ssm_state, head_dim, conv_kernel,
                 chunk, return_state=False, intra_dtype=None,
-                scan=ops.ssd_scan):
+                scan=None):
     """Full Mamba-2 mixer. hidden: (B, S, d); ``scan`` as in
     :func:`ssd_chunked`."""
     b, s, d = hidden.shape

@@ -178,6 +178,89 @@ def test_fused_gss_kernel_misaligned_base_bit_exact(dev):
         assert torch.equal(g.cpu(), x)
 
 
+# K2a and K3a: the bf16 instances, bit-equal to the plain versions' bf16
+# ops (each add or subtract rounded), over the whole outputs and state.
+def _bf16(t):
+    return t.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("with_z", [True, False])
+@pytest.mark.parametrize("n,d,offset", [
+    (4, 64, 0), (8, 1024, 0), (5, 2049, 0),  # the reference test's shapes
+    (100, 159010, 0),                         # the dense round's width
+    (3, 7, 0), (9, 1001, 1)])                 # a tail; θ off 16 bytes
+def test_admm_kernel_bf16_bit_exact(dev, with_z, n, d, offset):
+    rng = np.random.default_rng(n + d)
+    th, la, w = (_bf16(_mk(rng, n, d)), _bf16(_mk(rng, n, d)),
+                 _bf16(_mk(rng, d)))
+    want = ops.admm_update_ref(th, la, w, with_z=with_z)
+    th_dev = torch.cat([torch.zeros(offset, dtype=torch.bfloat16),
+                        th.reshape(-1)]).to(dev)[offset:].view(n, d)
+    before = ops.admm_update.launches
+    got = ops.admm_update(th_dev, la.to(dev), w.to(dev), with_z=with_z)
+    torch.cuda.synchronize()
+    assert ops.admm_update.launches == before + 1
+    for g, x in zip(got, want, strict=True):
+        assert g.dtype == torch.bfloat16 and torch.equal(g.cpu(), x)
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_admm_sharded_kernel_bf16_bit_exact(dev, p):
+    from repro_torch.sharding import make_client_mesh, replicate_data, \
+        shard_rows
+
+    rng = np.random.default_rng(p)
+    th, la, w = (_bf16(_mk(rng, 100, 159010)).to(dev),
+                 _bf16(_mk(rng, 100, 159010)).to(dev),
+                 _bf16(_mk(rng, 159010)).to(dev))
+    mesh = make_client_mesh(p, [dev])
+    before = ops.admm_update_sharded.launches
+    got = ops.admm_update(shard_rows(th, mesh), shard_rows(la, mesh),
+                          replicate_data(mesh, w), mesh=mesh)
+    torch.cuda.synchronize()
+    assert ops.admm_update_sharded.launches == before + p
+    for part, whole in zip(got, ops.admm_update_ref(th, la, w), strict=True):
+        assert torch.equal(torch.cat(part), whole)
+
+
+@pytest.mark.parametrize("with_z", [True, False])
+@pytest.mark.parametrize("n,c,d,invalid,offset", [
+    (100, 16, 159010, (0, 15), 0),  # the round's width, C = 16, 14 valid
+    (100, 7, 159011, (3,), 0),      # odd D: one element at a time
+    (12, 4, 2050, (1,), 1)])        # θ 2 bytes off: one element at a time
+def test_fused_gss_kernel_bf16_bit_exact(dev, with_z, n, c, d, invalid,
+                                         offset):
+    rng = np.random.default_rng(c + d)
+    th, la, z, w, s = (_bf16(_mk(rng, n, d)), _bf16(_mk(rng, n, d)),
+                       _bf16(_mk(rng, n, d)), _bf16(_mk(rng, d)),
+                       _bf16(_mk(rng, c, d)))
+    idx = torch.from_numpy(rng.permutation(n)[:c].astype(np.int32))
+    valid = torch.ones(c, dtype=torch.bool)
+    valid[list(invalid)] = False
+    want = ops.fused_gss_ref(idx, valid, s, w, th.clone(), la.clone(),
+                             z.clone(), with_z=with_z)
+    th_dev = torch.cat([torch.zeros(offset, dtype=torch.bfloat16),
+                        th.reshape(-1)]).to(dev)[offset:].view(n, d)
+    before = ops.fused_gss.launches
+    got = ops.fused_gss(idx.to(dev), valid.to(dev), s.to(dev), w.to(dev),
+                        th_dev, la.to(dev), z.to(dev), with_z=with_z)
+    torch.cuda.synchronize()
+    assert ops.fused_gss.launches == before + 1
+    for g, x in zip(got, want, strict=True):
+        assert torch.equal(g.cpu(), x)
+
+
+def test_bf16_kernels_refuse_mixed_dtypes(dev):
+    th = torch.zeros(2, 8, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(TypeError, match="omega: expected bfloat16"):
+        ops.admm_update(th, th, torch.zeros(8, device=dev))
+    idx = torch.zeros(1, dtype=torch.int32, device=dev)
+    valid = torch.ones(1, dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError, match="solved: expected bfloat16"):
+        ops.fused_gss(idx, valid, torch.zeros(1, 8, device=dev),
+                      th[0].clone(), th.clone(), th.clone(), th.clone())
+
+
 def test_kernel_refuses_wrong_dtype(dev):
     z = torch.zeros(2, 3, dtype=torch.float64, device=dev)
     with pytest.raises(TypeError, match="float32"):
