@@ -16,7 +16,8 @@ full size and trained, mixtral-8x7b reduced, paligemma-3b (prefix-LM
 vlm) served and hubert-xlarge (audio encoder) trained (slice 17), and
 the last slice: K2 and K3 on bf16, the H100 roofline model, the
 one-card dry-run of every architecture × shape, the example twins and
-the paper's claims (slice 18).
+the paper's claims (slice 18), and the model mesh: granite-3-2b served
+on a data × model mesh in fsdp and tp mode (slice 19).
 
     python3 chip_smoke.py
 
@@ -352,15 +353,43 @@ non-zero):
    [0.15, 0.45], round 0 firing all 16, 0.93 reached; the events to
    0.93 of both and their ratio (the claim: at most 1.2) and the final
    accuracies printed; 10a–10e print their seconds;
-11. print the serve line, the kernels line (K4's bf16 instance as
+11a. the model mesh (``launch/mesh.py``, ``sharding/specs.py``,
+   ``sharding/params.py``, the serving steps of ``launch/steps.py``
+   with ``mesh=``): granite-3-2b at every published width cut to 2
+   layers, fp32, on mesh (data 2, model 2) of the visible cards (all
+   four coordinates on one card where there is one), in fsdp and in
+   tp: 2 × 256 prompt tokens, prefill and 4 greedy decode steps, the
+   tokens equal and the logits within rtol/atol 1e-3 of the unsharded
+   port on the card and on the CPU; K4's 3xTF32 instance 4 times a
+   prefill under fsdp (per data shard and layer), 8 under tp (per model
+   shard too), none in decode;
+11b. granite-3-2b at full size, bf16, from the seeded init, 4 × 2048
+   prompt tokens and 32 new: first unsharded (its prefill and decode
+   timed), then under tp on mesh (1, 4) (160 K4 launches a prefill at
+   (4, 2048, 8:2, 64), the kernels line's ``flash_attention_tp4``) and
+   under fsdp on mesh (2, 2) (80 at (2, 2048, 32:8, 64),
+   ``flash_attention_fsdp2``), none in decode: each coordinate's
+   resident parameter bytes equal to ``per_device_bytes``, the bytes
+   each collective kind moved in a prefill and a decode step (a warm-up
+   step), prefill ms, decode ms a step, tok/s and peak memory per card
+   of a timed greedy run, the prefill logits within rtol/atol 2e-2 of
+   the unsharded serve's and each request's first token equal to it
+   (unless the unsharded top-two margin is under twice that request's
+   largest logit gap: a near tie, printed), the number of cards used;
+   11a–11b print their seconds;
+12. print the serve line, the kernels line (K4's bf16 instance as
    ``flash_attention``, launched in phase 7, at granite's GQA shape
    as ``flash_attention_gqa``, launched in phase 7c, and at phi3's as
    ``flash_attention_phi3``, launched in phase 8e, and at moonshot's as
-   ``flash_attention_moonshot``, launched in phase 9b — phase 3 holds
-   the three shapes, (4, 2048, 32:8, 64), (4, 2048, 40:10, 128) and (4,
-   2048, 16:16, 128), against the plain version at 2e-2 and times them
-   beside ``scaled_dot_product_attention`` —, its 3xTF32 instance as
-   ``flash_attention_fp32``, launched in phases 6, 7c, 9a and 9c, and K5 at
+   ``flash_attention_moonshot``, launched in phase 9b, at granite's
+   shard shapes as ``flash_attention_tp4`` and
+   ``flash_attention_fsdp2``, launched in phase 11b — phase 3 holds the
+   five shapes, (4, 2048, 32:8, 64), (4, 2048, 40:10, 128), (4, 2048,
+   16:16, 128), (4, 2048, 8:2, 64) and (2, 2048, 32:8, 64), against the
+   plain version at 2e-2 and times them beside
+   ``scaled_dot_product_attention`` —, its 3xTF32 instance as
+   ``flash_attention_fp32``, launched in phases 6, 7c, 9a, 9c and 11a,
+   and K5 at
    mamba2's shape as ``ssd_scan_mamba2``, launched in phase 8c and held
    bit for bit by phase 3; K1–K3's launches are
    those of phases 4–5k (5k: its paper-width forms), K1c's those of
@@ -831,6 +860,50 @@ def check_sharded_kernels(dev, ops, n, d):
     return rows
 
 
+# K4's bf16 rows at the models' shapes: (B, H, KvH, hd) at S = 2048.
+K4_SHAPE_ROWS = {
+    "flash_attention_gqa": (SERVE_BATCH, 32, 8, 64),
+    "flash_attention_phi3": (SERVE_BATCH, 40, 10, 128),
+    "flash_attention_moonshot": (SERVE_BATCH, 16, 16, 128),
+    "flash_attention_tp4": (SERVE_BATCH, 8, 2, 64),
+    "flash_attention_fsdp2": (SERVE_BATCH // 2, 32, 8, 64),
+}
+
+
+def k4_shape_row(ops, randn, b, h, kvh, hd, peak):
+    """K4's bf16 instance at (b, SERVE_PROMPT, h:kvh, hd), causal, the
+    (B, S, H, hd) layout: held against its plain version at rtol/atol
+    2e-2, then timed beside it and ``scaled_dot_product_attention``; a
+    row of the kernels line (its bound filled in later)."""
+    from repro_torch.launch.time_kernels import device_ms
+    s = SERVE_PROMPT
+    q = randn(b, s, h, hd, dtype=torch.bfloat16)
+    k, v = (randn(b, s, kvh, hd, dtype=torch.bfloat16) for _ in range(2))
+    got = ops.flash_attention(q, k, v, layout="bshd")
+    want = ops.flash_attention_ref(q, k, v, layout="bshd")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    err = float((got.float() - want.float()).abs().max())
+    kind = "MHA" if h == kvh else "GQA"
+    log(f"flash_attention bf16 ({b}, {s}, {h}:{kvh}, {hd}) {kind} causal, "
+        f"(B, S, H, hd): max_abs_err {err:.3e} (rtol/atol 2e-2 held)")
+    del got, want
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return dict(
+        replaces="src/repro/kernels/flash_attention.py:112",
+        source=MODEL_SRC, max_abs_err=err,
+        ms=device_ms(lambda: ops.flash_attention(q, k, v, layout="bshd")),
+        plain_ms=device_ms(lambda: ops.flash_attention_ref(
+            q, k, v, layout="bshd"), calls=PLAIN_CALLS),
+        library_ms=device_ms(lambda: torch.nn.functional.
+                             scaled_dot_product_attention(
+                                 qt, kt, vt, is_causal=True,
+                                 enable_gqa=h != kvh)),
+        nbytes=ops.flash_attention_hbm_bytes(b, h, kvh, s, hd, 2),
+        nflop=ops.flash_attention_flops(b, h, s, hd), peak_flops=peak)
+
+
 def check_model_kernels(dev, ops):
     """Phase 3, slices 2 and 5: K4 (its bf16 and 3xTF32 instances) and
     K5 against their plain versions at the serve shapes; returns rows
@@ -957,87 +1030,16 @@ def check_model_kernels(dev, ops):
                                  enable_gqa=True)),
         nbytes=ops.flash_attention_hbm_bytes(b, h, h, s, hd, 4),
         nflop=3 * nflop, peak_flops=peak_for(PEAK_TF32_FLOPS_BY_CARD, name))
-    # K4 at granite-3-2b's prefill shape: GQA 32:8 at head_dim 64, bf16,
-    # the (B, S, H, hd) layout (phase 7c's 40 launches a prefill).
-    gh, gkv, ghd = 32, 8, 64
-    gq = randn(b, s, gh, ghd, dtype=torch.bfloat16)
-    gk, gv = (randn(b, s, gkv, ghd, dtype=torch.bfloat16) for _ in range(2))
-    got = ops.flash_attention(gq, gk, gv, layout="bshd")
-    want = ops.flash_attention_ref(gq, gk, gv, layout="bshd")
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
-                               atol=2e-2)
-    err_gqa = float((got.float() - want.float()).abs().max())
-    log(f"flash_attention bf16 ({b}, {s}, {gh}:{gkv}, {ghd}) GQA causal, "
-        f"(B, S, H, hd): max_abs_err {err_gqa:.3e} (rtol/atol 2e-2 held)")
-    gqt, gkt, gvt = (t.transpose(1, 2).contiguous() for t in (gq, gk, gv))
-    rows["flash_attention_gqa"] = dict(
-        replaces="src/repro/kernels/flash_attention.py:112",
-        source=MODEL_SRC, max_abs_err=err_gqa,
-        ms=device_ms(lambda: ops.flash_attention(gq, gk, gv, layout="bshd")),
-        plain_ms=device_ms(lambda: ops.flash_attention_ref(
-            gq, gk, gv, layout="bshd"), calls=PLAIN_CALLS),
-        library_ms=device_ms(lambda: torch.nn.functional.
-                             scaled_dot_product_attention(
-                                 gqt, gkt, gvt, is_causal=True,
-                                 enable_gqa=True)),
-        nbytes=ops.flash_attention_hbm_bytes(b, gh, gkv, s, ghd, 2),
-        nflop=ops.flash_attention_flops(b, gh, s, ghd), peak_flops=peak)
-    del gq, gk, gv, gqt, gkt, gvt, got, want
-    # K4 at phi3-medium-14b's prefill shape: GQA 40:10 at head_dim 128,
-    # bf16, the (B, S, H, hd) layout (phase 8e's 40 launches a prefill).
-    ph, pkv, phd = 40, 10, 128
-    pq = randn(b, s, ph, phd, dtype=torch.bfloat16)
-    pk, pv = (randn(b, s, pkv, phd, dtype=torch.bfloat16) for _ in range(2))
-    got = ops.flash_attention(pq, pk, pv, layout="bshd")
-    want = ops.flash_attention_ref(pq, pk, pv, layout="bshd")
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
-                               atol=2e-2)
-    err_phi3 = float((got.float() - want.float()).abs().max())
-    log(f"flash_attention bf16 ({b}, {s}, {ph}:{pkv}, {phd}) GQA causal, "
-        f"(B, S, H, hd): max_abs_err {err_phi3:.3e} (rtol/atol 2e-2 held)")
-    pqt, pkt, pvt = (t.transpose(1, 2).contiguous() for t in (pq, pk, pv))
-    rows["flash_attention_phi3"] = dict(
-        replaces="src/repro/kernels/flash_attention.py:112",
-        source=MODEL_SRC, max_abs_err=err_phi3,
-        ms=device_ms(lambda: ops.flash_attention(pq, pk, pv, layout="bshd")),
-        plain_ms=device_ms(lambda: ops.flash_attention_ref(
-            pq, pk, pv, layout="bshd"), calls=PLAIN_CALLS),
-        library_ms=device_ms(lambda: torch.nn.functional.
-                             scaled_dot_product_attention(
-                                 pqt, pkt, pvt, is_causal=True,
-                                 enable_gqa=True)),
-        nbytes=ops.flash_attention_hbm_bytes(b, ph, pkv, s, phd, 2),
-        nflop=ops.flash_attention_flops(b, ph, s, phd), peak_flops=peak)
-    del pq, pk, pv, pqt, pkt, pvt, got, want
-    # K4 at moonshot-v1-16b-a3b's prefill shape: MHA 16:16 at head_dim
-    # 128, bf16, the (B, S, H, hd) layout (phase 9b's 48 launches a
-    # prefill).
-    mh, mhd = 16, 128
-    mq, mk, mv = (randn(b, s, mh, mhd, dtype=torch.bfloat16)
-                  for _ in range(3))
-    got = ops.flash_attention(mq, mk, mv, layout="bshd")
-    want = ops.flash_attention_ref(mq, mk, mv, layout="bshd")
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
-                               atol=2e-2)
-    err_moon = float((got.float() - want.float()).abs().max())
-    log(f"flash_attention bf16 ({b}, {s}, {mh}:{mh}, {mhd}) MHA causal, "
-        f"(B, S, H, hd): max_abs_err {err_moon:.3e} (rtol/atol 2e-2 held)")
-    mqt, mkt, mvt = (t.transpose(1, 2).contiguous() for t in (mq, mk, mv))
-    rows["flash_attention_moonshot"] = dict(
-        replaces="src/repro/kernels/flash_attention.py:112",
-        source=MODEL_SRC, max_abs_err=err_moon,
-        ms=device_ms(lambda: ops.flash_attention(mq, mk, mv, layout="bshd")),
-        plain_ms=device_ms(lambda: ops.flash_attention_ref(
-            mq, mk, mv, layout="bshd"), calls=PLAIN_CALLS),
-        library_ms=device_ms(lambda: torch.nn.functional.
-                             scaled_dot_product_attention(
-                                 mqt, mkt, mvt, is_causal=True)),
-        nbytes=ops.flash_attention_hbm_bytes(b, mh, mh, s, mhd, 2),
-        nflop=ops.flash_attention_flops(b, mh, s, mhd), peak_flops=peak)
-    del mq, mk, mv, mqt, mkt, mvt, got, want
+    # K4's bf16 instance at the models' prefill shapes in the (B, S, H,
+    # hd) layout, each held at 2e-2 and timed beside
+    # ``scaled_dot_product_attention``: granite-3-2b's GQA 32:8 at
+    # head_dim 64 (phase 7c's 40 launches a prefill), phi3-medium-14b's
+    # 40:10 at 128 (8e's 40), moonshot-v1-16b-a3b's MHA 16:16 at 128
+    # (9b's 48), and granite's shards on a model mesh (phase 11b): 8:2
+    # on one model shard of four under tp (160 a prefill), (2, 2048,
+    # 32:8, 64) on one data shard of two under fsdp (80).
+    for row, shape in K4_SHAPE_ROWS.items():
+        rows[row] = k4_shape_row(ops, randn, *shape, peak)
     off = [randn(b * s * h * hd + 1)[1:].view(b, s, h, hd) for _ in range(3)]
     for t, src in zip(off, (q, k, v), strict=True):
         t.copy_(src)
@@ -1094,6 +1096,12 @@ def check_model_kernels(dev, ops):
         library_ms=None, nbytes=ops.ssd_scan_hbm_bytes(*shape),
         nflop=2 * math.prod(shape), peak_flops=PEAK_FP32_FLOPS)
 
+    return model_bounds(rows, bw)
+
+
+def model_bounds(rows, bw):
+    """Fill each row's bound_ms / bound_by from its bytes at ``bw`` and
+    its operations at its own peak, and log the row."""
     for kname, r in rows.items():
         t_bytes = r["nbytes"] / bw * 1e3 if bw else None
         t_ops = r["nflop"] / r["peak_flops"] * 1e3 if r["peak_flops"] \
@@ -1168,17 +1176,14 @@ def kernel_facts(build):
 
 
 # Rows of the kernels line that hold one kernel at one model's shape.
-SHAPE_ROWS = ("flash_attention", "flash_attention_gqa",
-              "flash_attention_phi3", "flash_attention_moonshot",
-              "ssd_scan", "ssd_scan_mamba2")
+SHAPE_ROWS = ("flash_attention", *K4_SHAPE_ROWS, "ssd_scan",
+              "ssd_scan_mamba2")
 
 
 def path_counts(ops, bf16_row="flash_attention", ssd_row="ssd_scan"):
     """The launch counts of a phase by row of the kernels line: K4's
     bf16 (tensor-core) instance as ``bf16_row`` (``flash_attention``,
-    zamba2's shape, ``flash_attention_gqa``, granite's,
-    ``flash_attention_phi3`` or ``flash_attention_moonshot``), its
-    3xTF32 one as
+    zamba2's shape, or a row of ``K4_SHAPE_ROWS``), its 3xTF32 one as
     ``flash_attention_fp32`` (the SIMT instance is on no path), K5 as
     ``ssd_row`` (``ssd_scan``, zamba2's shape, or ``ssd_scan_mamba2``)."""
     counts = ops.launch_counts()
@@ -1198,14 +1203,11 @@ def _greedy(model, params, request, steps):
     1))."""
     from repro_torch.launch.serve_lm import cache_len
 
-    logits, cache = model.prefill(params, request, cache_len(
-        model.config, request["tokens"].shape[1], steps))
-    out_logits, out_tok = [logits], [logits[:, -1].argmax(-1)[:, None]]
-    for _ in range(steps):
-        logits, cache = model.decode_step(params, out_tok[-1], cache)
-        out_logits.append(logits)
-        out_tok.append(logits[:, -1].argmax(-1)[:, None])
-    return out_logits, torch.cat(out_tok, 1)
+    seq = cache_len(model.config, request["tokens"].shape[1], steps)
+    logits, tokens, _, _ = timed_greedy(
+        lambda: model.prefill(params, request, seq),
+        lambda t, c: model.decode_step(params, t, c), steps)
+    return logits, tokens
 
 
 def check_slice_against_cpu(dev, ops, cfg, expect, ssd_row="ssd_scan",
@@ -4090,6 +4092,319 @@ def check_system_claims(dev):
     return out
 
 
+# Phase 11: granite-3-2b on a model mesh (slice 19).  11a: a 2-layer
+# fp32 group on mesh (data 2, model 2) in both modes, against the
+# unsharded port on the card and on the CPU; 11b: full size in bf16 in
+# each (mode, mesh, K4's row) of MESH_SERVE.
+MESH_GROUP = dict(layers=2, batch=2, mesh=(2, 2))
+MESH_SERVE = (("tp", (1, 4), "flash_attention_tp4"),
+              ("fsdp", (2, 2), "flash_attention_fsdp2"))
+MESH_BF16_TOL = 2e-2  # prefill logits against the unsharded serve's
+
+
+def timed_greedy(prefill, decode, steps):
+    """Greedy on the card: ``prefill()`` → (logits, cache), then
+    ``steps`` × ``decode(token, cache)``, each ending in a synchronize →
+    (logits per step, tokens (B, steps + 1), prefill ms, decode ms a
+    step)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill()
+    tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out, toks = [logits], [tok]
+    for _ in range(steps):
+        logits, cache = decode(tok, cache)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        out.append(logits)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return out, torch.cat(toks, 1), (t1 - t0) * 1e3, \
+        (t2 - t1) * 1e3 / max(steps, 1)
+
+
+def check_mesh_group(dev, ops, cfg):
+    """Phase 11a: ``cfg`` (granite at every published width cut to
+    MESH_GROUP's layers, fp32) served on a mesh of the card in fsdp and
+    tp: MESH_GROUP's batch × SLICE_TOKENS, prefill and SLICE_DECODE
+    greedy steps; the tokens equal and the logits within rtol/atol 1e-3
+    of the unsharded port on the card and on the CPU; K4's 3xTF32
+    instance once per data shard and layer (fsdp) or per model shard
+    and layer (tp) in prefill, none in decode."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_mesh_serve_steps
+    from repro_torch.launch.serve_lm import cache_len, make_request
+    from repro_torch.models import build_model
+    from repro_torch.sharding.params import shard_tree
+    from repro_torch.sharding.specs import param_specs
+    from repro_torch.utils.pytree import tree_map
+
+    model = build_model(cfg)
+    params = model.init(SEED, device=dev)
+    request = make_request(cfg, MESH_GROUP["batch"], SLICE_TOKENS, SEED, dev)
+    seq = cache_len(cfg, SLICE_TOKENS, SLICE_DECODE)
+    card, card_tok = _greedy(model, params, request, SLICE_DECODE)
+    cpu, cpu_tok = _greedy(model, tree_map(lambda x: x.cpu(), params),
+                           {"tokens": request["tokens"].cpu()},
+                           SLICE_DECODE)
+    mesh = make_mesh(MESH_GROUP["mesh"])
+    n_data, n_model = MESH_GROUP["mesh"]
+    out, counts = {}, {}
+    for mode, per_layer in (("fsdp", n_data), ("tp", n_data * n_model)):
+        prefill, decode, _ = make_mesh_serve_steps(
+            model, mesh, batch=MESH_GROUP["batch"], seq=seq, mode=mode)
+        sharded = shard_tree(params, param_specs(params, mesh, mode=mode),
+                             mesh)
+        ops.reset_launch_counts()
+        logits, cache = prefill(sharded, request)
+        torch.cuda.synchronize()
+        pre = path_counts(ops)
+        got, tok, _, _ = timed_greedy(
+            lambda: (logits, cache),
+            lambda t, c: decode(sharded, t, c), SLICE_DECODE)
+        counts[mode] = path_counts(ops)
+        want = {"flash_attention_fp32": per_layer * cfg.num_layers,
+                "flash_attention": 0, "ssd_scan": 0}
+        if any(pre[k] != n or counts[mode][k] != n
+               for k, n in want.items()):
+            raise AssertionError(f"11a {mode}: prefill launched {pre}, "
+                                 f"with decode {counts[mode]}; expected "
+                                 f"{want} in prefill and none in decode")
+        np.testing.assert_array_equal(tok.cpu().numpy(), cpu_tok.numpy(),
+                                      err_msg=f"11a {mode}: tokens differ "
+                                      "from the CPU's")
+        np.testing.assert_array_equal(tok.cpu().numpy(),
+                                      card_tok.cpu().numpy())
+        err = dict(card=0.0, cpu=0.0)
+        for g, c, w in zip(got, card, cpu, strict=True):
+            torch.testing.assert_close(g, c, rtol=1e-3, atol=1e-3)
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-3)
+            err["card"] = max(err["card"], float((g - c).abs().max()))
+            err["cpu"] = max(err["cpu"], float((g.cpu() - w).abs().max()))
+        out[mode] = dict(max_abs_err_vs_card=err["card"],
+                         max_abs_err_vs_cpu=err["cpu"],
+                         tokens=tok.cpu().tolist())
+        log(f"11a {mode} on mesh {MESH_GROUP['mesh']} ({cfg.name} width, "
+            f"{cfg.num_layers} layers, fp32, {MESH_GROUP['batch']} × "
+            f"{SLICE_TOKENS} tokens + {SLICE_DECODE} decode steps): logits "
+            f"max_abs_err {err['card']:.3e} against the unsharded port on "
+            f"the card, {err['cpu']:.3e} against the CPU (rtol/atol 1e-3 "
+            f"held), tokens equal; launches {counts[mode]}")
+        del sharded, cache
+    total = {k: counts["fsdp"][k] + counts["tp"][k] for k in counts["tp"]}
+    return out, total
+
+
+def _rel(got, want):
+    """max |Δ| over max |want|, per request."""
+    return ((got - want).abs().amax(dim=(1, 2))
+            / want.abs().amax(dim=(1, 2))).cpu().tolist()
+
+
+def serve_mesh_full(dev, ops, smi, cfg):
+    """Phase 11b: ``cfg`` (granite-3-2b) at full size in bf16 from the
+    seeded init, 4 × 2048 prompt tokens and 32 new, first unsharded,
+    then on each mesh of MESH_SERVE (the visible cards, every shard on
+    the one card where there is one): a warm-up prefill and decode step
+    counting each collective kind's bytes, then a timed greedy run;
+    K4's launches a prefill asserted (per model shard and layer under
+    tp, per data shard and layer under fsdp; none in decode), each
+    coordinate's resident parameter bytes equal to
+    ``per_device_bytes``, the prefill logits within rtol/atol
+    MESH_BF16_TOL of the unsharded serve's and each request's first
+    token equal to it: strictly under fsdp, whose prefill runs the
+    unsharded block on gathered layers; under tp, whose partial sums
+    round bf16 otherwise, unless the unsharded top-two margin is under
+    twice the request's largest logit gap (a near tie, printed; at
+    random init most requests are, so 11a's fp32 tokens are tp's token
+    gate)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_mesh_serve_steps
+    from repro_torch.launch.serve_lm import cache_len, make_request
+    from repro_torch.models import abstract_params, build_model
+    from repro_torch.sharding.clients import collectives
+    from repro_torch.sharding.params import per_device_bytes, shard_tree, \
+        tree_bytes_at
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    request = make_request(cfg, SERVE_BATCH, SERVE_PROMPT, SEED, dev)
+    seq = cache_len(cfg, SERVE_PROMPT, SERVE_NEW)
+    steps = SERVE_NEW - 1
+
+    def plain_prefill():
+        return model.prefill(params, request, seq)
+
+    def plain_decode(t, c):
+        return model.decode_step(params, t, c)
+
+    ops.reset_launch_counts()
+    timed_greedy(plain_prefill, plain_decode, 1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    want, want_tok, want_pre, want_dec = timed_greedy(
+        plain_prefill, plain_decode, steps)
+    counts = path_counts(ops, bf16_row="flash_attention_gqa")
+    report = {"unsharded": dict(
+        prefill_ms=want_pre, decode_ms_per_step=want_dec,
+        decode_tok_per_s=SERVE_BATCH * steps / (want_dec * steps / 1e3),
+        peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+        tokens_request0=want_tok[0].tolist(), init_s=init_s,
+        parameter_bytes=sum(x.numel() * x.element_size()
+                            for x in tree_leaves(params)))}
+    log(f"11b unsharded {cfg.name}: prefill {want_pre:.1f} ms, decode "
+        f"{want_dec:.2f} ms/step, peak "
+        f"{report['unsharded']['peak_memory_bytes'] / 2**30:.2f} GiB; "
+        f"init {init_s:.2f} s; on {smi}")
+    host = tree_map(lambda x: x.cpu(), params)
+    del params
+    torch.cuda.empty_cache()
+    p_abs = abstract_params(model)
+    margin = want[0][:, -1].topk(2, dim=-1).values
+    margin = (margin[:, 0] - margin[:, 1]).cpu().tolist()
+    for mode, shape, row in MESH_SERVE:
+        mesh = make_mesh(shape)
+        cards = sorted({str(d) for d in mesh.devices})
+        prefill, decode, pargs = make_mesh_serve_steps(
+            model, mesh, batch=SERVE_BATCH, seq=seq, mode=mode)
+        specs = pargs.in_specs[0]
+        sharded = shard_tree(host, specs, mesh)
+        expect_bytes = per_device_bytes(p_abs, specs, mesh)
+        resident = [tree_bytes_at(sharded, c) for c in mesh.coords()]
+        if any(r != expect_bytes for r in resident):
+            raise AssertionError(f"11b {mode}: resident parameter bytes "
+                                 f"{resident}, per_device_bytes "
+                                 f"{expect_bytes}")
+        moved, where = {"prefill": {}, "decode": {}}, ["prefill"]
+
+        def count(kind, t):
+            d = moved[where[0]]
+            d[kind] = d.get(kind, 0) + t.numel() * t.element_size()
+
+        ops.reset_launch_counts()
+        collectives.listeners.append(count)
+        try:
+            logits, cache = prefill(sharded, request)
+            torch.cuda.synchronize()
+            per_prefill = path_counts(ops, bf16_row=row)
+            where[0] = "decode"
+            decode(sharded, logits[:, -1].argmax(-1)[:, None], cache)
+        finally:
+            collectives.listeners.remove(count)
+        del logits, cache
+        n_data = len(mesh.devices) // mesh.shape["model"]
+        per_layer = n_data * (mesh.shape["model"] if mode == "tp" else 1)
+        if per_prefill[row] != per_layer * cfg.num_layers:
+            raise AssertionError(f"11b {mode}: {per_prefill[row]} {row} "
+                                 f"launches a prefill, expected "
+                                 f"{per_layer * cfg.num_layers}")
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+        got, tok, pre_ms, dec_ms = timed_greedy(
+            lambda: prefill(sharded, request),
+            lambda t, c: decode(sharded, t, c), steps)
+        mode_counts = path_counts(ops, bf16_row=row)
+        if mode_counts[row] != 2 * per_prefill[row] or mode_counts[
+                "flash_attention_fp32"] or mode_counts["ssd_scan"]:
+            raise AssertionError(f"11b {mode}: launches {mode_counts}, "
+                                 f"expected {per_prefill[row]} a prefill "
+                                 "and none in decode")
+        for k, n in mode_counts.items():
+            counts[k] += n
+        torch.testing.assert_close(got[0], want[0], rtol=MESH_BF16_TOL,
+                                   atol=MESH_BF16_TOL)
+        gap = (got[0] - want[0]).abs().amax(dim=(1, 2)).cpu().tolist()
+        first, want_first = tok[:, 0].tolist(), want_tok[:, 0].tolist()
+        near = [r for r in range(SERVE_BATCH) if mode == "tp"
+                and first[r] != want_first[r] and margin[r] <= 2 * gap[r]]
+        if any(first[r] != want_first[r] and r not in near
+               for r in range(SERVE_BATCH)):
+            raise AssertionError(f"11b {mode}: first tokens {first}, the "
+                                 f"unsharded serve's {want_first} (margins "
+                                 f"{margin}, gaps {gap})")
+        equal = int((tok == want_tok).sum())
+        report[f"{mode} {shape}"] = dict(
+            cards=len(cards), prefill_ms=pre_ms, decode_ms_per_step=dec_ms,
+            decode_tok_per_s=SERVE_BATCH * steps / (dec_ms * steps / 1e3),
+            peak_memory_bytes={d: torch.cuda.max_memory_allocated(d)
+                               for d in cards},
+            resident_parameter_bytes=resident,
+            per_device_bytes=expect_bytes,
+            collective_bytes_per_prefill=moved["prefill"],
+            collective_bytes_per_decode_step=moved["decode"],
+            launches_per_prefill=per_prefill[row],
+            prefill_logits_max_abs_err=max(gap),
+            prefill_logits_rel=_rel(got[0], want[0]),
+            first_tokens=first, unsharded_first_tokens=want_first,
+            near_ties=near, unsharded_top2_margin=margin,
+            tokens_equal=f"{equal} of {tok.numel()}",
+            tokens_request0=tok[0].tolist())
+        r = report[f"{mode} {shape}"]
+        peaks = ", ".join(f"{d} {b / 2**30:.2f} GiB"
+                          for d, b in r["peak_memory_bytes"].items())
+        log(f"11b {mode} on mesh {shape} over {len(cards)} card(s) "
+            f"{cards}: prefill {pre_ms:.1f} ms (unsharded {want_pre:.1f}), "
+            f"decode {dec_ms:.2f} ms/step (unsharded {want_dec:.2f}), "
+            f"{r['decode_tok_per_s']:.1f} tok/s; peak memory {peaks}; "
+            f"resident parameter bytes per coordinate {resident} "
+            f"(per_device_bytes {expect_bytes}); collective bytes per "
+            f"prefill {moved['prefill']}, per decode step "
+            f"{moved['decode']}; {per_prefill[row]} {row} launches a "
+            f"prefill; prefill logits max_abs_err {max(gap):.3e} "
+            f"(rtol/atol {MESH_BF16_TOL} held), rel "
+            f"{r['prefill_logits_rel']}; "
+            f"first tokens {first} (unsharded {want_first}, near ties "
+            f"{near}); tokens equal {r['tokens_equal']}; on {smi}")
+        del sharded
+        torch.cuda.empty_cache()
+    return report, counts
+
+
+def phase11(dev, ops, smi, granite):
+    """Phases 11a and 11b → (report, launches of 11a, of 11b)."""
+    t0 = t1 = time.perf_counter()
+    group, counts_a = check_mesh_group(dev, ops, dataclasses.replace(
+        granite, num_layers=MESH_GROUP["layers"], dtype="float32"))
+    torch.cuda.empty_cache()
+    log(f"phase 11a took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    serve, counts_b = serve_mesh_full(dev, ops, smi, granite)
+    log(f"phase 11b took {time.perf_counter() - t1:.1f} s; phases 11a–11b "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"model_mesh": {"group": group, "serve": serve},
+                    "card": smi}))
+    return counts_a, counts_b
+
+
+def kernels_line(rows, launches, where):
+    """Print each row's facts and the kernels line; ``launches[name]``
+    its launches on the path (``where[name]`` says where)."""
+    kernels = []
+    for name, r in rows.items():
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was never launched on the path")
+        lib = r["library_ms"]
+        warm = f" (cold; warm {r['warm_ms']:.4f})" if "warm_ms" in r else ""
+        log(f"{name}: launches {launches[name]} ({where[name]}), "
+            f"max_abs_err {r['max_abs_err']:.3e}, "
+            f"ms {r['ms']:.4f}{warm}, plain_ms {r['plain_ms']:.4f}, "
+            f"library_ms {'null' if lib is None else f'{lib:.4f}'}, bound_ms "
+            f"{r['bound_ms']} ({r['bound_by']})")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": r.get("source", CUDA_SRC),
+            "replaces": r["replaces"], "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4383,25 +4698,28 @@ def main() -> int:
                     "examples": examples, "system_claims": claims,
                     "card": smi}))
 
-    kernels = []
+    counts_mesh_a, counts_mesh_b = phase11(dev, ops, smi, granite)
+
+    launches, where = {}, {}
     for name, r in rows.items():
         if name in counts_bf16:  # the bf16 rows: 10a's path alone
-            launches = counts_bf16[name]
-            where = f"bf16 path (10a) {launches}"
+            launches_n = counts_bf16[name]
+            where_s = f"bf16 path (10a) {launches_n}"
         else:
-            launches = (counts_a[name] + counts_b[name]
-                        + counts_c.get(name, 0) + counts_t.get(name, 0)
-                        + counts_s.get(name, 0) + counts_sv.get(name, 0)
-                        + counts_q.get(name, 0) + counts_r.get(name, 0)
-                        + counts_wh.get(name, 0) + counts_k.get(name, 0)
-                        + counts_cf.get(name, 0) + counts_slice[name]
-                        + counts_serve[name] + counts_gslice[name]
-                        + counts_gserve[name] + counts_mslice[name]
-                        + counts_mserve[name] + counts_pserve[name]
-                        + counts_moon_a[name] + counts_moon[name]
-                        + counts_mix[name] + counts_pslice[name]
-                        + counts_pali[name])
-            where = (
+            launches_n = (counts_a[name] + counts_b[name]
+                          + counts_c.get(name, 0) + counts_t.get(name, 0)
+                          + counts_s.get(name, 0) + counts_sv.get(name, 0)
+                          + counts_q.get(name, 0) + counts_r.get(name, 0)
+                          + counts_wh.get(name, 0) + counts_k.get(name, 0)
+                          + counts_cf.get(name, 0) + counts_slice[name]
+                          + counts_serve[name] + counts_gslice[name]
+                          + counts_gserve[name] + counts_mslice[name]
+                          + counts_mserve[name] + counts_pserve[name]
+                          + counts_moon_a[name] + counts_moon[name]
+                          + counts_mix[name] + counts_pslice[name]
+                          + counts_pali[name] + counts_mesh_a[name]
+                          + counts_mesh_b[name])
+            where_s = (
                 f"form A {counts_a[name]}, "
                 f"form B {counts_b[name]}, forms C {counts_c.get(name, 0)}, "
                 f"forms TA/TB {counts_t.get(name, 0)}, forms SA/SB/ST/SR "
@@ -4421,24 +4739,11 @@ def main() -> int:
                 f"moonshot fp32 cut {counts_moon_a[name]}, moonshot serve "
                 f"{counts_moon[name]}, mixtral reduced {counts_mix[name]}, "
                 f"paligemma fp32 cut {counts_pslice[name]}, paligemma serve "
-                f"{counts_pali[name]}")
-        if launches == 0:
-            raise AssertionError(f"{name} was never launched on the path")
-        lib = r["library_ms"]
-        warm = f" (cold; warm {r['warm_ms']:.4f})" if "warm_ms" in r else ""
-        log(f"{name}: launches {launches} ({where}), "
-            f"max_abs_err {r['max_abs_err']:.3e}, "
-            f"ms {r['ms']:.4f}{warm}, plain_ms {r['plain_ms']:.4f}, "
-            f"library_ms {'null' if lib is None else f'{lib:.4f}'}, bound_ms "
-            f"{r['bound_ms']} ({r['bound_by']})")
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": r.get("source", CUDA_SRC),
-            "replaces": r["replaces"], "launches": launches,
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    print(json.dumps({"kernels": kernels}), flush=True)
+                f"{counts_pali[name]}, model mesh fp32 group (11a) "
+                f"{counts_mesh_a[name]}, model mesh serve (11b) "
+                f"{counts_mesh_b[name]}")
+        launches[name], where[name] = launches_n, where_s
+    kernels_line(rows, launches, where)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,7 +29,8 @@ go to ``device``: CUDA unless the caller passes another.
   port's, flat through a ``FlatSpec`` or kept as trees without one;
 * :func:`lm_params_from_numpy` — the model zoo's parameter tree, of any
   family, → the port's (the same layout: stacked (L, ...) layers, JAX's
-  (n_in, n_out) weights);
+  (n_in, n_out) weights); with ``mesh=`` and ``specs=`` straight into a
+  tree sharded on a model mesh;
 * :func:`lm_cache_from_numpy` — a serving cache (K/V and/or SSM states)
   → the port's;
 * :func:`cross_pod_state_from_numpy` / :func:`cross_pod_state_to_numpy`
@@ -73,18 +74,29 @@ def params_from_numpy(tree, device=None) -> dict:
     return out
 
 
-def lm_params_from_numpy(tree, cfg, device=None) -> dict:
+def lm_params_from_numpy(tree, cfg, device=None, *, mesh=None,
+                         specs=None):
     """The JAX package's params of any family (numpy leaves) → the port's:
     the same nested dict, every leaf a tensor of its shape and dtype,
-    ``layers`` stacked along L."""
+    ``layers`` stacked along L.  With ``mesh=`` (a
+    ``launch.mesh.DeviceMesh``) and ``specs=`` (``sharding.specs``'
+    ``param_specs`` of the tree): a ``sharding.params.ShardedTree``,
+    each coordinate's blocks on its device."""
     from repro_torch.models.transformer import check_family
+    from repro_torch.sharding.params import shard_tree
 
     check_family(cfg)
     n = np.asarray(tree_leaves(tree["layers"])[0]).shape[0]
     if n != cfg.num_layers:
         raise ValueError(f"the tree has {n} layers, the config "
                          f"{cfg.num_layers}")
-    return _tree_t(tree, resolve_device(device))
+    if mesh is None:
+        if specs is not None:
+            raise ValueError("specs= needs mesh=")
+        return _tree_t(tree, resolve_device(device))
+    if specs is None or device is not None:
+        raise ValueError("mesh= takes specs= and no device=")
+    return shard_tree(_tree_t(tree, torch.device("cpu")), specs, mesh)
 
 
 def lm_cache_from_numpy(cache, device=None) -> dict:

@@ -1,11 +1,14 @@
-"""Where zamba2-2.7b serving spends its time, from torch.profiler.
+"""Where LM serving spends its time, from torch.profiler.
 
-    python -m repro_torch.launch.profile_serve [--batch 4]
-        [--prompt-len 2048] [--decode-steps 8]
+    python -m repro_torch.launch.profile_serve [--arch zamba2-2.7b]
+        [--batch 4] [--prompt-len 2048] [--decode-steps 8]
+        [--mesh 2,2 --mode fsdp]
 
 Builds the model at full width and depth (the reference's init of
 ``--seed``), warms prefill and decode up, then profiles one prefill
-and ``--decode-steps`` decode steps and prints, for each phase:
+and ``--decode-steps`` decode steps and prints, for each phase (with
+``--mesh D,M``: the serving steps of ``launch/steps.py`` on a (data D,
+model M) mesh of the visible cards in ``--mode``):
 
 * the wall time (host clock around work that ends in a synchronize);
 * the device's busy time (sum of kernel durations; serving runs on one
@@ -38,6 +41,9 @@ KINDS = (("K4 flash_attention", ("flash_attention_kernel",
          ("K5 ssd_scan", ("ssd_scan_kernel", "ssd_scan_vec_kernel")),
          ("matmul (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass",
                               "splitK")))
+# Copies (a mesh's gathers, dtype casts), counted again on a line of
+# their own: most of them are PyTorch's elementwise kernels.
+COPIES = ("Memcpy", "copy_kernel", "CatArrayBatchedCopy")
 
 
 def kind_of(name: str) -> str:
@@ -77,11 +83,31 @@ def profile_phase(label, fn, reps, device) -> list[str]:
         k[1] += e.count / reps
     for kind, (t, n) in sorted(by_kind.items(), key=lambda kv: -kv[1][0]):
         lines.append(f"    {kind:<20} {t:10.3f} {n:8.1f}")
+    copies = [e for e in kernels if any(c in e.key for c in COPIES)]
+    copy_ms = sum(e.self_device_time_total for e in copies) / 1e3 / reps
+    lines.append(f"    {'of which copies':<20} {copy_ms:10.3f} "
+                 f"{sum(e.count for e in copies) / reps:8.1f}")
     lines.append("  kernels by device time: ms, launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         lines.append(f"    {e.self_device_time_total / 1e3 / reps:9.4f} "
                      f"{e.count / reps:7.1f}  {e.key[:90]}")
     return lines
+
+
+def _mesh_steps(model, args, device, params, max_seq):
+    """(prefill, decode, sharded params) of the mesh's serving steps,
+    taking plain tensors as the unsharded ones do."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_mesh_serve_steps
+    from repro_torch.sharding.params import shard_tree
+
+    shape = tuple(int(x) for x in args.mesh.split(","))
+    mesh = make_mesh(shape, devices=None if device.type == "cuda"
+                     else [device])
+    prefill, decode, pargs = make_mesh_serve_steps(
+        model, mesh, batch=args.batch, seq=max_seq, mode=args.mode)
+    return (lambda p, batch, _: prefill(p, batch), decode,
+            shard_tree(params, pargs.in_specs[0], mesh))
 
 
 def main(argv=None):
@@ -92,9 +118,13 @@ def main(argv=None):
     ap.add_argument("--decode-steps", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--arch", default="zamba2-2.7b")
+    ap.add_argument("--mesh", default=None,
+                    help="D,M: serve on a (data D, model M) mesh")
+    ap.add_argument("--mode", default="fsdp", choices=("fsdp", "tp"))
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
-    cfg = get_config("zamba2-2.7b")
+    cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
@@ -102,26 +132,32 @@ def main(argv=None):
     tokens = make_request(cfg, args.batch, args.prompt_len, args.seed,
                           device)["tokens"]
     max_seq = args.prompt_len + args.decode_steps + 1
+    prefill_step, decode_step = model.prefill, model.decode_step
+    where = ""
+    if args.mesh:
+        prefill_step, decode_step, params = _mesh_steps(
+            model, args, device, params, max_seq)
+        where = f", mesh {args.mesh} {args.mode}"
 
     def prefill():
-        return model.prefill(params, {"tokens": tokens}, max_seq)
+        return prefill_step(params, {"tokens": tokens}, max_seq)
 
     logits, cache = prefill()  # warm-up
     tok = logits[:, -1].argmax(-1)[:, None]
-    model.decode_step(params, tok, cache)
+    decode_step(params, tok, cache)
     sync(device)
     logits, cache = prefill()
     state = {"tok": logits[:, -1].argmax(-1)[:, None], "cache": cache}
 
     def decode():
-        out, state["cache"] = model.decode_step(params, state["tok"],
-                                                state["cache"])
+        out, state["cache"] = decode_step(params, state["tok"],
+                                          state["cache"])
         state["tok"] = out[:, -1].argmax(-1)[:, None]
 
     name = (f" ({torch.cuda.get_device_name(device)})"
             if device.type == "cuda" else "")
     print(f"{cfg.name}, {cfg.num_layers} layers, batch {args.batch}, "
-          f"prompt {args.prompt_len}, on {device}{name}")
+          f"prompt {args.prompt_len}{where}, on {device}{name}")
     for line in (profile_phase("prefill", prefill, 1, device)
                  + profile_phase("decode step", decode, args.decode_steps,
                                  device)):

@@ -21,11 +21,22 @@ Every step is the paper's computation at its scope:
 Each builder returns ``(step, abstract_args)``: the step function and
 its arguments as tensors on the meta device (shapes and dtypes, no
 storage), the counterpart of the reference's ``ShapeDtypeStruct``\\ s.
-There are no shardings: the reference's ``in_shardings`` /
-``out_shardings`` (``jax.sharding`` placement over a pod × data × model
-mesh) have no counterpart on one card; ``core.crosspod``'s ``mesh=``
-places pods on cards instead.  Parameters are in the reference's
-layout, as ``Model.init`` gives them.
+Parameters are in the reference's layout, as ``Model.init`` gives them.
+
+The serving steps take ``mesh=`` (a ``launch.mesh.DeviceMesh`` whose
+axes are ``batch_axes`` and ``"model"``), ``mode=`` (``"fsdp"``, the
+reference's default, or ``"tp"``, the dense family) and ``batch_axes=``
+as the reference's do.  ``mesh=None`` is the one-device step.  With a
+mesh the step takes and returns ``sharding.params.ShardedTree``\\ s
+(parameters cut by ``param_specs``, the batch by ``batch_specs``, the
+cache as ``models.transformer.prefill_on_mesh`` says) and its logits
+put together on the mesh's first device, and ``abstract_args`` is a
+:class:`MeshArgs`: the same meta tensors, with ``in_specs`` and
+``out_specs`` — the reference's ``in_shardings`` / ``out_shardings`` as
+spec trees (``None`` where the reference leaves the placement to XLA).
+``make_mesh_serve_steps`` gives the two for whole batches and tokens.
+The training steps have no mesh yet (ROADMAP M22c);
+``core.crosspod``'s ``mesh=`` places pods on cards.
 """
 from __future__ import annotations
 
@@ -37,8 +48,12 @@ from repro_torch.core.crosspod import CrossPodConfig, CrossPodState, \
 from repro_torch.models.api import META, Model, abstract_cache, \
     abstract_params, input_specs
 from repro_torch.models.layers import rmsnorm
-from repro_torch.models.transformer import forward_hidden
+from repro_torch.models.transformer import SERVE_MODES, TpLayout, \
+    data_shards, decode_step_on_mesh, forward_hidden, prefill_on_mesh
 from repro_torch.optim.adam import adam_init, adam_step
+from repro_torch.sharding.params import shard_tree
+from repro_torch.sharding.specs import batch_specs, cache_specs, \
+    param_specs
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
 DEFAULT_RHO = 1e-4
@@ -128,31 +143,116 @@ def make_cross_pod_step(model: Model, *, batch: int, seq: int,
     return round_fn, (state_abs, b_abs)
 
 
-def make_prefill_step(model: Model, *, batch: int, seq: int):
+class MeshArgs(tuple):
+    """A mesh step's abstract arguments (a tuple of meta trees) with
+    ``in_specs`` (one spec tree per argument) and ``out_specs`` (one per
+    output), the counterparts of the reference's ``in_shardings`` and
+    ``out_shardings``."""
+
+    def __new__(cls, args, *, in_specs, out_specs):
+        self = super().__new__(cls, args)
+        self.in_specs, self.out_specs = in_specs, out_specs
+        return self
+
+
+def _mesh_specs(model, mesh, mode, batch_axes, batch, seq):
+    """(param specs, batch entry, cache specs) of a serving step on
+    ``mesh``; raises where the mode or the batch does not fit."""
+    if mode not in SERVE_MODES:
+        raise ValueError(f"the serving steps run modes "
+                         f"{', '.join(SERVE_MODES)}; got {mode!r}")
+    n_data = len(data_shards(mesh, batch_axes))
+    if batch % n_data:
+        raise ValueError(f"batch {batch} does not split over {n_data} "
+                         f"data shards of {tuple(batch_axes)}")
+    pspec = param_specs(abstract_params(model), mesh, mode=mode)
+    if mode == "tp":
+        TpLayout(model.config, pspec, mesh)  # raises where tp does not fit
+    baxes = tuple(batch_axes) if len(batch_axes) > 1 else batch_axes[0]
+    cspec = cache_specs(abstract_cache(model, batch, seq), mesh,
+                        batch_axes=baxes)
+    return pspec, baxes, cspec
+
+
+def _check_specs(params, pspec):
+    if params.specs != pspec:
+        raise ValueError("the parameters were not cut by this step's "
+                         "param_specs; shard them with its in_specs[0]")
+
+
+def make_prefill_step(model: Model, mesh=None, *, batch: int, seq: int,
+                      mode: str = "fsdp", batch_axes=("data",)):
     """``prefill_step(params, batch) -> (last logits, cache)`` with a
-    cache of ``seq`` positions; abstract (params, batch)."""
+    cache of ``seq`` positions; abstract (params, batch).  With
+    ``mesh``: ShardedTrees in and out (the module note)."""
     p_abs = abstract_params(model)
     b_abs = input_specs(model.config, mode="prefill", batch=batch, seq=seq)
+    if mesh is None:
+        def prefill_step(params, batch):
+            return model.prefill(params, batch, seq)
 
-    def prefill_step(params, batch):
-        return model.prefill(params, batch, seq)
+        return prefill_step, (p_abs, b_abs)
+    pspec, baxes, cspec = _mesh_specs(model, mesh, mode, batch_axes, batch,
+                                      seq)
+    bspec = batch_specs(b_abs, batch_axes=baxes)
 
-    return prefill_step, (p_abs, b_abs)
+    def mesh_prefill_step(params, batch):
+        _check_specs(params, pspec)
+        return prefill_on_mesh(model.config, params, batch, seq, mode=mode,
+                               batch_axes=tuple(batch_axes))
+
+    return mesh_prefill_step, MeshArgs((p_abs, b_abs), in_specs=(
+        pspec, bspec), out_specs=(None, cspec))
 
 
-def make_decode_step(model: Model, *, batch: int, seq: int):
+def make_decode_step(model: Model, mesh=None, *, batch: int, seq: int,
+                     mode: str = "fsdp", batch_axes=("data",)):
     """``decode_step(params, token, cache) -> (logits, cache)``: one new
     token against a ``seq``-position cache; abstract (params, token,
-    cache)."""
+    cache).  With ``mesh``: ShardedTrees in and out (the module note);
+    the token is cut over the batch axes where ``batch`` > 1."""
     p_abs = abstract_params(model)
     tok_abs = input_specs(model.config, mode="decode", batch=batch,
                           seq=seq)["token"]
     cache_abs = abstract_cache(model, batch, seq)
+    if mesh is None:
+        def decode_step(params, token, cache):
+            return model.decode_step(params, token, cache)
 
-    def decode_step(params, token, cache):
-        return model.decode_step(params, token, cache)
+        return decode_step, (p_abs, tok_abs, cache_abs)
+    pspec, baxes, cspec = _mesh_specs(model, mesh, mode, batch_axes, batch,
+                                      seq)
+    tspec = (baxes, None) if batch > 1 else ()
 
-    return decode_step, (p_abs, tok_abs, cache_abs)
+    def mesh_decode_step(params, token, cache):
+        _check_specs(params, pspec)
+        return decode_step_on_mesh(model.config, params, token, cache,
+                                   mode=mode, batch_axes=tuple(batch_axes))
+
+    return mesh_decode_step, MeshArgs((p_abs, tok_abs, cache_abs),
+                                      in_specs=(pspec, tspec, cspec),
+                                      out_specs=(None, cspec))
+
+
+def make_mesh_serve_steps(model: Model, mesh, *, batch: int, seq: int,
+                          mode: str = "fsdp", batch_axes=("data",)):
+    """The mesh's serving steps on plain inputs → ``(prefill(params,
+    batch), decode(params, token, cache), the prefill's MeshArgs)``:
+    the batch and the token are whole tensors, as the one-device steps
+    take them, and are cut by the steps' ``in_specs``; the parameters
+    (cut by ``in_specs[0]``) and the cache stay ShardedTrees."""
+    pre, pargs = make_prefill_step(model, mesh, batch=batch, seq=seq,
+                                   mode=mode, batch_axes=batch_axes)
+    dec, dargs = make_decode_step(model, mesh, batch=batch, seq=seq,
+                                  mode=mode, batch_axes=batch_axes)
+
+    def prefill(params, batch):
+        return pre(params, shard_tree(batch, pargs.in_specs[1], mesh))
+
+    def decode(params, token, cache):
+        return dec(params, shard_tree(token, dargs.in_specs[1], mesh), cache)
+
+    return prefill, decode, pargs
 
 
 def make_encode_step(model: Model, *, batch: int, seq: int):

@@ -131,20 +131,37 @@ def blockwise_attention(q, k, v, *, q_positions, kv_positions, kv_valid=None,
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
+def _project_kv(p, x, kv, num_kv_heads, head_dim):
+    """(k, v) of x before RoPE, (B, S, KvH, hd): ``kv`` where the caller
+    made them, else x's projections through ``p["wk"]`` / ``p["wv"]``."""
+    if kv is not None:
+        return kv
+    b, s = x.shape[:2]
+    return ((x @ p["wk"]).reshape(b, s, num_kv_heads, head_dim),
+            (x @ p["wv"]).reshape(b, s, num_kv_heads, head_dim))
+
+
 def attention_forward(p, x, *, positions, rope_theta, num_heads, num_kv_heads,
                       head_dim, mask_mode="causal", window=0, prefix_len=0,
-                      return_kv=False, blockwise=False, kv_block=512):
+                      return_kv=False, blockwise=False, kv_block=512,
+                      kv=None):
     """Self-attention over x: (B, S, d) at positions 0..S−1: K4 for
     serving under the causal mask; :func:`blockwise_attention` in blocks
     of min(``kv_block``, S) under the prefix and bidir masks (no kernel
     has them) and, with ``blockwise=True``, under every mask (the
-    training loss)."""
+    training loss).
+
+    A model shard under tensor parallelism passes its own blocks:
+    ``p["wq"]`` its heads' columns, ``p["wo"]`` their rows (the result
+    is then its partial of the output), ``num_heads`` / ``num_kv_heads``
+    its local counts, and, where its k/v heads are not its own column
+    block of wk / wv, ``kv``: the (B, S, KvH, hd) k and v it takes,
+    before RoPE, each a tensor of its own (K4 takes no strided view)."""
     check_mask_mode(mask_mode)
     blockwise = blockwise or mask_mode != "causal"
     b, s, d = x.shape
     q = (x @ p["wq"]).reshape(b, s, num_heads, head_dim)
-    k = (x @ p["wk"]).reshape(b, s, num_kv_heads, head_dim)
-    v = (x @ p["wv"]).reshape(b, s, num_kv_heads, head_dim)
+    k, v = _project_kv(p, x, kv, num_kv_heads, head_dim)
     q = apply_rope(q, positions[None, :], rope_theta)
     k = apply_rope(k, positions[None, :], rope_theta)
     if blockwise:
@@ -160,21 +177,22 @@ def attention_forward(p, x, *, positions, rope_theta, num_heads, num_kv_heads,
 
 
 def attention_decode(p, x, kv_cache, cache_pos: int, *, rope_theta, num_heads,
-                     num_kv_heads, head_dim, window=0):
+                     num_kv_heads, head_dim, window=0, kv=None):
     """Single-token decode against a (B, S_max, Kv, hd) ring/linear cache.
 
     x: (B, 1, d); cache_pos: the position being generated (a host int).
     With a sliding window the cache is a ring buffer of size S_max and
     absolute positions are reconstructed modulo S_max.  The new k/v are
     written into the cache tensors **in place** (the JAX function
-    returns new arrays); the updated pair is returned as well.
+    returns new arrays); the updated pair is returned as well.  A model
+    shard passes its blocks, counts and ``kv`` (the new token's (B, 1,
+    KvH, hd) k and v before RoPE) as :func:`attention_forward` says.
     """
     b = x.shape[0]
     k_cache, v_cache = kv_cache
     s_max = k_cache.shape[1]
     q = (x @ p["wq"]).reshape(b, 1, num_heads, head_dim)
-    k = (x @ p["wk"]).reshape(b, 1, num_kv_heads, head_dim)
-    v = (x @ p["wv"]).reshape(b, 1, num_kv_heads, head_dim)
+    k, v = _project_kv(p, x, kv, num_kv_heads, head_dim)
     pos = torch.full((1, 1), cache_pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, pos, rope_theta)
     k = apply_rope(k, pos, rope_theta)

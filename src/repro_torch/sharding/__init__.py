@@ -1,4 +1,6 @@
-"""The client mesh of the port (``repro/sharding``)."""
+"""The port's meshes (``repro/sharding``): the client mesh
+(``clients.py``), the sharding rules of the model mesh (``specs.py``)
+and their placement (``params.py``)."""
 from .clients import (  # noqa: F401
     CLIENT_AXIS,
     ClientMesh,

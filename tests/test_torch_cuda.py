@@ -1257,3 +1257,69 @@ def test_flash_attention_at_moonshot_shape(dev):
     want = ops.flash_attention_ref(q, k, v, layout="bshd")
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+@pytest.mark.parametrize("b,h,kvh", [(4, 8, 2), (2, 32, 8)])
+def test_flash_attention_at_the_mesh_shard_shapes(dev, b, h, kvh):
+    """K4's bf16 instance at granite-3-2b's shard shapes on a model
+    mesh, causal in the (B, S, H, hd) layout: (4, 2048, 8:2, 64), one
+    model shard of four under tp, and (2, 2048, 32:8, 64), one data
+    shard of two under fsdp; one launch each, against its plain version
+    at rtol/atol 2e-2."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    q = torch.randn((b, 2048, h, 64), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((b, 2048, kvh, 64), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, layout="bshd")
+    torch.cuda.synchronize()
+    assert ops.flash_attention.instance_launches["bf16_tc"] == 1
+    want = ops.flash_attention_ref(q, k, v, layout="bshd")
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("mode", ["fsdp", "tp"])
+def test_mesh_prefill_matches_the_cpu(dev, mode):
+    """The reduced granite (8 heads of 64, 2 kv heads: K4's 3xTF32
+    instance takes its shards) served on a (2, 2) mesh of the card
+    against the same mesh of CPU shards: prefill and two decode steps,
+    logits at rtol/atol 1e-3; K4 launched once per data shard and layer
+    under fsdp, once per model shard too under tp."""
+    from repro_torch.launch.mesh import make_mesh, make_test_mesh
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.sharding.params import shard_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _granite(num_heads=8, num_kv_heads=2, head_dim=64)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 200)))
+    out = {}
+    for name, mesh in (("card", make_mesh((2, 2))),
+                       ("cpu", make_test_mesh((2, 2)))):
+        pre, pargs = make_prefill_step(model, mesh, batch=4, seq=208,
+                                       mode=mode)
+        dec, dargs = make_decode_step(model, mesh, batch=4, seq=208,
+                                      mode=mode)
+        sharded = shard_tree(params, pargs.in_specs[0], mesh)
+        ops.reset_launch_counts()
+        logits, cache = pre(sharded, shard_tree({"tokens": tokens},
+                                                pargs.in_specs[1], mesh))
+        launches = ops.flash_attention.instance_launches["tf32x3"]
+        steps = [logits.cpu()]
+        for i in range(2):
+            tok = torch.full((4, 1), 5 * i + 3)
+            logits, cache = dec(sharded, shard_tree(
+                tok, dargs.in_specs[1], mesh), cache)
+            steps.append(logits.cpu())
+        out[name] = steps, launches
+    per_layer = 4 if mode == "tp" else 2
+    assert out["card"][1] == per_layer * cfg.num_layers
+    assert out["cpu"][1] == 0
+    for got, want in zip(out["card"][0], out["cpu"][0], strict=True):
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
