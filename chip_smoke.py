@@ -16,8 +16,9 @@ full size and trained, mixtral-8x7b reduced, paligemma-3b (prefix-LM
 vlm) served and hubert-xlarge (audio encoder) trained (slice 17), and
 the last slice: K2 and K3 on bf16, the H100 roofline model, the
 one-card dry-run of every architecture × shape, the example twins and
-the paper's claims (slice 18), and the model mesh: granite-3-2b served
-on a data × model mesh in fsdp and tp mode (slice 19).
+the paper's claims (slice 18), the model mesh: granite-3-2b served
+on a data × model mesh in fsdp and tp mode (slice 19), and the
+cross-pod FedBack trainer on a pod × data × model mesh (slice 20).
 
     python3 chip_smoke.py
 
@@ -251,9 +252,9 @@ non-zero):
    two paths round at different places);
 7a. granite-3-2b at 2 layers and every published width (d_model 2048,
    GQA 32:8 at head_dim 64, d_ff 8192, vocab 49155 padded to 49408),
-   fp32: two cross-pod rounds (``core/crosspod.py``; P = 2 pods, 2 local
+   fp32: one cross-pod round (``core/crosspod.py``; P = 2 pods, 2 local
    steps of 2 × 64 tokens, K 0.05, α 0.9, L̄ 0.5, ρ 1e-3, lr 5e-3) on
-   the card, each held against the same round on the CPU from the card's
+   the card, held against the same round on the CPU from the card's
    state before it: events equal, δ within one ulp, distances at rtol
    1e-5, θ/λ/z_prev at the solve grade (rtol 1e-4 / atol 1e-6, held on
    the card), ``train_loss`` at rtol 1e-5; no kernel launches (the
@@ -271,9 +272,9 @@ non-zero):
    (GQA 32:8 at head_dim 64), none in decode, prefill against decode
    within 8% of the largest logit;
 8a. zamba2-2.7b at every published width cut to one group (6 mamba
-   layers and the shared block), fp32: two cross-pod rounds on the
-   card at 7a's settings, each held against the same round on the CPU
-   as in 7a (the hybrid stack's gradient on the card: the SSD's scan
+   layers and the shared block), fp32: one cross-pod round on the
+   card at 7a's settings, held against the same round on the CPU as in
+   7a (the hybrid stack's gradient on the card: the SSD's scan
    through ``ssd_scan_ref``, no kernel launched);
 8b. zamba2-2.7b at full size, bf16, both pods on the card: 2 rounds of
    2 local steps of 4 × 512 tokens, the second profiled, checked and
@@ -377,7 +378,30 @@ non-zero):
    (unless the unsharded top-two margin is under twice that request's
    largest logit gap: a near tie, printed), the number of cards used;
    11a–11b print their seconds;
-12. print the serve line, the kernels line (K4's bf16 instance as
+12a. the cross-pod trainer on a pod × data × model mesh
+   (``sharding/train.py``, ``launch/steps.py``'s training steps with
+   ``mesh=``): granite-3-2b at every published width cut to 2 layers,
+   fp32, P = 2 on mesh (2, 2, 2) of the visible cards (every coordinate
+   on one card where there is one), phase 7a's settings and 2 × 64
+   tokens a step, 2 rounds, each from the card's state against the same
+   mesh round on the CPU and the one-device round on the card: events
+   equal, distances at rtol 1e-5, ``train_loss`` at rtol 1e-5, θ / λ /
+   z_prev at the solve grade; then ``make_train_step`` on mesh (2, 2)
+   against the unsharded step on the card, 4 × 64 tokens: the loss at
+   rtol 1e-5, the first moment at the solve grade, the parameters at it
+   where the gradient is firm (within lr elsewhere: Adam's first step);
+   no kernel launches;
+12b. granite-3-2b whole, bf16, P = 2 on mesh (2, 2, 2), phase 7b's 4 ×
+   512 tokens a step: a warm-up round that fires both pods, then 3
+   rounds, the first under torch.profiler: every leaf finite, z_prev
+   equal to θ + λ bit for bit on every pod that fired, each
+   coordinate's resident state bytes equal to ``per_device_bytes`` of
+   the pod-stacked specs, no kernel launches; ms a round, peak memory
+   against the card's, GB a round by collective kind, the profiled
+   round's launches, busy ms and idle share, beside phase 7b's
+   unsharded ms a round from the same run; 12a–12b print their
+   seconds;
+13. print the serve line, the kernels line (K4's bf16 instance as
    ``flash_attention``, launched in phase 7, at granite's GQA shape
    as ``flash_attention_gqa``, launched in phase 7c, and at phi3's as
    ``flash_attention_phi3``, launched in phase 8e, and at moonshot's as
@@ -3146,7 +3170,9 @@ def check_conv_precision(ctx):
 GRANITE = "granite-3-2b"
 CROSSPOD_CP = dict(n_pods=2, rho=1e-3, lr=5e-3, local_steps=2)
 CROSSPOD_CTRL = dict(K=0.05, alpha=0.9, target_rate=0.5)
-GRANITE_A = dict(layers=2, batch=2, seq=64, rounds=2)  # (a), fp32
+# (a), fp32; one round: each costs ~20 s of the host's CPU, and phase
+# 12a runs the same round twice more against the mesh's
+GRANITE_A = dict(layers=2, batch=2, seq=64, rounds=1)
 # (b), bf16, full size; one round (the second) under torch.profiler
 GRANITE_B = dict(batch=4, seq=512, rounds=5, profiled=1)
 # Phases 8a–8e (slice 16): the SSM-bearing families and phi3.  (a) zamba2
@@ -3154,9 +3180,10 @@ GRANITE_B = dict(batch=4, seq=512, rounds=5, profiled=1)
 # the CPU; (b) zamba2 at full size, bf16; (d) mamba2 cut to 2 layers,
 # fp32, against the CPU; (e) phi3's new tokens.  8a–8e took 238.5 s on
 # an H100 with 3 rounds in (a) and (b) and 8 new tokens in (e): each is
-# cut to keep the script near half its time limit.
+# cut to keep the script near half its time limit ((a) to one round, ~38
+# s of the host's CPU, when phase 12 came).
 ZAMBA, MAMBA, PHI3 = "zamba2-2.7b", "mamba2-2.7b", "phi3-medium-14b"
-ZAMBA_A = dict(layers=6, batch=2, seq=64, rounds=2)
+ZAMBA_A = dict(layers=6, batch=2, seq=64, rounds=1)
 ZAMBA_B = dict(batch=4, seq=512, rounds=2, profiled=1)
 MAMBA_D = dict(layers=2, batch=2, seq=64, rounds=1)
 PHI3_NEW = 4
@@ -4381,6 +4408,274 @@ def phase11(dev, ops, smi, granite):
     return counts_a, counts_b
 
 
+# Phase 12: the cross-pod trainer on a pod × data × model mesh (slice
+# 20), every coordinate on the card.  12a: a 2-layer fp32 cut at full
+# width against the CPU and the one-device round, and the mesh training
+# step against the unsharded; 12b: full size in bf16 at 7b's batch.
+POD_AXES = ("pod", "data", "model")
+POD_MESH = (2, 2, 2)
+POD_GROUP = dict(layers=2, batch=2, seq=64, rounds=2)
+POD_TRAIN = dict(batch=4, seq=64, rho=1e-2, lr=1e-3, mesh=(2, 2))
+POD_FULL = dict(rounds=3, profiled=1)  # after a warm-up round (round 0)
+
+
+def _state_leaves(state):
+    from repro_torch.utils.pytree import tree_leaves
+
+    return [x for f in ("theta", "lam", "z_prev")
+            for x in tree_leaves(getattr(state, f))]
+
+
+def check_pod_mesh_group(dev, ops, cfg):
+    """Phase 12a → its report."""
+    from repro_torch.launch.mesh import make_mesh, make_test_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adam import adam_init
+    from repro_torch.sharding.params import gather_tree, shard_tree
+    from repro_torch.sharding.train import cross_pod_batch_specs, \
+        init_cross_pod_state_on_mesh, make_cross_pod_round_on_mesh
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    cp, model, round_one = _crosspod_round(cfg)
+    mesh = make_mesh(POD_MESH, POD_AXES)
+    cpu_mesh = make_test_mesh(POD_MESH, POD_AXES)
+    round_card = make_cross_pod_round_on_mesh(cp, model, mesh)
+    round_cpu = make_cross_pod_round_on_mesh(cp, model, cpu_mesh)
+    state = init_cross_pod_state_on_mesh(
+        cp, model.init(SEED, device=dev), mesh)
+    batches = _crosspod_batches(cfg, cp, POD_GROUP["batch"],
+                                POD_GROUP["seq"])
+    ops.reset_launch_counts()
+    rounds = []
+    for r in range(POD_GROUP["rounds"]):
+        batch = next(batches)
+        bspec = cross_pod_batch_specs(batch)
+        whole = gather_tree(state, device="cpu")
+        one_before = _cross_pod_to(whole, dev)
+        cpu_before = shard_tree(whole, state.specs, cpu_mesh)
+        del whole
+        t0 = time.perf_counter()
+        state, m = round_card(state, shard_tree(batch, bspec, mesh))
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        one, m1 = round_one(one_before, batch)
+        t0 = time.perf_counter()
+        want, wm = round_cpu(cpu_before, shard_tree(batch, bspec, cpu_mesh))
+        cpu_s = time.perf_counter() - t0
+        where = f"12a round {r}"
+        for label, other in (("the CPU's mesh round", wm),
+                             ("the one-device round", m1)):
+            np.testing.assert_array_equal(
+                m.events.cpu().numpy(), other.events.cpu().numpy(),
+                err_msg=f"{where}: events against {label}")
+            torch.testing.assert_close(m.distances.cpu(),
+                                       other.distances.cpu(), rtol=1e-5,
+                                       atol=1e-7)
+            torch.testing.assert_close(m.train_loss.cpu(),
+                                       other.train_loss.cpu(), rtol=1e-5,
+                                       atol=0)
+        got = _state_leaves(gather_tree(state))
+        gap_cpu = _held_on_card(dev, got, _state_leaves(gather_tree(want)),
+                                where, "state against the CPU's mesh round")
+        gap_one = _held_on_card(dev, got, _state_leaves(one), where,
+                                "state against the one-device round")
+        del got, one, one_before, want, cpu_before
+        rounds.append(dict(events=m.events.tolist(),
+                           train_loss=float(m.train_loss),
+                           max_abs_err_vs_cpu=gap_cpu,
+                           max_abs_err_vs_one_device=gap_one,
+                           card_ms=card_ms, cpu_s=cpu_s))
+        log(f"{where} ({cfg.name} width, {cfg.num_layers} layers, fp32, "
+            f"mesh {POD_MESH}): events {m.events.tolist()} equal to the "
+            f"CPU's mesh round and the one-device round's; train_loss "
+            f"{float(m.train_loss):.6f} (CPU {float(wm.train_loss):.6f}, "
+            f"one device {float(m1.train_loss):.6f}); state max_abs_err "
+            f"{gap_cpu:.3e} against the CPU, {gap_one:.3e} against one "
+            f"device (rtol 1e-4 / atol 1e-6 held); card {card_ms:.1f} ms, "
+            f"CPU {cpu_s:.1f} s")
+    del state
+
+    params = model.init(SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    center = tree_map(lambda x: x + 0.01 * torch.randn(
+        x.shape, generator=gen, device=dev, dtype=x.dtype), params)
+    batch = {k: v.to(dev) for k, v in _train_batch(
+        cfg, POD_TRAIN["batch"], POD_TRAIN["seq"]).items()}
+    kw = dict(batch=POD_TRAIN["batch"], seq=POD_TRAIN["seq"],
+              rho=POD_TRAIN["rho"], lr=POD_TRAIN["lr"])
+    step, _ = make_train_step(model, **kw)
+    want_p, want_o, want_loss = step(params, adam_init(params), center,
+                                     batch)
+    tmesh = make_mesh(POD_TRAIN["mesh"])
+    mstep, args = make_train_step(model, tmesh, **kw)
+    t0 = time.perf_counter()
+    p, o, loss = mstep(*(shard_tree(x, sp, tmesh) for x, sp in zip(
+        (params, adam_init(params), center, batch), args.in_specs,
+        strict=True)))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
+    p, o = gather_tree(p), gather_tree(o)
+    mu_gap = _held_on_card(dev, tree_leaves(o.mu), tree_leaves(want_o.mu),
+                           "12a train step", "first moment")
+    p_gap = 0.0
+    for g, w, mu in zip(tree_leaves(p), tree_leaves(want_p),
+                        tree_leaves(want_o.mu), strict=True):
+        firm = mu.abs() > 1e-7
+        diff = (g - w).abs()
+        if bool((diff[firm] > SOLVE_TOL["atol"]
+                 + SOLVE_TOL["rtol"] * w[firm].abs()).any()) or float(
+                     diff.max()) > POD_TRAIN["lr"] * 1.0001:
+            raise AssertionError("12a train step: parameters off the "
+                                 "unsharded step's")
+        if bool(firm.any()):
+            p_gap = max(p_gap, float(diff[firm].max()))
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"12a launched {ops.launch_counts()}")
+    log(f"12a train step on mesh {POD_TRAIN['mesh']} ({POD_TRAIN['batch']} "
+        f"× {POD_TRAIN['seq']} tokens, fp32): loss {float(loss):.6f} "
+        f"(unsharded {float(want_loss):.6f}), first moment max_abs_err "
+        f"{mu_gap:.3e}, parameters {p_gap:.3e} where the gradient is firm "
+        f"(rtol 1e-4 / atol 1e-6 held); {step_ms:.1f} ms")
+    return dict(rounds=rounds, train_step=dict(
+        loss=float(loss), unsharded_loss=float(want_loss),
+        mu_max_abs_err=mu_gap, param_max_abs_err_firm=p_gap, ms=step_ms))
+
+
+def drive_pod_mesh_full(dev, ops, smi, cfg, unsharded):
+    """Phase 12b → its report; ``unsharded`` is phase 7b's."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_cross_pod_step
+    from repro_torch.sharding.clients import collectives
+    from repro_torch.sharding.params import per_device_bytes, shard_tree, \
+        tree_bytes_at
+    from repro_torch.sharding.train import init_cross_pod_state_on_mesh, \
+        make_cross_pod_round_on_mesh
+    from repro_torch.utils.pytree import tree_leaves
+
+    cp, model, _ = _crosspod_round(cfg)
+    mesh = make_mesh(POD_MESH, POD_AXES)
+    per_step = GRANITE_B["batch"]
+    _, args = make_cross_pod_step(
+        model, mesh, batch=per_step * cp.n_pods * cp.local_steps,
+        seq=GRANITE_B["seq"], local_steps=cp.local_steps)
+    round_fn = make_cross_pod_round_on_mesh(cp, model, mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = init_cross_pod_state_on_mesh(cp, model.init(SEED, device=dev),
+                                         mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    if state.specs != args.in_specs[0]:
+        raise AssertionError("12b: the state is not cut by the step's "
+                             "in_specs")
+    expect = per_device_bytes(args[0], args.in_specs[0], mesh)
+    resident = [tree_bytes_at(state, c) for c in mesh.coords()]
+    if any(b != expect for b in resident):
+        raise AssertionError(f"12b: resident state bytes {resident}, "
+                             f"per_device_bytes {expect}")
+    batches = _crosspod_batches(cfg, cp, per_step, GRANITE_B["seq"])
+    moved: list = []
+
+    def count(kind, t):
+        moved[-1][kind] = moved[-1].get(kind, 0) \
+            + t.numel() * t.element_size()
+
+    ops.reset_launch_counts()
+    ms, events, losses, fired = [], [], [], set()
+    collectives.listeners.append(count)
+    try:
+        for r in range(1 + POD_FULL["rounds"]):
+            batch = next(batches)
+            moved.append({})
+            prof = None
+            if r == POD_FULL["profiled"]:
+                prof = torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+            t0 = time.perf_counter()
+            state, m = round_fn(state, shard_tree(batch, args.in_specs[1],
+                                                  mesh))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                profiled = _round_profile(prof, ms[-1])
+            events.append(m.events.tolist())
+            losses.append(float(m.train_loss))
+            fired |= {i for i, e in enumerate(events[-1]) if e}
+    finally:
+        collectives.listeners.remove(count)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if events[0] != [True] * cp.n_pods:
+        raise AssertionError(f"12b: round 0 fired {events[0]}")
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"12b launched {ops.launch_counts()}")
+    for b in state.blocks:
+        if not all(bool(torch.isfinite(x).all()) for x in _state_leaves(b)):
+            raise AssertionError("12b: a state leaf holds a value not "
+                                 "finite")
+    for c in mesh.coords():
+        if c[0] not in fired:
+            continue
+        b = state.at(c)
+        for t, lm, z in zip(tree_leaves(b.theta), tree_leaves(b.lam),
+                            tree_leaves(b.z_prev), strict=True):
+            if not torch.equal(z, t + lm):
+                raise AssertionError(f"12b: pod {c[0]}'s z_prev at {c} is "
+                                     "not θ + λ")
+    both = [t for i, (t, e) in enumerate(zip(ms, events, strict=True))
+            if i not in (0, POD_FULL["profiled"]) and all(e)]
+    gb = [{k: v / 1e9 for k, v in d.items()} for d in moved]
+    total = torch.cuda.get_device_properties(dev).total_memory
+    report = dict(
+        arch=cfg.name, dtype=cfg.dtype, mesh=POD_MESH, pods=cp.n_pods,
+        local_steps=cp.local_steps, tokens_per_step=per_step
+        * GRANITE_B["seq"], events=events, train_loss=losses,
+        ms_per_round=ms, ms_per_round_both_fired=statistics.median(both)
+        if both else None, gb_per_round_by_kind=gb,
+        profiled_round=dict(profiled, index=POD_FULL["profiled"]),
+        unsharded_ms_per_round_both_fired=unsharded[
+            "ms_per_round_both_fired"] if unsharded else None,
+        peak_memory_bytes=peak, card_memory_bytes=total,
+        resident_state_bytes=resident, per_device_bytes=expect,
+        init_s=init_s, card=smi)
+    gb_s = [{k: round(v, 3) for k, v in d.items()} for d in gb]
+    log(f"12b {cfg.name} cross-pod on mesh {POD_MESH}, bf16, P = "
+        f"{cp.n_pods}, {cp.local_steps} local steps of {per_step} × "
+        f"{GRANITE_B['seq']} tokens: events {events}, train_loss {losses}; "
+        f"ms/round {[round(x, 1) for x in ms]} (round 0 the warm-up, round "
+        f"{POD_FULL['profiled']} under torch.profiler; median of the others "
+        f"that fired both pods {report['ms_per_round_both_fired']}; 7b's "
+        f"unsharded round in this run "
+        f"{report['unsharded_ms_per_round_both_fired']}); GB a round by "
+        f"kind {gb_s}; peak {peak / 1e9:.2f} GB of the card's "
+        f"{total / 1e9:.2f} GB; resident state bytes a coordinate "
+        f"{resident[0]} = per_device_bytes; init {init_s:.2f} s; on {smi}")
+    log(f"12b profiled round {POD_FULL['profiled']} (events "
+        f"{events[POD_FULL['profiled']]}): {profiled}")
+    del state
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase12(dev, ops, smi, granite, unsharded):
+    """Phases 12a and 12b; ``unsharded`` is phase 7b's report."""
+    t0 = t1 = time.perf_counter()
+    group = check_pod_mesh_group(dev, ops, dataclasses.replace(
+        granite, num_layers=POD_GROUP["layers"], dtype="float32"))
+    torch.cuda.empty_cache()
+    log(f"phase 12a took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    full = drive_pod_mesh_full(dev, ops, smi, granite, unsharded)
+    log(f"phase 12b took {time.perf_counter() - t1:.1f} s; phases 12a–12b "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"pod_mesh": {"group": group, "full": full},
+                    "card": smi}))
+
+
 def kernels_line(rows, launches, where):
     """Print each row's facts and the kernels line; ``launches[name]``
     its launches on the path (``where[name]`` says where)."""
@@ -4699,6 +4994,7 @@ def main() -> int:
                     "card": smi}))
 
     counts_mesh_a, counts_mesh_b = phase11(dev, ops, smi, granite)
+    phase12(dev, ops, smi, granite, granite_b)
 
     launches, where = {}, {}
     for name, r in rows.items():

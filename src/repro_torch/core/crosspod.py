@@ -59,7 +59,13 @@ over the pods, one controller, as the client mesh of
 and the round; ω is summed over every shard's pods in pod order on
 shard 0's device and copied to each shard; the controller steps each
 shard's rows.  One device is the one-shard case of the same code, and
-any mesh gives its bits.
+any mesh gives its bits.  Both keep a whole replica of each pod on one
+device.  A pod split over cards — the reference's pod × data × model
+mesh, each pod's replica fsdp over its (data, model) coordinates — is
+``sharding/train.py``'s ``make_cross_pod_round_on_mesh``, which runs
+this module's steps (:func:`pod_mean`, :func:`sq_distances`,
+:func:`trigger`, :func:`dual_and_center`, :func:`solve`,
+:func:`commit`, :func:`round_metrics`) on the blocks.
 """
 from __future__ import annotations
 
@@ -137,34 +143,108 @@ def init_cross_pod_state(cfg: CrossPodConfig, params0, *, device=None,
     return shards[0] if single else tuple(shards)
 
 
+def pod_mean(rows, n_pods: int) -> torch.Tensor:
+    """ω of one leaf (or of one block of it) from the pods' rows, in pod
+    order on the first row's device: summed in fp32, over P, rounded to
+    the rows' dtype — ``jnp.mean(z, axis=0)``'s arithmetic."""
+    total = None
+    for row in rows:
+        total = (row.to(torch.float32, copy=True) if total is None
+                 else total.add_(row))
+    return (total / n_pods).to(rows[0].dtype)
+
+
 def _consensus(shards, n_pods: int):
-    """ω per leaf: the pods' rows summed in fp32 in pod order (over the
-    shards in order, on shard 0's device), over P, rounded to the leaf's
-    dtype — ``jnp.mean(z, axis=0)``'s arithmetic."""
+    """ω per leaf: :func:`pod_mean` of every shard's rows (the shards in
+    order, on shard 0's device)."""
     dev0 = shards[0].rng.device
 
     def mean(*zs):
-        total = None
-        for z in zs:
-            for row in z.to(dev0, non_blocking=True).unbind(0):
-                total = (row.to(torch.float32, copy=True) if total is None
-                         else total.add_(row))
-        return (total / n_pods).to(zs[0].dtype)
+        return pod_mean([row for z in zs for row in z.to(
+            dev0, non_blocking=True).unbind(0)], n_pods)
 
     collectives.add("all-reduce", [s.z_prev for s in shards[1:]])
     return tree_map(mean, *(s.z_prev for s in shards))
 
 
-def _distances(z_prev, omega) -> torch.Tensor:
-    """‖z_i − ω‖ of the shard's pods: per leaf the difference in the
-    leaf's dtype, squared and summed in fp32, the leaves added in
-    order."""
+def sq_distances(z_leaves, w_leaves) -> torch.Tensor:
+    """Σ over the leaves of ‖z − ω‖² per pod row: each pod-stacked leaf
+    (or block) minus ω's, the difference in the leaf's dtype, squared
+    and summed in fp32, the leaves added in order."""
     total = None
-    for z, w in zip(tree_leaves(z_prev), tree_leaves(omega), strict=True):
+    for z, w in zip(z_leaves, w_leaves, strict=True):
         d = (z - w[None]).to(torch.float32)
         part = torch.sum((d * d).reshape(d.shape[0], -1), dim=1)
         total = part if total is None else total + part
-    return torch.sqrt(total)
+    return total
+
+
+def _distances(z_prev, omega) -> torch.Tensor:
+    """‖z_i − ω‖ of the shard's pods."""
+    return torch.sqrt(sq_distances(tree_leaves(z_prev), tree_leaves(omega)))
+
+
+def trigger(distances, ctrl: ControllerState, ctrl_cfg: ControllerConfig):
+    """The pods' events (distance ≥ δ) and the controller stepped on
+    them."""
+    events = distances >= ctrl.delta
+    return events, controller_step(ctrl, events, ctrl_cfg)
+
+
+def dual_and_center(lam, theta, omega):
+    """One pod's λ⁺ = λ + θ − ω (``dual_ascent``) and c = ω − λ⁺
+    (``prox_center``), leaf lists of one layout."""
+    lam_new = [lm + t - w for lm, t, w in zip(lam, theta, omega, strict=True)]
+    return lam_new, [w - lm for w, lm in zip(omega, lam_new, strict=True)]
+
+
+def solve(cfg: CrossPodConfig, leaves, center, value_and_grad):
+    """``cfg.local_steps`` SGD+momentum steps on loss + ρ(θ − c), in
+    place on ``leaves`` (the parameters, ω at the start); returns the
+    mean of the steps' losses.  ``value_and_grad(step) -> (loss, the
+    gradients of the leaves)`` takes step ``step``'s microbatch.  Each
+    step updates the parameters and the momentum leaf by leaf, with
+    ``sgd_step``'s roundings: g = ∇ + ρ·(θ − c), buf ← momentum·buf + g,
+    θ ← θ − lr·buf."""
+    buf = [torch.zeros_like(p) for p in leaves]
+    for p in leaves:
+        p.requires_grad_(True)
+    losses = []
+    for step in range(cfg.local_steps):
+        loss, grads = value_and_grad(step)
+        grads = list(grads)
+        for i, (p, c, b) in enumerate(zip(leaves, center, buf, strict=True)):
+            g = grads[i] + cfg.rho * (p - c)
+            grads[i] = None
+            b.mul_(cfg.momentum).add_(g)
+            p.sub_(cfg.lr * b)
+            del g
+        losses.append(loss.detach())
+    for p in leaves:
+        p.requires_grad_(False)
+    return torch.mean(torch.stack(losses))
+
+
+def commit(theta, lam, z_prev, j: int, theta_out, lam_new) -> None:
+    """A fired pod's rows written in place: θ[j] = θ_out, λ[j] = λ⁺,
+    z_prev[j] = θ_out + λ⁺ (leaf lists of one layout)."""
+    for t, l, z, th, lm in zip(theta, lam, z_prev, theta_out, lam_new,
+                               strict=True):
+        t[j] = th
+        l[j] = lm
+        torch.add(th, lm, out=z[j])
+
+
+def round_metrics(events, distances, ctrls, losses) -> "CrossPodMetrics":
+    """The round's metrics from per-shard lists (one shard: lists of
+    one)."""
+    return CrossPodMetrics(
+        events=unshard_rows(events),
+        num_events=all_sum([torch.sum(e.to(torch.int32))
+                            for e in events]).to(torch.int32),
+        distances=unshard_rows(distances),
+        delta=unshard_rows([c.delta for c in ctrls]),
+        train_loss=participant_mean_loss(losses, events))
 
 
 def make_cross_pod_round(cfg: CrossPodConfig, loss_fn: Callable, *,
@@ -186,36 +266,20 @@ def make_cross_pod_round(cfg: CrossPodConfig, loss_fn: Callable, *,
     sharded = mesh is not None
     if sharded:
         check_divisible(cfg.n_pods, mesh)
-    rho, lr, momentum = cfg.rho, cfg.lr, cfg.momentum
     ctrl_cfgs = None
 
     def local_solve(omega, center, batch_i):
-        """``local_steps`` SGD+momentum steps from ω on loss + ρ(θ − c);
-        returns (θ_out, the mean of the steps' losses).  Each step
-        updates the parameters and the momentum in place, leaf by leaf,
-        with ``sgd_step``'s roundings: g = ∇ + ρ·(θ − c), buf ←
-        momentum·buf + g, θ ← θ − lr·buf."""
+        """:func:`solve` from ω → (θ_out leaves, the mean loss)."""
         params = tree_map(torch.clone, omega)
-        buf = tree_zeros_like(params)
-        leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
-        losses = []
-        for step in range(cfg.local_steps):
-            micro = tree_map(lambda x, step=step: x[step], batch_i)
+        leaves = tree_leaves(params)
+
+        def value_and_grad(step):
+            micro = tree_map(lambda x: x[step], batch_i)
             with torch.enable_grad():
                 loss = loss_fn(params, micro)
-                grads = list(torch.autograd.grad(loss, leaves))
-            for i, (p, c, b) in enumerate(zip(leaves, tree_leaves(center),
-                                              tree_leaves(buf),
-                                              strict=True)):
-                g = grads[i] + rho * (p - c)
-                grads[i] = None
-                b.mul_(momentum).add_(g)
-                p.sub_(lr * b)
-                del g
-            losses.append(loss.detach())
-        for p in leaves:
-            p.requires_grad_(False)
-        return params, torch.mean(torch.stack(losses))
+                return loss, torch.autograd.grad(loss, leaves)
+
+        return leaves, solve(cfg, leaves, center, value_and_grad)
 
     @torch.no_grad()
     def round_body(shards, batch):
@@ -229,10 +293,9 @@ def make_cross_pod_round(cfg: CrossPodConfig, loss_fn: Callable, *,
             omegas = replicate_data(pod_mesh, omega)
             distances = [_distances(s.z_prev, w)
                          for s, w in zip(shards, omegas, strict=True)]
-            events = [d >= s.ctrl.delta for d, s in zip(distances, shards,
-                                                       strict=True)]
-            ctrls = [controller_step(s.ctrl, e, c) for s, e, c in
-                     zip(shards, events, ctrl_cfgs, strict=True)]
+            events, ctrls = zip(*(trigger(d, s.ctrl, c) for d, s, c in
+                                  zip(distances, shards, ctrl_cfgs,
+                                      strict=True)))
         batches = shard_rows(batch, pod_mesh)
         fired = ([True] * cfg.n_pods if every_pod_fires
                  else unshard_rows(events).tolist())  # the one host read
@@ -242,30 +305,20 @@ def make_cross_pod_round(cfg: CrossPodConfig, loss_fn: Callable, *,
             for j in range(e.shape[0]):
                 if fired[pod]:
                     with span("crosspod/solve"):
-                        lam_new = tree_map(lambda l, t, x: l[j] + t[j] - x,
-                                           s.lam, s.theta, w)
-                        center = tree_map(torch.sub, w, lam_new)
+                        lam_new, center = dual_and_center(
+                            [x[j] for x in tree_leaves(s.lam)],
+                            [x[j] for x in tree_leaves(s.theta)],
+                            tree_leaves(w))
                         theta_out, ls[j] = local_solve(
                             w, center, tree_map(lambda x: x[j], b))
                         del center
                     with span("crosspod/commit"):
-                        for t, l, z, th, lm in zip(
-                                tree_leaves(s.theta), tree_leaves(s.lam),
-                                tree_leaves(s.z_prev), tree_leaves(theta_out),
-                                tree_leaves(lam_new), strict=True):
-                            t[j] = th
-                            l[j] = lm
-                            torch.add(th, lm, out=z[j])
+                        commit(tree_leaves(s.theta), tree_leaves(s.lam),
+                               tree_leaves(s.z_prev), j, theta_out, lam_new)
                         del theta_out, lam_new
                 pod += 1
             losses.append(ls)
-        metrics = CrossPodMetrics(
-            events=unshard_rows(events),
-            num_events=all_sum([torch.sum(e.to(torch.int32))
-                                for e in events]).to(torch.int32),
-            distances=unshard_rows(distances),
-            delta=unshard_rows([c.delta for c in ctrls]),
-            train_loss=participant_mean_loss(losses, events))
+        metrics = round_metrics(events, distances, ctrls, losses)
         rng, _ = prng.split(shards[0].rng)
         replicas = zip(replicate_data(pod_mesh, rng),
                        replicate_data(pod_mesh, shards[0].round + 1),

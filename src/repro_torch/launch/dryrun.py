@@ -31,11 +31,16 @@ dtypes, no storage, no card) and counted:
 
 A serving record of ``--mesh multi`` is its single record again: the
 pods are a training construct, and serving has no pod axis on one card.
-``launch/mesh.py``, ``sharding/specs.py`` and ``sharding/actshard.py``
-have no twins: they build the production meshes and place parameters
-and activations on a pod × data × model mesh through ``jax.sharding``,
-which on one card is the identity (the port's pod and client meshes
-are ``sharding.clients.ClientMesh``).
+The meshes and the sharding rules have twins (``launch/mesh.py``,
+``sharding/specs.py``), and the serving and training steps run on a
+data × model or pod × data × model mesh (``sharding/params.py``,
+``sharding/train.py``); the dry-run counts the one-device steps, the
+whole global batch on one card.  Counting the reference's records on
+``make_production_mesh``'s shapes (``train_4k`` through
+``make_train_step(model, mesh, ...)`` and ``make_cross_pod_step(model,
+mesh, ...)``) is ROADMAP M22d.  ``sharding/actshard.py`` has no twin:
+its hints place XLA's activations, and the port's mesh steps place
+theirs explicitly.
 
 Where the count needs care, and what this module does:
 

@@ -23,20 +23,26 @@ its arguments as tensors on the meta device (shapes and dtypes, no
 storage), the counterpart of the reference's ``ShapeDtypeStruct``\\ s.
 Parameters are in the reference's layout, as ``Model.init`` gives them.
 
-The serving steps take ``mesh=`` (a ``launch.mesh.DeviceMesh`` whose
-axes are ``batch_axes`` and ``"model"``), ``mode=`` (``"fsdp"``, the
-reference's default, or ``"tp"``, the dense family) and ``batch_axes=``
-as the reference's do.  ``mesh=None`` is the one-device step.  With a
-mesh the step takes and returns ``sharding.params.ShardedTree``\\ s
-(parameters cut by ``param_specs``, the batch by ``batch_specs``, the
-cache as ``models.transformer.prefill_on_mesh`` says) and its logits
-put together on the mesh's first device, and ``abstract_args`` is a
-:class:`MeshArgs`: the same meta tensors, with ``in_specs`` and
+Every step takes ``mesh=`` (a ``launch.mesh.DeviceMesh``) and
+``mode=`` as the reference's do; ``mesh=None`` is the one-device step.
+The serving steps' mesh has the axes ``batch_axes`` and ``"model"``,
+their modes are ``"fsdp"`` (the reference's default) and ``"tp"`` (the
+dense family); the training step's mesh has the axes ``batch_axes``
+and ``"model"``, the cross-pod step's ``("pod", "data", "model")``, and
+both train fsdp (``sharding/train.py``; tp, fsdp_tp and ep training
+raise: ROADMAP M22b).  With a mesh a step takes and returns
+``sharding.params.ShardedTree``\\ s — parameters, AdamW moments and
+the centre cut by ``param_specs``, the cross-pod state by
+``pod_stacked_specs`` (the controller, key and round replicated), the
+batch by ``batch_specs`` (the cross-pod batch's rows over ``data``),
+the cache as ``models.transformer.prefill_on_mesh`` says — with logits,
+losses and metrics on the mesh's first device, and ``abstract_args``
+is a :class:`MeshArgs`: the same meta tensors, with ``in_specs`` and
 ``out_specs`` — the reference's ``in_shardings`` / ``out_shardings`` as
 spec trees (``None`` where the reference leaves the placement to XLA).
-``make_mesh_serve_steps`` gives the two for whole batches and tokens.
-The training steps have no mesh yet (ROADMAP M22c);
-``core.crosspod``'s ``mesh=`` places pods on cards.
+``make_mesh_serve_steps`` gives the serving two for whole batches and
+tokens.  ``core.crosspod``'s own ``mesh=`` (a client mesh) places whole
+pods on cards instead.
 """
 from __future__ import annotations
 
@@ -54,21 +60,45 @@ from repro_torch.optim.adam import adam_init, adam_step
 from repro_torch.sharding.params import shard_tree
 from repro_torch.sharding.specs import batch_specs, cache_specs, \
     param_specs
+from repro_torch.sharding.train import adam_specs, check_train_mode, \
+    cross_pod_batch_specs, cross_pod_specs, make_cross_pod_round_on_mesh, \
+    make_train_step_on_mesh
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
 DEFAULT_RHO = 1e-4
 DEFAULT_LR = 3e-4
 
 
-def make_train_step(model: Model, *, batch: int, seq: int,
-                    rho: float = DEFAULT_RHO, lr: float = DEFAULT_LR,
+def make_train_step(model: Model, mesh=None, *, batch: int, seq: int,
+                    mode: str = "fsdp", rho: float = DEFAULT_RHO,
+                    lr: float = DEFAULT_LR, batch_axes=("data",),
                     grad_accum: int = 1):
     """``train_step(params, opt, center, batch) -> (params, opt, loss)``
-    and its abstract (params, AdamState, center, batch)."""
+    and its abstract (params, AdamState, center, batch).  With ``mesh``
+    (axes ``batch_axes`` and ``"model"``; ``mode`` ``"fsdp"``):
+    ShardedTrees in and out, the loss on the mesh's first device, and a
+    :class:`MeshArgs` (the module note)."""
     cfg = model.config
     p_abs = abstract_params(model)
     opt_abs = adam_init(p_abs)
     b_abs = input_specs(cfg, mode="train", batch=batch, seq=seq)
+    if mesh is not None:
+        check_train_mode(mode)
+        n_data = len(data_shards(mesh, batch_axes))
+        if batch % (grad_accum * n_data):
+            raise ValueError(f"batch {batch} does not split into "
+                             f"{grad_accum} microbatches over {n_data} "
+                             "data shards")
+        pspec = param_specs(p_abs, mesh, mode=mode)
+        baxes = tuple(batch_axes) if len(batch_axes) > 1 else batch_axes[0]
+        in_specs = (pspec, adam_specs(pspec), pspec,
+                    batch_specs(b_abs, batch_axes=baxes))
+        step = make_train_step_on_mesh(
+            cfg, mesh, in_specs, rho=rho, lr=lr, grad_accum=grad_accum,
+            batch_axes=tuple(batch_axes))
+        return step, MeshArgs((p_abs, opt_abs, p_abs, b_abs),
+                              in_specs=in_specs,
+                              out_specs=(pspec, in_specs[1], None))
 
     def value_and_grad(params, micro):
         leaves = [p.detach().requires_grad_(True)
@@ -104,22 +134,31 @@ def make_train_step(model: Model, *, batch: int, seq: int,
     return train_step, (p_abs, opt_abs, p_abs, b_abs)
 
 
-def make_cross_pod_step(model: Model, *, batch: int, seq: int,
-                        n_pods: int = 2, local_steps: int = 2,
-                        rho: float = DEFAULT_RHO, lr: float = DEFAULT_LR,
-                        target_rate: float = 0.5,
+def make_cross_pod_step(model: Model, mesh=None, *, batch: int, seq: int,
+                        n_pods: int | None = None, local_steps: int = 2,
+                        mode: str = "fsdp", rho: float = DEFAULT_RHO,
+                        lr: float = DEFAULT_LR, target_rate: float = 0.5,
                         every_pod_fires: bool = False):
-    """A full FedBack round across pods on one device: ``(round_fn,
-    (state_abs, batch_abs))``, the batch (pods, local_steps, batch //
-    (pods · local_steps), seq); ``every_pod_fires`` as in
-    ``make_cross_pod_round`` (the meta-device count)."""
+    """A full FedBack round across pods: ``(round_fn, (state_abs,
+    batch_abs))``, the batch (pods, local_steps, batch // (pods ·
+    local_steps), seq); ``every_pod_fires`` as in
+    ``make_cross_pod_round`` (the meta-device count).  On one device
+    ``n_pods`` defaults to 2.  With ``mesh`` (axes ``("pod", "data",
+    "model")``; ``mode`` ``"fsdp"``) the pods are ``mesh.shape["pod"]``,
+    the round is ``sharding.train.make_cross_pod_round_on_mesh``'s and
+    ``abstract_args`` a :class:`MeshArgs` (the module note)."""
     cfg = model.config
+    if mesh is not None:
+        check_train_mode(mode)
+        if n_pods not in (None, mesh.shape["pod"]):
+            raise ValueError(f"n_pods {n_pods} on a pod axis of "
+                             f"{mesh.shape['pod']}")
+        n_pods = mesh.shape["pod"]
+    n_pods = n_pods or 2
     cp = CrossPodConfig(
         n_pods=n_pods, rho=rho, lr=lr, local_steps=local_steps,
         controller=ControllerConfig(K=0.5, alpha=0.9,
                                     target_rate=target_rate))
-    round_fn = make_cross_pod_round(cp, model.loss,
-                                    every_pod_fires=every_pod_fires)
     per_step = batch // (n_pods * local_steps)
     if per_step < 1:
         raise ValueError(f"batch {batch} is smaller than {n_pods} pods × "
@@ -140,7 +179,19 @@ def make_cross_pod_step(model: Model, *, batch: int, seq: int,
     b_abs = tree_map(lambda x: torch.empty(
         (n_pods, local_steps) + tuple(x.shape), dtype=x.dtype, device=META),
         flat)
-    return round_fn, (state_abs, b_abs)
+    if mesh is None:
+        return make_cross_pod_round(
+            cp, model.loss, every_pod_fires=every_pod_fires), (state_abs,
+                                                               b_abs)
+    if per_step % mesh.shape["data"]:
+        raise ValueError(f"{per_step} rows a step do not split over a data "
+                         f"axis of {mesh.shape['data']}")
+    state_spec = cross_pod_specs(param_specs(p_abs, mesh, mode=mode))
+    round_fn = make_cross_pod_round_on_mesh(cp, model, mesh,
+                                            every_pod_fires=every_pod_fires)
+    return round_fn, MeshArgs((state_abs, b_abs), in_specs=(
+        state_spec, cross_pod_batch_specs(b_abs)), out_specs=(state_spec,
+                                                              None))
 
 
 class MeshArgs(tuple):

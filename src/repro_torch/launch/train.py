@@ -14,16 +14,28 @@ Two engines:
   hybrid; the vlm and audio families take embeddings and are refused).
 
 The flags and printed lines are the reference's, except that
-``--host-devices`` (forced host devices) becomes ``--device`` (``cuda``,
-the default, which raises without a card; or ``cpu``) and the pods'
-``pod × data × model`` mesh becomes ``--shards`` (pods placed on that
-many shards of the visible cards, one controller; ``--model-par`` has
-no counterpart: no pod is split over cards).
+``--device`` (``cuda``, the default, which raises without a card; or
+``cpu``) says where ``--host-devices`` lays its mesh coordinates, and
+``--shards`` places the pods on shards of the visible cards (one
+controller, ``core/crosspod.py``'s client mesh).
+
+``--host-devices N`` (default: the number of visible cards; 1 with
+``--device cpu``) and ``--model-par M`` (default 1) give the
+reference's ``pod × data × model`` mesh, (pods, max(N // pods // M, 1),
+M), its coordinates laid over the visible cards in turn (every one on
+the card where there is one card; on the CPU with ``--device cpu``).
+Where that mesh puts more than one coordinate in a pod, each pod's
+replica is trained fsdp over its (data, model) coordinates and the
+round is ``sharding.train.make_cross_pod_round_on_mesh``'s; otherwise
+all pods sit on one device (or on ``--shards`` shards).  ``--shards``
+with such a mesh raises.
 
     python -m repro_torch.launch.train --engine sim \\
         --dataset mnist --algorithm fedback --rate 0.1 --rounds 200
     python -m repro_torch.launch.train --engine crosspod \\
         --arch granite-3-2b --rounds 10
+    python -m repro_torch.launch.train --engine crosspod \\
+        --arch granite-3-2b --rounds 10 --host-devices 8 --model-par 2
     PYTHONPATH=src python -m repro_torch.launch.train --engine crosspod \\
         --arch granite-3-2b --reduced --rounds 2 --device cpu
 """
@@ -83,14 +95,26 @@ def _crosspod(args, device):
     from repro_torch.core.controller import ControllerConfig
     from repro_torch.core.crosspod import CrossPodConfig, \
         init_cross_pod_state, make_cross_pod_round
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
     from repro_torch.sharding import make_client_mesh
+    from repro_torch.sharding.params import shard_tree
+    from repro_torch.sharding.train import cross_pod_batch_specs, \
+        init_cross_pod_state_on_mesh, make_cross_pod_round_on_mesh
 
     pods = args.pods
-    mesh = None
-    if args.shards > 1:
-        mesh = make_client_mesh(args.shards, [device] if device.type == "cpu"
-                                else None)
+    cpu = [device] if device.type == "cpu" else None
+    n = args.host_devices or (1 if cpu else torch.cuda.device_count())
+    shape = (pods, max(n // pods // args.model_par, 1), args.model_par)
+    mesh = model_mesh = None
+    if shape[1] * shape[2] > 1:
+        if args.shards > 1:
+            raise SystemExit(f"--shards places whole pods; the mesh {shape} "
+                             "splits each pod over (data, model)")
+        model_mesh = make_mesh(shape, ("pod", "data", "model"), cpu)
+        print(f"mesh: {model_mesh.shape}")
+    elif args.shards > 1:
+        mesh = make_client_mesh(args.shards, cpu)
         print(f"mesh: {{'pod': {pods}, 'shards': {args.shards}, 'devices': "
               f"{[str(d) for d in mesh.devices]}}}")
     else:
@@ -111,10 +135,14 @@ def _crosspod(args, device):
         n_pods=pods, rho=args.rho, lr=args.lr, local_steps=args.local_steps,
         controller=ControllerConfig(K=args.gain, alpha=0.9,
                                     target_rate=args.rate))
-    round_fn = make_cross_pod_round(cp, model.loss, mesh=mesh)
     params0 = model.init(0, device=device)
-    state = init_cross_pod_state(cp, params0, device=None if mesh else
-                                 device, mesh=mesh)
+    if model_mesh is not None:
+        round_fn = make_cross_pod_round_on_mesh(cp, model, model_mesh)
+        state = init_cross_pod_state_on_mesh(cp, params0, model_mesh)
+    else:
+        round_fn = make_cross_pod_round(cp, model.loss, mesh=mesh)
+        state = init_cross_pod_state(cp, params0, device=None if mesh else
+                                     device, mesh=mesh)
     del params0
 
     rng = np.random.default_rng(0)
@@ -124,6 +152,9 @@ def _crosspod(args, device):
             0, cfg.vocab_size,
             (pods, cp.local_steps, args.batch, args.seq + 1)))
         batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+        if model_mesh is not None:
+            batch = shard_tree(batch, cross_pod_batch_specs(batch),
+                               model_mesh)
         state, m = round_fn(state, batch)
         cum += int(m.num_events)
         print(f"round {k:3d} events={m.events.cpu().numpy().astype(int)} "
@@ -148,6 +179,10 @@ def main(argv=None):
     ap.add_argument("--shards", type=int, default=1,
                     help="client-mesh shards the pods are placed on "
                          "(1 = all pods on one device)")
+    ap.add_argument("--model-par", type=int, default=1)
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="mesh coordinates laid over the visible cards "
+                         "(default: their number; 1 with --device cpu)")
     ap.add_argument("--local-steps", type=int, default=2)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)

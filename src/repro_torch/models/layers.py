@@ -115,19 +115,16 @@ def cross_entropy_logits(logits, labels, ignore_index=-100,
     return -total / torch.clamp(n, min=1)
 
 
-def chunked_lm_loss(hidden, embed_out, labels, chunk: int = 0,
+def chunked_lm_sums(hidden, embed_out, labels, chunk: int = 0,
                     ignore_index=-100, valid_vocab: int = 0):
-    """LM head + cross-entropy, chunked over the sequence axis.
-
-    hidden: (B, S, d); embed_out: (d, V).  With ``chunk`` > 0 and S >
-    ``chunk`` the (B, c, V) fp32 logits of one chunk at a time are made
-    and recomputed in backward (``torch.utils.checkpoint``, as the
-    reference's ``jax.checkpoint``), so the whole (B, S, V) logits are
-    never held; the chunks' sums and counts are added in order."""
+    """(Σ −log p(label) over the valid positions (fp32), their count):
+    the numerator and denominator of :func:`chunked_lm_loss`, which a
+    batch split over data shards adds shard by shard."""
     s = hidden.shape[1]
     if not chunk or s <= chunk:
-        return cross_entropy_logits(hidden @ embed_out, labels,
-                                    ignore_index, valid_vocab)
+        total, n = _token_log_likelihood(hidden @ embed_out, labels,
+                                         ignore_index, valid_vocab)
+        return -total, n
 
     def chunk_loss(hc, yc):
         total, n = _token_log_likelihood(hc @ embed_out, yc, ignore_index,
@@ -141,4 +138,18 @@ def chunked_lm_loss(hidden, embed_out, labels, chunk: int = 0,
                             labels[:, i:i + chunk], use_reentrant=False)
         loss_sum = loss_sum + li
         tok_sum = tok_sum + ti
-    return loss_sum / torch.clamp(tok_sum, min=1)
+    return loss_sum, tok_sum
+
+
+def chunked_lm_loss(hidden, embed_out, labels, chunk: int = 0,
+                    ignore_index=-100, valid_vocab: int = 0):
+    """LM head + cross-entropy, chunked over the sequence axis.
+
+    hidden: (B, S, d); embed_out: (d, V).  With ``chunk`` > 0 and S >
+    ``chunk`` the (B, c, V) fp32 logits of one chunk at a time are made
+    and recomputed in backward (``torch.utils.checkpoint``, as the
+    reference's ``jax.checkpoint``), so the whole (B, S, V) logits are
+    never held; the chunks' sums and counts are added in order."""
+    nll, n = chunked_lm_sums(hidden, embed_out, labels, chunk, ignore_index,
+                             valid_vocab)
+    return nll / torch.clamp(n, min=1)

@@ -62,7 +62,7 @@ from repro_torch import prng
 
 from .attention import attention_decode, attention_forward, attention_init
 from .layers import (
-    chunked_lm_loss,
+    chunked_lm_sums,
     dense_init,
     embed_init,
     rmsnorm,
@@ -258,9 +258,12 @@ def init_params(cfg, seed: int = 0, *, device) -> dict:
 def _layers(params, n: int):
     """The per-layer parameter trees: views of row i of each stacked
     (L, ...) leaf (one backward node per leaf gathers the layers'
-    gradients).  A sharded tree read ZeRO-3 style
-    (``sharding.params.GatheredParams``) gives each layer gathered onto
-    its device when the layer is indexed, right before it runs."""
+    gradients).  A sharded tree read ZeRO-3 style gives its own
+    sequence: serving's (``sharding.params.GatheredParams``) each layer
+    gathered onto its device when the layer is indexed, right before it
+    runs; training's (``sharding.train.GradView``) a callable per layer
+    that gathers it when :func:`_run_groups` calls it, inside the
+    recomputed group."""
     if not isinstance(params, dict):
         return params.layers(n)
     split = tree_map(lambda x: x.unbind(0), params["layers"])
@@ -276,10 +279,16 @@ def _run_groups(cfg, state, groups, body):
     """``state = body(state, *group)`` for each group of per-layer trees,
     ``state`` a tuple of tensors ((h,) or (h, aux)); under ``cfg.remat``
     each group is recomputed in backward (the reference's
-    ``jax.checkpoint`` of its scan body)."""
+    ``jax.checkpoint`` of its scan body).  A layer given as a callable
+    (a sharded tree's, gathered when called) is called inside the group,
+    so that under ``cfg.remat`` backward gathers it again and no
+    gathered layer is kept from forward to backward."""
+    def run(state, *grp):
+        return body(state, *(lp() if callable(lp) else lp for lp in grp))
+
     for grp in groups:
-        state = (checkpoint(body, state, *grp, use_reentrant=False)
-                 if cfg.remat else body(state, *grp))
+        state = (checkpoint(run, state, *grp, use_reentrant=False)
+                 if cfg.remat else run(state, *grp))
     return state
 
 
@@ -381,19 +390,33 @@ def forward_hidden(cfg, params, batch):
     return _stack_attn(cfg, params, h, positions)
 
 
-def loss_fn(cfg, params, batch):
-    """The training loss: next-token cross-entropy (masked prediction
-    for the audio family, the text positions only for the vlm) over
-    ``batch["labels"]``, the head's padded vocabulary columns masked,
-    the sequence chunked by ``cfg.loss_chunk``, plus ``cfg.aux_coef``
-    times the MoE blocks' load-balance loss."""
+IGNORE_LABEL = -100  # a label the loss leaves out (``chunked_lm_sums``)
+
+
+def loss_terms(cfg, params, batch):
+    """The training loss's terms → (Σ −log p(label) over the labelled
+    positions (fp32), their count (int64), the MoE blocks' load-balance
+    loss summed over the layers; 0 without MoE): next-token prediction
+    (masked prediction for the audio family, the text positions only for
+    the vlm) over ``batch["labels"]``, the head's padded vocabulary
+    columns masked, the sequence chunked by ``cfg.loss_chunk``.  A batch
+    split over data shards adds the shards' sums and counts
+    (``sharding/train.py``)."""
     h, aux = forward_hidden(cfg, params, batch)
     h = rmsnorm(h, params["final_ln"], cfg.norm_eps)
     if cfg.family == "vlm":
         h = h[:, cfg.prefix_tokens:]  # loss only over text positions
-    ce = chunked_lm_loss(h, params["lm_head"], batch["labels"],
-                         cfg.loss_chunk, valid_vocab=cfg.vocab_size)
-    return ce + cfg.aux_coef * aux
+    nll, n = chunked_lm_sums(h, params["lm_head"], batch["labels"],
+                             cfg.loss_chunk, ignore_index=IGNORE_LABEL,
+                             valid_vocab=cfg.vocab_size)
+    return nll, n, aux
+
+
+def loss_fn(cfg, params, batch):
+    """The training loss: the mean cross-entropy of :func:`loss_terms`
+    plus ``cfg.aux_coef`` times the MoE blocks' load-balance loss."""
+    nll, n, aux = loss_terms(cfg, params, batch)
+    return nll / torch.clamp(n, min=1) + cfg.aux_coef * aux
 
 
 # ----------------------------------------------------------------------

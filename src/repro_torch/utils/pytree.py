@@ -16,6 +16,13 @@ import math
 import torch
 
 
+def is_record(x) -> bool:
+    """A ``NamedTuple`` (a state or metrics record): a node whose fields
+    are subtrees, as ``jax.tree`` takes one.  A plain tuple (a spec) is a
+    leaf."""
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
 def tree_map(fn, tree, *rest):
     """``fn`` applied leaf by leaf over trees of one structure."""
     if isinstance(tree, dict):
@@ -25,13 +32,23 @@ def tree_map(fn, tree, *rest):
                                  f"{sorted(tree)} vs {other!r:.80}")
         return {k: tree_map(fn, tree[k], *(o[k] for o in rest))
                 for k in sorted(tree)}
+    if is_record(tree):
+        for other in rest:
+            if type(other) is not type(tree):
+                raise ValueError("tree structures differ: "
+                                 f"{type(tree).__name__} vs {other!r:.80}")
+        return type(tree)(*(tree_map(fn, x, *(o[i] for o in rest))
+                            for i, x in enumerate(tree)))
     return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
-    """The leaves of ``tree`` in sorted-key order."""
+    """The leaves of ``tree`` in sorted-key order (a record's in field
+    order)."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if is_record(tree):
+        return [leaf for x in tree for leaf in tree_leaves(x)]
     return [tree]
 
 

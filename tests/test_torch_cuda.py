@@ -1323,3 +1323,101 @@ def test_mesh_prefill_matches_the_cpu(dev, mode):
     assert out["cpu"][1] == 0
     for got, want in zip(out["card"][0], out["cpu"][0], strict=True):
         torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_mesh_train_step_matches_the_cpu(dev, remat):
+    """``make_train_step`` on a (2, 2) mesh of the card (the reduced
+    granite, fp32) against the same mesh of CPU shards: the loss at rtol
+    1e-5, the first moment at the solve grade, the parameters at it
+    where the gradient is firm (Adam's first step) and within lr
+    elsewhere; no kernel launches (training runs the plain
+    differentiable paths)."""
+    from repro_torch.launch.mesh import make_mesh, make_test_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim.adam import adam_init
+    from repro_torch.sharding.params import gather_tree, shard_tree
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _granite(remat=remat)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    center = tree_map(lambda x: x + 0.01, params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 33)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    ops.reset_launch_counts()
+    for name, mesh in (("card", make_mesh((2, 2))),
+                       ("cpu", make_test_mesh((2, 2)))):
+        step, args = make_train_step(model, mesh, batch=4, seq=32, rho=1e-2,
+                                     lr=1e-3)
+        p, o, loss = step(*(shard_tree(x, s, mesh) for x, s in zip(
+            (params, adam_init(params), center, batch), args.in_specs,
+            strict=True)))
+        out[name] = (gather_tree(p, device="cpu"),
+                     gather_tree(o, device="cpu"), loss.cpu())
+    assert not any(ops.launch_counts().values())
+    (p, o, loss), (wp, wo, wloss) = out["card"], out["cpu"]
+    torch.testing.assert_close(loss, wloss, rtol=1e-5, atol=0)
+    for g, w in zip(tree_leaves(o.mu), tree_leaves(wo.mu), strict=True):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+    for g, w, m in zip(tree_leaves(p), tree_leaves(wp), tree_leaves(wo.mu),
+                       strict=True):
+        firm = m.abs() > 1e-7
+        torch.testing.assert_close(g[firm], w[firm], rtol=1e-4, atol=1e-6)
+        assert float((g - w).abs().max()) <= 1e-3 * 1.0001
+
+
+def test_mesh_cross_pod_rounds_match_the_cpu(dev):
+    """Two cross-pod rounds of the reduced granite (fp32) on a (2, 2, 2)
+    pod × data × model mesh of the card against the same mesh of CPU
+    shards from the same state: events equal, distances and the loss at
+    rtol 1e-5, θ / λ / z_prev at the solve grade."""
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.core.crosspod import CrossPodConfig
+    from repro_torch.launch.mesh import make_mesh, make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding.params import gather_tree, shard_tree
+    from repro_torch.sharding.train import cross_pod_batch_specs, \
+        init_cross_pod_state_on_mesh, make_cross_pod_round_on_mesh
+    from repro_torch.utils.pytree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _granite()
+    model = build_model(cfg)
+    cp = CrossPodConfig(n_pods=2, rho=1e-3, lr=5e-3, local_steps=2,
+                        controller=ControllerConfig(K=0.05, alpha=0.9,
+                                                    target_rate=0.5))
+    axes = ("pod", "data", "model")
+    meshes = {"card": make_mesh((2, 2, 2), axes),
+              "cpu": make_test_mesh((2, 2, 2), axes)}
+    params0 = model.init(0, device="cpu")
+    states = {k: init_cross_pod_state_on_mesh(cp, params0, m)
+              for k, m in meshes.items()}
+    rounds = {k: make_cross_pod_round_on_mesh(cp, model, m)
+              for k, m in meshes.items()}
+    rng = np.random.default_rng(1)
+    ops.reset_launch_counts()
+    for r in range(2):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (2, 2, 4, 33)))
+        batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+        m = {}
+        for k, mesh in meshes.items():
+            states[k], m[k] = rounds[k](states[k], shard_tree(
+                batch, cross_pod_batch_specs(batch), mesh))
+        assert torch.equal(m["card"].events.cpu(), m["cpu"].events), r
+        torch.testing.assert_close(m["card"].distances.cpu(),
+                                   m["cpu"].distances, rtol=1e-5, atol=1e-7)
+        torch.testing.assert_close(m["card"].train_loss.cpu(),
+                                   m["cpu"].train_loss, rtol=1e-5, atol=0)
+        got = gather_tree(states["card"], device="cpu")
+        want = gather_tree(states["cpu"])
+        for f in ("theta", "lam", "z_prev"):
+            for g, w in zip(tree_leaves(getattr(got, f)),
+                            tree_leaves(getattr(want, f)), strict=True):
+                torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+    assert not any(ops.launch_counts().values())

@@ -8,8 +8,11 @@ port's ``main`` runs in this process with ``--device cpu``.
 The round lines must be equal character for character: the events, the
 cumulative count and the losses and accuracies at four decimals.  The
 cross-pod engine's first line names the placement, which differs by
-design (a pod × data × model device mesh there, a device or pod shards
-here), and is held by its form.
+design where the pods are not split (a pod × data × model device mesh
+there, a device or pod shards here), and is held by its form.  With
+``--model-par 2 --host-devices 8`` both lay the same (2, 2, 2) mesh
+(the reference over 8 forced host devices in a subprocess of its own,
+the port over the CPU) and every line is equal.
 """
 import os
 import re
@@ -50,6 +53,21 @@ def reference_lines():
     return {"sim": sim.splitlines(), "crosspod": crosspod.splitlines()}
 
 
+MESH = CROSSPOD + ["--model-par", "2", "--host-devices", "8"]
+
+
+@pytest.fixture(scope="module")
+def reference_mesh_lines():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run(
+        [sys.executable, "-m", "repro.launch.train", *MESH], env=env,
+        capture_output=True, text=True, timeout=600, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return out.stdout.splitlines()
+
+
 def _port_lines(argv, capsys):
     train.main(argv + ["--device", "cpu"])
     return capsys.readouterr().out.splitlines()
@@ -81,3 +99,19 @@ def test_launcher_needs_a_card_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(CROSSPOD)
+
+
+def test_crosspod_engine_on_a_pod_data_model_mesh(reference_mesh_lines,
+                                                  capsys):
+    got = _port_lines(MESH, capsys)
+    assert reference_mesh_lines[0] == "mesh: {'pod': 2, 'data': 2, " \
+        "'model': 2}"
+    assert got == reference_mesh_lines
+    assert len(got) == 3 and re.fullmatch(
+        r"round +1 events=\[[01] [01]\] cum=\d+ loss=\d+\.\d{4}", got[2])
+
+
+def test_shards_with_model_par_raises():
+    with pytest.raises(SystemExit, match="--shards"):
+        train.main(CROSSPOD + ["--shards", "2", "--model-par", "2",
+                               "--device", "cpu"])
