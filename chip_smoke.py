@@ -17,8 +17,10 @@ vlm) served and hubert-xlarge (audio encoder) trained (slice 17), and
 the last slice: K2 and K3 on bf16, the H100 roofline model, the
 one-card dry-run of every architecture × shape, the example twins and
 the paper's claims (slice 18), the model mesh: granite-3-2b served
-on a data × model mesh in fsdp and tp mode (slice 19), and the
-cross-pod FedBack trainer on a pod × data × model mesh (slice 20).
+on a data × model mesh in fsdp and tp mode (slice 19), the cross-pod
+FedBack trainer on a pod × data × model mesh (slice 20), and
+tensor-parallel serving for every family in modes tp, fsdp_tp and ep
+(slice 21).
 
     python3 chip_smoke.py
 
@@ -339,7 +341,8 @@ non-zero):
    ``nvidia-smi`` name and power limit;
 10c. the full one-card dry-run, ``python -m repro_torch.launch.dryrun
    --arch all --shape all --mesh both`` on the host's cores (6
-   processes, started before 10a and waited for after 10e): exit 0, 80
+   processes, started before 10a and waited for after phase 11, which
+   runs after 10e beside it): exit 0, 80
    records under ``build/dryrun/``, none in error, each ``ok``
    record's summarize line printed;
 10d. each example twin (``examples/*_torch.py``) at a short setting on
@@ -401,21 +404,61 @@ non-zero):
    round's launches, busy ms and idle share, beside phase 7b's
    unsharded ms a round from the same run; 12a–12b print their
    seconds;
-13. print the serve line, the kernels line (K4's bf16 instance as
+13a. tensor-parallel serving (``sharding/serve.py``, the serving steps
+   in modes tp, fsdp_tp and ep): moonshot-v1-16b-a3b (2 layers),
+   mamba2-2.7b (2), zamba2-2.7b (one group: 6 mamba layers and the
+   shared block) and paligemma-3b (2, its 256 prefix positions) at
+   every published width in fp32, 2 × 64 prompt tokens and 4 greedy
+   decode steps, each on mesh (1, 4) under tp and (2, 2) under fsdp_tp,
+   moonshot also on (1, 4) under ep (every coordinate on one card where
+   there is one): the logits within rtol/atol 2e-4 and the tokens equal
+   to the unsharded port's on the card, which is held once a family
+   against the CPU (1e-3, tokens equal); each coordinate's resident
+   bytes equal to ``per_device_bytes``; K4's 3xTF32 instance once per
+   model shard (data × model) and attention layer under the causal mask
+   (none for the vlm's prefix mask) and K5 once per model shard and
+   mamba layer in a prefill, none in decode; moonshot's routing on
+   every shard equal to the unsharded one, its drops a layer equal;
+13b. zamba2-2.7b whole, bf16, 4 × 2048 prompt tokens and 32 new,
+   unsharded and under tp on mesh (1, 4) as 11b (``serve_on_meshes``):
+   K4 at the shard shape (4, 2048, 8:8, 80) 36 times a prefill (9
+   groups × 4 shards, ``flash_attention_zamba2_tp4``) and K5 at (4, 32,
+   20, 64, 64) 216 times (54 × 4, ``ssd_scan_zamba2_tp4``), none in
+   decode; resident bytes, GB by collective kind, prefill ms, decode ms
+   a step, peak memory against the card's; the prefill logits of each
+   request as close to the fp32 prefill of the same weights as the
+   unsharded bf16 prefill's (its largest gap to fp32 within 1.25× the
+   unsharded one's) and within 0.08 of its largest logit from the
+   unsharded ones (zamba2's bf16 prefill is itself ~0.065 from fp32, so
+   11b's 2e-2 between two bf16 roundings cannot hold), 11b's near-tie
+   rule for the first tokens;
+13c. moonshot-v1-16b-a3b at every published width cut to 4 layers,
+   bf16, 4 × 2048 prompt tokens and 8 new, unsharded and under tp and
+   ep on mesh (1, 4) as 13b: K4 at (4, 2048, 4:4, 128) 16 times a
+   prefill in each mode (``flash_attention_moonshot_tp4``); each
+   layer's routing on every model shard alike, and its drops equal to
+   the unsharded prefill's but for 2k rows a token whose expert set
+   changed at a near tie (its k-th and (k + 1)-th probabilities within
+   twice its largest probability gap); 13a–13c print their seconds;
+14. print the serve line, the kernels line (K4's bf16 instance as
    ``flash_attention``, launched in phase 7, at granite's GQA shape
    as ``flash_attention_gqa``, launched in phase 7c, and at phi3's as
    ``flash_attention_phi3``, launched in phase 8e, and at moonshot's as
    ``flash_attention_moonshot``, launched in phase 9b, at granite's
    shard shapes as ``flash_attention_tp4`` and
-   ``flash_attention_fsdp2``, launched in phase 11b — phase 3 holds the
-   five shapes, (4, 2048, 32:8, 64), (4, 2048, 40:10, 128), (4, 2048,
-   16:16, 128), (4, 2048, 8:2, 64) and (2, 2048, 32:8, 64), against the
+   ``flash_attention_fsdp2``, launched in phase 11b, at zamba2's and
+   moonshot's tp shard shapes as ``flash_attention_zamba2_tp4`` and
+   ``flash_attention_moonshot_tp4``, launched in phases 13b and 13c —
+   phase 3 holds the seven shapes, (4, 2048, 32:8, 64), (4, 2048,
+   40:10, 128), (4, 2048, 16:16, 128), (4, 2048, 8:2, 64), (2, 2048,
+   32:8, 64), (4, 2048, 8:8, 80) and (4, 2048, 4:4, 128), against the
    plain version at 2e-2 and times them beside
    ``scaled_dot_product_attention`` —, its 3xTF32 instance as
-   ``flash_attention_fp32``, launched in phases 6, 7c, 9a, 9c and 11a,
-   and K5 at
-   mamba2's shape as ``ssd_scan_mamba2``, launched in phase 8c and held
-   bit for bit by phase 3; K1–K3's launches are
+   ``flash_attention_fp32``, launched in phases 6, 7c, 9a, 9c, 11a and
+   13a, and K5 at
+   mamba2's shape as ``ssd_scan_mamba2``, launched in phases 8c and
+   13a, and at a zamba2 tp shard's as ``ssd_scan_zamba2_tp4``, launched
+   in phase 13b, each held bit for bit by phase 3; K1–K3's launches are
    those of phases 4–5k (5k: its paper-width forms), K1c's those of
    5c–5e, K1b's those of 5e–5h, K2b's those of 5e, K2a's and K3a's
    those of 10a), the card line and,
@@ -891,6 +934,8 @@ K4_SHAPE_ROWS = {
     "flash_attention_moonshot": (SERVE_BATCH, 16, 16, 128),
     "flash_attention_tp4": (SERVE_BATCH, 8, 2, 64),
     "flash_attention_fsdp2": (SERVE_BATCH // 2, 32, 8, 64),
+    "flash_attention_zamba2_tp4": (SERVE_BATCH, 8, 8, 80),
+    "flash_attention_moonshot_tp4": (SERVE_BATCH, 4, 4, 128),
 }
 
 
@@ -1061,7 +1106,9 @@ def check_model_kernels(dev, ops):
     # 40:10 at 128 (8e's 40), moonshot-v1-16b-a3b's MHA 16:16 at 128
     # (9b's 48), and granite's shards on a model mesh (phase 11b): 8:2
     # on one model shard of four under tp (160 a prefill), (2, 2048,
-    # 32:8, 64) on one data shard of two under fsdp (80).
+    # 32:8, 64) on one data shard of two under fsdp (80); the tp shards
+    # of phase 13: zamba2's shared block 8:8 at 80 (13b, 36 a prefill)
+    # and moonshot's 4:4 at 128 (13c, 16 a prefill in each mode).
     for row, shape in K4_SHAPE_ROWS.items():
         rows[row] = k4_shape_row(ops, randn, *shape, peak)
     off = [randn(b * s * h * hd + 1)[1:].view(b, s, h, hd) for _ in range(3)]
@@ -1113,6 +1160,25 @@ def check_model_kernels(dev, ops):
     log(f"ssd_scan: bit-exact, bf16 states at {shape} (mamba2-2.7b)")
     del got, want
     rows["ssd_scan_mamba2"] = dict(
+        replaces="src/repro/kernels/ssd_scan.py:55", source=MODEL_SRC,
+        max_abs_err=0.0, ms=device_ms(lambda: ops.ssd_scan(st, dec)),
+        plain_ms=device_ms(lambda: ops.ssd_scan_ref(st, dec),
+                           calls=PLAIN_CALLS),
+        library_ms=None, nbytes=ops.ssd_scan_hbm_bytes(*shape),
+        nflop=2 * math.prod(shape), peak_flops=PEAK_FP32_FLOPS)
+    # K5 on one model shard of zamba2 under tp (1, 4): 20 of its 80
+    # heads (phase 13b's 216 launches a prefill), bit-exact.
+    shape = (SERVE_BATCH, SERVE_PROMPT // 64, 20, 64, 64)
+    st = randn(*shape, dtype=torch.bfloat16)
+    dec = torch.rand(shape[:3], generator=gen, device=dev)
+    got, want = ops.ssd_scan(st, dec), ops.ssd_scan_ref(st, dec)
+    for g, w in zip(got, want, strict=True):
+        if not torch.equal(g, w):
+            raise AssertionError(f"ssd_scan bf16 {shape} is not bit-exact")
+    log(f"ssd_scan: bit-exact, bf16 states at {shape} (a zamba2-2.7b tp "
+        "shard)")
+    del got, want
+    rows["ssd_scan_zamba2_tp4"] = dict(
         replaces="src/repro/kernels/ssd_scan.py:55", source=MODEL_SRC,
         max_abs_err=0.0, ms=device_ms(lambda: ops.ssd_scan(st, dec)),
         plain_ms=device_ms(lambda: ops.ssd_scan_ref(st, dec),
@@ -1201,7 +1267,7 @@ def kernel_facts(build):
 
 # Rows of the kernels line that hold one kernel at one model's shape.
 SHAPE_ROWS = ("flash_attention", *K4_SHAPE_ROWS, "ssd_scan",
-              "ssd_scan_mamba2")
+              "ssd_scan_mamba2", "ssd_scan_zamba2_tp4")
 
 
 def path_counts(ops, bf16_row="flash_attention", ssd_row="ssd_scan"):
@@ -3254,20 +3320,28 @@ def check_crosspod_against_cpu(dev, ops, cfg, spec, label):
     grade, ``train_loss`` at rtol 1e-5.  No kernel launches.
     ``spec["local_steps"]``, where given, replaces the settings' 2."""
     from repro_torch.core.crosspod import init_cross_pod_state
-    from repro_torch.utils.pytree import tree_leaves
+    from repro_torch.utils.pytree import tree_leaves, tree_map
 
     cp, model, round_fn = _crosspod_round(
         cfg, local_steps=spec.get("local_steps",
                                   CROSSPOD_CP["local_steps"]))
-    state = init_cross_pod_state(
-        cp, model.init(SEED, device=dev), device=dev)
+    params0 = model.init(SEED, device=dev)
+    state = init_cross_pod_state(cp, params0, device=dev)
     batches = _crosspod_batches(cfg, cp, spec["batch"], spec["seq"])
     ops.reset_launch_counts()
     report = []
     for r in range(spec["rounds"]):
         batch = next(batches)
         t0 = time.perf_counter()
-        before = _cross_pod_to(state, "cpu")
+        if r == 0:
+            # The card's first state is init_cross_pod_state of params0:
+            # the CPU's is made from a copy of params0 (one replica's
+            # bytes, not θ, λ and z_prev of every pod), the same values.
+            before = init_cross_pod_state(
+                cp, tree_map(lambda x: x.cpu(), params0), device="cpu")
+            del params0
+        else:
+            before = _cross_pod_to(state, "cpu")
         copy_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         state, m = round_fn(state, batch)
@@ -4127,6 +4201,13 @@ MESH_GROUP = dict(layers=2, batch=2, mesh=(2, 2))
 MESH_SERVE = (("tp", (1, 4), "flash_attention_tp4"),
               ("fsdp", (2, 2), "flash_attention_fsdp2"))
 MESH_BF16_TOL = 2e-2  # prefill logits against the unsharded serve's
+# zamba2's bf16 prefill is itself 0.060–0.067 of its largest logit from
+# the fp32 prefill of the same weights (an H100 80GB HBM3 at 700 W), so two
+# bf16 roundings of it (the unsharded and a mesh's) cannot agree to
+# MESH_BF16_TOL: ``serve_on_meshes(anchor=True)`` holds each request's
+# mesh prefill to ANCHOR_RATIO × the unsharded bf16 prefill's gap to
+# fp32, and to CONSISTENCY_REL of the unsharded one.
+ANCHOR_RATIO = 1.25
 
 
 def timed_greedy(prefill, decode, steps):
@@ -4230,23 +4311,103 @@ def _rel(got, want):
             / want.abs().amax(dim=(1, 2))).cpu().tolist()
 
 
-def serve_mesh_full(dev, ops, smi, cfg):
-    """Phase 11b: ``cfg`` (granite-3-2b) at full size in bf16 from the
-    seeded init, 4 × 2048 prompt tokens and 32 new, first unsharded,
-    then on each mesh of MESH_SERVE (the visible cards, every shard on
-    the one card where there is one): a warm-up prefill and decode step
-    counting each collective kind's bytes, then a timed greedy run;
-    K4's launches a prefill asserted (per model shard and layer under
-    tp, per data shard and layer under fsdp; none in decode), each
-    coordinate's resident parameter bytes equal to
-    ``per_device_bytes``, the prefill logits within rtol/atol
-    MESH_BF16_TOL of the unsharded serve's and each request's first
-    token equal to it: strictly under fsdp, whose prefill runs the
-    unsharded block on gathered layers; under tp, whose partial sums
-    round bf16 otherwise, unless the unsharded top-two margin is under
-    twice the request's largest logit gap (a near tie, printed; at
-    random init most requests are, so 11a's fp32 tokens are tp's token
-    gate)."""
+def _drops(plan) -> int:
+    """Rows (token × k) a routing plan drops."""
+    return int((~plan["keep"]).sum())
+
+
+def hold_routing(label, want, got, mesh, top_k):
+    """Each layer's routing on ``mesh`` (``got``: ``moe.routing``'s
+    dicts in call order — data shard by data shard, layer by layer, the
+    model shards in turn) against the unsharded prefill's (``want``, one
+    a layer): a data shard's model shards route alike; a token whose
+    expert set differs from the unsharded one must be a near tie there
+    (its k-th and (k+1)-th probabilities within twice the token's
+    largest probability gap); each layer's drops equal the unsharded
+    ones but for 2k rows a token that changed experts (a moved row can
+    keep one row and drop another) → per layer (drop share unsharded,
+    on the mesh, tokens that changed experts)."""
+    n_model = mesh.shape["model"]
+    n_data, n = mesh.size // n_model, len(want)
+    if len(got) != n_data * n * n_model:
+        raise AssertionError(f"{label}: {len(got)} routings on the mesh, "
+                             f"{n} layers × {mesh.size} shards")
+    out = []
+    for i, w in enumerate(want):
+        parts = []
+        for d in range(n_data):
+            first = (d * n + i) * n_model
+            shards = got[first:first + n_model]
+            for p in shards[1:]:
+                if not (torch.equal(p["eids"], shards[0]["eids"])
+                        and torch.equal(p["keep"], shards[0]["keep"])):
+                    raise AssertionError(f"{label} layer {i}: the model "
+                                         "shards routed apart")
+            parts.append(shards[0])
+        g = {k: torch.cat([p[k] for p in parts]) for k in ("eids", "keep",
+                                                            "probs")}
+        ids_w = torch.sort(w["eids"], -1).values
+        moved = (torch.sort(g["eids"], -1).values != ids_w).any(-1)
+        top = torch.sort(w["probs"], -1, descending=True).values
+        margin = top[..., top_k - 1] - top[..., top_k]
+        gap = (g["probs"] - w["probs"]).abs().amax(-1)
+        if bool((moved & (margin > 2 * gap)).any()):
+            raise AssertionError(f"{label} layer {i}: a token changed "
+                                 "experts away from a near tie")
+        n_moved = int(moved.sum())
+        if abs(_drops(g) - _drops(w)) > 2 * top_k * n_moved:
+            raise AssertionError(f"{label} layer {i}: drops {_drops(g)}, "
+                                 f"unsharded {_drops(w)}, {n_moved} tokens "
+                                 "changed experts")
+        rows = w["keep"].numel()
+        out.append((_drops(w) / rows, _drops(g) / rows, n_moved))
+    return out
+
+
+@contextlib.contextmanager
+def routing_plans():
+    """Record every routing ``models.moe.routing`` makes — the unsharded
+    MoE layer's and each model shard's under tp, fsdp_tp and ep — in
+    call order."""
+    from repro_torch.models import moe
+
+    plans, routing = [], moe.routing
+
+    def recorded(*args, **kw):
+        plans.append(routing(*args, **kw))
+        return plans[-1]
+
+    moe.routing = recorded
+    try:
+        yield plans
+    finally:
+        moe.routing = routing
+
+
+def serve_on_meshes(dev, ops, smi, cfg, label, meshes, plain_rows, expect,
+                    new_tokens=SERVE_NEW, anchor=False):
+    """Phases 11b, 13b and 13c: ``cfg`` in bf16 from the seeded init,
+    SERVE_BATCH × SERVE_PROMPT prompt tokens and ``new_tokens`` new,
+    first unsharded (K4 and K5 counted as the rows ``plain_rows``),
+    then on each (mode, mesh shape, K4's row, K5's row) of ``meshes``
+    (the visible cards, every shard on the one card where there is
+    one): a warm-up prefill and decode step counting each collective
+    kind's bytes, then a timed greedy run.  Checked: each coordinate's
+    resident parameter bytes equal to ``per_device_bytes``; the
+    launches of a prefill by row equal to ``expect(mode, mesh)``, none
+    in decode; the prefill logits within rtol/atol MESH_BF16_TOL of the
+    unsharded serve's — with ``anchor``, each request's largest gap to
+    the fp32 prefill of the same weights within ANCHOR_RATIO × the
+    unsharded bf16 prefill's and within CONSISTENCY_REL of its largest
+    logit from the unsharded one — and each request's first token equal
+    to it:
+    strictly under fsdp, whose prefill runs the unsharded block on
+    gathered layers; under tp, fsdp_tp and ep, whose partial sums round
+    bf16 otherwise, unless the unsharded top-two margin is under twice
+    the request's largest logit gap (a near tie, printed; at random init
+    most requests are, so 11a's and 13a's fp32 tokens are the tp
+    modes' token gate).  A MoE model's routing in the warm-up prefill
+    is held to the unsharded one's (:func:`hold_routing`)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import make_mesh_serve_steps
     from repro_torch.launch.serve_lm import cache_len, make_request
@@ -4257,13 +4418,15 @@ def serve_mesh_full(dev, ops, smi, cfg):
     from repro_torch.utils.pytree import tree_leaves, tree_map
 
     model = build_model(cfg)
+    moe = cfg.family == "moe"
     t0 = time.perf_counter()
     params = model.init(SEED, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     request = make_request(cfg, SERVE_BATCH, SERVE_PROMPT, SEED, dev)
-    seq = cache_len(cfg, SERVE_PROMPT, SERVE_NEW)
-    steps = SERVE_NEW - 1
+    seq = cache_len(cfg, SERVE_PROMPT, new_tokens)
+    steps = new_tokens - 1
+    routed = contextlib.nullcontext([]) if not moe else routing_plans()
 
     def plain_prefill():
         return model.prefill(params, request, seq)
@@ -4272,11 +4435,14 @@ def serve_mesh_full(dev, ops, smi, cfg):
         return model.decode_step(params, t, c)
 
     ops.reset_launch_counts()
-    timed_greedy(plain_prefill, plain_decode, 1)
+    with routed as plans:
+        timed_greedy(plain_prefill, plain_decode, 1)
+        plain_routing = plans[:cfg.num_layers]
     torch.cuda.reset_peak_memory_stats(dev)
     want, want_tok, want_pre, want_dec = timed_greedy(
         plain_prefill, plain_decode, steps)
-    counts = path_counts(ops, bf16_row="flash_attention_gqa")
+    counts = path_counts(ops, *plain_rows)
+    total = torch.cuda.get_device_properties(dev).total_memory
     report = {"unsharded": dict(
         prefill_ms=want_pre, decode_ms_per_step=want_dec,
         decode_tok_per_s=SERVE_BATCH * steps / (want_dec * steps / 1e3),
@@ -4284,17 +4450,32 @@ def serve_mesh_full(dev, ops, smi, cfg):
         tokens_request0=want_tok[0].tolist(), init_s=init_s,
         parameter_bytes=sum(x.numel() * x.element_size()
                             for x in tree_leaves(params)))}
-    log(f"11b unsharded {cfg.name}: prefill {want_pre:.1f} ms, decode "
-        f"{want_dec:.2f} ms/step, peak "
-        f"{report['unsharded']['peak_memory_bytes'] / 2**30:.2f} GiB; "
-        f"init {init_s:.2f} s; on {smi}")
+    log(f"{label} unsharded {cfg.name} ({cfg.num_layers} layers): prefill "
+        f"{want_pre:.1f} ms, decode {want_dec:.2f} ms/step, peak "
+        f"{report['unsharded']['peak_memory_bytes'] / 1e9:.2f} GB of "
+        f"{total / 1e9:.2f}; init {init_s:.2f} s; on {smi}")
     host = tree_map(lambda x: x.cpu(), params)
     del params
     torch.cuda.empty_cache()
+    ref = None
+    if anchor:
+        # the fp32 prefill of the same weights (K4's 3xTF32 instance and
+        # K5 on fp32 states, counted in its rows)
+        ops.reset_launch_counts()
+        ref, _ = build_model(dataclasses.replace(cfg, dtype="float32")) \
+            .prefill(tree_map(lambda x: x.to(dev, torch.float32), host),
+                     request, seq)
+        torch.cuda.synchronize()
+        for k, n in path_counts(ops, ssd_row=plain_rows[1]).items():
+            counts[k] += n
+        plain_gap = (want[0] - ref).abs().amax(dim=(1, 2)).cpu().tolist()
+        log(f"{label} unsharded bf16 prefill against fp32: largest gap a "
+            f"request {plain_gap}, rel {_rel(want[0], ref)}")
+        torch.cuda.empty_cache()
     p_abs = abstract_params(model)
     margin = want[0][:, -1].topk(2, dim=-1).values
     margin = (margin[:, 0] - margin[:, 1]).cpu().tolist()
-    for mode, shape, row in MESH_SERVE:
+    for mode, shape, row, ssd_row in meshes:
         mesh = make_mesh(shape)
         cards = sorted({str(d) for d in mesh.devices})
         prefill, decode, pargs = make_mesh_serve_steps(
@@ -4304,8 +4485,8 @@ def serve_mesh_full(dev, ops, smi, cfg):
         expect_bytes = per_device_bytes(p_abs, specs, mesh)
         resident = [tree_bytes_at(sharded, c) for c in mesh.coords()]
         if any(r != expect_bytes for r in resident):
-            raise AssertionError(f"11b {mode}: resident parameter bytes "
-                                 f"{resident}, per_device_bytes "
+            raise AssertionError(f"{label} {mode}: resident parameter "
+                                 f"bytes {resident}, per_device_bytes "
                                  f"{expect_bytes}")
         moved, where = {"prefill": {}, "decode": {}}, ["prefill"]
 
@@ -4316,80 +4497,123 @@ def serve_mesh_full(dev, ops, smi, cfg):
         ops.reset_launch_counts()
         collectives.listeners.append(count)
         try:
-            logits, cache = prefill(sharded, request)
+            with (routing_plans() if moe else contextlib.nullcontext(
+                    [])) as plans:
+                logits, cache = prefill(sharded, request)
             torch.cuda.synchronize()
-            per_prefill = path_counts(ops, bf16_row=row)
+            per_prefill = path_counts(ops, row, ssd_row)
             where[0] = "decode"
             decode(sharded, logits[:, -1].argmax(-1)[:, None], cache)
         finally:
             collectives.listeners.remove(count)
         del logits, cache
-        n_data = len(mesh.devices) // mesh.shape["model"]
-        per_layer = n_data * (mesh.shape["model"] if mode == "tp" else 1)
-        if per_prefill[row] != per_layer * cfg.num_layers:
-            raise AssertionError(f"11b {mode}: {per_prefill[row]} {row} "
-                                 f"launches a prefill, expected "
-                                 f"{per_layer * cfg.num_layers}")
+        drops = (hold_routing(f"{label} {mode}", plain_routing, plans, mesh,
+                              cfg.top_k) if moe else None)
+        del plans
+        want_n = expect(mode, mesh)
+        if any(per_prefill[k] != n for k, n in want_n.items()):
+            raise AssertionError(f"{label} {mode}: launches a prefill "
+                                 f"{per_prefill}, expected {want_n}")
         for d in cards:
             torch.cuda.reset_peak_memory_stats(d)
         got, tok, pre_ms, dec_ms = timed_greedy(
             lambda: prefill(sharded, request),
             lambda t, c: decode(sharded, t, c), steps)
-        mode_counts = path_counts(ops, bf16_row=row)
-        if mode_counts[row] != 2 * per_prefill[row] or mode_counts[
-                "flash_attention_fp32"] or mode_counts["ssd_scan"]:
-            raise AssertionError(f"11b {mode}: launches {mode_counts}, "
-                                 f"expected {per_prefill[row]} a prefill "
-                                 "and none in decode")
+        mode_counts = path_counts(ops, row, ssd_row)
+        rows = (*SHAPE_ROWS, "flash_attention_fp32")
+        if any(mode_counts[k] != 2 * want_n.get(k, 0) for k in rows):
+            raise AssertionError(f"{label} {mode}: launches {mode_counts}, "
+                                 f"expected {want_n} a prefill and none "
+                                 "in decode")
         for k, n in mode_counts.items():
             counts[k] += n
-        torch.testing.assert_close(got[0], want[0], rtol=MESH_BF16_TOL,
-                                   atol=MESH_BF16_TOL)
+        anchored = None
+        if ref is None:
+            torch.testing.assert_close(got[0], want[0], rtol=MESH_BF16_TOL,
+                                       atol=MESH_BF16_TOL)
+        else:
+            anchored = (got[0] - ref).abs().amax(dim=(1, 2)).cpu().tolist()
+            if any(a > ANCHOR_RATIO * p for a, p in zip(
+                    anchored, plain_gap, strict=True)) or max(
+                        _rel(got[0], want[0])) > CONSISTENCY_REL:
+                raise AssertionError(
+                    f"{label} {mode}: prefill logits' gap to fp32 "
+                    f"{anchored} (the unsharded bf16's {plain_gap}, "
+                    f"allowed ×{ANCHOR_RATIO}), rel to the unsharded "
+                    f"{_rel(got[0], want[0])} (allowed {CONSISTENCY_REL})")
         gap = (got[0] - want[0]).abs().amax(dim=(1, 2)).cpu().tolist()
         first, want_first = tok[:, 0].tolist(), want_tok[:, 0].tolist()
-        near = [r for r in range(SERVE_BATCH) if mode == "tp"
+        near = [r for r in range(SERVE_BATCH) if mode != "fsdp"
                 and first[r] != want_first[r] and margin[r] <= 2 * gap[r]]
         if any(first[r] != want_first[r] and r not in near
                for r in range(SERVE_BATCH)):
-            raise AssertionError(f"11b {mode}: first tokens {first}, the "
-                                 f"unsharded serve's {want_first} (margins "
-                                 f"{margin}, gaps {gap})")
+            raise AssertionError(f"{label} {mode}: first tokens {first}, "
+                                 f"the unsharded serve's {want_first} "
+                                 f"(margins {margin}, gaps {gap})")
         equal = int((tok == want_tok).sum())
-        report[f"{mode} {shape}"] = dict(
+        report[f"{mode} {shape}"] = r = dict(
             cards=len(cards), prefill_ms=pre_ms, decode_ms_per_step=dec_ms,
             decode_tok_per_s=SERVE_BATCH * steps / (dec_ms * steps / 1e3),
             peak_memory_bytes={d: torch.cuda.max_memory_allocated(d)
                                for d in cards},
-            resident_parameter_bytes=resident,
+            card_memory_bytes=total, resident_parameter_bytes=resident,
             per_device_bytes=expect_bytes,
             collective_bytes_per_prefill=moved["prefill"],
             collective_bytes_per_decode_step=moved["decode"],
-            launches_per_prefill=per_prefill[row],
+            launches_per_prefill={k: per_prefill[k] for k in want_n},
             prefill_logits_max_abs_err=max(gap),
             prefill_logits_rel=_rel(got[0], want[0]),
+            prefill_gap_to_fp32=anchored,
+            unsharded_prefill_gap_to_fp32=plain_gap if anchor else None,
             first_tokens=first, unsharded_first_tokens=want_first,
             near_ties=near, unsharded_top2_margin=margin,
             tokens_equal=f"{equal} of {tok.numel()}",
-            tokens_request0=tok[0].tolist())
-        r = report[f"{mode} {shape}"]
-        peaks = ", ".join(f"{d} {b / 2**30:.2f} GiB"
+            tokens_request0=tok[0].tolist(), drops_by_layer=drops)
+        peaks = ", ".join(f"{d} {b / 1e9:.2f} GB"
                           for d, b in r["peak_memory_bytes"].items())
-        log(f"11b {mode} on mesh {shape} over {len(cards)} card(s) "
+        gb = {k: {kind: n / 1e9 for kind, n in moved[k].items()}
+              for k in moved}
+        log(f"{label} {mode} on mesh {shape} over {len(cards)} card(s) "
             f"{cards}: prefill {pre_ms:.1f} ms (unsharded {want_pre:.1f}), "
             f"decode {dec_ms:.2f} ms/step (unsharded {want_dec:.2f}), "
-            f"{r['decode_tok_per_s']:.1f} tok/s; peak memory {peaks}; "
-            f"resident parameter bytes per coordinate {resident} "
-            f"(per_device_bytes {expect_bytes}); collective bytes per "
-            f"prefill {moved['prefill']}, per decode step "
-            f"{moved['decode']}; {per_prefill[row]} {row} launches a "
-            f"prefill; prefill logits max_abs_err {max(gap):.3e} "
-            f"(rtol/atol {MESH_BF16_TOL} held), rel "
-            f"{r['prefill_logits_rel']}; "
-            f"first tokens {first} (unsharded {want_first}, near ties "
-            f"{near}); tokens equal {r['tokens_equal']}; on {smi}")
+            f"{r['decode_tok_per_s']:.1f} tok/s; peak memory {peaks} of "
+            f"{total / 1e9:.2f} GB; resident parameter bytes per "
+            f"coordinate {resident} (per_device_bytes {expect_bytes}); "
+            f"collective GB per prefill {gb['prefill']}, per decode step "
+            f"{gb['decode']}; launches a prefill "
+            f"{r['launches_per_prefill']}; prefill logits max_abs_err "
+            f"{max(gap):.3e}, rel {r['prefill_logits_rel']} ("
+            + (f"gap to fp32 {anchored} against the unsharded bf16's "
+               f"{plain_gap}, ×{ANCHOR_RATIO} and rel {CONSISTENCY_REL} "
+               "held" if anchor else
+               f"rtol/atol {MESH_BF16_TOL} held")
+            + f"); first tokens {first} (unsharded "
+            f"{want_first}, near ties {near}); tokens equal "
+            f"{r['tokens_equal']}; on {smi}")
+        if drops is not None:
+            log(f"{label} {mode} drop share a layer, unsharded / mesh / "
+                "tokens that changed experts: " + "; ".join(
+                    f"{a:.4f} / {b:.4f} / {n}" for a, b, n in drops))
         del sharded
         torch.cuda.empty_cache()
     return report, counts
+
+
+def serve_mesh_full(dev, ops, smi, cfg):
+    """Phase 11b: ``cfg`` (granite-3-2b) at full size in bf16 on each
+    (mode, mesh, K4's row) of MESH_SERVE (``serve_on_meshes``): K4's
+    launches a prefill per model shard and layer under tp, per data
+    shard and layer under fsdp."""
+    def expect(mode, mesh):
+        n_data = mesh.size // mesh.shape["model"]
+        row = dict((m, r) for m, _, r in MESH_SERVE)[mode]
+        return {row: n_data * (mesh.shape["model"] if mode == "tp" else 1)
+                * cfg.num_layers}
+
+    return serve_on_meshes(
+        dev, ops, smi, cfg, "11b",
+        [(mode, shape, row, "ssd_scan") for mode, shape, row in MESH_SERVE],
+        ("flash_attention_gqa", "ssd_scan"), expect)
 
 
 def phase11(dev, ops, smi, granite):
@@ -4428,6 +4652,7 @@ def _state_leaves(state):
 
 def check_pod_mesh_group(dev, ops, cfg):
     """Phase 12a → its report."""
+    from repro_torch.core.crosspod import init_cross_pod_state
     from repro_torch.launch.mesh import make_mesh, make_test_mesh
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim.adam import adam_init
@@ -4441,8 +4666,8 @@ def check_pod_mesh_group(dev, ops, cfg):
     cpu_mesh = make_test_mesh(POD_MESH, POD_AXES)
     round_card = make_cross_pod_round_on_mesh(cp, model, mesh)
     round_cpu = make_cross_pod_round_on_mesh(cp, model, cpu_mesh)
-    state = init_cross_pod_state_on_mesh(
-        cp, model.init(SEED, device=dev), mesh)
+    params0 = model.init(SEED, device=dev)
+    state = init_cross_pod_state_on_mesh(cp, params0, mesh)
     batches = _crosspod_batches(cfg, cp, POD_GROUP["batch"],
                                 POD_GROUP["seq"])
     ops.reset_launch_counts()
@@ -4450,10 +4675,20 @@ def check_pod_mesh_group(dev, ops, cfg):
     for r in range(POD_GROUP["rounds"]):
         batch = next(batches)
         bspec = cross_pod_batch_specs(batch)
-        whole = gather_tree(state, device="cpu")
-        one_before = _cross_pod_to(whole, dev)
-        cpu_before = shard_tree(whole, state.specs, cpu_mesh)
-        del whole
+        if r == 0:
+            # The first state is params0's (init_cross_pod_state_on_mesh):
+            # the one-device and the CPU's are made from params0 (a copy
+            # of one replica for the CPU), the same values, without the
+            # whole state's round trip through the host.
+            one_before = init_cross_pod_state(cp, params0, device=dev)
+            cpu_before = init_cross_pod_state_on_mesh(
+                cp, tree_map(lambda x: x.cpu(), params0), cpu_mesh)
+            del params0
+        else:
+            whole = gather_tree(state, device="cpu")
+            one_before = _cross_pod_to(whole, dev)
+            cpu_before = shard_tree(whole, state.specs, cpu_mesh)
+            del whole
         t0 = time.perf_counter()
         state, m = round_card(state, shard_tree(batch, bspec, mesh))
         torch.cuda.synchronize()
@@ -4674,6 +4909,196 @@ def phase12(dev, ops, smi, granite, unsharded):
         f"{time.perf_counter() - t0:.1f} s")
     log(json.dumps({"pod_mesh": {"group": group, "full": full},
                     "card": smi}))
+
+
+# Phase 13: tensor-parallel serving for every family (slice 21), every
+# model coordinate on the card (placement, the shards' kernels and the
+# copies' bytes, not a link).  13a: fp32 cuts at every published width,
+# TP_CUT's batch × prompt + decode steps, each family on TP_CUT_MESHES
+# (moonshot also under ep), against the unsharded port on the card
+# (TP_TOL) and that against the CPU (1e-3); 13b: zamba2-2.7b whole in
+# bf16 on (1, 4) under tp; 13c: moonshot at full width cut to
+# TP_MOON["layers"] layers, bf16, tp and ep on (1, 4).
+TP_CUT = dict(batch=2, prompt=64, decode=4)
+TP_CUT_MESHES = (("tp", (1, 4)), ("fsdp_tp", (2, 2)))
+# (architecture, layers, K5's row, the modes beyond TP_CUT_MESHES)
+TP_CUTS = (("moonshot-v1-16b-a3b", 2, "ssd_scan", (("ep", (1, 4)),)),
+           ("mamba2-2.7b", 2, "ssd_scan_mamba2", ()),
+           ("zamba2-2.7b", 6, "ssd_scan", ()),
+           ("paligemma-3b", 2, "ssd_scan", ()))
+TP_TOL = 2e-4  # fp32 logits, mesh against the unsharded port on the card
+TP_ZAMBA = dict(mesh=(1, 4), new=32)
+TP_MOON = dict(layers=4, new=8, meshes=(("tp", (1, 4)), ("ep", (1, 4))))
+
+
+def prefill_launches(cfg, shards):
+    """K4's and K5's launches in a prefill of ``cfg`` on ``shards``
+    model shards in all (data × model): each attention layer under the
+    causal mask (the vlm's prefix mask runs no kernel) and each mamba
+    layer, once a shard → (K4, K5)."""
+    attn = {"vlm": 0, "ssm": 0, "hybrid": cfg.num_layers // max(
+        cfg.attn_every, 1)}.get(cfg.family, cfg.num_layers)
+    ssm = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    return shards * attn, shards * ssm
+
+
+def check_tp_cuts(dev, ops):
+    """Phase 13a → (report, launches by row)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_mesh_serve_steps
+    from repro_torch.launch.serve_lm import cache_len, make_request
+    from repro_torch.models import abstract_params, build_model
+    from repro_torch.sharding.params import per_device_bytes, shard_tree, \
+        tree_bytes_at
+    from repro_torch.utils.pytree import tree_map
+
+    report, total = {}, {}
+    b, prompt, steps = TP_CUT["batch"], TP_CUT["prompt"], TP_CUT["decode"]
+    for arch, layers, ssd_row, more in TP_CUTS:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  dtype="float32")
+        model = build_model(cfg)
+        params = model.init(SEED, device=dev)
+        request = make_request(cfg, b, prompt, SEED, dev)
+        moe = cfg.family == "moe"
+        with (routing_plans() if moe else contextlib.nullcontext(
+                [])) as plans:
+            card, card_tok = _greedy(model, params, request, steps)
+            plain_routing = plans[:layers]
+        cpu, cpu_tok = _greedy(model, tree_map(lambda x: x.cpu(), params),
+                               {k: v.cpu() for k, v in request.items()},
+                               steps)
+        np.testing.assert_array_equal(card_tok.cpu().numpy(), cpu_tok.numpy(),
+                                      err_msg=f"13a {arch}: tokens differ "
+                                      "from the CPU's")
+        cpu_err = 0.0
+        for g, w in zip(card, cpu, strict=True):
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-3)
+            cpu_err = max(cpu_err, float((g.cpu() - w).abs().max()))
+        del cpu
+        seq = cache_len(cfg, prompt, steps)
+        p_abs = abstract_params(model)
+        out = dict(unsharded_vs_cpu_max_abs_err=cpu_err,
+                   tokens=card_tok.cpu().tolist())
+        for mode, shape in TP_CUT_MESHES + more:
+            mesh = make_mesh(shape)
+            prefill, decode, pargs = make_mesh_serve_steps(
+                model, mesh, batch=b, seq=seq, mode=mode)
+            sharded = shard_tree(params, pargs.in_specs[0], mesh)
+            expect_bytes = per_device_bytes(p_abs, pargs.in_specs[0], mesh)
+            resident = [tree_bytes_at(sharded, c) for c in mesh.coords()]
+            if any(r != expect_bytes for r in resident):
+                raise AssertionError(f"13a {arch} {mode}: resident bytes "
+                                     f"{resident}, per_device_bytes "
+                                     f"{expect_bytes}")
+            ops.reset_launch_counts()
+            with (routing_plans() if moe else contextlib.nullcontext(
+                    [])) as plans:
+                logits, cache = prefill(sharded, request)
+            torch.cuda.synchronize()
+            pre = path_counts(ops, ssd_row=ssd_row)
+            got, tok, _, _ = timed_greedy(
+                lambda: (logits, cache),
+                lambda t, c: decode(sharded, t, c), steps)
+            counts = path_counts(ops, ssd_row=ssd_row)
+            k4, k5 = prefill_launches(cfg, mesh.size)
+            want = {"flash_attention_fp32": k4, ssd_row: k5,
+                    "flash_attention": 0}
+            if any(pre[k] != n or counts[k] != n for k, n in want.items()):
+                raise AssertionError(f"13a {arch} {mode}: prefill launched "
+                                     f"{pre}, with decode {counts}; "
+                                     f"expected {want} in prefill and none "
+                                     "in decode")
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+            if moe:
+                # fp32: the mesh's router input is the unsharded one's to
+                # ~1e-6, so no token changes experts and every layer's
+                # drops are the unsharded ones
+                drops = hold_routing(f"13a {arch} {mode}", plain_routing,
+                                     plans, mesh, cfg.top_k)
+                if any(n for _, _, n in drops):
+                    raise AssertionError(f"13a {arch} {mode}: tokens "
+                                         f"changed experts: {drops}")
+            np.testing.assert_array_equal(
+                tok.cpu().numpy(), card_tok.cpu().numpy(),
+                err_msg=f"13a {arch} {mode}: tokens differ from the "
+                "unsharded port's")
+            err = 0.0
+            for g, w in zip(got, card, strict=True):
+                torch.testing.assert_close(g, w, rtol=TP_TOL, atol=TP_TOL)
+                err = max(err, float((g - w).abs().max()))
+            out[f"{mode} {shape}"] = dict(
+                max_abs_err_vs_unsharded=err,
+                launches_per_prefill={k: pre[k] for k in want},
+                drops_by_layer=drops if moe else None)
+            log(f"13a {arch} ({layers} layers at full width, fp32, {b} × "
+                f"{prompt} tokens + {steps} decode steps) {mode} on mesh "
+                f"{shape}: logits max_abs_err {err:.3e} against the "
+                f"unsharded port on the card (rtol/atol {TP_TOL} held), "
+                f"tokens equal; launches a prefill "
+                f"{out[f'{mode} {shape}']['launches_per_prefill']}, none in "
+                f"decode; resident bytes {resident[0]} = per_device_bytes"
+                + (f"; drops a layer {[round(a, 4) for a, _, _ in drops]} "
+                   "equal" if moe else ""))
+            del sharded, cache, logits, plans
+        log(f"13a {arch}: the unsharded port on the card against the CPU: "
+            f"logits max_abs_err {cpu_err:.3e} (rtol/atol 1e-3 held), "
+            "tokens equal")
+        report[arch] = out
+        del params, card
+        torch.cuda.empty_cache()
+    return report, total
+
+
+def phase13(dev, ops, smi):
+    """Phases 13a–13c → launches by row."""
+    from repro_torch.configs import get_config
+
+    t0 = t1 = time.perf_counter()
+    cuts, counts = check_tp_cuts(dev, ops)
+    torch.cuda.empty_cache()
+    log(f"phase 13a took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    zamba = get_config("zamba2-2.7b")
+
+    def expect(mode, mesh):
+        k4, k5 = prefill_launches(zamba, mesh.size)
+        return {"flash_attention_zamba2_tp4": k4, "ssd_scan_zamba2_tp4": k5}
+
+    zamba_report, zamba_counts = serve_on_meshes(
+        dev, ops, smi, zamba, "13b", [("tp", TP_ZAMBA["mesh"],
+                                       "flash_attention_zamba2_tp4",
+                                       "ssd_scan_zamba2_tp4")],
+        ("flash_attention", "ssd_scan"), expect, new_tokens=TP_ZAMBA["new"],
+        anchor=True)
+    torch.cuda.empty_cache()
+    log(f"phase 13b took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    moon = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                               num_layers=TP_MOON["layers"])
+
+    def expect_moon(mode, mesh):
+        return {"flash_attention_moonshot_tp4":
+                prefill_launches(moon, mesh.size)[0]}
+
+    moon_report, moon_counts = serve_on_meshes(
+        dev, ops, smi, moon, "13c", [
+            (mode, shape, "flash_attention_moonshot_tp4", "ssd_scan")
+            for mode, shape in TP_MOON["meshes"]],
+        ("flash_attention_moonshot", "ssd_scan"), expect_moon,
+        new_tokens=TP_MOON["new"])
+    torch.cuda.empty_cache()
+    log(f"phase 13c took {time.perf_counter() - t1:.1f} s; phases 13a–13c "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"tp_serving": {"cuts": cuts, "zamba2": zamba_report,
+                                   "moonshot_cut": moon_report},
+                    "card": smi}))
+    for part in (zamba_counts, moon_counts):
+        for k, n in part.items():
+            counts[k] = counts.get(k, 0) + n
+    return counts
 
 
 def kernels_line(rows, launches, where):
@@ -4982,19 +5407,22 @@ def main() -> int:
         t1 = time.perf_counter()
         claims = check_system_claims(dev)
         log(f"phase 10e took {time.perf_counter() - t1:.1f} s")
+        # Phase 11 drives the card from this process while the sweep
+        # counts on the host's other cores.
+        counts_mesh_a, counts_mesh_b = phase11(dev, ops, smi, granite)
         dryrun_report = finish_dryrun_sweep(sweep_proc, dry_dir, t0)
     finally:
         if sweep_proc.poll() is None:
             sweep_proc.kill()
             sweep_proc.wait()
-    log(f"phases 10a–10e {time.perf_counter() - t0:.1f} s (10c beside the "
-        "others, on the host's cores)")
+    log(f"phases 10a–10e and 11 {time.perf_counter() - t0:.1f} s (10c "
+        "beside the others, on the host's cores)")
     log(json.dumps({"roofline": peaks, "dryrun": dryrun_report,
                     "examples": examples, "system_claims": claims,
                     "card": smi}))
 
-    counts_mesh_a, counts_mesh_b = phase11(dev, ops, smi, granite)
     phase12(dev, ops, smi, granite, granite_b)
+    counts_tp = phase13(dev, ops, smi)
 
     launches, where = {}, {}
     for name, r in rows.items():
@@ -5014,7 +5442,7 @@ def main() -> int:
                           + counts_moon_a[name] + counts_moon[name]
                           + counts_mix[name] + counts_pslice[name]
                           + counts_pali[name] + counts_mesh_a[name]
-                          + counts_mesh_b[name])
+                          + counts_mesh_b[name] + counts_tp.get(name, 0))
             where_s = (
                 f"form A {counts_a[name]}, "
                 f"form B {counts_b[name]}, forms C {counts_c.get(name, 0)}, "
@@ -5037,7 +5465,8 @@ def main() -> int:
                 f"paligemma fp32 cut {counts_pslice[name]}, paligemma serve "
                 f"{counts_pali[name]}, model mesh fp32 group (11a) "
                 f"{counts_mesh_a[name]}, model mesh serve (11b) "
-                f"{counts_mesh_b[name]}")
+                f"{counts_mesh_b[name]}, tp serving (13a–13c) "
+                f"{counts_tp.get(name, 0)}")
         launches[name], where[name] = launches_n, where_s
     kernels_line(rows, launches, where)
     print(smi, flush=True)

@@ -2,13 +2,14 @@
 
     python -m repro_torch.launch.profile_serve [--arch zamba2-2.7b]
         [--batch 4] [--prompt-len 2048] [--decode-steps 8]
-        [--mesh 2,2 --mode fsdp]
+        [--mesh 1,4 --mode tp]
 
 Builds the model at full width and depth (the reference's init of
 ``--seed``), warms prefill and decode up, then profiles one prefill
 and ``--decode-steps`` decode steps and prints, for each phase (with
 ``--mesh D,M``: the serving steps of ``launch/steps.py`` on a (data D,
-model M) mesh of the visible cards in ``--mode``):
+model M) mesh of the visible cards in ``--mode``, fsdp, tp, fsdp_tp or
+ep, for any architecture that serves):
 
 * the wall time (host clock around work that ends in a synchronize);
 * the device's busy time (sum of kernel durations; serving runs on one
@@ -31,8 +32,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
-from repro_torch.launch.serve_lm import make_request
+from repro_torch.launch.serve_lm import cache_len, make_request
 from repro_torch.models import build_model
+from repro_torch.sharding.serve import SERVE_MODES
 from repro_torch.utils.spans import is_span
 
 # Kernel-name fragments by kind; the first match wins.
@@ -121,7 +123,7 @@ def main(argv=None):
     ap.add_argument("--arch", default="zamba2-2.7b")
     ap.add_argument("--mesh", default=None,
                     help="D,M: serve on a (data D, model M) mesh")
-    ap.add_argument("--mode", default="fsdp", choices=("fsdp", "tp"))
+    ap.add_argument("--mode", default="fsdp", choices=SERVE_MODES)
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -129,9 +131,9 @@ def main(argv=None):
         cfg = cfg.reduced()
     model = build_model(cfg)
     params = model.init(args.seed, device=device)
-    tokens = make_request(cfg, args.batch, args.prompt_len, args.seed,
-                          device)["tokens"]
-    max_seq = args.prompt_len + args.decode_steps + 1
+    request = make_request(cfg, args.batch, args.prompt_len, args.seed,
+                           device)
+    max_seq = cache_len(cfg, args.prompt_len, args.decode_steps + 1)
     prefill_step, decode_step = model.prefill, model.decode_step
     where = ""
     if args.mesh:
@@ -140,7 +142,7 @@ def main(argv=None):
         where = f", mesh {args.mesh} {args.mode}"
 
     def prefill():
-        return prefill_step(params, {"tokens": tokens}, max_seq)
+        return prefill_step(params, request, max_seq)
 
     logits, cache = prefill()  # warm-up
     tok = logits[:, -1].argmax(-1)[:, None]

@@ -26,16 +26,17 @@ Parameters are in the reference's layout, as ``Model.init`` gives them.
 Every step takes ``mesh=`` (a ``launch.mesh.DeviceMesh``) and
 ``mode=`` as the reference's do; ``mesh=None`` is the one-device step.
 The serving steps' mesh has the axes ``batch_axes`` and ``"model"``,
-their modes are ``"fsdp"`` (the reference's default) and ``"tp"`` (the
-dense family); the training step's mesh has the axes ``batch_axes``
+their modes are the reference's four — ``"fsdp"`` (its default),
+``"tp"``, ``"fsdp_tp"`` and ``"ep"`` — for every family that serves
+(``sharding/serve.py``); the training step's mesh has the axes ``batch_axes``
 and ``"model"``, the cross-pod step's ``("pod", "data", "model")``, and
 both train fsdp (``sharding/train.py``; tp, fsdp_tp and ep training
-raise: ROADMAP M22b).  With a mesh a step takes and returns
+raise: ROADMAP M22b-2).  With a mesh a step takes and returns
 ``sharding.params.ShardedTree``\\ s — parameters, AdamW moments and
 the centre cut by ``param_specs``, the cross-pod state by
 ``pod_stacked_specs`` (the controller, key and round replicated), the
 batch by ``batch_specs`` (the cross-pod batch's rows over ``data``),
-the cache as ``models.transformer.prefill_on_mesh`` says — with logits,
+the cache as ``sharding.serve.prefill_on_mesh`` says — with logits,
 losses and metrics on the mesh's first device, and ``abstract_args``
 is a :class:`MeshArgs`: the same meta tensors, with ``in_specs`` and
 ``out_specs`` — the reference's ``in_shardings`` / ``out_shardings`` as
@@ -54,10 +55,11 @@ from repro_torch.core.crosspod import CrossPodConfig, CrossPodState, \
 from repro_torch.models.api import META, Model, abstract_cache, \
     abstract_params, input_specs
 from repro_torch.models.layers import rmsnorm
-from repro_torch.models.transformer import SERVE_MODES, TpLayout, \
-    data_shards, decode_step_on_mesh, forward_hidden, prefill_on_mesh
+from repro_torch.models.transformer import forward_hidden
 from repro_torch.optim.adam import adam_init, adam_step
 from repro_torch.sharding.params import shard_tree
+from repro_torch.sharding.serve import TpLayout, check_serve_mode, \
+    data_shards, decode_step_on_mesh, prefill_on_mesh
 from repro_torch.sharding.specs import batch_specs, cache_specs, \
     param_specs
 from repro_torch.sharding.train import adam_specs, check_train_mode, \
@@ -209,16 +211,14 @@ class MeshArgs(tuple):
 def _mesh_specs(model, mesh, mode, batch_axes, batch, seq):
     """(param specs, batch entry, cache specs) of a serving step on
     ``mesh``; raises where the mode or the batch does not fit."""
-    if mode not in SERVE_MODES:
-        raise ValueError(f"the serving steps run modes "
-                         f"{', '.join(SERVE_MODES)}; got {mode!r}")
+    check_serve_mode(mode)
     n_data = len(data_shards(mesh, batch_axes))
     if batch % n_data:
         raise ValueError(f"batch {batch} does not split over {n_data} "
                          f"data shards of {tuple(batch_axes)}")
     pspec = param_specs(abstract_params(model), mesh, mode=mode)
-    if mode == "tp":
-        TpLayout(model.config, pspec, mesh)  # raises where tp does not fit
+    if mode != "fsdp":
+        TpLayout(model.config, pspec, mesh)  # raises where it cannot serve
     baxes = tuple(batch_axes) if len(batch_axes) > 1 else batch_axes[0]
     cspec = cache_specs(abstract_cache(model, batch, seq), mesh,
                         batch_axes=baxes)

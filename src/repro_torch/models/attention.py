@@ -144,7 +144,7 @@ def _project_kv(p, x, kv, num_kv_heads, head_dim):
 def attention_forward(p, x, *, positions, rope_theta, num_heads, num_kv_heads,
                       head_dim, mask_mode="causal", window=0, prefix_len=0,
                       return_kv=False, blockwise=False, kv_block=512,
-                      kv=None):
+                      kv=None, project=True):
     """Self-attention over x: (B, S, d) at positions 0..S−1: K4 for
     serving under the causal mask; :func:`blockwise_attention` in blocks
     of min(``kv_block``, S) under the prefix and bidir masks (no kernel
@@ -156,7 +156,9 @@ def attention_forward(p, x, *, positions, rope_theta, num_heads, num_kv_heads,
     is then its partial of the output), ``num_heads`` / ``num_kv_heads``
     its local counts, and, where its k/v heads are not its own column
     block of wk / wv, ``kv``: the (B, S, KvH, hd) k and v it takes,
-    before RoPE, each a tensor of its own (K4 takes no strided view)."""
+    before RoPE, each a tensor of its own (K4 takes no strided view).
+    With ``project=False`` the heads' output (B, S, H·hd) is returned
+    before wo, for the shard to take its partial product itself."""
     check_mask_mode(mask_mode)
     blockwise = blockwise or mask_mode != "causal"
     b, s, d = x.shape
@@ -172,12 +174,14 @@ def attention_forward(p, x, *, positions, rope_theta, num_heads, num_kv_heads,
     else:
         out = ops.flash_attention(q, k, v, causal=True, window=window,
                                   layout="bshd")
-    y = out.reshape(b, s, num_heads * head_dim) @ p["wo"]
+    y = out.reshape(b, s, num_heads * head_dim)
+    if project:
+        y = y @ p["wo"]
     return (y, (k, v)) if return_kv else y
 
 
 def attention_decode(p, x, kv_cache, cache_pos: int, *, rope_theta, num_heads,
-                     num_kv_heads, head_dim, window=0, kv=None):
+                     num_kv_heads, head_dim, window=0, kv=None, project=True):
     """Single-token decode against a (B, S_max, Kv, hd) ring/linear cache.
 
     x: (B, 1, d); cache_pos: the position being generated (a host int).
@@ -186,7 +190,8 @@ def attention_decode(p, x, kv_cache, cache_pos: int, *, rope_theta, num_heads,
     written into the cache tensors **in place** (the JAX function
     returns new arrays); the updated pair is returned as well.  A model
     shard passes its blocks, counts and ``kv`` (the new token's (B, 1,
-    KvH, hd) k and v before RoPE) as :func:`attention_forward` says.
+    KvH, hd) k and v before RoPE) and ``project`` as
+    :func:`attention_forward` says.
     """
     b = x.shape[0]
     k_cache, v_cache = kv_cache
@@ -218,4 +223,4 @@ def attention_decode(p, x, kv_cache, cache_pos: int, *, rope_theta, num_heads,
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgt,btkh->bkgh", w, v_cache.to(torch.float32))
     out = out.reshape(b, 1, num_heads * head_dim).to(x.dtype)
-    return out @ p["wo"], (k_cache, v_cache)
+    return (out @ p["wo"] if project else out), (k_cache, v_cache)

@@ -45,10 +45,14 @@ def rmsnorm_init(dim, dtype, device):
     return torch.ones((dim,), dtype=dtype, device=device)
 
 
-def rmsnorm(x, gamma, eps=1e-5):
-    """fp32 statistics, cast back to x's dtype, then scaled by γ."""
+def rmsnorm(x, gamma, eps=1e-5, mean_sq=None):
+    """fp32 statistics, cast back to x's dtype, then scaled by γ.  A
+    block of the normalised dim passes ``mean_sq`` (fp32, (…, 1)): the
+    mean square over the whole dim, in place of the block's own."""
     x32 = x.to(torch.float32)
-    rms = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    if mean_sq is None:
+        mean_sq = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    rms = torch.rsqrt(mean_sq + eps)
     return (x32 * rms).to(x.dtype) * gamma
 
 
@@ -61,9 +65,30 @@ def swiglu_init(key, d_model, d_ff, dtype, device):
     }
 
 
+def swiglu_hidden(p, x):
+    """silu(x · w_gate) ⊙ (x · w_up), the rows w_down projects."""
+    return F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+
+
 def swiglu(p, x):
-    g = F.silu(x @ p["w_gate"])
-    return (g * (x @ p["w_up"])) @ p["w_down"]
+    return swiglu_hidden(p, x) @ p["w_down"]
+
+
+def matmul_fp32(x, w):
+    """x @ w (…, K) · (K, N) with an fp32 result: bf16 or fp16 operands'
+    products and their sum in fp32 and never rounded (a model shard's
+    partial product, rounded once after the shards' partials are added:
+    ``sharding/serve.py``); fp32 operands as ``x @ w``.  On a CUDA
+    tensor one matmul with an fp32 output (``torch.mm``'s
+    ``out_dtype``), elsewhere the operands widened first: both sum the
+    same exact products in fp32."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        flat = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                        out_dtype=torch.float32)
+        return flat.reshape(*x.shape[:-1], w.shape[-1])
+    return x.to(torch.float32) @ w.to(torch.float32)
 
 
 def rope_frequencies(head_dim, theta, device=None):

@@ -10,7 +10,11 @@ an (E, C + 1, d) buffer at (expert, position); rows past the capacity C
 land in the spill slot C, which is sliced away, so they are dropped
 (their combine weight is zero, as in Switch/GShard).  The three expert
 products are plain batched products (``torch.einsum``), as the
-reference computes them outside any Pallas kernel.
+reference computes them outside any Pallas kernel.  :func:`moe_apply`
+is :func:`routing`, :func:`dispatch`, :func:`expert_hidden`,
+:func:`expert_out` and :func:`combine` in turn; tensor-parallel serving
+runs the last three on a model shard's experts or hidden and output
+columns (``sharding/serve.py``).
 
 Autograd sees the dispatch as an out-of-place ``index_put`` (its
 backward a gather) and the combine as a gather (its backward a
@@ -95,29 +99,54 @@ def routing(p, x, top_k, capacity_factor=1.25):
                 slot=slot, keep=keep, cap=cap)
 
 
-def moe_apply(p, x, *, top_k, capacity_factor=1.25, return_aux=True):
-    """x: (B, S, d) → (out (B, S, d), aux load-balance loss (fp32 0-d))."""
-    b, s, d = x.shape
-    e = p["router"].shape[1]
-    r = routing(p, x, top_k, capacity_factor)
-    eids_f, slot, keep, cap = r["eids_f"], r["slot"], r["keep"], r["cap"]
-
-    # --- per-group dispatch -------------------------------------------
+def dispatch(x, r):
+    """The rows of x (B, S, d) in their experts' buffers (B, E, C, d)
+    under the routing ``r`` (:func:`routing`); rows past the capacity
+    land in the spill slot, which is sliced away."""
+    b, _, d = x.shape
+    top_k = r["eids"].shape[-1]
+    e = r["probs"].shape[-1]
     rows = torch.repeat_interleave(x, top_k, dim=1)  # (B, R, d)
     grp = torch.arange(b, device=x.device)[:, None]
-    buf = x.new_zeros((b, e, cap + 1, d))
-    buffers = buf.index_put((grp, eids_f, slot), rows)[:, :, :cap]
+    buf = x.new_zeros((b, e, r["cap"] + 1, d))
+    return buf.index_put((grp, r["eids_f"], r["slot"]), rows)[:, :, :r["cap"]]
 
-    # --- expert computation (active FLOPs only) -----------------------
+
+def expert_hidden(buffers, p):
+    """silu(buffers · w_gate) ⊙ (buffers · w_up): (B, E, C, f) for the
+    experts and hidden columns ``p`` holds."""
     hgate = F.silu(torch.einsum("becd,edf->becf", buffers, p["w_gate"]))
     hup = torch.einsum("becd,edf->becf", buffers, p["w_up"])
-    hout = torch.einsum("becf,efd->becd", hgate * hup, p["w_down"])
+    return hgate * hup
 
-    # --- combine --------------------------------------------------------
+
+def expert_out(hidden, w_down):
+    """The experts' outputs (B, E, C, d) from their hidden rows."""
+    return torch.einsum("becf,efd->becd", hidden, w_down)
+
+
+def combine(hout, r):
+    """Each token's output (B, S, d): its kept rows of ``hout`` (B, E, C,
+    d) weighted by their gates and summed over its k experts (a dropped
+    row adds 0).  Each output column reads only its own column of
+    ``hout``, so a block of columns combines on its own."""
+    b, _, cap, d = hout.shape
+    eids_f, slot, keep = r["eids_f"], r["slot"], r["keep"]
+    s, top_k = r["eids"].shape[1:]
+    grp = torch.arange(b, device=hout.device)[:, None]
     rows_out = hout[grp, eids_f, torch.clamp(slot, max=cap - 1)]  # (B, R, d)
     rows_out = torch.where(keep[..., None], rows_out, 0.0)
-    out = (rows_out.reshape(b, s, top_k, d)
-           * r["gates"].to(rows_out.dtype)[..., None]).sum(dim=2)
+    return (rows_out.reshape(b, s, top_k, d)
+            * r["gates"].to(rows_out.dtype)[..., None]).sum(dim=2)
+
+
+def moe_apply(p, x, *, top_k, capacity_factor=1.25, return_aux=True):
+    """x: (B, S, d) → (out (B, S, d), aux load-balance loss (fp32 0-d))."""
+    e = p["router"].shape[1]
+    r = routing(p, x, top_k, capacity_factor)
+    # per-group dispatch, the experts (active FLOPs only), the combine
+    buffers = dispatch(x, r)
+    out = combine(expert_out(expert_hidden(buffers, p), p["w_down"]), r)
 
     if not return_aux:
         return out, torch.zeros((), dtype=torch.float32, device=x.device)

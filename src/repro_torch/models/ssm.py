@@ -16,7 +16,11 @@ takes its place: ``launch/dryrun.py``), and
 the plain, differentiable ``kernels.ssd_scan.ssd_scan_ref`` in the
 training loss (the reference's training SSD is a ``lax.scan``; K5 has no
 backward and refuses an input that requires grad).  Decode is the O(1)
-recurrence with a (conv ring, ssm state) cache.
+recurrence with a (conv ring, ssm state) cache.  Between the two
+projections every step is per head or per conv channel
+(:func:`ssm_mix`, :func:`ssm_mix_step` take a range of heads), which
+tensor-parallel serving runs on each model shard's heads
+(``sharding/serve.py``).
 """
 from __future__ import annotations
 
@@ -96,15 +100,6 @@ def ssm_fixed_params(n_heads, device):
     return {k: v.to(device) for k, v in out.items()}
 
 
-def _split_proj(zxbcdt, d_inner, ssm_state, n_heads):
-    z = zxbcdt[..., :d_inner]
-    x = zxbcdt[..., d_inner:2 * d_inner]
-    bmat = zxbcdt[..., 2 * d_inner:2 * d_inner + ssm_state]
-    cmat = zxbcdt[..., 2 * d_inner + ssm_state:2 * d_inner + 2 * ssm_state]
-    dt = zxbcdt[..., -n_heads:]
-    return z, x, bmat, cmat, dt
-
-
 def _causal_conv(xbc, w, b):
     """Depthwise causal conv over (B, S, Cdim) with kernel (K, Cdim)."""
     k = w.shape[0]
@@ -180,28 +175,69 @@ def ssd_chunked(x, dt, a_log, bmat, cmat, *, chunk, intra_dtype=None,
     return y[:, :s_orig], h_last
 
 
+def _head_range(heads, n_heads):
+    return (0, n_heads) if heads is None else (heads.start, heads.stop)
+
+
+def head_channels(t, heads, *, d_inner, head_dim):
+    """The conv channels of ``heads`` (a range of the layer's heads; all
+    for ``None``) along t's last dim (conv_dim = d_in + 2N): their x
+    channels, then the B and C channels every head shares."""
+    h0, h1 = _head_range(heads, d_inner // head_dim)
+    if (h0, h1) == (0, d_inner // head_dim):
+        return t
+    return torch.cat([t[..., h0 * head_dim:h1 * head_dim],
+                      t[..., d_inner:]], dim=-1)
+
+
+def _split_heads(zxbcdt, heads, d_inner, ssm_state, head_dim):
+    """(z, x, B|C, dt) of ``heads`` from a whole in_proj output."""
+    h0, h1 = _head_range(heads, d_inner // head_dim)
+    x0, x1 = h0 * head_dim, h1 * head_dim
+    dt0 = 2 * d_inner + 2 * ssm_state
+    return (zxbcdt[..., x0:x1], zxbcdt[..., d_inner + x0:d_inner + x1],
+            zxbcdt[..., 2 * d_inner:dt0], zxbcdt[..., dt0 + h0:dt0 + h1])
+
+
+def ssm_mix(params, zxbcdt, *, d_inner, ssm_state, head_dim, chunk,
+            heads=None, intra_dtype=None, scan=None):
+    """The mixer between the two projections on ``heads`` (a range of
+    the layer's H heads; all for ``None``): from the whole in_proj
+    output zxbcdt (B, S, 2·d_in + 2N + H), the causal conv over the
+    heads' x channels and the shared B, C, the SSD core (``scan`` as in
+    :func:`ssd_chunked`), the D skip and the z gate → (y (B, S,
+    |heads|·P) before the gated norm, the final state (B, |heads|, P, N)
+    fp32).  Every step is per head or per channel, so a model shard
+    runs its own heads from the layer's replicated conv weights, A_log,
+    D and dt_bias."""
+    b, s, _ = zxbcdt.shape
+    h0, h1 = _head_range(heads, d_inner // head_dim)
+    z, x, bc, dt = _split_heads(zxbcdt, heads, d_inner, ssm_state, head_dim)
+    kw = dict(heads=heads, d_inner=d_inner, head_dim=head_dim)
+    xbc = _causal_conv(torch.cat([x, bc], dim=-1),
+                       head_channels(params["conv_w"], **kw),
+                       head_channels(params["conv_b"], **kw))
+    nx = x.shape[-1]
+    x, bmat, cmat = (xbc[..., :nx], xbc[..., nx:nx + ssm_state],
+                     xbc[..., nx + ssm_state:])
+    dt = softplus(dt.to(torch.float32) + params["dt_bias"][h0:h1])
+    xh = x.reshape(b, s, h1 - h0, head_dim)
+    y, h_last = ssd_chunked(xh, dt, params["A_log"][h0:h1], bmat, cmat,
+                            chunk=chunk, intra_dtype=intra_dtype, scan=scan)
+    y = y.to(zxbcdt.dtype) + (params["D"][h0:h1].to(zxbcdt.dtype)
+                              [None, None, :, None] * xh)
+    return y.reshape(b, s, nx) * F.silu(z), h_last
+
+
 def ssm_forward(params, hidden, *, expand, ssm_state, head_dim, conv_kernel,
                 chunk, return_state=False, intra_dtype=None,
                 scan=None):
     """Full Mamba-2 mixer. hidden: (B, S, d); ``scan`` as in
     :func:`ssd_chunked`."""
-    b, s, d = hidden.shape
-    d_inner, n_heads, conv_dim = ssm_dims(d, expand, ssm_state, head_dim)
-    zxbcdt = hidden @ params["in_proj"]
-    z, x, bmat, cmat, dt = _split_proj(zxbcdt, d_inner, ssm_state, n_heads)
-    xbc = torch.cat([x, bmat, cmat], dim=-1)
-    xbc = _causal_conv(xbc, params["conv_w"], params["conv_b"])
-    x, bmat, cmat = (xbc[..., :d_inner],
-                     xbc[..., d_inner:d_inner + ssm_state],
-                     xbc[..., d_inner + ssm_state:])
-    dt = softplus(dt.to(torch.float32) + params["dt_bias"])  # (B, S, H)
-    xh = x.reshape(b, s, n_heads, head_dim)
-    y, h_last = ssd_chunked(xh, dt, params["A_log"], bmat, cmat, chunk=chunk,
-                            intra_dtype=intra_dtype, scan=scan)
-    y = y.to(hidden.dtype) + (params["D"].to(hidden.dtype)
-                              [None, None, :, None] * xh)
-    y = y.reshape(b, s, d_inner)
-    y = y * F.silu(z)
+    d_inner = expand * hidden.shape[-1]
+    y, h_last = ssm_mix(params, hidden @ params["in_proj"], d_inner=d_inner,
+                        ssm_state=ssm_state, head_dim=head_dim, chunk=chunk,
+                        intra_dtype=intra_dtype, scan=scan)
     y = rmsnorm(y, params["norm_g"])
     out = y @ params["out_proj"]
     if return_state:
@@ -225,28 +261,44 @@ def ssm_cache_init(batch, d_model, *, expand, ssm_state, head_dim,
     }
 
 
+def ssm_mix_step(params, zxbcdt, conv, state, *, d_inner, ssm_state,
+                 head_dim, heads=None):
+    """One decode step of the mixer on ``heads`` (as :func:`ssm_mix`):
+    zxbcdt (B, 2·d_in + 2N + H) whole, ``conv`` the ring of the heads'
+    conv channels (B, K−1, |heads|·P + 2N), ``state`` their (B, |heads|,
+    P, N) fp32 → (y (B, |heads|·P) before the gated norm, the new ring,
+    the new state)."""
+    b = zxbcdt.shape[0]
+    h0, h1 = _head_range(heads, d_inner // head_dim)
+    z, x, bc, dt = _split_heads(zxbcdt, heads, d_inner, ssm_state, head_dim)
+    kw = dict(heads=heads, d_inner=d_inner, head_dim=head_dim)
+    window = torch.cat([conv, torch.cat([x, bc], dim=-1)[:, None]],
+                       dim=1)  # (B, K, C)
+    conv_out = torch.einsum("bkc,kc->bc", window,
+                            head_channels(params["conv_w"], **kw))
+    xbc = F.silu(conv_out + head_channels(params["conv_b"], **kw))
+    nx = x.shape[-1]
+    x, bmat, cmat = (xbc[:, :nx], xbc[:, nx:nx + ssm_state],
+                     xbc[:, nx + ssm_state:])
+    dt = softplus(dt.to(torch.float32) + params["dt_bias"][h0:h1])  # (B, H)
+    a = torch.exp(-torch.exp(params["A_log"][h0:h1]) * dt)  # (B, H)
+    xh = x.reshape(b, h1 - h0, head_dim).to(torch.float32)
+    upd = (dt[..., None] * xh)[..., None] * bmat[:, None, None, :]
+    h_new = state * a[..., None, None] + upd  # (B, H, P, N)
+    y = torch.einsum("bhpn,bn->bhp", h_new, cmat.to(torch.float32))
+    y = y + params["D"][h0:h1][None, :, None] * xh
+    y = y.reshape(b, nx).to(zxbcdt.dtype)
+    return y * F.silu(z), window[:, 1:], h_new
+
+
 def ssm_decode_step(params, hidden, cache, *, expand, ssm_state, head_dim,
                     conv_kernel):
     """hidden: (B, 1, d) → (out (B, 1, d), new cache)."""
-    b, _, d = hidden.shape
-    d_inner, n_heads, conv_dim = ssm_dims(d, expand, ssm_state, head_dim)
-    zxbcdt = hidden[:, 0] @ params["in_proj"]  # (B, proj)
-    z, x, bmat, cmat, dt = _split_proj(zxbcdt, d_inner, ssm_state, n_heads)
-    xbc = torch.cat([x, bmat, cmat], dim=-1)  # (B, conv_dim)
-    window = torch.cat([cache["conv"], xbc[:, None]], dim=1)  # (B, K, C)
-    conv_out = torch.einsum("bkc,kc->bc", window, params["conv_w"])
-    xbc = F.silu(conv_out + params["conv_b"])
-    x, bmat, cmat = (xbc[:, :d_inner], xbc[:, d_inner:d_inner + ssm_state],
-                     xbc[:, d_inner + ssm_state:])
-    dt = softplus(dt.to(torch.float32) + params["dt_bias"])  # (B, H)
-    a = torch.exp(-torch.exp(params["A_log"]) * dt)  # (B, H)
-    xh = x.reshape(b, n_heads, head_dim).to(torch.float32)
-    upd = (dt[..., None] * xh)[..., None] * bmat[:, None, None, :]
-    h_new = cache["ssm"] * a[..., None, None] + upd  # (B, H, P, N)
-    y = torch.einsum("bhpn,bn->bhp", h_new, cmat.to(torch.float32))
-    y = y + params["D"][None, :, None] * xh
-    y = y.reshape(b, d_inner).to(hidden.dtype)
-    y = y * F.silu(z)
+    d_inner = expand * hidden.shape[-1]
+    y, conv, h_new = ssm_mix_step(
+        params, hidden[:, 0] @ params["in_proj"], cache["conv"],
+        cache["ssm"], d_inner=d_inner, ssm_state=ssm_state,
+        head_dim=head_dim)
     y = rmsnorm(y, params["norm_g"])
     out = (y @ params["out_proj"])[:, None]
-    return out, {"conv": window[:, 1:], "ssm": h_new}
+    return out, {"conv": conv, "ssm": h_new}

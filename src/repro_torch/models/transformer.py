@@ -22,9 +22,13 @@ the same tree; each layer reads views of its rows.  The JAX package's
 ``constrain_batch`` is a sharding hint and has no counterpart on one
 device.
 
-Serving on a model mesh (:func:`prefill_on_mesh`,
-:func:`decode_step_on_mesh`; fsdp for every family that serves, tp for
-the dense family) is the last section.
+Serving on a model mesh lives in ``sharding/serve.py``: under fsdp it
+runs :func:`prefill` / :func:`decode_step` on gathered layers, under
+tp, fsdp_tp and ep it calls this module's per-family hooks on one model
+shard's parameters (:func:`_embed`, :func:`_layers`, :func:`_groups`,
+:func:`_attention` / :func:`_attention_step` with a shard's head
+counts, :func:`_fit_kv_cache`, :func:`_check_room`) and the mixers'
+per-head and per-expert pieces (``models/ssm.py``, ``models/moe.py``).
 
 Serving (every family but audio): prefill (K4 through the attention
 module for the causal masks, K5 through the SSM module; the vlm's
@@ -73,10 +77,6 @@ from .layers import (
 from .moe import moe_apply, moe_init
 from .ssm import ssm_cache_init, ssm_decode_step, ssm_forward, ssm_init
 from repro_torch.kernels.ssd_scan import ssd_scan_ref
-from repro_torch.sharding.params import GatheredParams, ShardedTree, \
-    all_gather, all_reduce, cut_leaf, gather_tree, put_blocks, \
-    report_copies
-from repro_torch.sharding.specs import cache_specs
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
 
@@ -123,6 +123,36 @@ def _ffn(cfg, p, x, return_aux=True):
                                             device=x.device)
 
 
+def _attention(cfg, p, x, positions, *, window, mask_mode="causal",
+               prefix_len=0, blockwise=False, num_heads=None,
+               num_kv_heads=None, kv=None, project=True):
+    """The attention of the block ``p`` over its normed input x →
+    (output, its (k, v) for the cache): K4 under the causal mask in
+    serving, ``blockwise_attention`` under the prefix mask or with
+    ``blockwise=True``.  A model shard passes its head counts, ``kv``
+    and ``project=False`` (``attention_forward``)."""
+    return attention_forward(
+        p["attn"], x, positions=positions, rope_theta=cfg.rope_theta,
+        num_heads=num_heads or cfg.num_heads,
+        num_kv_heads=num_kv_heads or cfg.num_kv_heads,
+        head_dim=cfg.head_dim, mask_mode=mask_mode, prefix_len=prefix_len,
+        window=window, return_kv=True, blockwise=blockwise,
+        kv_block=cfg.kv_block, kv=kv, project=project)
+
+
+def _attention_step(cfg, p, x, kv_cache, pos, *, window, num_heads=None,
+                    num_kv_heads=None, kv=None, project=True):
+    """One decode step of the block's attention against its (k, v) cache
+    (updated in place); a model shard passes its head counts, ``kv`` and
+    ``project=False`` (``attention_decode``)."""
+    att, _ = attention_decode(
+        p["attn"], x, kv_cache, pos, rope_theta=cfg.rope_theta,
+        num_heads=num_heads or cfg.num_heads,
+        num_kv_heads=num_kv_heads or cfg.num_kv_heads,
+        head_dim=cfg.head_dim, window=window, kv=kv, project=project)
+    return att
+
+
 def _attn_block_apply(cfg, p, h, positions, *, window, mask_mode="causal",
                       prefix_len=0, blockwise=False):
     """One attention+MLP (or MoE) block → (h, aux, its (k, v) for the
@@ -131,12 +161,9 @@ def _attn_block_apply(cfg, p, h, positions, *, window, mask_mode="causal",
     ``blockwise=True`` (the training loss) every mask through
     ``blockwise_attention``."""
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
-    att, kv = attention_forward(
-        p["attn"], x, positions=positions, rope_theta=cfg.rope_theta,
-        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-        head_dim=cfg.head_dim, mask_mode=mask_mode, prefix_len=prefix_len,
-        window=window, return_kv=True, blockwise=blockwise,
-        kv_block=cfg.kv_block)
+    att, kv = _attention(cfg, p, x, positions, window=window,
+                         mask_mode=mask_mode, prefix_len=prefix_len,
+                         blockwise=blockwise)
     h = h + att
     x = rmsnorm(h, p["ln2"], cfg.norm_eps)
     y, aux = _ffn(cfg, p, x)
@@ -145,14 +172,10 @@ def _attn_block_apply(cfg, p, h, positions, *, window, mask_mode="causal",
 
 def _attn_block_decode(cfg, p, h, kv_cache, pos, *, window):
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
-    att, kv_cache = attention_decode(
-        p["attn"], x, kv_cache, pos, rope_theta=cfg.rope_theta,
-        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-        head_dim=cfg.head_dim, window=window)
-    h = h + att
+    h = h + _attention_step(cfg, p, x, kv_cache, pos, window=window)
     x = rmsnorm(h, p["ln2"], cfg.norm_eps)
     y, _ = _ffn(cfg, p, x, return_aux=False)
-    return h + y, kv_cache
+    return h + y
 
 
 def _ssm_kw(cfg):
@@ -580,10 +603,9 @@ def decode_step(cfg, params, token, cache):
         return hh
 
     def attn(hh, lp, j):
-        hh, _ = _attn_block_decode(cfg, lp, hh,
-                                   (cache["k"][j], cache["v"][j]), pos,
-                                   window=cfg.sliding_window)
-        return hh
+        return _attn_block_decode(cfg, lp, hh,
+                                  (cache["k"][j], cache["v"][j]), pos,
+                                  window=cfg.sliding_window)
 
     if cfg.family in ATTN_STACK:
         for i, lp in enumerate(layers):
@@ -600,325 +622,3 @@ def decode_step(cfg, params, token, cache):
     h = rmsnorm(h, params["final_ln"], cfg.norm_eps)
     logits = (h @ params["lm_head"]).to(torch.float32)
     return logits[..., :cfg.vocab_size], cache
-
-
-# ----------------------------------------------------------------------
-# serving on a model mesh (``launch/mesh.py``): fsdp and tp
-# ----------------------------------------------------------------------
-#
-# The parameters, the batch and the cache are ``sharding.params``'
-# ShardedTrees over a mesh whose axes are the batch axes and "model".
-# A data shard is the batch block of one position along the batch axes
-# and the coordinates that hold it, in model order.
-#
-# * fsdp: storage follows ``param_specs(mode="fsdp")``.  Each data
-#   shard runs the unsharded prefill / decode on its batch block on its
-#   first coordinate, reading the parameters through a
-#   ``GatheredParams`` view (each layer's blocks gathered right before
-#   the layer runs, every other leaf when it is read), so K4 and K5
-#   launch once per data shard per layer.  The cache follows
-#   ``cache_specs``: a data shard's cache is cut over the model axis
-#   after prefill and gathered for each decode step.
-# * tp (the dense family): Megatron-style on ``param_specs(mode="tp")``.
-#   Each model shard holds its heads' columns of wq (and of wk / wv
-#   where its kv heads are its own block) and their rows of wo, its
-#   columns of w_gate / w_up and rows of w_down; the partial outputs of
-#   wo and w_down are summed in shard order (``all_reduce``).  The
-#   embedding is cut on d (the looked-up rows gathered), the head on the
-#   vocabulary (the slices gathered for the last position's logits).
-#   ``h`` is replicated over a data shard's model shards.  Attention
-#   runs on each shard's own heads: K4 launches once per model shard
-#   per layer.  Where a shard's kv heads are not its own column block
-#   of wk / wv (kv heads that do not split over the model axis, or the
-#   specs' GQA fallback), the whole k / v are put together and each
-#   shard takes the kv heads its query heads need, expanded to one per
-#   query head where the groups do not align.  The cache keeps each
-#   shard's kv heads (not ``cache_specs``' layout: ROADMAP D14).
-
-SERVE_MODES = ("fsdp", "tp")
-
-
-def data_shards(mesh, batch_axes, model_axis="model") -> list:
-    """The mesh's data shards in batch order (row-major over
-    ``batch_axes``), each the list of its coordinates in model order.
-    Every axis of the mesh must be a batch axis or the model axis."""
-    names = list(mesh.axis_names)
-    if model_axis not in names or set(names) != set(batch_axes) | {
-            model_axis}:
-        raise ValueError(f"a serving mesh's axes are the batch axes "
-                         f"{tuple(batch_axes)} and {model_axis!r}; got "
-                         f"{tuple(names)}")
-    groups: dict = {}
-    for c in mesh.coords():
-        key = tuple(c[names.index(a)] for a in batch_axes)
-        groups.setdefault(key, []).append(c)
-    return [groups[k] for k in sorted(groups)]
-
-
-def _gather_batch(parts, device):
-    """Per-data-shard tensors concatenated along the batch on
-    ``device``."""
-    report_copies("all-gather", parts[1:])
-    return torch.cat([p.to(device, non_blocking=True) for p in parts], 0)
-
-
-class TpLayout:
-    """How the dense family's attention splits over M model shards under
-    ``param_specs(mode="tp")``: ``heads`` and ``kv_heads`` per shard, and
-    where a shard's k / v come from — ``"own"`` (its column block of wk
-    / wv), else the whole k / v put together from column blocks
-    (``"column"``), row-parallel partials (``"row"``, the specs' GQA
-    fallback) or a replicated weight (``"whole"``), of which shard j
-    keeps the kv heads ``take[j]``."""
-
-    def __init__(self, cfg, specs, mesh, model_axis="model"):
-        if cfg.family != "dense":
-            raise ValueError(
-                f"tp serves the dense family in the port; {cfg.name} is "
-                f"{cfg.family} (ROADMAP M22b ports tp for the moe, ssm, "
-                "hybrid and vlm families; serve it with mode='fsdp')")
-        m = mesh.shape[model_axis]
-        h, kv = cfg.num_heads, cfg.num_kv_heads
-        if h % m:
-            raise ValueError(f"{h} query heads do not split over a model "
-                             f"axis of {m}")
-        lay = specs["layers"]
-        col, row = (None, None, model_axis), (None, model_axis, None)
-        want = {"wq": col, "wo": row, "w_gate": col, "w_up": col,
-                "w_down": row}
-        got = {**{k: lay["attn"][k] for k in ("wq", "wo")},
-               **{k: lay["mlp"][k] for k in ("w_gate", "w_up", "w_down")}}
-        for k, w in want.items():
-            if tuple(got[k]) != w:
-                raise ValueError(f"tp needs {k} sharded as {w}, the specs "
-                                 f"give {got[k]}")
-        wk, wv = tuple(lay["attn"]["wk"]), tuple(lay["attn"]["wv"])
-        if wk != wv:
-            raise ValueError(f"wk and wv sharded apart: {wk}, {wv}")
-        kinds = {col: "column", row: "row", (None, None, None): "whole"}
-        if wk not in kinds:
-            raise ValueError(f"tp cannot take wk sharded as {wk}")
-        self.model_size, self.heads, g = m, h // m, h // kv
-        self.embed_cut = tuple(specs["embed"]) == (None, model_axis)
-        self.head_cut = tuple(specs["lm_head"]) == (None, model_axis)
-        self.source = kinds[wk]
-        if kv % m == 0 and self.source == "column":
-            self.kv_heads, self.take = kv // m, None
-            self.source = "own"
-        else:
-            # kv % m != 0 (so do the row fallback and a replicated wk):
-            # a shard's query heads straddle kv groups, and K4 takes one
-            # group size, so it takes one kv head per query head.
-            self.kv_heads = self.heads
-            self.take = [[q // g for q in range(j * self.heads,
-                                                (j + 1) * self.heads)]
-                         for j in range(m)]
-
-    def kv(self, lps, xs, devs, head_dim):
-        """Each shard's (k, v) before RoPE, (B, S, kv_heads, hd), or
-        None where each takes its own column block."""
-        if self.source == "own":
-            return None
-        b, s, d = xs[0].shape
-        whole = []
-        for w in ("wk", "wv"):
-            if self.source == "column":
-                t = all_gather([x @ lp["attn"][w]
-                                for x, lp in zip(xs, lps, strict=True)],
-                               -1, devs)
-            elif self.source == "row":
-                n = d // self.model_size
-                t = all_reduce([x[..., j * n:(j + 1) * n] @ lp["attn"][w]
-                                for j, (x, lp) in enumerate(zip(
-                                    xs, lps, strict=True))], devs)
-            else:
-                t = [x @ lp["attn"][w] for x, lp in zip(xs, lps, strict=True)]
-            whole.append([x.reshape(b, s, -1, head_dim) for x in t])
-        out = []
-        for j, dev in enumerate(devs):
-            idx = torch.tensor(self.take[j], device=dev)
-            out.append(tuple(torch.index_select(t[j], 2, idx)
-                             for t in whole))
-        return out
-
-
-def _tp_embed(lay, ps, tokens, devs):
-    """h on each model shard: the looked-up rows of each shard's
-    embedding block, gathered along d where the embedding is cut."""
-    rows = [_embed(p, t) for p, t in zip(ps, tokens, strict=True)]
-    return all_gather(rows, -1, devs) if lay.embed_cut else rows
-
-
-def _tp_logits(cfg, lay, ps, hs, devs):
-    """The last position's fp32 logits (B, 1, vocab_size) on the first
-    shard's device: each shard's vocabulary slice, gathered."""
-    parts = [(rmsnorm(h[:, -1:], p["final_ln"], cfg.norm_eps)
-              @ p["lm_head"]).to(torch.float32)
-             for h, p in zip(hs, ps, strict=True)]
-    if not lay.head_cut:
-        return parts[0][..., :cfg.vocab_size]
-    report_copies("all-gather", parts[1:])
-    logits = torch.cat([x.to(devs[0], non_blocking=True) for x in parts], -1)
-    return logits[..., :cfg.vocab_size]
-
-
-def _tp_block(cfg, lay, lps, hs, devs, attend):
-    """One attention + MLP block over the model shards: ``attend(j, lp,
-    x, kv)`` gives shard j's partial attention output; the partials of
-    wo and w_down summed in shard order."""
-    xs = [rmsnorm(h, lp["ln1"], cfg.norm_eps) for h, lp in zip(hs, lps,
-                                                                strict=True)]
-    kvs = lay.kv(lps, xs, devs, cfg.head_dim)
-    att = all_reduce([attend(j, lp, x, None if kvs is None else kvs[j])
-                      for j, (lp, x) in enumerate(zip(lps, xs, strict=True))],
-                     devs)
-    hs = [h + a for h, a in zip(hs, att, strict=True)]
-    ys = all_reduce([swiglu(lp["mlp"], rmsnorm(h, lp["ln2"], cfg.norm_eps))
-                     for h, lp in zip(hs, lps, strict=True)], devs)
-    return [h + y for h, y in zip(hs, ys, strict=True)]
-
-
-def _tp_prefill(cfg, lay, ps, tokens, devs, max_seq):
-    """One data shard's tp prefill → (logits, one cache per model
-    shard)."""
-    b, s = tokens[0].shape
-    hs = _tp_embed(lay, ps, tokens, devs)
-    positions = [torch.arange(s, device=d) for d in devs]
-    kvs = [([], []) for _ in devs]
-
-    def attend(j, lp, x, kv):
-        y, (k, v) = attention_forward(
-            lp["attn"], x, positions=positions[j], rope_theta=cfg.rope_theta,
-            num_heads=lay.heads, num_kv_heads=lay.kv_heads,
-            head_dim=cfg.head_dim, window=cfg.sliding_window,
-            return_kv=True, kv=kv)
-        kvs[j][0].append(k)
-        kvs[j][1].append(v)
-        return y
-
-    for i in range(cfg.num_layers):
-        lps = [tree_map(lambda x, i=i: x[i], p["layers"]) for p in ps]
-        hs = _tp_block(cfg, lay, lps, hs, devs, attend)
-    caches = [_fit_kv_cache(cfg, torch.stack(k), torch.stack(v), max_seq, s)
-              for k, v in kvs]
-    return _tp_logits(cfg, lay, ps, hs, devs), caches
-
-
-def _tp_decode(cfg, lay, ps, tokens, caches, devs):
-    """One data shard's tp decode step; each model shard's cache is
-    updated in place."""
-    pos = caches[0]["pos"]
-    _check_room(cfg, caches[0])
-    hs = _tp_embed(lay, ps, tokens, devs)
-
-    for i in range(cfg.num_layers):
-        lps = [tree_map(lambda x, i=i: x[i], p["layers"]) for p in ps]
-
-        def attend(j, lp, x, kv, i=i):
-            y, _ = attention_decode(
-                lp["attn"], x, (caches[j]["k"][i], caches[j]["v"][i]), pos,
-                rope_theta=cfg.rope_theta, num_heads=lay.heads,
-                num_kv_heads=lay.kv_heads, head_dim=cfg.head_dim,
-                window=cfg.sliding_window, kv=kv)
-            return y
-
-        hs = _tp_block(cfg, lay, lps, hs, devs, attend)
-    for c in caches:
-        c["pos"] = pos + 1
-    return _tp_logits(cfg, lay, ps, hs, devs)
-
-
-def _batch_entry(batch_axes):
-    return batch_axes[0] if len(batch_axes) == 1 else tuple(batch_axes)
-
-
-def _tp_cache_specs(cache, batch_axes, model_axis="model"):
-    """The layout of the tp server's cache: batch over ``batch_axes``,
-    kv heads over ``model`` (ROADMAP D14)."""
-    entry = _batch_entry(batch_axes)
-    return tree_map(lambda x: (None, entry, None, model_axis, None)
-                    if isinstance(x, torch.Tensor) else (), cache)
-
-
-@torch.no_grad()
-def prefill_on_mesh(cfg, params, batch, max_seq=None, *, mode="fsdp",
-                    batch_axes=("data",)):
-    """Prefill on a model mesh (``params`` and ``batch`` are
-    ShardedTrees over one mesh) → (the last position's fp32 logits (B,
-    1, vocab_size), put together on the mesh's first device; the cache,
-    a ShardedTree: ``cache_specs``' layout under fsdp, each shard's kv
-    heads under tp)."""
-    check_decodes(cfg)
-    mesh = params.mesh
-    groups = data_shards(mesh, batch_axes)
-    blocks = [None] * mesh.size
-    logits = []
-    if mode == "fsdp":
-        specs = None
-        for group in groups:
-            lg, cache = prefill(cfg, GatheredParams(params, group[0]),
-                                batch.at(group[0]), max_seq)
-            logits.append(lg)
-            if specs is None:
-                whole = tree_map(lambda x: torch.empty(
-                    (x.shape[0], x.shape[1] * len(groups)) + x.shape[2:],
-                    device="meta") if isinstance(x, torch.Tensor) else x,
-                    cache)
-                specs = cache_specs(whole, mesh,
-                                    batch_axes=_batch_entry(batch_axes))
-            for c in group:
-                blocks[mesh.index(c)] = tree_map(
-                    lambda x, sp, c=c: cut_leaf(x, sp, mesh, c,
-                                                keep=batch_axes),
-                    cache, specs)
-                if c != group[0]:
-                    report_copies("scatter",
-                                  tree_leaves(blocks[mesh.index(c)]))
-    elif mode == "tp":
-        lay = TpLayout(cfg, params.specs, mesh)
-        for group in groups:
-            devs = [mesh.device(c) for c in group]
-            lg, caches = _tp_prefill(
-                cfg, lay, [params.at(c) for c in group],
-                [batch.at(c)["tokens"] for c in group], devs,
-                max_seq or batch.at(group[0])["tokens"].shape[1])
-            logits.append(lg)
-            for c, cache in zip(group, caches, strict=True):
-                blocks[mesh.index(c)] = cache
-        specs = _tp_cache_specs(blocks[0], batch_axes)
-    else:
-        raise ValueError(f"unknown serving mode {mode!r}; the modes are "
-                         f"{', '.join(SERVE_MODES)}")
-    return (_gather_batch(logits, mesh.devices[0]),
-            ShardedTree(tuple(blocks), specs, mesh))
-
-
-@torch.no_grad()
-def decode_step_on_mesh(cfg, params, token, cache, *, mode="fsdp",
-                        batch_axes=("data",)):
-    """One token (a ShardedTree of the (B, 1) tokens) against a filled
-    mesh cache → (fp32 logits (B, 1, vocab_size) on the mesh's first
-    device, the cache, its blocks updated in place)."""
-    check_decodes(cfg)
-    mesh = params.mesh
-    groups = data_shards(mesh, batch_axes)
-    logits = []
-    if mode == "fsdp":
-        for group in groups:
-            at = group[0]
-            local = gather_tree(cache, at=at, keep=batch_axes)
-            lg, local = decode_step(cfg, GatheredParams(params, at),
-                                    token.at(at), local)
-            logits.append(lg)
-            put_blocks(cache, local, group, at, keep=batch_axes)
-    elif mode == "tp":
-        lay = TpLayout(cfg, params.specs, mesh)
-        for group in groups:
-            logits.append(_tp_decode(
-                cfg, lay, [params.at(c) for c in group],
-                [token.at(c) for c in group], [cache.at(c) for c in group],
-                [mesh.device(c) for c in group]))
-    else:
-        raise ValueError(f"unknown serving mode {mode!r}; the modes are "
-                         f"{', '.join(SERVE_MODES)}")
-    return _gather_batch(logits, mesh.devices[0]), cache

@@ -234,15 +234,15 @@ def tree_bytes_at(sharded: ShardedTree, coord) -> int:
 # ----------------------------------------------------------------------
 
 
-def all_reduce(parts, devices) -> list:
+def all_reduce(parts, devices, dtype=None) -> list:
     """Σ of per-shard partials of one shape, added in shard order on the
     first shard's device (as ``core.engine.all_sum``; bf16 partials in
-    fp32, rounded once to their dtype), then one copy on each shard's
-    device (on a shared device, the same tensor)."""
+    fp32), rounded once to ``dtype`` (default: the partials'), then one
+    copy on each shard's device (on a shared device, the same tensor)."""
     total = parts[0].to(torch.promote_types(parts[0].dtype, torch.float32))
     for p in parts[1:]:
         total = total + p.to(total.device, non_blocking=True)
-    total = total.to(parts[0].dtype)
+    total = total.to(dtype or parts[0].dtype)
     out = [total.to(d, non_blocking=True) for d in devices]
     report_copies("all-reduce", list(parts[1:]) + out[1:])
     return out
@@ -274,19 +274,24 @@ class GatheredParams:
     ``params[key]`` gathers that leaf or subtree onto the coordinate's
     device when it is read, and :meth:`layers` gives the stack's
     per-layer trees, each gathered when it is indexed (the layer axis is
-    never cut, so layer i is row i of every block)."""
+    never cut, so layer i is row i of every block).  With ``keep`` (the
+    model axis, say) a leaf stays the coordinate's block along those
+    axes and is gathered over the others only: a leaf cut over none of
+    the others is the coordinate's own block, no copy made."""
 
-    def __init__(self, sharded: ShardedTree, coord):
+    def __init__(self, sharded: ShardedTree, coord, keep=()):
         self.sharded = sharded
         self.coord = tuple(coord)
         self.device = sharded.mesh.device(coord)
+        self.keep = tuple(keep)
 
     def _gather(self, pick):
         sh = self.sharded
         leaves = [tree_leaves(pick(b)) for b in sh.blocks]
         specs = tree_leaves(pick(sh.specs))
         whole = [gather_leaf([ls[k] for ls in leaves], s, sh.mesh,
-                             self.coord) for k, s in enumerate(specs)]
+                             self.coord, keep=self.keep)
+                 for k, s in enumerate(specs)]
         it = iter(whole)
         return tree_map(lambda _: next(it), pick(sh.blocks[0]))
 
@@ -307,7 +312,8 @@ class GatheredParams:
                 raise ValueError(f"the layer axis is cut ({s}); it never "
                                  "is under the sharding rules")
             whole.append(gather_leaf([ls[k][i] for ls in leaves],
-                                     tuple(s)[1:], sh.mesh, self.coord))
+                                     tuple(s)[1:], sh.mesh, self.coord,
+                                     keep=self.keep))
         it = iter(whole)
         return tree_map(lambda _: next(it), sh.blocks[0]["layers"])
 

@@ -8,7 +8,7 @@ with ``param_specs(mode="fsdp")`` shardings (``launch/steps.py``,
 The parameters are a ``sharding.params.ShardedTree`` over a ``("data",
 "model")`` mesh (a pod's sub-mesh across pods).  A data shard is the
 batch block of one ``data`` position, run on its first coordinate (data
-d, model 0), as in the serving steps (``models/transformer.py``).
+d, model 0), as in the serving steps (``sharding/serve.py``).
 
 * **Forward.**  The data shard reads the parameters ZeRO-3 style
   through a :class:`GradView`: each leaf is put together from its
@@ -29,7 +29,7 @@ d, model 0), as in the serving steps (``models/transformer.py``).
   shards of their sums over that count (``models.transformer
   .loss_terms``).  The MoE load-balance loss is a product of two
   means over the whole batch's routing, which no data shard sees: on a
-  data axis larger than 1 the MoE family is refused (ROADMAP M22b).
+  data axis larger than 1 the MoE family is refused (ROADMAP M22b-2).
   With one data shard every family is the unsharded loss bit for bit.
 
 The cross-pod round keeps ``core/crosspod.py``'s algorithm and its
@@ -64,8 +64,7 @@ from repro_torch.core.crosspod import CrossPodConfig, CrossPodState, \
 from repro_torch.core.engine import all_sum
 from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.models.api import abstract_params
-from repro_torch.models.transformer import IGNORE_LABEL, data_shards, \
-    loss_terms
+from repro_torch.models.transformer import IGNORE_LABEL, loss_terms
 from repro_torch.optim.adam import AdamState, adam_step
 from repro_torch.sharding.clients import ClientMesh, shard_targets
 from repro_torch.utils.pytree import tree_broadcast_like, tree_leaves, \
@@ -74,6 +73,7 @@ from repro_torch.utils.spans import span
 
 from .params import ShardedTree, block_slices, gather_leaf, gather_tree, \
     report_copies
+from .serve import data_shards
 from .specs import param_specs, pod_stacked_specs
 
 TRAIN_MODES = ("fsdp",)
@@ -84,7 +84,7 @@ def check_train_mode(mode: str) -> None:
     if mode not in TRAIN_MODES:
         raise ValueError(f"the mesh's training steps run mode 'fsdp'; got "
                          f"{mode!r} (tp, fsdp_tp and ep training: ROADMAP "
-                         "M22b)")
+                         "M22b-2)")
 
 
 def check_data_axis(cfg, n_data: int) -> None:
@@ -95,7 +95,7 @@ def check_data_axis(cfg, n_data: int) -> None:
             f"{cfg.name} (moe) trains on a data axis of 1 only: its "
             "load-balance loss is a product of means over the whole "
             f"batch's routing, which none of {n_data} data shards sees "
-            "(ROADMAP M22b)")
+            "(ROADMAP M22b-2)")
 
 
 def _build(template, leaves):

@@ -2,7 +2,7 @@
 ``launch/mesh.py``, the sharding rules (``sharding/specs.py``), their
 placement (``sharding/params.py``) and the serving steps on a data ×
 model mesh in ``fsdp`` and ``tp`` mode (``launch/steps.py``,
-``models/transformer.py``).
+``sharding/serve.py``).
 
 * The rules are pure functions: for every name in
   ``configs.ARCHITECTURES``, every mode and the fake meshes {data 16,
@@ -21,8 +21,8 @@ model mesh in ``fsdp`` and ``tp`` mode (``launch/steps.py``,
   ``decode_step`` (jitted, computed once for the module) at the logits
   grade, rtol/atol 2e-4.  The specs' row-parallel GQA fallback and a
   replicated wk run against the unsharded port at 1e-5.
-* The other serving families under fsdp against the unsharded port;
-  tp on them raises.
+* The other serving families under fsdp against the unsharded port
+  (tp, fsdp_tp and ep on them: tests/test_torch_serve_mesh_families.py).
 * tests/test_torch_model_mesh_reference.py runs the reference's own
   sharded prefill on 4 forced host devices.
 """
@@ -48,7 +48,7 @@ from repro_torch.launch.mesh import DeviceMesh, make_mesh, \
 from repro_torch.launch.steps import MeshArgs, make_decode_step, \
     make_mesh_serve_steps, make_prefill_step
 from repro_torch.models import abstract_cache, abstract_params, build_model
-from repro_torch.models.transformer import TpLayout, data_shards
+from repro_torch.sharding.serve import TpLayout, data_shards
 from repro_torch.sharding import specs
 from repro_torch.sharding.clients import collectives
 from repro_torch.sharding.params import ShardedTree, gather_tree, \
@@ -506,7 +506,7 @@ def test_the_mesh_steps_carry_the_specs_and_refuse_others(granite):
     with pytest.raises(ValueError, match="does not split"):
         make_prefill_step(model, mesh, batch=3, seq=MAX_SEQ)
     with pytest.raises(ValueError, match="modes"):
-        make_prefill_step(model, mesh, batch=B, seq=MAX_SEQ, mode="ep")
+        make_prefill_step(model, mesh, batch=B, seq=MAX_SEQ, mode="zero")
     step, args = make_prefill_step(model, batch=B, seq=MAX_SEQ)
     assert type(args) is tuple and len(args) == 2
 
@@ -604,18 +604,6 @@ def test_fsdp_serves_every_family_as_the_unsharded_port(arch, mesh):
     for g, w in zip(tree_leaves(back), tree_leaves(cache), strict=True):
         if isinstance(w, torch.Tensor):
             torch.testing.assert_close(g, w, **PORT_TOL)
-
-
-@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "mamba2-2.7b",
-                                  "zamba2-2.7b", "paligemma-3b"])
-def test_tp_on_another_family_raises(arch):
-    model = build_model(get_config(arch).reduced())
-    with pytest.raises(ValueError, match="M22b"):
-        make_prefill_step(model, make_test_mesh((1, 2)), batch=2, seq=8,
-                          mode="tp")
-    with pytest.raises(ValueError, match="M22b"):
-        make_decode_step(model, make_test_mesh((1, 2)), batch=2, seq=8,
-                         mode="tp")
 
 
 def test_tp_needs_the_query_heads_to_split():
