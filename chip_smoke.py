@@ -18,14 +18,20 @@ the last slice: K2 and K3 on bf16, the H100 roofline model, the
 one-card dry-run of every architecture × shape, the example twins and
 the paper's claims (slice 18), the model mesh: granite-3-2b served
 on a data × model mesh in fsdp and tp mode (slice 19), the cross-pod
-FedBack trainer on a pod × data × model mesh (slice 20), and
+FedBack trainer on a pod × data × model mesh (slice 20),
 tensor-parallel serving for every family in modes tp, fsdp_tp and ep
-(slice 21).
+(slice 21), and tensor-parallel training for every family in the same
+modes, with the MoE on a data axis above 1 (slice 22).
 
     python3 chip_smoke.py
 
 Phases, each of which must pass (nothing is caught; any failure exits
-non-zero):
+non-zero; every phase prints its seconds).  The CPU references of 7a,
+8a and 12a run on one worker thread (6 of the host's 8 cores) while the
+card goes on with the next phases — 7b–7c, 8b–8e, 12b–13c — and are
+held against the card's kept results when those phases are done; the
+listeners that count 12b's, 13b–13c's and 14's copies leave the
+worker's out:
 
 1. print the card (``nvidia-smi`` name and power limit) and versions;
 2. build the hand-written CUDA kernels from ``src/repro_torch/csrc``
@@ -440,7 +446,39 @@ non-zero):
    the unsharded prefill's but for 2k rows a token whose expert set
    changed at a near tie (its k-th and (k + 1)-th probabilities within
    twice its largest probability gap); 13a–13c print their seconds;
-14. print the serve line, the kernels line (K4's bf16 instance as
+14a. tensor-parallel training (``sharding/train.py``'s tp executor,
+   ``make_train_step`` / ``make_cross_pod_step`` with ``mode=``):
+   granite-3-2b (2 layers), mamba2-2.7b (2), zamba2-2.7b (one group),
+   moonshot-v1-16b-a3b (2, its 64 experts), paligemma-3b (2, its 256
+   prefix positions) and hubert-xlarge (2) at every published width in
+   fp32, one step of 2 × 64 positions (the vlm's after its prefix) on
+   mesh (1, 4) under tp and (2, 2) under fsdp_tp, moonshot also on (1,
+   4) under ep and (2, 2) under fsdp (the MoE on a data axis of 2),
+   against the unsharded step on the card: the loss at rtol 1e-5, the
+   first moment at rtol 1e-4 / atol 1e-7, the parameters at it where
+   |μ| > 1e-6 (within 2·lr elsewhere: Adam's first step), each
+   coordinate's resident bytes equal to ``per_device_bytes``; then one
+   cross-pod round of granite (2 layers) on (2, 1, 2) under tp and of
+   moonshot (one layer, its vocabulary cut to 32,768: a data axis of 2
+   holds the embedding and head twice) on (2, 2, 1) under fsdp against
+   the one-device round: events equal, distances at rtol 1e-5,
+   ``train_loss`` at rtol 1e-5, θ / λ / z_prev at the solve grade; no
+   kernel launches;
+14b. granite-3-2b whole, bf16, one step of 2 × 2048 tokens with the
+   centre at the parameters, unsharded, then on (1, 4) under tp and
+   (2, 2) under fsdp_tp under torch.profiler: each coordinate's
+   resident bytes equal to ``per_device_bytes``, GB by collective kind
+   equal to ``sharding.train.step_bytes``, the loss within 1e-2 of the
+   unsharded step's, each leaf's ‖μ − μ_unsharded‖ / ‖μ_unsharded‖
+   within 3e-2 (a leaf past it must be as close to the fp32 gradient's
+   first moment of the same weights as the unsharded step's, within
+   1.25×), no kernel launches; ms a step wall and busy, launches, idle
+   share and peak memory against the card's;
+14c. moonshot-v1-16b-a3b at every published width cut to 2 layers,
+   bf16, as 14b on (2, 2) under fsdp and (1, 4) under ep, each layer's
+   routing held to the unsharded step's as 13c holds it, the aux of
+   each beside the unsharded one; 14a–14c print their seconds;
+15. print the serve line, the kernels line (K4's bf16 instance as
    ``flash_attention``, launched in phase 7, at granite's GQA shape
    as ``flash_attention_gqa``, launched in phase 7c, and at phi3's as
    ``flash_attention_phi3``, launched in phase 8e, and at moonshot's as
@@ -470,14 +508,18 @@ where the port's package is missing next to this script.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
+import functools
+import gc
 import json
 import math
 import statistics
 import warnings
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -3256,6 +3298,31 @@ PHI3_NEW = 4
 # The solve grade (ROADMAP): two SGD steps from the same state, cuBLAS
 # in fp32 against the CPU's matmuls.  Gradients are held to it too.
 SOLVE_TOL = dict(rtol=1e-4, atol=1e-6)
+# The CPU references of 7a, 8a and 12a run on one worker thread while the
+# card goes on with the next phases, and are held when they are done;
+# the worker's parallel regions take CPU_REF_THREADS of the machine's 8
+# cores, leaving two to drive the card.
+CPU_REF_THREADS = 6
+_BACKGROUND = []
+
+
+def background():
+    """The worker that computes CPU references beside the card's work."""
+    if not _BACKGROUND:
+        _BACKGROUND.append(concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="cpu-reference",
+            initializer=torch.set_num_threads, initargs=(CPU_REF_THREADS,)))
+    return _BACKGROUND[0]
+
+
+def _but_the_worker(count):
+    """A ``collectives`` listener that leaves out the worker's copies
+    (autograd's own threads, which run a CUDA backward, count)."""
+    def listen(kind, t):
+        if not threading.current_thread().name.startswith("cpu-reference"):
+            count(kind, t)
+
+    return listen
 
 
 def _crosspod_round(cfg, **overrides):
@@ -3296,11 +3363,12 @@ def _cross_pod_to(state, device):
 
 
 def _held_on_card(dev, got, want, label, what):
-    """Each leaf of ``got`` (on the card) within the solve grade of the
-    CPU's ``want``, compared on the card; returns the largest |Δ|."""
+    """Each leaf of ``got`` (on the card, or a host copy of the card's)
+    within the solve grade of the CPU's ``want``, compared on the card;
+    returns the largest |Δ|."""
     gap = 0.0
     for g, w in zip(got, want, strict=True):
-        w = w.to(dev)
+        g, w = g.to(dev), w.to(dev)
         diff = (g - w).abs()
         if bool((diff > SOLVE_TOL["atol"]
                  + SOLVE_TOL["rtol"] * w.abs()).any()):
@@ -3312,13 +3380,17 @@ def _held_on_card(dev, got, want, label, what):
     return gap
 
 
-def check_crosspod_against_cpu(dev, ops, cfg, spec, label):
+def check_crosspod_against_cpu(dev, ops, cfg, spec, label, defer=False):
     """Phases 7a, 8a and 8d: ``spec["rounds"]`` cross-pod rounds of
     ``cfg`` (fp32, cut in depth) on the card, each held against the same
     round on the CPU from the card's state before it: events equal, δ
     within one ulp, distances at rtol 1e-5, θ/λ/z_prev at the solve
     grade, ``train_loss`` at rtol 1e-5.  No kernel launches.
-    ``spec["local_steps"]``, where given, replaces the settings' 2."""
+    ``spec["local_steps"]``, where given, replaces the settings' 2.
+    With ``defer`` (one round) the CPU's round runs on the
+    :func:`background` worker, the card's state is kept on the host, and
+    a callable is returned that holds the two when the caller is ready
+    (→ the report)."""
     from repro_torch.core.crosspod import init_cross_pod_state
     from repro_torch.utils.pytree import tree_leaves, tree_map
 
@@ -3328,6 +3400,8 @@ def check_crosspod_against_cpu(dev, ops, cfg, spec, label):
     params0 = model.init(SEED, device=dev)
     state = init_cross_pod_state(cp, params0, device=dev)
     batches = _crosspod_batches(cfg, cp, spec["batch"], spec["seq"])
+    if defer and spec["rounds"] != 1:
+        raise ValueError("a deferred check runs one round")
     ops.reset_launch_counts()
     report = []
     for r in range(spec["rounds"]):
@@ -3343,42 +3417,61 @@ def check_crosspod_against_cpu(dev, ops, cfg, spec, label):
         else:
             before = _cross_pod_to(state, "cpu")
         copy_s = time.perf_counter() - t0
+        cpu = background().submit(round_fn, before, batch) if defer \
+            else None
         t0 = time.perf_counter()
         state, m = round_fn(state, batch)
         torch.cuda.synchronize()
         card_ms = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        want, wm = round_fn(before, batch)
-        cpu_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        where = f"{label} round {r}"
-        np.testing.assert_array_equal(m.events.cpu().numpy(),
-                                      wm.events.numpy(), err_msg=where)
-        torch.testing.assert_close(m.distances.cpu(), wm.distances,
-                                   rtol=1e-5, atol=1e-7)
-        delta, wdelta = m.delta.cpu(), wm.delta
-        scale = torch.maximum(torch.maximum(delta.abs(), wdelta.abs()),
-                              before.ctrl.delta.abs())
-        if not bool(((delta - wdelta).abs() <= scale * 2.0 ** -23).all()):
-            raise AssertionError(f"{where}: δ {delta} against {wdelta}")
-        torch.testing.assert_close(m.train_loss.cpu(), wm.train_loss,
-                                   rtol=1e-5, atol=0)
-        # held on the card: the CPU's leaves copied there
-        gap = max(_held_on_card(dev, tree_leaves(getattr(state, f)),
-                                tree_leaves(getattr(want, f)), where, f)
-                  for f in ("theta", "lam", "z_prev"))
-        check_s = time.perf_counter() - t0
-        report.append(dict(events=m.events.tolist(),
-                           train_loss=float(m.train_loss), max_abs_err=gap,
-                           card_ms=card_ms, cpu_s=cpu_s))
-        log(f"{where} ({cfg.name}, {cfg.num_layers} layers, fp32): events "
-            f"{m.events.tolist()} equal, train_loss "
-            f"{float(m.train_loss):.6f} (CPU {float(wm.train_loss):.6f}), "
-            f"state max_abs_err {gap:.3e} (rtol 1e-4 / atol 1e-6 held); "
-            f"card {card_ms:.1f} ms, CPU {cpu_s:.1f} s, the state's copy to "
-            f"the CPU {copy_s:.1f} s, the check {check_s:.1f} s")
-    if any(ops.launch_counts().values()):
-        raise AssertionError(f"{label} launched {ops.launch_counts()}")
+        if any(ops.launch_counts().values()):
+            raise AssertionError(f"{label} launched {ops.launch_counts()}")
+
+        def held(state, m, before, batch, r, card_ms, copy_s, cpu):
+            t0 = time.perf_counter()
+            want, wm = round_fn(before, batch) if cpu is None \
+                else cpu.result()
+            cpu_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            where = f"{label} round {r}"
+            np.testing.assert_array_equal(m.events.cpu().numpy(),
+                                          wm.events.numpy(), err_msg=where)
+            torch.testing.assert_close(m.distances.cpu(), wm.distances,
+                                       rtol=1e-5, atol=1e-7)
+            delta, wdelta = m.delta.cpu(), wm.delta
+            scale = torch.maximum(torch.maximum(delta.abs(), wdelta.abs()),
+                                  before.ctrl.delta.abs())
+            if not bool(((delta - wdelta).abs() <= scale * 2.0 ** -23)
+                        .all()):
+                raise AssertionError(f"{where}: δ {delta} against {wdelta}")
+            torch.testing.assert_close(m.train_loss.cpu(), wm.train_loss,
+                                       rtol=1e-5, atol=0)
+            # held on the card: the CPU's leaves copied there
+            gap = max(_held_on_card(dev, tree_leaves(getattr(state, f)),
+                                    tree_leaves(getattr(want, f)), where, f)
+                      for f in ("theta", "lam", "z_prev"))
+            check_s = time.perf_counter() - t0
+            report.append(dict(events=m.events.tolist(),
+                               train_loss=float(m.train_loss),
+                               max_abs_err=gap, card_ms=card_ms,
+                               cpu_s=cpu_s))
+            log(f"{where} ({cfg.name}, {cfg.num_layers} layers, fp32): "
+                f"events {m.events.tolist()} equal, train_loss "
+                f"{float(m.train_loss):.6f} (CPU "
+                f"{float(wm.train_loss):.6f}), state max_abs_err {gap:.3e} "
+                f"(rtol 1e-4 / atol 1e-6 held); card {card_ms:.1f} ms, CPU "
+                f"{cpu_s:.1f} s"
+                + (" (the wait for the worker's round)" if defer else "")
+                + f", the state's copy to the CPU {copy_s:.1f} s, the check "
+                f"{check_s:.1f} s")
+            return report
+
+        if defer:
+            kept = _cross_pod_to(state, "cpu")
+            del state
+            torch.cuda.empty_cache()
+            return functools.partial(held, kept, m, before, batch, r,
+                                     card_ms, copy_s, cpu)
+        held(state, m, before, batch, r, card_ms, copy_s, cpu)
     return report
 
 
@@ -3457,20 +3550,27 @@ def check_loss_grads_against_cpu(dev, ops, cfg, spec, label, repeat=False):
 
 def _round_profile(prof, wall_ms) -> dict:
     """A profiled round's device busy time (the kernels' durations, one
-    stream), kernel launches, idle share and longest kernels."""
+    stream), kernel launches, idle share and longest kernels, read off
+    the profiler's raw events: the device events but the spans.  (The
+    same figures as ``key_averages()``'s, which builds the event tree
+    first: 0.55 s against 0.03 s on a 2,990-launch step on an H100.)"""
     from repro_torch.utils.spans import is_span
 
     cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.key_averages() if e.device_type == cuda
-               and not is_span(e.key)]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    by_name: dict = {}
+    busy_ns = launches = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda or is_span(e.name()):
+            continue
+        busy_ns += e.duration_ns()
+        launches += 1
+        by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns()
+    busy = busy_ns / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return dict(
         wall_ms=wall_ms, device_busy_ms=busy,
-        idle_share=1 - busy / wall_ms,
-        launches=sum(e.count for e in kernels),
-        top_kernels_ms={e.key[:60]: e.self_device_time_total / 1e3
-                        for e in top})
+        idle_share=1 - busy / wall_ms, launches=launches,
+        top_kernels_ms={k[:60]: v / 1e6 for k, v in top})
 
 
 def drive_crosspod_full(dev, smi, cfg, spec, label):
@@ -4495,7 +4595,8 @@ def serve_on_meshes(dev, ops, smi, cfg, label, meshes, plain_rows, expect,
             d[kind] = d.get(kind, 0) + t.numel() * t.element_size()
 
         ops.reset_launch_counts()
-        collectives.listeners.append(count)
+        listen = _but_the_worker(count)
+        collectives.listeners.append(listen)
         try:
             with (routing_plans() if moe else contextlib.nullcontext(
                     [])) as plans:
@@ -4505,7 +4606,7 @@ def serve_on_meshes(dev, ops, smi, cfg, label, meshes, plain_rows, expect,
             where[0] = "decode"
             decode(sharded, logits[:, -1].argmax(-1)[:, None], cache)
         finally:
-            collectives.listeners.remove(count)
+            collectives.listeners.remove(listen)
         del logits, cache
         drops = (hold_routing(f"{label} {mode}", plain_routing, plans, mesh,
                               cfg.top_k) if moe else None)
@@ -4651,7 +4752,9 @@ def _state_leaves(state):
 
 
 def check_pod_mesh_group(dev, ops, cfg):
-    """Phase 12a → its report."""
+    """Phase 12a → a callable that holds the rounds against the CPU's
+    mesh rounds (run on the :func:`background` worker meanwhile) and
+    returns the report."""
     from repro_torch.core.crosspod import init_cross_pod_state
     from repro_torch.launch.mesh import make_mesh, make_test_mesh
     from repro_torch.launch.steps import make_train_step
@@ -4671,7 +4774,7 @@ def check_pod_mesh_group(dev, ops, cfg):
     batches = _crosspod_batches(cfg, cp, POD_GROUP["batch"],
                                 POD_GROUP["seq"])
     ops.reset_launch_counts()
-    rounds = []
+    rounds, held = [], []
     for r in range(POD_GROUP["rounds"]):
         batch = next(batches)
         bspec = cross_pod_batch_specs(batch)
@@ -4685,50 +4788,67 @@ def check_pod_mesh_group(dev, ops, cfg):
                 cp, tree_map(lambda x: x.cpu(), params0), cpu_mesh)
             del params0
         else:
-            whole = gather_tree(state, device="cpu")
             one_before = _cross_pod_to(whole, dev)
             cpu_before = shard_tree(whole, state.specs, cpu_mesh)
             del whole
+        cpu = background().submit(round_cpu, cpu_before, shard_tree(
+            batch, bspec, cpu_mesh))
+        del cpu_before
         t0 = time.perf_counter()
         state, m = round_card(state, shard_tree(batch, bspec, mesh))
         torch.cuda.synchronize()
         card_ms = (time.perf_counter() - t0) * 1e3
         one, m1 = round_one(one_before, batch)
-        t0 = time.perf_counter()
-        want, wm = round_cpu(cpu_before, shard_tree(batch, bspec, cpu_mesh))
-        cpu_s = time.perf_counter() - t0
         where = f"12a round {r}"
-        for label, other in (("the CPU's mesh round", wm),
-                             ("the one-device round", m1)):
-            np.testing.assert_array_equal(
-                m.events.cpu().numpy(), other.events.cpu().numpy(),
-                err_msg=f"{where}: events against {label}")
-            torch.testing.assert_close(m.distances.cpu(),
-                                       other.distances.cpu(), rtol=1e-5,
-                                       atol=1e-7)
-            torch.testing.assert_close(m.train_loss.cpu(),
-                                       other.train_loss.cpu(), rtol=1e-5,
-                                       atol=0)
-        got = _state_leaves(gather_tree(state))
-        gap_cpu = _held_on_card(dev, got, _state_leaves(gather_tree(want)),
-                                where, "state against the CPU's mesh round")
-        gap_one = _held_on_card(dev, got, _state_leaves(one), where,
+        np.testing.assert_array_equal(
+            m.events.cpu().numpy(), m1.events.cpu().numpy(),
+            err_msg=f"{where}: events against the one-device round")
+        torch.testing.assert_close(m.distances.cpu(), m1.distances.cpu(),
+                                   rtol=1e-5, atol=1e-7)
+        torch.testing.assert_close(m.train_loss.cpu(), m1.train_loss.cpu(),
+                                   rtol=1e-5, atol=0)
+        gap_one = _held_on_card(dev, _state_leaves(gather_tree(state)),
+                                _state_leaves(one), where,
                                 "state against the one-device round")
-        del got, one, one_before, want, cpu_before
-        rounds.append(dict(events=m.events.tolist(),
-                           train_loss=float(m.train_loss),
-                           max_abs_err_vs_cpu=gap_cpu,
-                           max_abs_err_vs_one_device=gap_one,
-                           card_ms=card_ms, cpu_s=cpu_s))
-        log(f"{where} ({cfg.name} width, {cfg.num_layers} layers, fp32, "
-            f"mesh {POD_MESH}): events {m.events.tolist()} equal to the "
-            f"CPU's mesh round and the one-device round's; train_loss "
-            f"{float(m.train_loss):.6f} (CPU {float(wm.train_loss):.6f}, "
-            f"one device {float(m1.train_loss):.6f}); state max_abs_err "
-            f"{gap_cpu:.3e} against the CPU, {gap_one:.3e} against one "
-            f"device (rtol 1e-4 / atol 1e-6 held); card {card_ms:.1f} ms, "
-            f"CPU {cpu_s:.1f} s")
-    del state
+        del one, one_before
+        # the card's state after the round, kept on the host for the
+        # CPU's round (and the next round's start)
+        whole = gather_tree(state, device="cpu")
+        held.append((where, m, m1, whole, cpu, card_ms, gap_one))
+    del state, whole
+
+    def hold():
+        for where, m, m1, got, cpu, card_ms, gap_one in held:
+            t0 = time.perf_counter()
+            want, wm = cpu.result()
+            wait_s = time.perf_counter() - t0
+            np.testing.assert_array_equal(
+                m.events.cpu().numpy(), wm.events.cpu().numpy(),
+                err_msg=f"{where}: events against the CPU's mesh round")
+            torch.testing.assert_close(m.distances.cpu(), wm.distances.cpu(),
+                                       rtol=1e-5, atol=1e-7)
+            torch.testing.assert_close(m.train_loss.cpu(),
+                                       wm.train_loss.cpu(), rtol=1e-5,
+                                       atol=0)
+            gap_cpu = _held_on_card(dev, _state_leaves(got),
+                                    _state_leaves(gather_tree(want)), where,
+                                    "state against the CPU's mesh round")
+            rounds.append(dict(events=m.events.tolist(),
+                               train_loss=float(m.train_loss),
+                               max_abs_err_vs_cpu=gap_cpu,
+                               max_abs_err_vs_one_device=gap_one,
+                               card_ms=card_ms, cpu_wait_s=wait_s))
+            log(f"{where} ({cfg.name} width, {cfg.num_layers} layers, fp32, "
+                f"mesh {POD_MESH}): events {m.events.tolist()} equal to the "
+                f"CPU's mesh round and the one-device round's; train_loss "
+                f"{float(m.train_loss):.6f} (CPU {float(wm.train_loss):.6f}, "
+                f"one device {float(m1.train_loss):.6f}); state max_abs_err "
+                f"{gap_cpu:.3e} against the CPU, {gap_one:.3e} against one "
+                f"device (rtol 1e-4 / atol 1e-6 held); card {card_ms:.1f} ms, "
+                f"the wait for the worker's CPU round {wait_s:.1f} s")
+            del want, got
+        held.clear()
+        return dict(rounds=rounds, train_step=train_step)
 
     params = model.init(SEED, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -4772,9 +4892,10 @@ def check_pod_mesh_group(dev, ops, cfg):
         f"(unsharded {float(want_loss):.6f}), first moment max_abs_err "
         f"{mu_gap:.3e}, parameters {p_gap:.3e} where the gradient is firm "
         f"(rtol 1e-4 / atol 1e-6 held); {step_ms:.1f} ms")
-    return dict(rounds=rounds, train_step=dict(
+    train_step = dict(
         loss=float(loss), unsharded_loss=float(want_loss),
-        mu_max_abs_err=mu_gap, param_max_abs_err_firm=p_gap, ms=step_ms))
+        mu_max_abs_err=mu_gap, param_max_abs_err_firm=p_gap, ms=step_ms)
+    return hold
 
 
 def drive_pod_mesh_full(dev, ops, smi, cfg, unsharded):
@@ -4820,7 +4941,8 @@ def drive_pod_mesh_full(dev, ops, smi, cfg, unsharded):
 
     ops.reset_launch_counts()
     ms, events, losses, fired = [], [], [], set()
-    collectives.listeners.append(count)
+    listen = _but_the_worker(count)
+    collectives.listeners.append(listen)
     try:
         for r in range(1 + POD_FULL["rounds"]):
             batch = next(batches)
@@ -4842,7 +4964,7 @@ def drive_pod_mesh_full(dev, ops, smi, cfg, unsharded):
             losses.append(float(m.train_loss))
             fired |= {i for i, e in enumerate(events[-1]) if e}
     finally:
-        collectives.listeners.remove(count)
+        collectives.listeners.remove(listen)
     peak = torch.cuda.max_memory_allocated(dev)
     if events[0] != [True] * cp.n_pods:
         raise AssertionError(f"12b: round 0 fired {events[0]}")
@@ -4897,18 +5019,30 @@ def drive_pod_mesh_full(dev, ops, smi, cfg, unsharded):
 
 
 def phase12(dev, ops, smi, granite, unsharded):
-    """Phases 12a and 12b; ``unsharded`` is phase 7b's report."""
+    """Phases 12a and 12b; ``unsharded`` is phase 7b's report → a
+    callable that holds 12a's rounds against the CPU's mesh rounds (on
+    the :func:`background` worker beside 12b and what follows) and logs
+    the phase's report."""
     t0 = t1 = time.perf_counter()
-    group = check_pod_mesh_group(dev, ops, dataclasses.replace(
+    hold = check_pod_mesh_group(dev, ops, dataclasses.replace(
         granite, num_layers=POD_GROUP["layers"], dtype="float32"))
     torch.cuda.empty_cache()
-    log(f"phase 12a took {time.perf_counter() - t1:.1f} s")
+    log(f"phase 12a took {time.perf_counter() - t1:.1f} s on the card "
+        "(its CPU rounds on the worker)")
     t1 = time.perf_counter()
     full = drive_pod_mesh_full(dev, ops, smi, granite, unsharded)
     log(f"phase 12b took {time.perf_counter() - t1:.1f} s; phases 12a–12b "
         f"{time.perf_counter() - t0:.1f} s")
-    log(json.dumps({"pod_mesh": {"group": group, "full": full},
-                    "card": smi}))
+
+    def finish():
+        t0 = time.perf_counter()
+        group = hold()
+        log(f"phase 12a's CPU rounds held in {time.perf_counter() - t0:.1f}"
+            " s")
+        log(json.dumps({"pod_mesh": {"group": group, "full": full},
+                        "card": smi}))
+
+    return finish
 
 
 # Phase 13: tensor-parallel serving for every family (slice 21), every
@@ -5101,6 +5235,587 @@ def phase13(dev, ops, smi):
     return counts
 
 
+# Phase 14: tensor-parallel training for every family and the MoE on a
+# data axis above 1 (slice 22), every model coordinate on the card (the
+# placement, the gradients and the copies' bytes, not a link).  14a: fp32
+# cuts at every published width, each family's ``make_train_step`` on
+# TRAIN_CUT_MESHES (moonshot also ep and fsdp) against the unsharded
+# step on the card, and one cross-pod round of each of TRAIN_PODS
+# against the one-device round; 14b: granite-3-2b whole in bf16; 14c:
+# moonshot at full width cut to TRAIN_MOON["layers"] layers, bf16.
+TRAIN_CUT = dict(batch=2, text=64, rho=1e-2, lr=1e-3)
+TRAIN_CUT_MESHES = (("tp", (1, 4)), ("fsdp_tp", (2, 2)))
+# (architecture, layers, the modes beyond TRAIN_CUT_MESHES)
+TRAIN_CUTS = (("granite-3-2b", 2, ()), ("mamba2-2.7b", 2, ()),
+              ("zamba2-2.7b", 6, ()),
+              ("moonshot-v1-16b-a3b", 2, (("ep", (1, 4)), ("fsdp", (2, 2)))),
+              ("paligemma-3b", 2, ()), ("hubert-xlarge", 2, ()))
+TRAIN_TOL = dict(rtol=1e-4, atol=1e-7)  # μ; the parameters where firm
+# A parameter's first Adam step is firm where |μ| > TRAIN_FIRM: ten times
+# μ's atol, so that the gradient's sign cannot turn within μ's grade.
+TRAIN_FIRM = 1e-6
+# One cross-pod round each, (architecture, its cut, mode, mesh).  The
+# reference's rule cuts the embedding and the head over the model axis
+# only, so a data axis of 2 holds them twice: moonshot's fp32 state of 2
+# pods at its 163,840-token vocabulary is 6 × 7.65 GB at one layer, past
+# one card with the round's working set.  Its MoE round keeps every
+# other width (d 2048, 16 heads, 64 experts of 1,408, top 6) and cuts the
+# vocabulary to 32,768 and the depth to one layer (6 × 3.4 GB).
+TRAIN_PODS = (("moonshot-v1-16b-a3b", dict(num_layers=1, vocab_size=32768),
+               "fsdp", (2, 2, 1)),
+              ("granite-3-2b", dict(num_layers=2), "tp", (2, 1, 2)))
+TRAIN_FULL = dict(batch=2, text=2048, lr=1e-3)
+TRAIN_GRANITE = (("tp", (1, 4)), ("fsdp_tp", (2, 2)))
+TRAIN_MOON = dict(layers=2, meshes=(("fsdp", (2, 2)), ("ep", (1, 4))))
+TRAIN_LOSS_REL = 1e-2  # bf16: the mesh step's loss against the unsharded
+# bf16: each leaf's ‖μ_mesh − μ‖ / ‖μ‖ against the unsharded step's μ; a
+# leaf past it must be as close to the fp32 step's μ as the unsharded
+# step's is (within ANCHOR_RATIO of its gap) — PERF.md §6
+TRAIN_BF16_REL = 3e-2
+
+
+def _free():
+    """Collect the cycles that hold tensors (autograd graphs under
+    checkpoint, closures), then give the cache's free blocks back."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _step_batch(cfg, batch, text):
+    """A training batch on the CPU, made with numpy from the seed, and
+    the step's ``seq``: ``text`` next-token pairs (after the vlm's
+    prefix patches, which ``seq`` counts), or the audio family's
+    frames."""
+    from repro_torch.launch.serve_lm import make_request
+
+    if cfg.family == "vlm":
+        req = make_request(cfg, batch, text + 1, SEED, "cpu")
+        return {"tokens": req["tokens"][:, :-1],
+                "labels": req["tokens"][:, 1:],
+                "patches": req["patches"]}, cfg.prefix_tokens + text
+    return _train_batch(cfg, batch, text), text
+
+
+# Phase 14's host copies are cut from one pinned buffer (a bump
+# allocator, emptied between models): pinned, they go back to the card
+# at the link's rate (pageable copies ran at ~3 GB/s here), and one
+# buffer keeps the host's locked memory at its size (the pinned cache
+# rounds each block up to a power of two and keeps it).
+TRAIN_PINNED_BYTES = 30 * 2 ** 30
+_PINNED = []
+
+
+def _pinned(reset=False):
+    """The pinned buffer and its fill, [buffer, bytes used], made at
+    first use; ``reset`` empties it."""
+    if reset:
+        for slot in _PINNED:
+            slot[1] = 0
+        return None
+    if not _PINNED:
+        _PINNED.append([torch.empty(TRAIN_PINNED_BYTES, dtype=torch.uint8,
+                                    pin_memory=True), 0])
+    return _PINNED[0]
+
+
+def _to(tree, device):
+    """Each leaf of a tree (or a list) on ``device``; on the host, a copy
+    in the pinned buffer (:func:`_pinned`)."""
+    from repro_torch.utils.pytree import tree_map
+
+    def one(x):
+        if torch.device(device).type != "cpu" or \
+                not torch.cuda.is_available():
+            return x.to(device)
+        slot = _pinned()
+        start = -(-slot[1] // 256) * 256
+        n = x.numel() * x.element_size()
+        if start + n > slot[0].numel():
+            raise AssertionError(f"the pinned buffer holds "
+                                 f"{slot[0].numel()} bytes; {start + n} "
+                                 "asked")
+        slot[1] = start + n
+        return slot[0][start:start + n].view(x.dtype).view(x.shape).copy_(x)
+
+    if isinstance(tree, list):
+        return [one(x) for x in tree]
+    return tree_map(one, tree)
+
+
+def _field(sharded, name, specs):
+    """The ShardedTree of one field of a ShardedTree of records."""
+    from repro_torch.sharding.params import ShardedTree
+
+    return ShardedTree(tuple(getattr(b, name) for b in sharded.blocks),
+                       specs, sharded.mesh)
+
+
+def _held_blocks(dev, sharded, whole, label, what, tol, firm=None,
+                 lr=None):
+    """Each coordinate's block of each leaf of ``sharded`` (on the card)
+    against its slice of ``whole`` (on the card or the host; each leaf
+    copied to the card whole): at ``tol``; with ``firm`` (the whole
+    first moment) at ``tol`` only where |μ| > TRAIN_FIRM and within 2·lr
+    elsewhere (Adam's first step moves a weight by ±lr·g/(|g| + ε), its
+    sign that of a gradient within μ's grade of 0 there) → the largest
+    |Δ| held at ``tol``."""
+    from repro_torch.sharding.params import block_slices
+    from repro_torch.utils.pytree import tree_leaves
+
+    mesh = sharded.mesh
+    specs = tree_leaves(sharded.specs)
+    wl = whole if isinstance(whole, list) else tree_leaves(whole)
+    fl = None if firm is None else tree_leaves(firm)
+    blocks = [tree_leaves(sharded.at(c)) for c in mesh.coords()]
+    gap = 0.0
+    for k, s in enumerate(specs):
+        w_all = wl[k].to(dev, non_blocking=True)
+        f_all = None if fl is None else fl[k].to(dev, non_blocking=True)
+        for c, bl in zip(mesh.coords(), blocks, strict=True):
+            sl = block_slices(w_all.shape, s, mesh, c)
+            b, w = bl[k], w_all[sl]
+            diff = (b - w).abs()
+            bad = diff > tol["atol"] + tol["rtol"] * w.abs()
+            if f_all is not None:
+                f = f_all[sl].abs() > TRAIN_FIRM
+                bad = (bad & f) | (diff > 2 * lr * 1.0001)
+                diff = torch.where(f, diff, 0.0)
+            if bool(bad.any()):
+                raise AssertionError(
+                    f"{label}: {what} leaf {k} at {c} off rtol "
+                    f"{tol['rtol']} / atol {tol['atol']} (where firm), max "
+                    f"|Δ| {float(diff.max()):.3e}, everywhere "
+                    f"{float((b - w).abs().max()):.3e}")
+            gap = max(gap, float(diff.max()))
+        del w_all, f_all
+    return gap
+
+
+def _rel_gaps(dev, sharded, wholes):
+    """Per leaf, ‖block − slice‖ over the coordinates that own the
+    block (a replica counted once) over ‖whole‖, for each of ``wholes``
+    (host leaf lists, each leaf copied to the card whole)."""
+    from repro_torch.sharding.params import block_slices
+    from repro_torch.sharding.train import _owns
+    from repro_torch.utils.pytree import tree_leaves
+
+    mesh = sharded.mesh
+    specs = tree_leaves(sharded.specs)
+    blocks = [tree_leaves(sharded.at(c)) for c in mesh.coords()]
+    out = [[] for _ in wholes]
+    for k, s in enumerate(specs):
+        for i, whole in enumerate(wholes):
+            w_all = whole[k].to(dev, torch.float32)
+            sq = 0.0
+            for c, bl in zip(mesh.coords(), blocks, strict=True):
+                if _owns(s, mesh.axis_names, c):
+                    d = bl[k].to(torch.float32) - w_all[
+                        block_slices(w_all.shape, s, mesh, c)]
+                    sq += float(torch.sum(d * d))
+            out[i].append(math.sqrt(sq) / max(float(
+                torch.linalg.vector_norm(w_all)), 1e-30))
+            del w_all
+    return out
+
+
+def check_train_cuts(dev, ops):
+    """Phase 14a's train steps → report."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import abstract_params, build_model
+    from repro_torch.optim.adam import adam_init
+    from repro_torch.sharding.params import ShardedTree, per_device_bytes, \
+        shard_tree, tree_bytes_at
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    report = {}
+    for arch, layers, more in TRAIN_CUTS:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  dtype="float32")
+        model = build_model(cfg)
+        _pinned(reset=True)
+        params = model.init(SEED, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        center = tree_map(lambda x: x + 0.01 * torch.randn(
+            x.shape, generator=gen, device=dev, dtype=x.dtype), params)
+        batch, seq = _step_batch(cfg, TRAIN_CUT["batch"], TRAIN_CUT["text"])
+        kw = dict(batch=TRAIN_CUT["batch"], seq=seq, rho=TRAIN_CUT["rho"],
+                  lr=TRAIN_CUT["lr"])
+        step, _ = make_train_step(model, **kw)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        want_p, want_o, want_loss = step(params, adam_init(params), center,
+                                         {k: v.to(dev)
+                                          for k, v in batch.items()})
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        # on the host, so that the mesh step finds room (moonshot's fp32
+        # cut is 7.25 GB, and fsdp_tp holds paligemma's embedding and
+        # head twice)
+        want_p, want_mu = _to(want_p, "cpu"), _to(want_o.mu, "cpu")
+        params, center = _to(params, "cpu"), _to(center, "cpu")
+        del want_o
+        _free()
+        p_abs = abstract_params(model)
+        out = dict(unsharded_loss=float(want_loss), unsharded_ms=one_ms)
+        for mode, shape in TRAIN_CUT_MESHES + more:
+            mesh = make_mesh(shape)
+            mstep, args = make_train_step(model, mesh, mode=mode, **kw)
+            sp = shard_tree(_to(params, dev), args.in_specs[0], mesh)
+            expect = per_device_bytes(p_abs, args.in_specs[0], mesh)
+            resident = [tree_bytes_at(sp, c) for c in mesh.coords()]
+            if any(r != expect for r in resident):
+                raise AssertionError(f"14a {arch} {mode}: resident bytes "
+                                     f"{resident}, per_device_bytes {expect}")
+            so = ShardedTree(tuple(adam_init(b) for b in sp.blocks),
+                             args.in_specs[1], mesh)
+            sc = shard_tree(_to(center, dev), args.in_specs[2], mesh)
+            sb = shard_tree(batch, args.in_specs[3], mesh)
+            _free()
+            t0 = time.perf_counter()
+            p, o, loss = mstep(sp, so, sc, sb)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            del sp, so, sc, sb
+            torch.testing.assert_close(loss.cpu(), want_loss.cpu(),
+                                       rtol=1e-5, atol=0)
+            where = f"14a {arch} {mode}"
+            mu_gap = _held_blocks(dev, _field(o, "mu", args.in_specs[0]),
+                                  want_mu, where, "first moment", TRAIN_TOL)
+            p_gap = _held_blocks(dev, p, want_p, where, "parameters",
+                                 TRAIN_TOL, firm=want_mu, lr=TRAIN_CUT["lr"])
+            if int(o.blocks[0].step) != 1:
+                raise AssertionError(f"{where}: step {o.blocks[0].step}")
+            out[f"{mode} {shape}"] = dict(
+                loss=float(loss), mu_max_abs_err=mu_gap,
+                param_max_abs_err_firm=p_gap, ms=ms,
+                resident_bytes=resident[0])
+            log(f"{where} ({layers} layers at full width, fp32, "
+                f"{TRAIN_CUT['batch']} × {seq} positions) on mesh {shape}: "
+                f"loss {float(loss):.6f} (unsharded {float(want_loss):.6f}, "
+                f"rtol 1e-5 held); first moment max_abs_err {mu_gap:.3e}, "
+                f"parameters {p_gap:.3e} where |μ| > {TRAIN_FIRM} (rtol "
+                f"1e-4 / atol 1e-7 held, within 2·lr elsewhere); resident "
+                f"bytes {resident[0]} = per_device_bytes; step {ms:.1f} ms "
+                f"(unsharded {one_ms:.1f})")
+            del p, o, loss
+            _free()
+        if any(ops.launch_counts().values()):
+            raise AssertionError(f"14a {arch} launched {ops.launch_counts()}")
+        report[arch] = out
+        del params, center, want_p, want_mu
+    return report
+
+
+def check_train_pods(dev, ops):
+    """Phase 14a's cross-pod rounds → report."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.crosspod import init_cross_pod_state
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.params import shard_tree
+    from repro_torch.sharding.train import cross_pod_batch_specs, \
+        init_cross_pod_state_on_mesh, make_cross_pod_round_on_mesh
+    from repro_torch.utils.pytree import tree_leaves
+
+    report = {}
+    for arch, cut, mode, shape in TRAIN_PODS:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32", **cut)
+        cp, model, round_one = _crosspod_round(cfg)
+        mesh = make_mesh(shape, POD_AXES)
+        round_mesh = make_cross_pod_round_on_mesh(cp, model, mesh, mode=mode)
+        _pinned(reset=True)
+        params0 = model.init(SEED, device=dev)
+        batch = next(_crosspod_batches(cfg, cp, TRAIN_CUT["batch"],
+                                       TRAIN_CUT["text"]))
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        one, m1 = round_one(init_cross_pod_state(cp, params0, device=dev),
+                            batch)
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        want = {f: _to(tree_leaves(getattr(one, f)), "cpu")
+                for f in ("theta", "lam", "z_prev")}
+        del one
+        _free()
+        state = init_cross_pod_state_on_mesh(cp, params0, mesh, mode=mode)
+        del params0
+        _free()
+        before_gb = torch.cuda.memory_allocated(dev) / 1e9
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state, m = round_mesh(state, shard_tree(
+            batch, cross_pod_batch_specs(batch), mesh))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev)
+        where = f"14a {arch} cross-pod {mode}"
+        np.testing.assert_array_equal(m.events.cpu().numpy(),
+                                      m1.events.cpu().numpy(), err_msg=where)
+        torch.testing.assert_close(m.distances.cpu(), m1.distances.cpu(),
+                                   rtol=1e-5, atol=1e-7)
+        torch.testing.assert_close(m.train_loss.cpu(), m1.train_loss.cpu(),
+                                   rtol=1e-5, atol=0)
+        gap = max(_held_blocks(dev, _field(state, f, getattr(state.specs, f)),
+                               want[f], where, f, SOLVE_TOL)
+                  for f in want)
+        if any(ops.launch_counts().values()):
+            raise AssertionError(f"{where} launched {ops.launch_counts()}")
+        report[f"{arch} {mode} {shape}"] = dict(
+            events=m.events.tolist(), train_loss=float(m.train_loss),
+            max_abs_err=gap, ms=ms, one_device_ms=one_ms,
+            peak_memory_bytes=peak)
+        log(f"{where} ({cfg.num_layers} layers, vocabulary "
+            f"{cfg.vocab_size}, the other widths full, fp32) on mesh "
+            f"{shape}: events {m.events.tolist()} equal to the one-device "
+            f"round's, train_loss {float(m.train_loss):.6f} (one device "
+            f"{float(m1.train_loss):.6f}); θ / λ / z_prev max_abs_err "
+            f"{gap:.3e} (rtol 1e-4 / atol 1e-6 held); round {ms:.1f} ms "
+            f"(one device {one_ms:.1f}); {before_gb:.2f} GB on the card "
+            f"before it, peak {peak / 1e9:.2f}")
+        del state, want
+        _free()
+    return report
+
+
+def _moe_aux(cfg, plans, n_data, n_model):
+    """The whole batch's load-balance aux from recorded forward routings
+    (data shard by data shard, layer by layer, the model shards in
+    turn; the first model shard's taken)."""
+    from repro_torch.models import moe
+
+    layers = cfg.num_layers
+    total = None
+    for d in range(n_data):
+        st = torch.stack([moe.load_stats(plans[(d * layers + i) * n_model])
+                          for i in range(layers)]).detach()
+        total = st if total is None else total + st.to(total.device)
+    tokens = sum(plans[d * layers * n_model]["probs"].shape[0]
+                 * plans[d * layers * n_model]["probs"].shape[1]
+                 for d in range(n_data))
+    return float(moe.load_balance(total, tokens))
+
+
+def _fp32_first_moment(cfg, params, batch, dev):
+    """Adam's first moment after one step from 0 of the fp32 gradient of
+    ``params`` (host leaves, cast) on ``batch``, the centre at the
+    parameters: (1 − b1)·∇ (``optim/adam.py``'s fp32 constant)."""
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    model = build_model(dataclasses.replace(cfg, dtype="float32"))
+    leaves = [x.to(dev, torch.float32).requires_grad_(True)
+              for x in tree_leaves(params)]
+    it = iter(leaves)
+    loss = model.loss(tree_map(lambda _: next(it), params), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    c1 = float(np.float32(1 - 0.9))
+    out = _to([c1 * g for g in grads], "cpu")
+    del leaves, grads, loss
+    _free()
+    return out
+
+
+def train_full(dev, ops, smi, cfg, label, meshes):
+    """Phases 14b and 14c: ``cfg`` in bf16 from the seeded init, one step
+    of TRAIN_FULL's batch, the centre the parameters; unsharded, then on
+    each (mode, mesh shape) of ``meshes`` under torch.profiler.  Checked:
+    each coordinate's resident bytes equal to ``per_device_bytes``, GB
+    by collective kind equal to ``sharding.train.step_bytes``, the loss
+    within TRAIN_LOSS_REL of the unsharded step's, each leaf's first
+    moment within TRAIN_BF16_REL of the unsharded one (past it, as close
+    to the fp32 gradient's as the unsharded one, within ANCHOR_RATIO), no
+    kernel launches; for the MoE each layer's routing held to the
+    unsharded one's (``hold_routing``) and the aux printed."""
+    import types
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import abstract_params, build_model
+    from repro_torch.optim.adam import adam_init
+    from repro_torch.sharding.clients import collectives
+    from repro_torch.sharding.params import ShardedTree, per_device_bytes, \
+        shard_tree, tree_bytes_at
+    from repro_torch.sharding.train import step_bytes
+    from repro_torch.utils.pytree import tree_leaves
+
+    model = build_model(cfg)
+    moe = cfg.family == "moe"
+    _pinned(reset=True)
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch, seq = _step_batch(cfg, TRAIN_FULL["batch"], TRAIN_FULL["text"])
+    on_card = {k: v.to(dev) for k, v in batch.items()}
+    kw = dict(batch=TRAIN_FULL["batch"], seq=seq, lr=TRAIN_FULL["lr"])
+    step, _ = make_train_step(model, **kw)
+    routed = routing_plans if moe else (lambda: contextlib.nullcontext([]))
+    ops.reset_launch_counts()
+    _free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with routed() as plans:
+        t0 = time.perf_counter()
+        new_p, want_o, want_loss = step(params, adam_init(params), params,
+                                        on_card)
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        plain_routing = plans[:cfg.num_layers]
+    one_peak = torch.cuda.max_memory_allocated(dev)
+    want_mu = _to(tree_leaves(want_o.mu), "cpu")
+    del want_o, new_p
+    params = _to(params, "cpu")
+    _free()
+    t0 = time.perf_counter()
+    anchor = _fp32_first_moment(cfg, params, on_card, dev)
+    anchor_s = time.perf_counter() - t0
+    plain_gap = [float(torch.linalg.vector_norm(u.to(dev, torch.float32)
+                                                - a.to(dev)))
+                 / max(float(torch.linalg.vector_norm(a.to(dev))), 1e-30)
+                 for u, a in zip(want_mu, anchor, strict=True)]
+    aux_one = _moe_aux(cfg, plain_routing, 1, 1) if moe else None
+    total = torch.cuda.get_device_properties(dev).total_memory
+    n = sum(x.numel() for x in tree_leaves(params))
+    report = {"unsharded": dict(
+        loss=float(want_loss), ms=one_ms, peak_memory_bytes=one_peak,
+        init_s=init_s, parameters=n, mu_rel_to_fp32=plain_gap, aux=aux_one,
+        fp32_anchor_s=anchor_s)}
+    log(f"{label} unsharded {cfg.name} ({cfg.num_layers} layers, {n} "
+        f"parameters, bf16, {TRAIN_FULL['batch']} × {seq} tokens): loss "
+        f"{float(want_loss):.6f}, step {one_ms:.1f} ms, peak "
+        f"{one_peak / 1e9:.2f} GB of {total / 1e9:.2f}; the first moment "
+        f"a leaf against the fp32 gradient's: largest rel "
+        f"{max(plain_gap):.3e} (fp32 anchor {anchor_s:.1f} s)"
+        + (f"; aux {aux_one:.6f}" if moe else "") + f"; on {smi}")
+    p_abs = abstract_params(model)
+    for mode, shape in meshes:
+        mesh = make_mesh(shape)
+        mstep, args = make_train_step(model, mesh, mode=mode, **kw)
+        sp = shard_tree(params, args.in_specs[0], mesh)
+        expect = per_device_bytes(p_abs, args.in_specs[0], mesh)
+        resident = [tree_bytes_at(sp, c) for c in mesh.coords()]
+        if any(r != expect for r in resident):
+            raise AssertionError(f"{label} {mode}: resident bytes "
+                                 f"{resident}, per_device_bytes {expect}")
+        so = ShardedTree(tuple(adam_init(b) for b in sp.blocks),
+                         args.in_specs[1], mesh)
+        sb = shard_tree(batch, args.in_specs[3], mesh)
+        moved: dict = {}
+
+        def count(kind, t):
+            moved[kind] = moved.get(kind, 0) + t.numel() * t.element_size()
+
+        _free()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        listen = _but_the_worker(count)
+        collectives.listeners.append(listen)
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        try:
+            with routed() as plans:
+                prof.__enter__()
+                t0 = time.perf_counter()
+                p, o, loss = mstep(sp, so, sp, sb)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                prof.__exit__(None, None, None)
+        finally:
+            collectives.listeners.remove(listen)
+        peak = torch.cuda.max_memory_allocated(dev)
+        profile = _round_profile(prof, wall)
+        del prof, p, sp, so, sb
+        where = f"{label} {mode}"
+        if any(ops.launch_counts().values()):
+            raise AssertionError(f"{where} launched {ops.launch_counts()}")
+        want_bytes = {k: v for k, v in step_bytes(
+            cfg, p_abs, args.in_specs[0], mesh, mode, batch=kw["batch"],
+            seq=seq).items() if v}
+        if moved != want_bytes:
+            raise AssertionError(f"{where}: bytes by kind {moved}, the "
+                                 f"formula's {want_bytes}")
+        rel_loss = abs(float(loss) / float(want_loss) - 1)
+        if rel_loss > TRAIN_LOSS_REL:
+            raise AssertionError(f"{where}: loss {float(loss)} against "
+                                 f"{float(want_loss)}")
+        rel, to_fp32 = _rel_gaps(dev, _field(o, "mu", args.in_specs[0]),
+                                 [want_mu, anchor])
+        anchored = [k for k, r in enumerate(rel) if r > TRAIN_BF16_REL]
+        if any(to_fp32[k] > ANCHOR_RATIO * plain_gap[k] for k in anchored):
+            raise AssertionError(
+                f"{where}: first moment a leaf rel to the unsharded {rel} "
+                f"(allowed {TRAIN_BF16_REL}); to fp32 {to_fp32} against the "
+                f"unsharded's {plain_gap} (×{ANCHOR_RATIO})")
+        del o
+        drops = aux = None
+        if moe:
+            n_data = mesh.size // mesh.shape["model"]
+            n_model = 1 if mode == "fsdp" else mesh.shape["model"]
+            fwd = plans[:n_data * cfg.num_layers * n_model]
+            drops = hold_routing(where, plain_routing, fwd,
+                                 types.SimpleNamespace(
+                                     shape={"model": n_model},
+                                     size=n_data * n_model), cfg.top_k)
+            aux = _moe_aux(cfg, fwd, n_data, n_model)
+        del plans
+        gb = {k: v / 1e9 for k, v in moved.items()}
+        report[f"{mode} {shape}"] = dict(
+            loss=float(loss), loss_rel=rel_loss, mu_rel=rel,
+            mu_rel_to_fp32=to_fp32, anchored_leaves=anchored,
+            profile=profile, peak_memory_bytes=peak,
+            card_memory_bytes=total, resident_bytes=resident[0],
+            gb_by_kind=gb, aux=aux, drops_by_layer=drops)
+        log(f"{where} on mesh {shape}: loss {float(loss):.6f} (rel "
+            f"{rel_loss:.2e} to the unsharded, {TRAIN_LOSS_REL} held); "
+            f"first moment a leaf rel to the unsharded: largest "
+            f"{max(rel):.3e} ({TRAIN_BF16_REL} held"
+            + (f"; leaves {anchored} past it held as close to fp32 as the "
+               f"unsharded, ×{ANCHOR_RATIO}" if anchored else "")
+            + f"); step {wall:.1f} ms wall under the profiler, "
+            f"{profile['device_busy_ms']:.1f} busy, idle "
+            f"{profile['idle_share']:.3f}, {profile['launches']} launches "
+            f"(unsharded {one_ms:.1f} ms); peak {peak / 1e9:.2f} GB of "
+            f"{total / 1e9:.2f}; resident bytes {resident[0]} = "
+            f"per_device_bytes; GB by kind {gb} = the formula's"
+            + (f"; aux {aux:.6f} (unsharded {aux_one:.6f}); drops a layer, "
+               "unsharded / mesh / tokens that changed experts: "
+               + "; ".join(f"{a:.4f} / {b:.4f} / {k}" for a, b, k in drops)
+               if moe else "") + f"; on {smi}")
+        log(f"{where} rel a leaf to the unsharded {[f'{x:.2e}' for x in rel]}"
+            f", to fp32 {[f'{x:.2e}' for x in to_fp32]} (the unsharded's "
+            f"{[f'{x:.2e}' for x in plain_gap]})")
+        _free()
+    del params, want_mu, anchor
+    return report
+
+
+def phase14(dev, ops, smi):
+    """Phases 14a–14c."""
+    from repro_torch.configs import get_config
+
+    t0 = t1 = time.perf_counter()
+    cuts = check_train_cuts(dev, ops)
+    _free()
+    pods = check_train_pods(dev, ops)
+    _free()
+    log(f"phase 14a took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    granite = train_full(dev, ops, smi, get_config("granite-3-2b"), "14b",
+                         TRAIN_GRANITE)
+    _free()
+    log(f"phase 14b took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    moon = train_full(dev, ops, smi, dataclasses.replace(
+        get_config("moonshot-v1-16b-a3b"), num_layers=TRAIN_MOON["layers"]),
+        "14c", TRAIN_MOON["meshes"])
+    _free()
+    log(f"phase 14c took {time.perf_counter() - t1:.1f} s; phases 14a–14c "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"tp_training": {"cuts": cuts, "cross_pod": pods,
+                                    "granite": granite, "moonshot_cut": moon},
+                    "card": smi}))
+
+
 def kernels_line(rows, launches, where):
     """Print each row's facts and the kernels line; ``launches[name]``
     its launches on the path (``where[name]`` says where)."""
@@ -5123,6 +5838,13 @@ def kernels_line(rows, launches, where):
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
+
+
+def phase_seconds(name, t0):
+    """Log a phase's seconds since ``t0``; → now."""
+    now = time.perf_counter()
+    log(f"phase {name} took {now - t0:.1f} s")
+    return now
 
 
 def main() -> int:
@@ -5179,32 +5901,41 @@ def main() -> int:
         raise AssertionError("unexpected CIFAR width "
                              f"{(cifar_data['x'].shape[0], cifar_spec.dim)}")
 
+    t0 = time.perf_counter()
     rows = check_kernels(dev, ops, n, d, 16)
     rows["trigger_sq_norms_pytree"] = check_pytree_kernel(
         dev, ops, {"mlp": params0, "cnn": cifar_params0})
     rows.update(check_sharded_kernels(dev, ops, n, d))
     rows.update(check_model_kernels(dev, ops))
+    log(f"phase 3 took {time.perf_counter() - t0:.1f} s")
 
     ctx = dict(dev=dev, data=data, test=test, params0=params0, spec=spec,
                smi=smi, cfgs=paper_mnist, logits=mlp_logits,
                eval_fn=make_eval_fn(make_loss_and_acc_fn(), spec=spec,
                                     device=dev))
+    t0 = time.perf_counter()
     form_a, counts_a = drive(
         "A", 5, 1, ctx, ops,
         {"trigger_sq_norms": 1, "fused_gss": 1, "admm_update": 0})
+    t0 = phase_seconds("4", t0)
     form_b, counts_b = drive(
         "B", 3, 1, ctx, ops,
         {"trigger_sq_norms": 1, "admm_update": 1, "fused_gss": 0})
+    t0 = phase_seconds("5", t0)
     forms_c, counts_c = drive_forms(ctx, ops, BASELINE_FORMS)
     forms_c["C7"] = dict(drive_scaffold(ctx, ops, 3, 1),
                          what=paper_mnist.FORMS["C7"].what)
+    t0 = phase_seconds("5b", t0)
     forms_t, counts_t = drive_forms(ctx, ops, TREE_FORMS)
+    t0 = phase_seconds("5c", t0)
     cifar_ctx = dict(ctx, data=cifar_data, test=cifar_test,
                      params0=cifar_params0, spec=cifar_spec,
                      cfgs=paper_cifar, logits=cnn_logits)
     check_conv_precision(cifar_ctx)
     forms_cf, counts_cf = drive_forms(cifar_ctx, ops, CIFAR_FORMS)
+    t0 = phase_seconds("5d", t0)
     forms_s, counts_s = drive_forms(ctx, ops, SHARDED_FORMS)
+    t0 = phase_seconds("5e", t0)
     log(json.dumps({"forms": {"A": form_a, "B": form_b, **forms_c,
                               **forms_t, **forms_s, **forms_cf},
                       "card": smi}))
@@ -5216,6 +5947,7 @@ def main() -> int:
         for k, v in counts.items():
             counts_sv[k] = counts_sv.get(k, 0) + v
     log(json.dumps({"serve_forms": forms_sv, "card": smi}))
+    t0 = phase_seconds("5f", t0)
 
     ef_report = check_ef_aggregation(ctx)
     forms_q, counts_q = drive_forms(ctx, ops, COMPRESSED_FORMS)
@@ -5228,6 +5960,7 @@ def main() -> int:
     checkpoints = check_checkpoints(ctx, ops)
     log(json.dumps({"compressed_forms": forms_q, "ef_aggregation": ef_report,
                     "checkpoints": checkpoints, "card": smi}))
+    t0 = phase_seconds("5g", t0)
 
     forms_r, counts_r = drive_ragged(ctx, cifar_ctx, ops)
     beside = {"RA": ("A", form_a), "RB": ("B", form_b),
@@ -5237,6 +5970,7 @@ def main() -> int:
         f"{v['ms_per_round']:.3f})" for r, (b, v) in beside.items())
         + f" on {smi}")
     log(json.dumps({"ragged_forms": forms_r, "card": smi}))
+    t0 = phase_seconds("5h", t0)
 
     forms_w, forms_h, counts_wh = drive_sweeps_and_hosts(ctx, ops)
     beside = {"WA": ("A", form_a), "WB": ("B", form_b)}
@@ -5252,28 +5986,34 @@ def main() -> int:
         f"{forms_r['RA']['ms_per_round']:.3f} earlier in the run on {smi}")
     log(json.dumps({"sweep_forms": forms_w, "host_forms": forms_h,
                     "card": smi}))
+    t0 = phase_seconds("5i–5j", t0)
 
     checker, counts_k = check_static_invariants(ctx, ops)
     log(json.dumps({"checker": checker, "card": smi}))
+    t0 = phase_seconds("5k", t0)
 
     zamba = get_config("zamba2-2.7b")
     _, counts_slice = check_slice_against_cpu(
         dev, ops, dataclasses.replace(zamba, num_layers=6, dtype="float32"),
         {"flash_attention_fp32": 1, "ssd_scan": 6, "flash_attention": 0})
+    t0 = phase_seconds("6", t0)
     torch.cuda.empty_cache()
     serve_report, counts_serve = serve_full(
         dev, ops, smi, zamba, {"flash_attention": zamba.num_layers
                                // zamba.attn_every,
                                "ssd_scan": zamba.num_layers})
     log(json.dumps({"serve": serve_report}))
+    phase_seconds("7", t0)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     granite = get_config(GRANITE)
-    granite_a = check_crosspod_against_cpu(
+    hold_7a = check_crosspod_against_cpu(
         dev, ops, dataclasses.replace(granite, num_layers=GRANITE_A["layers"],
-                                      dtype="float32"), GRANITE_A, "7a")
-    log(f"phase 7a took {time.perf_counter() - t0:.1f} s")
+                                      dtype="float32"), GRANITE_A, "7a",
+        defer=True)
+    log(f"phase 7a took {time.perf_counter() - t0:.1f} s on the card (its "
+        "CPU round on the worker)")
     t1 = time.perf_counter()
     granite_b = drive_crosspod_full(dev, smi, granite, GRANITE_B, "7b")
     log(f"phase 7b took {time.perf_counter() - t1:.1f} s")
@@ -5288,17 +6028,23 @@ def main() -> int:
         dev, ops, smi, granite, {"flash_attention": granite.num_layers,
                                  "ssd_scan": 0},
         bf16_row="flash_attention_gqa")
+    log(f"phase 7c took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    granite_a = hold_7a()
+    del hold_7a  # the kept states, the card's and the CPU's, let go
+    log(f"phase 7a's CPU round held in {time.perf_counter() - t1:.1f} s; "
+        f"phases 7a–7c {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"granite": {"crosspod_vs_cpu": granite_a,
                                 "crosspod_full": granite_b,
                                 "serve": granite_serve}}))
-    log(f"phase 7c took {time.perf_counter() - t1:.1f} s; phases 7a–7c "
-        f"{time.perf_counter() - t0:.1f} s")
 
     t0 = t1 = time.perf_counter()
-    zamba_a = check_crosspod_against_cpu(
+    hold_8a = check_crosspod_against_cpu(
         dev, ops, dataclasses.replace(zamba, num_layers=ZAMBA_A["layers"],
-                                      dtype="float32"), ZAMBA_A, "8a")
-    log(f"phase 8a took {time.perf_counter() - t1:.1f} s")
+                                      dtype="float32"), ZAMBA_A, "8a",
+        defer=True)
+    log(f"phase 8a took {time.perf_counter() - t1:.1f} s on the card (its "
+        "CPU round on the worker)")
     t1 = time.perf_counter()
     zamba_b = drive_crosspod_full(dev, smi, zamba, ZAMBA_B, "8b")
     log(f"phase 8b took {time.perf_counter() - t1:.1f} s")
@@ -5332,8 +6078,12 @@ def main() -> int:
                               "ssd_scan": 0},
         bf16_row="flash_attention_phi3", new_tokens=PHI3_NEW)
     torch.cuda.empty_cache()
-    log(f"phase 8e took {time.perf_counter() - t1:.1f} s; phases 8a–8e "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"phase 8e took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    zamba_a = hold_8a()
+    del hold_8a
+    log(f"phase 8a's CPU round held in {time.perf_counter() - t1:.1f} s; "
+        f"phases 8a–8e {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"zamba2": {"crosspod_vs_cpu": zamba_a,
                                "crosspod_full": zamba_b},
                     "mamba2": {"serve": mamba_serve, **mamba_d},
@@ -5421,8 +6171,15 @@ def main() -> int:
                     "examples": examples, "system_claims": claims,
                     "card": smi}))
 
-    phase12(dev, ops, smi, granite, granite_b)
+    finish_12a = phase12(dev, ops, smi, granite, granite_b)
     counts_tp = phase13(dev, ops, smi)
+    finish_12a()
+    del finish_12a
+    t0 = time.perf_counter()
+    phase14(dev, ops, smi)
+    log(f"phase 14 took {time.perf_counter() - t0:.1f} s")
+    for worker in _BACKGROUND:
+        worker.shutdown()
 
     launches, where = {}, {}
     for name, r in rows.items():

@@ -28,10 +28,10 @@ Every step takes ``mesh=`` (a ``launch.mesh.DeviceMesh``) and
 The serving steps' mesh has the axes ``batch_axes`` and ``"model"``,
 their modes are the reference's four — ``"fsdp"`` (its default),
 ``"tp"``, ``"fsdp_tp"`` and ``"ep"`` — for every family that serves
-(``sharding/serve.py``); the training step's mesh has the axes ``batch_axes``
-and ``"model"``, the cross-pod step's ``("pod", "data", "model")``, and
-both train fsdp (``sharding/train.py``; tp, fsdp_tp and ep training
-raise: ROADMAP M22b-2).  With a mesh a step takes and returns
+(``sharding/serve.py``); the training step's mesh has the axes
+``batch_axes`` and ``"model"``, the cross-pod step's ``("pod", "data",
+"model")``, and both train in the same four modes every family, on any
+data axis (``sharding/train.py``).  With a mesh a step takes and returns
 ``sharding.params.ShardedTree``\\ s — parameters, AdamW moments and
 the centre cut by ``param_specs``, the cross-pod state by
 ``pod_stacked_specs`` (the controller, key and round replicated), the
@@ -77,7 +77,7 @@ def make_train_step(model: Model, mesh=None, *, batch: int, seq: int,
                     grad_accum: int = 1):
     """``train_step(params, opt, center, batch) -> (params, opt, loss)``
     and its abstract (params, AdamState, center, batch).  With ``mesh``
-    (axes ``batch_axes`` and ``"model"``; ``mode`` ``"fsdp"``):
+    (axes ``batch_axes`` and ``"model"``; ``mode`` one of the four):
     ShardedTrees in and out, the loss on the mesh's first device, and a
     :class:`MeshArgs` (the module note)."""
     cfg = model.config
@@ -97,7 +97,7 @@ def make_train_step(model: Model, mesh=None, *, batch: int, seq: int,
                     batch_specs(b_abs, batch_axes=baxes))
         step = make_train_step_on_mesh(
             cfg, mesh, in_specs, rho=rho, lr=lr, grad_accum=grad_accum,
-            batch_axes=tuple(batch_axes))
+            batch_axes=tuple(batch_axes), mode=mode)
         return step, MeshArgs((p_abs, opt_abs, p_abs, b_abs),
                               in_specs=in_specs,
                               out_specs=(pspec, in_specs[1], None))
@@ -146,8 +146,9 @@ def make_cross_pod_step(model: Model, mesh=None, *, batch: int, seq: int,
     local_steps), seq); ``every_pod_fires`` as in
     ``make_cross_pod_round`` (the meta-device count).  On one device
     ``n_pods`` defaults to 2.  With ``mesh`` (axes ``("pod", "data",
-    "model")``; ``mode`` ``"fsdp"``) the pods are ``mesh.shape["pod"]``,
-    the round is ``sharding.train.make_cross_pod_round_on_mesh``'s and
+    "model")``; ``mode`` one of the four) the pods are
+    ``mesh.shape["pod"]``, the round is
+    ``sharding.train.make_cross_pod_round_on_mesh``'s and
     ``abstract_args`` a :class:`MeshArgs` (the module note)."""
     cfg = model.config
     if mesh is not None:
@@ -189,7 +190,7 @@ def make_cross_pod_step(model: Model, mesh=None, *, batch: int, seq: int,
         raise ValueError(f"{per_step} rows a step do not split over a data "
                          f"axis of {mesh.shape['data']}")
     state_spec = cross_pod_specs(param_specs(p_abs, mesh, mode=mode))
-    round_fn = make_cross_pod_round_on_mesh(cp, model, mesh,
+    round_fn = make_cross_pod_round_on_mesh(cp, model, mesh, mode=mode,
                                             every_pod_fires=every_pod_fires)
     return round_fn, MeshArgs((state_abs, b_abs), in_specs=(
         state_spec, cross_pod_batch_specs(b_abs)), out_specs=(state_spec,

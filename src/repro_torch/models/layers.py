@@ -74,21 +74,48 @@ def swiglu(p, x):
     return swiglu_hidden(p, x) @ p["w_down"]
 
 
+class _MatmulFp32(torch.autograd.Function):
+    """:func:`matmul_fp32` on narrow operands.  Backward: dx = g · wᵀ
+    and dw = xᵀ · g from the fp32 gradient g, each summed in fp32 and
+    rounded once to its operand's dtype, as autograd of the widened
+    product gives them (``torch.mm``'s ``out_dtype`` overload has no
+    derivative)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.is_cuda:
+            flat = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                            out_dtype=torch.float32)
+            return flat.reshape(*x.shape[:-1], w.shape[-1])
+        return x.to(torch.float32) @ w.to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(torch.float32)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (g @ w.to(torch.float32).t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            flat = g.reshape(-1, g.shape[-1])
+            dw = (x.reshape(-1, x.shape[-1]).to(torch.float32).t()
+                  @ flat).to(w.dtype)
+        return dx, dw
+
+
 def matmul_fp32(x, w):
     """x @ w (…, K) · (K, N) with an fp32 result: bf16 or fp16 operands'
     products and their sum in fp32 and never rounded (a model shard's
     partial product, rounded once after the shards' partials are added:
-    ``sharding/serve.py``); fp32 operands as ``x @ w``.  On a CUDA
-    tensor one matmul with an fp32 output (``torch.mm``'s
-    ``out_dtype``), elsewhere the operands widened first: both sum the
-    same exact products in fp32."""
+    ``sharding/serve.py``, ``sharding/train.py``); fp32 operands as
+    ``x @ w``.  On a CUDA tensor one matmul with an fp32 output
+    (``torch.mm``'s ``out_dtype``), elsewhere the operands widened
+    first: both sum the same exact products in fp32, and both have
+    :class:`_MatmulFp32`'s gradient."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return x @ w
-    if x.is_cuda:
-        flat = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                        out_dtype=torch.float32)
-        return flat.reshape(*x.shape[:-1], w.shape[-1])
-    return x.to(torch.float32) @ w.to(torch.float32)
+    return _MatmulFp32.apply(x, w)
 
 
 def rope_frequencies(head_dim, theta, device=None):

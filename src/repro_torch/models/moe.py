@@ -140,14 +140,41 @@ def combine(hout, r):
             * r["gates"].to(rows_out.dtype)[..., None]).sum(dim=2)
 
 
+def load_stats(r):
+    """The routing's load-balance statistics (2, E) fp32: row 0 the
+    count of tokens whose top-1 expert is e (no gradient), row 1 each
+    expert's router probability summed over the tokens.  A batch split
+    over data shards adds the shards' statistics
+    (``sharding/train.py``)."""
+    e = r["probs"].shape[-1]
+    top1 = r["eids"][..., 0].reshape(-1)
+    counts = F.one_hot(top1, e).sum(0).to(torch.float32)
+    return torch.stack([counts, r["probs"].reshape(-1, e).sum(0)])
+
+
+def load_balance(stats, tokens, own=None):
+    """Σ over the layers of E·Σ_e f_e·p̄_e from their statistics (…, 2,
+    E) over ``tokens`` tokens (:func:`load_stats`, the data shards'
+    added): the whole batch's aux.  With ``own``, a data shard's
+    statistics: the same sum with p̄ from ``own``, whose gradient is the
+    shard's share of the whole batch's (f has none)."""
+    e = stats.shape[-1]
+    f = stats[..., 0, :] / tokens
+    pbar = (stats if own is None else own)[..., 1, :] / tokens
+    return e * torch.sum(f.detach() * pbar)
+
+
 def moe_apply(p, x, *, top_k, capacity_factor=1.25, return_aux=True):
-    """x: (B, S, d) → (out (B, S, d), aux load-balance loss (fp32 0-d))."""
+    """x: (B, S, d) → (out (B, S, d), aux load-balance loss (fp32 0-d));
+    with ``return_aux="stats"`` the routing's :func:`load_stats` in
+    place of aux."""
     e = p["router"].shape[1]
     r = routing(p, x, top_k, capacity_factor)
     # per-group dispatch, the experts (active FLOPs only), the combine
     buffers = dispatch(x, r)
     out = combine(expert_out(expert_hidden(buffers, p), p["w_down"]), r)
-
+    if return_aux == "stats":
+        return out, load_stats(r)
     if not return_aux:
         return out, torch.zeros((), dtype=torch.float32, device=x.device)
     # Switch-style load balance: E·Σ_e f_e·p̄_e (top-1 dispatch fraction)

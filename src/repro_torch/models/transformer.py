@@ -114,7 +114,8 @@ def _attn_block_init(key, cfg, device):
 
 
 def _ffn(cfg, p, x, return_aux=True):
-    """The block's MLP or MoE → (y, aux fp32 0-d; 0 without MoE)."""
+    """The block's MLP or MoE → (y, aux fp32 0-d; 0 without MoE; the
+    MoE's load statistics (2, E) with ``return_aux="stats"``)."""
     if "moe" in p:
         return moe_apply(p["moe"], x, top_k=cfg.top_k,
                          capacity_factor=cfg.capacity_factor,
@@ -154,10 +155,10 @@ def _attention_step(cfg, p, x, kv_cache, pos, *, window, num_heads=None,
 
 
 def _attn_block_apply(cfg, p, h, positions, *, window, mask_mode="causal",
-                      prefix_len=0, blockwise=False):
-    """One attention+MLP (or MoE) block → (h, aux, its (k, v) for the
-    cache): the causal mask through K4 in serving, the prefix mask
-    through ``blockwise_attention`` (no kernel has it), and with
+                      prefix_len=0, blockwise=False, return_aux=True):
+    """One attention+MLP (or MoE) block → (h, aux (``_ffn``'s), its (k,
+    v) for the cache): the causal mask through K4 in serving, the prefix
+    mask through ``blockwise_attention`` (no kernel has it), and with
     ``blockwise=True`` (the training loss) every mask through
     ``blockwise_attention``."""
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
@@ -166,7 +167,7 @@ def _attn_block_apply(cfg, p, h, positions, *, window, mask_mode="causal",
                          blockwise=blockwise)
     h = h + att
     x = rmsnorm(h, p["ln2"], cfg.norm_eps)
-    y, aux = _ffn(cfg, p, x)
+    y, aux = _ffn(cfg, p, x, return_aux=return_aux)
     return h + y, aux, kv
 
 
@@ -325,20 +326,26 @@ def _remat_groups(cfg, layers):
 
 
 def _stack_attn(cfg, params, h, positions, *, mask_mode="causal",
-                prefix_len=0):
+                prefix_len=0, moe_stats=False):
     """The attention stack in training (dense, moe, vlm, audio): each
     block's attention through ``blockwise_attention`` under
-    ``mask_mode``; → (h, the blocks' aux summed)."""
+    ``mask_mode``; → (h, the blocks' aux summed; with ``moe_stats`` the
+    MoE blocks' load statistics stacked (L, 2, E))."""
     def body(state, *lps):
         hh, aux = state
         for lp in lps:
             hh, a, _ = _attn_block_apply(
                 cfg, lp, hh, positions, window=cfg.sliding_window,
-                mask_mode=mask_mode, prefix_len=prefix_len, blockwise=True)
-            aux = aux + a
+                mask_mode=mask_mode, prefix_len=prefix_len, blockwise=True,
+                return_aux="stats" if moe_stats else True)
+            aux = torch.cat([aux, a[None]]) if moe_stats else aux + a
         return hh, aux
 
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if moe_stats:
+        aux = torch.zeros((0, 2, cfg.num_experts), dtype=torch.float32,
+                          device=h.device)
+    else:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return _run_groups(cfg, (h, aux), _remat_groups(
         cfg, _layers(params, cfg.num_layers)), body)
 
@@ -386,12 +393,14 @@ def _embed(params, tokens):
     return torch.nn.functional.embedding(tokens, params["embed"])
 
 
-def forward_hidden(cfg, params, batch):
+def forward_hidden(cfg, params, batch, moe_stats=False):
     """Embed the inputs and run the stack → (final hidden states (B, S,
     d), the MoE blocks' aux summed; 0 without MoE): ``batch`` holds
     ``tokens``, and for the vlm ``patches`` (B, P, frontend_dim) too,
     projected and put before the text; the audio family takes
-    ``features`` (B, S, frontend_dim) in place of tokens."""
+    ``features`` (B, S, frontend_dim) in place of tokens.  With
+    ``moe_stats`` the MoE family gives its blocks' load statistics (L,
+    2, E) (``moe.load_stats``) in place of aux."""
     check_family(cfg)
     if cfg.family == "audio":
         h = batch["features"].to(cfg.param_dtype) @ params["frontend_proj"]
@@ -410,22 +419,24 @@ def forward_hidden(cfg, params, batch):
         return _stack_ssm(cfg, params, h), zero
     if cfg.family == "hybrid":
         return _stack_hybrid(cfg, params, h, positions), zero
-    return _stack_attn(cfg, params, h, positions)
+    return _stack_attn(cfg, params, h, positions,
+                       moe_stats=moe_stats and cfg.family == "moe")
 
 
 IGNORE_LABEL = -100  # a label the loss leaves out (``chunked_lm_sums``)
 
 
-def loss_terms(cfg, params, batch):
+def loss_terms(cfg, params, batch, moe_stats=False):
     """The training loss's terms → (Σ −log p(label) over the labelled
     positions (fp32), their count (int64), the MoE blocks' load-balance
     loss summed over the layers; 0 without MoE): next-token prediction
     (masked prediction for the audio family, the text positions only for
     the vlm) over ``batch["labels"]``, the head's padded vocabulary
     columns masked, the sequence chunked by ``cfg.loss_chunk``.  A batch
-    split over data shards adds the shards' sums and counts
-    (``sharding/train.py``)."""
-    h, aux = forward_hidden(cfg, params, batch)
+    split over data shards adds the shards' sums and counts, and with
+    ``moe_stats`` the MoE family's load statistics in place of its aux
+    (``forward_hidden``; ``sharding/train.py``)."""
+    h, aux = forward_hidden(cfg, params, batch, moe_stats=moe_stats)
     h = rmsnorm(h, params["final_ln"], cfg.norm_eps)
     if cfg.family == "vlm":
         h = h[:, cfg.prefix_tokens:]  # loss only over text positions

@@ -234,24 +234,65 @@ def tree_bytes_at(sharded: ShardedTree, coord) -> int:
 # ----------------------------------------------------------------------
 
 
-def all_reduce(parts, devices, dtype=None) -> list:
-    """Σ of per-shard partials of one shape, added in shard order on the
-    first shard's device (as ``core.engine.all_sum``; bf16 partials in
-    fp32), rounded once to ``dtype`` (default: the partials'), then one
-    copy on each shard's device (on a shared device, the same tensor)."""
-    total = parts[0].to(torch.promote_types(parts[0].dtype, torch.float32))
+def _sum_in_order(parts, device, dtype):
+    """Σ of ``parts`` added in order on ``device`` (bf16 parts in fp32),
+    rounded once to ``dtype``."""
+    total = parts[0].to(device, non_blocking=True)
+    total = total.to(torch.promote_types(total.dtype, torch.float32))
     for p in parts[1:]:
-        total = total + p.to(total.device, non_blocking=True)
-    total = total.to(dtype or parts[0].dtype)
+        total = total + p.to(device, non_blocking=True)
+    return total.to(dtype)
+
+
+def _wants_grad(parts) -> bool:
+    return torch.is_grad_enabled() and any(p.requires_grad for p in parts)
+
+
+def _all_reduce(parts, devices, dtype):
+    total = _sum_in_order(parts, parts[0].device, dtype)
     out = [total.to(d, non_blocking=True) for d in devices]
     report_copies("all-reduce", list(parts[1:]) + out[1:])
     return out
 
 
-def all_gather(parts, dim, devices) -> list:
-    """The per-shard blocks concatenated along ``dim`` in shard order,
-    one result on each shard's device (computed once per distinct
-    device)."""
+class _AllReduce(torch.autograd.Function):
+    """Backward: the replicas' gradients added in shard order, the sum
+    sent to each partial's device in the partial's dtype
+    (``"all-reduce"``)."""
+
+    @staticmethod
+    def forward(ctx, devices, dtype, *parts):
+        ctx.like = [(p.device, p.dtype) for p in parts]
+        out = _all_reduce(parts, devices, dtype)
+        # a shared device's copies are one tensor: give each its own
+        return tuple(x if i == 0 else x.view_as(x)
+                     for i, x in enumerate(out))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        dev0, dt0 = ctx.like[0]
+        total = _sum_in_order([g for g in grads if g is not None], dev0,
+                              torch.float32)
+        out = [total.to(d, dt, non_blocking=True) for d, dt in ctx.like]
+        report_copies("all-reduce", [g for g in grads[1:] if g is not None]
+                      + out[1:])
+        return (None, None, *out)
+
+
+def all_reduce(parts, devices, dtype=None) -> list:
+    """Σ of per-shard partials of one shape, added in shard order on the
+    first shard's device (as ``core.engine.all_sum``; bf16 partials in
+    fp32), rounded once to ``dtype`` (default: the partials'), then one
+    copy on each shard's device (on a shared device, the same tensor).
+    Under autograd a function (:class:`_AllReduce`) whose backward is
+    an all-reduce too."""
+    dtype = dtype or parts[0].dtype
+    if _wants_grad(parts):
+        return list(_AllReduce.apply(tuple(devices), dtype, *parts))
+    return _all_reduce(parts, devices, dtype)
+
+
+def _all_gather(parts, dim, devices):
     made = {}
     out = []
     for j, d in enumerate(devices):
@@ -262,6 +303,46 @@ def all_gather(parts, dim, devices) -> list:
         out.append(made[key])
         report_copies("all-gather", [p for k, p in enumerate(parts) if k != j])
     return out
+
+
+class _AllGather(torch.autograd.Function):
+    """Backward: each shard's block of the replicas' gradients, added
+    in shard order in fp32 on the shard's device and rounded once to
+    the block's dtype (``"reduce-scatter"``)."""
+
+    @staticmethod
+    def forward(ctx, dim, devices, *parts):
+        ctx.dim = dim
+        ctx.like = [(p.device, p.dtype, p.shape[dim]) for p in parts]
+        out = _all_gather(parts, dim, devices)
+        seen = set()
+        res = []
+        for x in out:
+            res.append(x.view_as(x) if id(x) in seen else x)
+            seen.add(id(x))
+        return tuple(res)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [g for g in grads if g is not None]
+        out, moved, start = [], [], 0
+        for j, (dev, dt, n) in enumerate(ctx.like):
+            blocks = [g.narrow(ctx.dim, start, n) for g in grads]
+            start += n
+            out.append(_sum_in_order(blocks, dev, dt))
+            moved += [b for k, b in enumerate(blocks) if k != j]
+        report_copies("reduce-scatter", moved)
+        return (None, None, *out)
+
+
+def all_gather(parts, dim, devices) -> list:
+    """The per-shard blocks concatenated along ``dim`` in shard order,
+    one result on each shard's device (computed once per distinct
+    device).  Under autograd a function (:class:`_AllGather`) whose
+    backward is a reduce-scatter."""
+    if _wants_grad(parts):
+        return list(_AllGather.apply(dim, tuple(devices), *parts))
+    return _all_gather(parts, dim, devices)
 
 
 # ----------------------------------------------------------------------

@@ -172,10 +172,12 @@ class TpLayout:
     ``moe`` the MoE cut (``"hidden"`` or ``"experts"``, None without
     MoE); ``ssm_heads`` the mamba heads per shard (0 without mamba).  A
     model cut it cannot serve raises ``ValueError`` naming the leaf and
-    its spec."""
+    its spec.  ``train=True`` reads the cuts for training
+    (``sharding/train.py``), which the audio encoder takes too."""
 
-    def __init__(self, cfg, specs, mesh, model_axis="model"):
-        check_decodes(cfg)
+    def __init__(self, cfg, specs, mesh, model_axis="model", train=False):
+        if not train:
+            check_decodes(cfg)
         m = mesh.shape[model_axis]
         self.model_size = m
         given = dict(_spec_paths(specs))
@@ -195,9 +197,9 @@ class TpLayout:
             served.add(path)
             return got
 
-        self.embed_cut = cut(("embed",), col, whole,
-                             why="the embedding is served cut on d or "
-                             "whole") == col
+        self.embed_cut = ("embed",) in cuts and cut(
+            ("embed",), col, whole,
+            why="the embedding is served cut on d or whole") == col
         self.head_cut = cut(("lm_head",), col, whole,
                             why="the head is served cut on its vocabulary "
                             "or whole") == col
@@ -309,12 +311,15 @@ class TpLayout:
 class _TpGroup:
     """One data shard's model shards under tp, fsdp_tp or ep: each
     shard's parameters read as its model blocks (``GatheredParams`` with
-    ``keep`` the model axis), its device, and the blocks of the stack."""
+    ``keep`` the model axis, or the ``views`` given: training's
+    ``sharding.train.GradView``), its device, and the blocks of the
+    stack."""
 
-    def __init__(self, cfg, lay, params, group, model_axis="model"):
+    def __init__(self, cfg, lay, params, group, model_axis="model",
+                 views=None):
         self.cfg, self.lay = cfg, lay
-        self.ps = [GatheredParams(params, c, keep=(model_axis,))
-                   for c in group]
+        self.ps = views or [GatheredParams(params, c, keep=(model_axis,))
+                            for c in group]
         self.devs = [params.mesh.device(c) for c in group]
         self.layers = [_layers(p, cfg.num_layers) for p in self.ps]
 
@@ -344,7 +349,8 @@ class _TpGroup:
         return logits[..., :cfg.vocab_size]
 
     def block(self, lps, hs, attend):
-        """One attention + MLP (or MoE) block over the model shards:
+        """One attention + MLP (or MoE) block over the model shards →
+        (h on each shard, the first shard's MoE routing or None):
         ``attend(j, lp, x, kv)`` gives shard j's heads' output before wo;
         the partial products with the shards' rows of wo and w_down
         summed in shard order."""
@@ -360,18 +366,20 @@ class _TpGroup:
         hs = [h + a for h, a in zip(hs, att, strict=True)]
         xs = [rmsnorm(h, lp["ln2"], cfg.norm_eps)
               for h, lp in zip(hs, lps, strict=True)]
+        plan = None
         if self.lay.moe:
-            ys = self.moe(xs, lps)
+            ys, plan = self.moe(xs, lps)
         else:
             ys = all_reduce([matmul_fp32(swiglu_hidden(lp["mlp"], x),
                                          lp["mlp"]["w_down"])
                              for x, lp in zip(xs, lps, strict=True)], devs,
                             dtype=dtype)
-        return [h + y for h, y in zip(hs, ys, strict=True)]
+        return [h + y for h, y in zip(hs, ys, strict=True)], plan
 
     def moe(self, xs, lps):
         """The MoE block's output on each shard from its (replicated)
-        normed input (the module note)."""
+        normed input (the module note), and the first shard's
+        routing."""
         cfg, devs = self.cfg, self.devs
         plans = [moe.routing(lp["moe"], x, cfg.top_k, cfg.capacity_factor)
                  for x, lp in zip(xs, lps, strict=True)]
@@ -383,14 +391,14 @@ class _TpGroup:
                     b[:, j * n:(j + 1) * n], lp["moe"]), lp["moe"]["w_down"])
                 for j, (b, lp) in enumerate(zip(bufs, lps, strict=True))],
                 1, devs)
-            return [moe.combine(h, r) for h, r in zip(hout, plans,
-                                                        strict=True)]
+            return [moe.combine(h, r) for h, r in zip(
+                hout, plans, strict=True)], plans[0]
         hidden = all_gather([moe.expert_hidden(b, lp["moe"])
                              for b, lp in zip(bufs, lps, strict=True)],
                             -1, devs)
         cols = [moe.combine(moe.expert_out(hd, lp["moe"]["w_down"]), r)
                 for hd, lp, r in zip(hidden, lps, plans, strict=True)]
-        return all_gather(cols, -1, devs)
+        return all_gather(cols, -1, devs), plans[0]
 
     def _ssm_kw(self):
         cfg = self.cfg
@@ -412,10 +420,11 @@ class _TpGroup:
             for j, (y, t, lp) in enumerate(zip(ys, sq, lps, strict=True))],
             self.devs, dtype=ys[0].dtype)
 
-    def mamba(self, lps, hs):
+    def mamba(self, lps, hs, **mix):
         """One mamba layer's prefill → (h per shard, each shard's final
         state of its heads, the layer's conv tail (B, K − 1, d_in + 2N)
-        on each shard)."""
+        on each shard); ``mix`` as ``ssm.ssm_mix`` takes it (training's
+        ``intra_dtype`` and ``scan``)."""
         cfg, kw = self.cfg, self._ssm_kw()
         xs = [rmsnorm(h, lp["ln"], cfg.norm_eps)
               for h, lp in zip(hs, lps, strict=True)]
@@ -425,7 +434,7 @@ class _TpGroup:
         ys, states = [], []
         for j, (z, lp) in enumerate(zip(zx, lps, strict=True)):
             y, st = ssm.ssm_mix(lp["ssm"], z, chunk=cfg.chunk,
-                                heads=self.lay.ssm_range(j), **kw)
+                                heads=self.lay.ssm_range(j), **kw, **mix)
             ys.append(y)
             states.append(st)
         out = self._mamba_out(lps, ys)
@@ -503,7 +512,7 @@ class _TpGroup:
 
         if cfg.family in ATTN_STACK:
             for i in range(cfg.num_layers):
-                hs = self.block(self.at(i), hs, attend)
+                hs, _ = self.block(self.at(i), hs, attend)
         elif cfg.family == "ssm":
             for i in range(cfg.num_layers):
                 hs = mamba(hs, i)
@@ -511,7 +520,8 @@ class _TpGroup:
             for group in _groups(cfg):
                 for i in group:
                     hs = mamba(hs, i)
-                hs = self.block([p["shared"] for p in self.ps], hs, attend)
+                hs, _ = self.block([p["shared"] for p in self.ps], hs,
+                                   attend)
         caches = []
         for j in range(m):
             k, v = kvs[j]
@@ -541,7 +551,7 @@ class _TpGroup:
 
         if cfg.family in ATTN_STACK:
             for i in range(cfg.num_layers):
-                hs = self.block(self.at(i), hs, attend_at(i))
+                hs, _ = self.block(self.at(i), hs, attend_at(i))
         elif cfg.family == "ssm":
             for i in range(cfg.num_layers):
                 hs = self.mamba_step(self.at(i), hs, caches, i, ring_dim)
@@ -550,8 +560,8 @@ class _TpGroup:
                 for i in group:
                     hs = self.mamba_step(self.at(i), hs, caches, i,
                                          ring_dim)
-                hs = self.block([p["shared"] for p in self.ps], hs,
-                                attend_at(gi))
+                hs, _ = self.block([p["shared"] for p in self.ps], hs,
+                                   attend_at(gi))
         for c in caches:
             c["pos"] = pos + 1
         return self.logits(hs)

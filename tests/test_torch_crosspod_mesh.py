@@ -7,9 +7,12 @@ the reference's (2, 2, 2) round of tests/test_distributed.py (granite
 from its seed-0 init, K 0.05, α 0.9, L̄ 0.5, ρ 1e-3, lr 5e-3, 2 local
 steps of 8 × 32 tokens, fsdp shardings, ``jax.jit`` with
 ``in_shardings`` / ``out_shardings``) for ten rounds, which fire both
-pods and neither.  It writes every round's state and metrics to an npz,
-and the shardings of its ``make_cross_pod_step`` (built, not compiled)
-as JSON.
+pods and neither; then, from the same seed-0 init, 4 rounds each of
+granite on (2, 2, 2) in tp and in fsdp_tp and of moonshot (the same
+reduction, its 4 experts) on (2, 2, 1) in fsdp, the MoE on a data axis
+of 2, jitted with its ``make_cross_pod_step``'s shardings.  It writes
+every round's state and metrics to an npz, and the shardings of its
+``make_cross_pod_step`` (built, not compiled) as JSON.
 
 * State-synced: the port steps each round from the reference's state,
   carried across with ``convert.cross_pod_state_from_numpy`` and cut by
@@ -20,6 +23,8 @@ as JSON.
   rtol 1e-5, θ / λ / z_prev at rtol 1e-4 / atol 1e-6, ``train_loss`` at
   rtol 1e-5, the key and the round equal.
 * The step's ``MeshArgs`` equal the reference's shardings' specs.
+* The other modes' rounds, state-synced at the same grades, their
+  ``MeshArgs`` the reference's.
 * Free-running, the mesh round against the one-device round over 3
   rounds: at (2, 1, 2) bit for bit (one data shard: the same
   arithmetic but the distances' order of addition, which the events
@@ -61,6 +66,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 AXES = ("pod", "data", "model")
 ROUNDS, STEPS, B, S = 10, 2, 8, 32
 STATE_TOL = dict(rtol=1e-4, atol=1e-6)
+# the other modes' rounds: (tag, architecture, mode, mesh shape)
+EXTRAS = [("tp", "granite-3-2b", "tp", (2, 2, 2)),
+          ("fsdp_tp", "granite-3-2b", "fsdp_tp", (2, 2, 2)),
+          ("moe", "moonshot-v1-16b-a3b", "fsdp", (2, 2, 1))]
+EXTRA_ROUNDS = 4
 
 _SCRIPT = r"""
 import os, sys
@@ -78,6 +88,7 @@ from repro.sharding.actshard import activation_sharding
 from repro.sharding.specs import param_specs, pod_stacked_specs
 
 ROUNDS, STEPS, B, S = %d, %d, %d, %d
+EXTRAS, EXTRA_ROUNDS = %r, %d
 mesh = jax.sharding.Mesh(
     np.asarray(jax.devices()[:8]).reshape(2, 2, 2), ("pod", "data", "model"))
 cfg = get_config("granite-3-2b").reduced(num_layers=2, d_model=128,
@@ -124,7 +135,6 @@ for k in range(ROUNDS):
     state, m = step(state, batch)
     put(f"s{k + 1}", state)
     put(f"m{k}", m)
-np.savez(sys.argv[1], **out)
 
 def specs(tree):
     return jax.tree.map(lambda s: [list(e) if isinstance(e, tuple) else e
@@ -133,8 +143,39 @@ def specs(tree):
 
 _, in_sh, out_sh, _ = make_cross_pod_step(model, mesh, batch=2 * STEPS * B,
                                           seq=S)
-print(json.dumps({"in_specs": specs(in_sh), "out_specs": specs(out_sh)}))
-""" % (ROUNDS, STEPS, B, S)
+printed = {"in_specs": specs(in_sh), "out_specs": specs(out_sh)}
+
+# the other modes' rounds (EXTRAS: tag, architecture, mode, mesh shape)
+for tag, arch, mode, shape in EXTRAS:
+    xmesh = jax.sharding.Mesh(np.asarray(jax.devices()[:int(np.prod(
+        shape))]).reshape(shape), ("pod", "data", "model"))
+    xmodel = build_model(get_config(arch).reduced(
+        num_layers=2, d_model=128, vocab_size=512, remat=False))
+
+    def xloss(params, batch, xmesh=xmesh, xmodel=xmodel):
+        with activation_sharding(xmesh, "data"):
+            return xmodel.loss(params, batch)
+
+    xparams = xmodel.init(jax.random.PRNGKey(0))
+    xstate = init_cross_pod_state(cp, xparams)
+    _, in_sh, out_sh, _ = make_cross_pod_step(
+        xmodel, xmesh, batch=2 * STEPS * B, seq=S, mode=mode)
+    printed[tag] = {"in_specs": specs(in_sh), "out_specs": specs(out_sh)}
+    xstep = jax.jit(make_cross_pod_round(cp, xloss), in_shardings=in_sh,
+                    out_shardings=out_sh)
+    xstate = jax.device_put(xstate, in_sh[0])
+    put(f"{tag}-s0", xstate)
+    rng = np.random.default_rng(5)
+    for k in range(EXTRA_ROUNDS):
+        toks = rng.integers(0, 512, (2, STEPS, B, S + 1))
+        batch = {"tokens": jnp.asarray(toks[..., :-1], jnp.int32),
+                 "labels": jnp.asarray(toks[..., 1:], jnp.int32)}
+        xstate, m = xstep(xstate, batch)
+        put(f"{tag}-s{k + 1}", xstate)
+        put(f"{tag}-m{k}", m)
+np.savez(sys.argv[1], **out)
+print(json.dumps(printed))
+""" % (ROUNDS, STEPS, B, S, EXTRAS, EXTRA_ROUNDS)
 
 
 @pytest.fixture(autouse=True)
@@ -159,33 +200,45 @@ def _nest(flat: dict, prefix: str) -> dict:
 
 
 @pytest.fixture(scope="module")
-def reference(tmp_path_factory):
+def _ran(tmp_path_factory):
+    """The subprocess's arrays by key and its printed shardings."""
     path = tmp_path_factory.mktemp("crosspod_mesh") / "ref.npz"
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                JAX_PLATFORMS="cpu")
     out = subprocess.run([sys.executable, "-c", _SCRIPT, str(path)],
                          env=env, capture_output=True, text=True,
-                         timeout=300, cwd=REPO)
+                         timeout=400, cwd=REPO)
     assert out.returncode == 0, out.stderr[-3000:]
     with np.load(path) as f:
         flat = dict(f)
     path.unlink()
+    return flat, json.loads(out.stdout.strip().splitlines()[-1])
 
+
+def _rounds(flat, prefix, n, seed):
+    """(state before, state after, metrics, batch) of each of ``n``
+    rounds whose keys start with ``prefix``."""
     def state(r):
-        t = _nest(flat, f"s{r}")
+        t = _nest(flat, f"{prefix}s{r}")
         return JaxCrossPodState(theta=t["theta"], lam=t["lam"],
                                 z_prev=t["z_prev"],
                                 ctrl=JaxControllerState(**t["ctrl"]),
                                 rng=t["rng"], round=t["round"])
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     rounds = []
-    for r in range(ROUNDS):
+    for r in range(n):
         toks = rng.integers(0, 512, (2, STEPS, B, S + 1))
-        rounds.append((state(r), state(r + 1), _nest(flat, f"m{r}"),
+        rounds.append((state(r), state(r + 1), _nest(flat, f"{prefix}m{r}"),
                        {"tokens": torch.from_numpy(toks[..., :-1]),
                         "labels": torch.from_numpy(toks[..., 1:])}))
-    return rounds, json.loads(out.stdout.strip().splitlines()[-1])
+    return rounds
+
+
+@pytest.fixture(scope="module")
+def reference(_ran):
+    flat, printed = _ran
+    return _rounds(flat, "", ROUNDS, 0), printed
 
 
 def _setup():
@@ -247,6 +300,13 @@ def test_rounds_match_the_references_mesh_round_state_synced(reference):
     model, mesh, args = _step()
     _, cp = _setup()
     round_fn = _mesh_round(model, cp, mesh)
+    fired, idle = _held_synced(rounds, round_fn, args, mesh)
+    assert fired > 0 and idle > 0  # rounds that fire and that do not
+
+
+def _held_synced(rounds, round_fn, args, mesh):
+    """Each round stepped from the reference's state at the module
+    note's grades → (the pods that fired, those that did not)."""
     fired = idle = 0
     for r, (before, want, wm, batch) in enumerate(rounds):
         state = _sharded(before, args, mesh)
@@ -283,7 +343,31 @@ def test_rounds_match_the_references_mesh_round_state_synced(reference):
                 [*first.ctrl, first.rng, first.round], strict=True))
         fired += int(wm["num_events"])
         idle += 2 - int(wm["num_events"])
-    assert fired > 0 and idle > 0  # rounds that fire and that do not
+    return fired, idle
+
+
+@pytest.mark.parametrize("tag,arch,mode,shape", EXTRAS)
+def test_other_modes_match_the_references_rounds_state_synced(
+        _ran, tag, arch, mode, shape):
+    """granite on (2, 2, 2) in tp and fsdp_tp, and moonshot (2 layers,
+    its 4 experts) on (2, 2, 1) in fsdp — the MoE on a data axis of 2 —
+    each round stepped from the reference's state at the grades above;
+    the step's shardings the reference's."""
+    flat, printed = _ran
+    model = build_model(get_config(arch).reduced(
+        num_layers=2, d_model=128, vocab_size=512, remat=False))
+    _, cp = _setup()
+    mesh = make_test_mesh(shape, AXES)
+    _, args = make_cross_pod_step(model, mesh, batch=2 * STEPS * B, seq=S,
+                                  rho=1e-3, lr=5e-3, mode=mode)
+    want = printed[tag]
+    assert _listed(args.in_specs[0]) == want["in_specs"][0]
+    assert _listed(args.in_specs[1]) == want["in_specs"][1]
+    assert _listed(args.out_specs[0]) == want["out_specs"][0]
+    round_fn = make_cross_pod_round_on_mesh(cp, model, mesh, mode=mode)
+    fired, _ = _held_synced(_rounds(flat, f"{tag}-", EXTRA_ROUNDS, 5),
+                            round_fn, args, mesh)
+    assert fired > 0
 
 
 @pytest.mark.parametrize("shape", [(2, 1, 2), (2, 2, 2)])
@@ -395,8 +479,9 @@ def test_the_state_and_batch_must_be_cut_by_the_steps_specs():
         round_fn(state, shard_tree(batch, args.in_specs[1], mesh))
     with pytest.raises(ValueError, match="cross_pod_batch_specs"):
         round_fn(shard_tree(state, args.in_specs[0], mesh), batch)
-    with pytest.raises(ValueError, match="M22b"):
-        make_cross_pod_step(model, mesh, batch=2 * STEPS * B, seq=S,
-                            mode="tp")
+    tp_round = make_cross_pod_round_on_mesh(cp, model, mesh, mode="tp")
+    with pytest.raises(ValueError, match="in_specs"):
+        tp_round(shard_tree(state, args.in_specs[0], mesh),
+                 shard_tree(batch, args.in_specs[1], mesh))
     with pytest.raises(ValueError, match="axes"):
         make_cross_pod_round_on_mesh(cp, model, make_test_mesh((2, 2)))

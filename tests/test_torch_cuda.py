@@ -1421,3 +1421,30 @@ def test_mesh_cross_pod_rounds_match_the_cpu(dev):
                             tree_leaves(getattr(want, f)), strict=True):
                 torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
     assert not any(ops.launch_counts().values())
+
+
+def test_matmul_fp32_backward_on_the_card(dev):
+    """The CUDA branch of ``models.layers.matmul_fp32`` (one matmul with
+    an fp32 output, whose overload has no derivative of its own) has a
+    backward, and it is autograd of the widened product: the forward
+    within fp32 rounding (the two matmuls may add the exact products in
+    another order), the gradients within one bf16 ulp of their
+    rounding."""
+    from repro_torch.models.layers import matmul_fp32
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((2, 64, 256), generator=gen, device=dev).to(
+        torch.bfloat16)
+    w = torch.randn((256, 128), generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn((2, 64, 128), generator=gen, device=dev)
+    xs = [x.clone().requires_grad_(True) for _ in range(2)]
+    ws = [w.clone().requires_grad_(True) for _ in range(2)]
+    got = matmul_fp32(xs[0], ws[0])
+    want = xs[1].to(torch.float32) @ ws[1].to(torch.float32)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    got.backward(g)
+    want.backward(g)
+    for a, b in ((xs[0].grad, xs[1].grad), (ws[0].grad, ws[1].grad)):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a, b, rtol=2 ** -7, atol=1e-6)

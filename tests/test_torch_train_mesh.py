@@ -22,8 +22,9 @@ steps' shardings (built, not compiled) as JSON.
   ratio over the text positions or the frames.
 * Against the reference: the loss at rtol 2e-5, the first moment at
   the gradient grade (rtol 1e-4 / atol 1e-7), the parameters as above.
-* The MoE family: on one data shard exact; on two refused (ROADMAP
-  M22b), as are modes other than fsdp.
+* The MoE family: on one data shard exact; on two (its load-balance
+  loss from the data shards' load statistics added) at the (2, 2)
+  grades above.  The other modes: tests/test_torch_train_tp*.py.
 * The gradient's copies are reported as ``"reduce-scatter"``, and
   under ``remat`` backward gathers every layer again.
 """
@@ -283,6 +284,8 @@ def test_ratio_losses_are_the_whole_batchs(arch):
 
 
 def test_moe_is_exact_on_one_data_shard_and_refused_on_two():
+    """On one data shard bit for bit; on two (no longer refused) the
+    whole batch's loss and gradient at the (2, 2) grades."""
     model, params, center, batch = _inputs(
         get_config("mixtral-8x7b").reduced())
     p1, o1, l1 = _unsharded_step(model, params, center, batch)
@@ -291,16 +294,10 @@ def test_moe_is_exact_on_one_data_shard_and_refused_on_two():
     for a, b in zip(tree_leaves(p) + tree_leaves(o),
                     tree_leaves(p1) + tree_leaves(o1), strict=True):
         assert torch.equal(a, b)
-    with pytest.raises(ValueError, match=r"\(moe\).*M22b"):
-        make_train_step(model, make_test_mesh((2, 2)), batch=B, seq=SEQ)
-
-
-@pytest.mark.parametrize("mode", ["tp", "fsdp_tp", "ep"])
-def test_modes_other_than_fsdp_are_refused(mode):
-    model = build_model(get_config(ARCHS["dense"]).reduced())
-    with pytest.raises(ValueError, match="M22b"):
-        make_train_step(model, make_test_mesh((2, 2)), batch=B, seq=SEQ,
-                        mode=mode)
+    p, o, loss = _mesh_step(model, params, center, batch, (2, 2))
+    torch.testing.assert_close(loss, l1, rtol=1e-6, atol=0)
+    _held(tree_leaves(p), tree_leaves(o.mu), tree_leaves(p1),
+          tree_leaves(o1.mu), dict(rtol=1e-5, atol=1e-9))
 
 
 def _copied_bytes(cfg, shape=(2, 2)):
