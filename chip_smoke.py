@@ -20,8 +20,10 @@ the paper's claims (slice 18), the model mesh: granite-3-2b served
 on a data × model mesh in fsdp and tp mode (slice 19), the cross-pod
 FedBack trainer on a pod × data × model mesh (slice 20),
 tensor-parallel serving for every family in modes tp, fsdp_tp and ep
-(slice 21), and tensor-parallel training for every family in the same
-modes, with the MoE on a data axis above 1 (slice 22).
+(slice 21), tensor-parallel training for every family in the same
+modes, with the MoE on a data axis above 1 (slice 22), and the dry-run
+over the reference's meshes, held against the card's runs of the same
+mesh steps (slice 23).
 
     python3 chip_smoke.py
 
@@ -346,11 +348,16 @@ worker's out:
    this card's name, printed with its H100 SXM constants beside the
    ``nvidia-smi`` name and power limit;
 10c. the full one-card dry-run, ``python -m repro_torch.launch.dryrun
-   --arch all --shape all --mesh both`` on the host's cores (6
+   --arch all --shape all --mesh card`` on the host's cores (6
    processes, started before 10a and waited for after phase 11, which
    runs after 10e beside it): exit 0, 80
    records under ``build/dryrun/``, none in error, each ``ok``
-   record's summarize line printed;
+   record's summarize line printed; and the dry-run on the reference's
+   meshes for granite-3-2b, zamba2-2.7b and moonshot-v1-16b-a3b, every
+   shape, ``--mesh both``, one niced process a ``--sharding`` mode
+   (fsdp, tp, fsdp_tp; 2 workers each), started after phase 5k and
+   waited for in phase 15: exit 0, 24 records a mode under
+   ``build/dryrun_mesh/``, none in error, only long_500k skipped;
 10d. each example twin (``examples/*_torch.py``) at a short setting on
    the card — quickstart 20 rounds, federated_image's four algorithms
    for 3 rounds and FedBack's round-2 checkpoint resumed to the straight
@@ -478,7 +485,19 @@ worker's out:
    bf16, as 14b on (2, 2) under fsdp and (1, 4) under ep, each layer's
    routing held to the unsharded step's as 13c holds it, the aux of
    each beside the unsharded one; 14a–14c print their seconds;
-15. print the serve line, the kernels line (K4's bf16 instance as
+15. the dry-run's count held against the card's runs of the same mesh
+   steps (started after phase 5k in a niced process of its own, on the
+   meta device: the configuration, mesh shape, mode, batch and positions of
+   12b's cross-pod round on (2, 2, 2), 13b's tp prefill and decode on
+   (1, 4) and 14b's tp and fsdp_tp steps): the bytes by collective kind
+   equal to each phase's listener's, byte for byte (an argument the
+   phase cut onto the mesh inside its listener, counted as its
+   "scatter" from its resident bytes); each argument's bytes a
+   coordinate equal to every coordinate's resident bytes; K4's and
+   K5's counted calls equal to 13b's launches (none in decode); each
+   step's counted bound a card × its coordinates printed beside the
+   phase's measured ms, no gate; and 10c's mesh sweeps finished;
+16. print the serve line, the kernels line (K4's bf16 instance as
    ``flash_attention``, launched in phase 7, at granite's GQA shape
    as ``flash_attention_gqa``, launched in phase 7c, and at phi3's as
    ``flash_attention_phi3``, launched in phase 8e, and at moonshot's as
@@ -3304,6 +3323,7 @@ SOLVE_TOL = dict(rtol=1e-4, atol=1e-6)
 # cores, leaving two to drive the card.
 CPU_REF_THREADS = 6
 _BACKGROUND = []
+_CHILDREN = []  # the processes this script starts
 
 
 def background():
@@ -4150,12 +4170,82 @@ def start_dryrun_sweep(out_dir):
     import os
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    return subprocess.Popen(
+    return _child(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "all",
-         "--shape", "all", "--mesh", "both", "--card",
+         "--shape", "all", "--mesh", "card", "--card",
          torch.cuda.get_device_name(0), "--jobs", str(DRYRUN_JOBS),
          "--out", str(out_dir)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
+
+
+def _child(*args, **kwargs):
+    """A process this script starts (killed at its exit if it runs)."""
+    proc = subprocess.Popen(*args, **kwargs)
+    _CHILDREN.append(proc)
+    return proc
+
+
+# Phase 10c's mesh sweeps: three architectures (dense, hybrid, MoE),
+# every shape, both of the reference's meshes, one process a --sharding
+# mode, niced: started after phase 5k, they count on the host's cores
+# beside phases 6–14 (the host-bound ones keep their cores) and are
+# waited for in phase 15.
+MESH_SWEEP_ARCHS = ("granite-3-2b", "zamba2-2.7b", "moonshot-v1-16b-a3b")
+MESH_SWEEP_MODES = ("fsdp", "tp", "fsdp_tp")
+MESH_SWEEP_JOBS = 2  # each mode's processes
+
+
+def start_mesh_sweeps(out_dir):
+    """Phase 10c's mesh sweeps, started (``--mesh both`` for each
+    --sharding mode of MESH_SWEEP_MODES), their records under
+    ``out_dir``/mode."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return [_child(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         ",".join(MESH_SWEEP_ARCHS), "--shape", "all", "--mesh", "both",
+         "--sharding", mode, "--card", torch.cuda.get_device_name(0),
+         "--jobs", str(MESH_SWEEP_JOBS), "--out", str(out_dir / mode)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, preexec_fn=lambda: os.nice(19))
+        for mode in MESH_SWEEP_MODES]
+
+
+def finish_mesh_sweeps(procs, out_dir, t0):
+    """Phase 10c's mesh sweeps, finished: each exit 0, one record per
+    architecture × shape × mesh on the reference's meshes, none in error
+    (only long_500k skipped: its batch of 1 does not split), each line
+    printed."""
+    from repro_torch.configs import INPUT_SHAPES
+
+    report = {}
+    for mode, proc in zip(MESH_SWEEP_MODES, procs, strict=True):
+        out, _ = proc.communicate(timeout=900)
+        for line in out.splitlines():
+            log(f"dryrun {mode}: {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"the {mode} mesh sweep exited "
+                                 f"{proc.returncode}")
+        records = [json.loads(p.read_text()) for p in sorted(
+            (out_dir / mode).glob("*.json"))]
+        status = [r["status"] for r in records]
+        want = len(MESH_SWEEP_ARCHS) * len(INPUT_SHAPES) * 2
+        if len(records) != want or "error" in status or any(
+                r["status"] == "skipped" and r["shape"] != "long_500k"
+                for r in records) or any(
+                r["status"] == "ok" and (r["sharding_mode"] != mode
+                                         or r["n_chips"] not in (256, 512))
+                for r in records):
+            raise AssertionError(f"the {mode} mesh sweep wrote "
+                                 f"{len(records)} records, {status}")
+        report[mode] = {"ok": status.count("ok"),
+                        "skipped": status.count("skipped"),
+                        "count_s": sum(r.get("count_s", 0)
+                                       for r in records)}
+    log(f"phase 10c's mesh sweeps: {report}, none in error, done "
+        f"{time.perf_counter() - t0:.1f} s after they started")
+    return report
 
 
 def finish_dryrun_sweep(proc, out_dir, t0):
@@ -4509,7 +4599,8 @@ def serve_on_meshes(dev, ops, smi, cfg, label, meshes, plain_rows, expect,
     modes' token gate).  A MoE model's routing in the warm-up prefill
     is held to the unsharded one's (:func:`hold_routing`)."""
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.steps import make_mesh_serve_steps
+    from repro_torch.launch.steps import make_decode_step, \
+        make_mesh_serve_steps
     from repro_torch.launch.serve_lm import cache_len, make_request
     from repro_torch.models import abstract_params, build_model
     from repro_torch.sharding.clients import collectives
@@ -4604,10 +4695,21 @@ def serve_on_meshes(dev, ops, smi, cfg, label, meshes, plain_rows, expect,
             torch.cuda.synchronize()
             per_prefill = path_counts(ops, row, ssd_row)
             where[0] = "decode"
-            decode(sharded, logits[:, -1].argmax(-1)[:, None], cache)
+            token = logits[:, -1].argmax(-1)[:, None]
+            decode(sharded, token, cache)
         finally:
             collectives.listeners.remove(listen)
-        del logits, cache
+        dargs = make_decode_step(model, mesh, batch=SERVE_BATCH, seq=seq,
+                                 mode=mode)[1]
+        args_resident = {
+            "prefill": [resident, [tree_bytes_at(shard_tree(
+                request, pargs.in_specs[1], mesh), c)
+                for c in mesh.coords()]],
+            "decode": [resident, [tree_bytes_at(shard_tree(
+                token, dargs.in_specs[1], mesh), c)
+                for c in mesh.coords()],
+                [tree_bytes_at(cache, c) for c in mesh.coords()]]}
+        del logits, cache, token, dargs
         drops = (hold_routing(f"{label} {mode}", plain_routing, plans, mesh,
                               cfg.top_k) if moe else None)
         del plans
@@ -4661,6 +4763,7 @@ def serve_on_meshes(dev, ops, smi, cfg, label, meshes, plain_rows, expect,
             per_device_bytes=expect_bytes,
             collective_bytes_per_prefill=moved["prefill"],
             collective_bytes_per_decode_step=moved["decode"],
+            resident_argument_bytes=args_resident,
             launches_per_prefill={k: per_prefill[k] for k in want_n},
             prefill_logits_max_abs_err=max(gap),
             prefill_logits_rel=_rel(got[0], want[0]),
@@ -4941,6 +5044,7 @@ def drive_pod_mesh_full(dev, ops, smi, cfg, unsharded):
 
     ops.reset_launch_counts()
     ms, events, losses, fired = [], [], [], set()
+    batch_bytes = None
     listen = _but_the_worker(count)
     collectives.listeners.append(listen)
     try:
@@ -4953,8 +5057,12 @@ def drive_pod_mesh_full(dev, ops, smi, cfg, unsharded):
                     activities=[torch.profiler.ProfilerActivity.CUDA])
                 prof.__enter__()
             t0 = time.perf_counter()
-            state, m = round_fn(state, shard_tree(batch, args.in_specs[1],
-                                                  mesh))
+            sharded_batch = shard_tree(batch, args.in_specs[1], mesh)
+            if batch_bytes is None:
+                batch_bytes = [tree_bytes_at(sharded_batch, c)
+                               for c in mesh.coords()]
+            state, m = round_fn(state, sharded_batch)
+            del sharded_batch
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             if prof is not None:
@@ -4993,6 +5101,8 @@ def drive_pod_mesh_full(dev, ops, smi, cfg, unsharded):
         * GRANITE_B["seq"], events=events, train_loss=losses,
         ms_per_round=ms, ms_per_round_both_fired=statistics.median(both)
         if both else None, gb_per_round_by_kind=gb,
+        bytes_per_round_by_kind=moved,
+        resident_argument_bytes=[resident, batch_bytes],
         profiled_round=dict(profiled, index=POD_FULL["profiled"]),
         unsharded_ms_per_round_both_fired=unsharded[
             "ms_per_round_both_fired"] if unsharded else None,
@@ -5019,10 +5129,10 @@ def drive_pod_mesh_full(dev, ops, smi, cfg, unsharded):
 
 
 def phase12(dev, ops, smi, granite, unsharded):
-    """Phases 12a and 12b; ``unsharded`` is phase 7b's report → a
+    """Phases 12a and 12b; ``unsharded`` is phase 7b's report → (a
     callable that holds 12a's rounds against the CPU's mesh rounds (on
     the :func:`background` worker beside 12b and what follows) and logs
-    the phase's report."""
+    the phase's report, 12b's report)."""
     t0 = t1 = time.perf_counter()
     hold = check_pod_mesh_group(dev, ops, dataclasses.replace(
         granite, num_layers=POD_GROUP["layers"], dtype="float32"))
@@ -5042,7 +5152,7 @@ def phase12(dev, ops, smi, granite, unsharded):
         log(json.dumps({"pod_mesh": {"group": group, "full": full},
                         "card": smi}))
 
-    return finish
+    return finish, full
 
 
 # Phase 13: tensor-parallel serving for every family (slice 21), every
@@ -5187,7 +5297,7 @@ def check_tp_cuts(dev, ops):
 
 
 def phase13(dev, ops, smi):
-    """Phases 13a–13c → launches by row."""
+    """Phases 13a–13c → (launches by row, 13b's report)."""
     from repro_torch.configs import get_config
 
     t0 = t1 = time.perf_counter()
@@ -5232,7 +5342,7 @@ def phase13(dev, ops, smi):
     for part in (zamba_counts, moon_counts):
         for k, n in part.items():
             counts[k] = counts.get(k, 0) + n
-    return counts
+    return counts, zamba_report
 
 
 # Phase 14: tensor-parallel training for every family and the MoE on a
@@ -5700,6 +5810,8 @@ def train_full(dev, ops, smi, cfg, label, meshes):
         so = ShardedTree(tuple(adam_init(b) for b in sp.blocks),
                          args.in_specs[1], mesh)
         sb = shard_tree(batch, args.in_specs[3], mesh)
+        args_resident = [[tree_bytes_at(x, c) for c in mesh.coords()]
+                         for x in (sp, so, sp, sb)]
         moved: dict = {}
 
         def count(kind, t):
@@ -5764,7 +5876,9 @@ def train_full(dev, ops, smi, cfg, label, meshes):
             mu_rel_to_fp32=to_fp32, anchored_leaves=anchored,
             profile=profile, peak_memory_bytes=peak,
             card_memory_bytes=total, resident_bytes=resident[0],
-            gb_by_kind=gb, aux=aux, drops_by_layer=drops)
+            gb_by_kind=gb, bytes_by_kind=dict(moved),
+            resident_argument_bytes=args_resident, aux=aux,
+            drops_by_layer=drops)
         log(f"{where} on mesh {shape}: loss {float(loss):.6f} (rel "
             f"{rel_loss:.2e} to the unsharded, {TRAIN_LOSS_REL} held); "
             f"first moment a leaf rel to the unsharded: largest "
@@ -5790,7 +5904,7 @@ def train_full(dev, ops, smi, cfg, label, meshes):
 
 
 def phase14(dev, ops, smi):
-    """Phases 14a–14c."""
+    """Phases 14a–14c → 14b's report."""
     from repro_torch.configs import get_config
 
     t0 = t1 = time.perf_counter()
@@ -5814,6 +5928,159 @@ def phase14(dev, ops, smi):
     log(json.dumps({"tp_training": {"cuts": cuts, "cross_pod": pods,
                                     "granite": granite, "moonshot_cut": moon},
                     "card": smi}))
+    return granite
+
+
+# Phase 15: the dry-run's count of the mesh steps that 12b, 13b and 14b
+# run on the card, the same step (configuration, mesh shape, mode, batch
+# and positions) counted on the meta device in a process of its own,
+# started with 10c (``launch/dryrun.py``: the count at 1 and 2 layer
+# units, extrapolated).
+_COUNT_SCRIPT = r"""
+import json, sys, time
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.sharding.params import per_device_bytes
+
+cases, card = json.loads(sys.argv[1]), sys.argv[2]
+out = {}
+for c in cases:
+    t0 = time.time()
+    cfg = get_config(c["arch"])
+    mesh = make_test_mesh(tuple(c["mesh"]), tuple(c["axes"]),
+                          devices=("meta",))
+    kw = dict(multi_pod=c["multi_pod"], mode=c["mode"], mesh=mesh,
+              batch=c["batch"], seq=c["seq"])
+    cost = dryrun.corrected_cost(cfg, c["shape"], **kw)
+    built, _ = dryrun.build_step(cfg, c["shape"], **kw)
+    args = built[3][1]
+    rec = dryrun.make_record(c["arch"], c["shape"], cfg, cost,
+                             multi_pod=c["multi_pod"], card=card,
+                             mode=c["mode"], mesh=mesh)
+    out[c["name"]] = dict(
+        collectives={k: int(v) for k, v in cost["collectives"].items()},
+        calls={k: int(sum(cost[k])) for k in ("flash_attention",
+                                               "ssd_scan")},
+        argument_bytes=[per_device_bytes(a, s, built[2]) for a, s in
+                        zip(args, args.in_specs, strict=True)],
+        bound_time_s=rec["roofline"]["bound_time_s"],
+        dominant=rec["roofline"]["dominant"],
+        busiest_coordinate=rec["busiest_coordinate"],
+        coordinates=mesh.size, count_s=time.time() - t0)
+print("RESULT:" + json.dumps(out))
+"""
+
+
+def held_steps():
+    """Phase 15's steps: (name, architecture, dry-run shape, pods, mode,
+    mesh, axes, batch, positions), each that of a phase's run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_lm import cache_len
+
+    dm = ["data", "model"]
+    zamba = dict(arch=ZAMBA, multi_pod=False, mode="tp",
+                 mesh=list(TP_ZAMBA["mesh"]), axes=dm, batch=SERVE_BATCH)
+    return [
+        dict(name="12b", arch=GRANITE, shape="train_4k", multi_pod=True,
+             mode="fsdp", mesh=list(POD_MESH), axes=list(POD_AXES),
+             batch=GRANITE_B["batch"] * CROSSPOD_CP["n_pods"]
+             * CROSSPOD_CP["local_steps"], seq=GRANITE_B["seq"]),
+        dict(zamba, name="13b prefill", shape="prefill_32k",
+             seq=SERVE_PROMPT),
+        dict(zamba, name="13b decode", shape="decode_32k", seq=cache_len(
+            get_config(ZAMBA), SERVE_PROMPT, TP_ZAMBA["new"])),
+        *[dict(name=f"14b {mode}", arch=GRANITE, shape="train_4k",
+               multi_pod=False, mode=mode, mesh=list(shape), axes=dm,
+               batch=TRAIN_FULL["batch"], seq=TRAIN_FULL["text"])
+          for mode, shape in TRAIN_GRANITE]]
+
+
+def start_held_counts():
+    """Phase 15's counts, started: one niced process on the host's
+    cores."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return _child(
+        [sys.executable, "-c", _COUNT_SCRIPT, json.dumps(held_steps()),
+         torch.cuda.get_device_name(0)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        preexec_fn=lambda: os.nice(19))
+
+
+def phase15(proc, smi, pod, zamba, granite):
+    """Phase 15: each step's count held against the phase's run of it on
+    the card — the bytes by collective kind equal to its listener's, byte
+    for byte (the arguments' own "scatter" onto the mesh, where the phase
+    cut them inside its listener, counted from their resident bytes),
+    each argument's bytes a coordinate (``per_device_bytes`` of the
+    step's ``in_specs``) equal to every coordinate's resident bytes, K4's
+    and K5's counted calls equal to their launches; each step's counted
+    bound a card × its coordinates printed beside its measured ms, no
+    gate."""
+    out, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"15: the count exited {proc.returncode}: "
+                             f"{err[-3000:]}")
+    counted = json.loads([x for x in out.splitlines()
+                          if x.startswith("RESULT:")][-1][len("RESULT:"):])
+    zt = zamba[f"tp {TP_ZAMBA['mesh']}"]
+    k4, k5 = "flash_attention_zamba2_tp4", "ssd_scan_zamba2_tp4"
+    runs = {"12b": dict(
+        moved=pod["bytes_per_round_by_kind"][0], placed=1,
+        args=pod["resident_argument_bytes"], calls={},
+        ms=pod["profiled_round"]["device_busy_ms"],
+        what=f"busy ms of round {pod['profiled_round']['index']}")}
+    runs["13b prefill"] = dict(
+        moved=zt["collective_bytes_per_prefill"], placed=1,
+        args=zt["resident_argument_bytes"]["prefill"],
+        calls={"flash_attention": zt["launches_per_prefill"][k4],
+               "ssd_scan": zt["launches_per_prefill"][k5]},
+        ms=zt["prefill_ms"], what="wall ms of a prefill")
+    runs["13b decode"] = dict(
+        moved=zt["collective_bytes_per_decode_step"], placed=1,
+        args=zt["resident_argument_bytes"]["decode"],
+        calls={"flash_attention": 0, "ssd_scan": 0},
+        ms=zt["decode_ms_per_step"], what="wall ms of a decode step")
+    for mode, shape in TRAIN_GRANITE:
+        g = granite[f"{mode} {shape}"]
+        runs[f"14b {mode}"] = dict(
+            moved=g["bytes_by_kind"], placed=None,
+            args=g["resident_argument_bytes"], calls={},
+            ms=g["profile"]["device_busy_ms"], what="busy ms of the step")
+    report = {}
+    for name, run in runs.items():
+        c = counted[name]
+        want = {k: v for k, v in c["collectives"].items() if v}
+        if run["placed"] is not None:  # the argument cut in the listener
+            want["scatter"] = want.get("scatter", 0) + sum(
+                run["args"][run["placed"]][1:])
+        if run["moved"] != want:
+            raise AssertionError(f"15 {name}: bytes by kind {run['moved']} "
+                                 f"on the card, counted {want}")
+        for i, (n, per_coord) in enumerate(zip(
+                c["argument_bytes"], run["args"], strict=True)):
+            if any(r != n for r in per_coord):
+                raise AssertionError(f"15 {name}: argument {i}'s resident "
+                                     f"bytes {per_coord}, counted {n}")
+        for k, n in run["calls"].items():
+            if c["calls"][k] != n:
+                raise AssertionError(f"15 {name}: {k} counted "
+                                     f"{c['calls'][k]} calls, launched {n}")
+        bound_ms = c["bound_time_s"] * 1e3 * c["coordinates"]
+        report[name] = dict(c, measured_ms=run["ms"], measured=run["what"],
+                            bound_ms_times_coordinates=bound_ms)
+        log(f"15 {name}: bytes by kind {run['moved']} = counted; argument "
+            f"bytes a coordinate {c['argument_bytes']} = resident; K4 / K5 "
+            f"{c['calls']['flash_attention']} / {c['calls']['ssd_scan']} "
+            f"counted{' = launched' if run['calls'] else ''}; counted "
+            f"bound {c['bound_time_s'] * 1e3:.3f} ms a card "
+            f"({c['dominant']}, coordinate {c['busiest_coordinate']}) × "
+            f"{c['coordinates']} = {bound_ms:.1f} ms against "
+            f"{run['ms']:.1f} {run['what']} (count {c['count_s']:.1f} s); "
+            f"on {smi}")
+    return report
 
 
 def kernels_line(rows, launches, where):
@@ -5991,6 +6258,13 @@ def main() -> int:
     checker, counts_k = check_static_invariants(ctx, ops)
     log(json.dumps({"checker": checker, "card": smi}))
     t0 = phase_seconds("5k", t0)
+    # 10c's mesh sweeps and phase 15's counts, niced, on the host's cores
+    # beside phases 6–14 (they touch no card; phases 3–5k's CPU rounds
+    # run on every core)
+    mesh_dir, t_mesh = ROOT / "build" / "dryrun_mesh", time.perf_counter()
+    for old_rec in mesh_dir.glob("*/*.json"):
+        old_rec.unlink()
+    held_proc, mesh_procs = start_held_counts(), start_mesh_sweeps(mesh_dir)
 
     zamba = get_config("zamba2-2.7b")
     _, counts_slice = check_slice_against_cpu(
@@ -6171,15 +6445,28 @@ def main() -> int:
                     "examples": examples, "system_claims": claims,
                     "card": smi}))
 
-    finish_12a = phase12(dev, ops, smi, granite, granite_b)
-    counts_tp = phase13(dev, ops, smi)
+    finish_12a, pod_full = phase12(dev, ops, smi, granite, granite_b)
+    counts_tp, zamba_tp = phase13(dev, ops, smi)
     finish_12a()
     del finish_12a
     t0 = time.perf_counter()
-    phase14(dev, ops, smi)
+    granite_tp = phase14(dev, ops, smi)
     log(f"phase 14 took {time.perf_counter() - t0:.1f} s")
     for worker in _BACKGROUND:
         worker.shutdown()
+    t0 = time.perf_counter()
+    try:
+        held = phase15(held_proc, smi, pod_full, zamba_tp, granite_tp)
+        mesh_report = finish_mesh_sweeps(mesh_procs, mesh_dir, t_mesh)
+    finally:
+        for proc in (held_proc, *mesh_procs):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"phase 15 took {time.perf_counter() - t0:.1f} s (waited for its "
+        "counts and 10c's mesh sweeps)")
+    log(json.dumps({"dryrun_held": held, "dryrun_mesh": mesh_report,
+                    "card": smi}))
 
     launches, where = {}, {}
     for name, r in rows.items():
@@ -6234,4 +6521,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        for child in _CHILDREN:  # the processes a failed phase left
+            if child.poll() is None:
+                child.kill()
+                child.wait()

@@ -41,9 +41,11 @@ losses and metrics on the mesh's first device, and ``abstract_args``
 is a :class:`MeshArgs`: the same meta tensors, with ``in_specs`` and
 ``out_specs`` — the reference's ``in_shardings`` / ``out_shardings`` as
 spec trees (``None`` where the reference leaves the placement to XLA).
-``make_mesh_serve_steps`` gives the serving two for whole batches and
-tokens.  ``core.crosspod``'s own ``mesh=`` (a client mesh) places whole
-pods on cards instead.
+A mesh step also takes ``shards=``, its loop over the data shards
+(``sharding.serve.EveryDataShard``: every one runs; the dry-run passes
+a sample of them).  ``make_mesh_serve_steps`` gives the serving two for
+whole batches and tokens.  ``core.crosspod``'s own ``mesh=`` (a client
+mesh) places whole pods on cards instead.
 """
 from __future__ import annotations
 
@@ -58,8 +60,8 @@ from repro_torch.models.layers import rmsnorm
 from repro_torch.models.transformer import forward_hidden
 from repro_torch.optim.adam import adam_init, adam_step
 from repro_torch.sharding.params import shard_tree
-from repro_torch.sharding.serve import TpLayout, check_serve_mode, \
-    data_shards, decode_step_on_mesh, prefill_on_mesh
+from repro_torch.sharding.serve import EVERY_DATA_SHARD, TpLayout, \
+    check_serve_mode, data_shards, decode_step_on_mesh, prefill_on_mesh
 from repro_torch.sharding.specs import batch_specs, cache_specs, \
     param_specs
 from repro_torch.sharding.train import adam_specs, check_train_mode, \
@@ -248,10 +250,10 @@ def make_prefill_step(model: Model, mesh=None, *, batch: int, seq: int,
                                       seq)
     bspec = batch_specs(b_abs, batch_axes=baxes)
 
-    def mesh_prefill_step(params, batch):
+    def mesh_prefill_step(params, batch, *, shards=EVERY_DATA_SHARD):
         _check_specs(params, pspec)
         return prefill_on_mesh(model.config, params, batch, seq, mode=mode,
-                               batch_axes=tuple(batch_axes))
+                               batch_axes=tuple(batch_axes), shards=shards)
 
     return mesh_prefill_step, MeshArgs((p_abs, b_abs), in_specs=(
         pspec, bspec), out_specs=(None, cspec))
@@ -276,10 +278,12 @@ def make_decode_step(model: Model, mesh=None, *, batch: int, seq: int,
                                       seq)
     tspec = (baxes, None) if batch > 1 else ()
 
-    def mesh_decode_step(params, token, cache):
+    def mesh_decode_step(params, token, cache, *,
+                         shards=EVERY_DATA_SHARD):
         _check_specs(params, pspec)
         return decode_step_on_mesh(model.config, params, token, cache,
-                                   mode=mode, batch_axes=tuple(batch_axes))
+                                   mode=mode, batch_axes=tuple(batch_axes),
+                                   shards=shards)
 
     return mesh_decode_step, MeshArgs((p_abs, tok_abs, cache_abs),
                                       in_specs=(pspec, tspec, cspec),

@@ -144,7 +144,7 @@ def _project_kv(p, x, kv, num_kv_heads, head_dim):
 def attention_forward(p, x, *, positions, rope_theta, num_heads, num_kv_heads,
                       head_dim, mask_mode="causal", window=0, prefix_len=0,
                       return_kv=False, blockwise=False, kv_block=512,
-                      kv=None, project=True):
+                      kv=None, project=True, q=None):
     """Self-attention over x: (B, S, d) at positions 0..S−1: K4 for
     serving under the causal mask; :func:`blockwise_attention` in blocks
     of min(``kv_block``, S) under the prefix and bidir masks (no kernel
@@ -158,11 +158,14 @@ def attention_forward(p, x, *, positions, rope_theta, num_heads, num_kv_heads,
     block of wk / wv, ``kv``: the (B, S, KvH, hd) k and v it takes,
     before RoPE, each a tensor of its own (K4 takes no strided view).
     With ``project=False`` the heads' output (B, S, H·hd) is returned
-    before wo, for the shard to take its partial product itself."""
+    before wo, for the shard to take its partial product itself; ``q``
+    the (B, S, H·hd) query projection of heads that are not its own
+    column block of wq (they straddle the blocks)."""
     check_mask_mode(mask_mode)
     blockwise = blockwise or mask_mode != "causal"
     b, s, d = x.shape
-    q = (x @ p["wq"]).reshape(b, s, num_heads, head_dim)
+    q = (x @ p["wq"] if q is None else q).reshape(b, s, num_heads,
+                                                  head_dim)
     k, v = _project_kv(p, x, kv, num_kv_heads, head_dim)
     q = apply_rope(q, positions[None, :], rope_theta)
     k = apply_rope(k, positions[None, :], rope_theta)
@@ -181,7 +184,8 @@ def attention_forward(p, x, *, positions, rope_theta, num_heads, num_kv_heads,
 
 
 def attention_decode(p, x, kv_cache, cache_pos: int, *, rope_theta, num_heads,
-                     num_kv_heads, head_dim, window=0, kv=None, project=True):
+                     num_kv_heads, head_dim, window=0, kv=None, project=True,
+                     q=None):
     """Single-token decode against a (B, S_max, Kv, hd) ring/linear cache.
 
     x: (B, 1, d); cache_pos: the position being generated (a host int).
@@ -190,13 +194,14 @@ def attention_decode(p, x, kv_cache, cache_pos: int, *, rope_theta, num_heads,
     written into the cache tensors **in place** (the JAX function
     returns new arrays); the updated pair is returned as well.  A model
     shard passes its blocks, counts and ``kv`` (the new token's (B, 1,
-    KvH, hd) k and v before RoPE) and ``project`` as
+    KvH, hd) k and v before RoPE), ``project`` and ``q`` as
     :func:`attention_forward` says.
     """
     b = x.shape[0]
     k_cache, v_cache = kv_cache
     s_max = k_cache.shape[1]
-    q = (x @ p["wq"]).reshape(b, 1, num_heads, head_dim)
+    q = (x @ p["wq"] if q is None else q).reshape(b, 1, num_heads,
+                                                  head_dim)
     k, v = _project_kv(p, x, kv, num_kv_heads, head_dim)
     pos = torch.full((1, 1), cache_pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, pos, rope_theta)

@@ -126,31 +126,31 @@ def _ffn(cfg, p, x, return_aux=True):
 
 def _attention(cfg, p, x, positions, *, window, mask_mode="causal",
                prefix_len=0, blockwise=False, num_heads=None,
-               num_kv_heads=None, kv=None, project=True):
+               num_kv_heads=None, kv=None, project=True, q=None):
     """The attention of the block ``p`` over its normed input x →
     (output, its (k, v) for the cache): K4 under the causal mask in
     serving, ``blockwise_attention`` under the prefix mask or with
-    ``blockwise=True``.  A model shard passes its head counts, ``kv``
-    and ``project=False`` (``attention_forward``)."""
+    ``blockwise=True``.  A model shard passes its head counts, ``kv``,
+    ``q`` and ``project=False`` (``attention_forward``)."""
     return attention_forward(
         p["attn"], x, positions=positions, rope_theta=cfg.rope_theta,
         num_heads=num_heads or cfg.num_heads,
         num_kv_heads=num_kv_heads or cfg.num_kv_heads,
         head_dim=cfg.head_dim, mask_mode=mask_mode, prefix_len=prefix_len,
         window=window, return_kv=True, blockwise=blockwise,
-        kv_block=cfg.kv_block, kv=kv, project=project)
+        kv_block=cfg.kv_block, kv=kv, project=project, q=q)
 
 
 def _attention_step(cfg, p, x, kv_cache, pos, *, window, num_heads=None,
-                    num_kv_heads=None, kv=None, project=True):
+                    num_kv_heads=None, kv=None, project=True, q=None):
     """One decode step of the block's attention against its (k, v) cache
-    (updated in place); a model shard passes its head counts, ``kv`` and
-    ``project=False`` (``attention_decode``)."""
+    (updated in place); a model shard passes its head counts, ``kv``,
+    ``q`` and ``project=False`` (``attention_decode``)."""
     att, _ = attention_decode(
         p["attn"], x, kv_cache, pos, rope_theta=cfg.rope_theta,
         num_heads=num_heads or cfg.num_heads,
         num_kv_heads=num_kv_heads or cfg.num_kv_heads,
-        head_dim=cfg.head_dim, window=window, kv=kv, project=project)
+        head_dim=cfg.head_dim, window=window, kv=kv, project=project, q=q)
     return att
 
 

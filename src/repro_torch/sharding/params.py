@@ -262,7 +262,9 @@ class _AllReduce(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, devices, dtype, *parts):
-        ctx.like = [(p.device, p.dtype) for p in parts]
+        # the mesh's devices, which the parts lie on
+        ctx.like = [(d, p.dtype) for d, p in zip(devices, parts,
+                                                  strict=True)]
         out = _all_reduce(parts, devices, dtype)
         # a shared device's copies are one tensor: give each its own
         return tuple(x if i == 0 else x.view_as(x)
@@ -296,11 +298,10 @@ def _all_gather(parts, dim, devices):
     made = {}
     out = []
     for j, d in enumerate(devices):
-        key = str(torch.device(d))
-        if key not in made:
-            made[key] = torch.cat([p.to(d, non_blocking=True)
-                                   for p in parts], dim)
-        out.append(made[key])
+        if d not in made:
+            made[d] = torch.cat([p.to(d, non_blocking=True)
+                                 for p in parts], dim)
+        out.append(made[d])
         report_copies("all-gather", [p for k, p in enumerate(parts) if k != j])
     return out
 
@@ -311,9 +312,10 @@ class _AllGather(torch.autograd.Function):
     the block's dtype (``"reduce-scatter"``)."""
 
     @staticmethod
-    def forward(ctx, dim, devices, *parts):
+    def forward(ctx, dim, devices, homes, *parts):
         ctx.dim = dim
-        ctx.like = [(p.device, p.dtype, p.shape[dim]) for p in parts]
+        ctx.like = [(d, p.dtype, p.shape[dim])
+                    for d, p in zip(homes, parts, strict=True)]
         out = _all_gather(parts, dim, devices)
         seen = set()
         res = []
@@ -332,16 +334,18 @@ class _AllGather(torch.autograd.Function):
             out.append(_sum_in_order(blocks, dev, dt))
             moved += [b for k, b in enumerate(blocks) if k != j]
         report_copies("reduce-scatter", moved)
-        return (None, None, *out)
+        return (None, None, None, *out)
 
 
-def all_gather(parts, dim, devices) -> list:
+def all_gather(parts, dim, devices, homes=None) -> list:
     """The per-shard blocks concatenated along ``dim`` in shard order,
-    one result on each shard's device (computed once per distinct
+    one result on each of ``devices`` (computed once per distinct
     device).  Under autograd a function (:class:`_AllGather`) whose
-    backward is a reduce-scatter."""
+    backward is a reduce-scatter onto ``homes``, the devices the parts
+    lie on (default: ``devices``)."""
     if _wants_grad(parts):
-        return list(_AllGather.apply(dim, tuple(devices), *parts))
+        return list(_AllGather.apply(dim, tuple(devices),
+                                     tuple(homes or devices), *parts))
     return _all_gather(parts, dim, devices)
 
 

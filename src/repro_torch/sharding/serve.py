@@ -109,7 +109,6 @@ from .specs import cache_specs
 
 SERVE_MODES = ("fsdp", "tp", "fsdp_tp", "ep")
 
-
 def check_serve_mode(mode: str) -> None:
     if mode not in SERVE_MODES:
         raise ValueError(f"unknown serving mode {mode!r}; the modes are "
@@ -131,6 +130,35 @@ def data_shards(mesh, batch_axes, model_axis="model") -> list:
         key = tuple(c[names.index(a)] for a in batch_axes)
         groups.setdefault(key, []).append(c)
     return [groups[k] for k in sorted(groups)]
+
+
+class EveryDataShard:
+    """How the executors loop over data shards (and an all-firing
+    cross-pod round over its pods): every one runs.  A caller may pass
+    another loop as ``shards=``; the dry-run passes a sample of them
+    (``launch/dryrun.py::DataShardSample``), which runs the first
+    ``runs`` (the last of them standing for the others) and leaves the
+    others' outputs to :func:`stand_in`."""
+
+    def each(self, groups, mesh, runs=2):
+        """``(s, group)`` for each of ``groups`` (lists of ``mesh``'s
+        coordinates) that runs, in order."""
+        return enumerate(groups)
+
+    def skipped(self, groups, runs=2) -> range:
+        """The indices of ``groups`` that :meth:`each` left out."""
+        return range(len(groups), len(groups))
+
+
+EVERY_DATA_SHARD = EveryDataShard()
+
+
+def stand_in(tree, device):
+    """The output of a data shard that ``shards.skipped`` names: each
+    tensor of ``tree`` (the second data shard's) as an empty one on
+    ``device``, anything else as it is."""
+    return tree_map(lambda x: torch.empty_like(x, device=device)
+                    if isinstance(x, torch.Tensor) else x, tree)
 
 
 def _gather_batch(parts, device):
@@ -205,6 +233,7 @@ class TpLayout:
                             "or whole") == col
         self.heads = self.kv_heads = self.ssm_heads = 0
         self.source, self.take, self.moe = None, None, None
+        self.q_spans = None
         if cfg.family in ATTN_STACK or cfg.family == "hybrid":
             self._attention(cfg, cut, given, (
                 ("shared",) if cfg.family == "hybrid" else ("layers",)),
@@ -230,13 +259,23 @@ class TpLayout:
     def _attention(self, cfg, cut, given, base, col, row, whole,
                    model_axis):
         m = self.model_size
-        h, kv = cfg.num_heads, cfg.num_kv_heads
+        h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         wq = base + ("attn", "wq")
         cut(wq, col, why="tp needs wq cut on its columns (heads)")
+        self.head_dim, self.cols = hd, h * hd // m
+        self.q_spans = None
         if h % m:
-            raise ValueError(f"{h} query heads do not split over a model "
-                             f"axis of {m} ({'/'.join(wq)} is cut as "
-                             f"{given[wq]})")
+            # a shard's columns of wq straddle heads: it takes the heads
+            # they touch from the gathered q, and its columns of their
+            # output for its rows of wo
+            spans = [(j * self.cols // hd, -(-(j + 1) * self.cols // hd))
+                     for j in range(m)]
+            if len({b - a for a, b in spans}) != 1:
+                raise ValueError(f"{h} query heads of {hd} do not split "
+                                 f"over a model axis of {m} in spans of "
+                                 f"one width ({'/'.join(wq)} is cut as "
+                                 f"{given[wq]})")
+            self.q_spans = spans
         cut(base + ("attn", "wo"), row, why="tp needs wo cut on its rows")
         kinds = {col: "column", row: "row", whole: "whole"}
         wk = cut(base + ("attn", "wk"), *kinds,
@@ -260,19 +299,40 @@ class TpLayout:
                             ("w_down", row)):
                 cut(base + ("mlp", w), want,
                     why=f"tp needs {w} cut as {want}")
-        self.heads, g = h // m, h // kv
+        spans = self.q_spans or [(j * (h // m), (j + 1) * (h // m))
+                                 for j in range(m)]
+        self.heads, g = spans[0][1] - spans[0][0], h // kv
         self.source = kinds[wk]
-        if kv % m == 0 and self.source == "column":
+        if kv % m == 0 and self.source == "column" and not self.q_spans:
             self.kv_heads, self.take = kv // m, None
             self.source = "own"
         else:
-            # kv % m != 0 (so do the row fallback and a replicated wk):
-            # a shard's query heads straddle kv groups, and K4 takes one
-            # group size, so it takes one kv head per query head.
+            # kv % m != 0 (so do the row fallback and a replicated wk),
+            # or the query heads straddle the blocks: a shard's query
+            # heads straddle kv groups, and K4 takes one group size, so
+            # it takes one kv head per query head.
             self.kv_heads = self.heads
-            self.take = [[q // g for q in range(j * self.heads,
-                                                (j + 1) * self.heads)]
-                         for j in range(m)]
+            self.take = [[q // g for q in range(a, b)] for a, b in spans]
+
+    def q(self, lps, xs, devs):
+        """Each shard's (B, S, heads·hd) query projection where its
+        heads straddle the column blocks of wq (the blocks' products
+        gathered), else None (each projects its own)."""
+        if self.q_spans is None:
+            return None
+        hd = self.head_dim
+        whole = all_gather([x @ lp["attn"]["wq"]
+                            for x, lp in zip(xs, lps, strict=True)], -1, devs)
+        return [w[..., a * hd:b * hd]
+                for w, (a, b) in zip(whole, self.q_spans, strict=True)]
+
+    def own_columns(self, j: int, y):
+        """Shard j's columns of its heads' output y: those its rows of wo
+        take (y itself unless the heads straddle the blocks)."""
+        if self.q_spans is None:
+            return y
+        start = j * self.cols - self.q_spans[j][0] * self.head_dim
+        return y[..., start:start + self.cols]
 
     def ssm_range(self, j: int) -> range:
         """Model shard j's mamba heads."""
@@ -351,16 +411,19 @@ class _TpGroup:
     def block(self, lps, hs, attend):
         """One attention + MLP (or MoE) block over the model shards →
         (h on each shard, the first shard's MoE routing or None):
-        ``attend(j, lp, x, kv)`` gives shard j's heads' output before wo;
+        ``attend(j, lp, x, kv, q)`` gives shard j's heads' output before
+        wo;
         the partial products with the shards' rows of wo and w_down
         summed in shard order."""
         cfg, devs, dtype = self.cfg, self.devs, hs[0].dtype
         xs = [rmsnorm(h, lp["ln1"], cfg.norm_eps)
               for h, lp in zip(hs, lps, strict=True)]
         kvs = self.lay.kv(lps, xs, devs, cfg.head_dim)
+        qs = self.lay.q(lps, xs, devs)
         att = all_reduce([
-            matmul_fp32(attend(j, lp, x, None if kvs is None else kvs[j]),
-                        lp["attn"]["wo"])
+            matmul_fp32(self.lay.own_columns(j, attend(
+                j, lp, x, None if kvs is None else kvs[j],
+                None if qs is None else qs[j])), lp["attn"]["wo"])
             for j, (lp, x) in enumerate(zip(lps, xs, strict=True))], devs,
             dtype=dtype)
         hs = [h + a for h, a in zip(hs, att, strict=True)]
@@ -494,11 +557,11 @@ class _TpGroup:
         kvs = [([], []) for _ in range(m)]
         states, tails = [[] for _ in range(m)], [[] for _ in range(m)]
 
-        def attend(j, lp, x, kv):
+        def attend(j, lp, x, kv, q):
             y, (k, v) = _attention(
                 cfg, lp, x, positions[j], window=cfg.sliding_window,
                 num_heads=lay.heads, num_kv_heads=lay.kv_heads, kv=kv,
-                project=False, **mask)
+                project=False, q=q, **mask)
             kvs[j][0].append(k)
             kvs[j][1].append(v)
             return y
@@ -542,11 +605,11 @@ class _TpGroup:
         hs = self.embed(tokens)
 
         def attend_at(gi):
-            def attend(j, lp, x, kv):
+            def attend(j, lp, x, kv, q):
                 return _attention_step(
                     cfg, lp, x, (caches[j]["k"][gi], caches[j]["v"][gi]),
                     pos, window=cfg.sliding_window, num_heads=lay.heads,
-                    num_kv_heads=lay.kv_heads, kv=kv, project=False)
+                    num_kv_heads=lay.kv_heads, kv=kv, project=False, q=q)
             return attend
 
         if cfg.family in ATTN_STACK:
@@ -586,12 +649,13 @@ def tp_cache_specs(cfg, batch, mesh, batch_axes=("data",),
 
 @torch.no_grad()
 def prefill_on_mesh(cfg, params, batch, max_seq=None, *, mode="fsdp",
-                    batch_axes=("data",)):
+                    batch_axes=("data",), shards=EVERY_DATA_SHARD):
     """Prefill on a model mesh (``params`` and ``batch`` are
     ShardedTrees over one mesh) → (the last position's fp32 logits (B,
     1, vocab_size), put together on the mesh's first device; the cache,
     a ShardedTree: ``cache_specs``' layout under fsdp,
-    :func:`tp_cache_specs`' under tp, fsdp_tp and ep)."""
+    :func:`tp_cache_specs`' under tp, fsdp_tp and ep).  ``shards``: the
+    loop over data shards (:class:`EveryDataShard`)."""
     check_decodes(cfg)
     check_serve_mode(mode)
     mesh = params.mesh
@@ -600,7 +664,7 @@ def prefill_on_mesh(cfg, params, batch, max_seq=None, *, mode="fsdp",
     logits = []
     if mode == "fsdp":
         specs = None
-        for group in groups:
+        for _, group in shards.each(groups, mesh):
             lg, cache = prefill(cfg, GatheredParams(params, group[0]),
                                 batch.at(group[0]), max_seq)
             logits.append(lg)
@@ -623,7 +687,7 @@ def prefill_on_mesh(cfg, params, batch, max_seq=None, *, mode="fsdp",
         lay = TpLayout(cfg, params.specs, mesh)
         rows = batch.at(groups[0][0])["tokens"].shape[0]
         specs = tp_cache_specs(cfg, rows * len(groups), mesh, batch_axes)
-        for group in groups:
+        for _, group in shards.each(groups, mesh):
             parts = [batch.at(c) for c in group]
             lg, caches = _TpGroup(cfg, lay, params, group).prefill(
                 parts, max_seq or parts[0]["tokens"].shape[1])
@@ -635,23 +699,29 @@ def prefill_on_mesh(cfg, params, batch, max_seq=None, *, mode="fsdp",
                         ring.shape, specs["layers"]["conv"], mesh, c,
                         keep=batch_axes)].contiguous()
                 blocks[mesh.index(c)] = cache
+    for s in shards.skipped(groups):
+        logits.append(stand_in(logits[1], mesh.device(groups[s][0])))
+        for c, like in zip(groups[s], groups[1], strict=True):
+            blocks[mesh.index(c)] = stand_in(blocks[mesh.index(like)],
+                                             mesh.device(c))
     return (_gather_batch(logits, mesh.devices[0]),
             ShardedTree(tuple(blocks), specs, mesh))
 
 
 @torch.no_grad()
 def decode_step_on_mesh(cfg, params, token, cache, *, mode="fsdp",
-                        batch_axes=("data",)):
+                        batch_axes=("data",), shards=EVERY_DATA_SHARD):
     """One token (a ShardedTree of the (B, 1) tokens) against a filled
     mesh cache → (fp32 logits (B, 1, vocab_size) on the mesh's first
-    device, the cache, its blocks updated in place)."""
+    device, the cache, its blocks updated in place).  ``shards``: the
+    loop over data shards (:class:`EveryDataShard`)."""
     check_decodes(cfg)
     check_serve_mode(mode)
     mesh = params.mesh
     groups = data_shards(mesh, batch_axes)
     logits = []
     if mode == "fsdp":
-        for group in groups:
+        for _, group in shards.each(groups, mesh):
             at = group[0]
             local = gather_tree(cache, at=at, keep=batch_axes)
             lg, local = decode_step(cfg, GatheredParams(params, at),
@@ -663,8 +733,13 @@ def decode_step_on_mesh(cfg, params, token, cache, *, mode="fsdp",
         ring_dim = None
         if "layers" in cache.specs:
             ring_dim = _model_dim(cache.specs["layers"]["conv"][1:])
-        for group in groups:
+        for _, group in shards.each(groups, mesh):
             logits.append(_TpGroup(cfg, lay, params, group).decode(
                 [token.at(c) for c in group], [cache.at(c) for c in group],
                 ring_dim))
+    for s in shards.skipped(groups):
+        logits.append(stand_in(logits[1], mesh.device(groups[s][0])))
+        for c, like in zip(groups[s], groups[1], strict=True):
+            if "pos" in cache.at(c):
+                cache.at(c)["pos"] = cache.at(like)["pos"]
     return _gather_batch(logits, mesh.devices[0]), cache

@@ -154,7 +154,8 @@ from repro_torch.utils.spans import span
 
 from .params import ShardedTree, _axes, all_gather, all_reduce, \
     block_slices, gather_leaf, gather_tree, report_copies
-from .serve import TpLayout, _spec_paths, _TpGroup, data_shards
+from .serve import EVERY_DATA_SHARD, TpLayout, _spec_paths, _TpGroup, \
+    data_shards, stand_in
 from .specs import param_specs, pod_stacked_specs
 
 TRAIN_MODES = ("fsdp", "tp", "fsdp_tp", "ep")
@@ -233,9 +234,13 @@ class GradView:
         self.sharded, self.at, self.keep = sharded, tuple(at), tuple(keep)
         self._own = sharded.mesh.index(self.at)
 
+    def _own_block(self, spec) -> bool:
+        """Whether the leaf cut by ``spec`` is ``at``'s own block."""
+        return bool(self.keep) and not (
+            {a for e in spec for a in _axes(e)} - set(self.keep))
+
     def _gather(self, blocks, spec):
-        if self.keep and not ({a for e in spec for a in _axes(e)}
-                              - set(self.keep)):
+        if self._own_block(spec):
             return blocks[self._own]
         return _Gather.apply(tuple(spec), self.sharded.mesh, self.at,
                              self.keep, *blocks)
@@ -257,15 +262,25 @@ class GradView:
             if s and s[0] is not None:
                 raise ValueError(f"the layer axis is cut ({s}); it never "
                                  "is under the sharding rules")
-        # one unbind per block leaf: its backward stacks the layers'
-        # gradients once, as the unsharded path's does
-        rows = [[x.unbind(0) for x in tree_leaves(b["layers"])]
-                for b in sh.blocks]
+        # one unbind per block leaf read: its backward stacks the
+        # layers' gradients once, as the unsharded path's does
+        leaves = [tree_leaves(b["layers"]) for b in sh.blocks]
+        rows: dict = {}
+
+        def row(c, k):
+            if (c, k) not in rows:
+                rows[c, k] = leaves[c][k].unbind(0)
+            return rows[c, k]
+
+        def read(i, k, spec):
+            if self._own_block(spec):
+                return row(self._own, k)[i]
+            return self._gather([row(c, k)[i] for c in range(len(leaves))],
+                                spec)
 
         def layer(i):
             return _build(sh.blocks[0]["layers"], [
-                self._gather([r[k][i] for r in rows], tuple(s)[1:])
-                for k, s in enumerate(specs)])
+                read(i, k, tuple(s)[1:]) for k, s in enumerate(specs)])
 
         return [functools.partial(layer, i) for i in range(n)]
 
@@ -313,11 +328,12 @@ class _TpTrain(_TpGroup):
             mask = dict(mask_mode="prefix", prefix_len=cfg.prefix_tokens)
         positions = [torch.arange(hs[0].shape[1], device=d) for d in devs]
 
-        def attend(j, lp, x, kv):
+        def attend(j, lp, x, kv, q):
             y, _ = _attention(cfg, lp, x, positions[j],
                               window=cfg.sliding_window,
                               num_heads=lay.heads, num_kv_heads=lay.kv_heads,
-                              kv=kv, project=False, blockwise=True, **mask)
+                              kv=kv, project=False, blockwise=True, q=q,
+                              **mask)
             return y
 
         def mamba(lps, hs):
@@ -414,7 +430,7 @@ def _vocab_parallel_sums(hs, heads, labels, devs, vocab_size):
             logits, torch.clamp(local, 0, cols - 1)[..., None], dim=-1)[..., 0]
         parts.append(torch.stack([top, sumexp,
                                   torch.where(inside, picked, 0.0)])[None])
-    (got,) = all_gather(parts, 0, devs[:1])
+    (got,) = all_gather(parts, 0, devs[:1], homes=devs)
     top = got[:, 0].amax(0)
     total, label = got[0, 1] * torch.exp(got[0, 0] - top), got[0, 2]
     for j in range(1, got.shape[0]):
@@ -458,23 +474,28 @@ def _shard_terms(cfg, params, group, parts, lay, stats):
     return _TpTrain(cfg, lay, params, group).loss_terms(parts)
 
 
-def value_and_grad(cfg, params: ShardedTree, micro, groups, lay=None):
+def value_and_grad(cfg, params: ShardedTree, micro, groups, lay=None,
+                   shards=EVERY_DATA_SHARD):
     """(the whole batch's loss, each coordinate's gradient leaves) of
     the model ``cfg`` at ``params`` (ShardedTree blocks that require
     grad), data shard d (``groups[d]``, its coordinates) taking
     ``micro[d]``: under fsdp (``lay`` None) one batch on its first
     coordinate's device, under tp, fsdp_tp and ep (``lay`` the
-    ``TpLayout``) one per coordinate (the module note)."""
+    ``TpLayout``) one per coordinate (the module note); ``shards`` the
+    loop over the data shards (``sharding.serve.EveryDataShard``)."""
     first = [m if lay is None else m[0] for m in micro]
     counts = all_sum([torch.sum(m["labels"] != IGNORE_LABEL) for m in first])
     # the MoE's load statistics of the whole batch: every data shard's
     # forward before any backward (one data shard under fsdp: its aux)
     split = cfg.family == "moe" and (lay is not None or len(groups) > 1)
+    mesh = params.mesh
     nlls, kept, loss = [], [], None
-    for grp, m in zip(groups, micro, strict=True):
+    for s, grp in shards.each(groups, mesh):
         with torch.enable_grad():
-            nll, _, aux = _shard_terms(cfg, params, grp, m, lay, split)
-            n = torch.clamp(counts.to(nll.device, non_blocking=True), min=1)
+            nll, _, aux = _shard_terms(cfg, params, grp, micro[s], lay,
+                                       split)
+            n = torch.clamp(counts.to(mesh.device(grp[0]),
+                                      non_blocking=True), min=1)
             nlls.append(nll.detach())
             if split:
                 kept.append((nll, n, aux))
@@ -482,23 +503,37 @@ def value_and_grad(cfg, params: ShardedTree, micro, groups, lay=None):
             term = nll / n + cfg.aux_coef * aux
             term.backward()
         loss = term.detach()
+    for s in shards.skipped(groups):
+        here = mesh.device(groups[s][0])
+        nlls.append(stand_in(nlls[1], here))
+        aux = stand_in(aux, here)  # the last data shard's, read below
+        if split:
+            kept.append((None, None, stand_in(kept[1][2].detach(), here)))
     if split:
         tokens = sum(m["tokens"].numel() for m in first)  # routed ones
         total = all_reduce([st.detach() for _, _, st in kept],
-                           [nll.device for nll, _, _ in kept])
-        for (nll, n, st), t in zip(kept, total, strict=True):
+                           [mesh.device(g[0]) for g in groups])
+        for s, _ in shards.each(groups, mesh):
+            nll, n, st = kept[s]
             with torch.enable_grad():
-                (nll / n + cfg.aux_coef * load_balance(t, tokens, own=st)
-                 ).backward()
+                (nll / n + cfg.aux_coef * load_balance(total[s], tokens,
+                                                       own=st)).backward()
         del kept
         aux = load_balance(total[0], tokens)
     if split or len(nlls) > 1:  # aux is 0 here without MoE
         loss = all_sum(nlls) / torch.clamp(counts, min=1) \
             + cfg.aux_coef * aux.detach()
+    leaves = [tree_leaves(b) for b in params.blocks]
+    for s in shards.skipped(groups):  # their gradients, as the second's stand
+        for c, like in zip(groups[s], groups[1], strict=True):
+            for p, q in zip(leaves[mesh.index(c)], leaves[mesh.index(like)],
+                            strict=True):
+                if p.grad is None and q.grad is not None:
+                    p.grad = stand_in(q.grad, mesh.device(c))
     grads = []
-    for b in params.blocks:
+    for ls in leaves:
         gs = []
-        for p in tree_leaves(b):
+        for p in ls:
             gs.append(torch.zeros_like(p) if p.grad is None else p.grad)
             p.grad = None
         grads.append(gs)
@@ -565,6 +600,8 @@ def step_bytes(cfg, p_abs, pspec, mesh, mode, *, batch, seq,
         kv = cfg.num_kv_heads * cfg.head_dim
         if lay.source == "column":
             block[0] += 2 * pair * b * seq * kv // m * e
+        if lay.q_spans:  # the query heads straddle wq's blocks
+            block[0] += pair * b * seq * lay.cols * e
         elif lay.source == "row":
             block[1] += 2 * (m - 1) * b * seq * kv * (4 + e)
         if cfg.family == "moe":
@@ -674,7 +711,8 @@ def make_train_step_on_mesh(cfg, mesh, specs, *, rho, lr, grad_accum,
     groups = data_shards(mesh, batch_axes)
     lay = train_layout(cfg, specs[0], mesh, mode)
 
-    def train_step(params, opt, center, batch):
+    def train_step(params, opt, center, batch, *,
+                   shards=EVERY_DATA_SHARD):
         for x, s in zip((params, opt, center, batch), specs, strict=True):
             if not isinstance(x, ShardedTree) or x.specs != s:
                 raise ValueError("the step's inputs are ShardedTrees cut "
@@ -689,12 +727,13 @@ def make_train_step_on_mesh(cfg, mesh, specs, *, rho, lr, grad_accum,
             g = [[torch.zeros_like(p) for p in tree_leaves(b)]
                  for b in params.blocks]
             for m in micro:
-                li, gi = value_and_grad(cfg, live, m, groups, lay)
+                li, gi = value_and_grad(cfg, live, m, groups, lay, shards)
                 loss = loss + li / grad_accum
                 g = [[a + b / grad_accum for a, b in zip(x, y, strict=True)]
                      for x, y in zip(g, gi, strict=True)]
         else:
-            loss, g = value_and_grad(cfg, live, micro[0], groups, lay)
+            loss, g = value_and_grad(cfg, live, micro[0], groups, lay,
+                                     shards)
         new_p, new_opt = [], []
         for i, (pc, cc, oc) in enumerate(zip(params.blocks, center.blocks,
                                              opt.blocks, strict=True)):
@@ -811,6 +850,7 @@ def make_cross_pod_round_on_mesh(cfg: CrossPodConfig, model, mesh, *,
     groups = data_shards(subs[0], ("data",))
     lay = train_layout(mcfg, pspec, subs[0], mode)
     sub = subs[0].coords()
+    pods = [[(p,) + c for c in sub] for p in range(n_pods)]
     leaf_specs = tree_leaves(pspec)
     owned = [[k for k, s in enumerate(leaf_specs)
               if _owns(s, subs[0].axis_names, c)] for c in sub]
@@ -858,7 +898,7 @@ def make_cross_pod_round_on_mesh(cfg: CrossPodConfig, model, mesh, *,
         return torch.sqrt(torch.cat([d.to(dev0, non_blocking=True)
                                      for d in per_pod]))
 
-    def local_solve(p, omega, center, batch):
+    def local_solve(p, omega, center, batch, shards):
         """:func:`solve` from ω on pod p's sub-mesh → (θ_out leaves, the
         mean loss)."""
         params = [w.clone() for w in omega]
@@ -872,13 +912,14 @@ def make_cross_pod_round_on_mesh(cfg: CrossPodConfig, model, mesh, *,
                       for c in (g if lay else g[:1])] for g in groups]
             if lay is None:
                 micro = [m[0] for m in micro]
-            loss, grads = value_and_grad(mcfg, live, micro, groups, lay)
+            loss, grads = value_and_grad(mcfg, live, micro, groups, lay,
+                                         shards)
             return loss, flat(grads)
 
         return params, solve(cfg, params, center, vg)
 
     @torch.no_grad()
-    def round_fn(state, batch):
+    def round_fn(state, batch, *, shards=EVERY_DATA_SHARD):
         if not isinstance(state, ShardedTree) or state.specs != specs:
             raise ValueError("the state is a ShardedTree cut by the "
                              "cross-pod step's in_specs[0]")
@@ -892,25 +933,31 @@ def make_cross_pod_round_on_mesh(cfg: CrossPodConfig, model, mesh, *,
             omegas = consensus(zs)
             dist = distances(zs, omegas)
             events, ctrl = trigger(dist, state.blocks[0].ctrl, ctrl_cfg)
-        fired = ([True] * n_pods if every_pod_fires
-                 else events.tolist())  # the one host read
         losses = torch.zeros((n_pods,), dtype=torch.float32, device=dev0)
-        for p in range(n_pods):
-            if not fired[p]:
-                continue
+        if every_pod_fires:  # a pod's data shards are looped inside it
+            run = shards.each(pods, mesh, runs=1)
+        else:
+            fired = events.tolist()  # the one host read
+            run = [(p, g) for p, g in enumerate(pods) if fired[p]]
+        got = {}
+        for p, _ in run:
             theta = flat(leaves(state, "theta", p))
             lam = flat(leaves(state, "lam", p))
             with span("crosspod/solve"):
                 lam_new, center = dual_and_center(
                     [x[0] for x in lam], [x[0] for x in theta],
                     flat(omegas[p]))
-                theta_out, losses[p] = local_solve(p, flat(omegas[p]),
-                                                   center, batch)
+                theta_out, got[p] = local_solve(p, flat(omegas[p]),
+                                                center, batch, shards)
                 del center
             with span("crosspod/commit"):
                 commit(theta, lam, flat(leaves(state, "z_prev", p)), 0,
                        theta_out, lam_new)
                 del theta_out, lam_new
+        for p in shards.skipped(pods, runs=1) if every_pod_fires else ():
+            got[p] = stand_in(got[0], mesh.device(pods[p][0]))
+        for p, loss in sorted(got.items()):
+            losses[p] = loss
         metrics = round_metrics([events], [dist], [ctrl], [losses])
         rng, _ = prng.split(state.blocks[0].rng)
         rnd = state.blocks[0].round + 1

@@ -1448,3 +1448,48 @@ def test_matmul_fp32_backward_on_the_card(dev):
     for a, b in ((xs[0].grad, xs[1].grad), (ws[0].grad, ws[1].grad)):
         assert a.dtype == torch.bfloat16
         torch.testing.assert_close(a, b, rtol=2 ** -7, atol=1e-6)
+
+
+def test_dry_run_count_equals_the_cards_tp_prefill(dev):
+    """The dry-run's count of zamba2's reduced tp prefill on mesh (1, 4)
+    on the meta device against the same step on the card: K4's and K5's
+    launches equal to the counted calls, the bytes by collective kind
+    equal to the listener's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh, make_test_mesh
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.sharding.clients import collectives
+    from repro_torch.sharding.params import shard_tree
+
+    # zamba2's head_dim (K4's bf16 instance at a tp shard's 2:2 heads)
+    cfg = get_config("zamba2-2.7b").reduced(
+        dtype="bfloat16", num_heads=8, num_kv_heads=8, head_dim=80,
+        kv_block=64, chunk=16)
+    b, s = 2, 64
+    counted = dryrun.count_cost(
+        cfg, "prefill_32k", multi_pod=False, mode="tp",
+        mesh=make_test_mesh((1, 4), devices=("meta",)), batch=b, seq=s)
+    model = build_model(cfg)
+    mesh = make_mesh((1, 4))
+    step, args = make_prefill_step(model, mesh, batch=b, seq=s, mode="tp")
+    params = shard_tree(model.init(0, device=dev), args.in_specs[0], mesh)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev)
+    batch = shard_tree({"tokens": tokens}, args.in_specs[1], mesh)
+    moved = {}
+
+    def count(kind, t):
+        moved[kind] = moved.get(kind, 0) + t.numel() * t.element_size()
+
+    ops.reset_launch_counts()
+    collectives.listeners.append(count)
+    try:
+        step(params, batch)
+        torch.cuda.synchronize()
+    finally:
+        collectives.listeners.remove(count)
+    launches = ops.launch_counts()
+    assert launches["flash_attention"] == sum(counted["flash_attention"]) > 0
+    assert launches["ssd_scan"] == sum(counted["ssd_scan"]) > 0
+    assert moved == {k: v for k, v in counted["collectives"].items() if v}

@@ -1,5 +1,6 @@
-"""The one-card dry-run (``repro_torch.launch.dryrun``) against the
-reference's ``repro/launch/dryrun.py``.
+"""The one-card dry-run (``repro_torch.launch.dryrun`` with
+``one_card=True``, the CLI's ``--mesh card``) against the reference's
+``repro/launch/dryrun.py``.
 
 * the reference test's three reduced-granite records (``train_4k``
   single and multi, ``decode_32k``) with its schema and its check that
@@ -43,7 +44,8 @@ def _granite():
 @pytest.fixture(scope="module")
 def records():
     return [dryrun.dry_run("granite-3-2b", shape, multi_pod=mp,
-                           cost_correction=False, cfg=_granite(), card=CARD)
+                           cost_correction=False, cfg=_granite(), card=CARD,
+                           one_card=True)
             for shape, mp in (("train_4k", False), ("train_4k", True),
                               ("decode_32k", False))]
 
@@ -92,10 +94,11 @@ def test_skip_reasons_are_the_references(arch):
     cfg, jcfg = get_config(arch), jax_get_config(arch)
     for shape in INPUT_SHAPES:
         ok, reason = jax_shape_applicable(jcfg, shape)
-        rec = (dryrun.dry_run(arch, shape, cfg=cfg, card=CARD) if not ok
-               else None)
+        rec = (dryrun.dry_run(arch, shape, cfg=cfg, card=CARD,
+                              one_card=True) if not ok else None)
         if ok:
-            assert dryrun.build_step(cfg, shape, multi_pod=False)[1] == ""
+            assert dryrun.build_step(cfg, shape, multi_pod=False,
+                                     one_card=True)[1] == ""
         else:
             assert rec["status"] == "skipped" and rec["reason"] == reason
 
@@ -150,8 +153,8 @@ def test_extrapolation_equals_the_full_count(arch, shape, mp, overrides):
     # would make thousands of blocks at these lengths).
     cfg = get_config(arch).reduced(kv_block=2048, chunk=64, **overrides)
     assert dryrun._scan_units(cfg) == 4
-    full = dryrun.count_cost(cfg, shape, multi_pod=mp)
-    got = dryrun.corrected_cost(cfg, shape, multi_pod=mp)
+    full = dryrun.count_cost(cfg, shape, multi_pod=mp, one_card=True)
+    got = dryrun.corrected_cost(cfg, shape, multi_pod=mp, one_card=True)
     for k in ("flops", "bytes", "args_bytes", "flash_attention",
               "ssd_scan"):
         assert got[k] == full[k], k
@@ -164,7 +167,8 @@ def test_kernels_are_counted_by_their_stand_ins():
     about half its plain version's S²."""
     cfg = get_config("zamba2-2.7b").reduced(chunk=64)
     ops.reset_launch_counts()
-    c = dryrun.count_cost(cfg, "prefill_32k", multi_pod=False)
+    c = dryrun.count_cost(cfg, "prefill_32k", multi_pod=False,
+                          one_card=True)
     assert ops.call_counts() == {k: 0 for k in ops.KERNELS}
     assert c["flash_attention"] == cfg.num_layers // cfg.attn_every
     assert c["ssd_scan"] == cfg.num_layers
@@ -181,13 +185,13 @@ def test_kernels_are_counted_by_their_stand_ins():
 def test_encoder_prefill_is_its_encode_pass():
     rec = dryrun.dry_run("hubert-xlarge", "prefill_32k",
                          cfg=get_config("hubert-xlarge").reduced(
-                             kv_block=8192), card=CARD)
+                             kv_block=8192), card=CARD, one_card=True)
     assert rec["status"] == "ok" and rec["step"] == "encode"
     assert rec["roofline"]["hlo_flops_per_device"] > 0
 
 
 def test_cli_writes_records_and_refuses_an_unknown_card(tmp_path, capsys):
-    argv = ["--arch", "granite-3-2b", "--shape", "all", "--mesh", "both",
+    argv = ["--arch", "granite-3-2b", "--shape", "all", "--mesh", "card",
             "--card", CARD, "--jobs", "1", "--out", str(tmp_path),
             "--set", "num_layers=2", "--set", "d_model=256",
             "--set", "vocab_size=1024", "--set", "kv_block=4096"]
@@ -202,7 +206,8 @@ def test_cli_writes_records_and_refuses_an_unknown_card(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "dom=" in out and "every pod fires" in out
     with pytest.raises(ValueError, match="do not name the card"):
-        dryrun.dry_run("granite-3-2b", "train_4k", card="Some Other GPU")
+        dryrun.dry_run("granite-3-2b", "train_4k", card="Some Other GPU",
+                       one_card=True)
 
 
 def test_sweep_in_worker_processes_gives_the_same_records():
@@ -215,8 +220,10 @@ def test_sweep_in_worker_processes_gives_the_same_records():
     combos = [("granite-3-2b", "decode_32k", False),
               ("mamba2-2.7b", "prefill_32k", True),
               ("granite-3-2b", "long_500k", False)]
-    one = list(dryrun.sweep(combos, card=CARD, jobs=1, overrides=small))
-    two = list(dryrun.sweep(combos, card=CARD, jobs=2, overrides=small))
+    one = list(dryrun.sweep(combos, card=CARD, jobs=1, overrides=small,
+                            one_card=True))
+    two = list(dryrun.sweep(combos, card=CARD, jobs=2, overrides=small,
+                            one_card=True))
     for a, b in zip(one, two, strict=True):
         a.pop("count_s", None)
         b.pop("count_s", None)

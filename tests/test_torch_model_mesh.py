@@ -607,8 +607,10 @@ def test_fsdp_serves_every_family_as_the_unsharded_port(arch, mesh):
 
 
 def test_tp_needs_the_query_heads_to_split():
+    # heads that straddle the shards in spans of one width are served
+    # (tests/test_torch_tp_heads.py); 3 of 32 over 4 shards are not
     cfg = dataclasses.replace(get_config("granite-3-2b").reduced(),
-                              num_heads=6, num_kv_heads=2)
+                              num_heads=3, num_kv_heads=1)
     with pytest.raises(ValueError, match="query heads"):
         make_prefill_step(build_model(cfg), make_test_mesh((1, 4)), batch=2,
                           seq=8, mode="tp")

@@ -341,10 +341,13 @@ def test_mamba_heads_that_do_not_split_are_refused():
 
 @pytest.mark.parametrize("mode", TP_MODES)
 def test_query_heads_that_do_not_split_are_refused(mode):
+    # 3 heads of 32 over 4 shards of 24 columns: the shards straddle 1
+    # and 2 heads, no span of one width (6 would straddle 2 each, served)
     cfg = dataclasses.replace(get_config("zamba2-2.7b").reduced(),
-                              num_heads=6, num_kv_heads=2)
-    with pytest.raises(ValueError, match="6 query heads do not split over "
-                       "a model axis of 4 .*shared/attn/wq is cut as"):
+                              num_heads=3, num_kv_heads=1)
+    with pytest.raises(ValueError, match="3 query heads of 32 do not split "
+                       "over a model axis of 4 in spans of one width "
+                       ".*shared/attn/wq is cut as"):
         make_decode_step(build_model(cfg), make_test_mesh((1, 4)), batch=2,
                          seq=8, mode=mode)
 

@@ -3,8 +3,9 @@ ep, and the helpers that hold the port's mesh step against it
 (tests/test_torch_train_tp_reference_*.py, which split the cases so
 that ``--dist loadfile`` runs them side by side).
 
-One subprocess forces 4 host devices before it imports ``jax`` and, for
-each case (architecture ``.reduced()`` from its seed-0 init, mode,
+One subprocess forces 8 host devices before it imports ``jax`` and, for
+each case (a name of :data:`CONFIGS`: an architecture ``.reduced()``
+with its overrides, from its seed-0 init; mode,
 ``make_test_mesh`` shape, grad_accum), jits the reference's
 ``make_train_step(model, mesh, batch=4, seq=32, mode=..., grad_accum=g,
 rho=1e-2, lr=1e-3)`` with its ``in_shardings`` / ``out_shardings`` on a
@@ -33,10 +34,28 @@ from repro_torch.utils.pytree import is_record, tree_leaves
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, SEQ, RHO, LR = 4, 32, 1e-2, 1e-3
 IGNORE = -100
+# name → (architecture, overrides of its reduced configuration); any
+# other name is an architecture as it is.  These have query heads that
+# straddle 4 model shards' column blocks of wq (granite and zamba2 with
+# 6 heads, paligemma with 2: the port's TpLayout.q_spans)
+CONFIGS = {
+    "granite-3-2b/6-heads": ("granite-3-2b", dict(
+        num_heads=6, num_kv_heads=2, head_dim=16, d_model=96)),
+    "paligemma-3b/2-heads": ("paligemma-3b", dict(num_heads=2,
+                                                  num_kv_heads=1)),
+    "zamba2-2.7b/6-heads": ("zamba2-2.7b", dict(
+        num_heads=6, num_kv_heads=6, head_dim=16)),
+}
+
+
+def config_of(name):
+    """The reduced configuration a case's name stands for."""
+    arch, kw = CONFIGS.get(name, (name, {}))
+    return get_config(arch).reduced(**kw)
 
 _SCRIPT = r"""
 import os, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
 import json
 import jax, jax.numpy as jnp, numpy as np
 from repro.configs import get_config
@@ -46,7 +65,7 @@ from repro.models.api import build_model
 from repro.optim.adam import adam_init
 
 B, SEQ, RHO, LR, IGNORE = %d, %d, %r, %r, %d
-CASES = %r
+CASES, CONFIGS = %r, %r
 out, specs = {}, {}
 
 def put(prefix, tree):
@@ -61,7 +80,8 @@ def listed(tree):
                         is_leaf=lambda x: hasattr(x, "spec"))
 
 for arch in dict.fromkeys(c[0] for c in CASES):
-    model = build_model(get_config(arch).reduced())
+    name, kw = CONFIGS.get(arch, (arch, {}))
+    model = build_model(get_config(name).reduced(**kw))
     cfg = model.config
     params = jax.device_get(jax.jit(model.init)(jax.random.PRNGKey(0)))
     rng = np.random.default_rng(2)
@@ -115,7 +135,8 @@ def run_reference(cases, path):
     """The reference's outputs of ``cases`` (arch, mode, mesh shape,
     grad_accum): (the npz's arrays by key, each case's shardings)."""
     script = _SCRIPT % (B, SEQ, RHO, LR, IGNORE,
-                        [(a, m, list(s), g) for a, m, s, g in cases])
+                        [(a, m, list(s), g) for a, m, s, g in cases],
+                        CONFIGS)
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                JAX_PLATFORMS="cpu")
     out = subprocess.run([sys.executable, "-c", script, str(path)],
@@ -187,7 +208,7 @@ def check_case(reference, arch, mode, shape, grad_accum):
     the loss at rtol 2e-5, the first moment at rtol 1e-4 / atol 1e-7,
     the parameters as :func:`held` says, the shardings equal."""
     flat, specs = reference
-    cfg = get_config(arch).reduced()
+    cfg = config_of(arch)
     model = build_model(cfg)
     params = lm_params_from_numpy(nest(flat, f"{arch}/params"), cfg,
                                   device="cpu")
